@@ -6,6 +6,11 @@ leaf turned into a numpy array: nested dicts keyed by flax module names.
 Each leaf's flax path joined by dots is the port's ``state_dict`` key, and
 dense kernels keep the flax layout, (in, out): the port applies them as
 ``x @ kernel`` and does not transpose to ``nn.Linear``'s (out, in).
+
+The reference's ``scan_layers`` tree stacks every block's parameters under
+``layers/block/...`` with a leading ``n_layers`` axis. PyTorch has no scan:
+the port loops over blocks (with per-block checkpointing in training), so
+the stacked leaves are unstacked into ``layer_{i}.<path>`` here.
 """
 
 from __future__ import annotations
@@ -37,19 +42,35 @@ def _to_tensor(arr) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _unstack(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """``layers.block.<path>`` leaves of shape (n_layers, ...) become
+    ``layer_{i}.<path>``; other keys pass through."""
+    out: Dict[str, Any] = {}
+    for key, val in flat.items():
+        if not key.startswith("layers."):
+            out[key] = val
+            continue
+        if not key.startswith("layers.block."):
+            raise KeyError(f"parameters the port does not know: {[key]}")
+        path = key[len("layers.block."):]
+        for i, layer in enumerate(np.asarray(val)):
+            name = f"layer_{i}.{path}"
+            if name in out or name in flat:
+                raise KeyError(f"{name} is given both stacked and per layer")
+            out[name] = layer
+    return out
+
+
 def params_from_jax(
     flax_params: Mapping[str, Any], config: LlamaConfig, device: DeviceLike = None
 ) -> Dict[str, torch.Tensor]:
     """The port's state dict for ``config`` from the reference's parameter
-    tree, cast to ``config.param_dtype`` on ``device``. Raises on a key the
-    port does not know, on a shape mismatch and on a missing parameter."""
+    tree, per-layer or stacked (``scan_layers``), cast to
+    ``config.param_dtype`` on ``device``. Raises on a key the port does not
+    know, on a shape mismatch and on a missing parameter, all checked after
+    unstacking."""
     device = resolve_device(device)
-    flat = _flatten(flax_params)
-    if any(k == "layers" or k.startswith("layers.") for k in flat):
-        raise NotImplementedError(
-            "the stacked scan_layers layout (layers/block/...) comes with the "
-            "port's training slice"
-        )
+    flat = _unstack(_flatten(flax_params))
     expected = param_shapes(config)
     unknown = sorted(set(flat) - set(expected))
     if unknown:

@@ -16,17 +16,26 @@ are f32, and the logits come out in ``config.dtype``.
 the reference's ``decode=False``). ``Llama.forward(tokens, cache)`` is the
 reference's ``decode=True`` path: attention over a dense per-layer KV cache
 (see :class:`LayerCache`) as plain f32 einsum, as in the reference.
+
+Training: with ``config.remat`` and autograd recording, each block of the
+full-sequence forward runs under ``torch.utils.checkpoint`` and is
+recomputed in the backward, the reference's save-nothing ``nn.remat``. The
+reference's ``scan_layers`` (the layers stacked under ``lax.scan``) has no
+counterpart field: PyTorch has no scan, and the loop over blocks with
+per-block checkpointing takes its place (models/convert.py unstacks the
+stacked weights).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._internal.device import DeviceLike, resolve_device
 from ..ops.flash_attention import flash_attention
@@ -47,6 +56,7 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
+    remat: bool = True
     lora_rank: int = 0
     lora_alpha: float = 16.0
 
@@ -76,7 +86,7 @@ class LlamaConfig:
         """Test-scale config: runs on the CPU in seconds."""
         defaults = dict(
             vocab_size=256, dim=128, n_layers=2, n_heads=4, n_kv_heads=4,
-            intermediate=256, max_seq_len=512,
+            intermediate=256, max_seq_len=512, remat=False,
         )
         defaults.update(kw)
         return LlamaConfig(**defaults)
@@ -284,8 +294,15 @@ class Llama(nn.Module):
         cfg = self.config
         x = self.embed[tokens].to(cfg.dtype)
         cos, sin = self._rope_table(x.device)
+        remat = cache is None and cfg.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks()):
-            x = block(x, cos, sin, None if cache is None else cache[i])
+            if remat:
+                # use_reentrant=False: with a frozen base the block's input
+                # needs no grad, and the reentrant form would then drop the
+                # adapters' gradients
+                x = checkpoint(block, x, cos, sin, use_reentrant=False)
+            else:
+                x = block(x, cos, sin, None if cache is None else cache[i])
         x = rmsnorm(x, self.final_norm.to(x.dtype), cfg.norm_eps)
         return x @ self.lm_head.to(x.dtype)
 
@@ -358,3 +375,21 @@ def nll_from_logits(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     lse = torch.logsumexp(logits.float(), dim=-1)
     tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0].float()
     return (lse - tgt).mean()
+
+
+def next_token_loss(
+    config: LlamaConfig, model_or_params: Union[Llama, Mapping[str, torch.Tensor]],
+    tokens: torch.Tensor,
+) -> torch.Tensor:
+    """Causal LM loss of the full-sequence forward (see
+    :func:`nll_from_logits`). ``model_or_params`` is a :class:`Llama` built
+    for ``config``, whose parameters that require grad receive gradients
+    from ``loss.backward()``, or a flat state dict, which is run through
+    :func:`build_llama` (every parameter frozen: a loss to read, not to
+    differentiate)."""
+    model = model_or_params
+    if not isinstance(model, Llama):
+        model = build_llama(config, dict(model_or_params))
+    elif model.config != config:
+        raise ValueError("the model was built for another config")
+    return nll_from_logits(model(tokens), tokens)

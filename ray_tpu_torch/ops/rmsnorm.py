@@ -1,4 +1,4 @@
-"""RMSNorm forward: the port of ray_tpu/ops/rmsnorm.py.
+"""RMSNorm: the port of ray_tpu/ops/rmsnorm.py.
 
 Kernel: ``csrc/rmsnorm.cu`` (CUDA C++, sm_90a) replaces the Pallas TPU
 kernel ``_fwd_kernel`` of ray_tpu/ops/rmsnorm.py, launched there by
@@ -8,12 +8,14 @@ once and writes once); see the source for the design.
 :func:`rmsnorm_fwd` is the wrapper: a CUDA tensor launches the kernel (or
 raises), a CPU tensor runs :func:`rmsnorm_reference`, the plain PyTorch
 version of the same arithmetic. ``rmsnorm_fwd.launches`` counts kernel
-launches. The backward (plain XLA in ray_tpu) belongs to the training slice.
+launches. The backward is plain XLA in ray_tpu, not a Pallas kernel, so its
+counterpart here is plain PyTorch (:func:`rmsnorm_bwd`) on either device.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -70,17 +72,33 @@ def rmsnorm_fwd(x2: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Ten
 rmsnorm_fwd.launches = 0
 
 
+def rmsnorm_bwd(
+    x2: torch.Tensor, weight: torch.Tensor, grad: torch.Tensor, eps: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_rmsnorm_bwd``: f32 statistics recomputed from the
+    saved input; dx in ``x2.dtype`` and dw in ``weight.dtype``."""
+    x = x2.float()
+    gf = grad.float()
+    inv = torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    xhat = x * inv
+    dw = (gf * xhat).sum(dim=0).to(weight.dtype)
+    gw = gf * weight.float()
+    dx = inv * (gw - xhat * (gw * xhat).mean(dim=-1, keepdim=True))
+    return dx.to(x2.dtype), dw
+
+
 class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, weight, eps):
+        ctx.save_for_backward(x2, weight)
+        ctx.eps = eps
         return rmsnorm_fwd(x2, weight, eps)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "rmsnorm backward is not ported yet: it comes with the training "
-            "slice of the port"
-        )
+        x2, weight = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x2, weight, grad, ctx.eps)
+        return dx, dw, None
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

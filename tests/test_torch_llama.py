@@ -15,6 +15,7 @@ import torch
 from ray_tpu.models.llama import Llama as JaxLlama
 from ray_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from ray_tpu.models.llama import init_params as jax_init_params
+from ray_tpu.models.llama import next_token_loss as jax_next_token_loss
 from ray_tpu.models.llama import nll_from_logits as jax_nll
 from ray_tpu.parallel.sharding import unbox_params
 from ray_tpu_torch.models.convert import params_from_jax
@@ -23,8 +24,10 @@ from ray_tpu_torch.models.llama import (
     build_llama,
     init_params,
     new_cache,
+    next_token_loss,
     nll_from_logits,
 )
+from ray_tpu_torch.train.examples.llama_lora import lora_model
 
 _TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
@@ -153,11 +156,18 @@ def test_params_from_jax_rejects_bad_trees():
     with pytest.raises(ValueError, match="lm_head"):
         params_from_jax(wrong, tcfg, device="cpu")
 
-    with pytest.raises(NotImplementedError, match="training slice"):
+    # the stacked scan_layers layout is unstacked first, then checked alike
+    with pytest.raises(KeyError, match="missing"):
         params_from_jax(
             {"layers": {"block": {"attn_norm": np.ones((1, 128), np.float32)}}},
             tcfg, device="cpu",
         )
+    with pytest.raises(KeyError, match="does not know"):
+        params_from_jax({"layers": {"other": np.ones((1, 128), np.float32)}}, tcfg, device="cpu")
+    both = jax.tree_util.tree_map(lambda x: x, good)
+    both["layers"] = {"block": {"attn_norm": np.ones((1, 128), np.float32)}}
+    with pytest.raises(KeyError, match="both stacked and per layer"):
+        params_from_jax(both, tcfg, device="cpu")
 
 
 def test_init_params_follows_reference_initialisers():
@@ -188,3 +198,77 @@ def test_nll_from_logits_matches_jax():
     out = nll_from_logits(torch.from_numpy(logits), torch.from_numpy(tokens))
     ref = jax_nll(jnp.asarray(logits), jnp.asarray(tokens))
     assert abs(out.item() - float(ref)) < 1e-5
+
+
+def _nonzero_lora_b(jparams, seed=11):
+    """lora_b starts at zero, where every lora_a gradient is exactly 0; give
+    each a small random value so both adapter halves are tested."""
+    rng = np.random.default_rng(seed)
+
+    def fill(tree):
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                fill(val)
+            elif key == "lora_b":
+                tree[key] = 0.05 * rng.standard_normal(val.shape).astype(np.float32)
+
+    fill(jparams)
+    return jparams
+
+
+def _port_lora_grads(tcfg, params, tokens):
+    model, lora, _ = lora_model(tcfg, params)
+    loss = next_token_loss(tcfg, model, torch.from_numpy(tokens).long())
+    loss.backward()
+    return loss.item(), {n: p.grad for n, p in lora.items()}
+
+
+def _rel_err(a, b):
+    return np.abs(_np(a) - np.asarray(b)).max() / np.abs(np.asarray(b)).max()
+
+
+def test_lora_grads_match_jax_grad():
+    jcfg, tcfg = _configs(dtype=jnp.float32, lora_rank=4)
+    jparams = _nonzero_lora_b(_jax_params(jcfg))
+    tokens = _tokens((2, 24), seed=2)
+    from ray_tpu.train.lora import merge_lora as jax_merge, split_lora as jax_split
+
+    jbase, jlora = jax_split(jparams)
+    jloss, jgrads = jax.value_and_grad(
+        lambda lp: jax_next_token_loss(jcfg, None, jax_merge(jbase, lp), jnp.asarray(tokens))
+    )(jlora)
+    params = params_from_jax(jparams, tcfg, device="cpu")
+    loss, grads = _port_lora_grads(tcfg, params, tokens)
+    assert set(grads) == {".".join(k) for k in jgrads}
+    # the state-dict form reads the same loss from a frozen model
+    with torch.no_grad():
+        assert next_token_loss(tcfg, params, torch.from_numpy(tokens).long()).item() == loss
+    # f32 on both sides, the same arithmetic in another summation order:
+    # 1e-4 relative, of the loss and of each adapter's largest gradient
+    assert abs(loss - float(jloss)) <= 1e-4 * abs(float(jloss))
+    for key, jg in jgrads.items():
+        assert _rel_err(grads[".".join(key)], jg) < 1e-4, key
+
+
+def test_stacked_scan_layers_tree_converts_and_remat_keeps_grads():
+    import dataclasses
+
+    # the port has no scan_layers field: its loop with per-block
+    # checkpointing stands in for the reference's scan
+    jcfg = JaxLlamaConfig.tiny(dtype=jnp.float32, lora_rank=4, scan_layers=True, remat=True)
+    _, tcfg = _configs(dtype=jnp.float32, lora_rank=4, remat=True)
+    jparams = _nonzero_lora_b(_jax_params(jcfg))
+    assert jparams["layers"]["block"]["attn"]["wq"]["lora_a"].shape[0] == jcfg.n_layers
+    params = params_from_jax(jparams, tcfg, device="cpu")
+    tokens = _tokens((2, 16), seed=3)
+    jloss = jax_next_token_loss(jcfg, None, jparams, jnp.asarray(tokens))
+    assert tcfg.remat
+    loss, grads = _port_lora_grads(tcfg, params, tokens)
+    # f32 loss of the same weights: the reference scans, the port loops
+    assert abs(loss - float(jloss)) <= 1e-4 * abs(float(jloss))
+    plain_loss, plain = _port_lora_grads(dataclasses.replace(tcfg, remat=False), params, tokens)
+    # remat recomputes the same blocks from the same inputs: equal up to f32
+    # reassociation inside the recompute
+    assert abs(loss - plain_loss) <= 1e-6 * abs(plain_loss)
+    for name, g in grads.items():
+        assert torch.allclose(g, plain[name], rtol=0, atol=1e-6 * plain[name].abs().max().item())

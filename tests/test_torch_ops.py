@@ -7,6 +7,7 @@ lie on the CPU; the CUDA kernels are held against those plain versions on
 the card by chip_smoke.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -153,9 +154,124 @@ def test_reference_attention_matches_jax():
     assert np.abs(out.numpy() - np.asarray(ref)).max() < 1e-5
 
 
-def test_backward_raises_until_training_slice():
-    x = torch.randn(2, 8, 32, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.flash_attention(x[None], x[None], x[None]).sum().backward()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        rmsnorm(x, torch.ones(32), 1e-5).sum().backward()
+@pytest.mark.parametrize("dtype,tol", [("f32", 1e-5), ("bf16", 2e-2)])
+def test_rmsnorm_grads_match_jax(dtype, tol):
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((3, 5, 64)).astype(np.float32)
+    w = (1.0 + 0.1 * rng.standard_normal(64)).astype(np.float32)
+    g = rng.standard_normal((3, 5, 64)).astype(np.float32)
+    (jx, tx), (jw, tw), (jg, tg) = (_pair(a, dtype) for a in (x, w, g))
+    _, vjp = jax.vjp(lambda a, b: jax_rmsnorm(a, b, 1e-5), jx, jw)
+    jdx, jdw = vjp(jg)
+    tx.requires_grad_(True)
+    tw.requires_grad_(True)
+    rmsnorm(tx, tw, 1e-5).backward(tg)
+    assert tx.grad.dtype == tx.dtype and tw.grad.dtype == tw.dtype
+    # f32: the same formula, sums in another order; bf16: both compute in
+    # f32 and round once, so one bf16 ulp of dx (|dx| < 4) and of dw,
+    # relative to dw's largest value (a sum over 15 rows)
+    assert np.abs(_np(tx.grad) - _np(jdx)).max() < tol
+    assert np.abs(_np(tw.grad) - _np(jdw)).max() < tol * max(1.0, np.abs(_np(jdw)).max())
+
+
+def _jax_blocks(blocks):
+    if blocks is None:
+        return {}
+    bq, bk = (blocks, blocks) if isinstance(blocks, int) else blocks
+    return dict(block_q=bq, block_k=bk)
+
+
+# (b, h, hk, sq, sk, d, causal, jax block sizes); 16-row JAX blocks make the
+# Pallas side run several tiles and ragged last tiles
+_GRAD_CASES = {
+    "causal": (2, 2, 2, 48, 48, 32, True, 16),
+    "non_causal": (2, 2, 2, 48, 48, 32, False, 16),
+    "gqa": (1, 4, 2, 32, 32, 32, True, 16),
+    "sq_lt_sk_top_left": (1, 2, 2, 24, 56, 32, True, 16),
+    "sq_gt_sk_top_left": (1, 2, 2, 56, 24, 32, True, 16),
+    "ragged": (1, 2, 2, 41, 41, 64, True, 16),
+}
+
+
+@pytest.mark.parametrize("case", list(_GRAD_CASES))
+def test_flash_attention_grads_match_jax(case):
+    b, h, hk, sq, sk, d, causal, blocks = _GRAD_CASES[case]
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    k = rng.standard_normal((b, hk, sk, d)).astype(np.float32)
+    v = rng.standard_normal((b, hk, sk, d)).astype(np.float32)
+    do = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+
+    def jax_o(jq, jk, jv):
+        return jfa.flash_attention_with_lse(jq, jk, jv, causal=causal, **_jax_blocks(blocks))[0]
+
+    _, vjp = jax.vjp(jax_o, *(jnp.asarray(a) for a in (q, k, v)))
+    jgrads = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    launches = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches)
+    tfa.flash_attention(tq, tk, tv, causal=causal).backward(torch.from_numpy(do))
+    assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches) == launches  # CPU: plain
+    for t, j in zip((tq, tk, tv), jgrads):
+        assert t.grad.shape == t.shape
+        # f32: the same blockwise recompute from lse in another summation
+        # order; GQA sums dK/dV over the repeated heads on both sides
+        assert np.abs(_np(t.grad) - _np(j)).max() < 1e-4
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non_causal"])
+def test_flash_bwd_plain_matches_jax_kernels(causal):
+    """The plain flash_bwd_dq / flash_bwd_dkv against the reference's Pallas
+    functions of the same names, given identical lse and delta."""
+    bh, sq, sk, d = 3, 40, 40, 32
+    rng = np.random.default_rng(9)
+    q, do = (rng.standard_normal((bh, sq, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((bh, sk, d)).astype(np.float32) for _ in range(2))
+    kw = dict(sm_scale=d ** -0.5, causal=causal)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    jo, jlse = jfa._flash_forward(jq, jk, jv, kw["sm_scale"], causal, 16, 16)
+    jdelta = jfa.attention_delta(jdo, jo)
+    jdq = jfa.flash_bwd_dq(jq, jk, jv, jdo, jlse, jdelta, block_q=16, block_k=16, **kw)
+    jdk, jdv = jfa.flash_bwd_dkv(jq, jk, jv, jdo, jlse, jdelta, block_q=16, block_k=16, **kw)
+    lse = torch.from_numpy(np.array(jlse)[..., 0])
+    delta = tfa.attention_delta(torch.from_numpy(do), torch.from_numpy(np.array(jo)))
+    # delta: the same f32 row sums
+    assert np.abs(delta.numpy() - np.asarray(jdelta)[..., 0]).max() < 1e-5
+    args = [torch.from_numpy(a) for a in (q, k, v, do)] + [lse, delta]
+    dq = tfa.flash_bwd_dq(*args, **kw)
+    dk, dv = tfa.flash_bwd_dkv(*args, **kw)
+    # f32: the same P, dP and dS, summed whole here and per 16-block there
+    for t, j in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        assert t.dtype == torch.float32
+        assert np.abs(_np(t) - _np(j)).max() < 1e-5
+
+
+def test_lse_only_loss_gives_zero_grads():
+    """Both packages drop the lse cotangent (the reference's ``do, _ = g``)."""
+    rng = np.random.default_rng(10)
+    q, k, v = (rng.standard_normal((1, 2, 24, 32)).astype(np.float32) for _ in range(3))
+    jgrads = jax.grad(
+        lambda a, b, c: jfa.flash_attention_with_lse(a, b, c, block_q=16, block_k=16)[1].sum(),
+        argnums=(0, 1, 2),
+    )(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    tfa.flash_attention_with_lse(tq, tk, tv)[1].sum().backward()
+    for t, j in zip((tq, tk, tv), jgrads):
+        assert not np.asarray(j).any()
+        assert not t.grad.any()
+
+
+def test_flash_core_gets_contiguous_rows_at_batch_one(monkeypatch):
+    """A (1, s, h, d) projection transposed to (1, h, s, d) reshapes to a
+    strided view; the kernels need contiguous rows, so the wrapper copies."""
+    seen = []
+    real = tfa.flash_attention_fwd
+
+    def spy(q, k, v, **kw):
+        seen.append(all(t.is_contiguous() for t in (q, k, v)))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(tfa, "flash_attention_fwd", spy)
+    x = torch.randn(1, 16, 2, 32).transpose(1, 2)
+    assert not x.reshape(2, 16, 32).is_contiguous()
+    tfa.flash_attention(x, x, x)
+    assert seen == [True]
