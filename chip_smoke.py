@@ -12,9 +12,15 @@ Phases, each of which exits non-zero on failure:
      version and one PyTorch library call (a yardstick only: the port never
      calls it) with CUDA events, median of 21 timings of 10 launches: RMSNorm
      and the flash-attention forward, then the flash-attention backward (dQ,
-     and dK/dV) with lse from the forward kernel;
-  4. LoRA gradients of a 2-layer model at full Llama-2-7B width in f32: the
-     card (all four kernels) against the host CPU (their plain versions);
+     and dK/dV) with lse from the forward kernel; its bf16/f16 kernels run on
+     the tensor cores and are held both to the plain version that rounds P
+     and dS as they do (tightly) and to the f32 plain version (within the
+     bound of that rounding); then the count of tensor-core instructions
+     (HGMMA) in their SASS, with registers and spills, from cuobjdump;
+  4. LoRA gradients of a 2-layer model at full Llama-2-7B width: the card
+     (all four kernels) against the host CPU (their plain versions) in f32,
+     then the card with bf16 activations against the same CPU gradients,
+     within twice the error of a control run with bf16 activations on the CPU;
   5. the serving path: LLMServer at full Llama-2-7B width (random bf16
      weights from seed 0) answers 4 greedy requests of 128 prompt tokens and
      32 new tokens, then streams one of them again;
@@ -208,19 +214,26 @@ def flash_bwd_phase(torch, F):
         flash_bwd_dkv_reference,
         flash_bwd_dq,
         flash_bwd_dq_reference,
+        flash_bwd_rounding_bound,
     )
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     # (bh, sq, sk, d, causal, dtype); the first is the 7B training call:
-    # batch 2 x 32 heads, seq 2048, head_dim 128
+    # batch 2 x 32 heads, seq 2048, head_dim 128. bf16 and f16 run the
+    # tensor-core kernels, f32 the CUDA-core ones.
     b, seq = TRAIN_CONFIG["batch_per_worker"], TRAIN_CONFIG["seq"]
     cases = [
         (b * 32, seq, seq, 128, True, torch.bfloat16),
         (8, 96, 96, 32, True, torch.bfloat16),
         (4, 77, 77, 128, True, torch.bfloat16),  # ragged last tiles
+        (4, 77, 77, 128, True, torch.float16),
         (8, 100, 100, 64, False, torch.float16),
-        (2, 40, 130, 64, True, torch.float32),  # sq < sk, top-left causal
-        (2, 130, 40, 128, False, torch.float32),  # sq > sk
+        (2, 40, 130, 128, True, torch.bfloat16),  # sq < sk, top-left causal
+        (2, 40, 130, 128, True, torch.float16),
+        (2, 130, 40, 128, True, torch.bfloat16),  # sq > sk
+        (2, 130, 40, 128, False, torch.float16),
+        (2, 40, 130, 64, True, torch.float32),
+        (2, 130, 40, 128, False, torch.float32),
     ]
     rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
     for bh, sq, sk, d, causal, dtype in cases:
@@ -233,26 +246,47 @@ def flash_bwd_phase(torch, F):
         dq = flash_bwd_dq(*args, **kw)
         dk, dv = flash_bwd_dkv(*args, **kw)
         torch.cuda.synchronize()
-        ref = {"dq": flash_bwd_dq_reference(*args, **kw)}
-        ref["dk"], ref["dv"] = flash_bwd_dkv_reference(*args, **kw)
+        out = {"dq": dq, "dk": dk, "dv": dv}
+        # the plain version that rounds P and dS to the input dtype as the
+        # tensor-core kernels do (for f32 the same as the plain version)
+        rounded = {"dq": flash_bwd_dq_reference(*args, **kw, round_ps=True)}
+        rounded["dk"], rounded["dv"] = flash_bwd_dkv_reference(*args, **kw, round_ps=True)
+        plain = {"dq": flash_bwd_dq_reference(*args, **kw)}
+        plain["dk"], plain["dv"] = flash_bwd_dkv_reference(*args, **kw)
+        bq, bk, bv, n_sub = flash_bwd_rounding_bound(*args, **kw)
+        bound = {"dq": bq, "dk": bk, "dv": bv}
         tag = f"flash bwd {(bh, sq, sk, d, causal)} {dtype}"
-        # tolerance: kernel and plain version compute in f32 and round once
-        # to the output dtype, so they differ by f32 summation-order noise
-        # (1e-4 of the largest value, for sums over up to 2048 keys) plus
-        # one rounding step of the dtype at the largest value
         errs = {}
-        for name, out in (("dq", dq), ("dk", dk), ("dv", dv)):
-            scale = ref[name].float().abs().max().item()
+        for name in out:
+            check(bool(torch.isfinite(out[name]).all()), f"{tag}: non-finite {name}")
+            # tight tolerance, against the plain version that rounds as the
+            # kernel does: both compute in f32 from the same rounded P and dS
+            # and round once to the output dtype, so they differ by f32
+            # summation-order noise (1e-4 of the largest value, for sums over
+            # up to 2048 keys) plus one rounding step of the dtype there
+            scale = rounded[name].float().abs().max().item()
             tol = scale * (ULP[str(dtype)] + 1e-4)
-            err = (out.float() - ref[name].float()).abs().max().item()
-            check(bool(torch.isfinite(out).all()), f"{tag}: non-finite {name}")
+            err = (out[name].float() - rounded[name].float()).abs().max().item()
             check(err <= tol, f"{tag}: {name} max_abs_err {err} > {tol}")
-            errs[name] = (err, tol)
+            # wider tolerance, against the f32 plain version, element by
+            # element: the tight one plus the most that rounding P and dS to
+            # the dtype can move each output (flash_bwd_rounding_bound: unit
+            # roundoff times the sum of |P| or |dS| times |the other factor|,
+            # and half the smallest subnormal per term); 0 extra for f32
+            diff = (out[name].float() - plain[name].float()).abs()
+            within = bool((diff <= bound[name] + tol).all())
+            f32_err, wide = diff.max().item(), bound[name].max().item() + tol
+            check(within, f"{tag}: {name} vs the f32 plain version: max_abs_err {f32_err} "
+                          f"beyond the rounding bound (at most {wide})")
+            errs[name] = (err, tol, f32_err, wide)
         for kernel, names in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkv", ("dk", "dv"))):
             rows[kernel].append(dict(
                 shape=[bh, sq, sk, d], causal=causal, dtype=str(dtype),
                 max_abs_err=max(errs[n][0] for n in names),
                 tol=min(errs[n][1] for n in names),
+                f32_plain_max_abs_err=max(errs[n][2] for n in names),
+                f32_plain_tol_max=max(errs[n][3] for n in names),
+                p_ds_subnormal=n_sub,
             ))
         if len(rows["flash_bwd_dq"]) == 1:
             pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
@@ -260,12 +294,12 @@ def flash_bwd_phase(torch, F):
             main = {
                 "flash_bwd_dq": (
                     lambda: flash_bwd_dq(*args, **kw),
-                    lambda: flash_bwd_dq_reference(*args, **kw),
+                    lambda: flash_bwd_dq_reference(*args, **kw, round_ps=True),
                     reads + 2 * bh * sq * d, 6 * d * bh * pairs,
                 ),
                 "flash_bwd_dkv": (
                     lambda: flash_bwd_dkv(*args, **kw),
-                    lambda: flash_bwd_dkv_reference(*args, **kw),
+                    lambda: flash_bwd_dkv_reference(*args, **kw, round_ps=True),
                     reads + 2 * 2 * bh * sk * d, 8 * d * bh * pairs,
                 ),
             }
@@ -278,23 +312,84 @@ def flash_bwd_phase(torch, F):
             library_ms = time_ms(
                 lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
             )
-            for kernel, (fn, plain, n_bytes, n_ops) in main.items():
+            for kernel, (fn, plain_fn, n_bytes, n_ops) in main.items():
                 row = rows[kernel][0]
                 row["ms"] = time_ms(fn)
-                row["plain_ms"] = time_ms(plain, reps=5, inner=2)
+                row["plain_ms"] = time_ms(plain_fn, reps=5, inner=2)
                 row["library_ms"] = library_ms
                 row["library_call"] = "SDPA backward (dQ, dK, dV together)"
                 row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, BF16_TENSOR_FLOPS)
                 row["flops"], row["bytes"] = n_ops, n_bytes
+                row["tflop_s"] = n_ops / row["ms"] / 1e9
             del q4, k4, v4, o4
         for kernel in rows:
             print(kernel, json.dumps(rows[kernel][-1]))
     return rows
 
 
+def sass_phase():
+    """Count the tensor-core instructions (HGMMA, the warpgroup products;
+    HMMA, had any warp-level ones been compiled) in the SASS of every
+    bf16/f16 instantiation of the backward kernels, from cuobjdump of the
+    built library, with each one's registers and stack; fail on a count of
+    zero, a missing instantiation or a spill (a stack frame)."""
+    import re
+
+    from ray_tpu_torch._internal import kernels
+
+    lib = str(kernels.lib_path("flash_attention_bwd"))
+    cuobjdump = kernels.cuda_tool("cuobjdump")
+
+    def run(*args):
+        return subprocess.run([cuobjdump, *args, lib], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+
+    def label(mangled):
+        m = re.search(r"(flash_bwd_d(?:q|kv)_tc_kernel)I(13__nv_bfloat16|6__half)Li(\d+)E", mangled)
+        if m is None:
+            return None
+        return f"{m.group(1)}<{'bf16' if 'bfloat16' in m.group(2) else 'f16'}, d={m.group(3)}>"
+
+    tc_count, name = {}, None
+    for line in run("-sass").splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = label(m.group(1))
+            if name:
+                tc_count[name] = 0
+        elif name and re.search(r"\bH(?:G)?MMA\b", line):
+            tc_count[name] += 1
+    usage, name = {}, None
+    res_usage = run("-res-usage")
+    for line in res_usage.splitlines():
+        m = re.search(r"Function\s+(\S+?):", line)
+        if m:
+            name = label(m.group(1))
+        reg, stack = re.search(r"REG:(\d+)", line), re.search(r"STACK:(\d+)", line)
+        if reg and stack and name:
+            usage[name] = (int(reg.group(1)), int(stack.group(1)))
+    want = {f"{k}<{t}, d={d}>" for k in ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
+            for t in ("bf16", "f16") for d in (32, 64, 128)}
+    check(set(tc_count) == want, f"tensor-core kernels in the SASS: {sorted(tc_count)}, want {sorted(want)}")
+    res = {}
+    for name in sorted(want):
+        check(tc_count[name] > 0, f"{name}: no tensor-core instruction in its SASS")
+        check(name in usage, f"{name}: no resource usage in cuobjdump -res-usage:\n"
+                             + "\n".join(res_usage.splitlines()[:20]))
+        regs, stack = usage[name]
+        check(stack == 0, f"{name}: {stack} bytes of stack (register spills)")
+        res[name] = {"tensor_core_instructions": tc_count[name], "registers": regs,
+                     "stack_bytes": stack}
+    print("sass", json.dumps(res))
+    return res
+
+
 def grad_parity_phase(torch, np):
-    """LoRA gradients of one loss through a 2-layer model at full 7B width,
-    f32: on the card (K1-K4) and on the host CPU (their plain versions)."""
+    """LoRA gradients of one loss through a 2-layer model at full 7B width:
+    f32 on the card (K1-K4, K3/K4 on CUDA cores) and on the host CPU (their
+    plain versions), then bf16 activations on the card (K3/K4 on the tensor
+    cores) against the same f32 CPU gradients, within twice what bf16
+    activations cost on the CPU (the control: bf16 CPU vs f32 CPU)."""
     from ray_tpu_torch.models.llama import LlamaConfig, init_params, next_token_loss
     from ray_tpu_torch.ops.flash_attention import flash_bwd_dkv, flash_bwd_dq
     from ray_tpu_torch.train.examples.llama_lora import lora_model
@@ -308,34 +403,60 @@ def grad_parity_phase(torch, np):
         if name.endswith("lora_b"):
             t.normal_(0.0, 0.02, generator=g)
     tokens = np.random.default_rng(SEED + 3).integers(0, cfg.vocab_size, (1, cfg.max_seq_len))
+    cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    runs = {"cuda": (cfg, "cuda"), "cpu": (cfg, "cpu"), "cpu_bf16": (cfg16, "cpu"),
+            "cuda_bf16": (cfg16, "cuda")}
     out = {}
-    for dev in ("cuda", "cpu"):
+    for run, (run_cfg, dev) in runs.items():
         before = flash_bwd_dq.launches + flash_bwd_dkv.launches
         t0 = time.perf_counter()
-        model, lora, _ = lora_model(cfg, {k: v.to(dev, copy=True) for k, v in params.items()})
-        loss = next_token_loss(cfg, model, torch.from_numpy(tokens).to(dev))
+        model, lora, _ = lora_model(run_cfg, {k: v.to(dev, copy=True) for k, v in params.items()})
+        loss = next_token_loss(run_cfg, model, torch.from_numpy(tokens).to(dev))
         loss.backward()
-        grads = {n: p.grad.detach().cpu() for n, p in lora.items()}
-        out[dev] = (loss.item(), grads, time.perf_counter() - t0,
+        grads = {n: p.grad.detach().float().cpu() for n, p in lora.items()}
+        out[run] = (loss.item(), grads, time.perf_counter() - t0,
                     flash_bwd_dq.launches + flash_bwd_dkv.launches - before)
         del model, lora, loss
-    check(out["cuda"][3] == 2 * cfg.n_layers, f"card backward launched {out['cuda'][3]} bwd kernels")
-    # tolerance: f32 throughout with TF32 off; the card (cuBLAS, K1-K4) and
-    # the CPU (plain versions) sum in other orders, which over two layers
-    # and the 32000-way lm_head stays within 1e-3 of each tensor's largest
-    # gradient
-    worst = 0.0
-    for name, gc in out["cpu"][1].items():
-        scale = gc.abs().max().item()
-        check(scale > 0, f"{name}: zero gradient on the CPU")
-        rel = (out["cuda"][1][name] - gc).abs().max().item() / scale
-        worst = max(worst, rel)
-        check(rel <= 1e-3, f"{name}: card vs CPU gradient rel err {rel} > 1e-3")
-    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
-    check(loss_rel <= 1e-5, f"card vs CPU loss rel err {loss_rel} > 1e-5")
+    for run in ("cuda", "cuda_bf16"):
+        check(out[run][3] == 2 * cfg.n_layers, f"{run} backward launched {out[run][3]} bwd kernels")
+
+    def rel_err(run):
+        """Largest error of each LoRA gradient of ``run`` against the f32
+        CPU one, relative to the largest CPU gradient of that tensor."""
+        worst = 0.0
+        for name, gc in out["cpu"][1].items():
+            scale = gc.abs().max().item()
+            check(scale > 0, f"{name}: zero gradient on the CPU")
+            worst = max(worst, (out[run][1][name] - gc).abs().max().item() / scale)
+        return worst
+
+    # tolerances, relative to each tensor's largest CPU gradient:
+    # f32: f32 throughout with TF32 off; the card (cuBLAS, K1-K4) and the CPU
+    # (plain versions) sum in other orders, which over two layers and the
+    # 32000-way lm_head stays within 1e-3;
+    # bf16: the control run rounds the same activations to bf16 at the same
+    # products, norms and casts on the CPU, with the plain versions; the card
+    # adds to those roundings only P and dS inside K3/K4 (two per layer
+    # beside the activations' ~20) and another summation order, which are
+    # as many independent roundings of the same size again at most, so
+    # twice the control's error; the loss, one log-sum-exp over bf16
+    # logits, within 1e-2
+    control = rel_err("cpu_bf16")
+    # a control error of a quarter of a gradient's scale or more would mean
+    # the CPU run itself is broken, and would hide a broken kernel
+    check(0 < control < 0.25, f"bf16 CPU vs f32 CPU gradient rel err {control}")
+    tols = {"cuda": (1e-3, 1e-5), "cuda_bf16": (2 * control, 1e-2)}
     res = dict(n_layers=cfg.n_layers, dim=cfg.dim, seq=cfg.max_seq_len, tensors=len(out["cpu"][1]),
-               loss_cuda=out["cuda"][0], loss_cpu=out["cpu"][0], loss_rel_err=loss_rel,
-               max_rel_err=worst, tol=1e-3, cuda_s=out["cuda"][2], cpu_s=out["cpu"][2])
+               loss_cpu=out["cpu"][0], cpu_s=out["cpu"][2], max_rel_err_cpu_bf16=control,
+               cpu_bf16_s=out["cpu_bf16"][2])
+    for run, (tol, loss_tol) in tols.items():
+        worst = rel_err(run)
+        check(worst <= tol, f"{run} vs CPU gradient rel err {worst} > {tol}")
+        loss_rel = abs(out[run][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        check(loss_rel <= loss_tol, f"{run} vs CPU loss rel err {loss_rel} > {loss_tol}")
+        sfx = "" if run == "cuda" else "_bf16"
+        res.update({f"loss_cuda{sfx}": out[run][0], f"loss_rel_err{sfx}": loss_rel,
+                    f"max_rel_err{sfx}": worst, f"tol{sfx}": tol, f"cuda_s{sfx}": out[run][2]})
     print("grad_parity", json.dumps(res))
     return res
 
@@ -459,9 +580,15 @@ def forward_phase(torch, server, prompts):
     return fwd
 
 
+# the port's kernels in a profile, by a part of their CUDA symbol
+PORT_KERNELS = {"rmsnorm_fwd": "rmsnorm_fwd_kernel", "flash_attention_fwd": "flash_fwd_kernel",
+                "flash_bwd_dq": "flash_bwd_dq_", "flash_bwd_dkv": "flash_bwd_dkv_"}
+
+
 def device_profile(torch, fn):
-    """Wall time, device busy share and the kernels that take the most
-    device time of one call of ``fn`` under torch.profiler."""
+    """Wall time, device busy share, the kernels that take the most device
+    time of one call of ``fn`` under torch.profiler, and the device time and
+    launches of each of the port's kernels in it."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -475,9 +602,13 @@ def device_profile(torch, fn):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    port = {}
+    for name, symbol in PORT_KERNELS.items():
+        mine = [e for e in kernels if symbol in e.name]
+        port[name] = {"ms": sum(e.device_time for e in mine) / 1e3, "launches": len(mine)}
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, kernel_launches=len(kernels),
                 device_busy_share=busy_ms / wall_ms if busy_ms else None,
-                top_kernels_ms=[[name[:80], ms] for name, ms in top])
+                top_kernels_ms=[[name[:80], ms] for name, ms in top], port_kernels=port)
 
 
 def profile_phase(torch, server, prompt):
@@ -593,6 +724,7 @@ def main() -> None:
     rms_rows = rmsnorm_phase(torch, F)
     flash_rows = flash_phase(torch, F)
     bwd_rows = flash_bwd_phase(torch, F)
+    sass_phase()
     grad_parity_phase(torch, np)
 
     from ray_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq

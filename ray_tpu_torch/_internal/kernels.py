@@ -46,13 +46,15 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``), from
+    ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``) or the PATH."""
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+    for cand in (os.path.join(home, "bin", name), shutil.which(name)):
         if cand and os.path.isfile(cand):
             return cand
     raise RuntimeError(
-        "nvcc not found (looked in $CUDA_HOME/bin and on PATH); the port's "
+        f"{name} not found (looked in $CUDA_HOME/bin and on PATH); the port's "
         "kernels are built from ray_tpu_torch/csrc at first use"
     )
 
@@ -74,7 +76,7 @@ def build(names: Optional[Iterable[str]] = None) -> float:
     todo = [n for n in names if not lib_path(n).exists()]
     if not todo:
         return time.perf_counter() - t0
-    nvcc = _nvcc()
+    nvcc = cuda_tool()
     BUILD_DIR.mkdir(exist_ok=True)
     jobs = []
     for name in todo:

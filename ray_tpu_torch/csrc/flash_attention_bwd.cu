@@ -26,27 +26,66 @@
 // (bh = 64, s = 2048, d = 128, causal, bf16) the reference's count is 6d
 // FLOPs per visible (q, k) pair for dQ and 8d for dK/dV: 1.03e11 and 1.38e11
 // FLOPs, 0.104 ms and 0.139 ms on the tensor cores' 989 TFLOP/s, against
-// 169 MB and 202 MB of bytes (0.050 ms and 0.060 ms at 3.35 TB/s). This first
-// version runs every product on the CUDA cores in f32 FMAs, not on the tensor
-// cores, so it stays far from that bound (mma.sync, wgmma and TMA are later
-// work). The design keeps everything between the loads and the stores on
-// chip: the block's resident tiles and the streamed tiles are staged in
-// shared memory as f32 (rows padded by one word so the access patterns below
-// hit distinct banks), S and dP live in registers, P and dS pass through one
-// shared tile each to be re-read along the other axis, and the f32
-// accumulators live in registers.
+// 169 MB and 202 MB of bytes (0.050 ms and 0.060 ms at 3.35 TB/s).
 //
-// Shared memory (f32 staging, 64 x 64 tiles), at d = 32 / 64 / 128:
-//   dQ:     Q, dO, K, V (64 x (d+1) each) + dS (64 x 65) + lse, delta (64 each)
-//           = 4 * (4 * 64 * (d+1) + 64 * 65 + 128) bytes: 51 / 84 / 149 KB;
-//   dK/dV:  K, V, Q, dO (64 x (d+1) each) + P, dS (64 x 65 each) + lse, delta
-//           = 4 * (4 * 64 * (d+1) + 2 * 64 * 65 + 128) bytes: 68 / 100 / 166 KB.
+// Two designs, picked by dtype behind the same C entries:
+//
+// bf16 and f16: the tensor-core kernels (flash_bwd_dq_tc_kernel,
+// flash_bwd_dkv_tc_kernel). One warpgroup (four warps) per block and
+// 64-row tile (q rows for dQ, keys for dK/dV); warp w holds rows 16w ..
+// 16w+15 of every accumulator. Every product is a warpgroup MMA (wgmma
+// m64nNk16, 16-bit inputs, f32 accumulators; mma.cuh), which reads its
+// shared-memory operands once for the four warps:
+//   dQ:     S = Q K^T, dP = dO V^T (both operands in shared memory),
+//           dQ += dS K (dS from registers, K read transposed);
+//   dK/dV:  S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q.
+// P and dS are computed in f32 from the S and dP accumulators and rounded to
+// the input dtype as the register A operand of the next product: they never
+// leave the registers (FlashAttention-2's scheme). That rounding is the one
+// numerical difference from the f32 plain version; the plain version with
+// round_ps=True repeats it. Tiles are staged in the input dtype, in wgmma's
+// swizzled layout (free of bank conflicts; the same bytes serve K-major and
+// transposed reads): the block's resident tiles (Q and dO for dQ, K and V
+// for dK/dV) once, the streamed tiles double-buffered with cp.async so that
+// the next tile loads while this one computes; dQ issues S and dP as one
+// group of products. lse and delta are per q row: dQ keeps its
+// rows' values in registers, dK/dV streams them beside Q and dO and reads
+// the values of the accumulator columns each thread holds. Under causal
+// masking the blocks with the most tiles get the lowest blockIdx: dQ walks
+// its q tiles in reverse, dK/dV's key tile 0 already has the most q tiles.
+// The accumulators stay in registers (d/8 column blocks x 4 f32 per thread
+// each). A first design on mma.sync m16n8k16 fed by ldmatrix, with the same
+// tiling, ran 1.6x (dQ) and 1.7x (dK/dV) slower at the training call: each
+// warp read the whole streamed tile through ldmatrix, four times per block.
+//
+// f32: the first version's CUDA-core kernels (flash_bwd_dq_kernel,
+// flash_bwd_dkv_kernel), which keep every product in f32 FMAs: the block's
+// resident tiles and the streamed tiles are staged in shared memory as f32
+// (rows padded by one word
+// so the access patterns below hit distinct banks), S and dP live in
+// registers, P and dS pass through one shared tile each to be re-read along
+// the other axis, and the f32 accumulators live in registers.
+//
+// Shared memory at d = 32 / 64 / 128:
+//   tensor cores, 64 x d tiles of 16-bit values (4 / 8 / 16 KB):
+//     dQ:     Q, dO + two buffers of K, V = 6 tiles: 24 / 48 / 96 KB;
+//     dK/dV:  K, V + two buffers of Q, dO = 6 tiles, + two buffers of lse,
+//             delta (1 KB): 25 / 49 / 97 KB;
+//     two blocks of either fit on an SM (228 KB);
+//   f32, 64 x 64 tiles:
+//     dQ:     Q, dO, K, V (64 x (d+1) each) + dS (64 x 65) + lse, delta (64 each)
+//             = 4 * (4 * 64 * (d+1) + 64 * 65 + 128) bytes: 51 / 84 / 149 KB;
+//     dK/dV:  K, V, Q, dO (64 x (d+1) each) + P, dS (64 x 65 each) + lse, delta
+//             = 4 * (4 * 64 * (d+1) + 2 * 64 * 65 + 128) bytes: 68 / 100 / 166 KB.
 // All above 48 KB go through cudaFuncAttributeMaxDynamicSharedMemorySize and
-// stay under the 227 KB a block may use. The accumulators are registers:
+// stay under the 227 KB a block may use. The f32 accumulators are registers:
 // 4 rows x d/8 columns per thread for dQ (128 threads), 2 rows x d/8 columns
 // each of dK and dV per thread for dK/dV (256 threads).
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -54,6 +93,9 @@ constexpr int BQ = 64;  // q rows per tile
 constexpr int BK = 64;  // keys per tile
 constexpr int LDS = 65;  // padded row of a 64-wide score tile
 constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+constexpr int TC_THREADS = 128;  // 4 warps x 16 rows of a 64-row tile
 
 constexpr int DQ_THREADS = 128;   // 16 row groups of 4 q rows x 8 column lanes
 constexpr int DKV_THREADS = 256;  // 32 row groups of 2 keys x 8 column lanes
@@ -354,16 +396,353 @@ __global__ void __launch_bounds__(DKV_THREADS)
   store_rows<T, D>(dv + bh * sk * D, Vs, k0, sk, BK, tid, DKV_THREADS);
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core kernels (bf16, f16)
+// ---------------------------------------------------------------------------
+
+template <int D>
+using Tile = mma::Tile<D>;
+
+template <int D>
+constexpr size_t dq_tc_smem_bytes() {
+  return 6 * (size_t)Tile<D>::BYTES;
+}
+
+template <int D>
+constexpr size_t dkv_tc_smem_bytes() {
+  return 6 * (size_t)Tile<D>::BYTES + 4 * BQ * sizeof(float);
+}
+
+// Start copying rows r0 .. r0+63 of a (n, D) tensor into a tile; rows at or
+// past n are zero-filled and not read.
+template <typename T, int D>
+__device__ __forceinline__ void stage_async(uint32_t tile, const T* src, int r0, int n, int tid) {
+  constexpr int CPR = D / 8;
+#pragma unroll
+  for (int j = 0; j < BQ * CPR / TC_THREADS; ++j) {
+    const int i = tid + j * TC_THREADS;
+    const int r = i / CPR, c = i % CPR;
+    const bool in = r0 + r < n;
+    mma::cp_async16(tile + Tile<D>::off(r, c), src + (in ? (int64_t)(r0 + r) * D + c * 8 : 0),
+                    in);
+  }
+}
+
+// Wait for this thread's copies, make them visible to wgmma, and publish
+// them to the block; also the barrier after which every warp is done with
+// the tiles it read before.
+__device__ __forceinline__ void tiles_ready() {
+  mma::cp_async_wait<0>();
+  mma::fence_async_shared();
+  __syncthreads();
+}
+
+// Round a warp's 16 x D f32 accumulator to T into its 16 rows of a tile
+// (the caller synchronises before the tile is read back).
+template <typename T, int D>
+__device__ __forceinline__ void acc_to_tile(unsigned char* tile, const float (&acc)[D / 8][4],
+                                            int lane) {
+  const int row = (threadIdx.x >> 5) * 16 + (lane >> 2), t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(tile + Tile<D>::off(row + 8 * h, j) + 4 * t) =
+          mma::pack2<T>(acc[j][2 * h], acc[j][2 * h + 1]);
+}
+
+// Store rows r < 64 with r0 + r < n of a tile to a (n, D) tensor.
+template <int D>
+__device__ __forceinline__ void tile_to_global(void* dst, const unsigned char* tile, int r0, int n,
+                                               int tid) {
+  constexpr int CPR = D / 8;
+#pragma unroll
+  for (int j = 0; j < BQ * CPR / TC_THREADS; ++j) {
+    const int i = tid + j * TC_THREADS;
+    const int r = i / CPR, c = i % CPR;
+    if (r0 + r < n)
+      reinterpret_cast<uint4*>(dst)[(int64_t)(r0 + r) * CPR + c] =
+          *reinterpret_cast<const uint4*>(tile + Tile<D>::off(r, c));
+  }
+}
+
+// Issue s = X Y^T over D for the 64-row tiles X and Y (a 64 x 64 score
+// tile) as wgmma; the caller commits and waits.
+template <typename T, int D>
+__device__ __forceinline__ void issue_scores(float (&s)[8][4], uint32_t xs, uint32_t ys) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  mma::fence_acc(s);
+  mma::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    mma::Wgmma<T>::ss_n64(s, Tile<D>::k_major(xs, kk * 16), Tile<D>::k_major(ys, kk * 16));
+}
+
+// Issue acc += W Z over the tile's 64 rows as wgmma, for W a 64 x 64 f32
+// score tile in registers (rounded to T into a, which must stay untouched
+// until the wait) and Z a 64 x D tile read transposed; the caller commits
+// and waits.
+template <typename T, int D>
+__device__ __forceinline__ void issue_accumulate(float (&acc)[D / 8][4], uint32_t (&a)[4][4],
+                                                 const float (&w)[8][4], uint32_t zs) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) mma::acc_to_a<T>(a[kk], w[2 * kk], w[2 * kk + 1]);
+  mma::fence_acc(acc);
+  mma::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) mma::Wgmma<T>::rs(acc, a[kk], Tile<D>::mn_major(zs, kk * 16));
+}
+
+// Commit the issued products and wait for them, after which acc may be read.
+template <int N>
+__device__ __forceinline__ void finish(float (&acc)[N][4]) {
+  mma::wgmma_commit();
+  mma::wgmma_wait<0>();
+  mma::fence_acc(acc);
+}
+
+// K3 on the tensor cores. Block (bh, 64-row q tile); warp w owns q rows
+// w*16 .. w*16+15 of the tile. Thread (g, t) = (lane / 4, lane % 4) holds,
+// in each 16 x 8 accumulator block, rows g and g+8 and columns 2t, 2t+1.
+template <typename T, int D>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+    flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           T* __restrict__ dq, int sq, int sk, float sm_scale, int causal) {
+  constexpr int TILE = Tile<D>::BYTES;
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  const uint32_t Qs = mma::smem_addr(tc_smem);
+  const uint32_t Os = Qs + TILE;
+  const uint32_t KV0 = Qs + 2 * TILE;  // buffer b: K at KV0 + 2b TILE, V one TILE on
+
+  const int64_t bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the longest q tiles first
+  const int tid = threadIdx.x, lane = tid & 31, row0 = (tid >> 5) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const T* kb = k + bh * sk * D;
+  const T* vb = v + bh * sk * D;
+
+  int n_tiles = (sk + BK - 1) / BK;
+  if (causal) {
+    // stop at the diagonal: a tile runs iff its first key is at or before
+    // the q tile's last row
+    const int last = (q0 + BQ - 1) / BK + 1;
+    n_tiles = n_tiles < last ? n_tiles : last;
+  }
+
+  stage_async<T, D>(Qs, q + bh * sq * D, q0, sq, tid);
+  stage_async<T, D>(Os, dout + bh * sq * D, q0, sq, tid);
+  stage_async<T, D>(KV0, kb, 0, sk, tid);
+  stage_async<T, D>(KV0 + TILE, vb, 0, sk, tid);
+  mma::cp_async_commit();
+
+  // lse (times log2 e) and delta of this thread's rows g and g+8; rows past
+  // sq are never read
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + row0 + g + 8 * h;
+    lse2[h] = r < sq ? lse[bh * sq + r] * LOG2E : 0.f;
+    dl[h] = r < sq ? delta[bh * sq + r] : 0.f;
+  }
+  const float scale2 = sm_scale * LOG2E;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BK;
+    tiles_ready();  // tile kt is in; every warp is done with tile kt-1's buffer
+    if (kt + 1 < n_tiles) {
+      const uint32_t nxt = KV0 + ((kt + 1) & 1) * 2 * TILE;
+      stage_async<T, D>(nxt, kb, k0 + BK, sk, tid);
+      stage_async<T, D>(nxt + TILE, vb, k0 + BK, sk, tid);
+    }
+    mma::cp_async_commit();
+    const uint32_t Ks = KV0 + (kt & 1) * 2 * TILE, Vs = Ks + TILE;
+
+    // S = Q K^T and dP = dO V^T, as one group
+    float s[8][4], dp[8][4];
+    issue_scores<T, D>(s, Qs, Ks);
+    issue_scores<T, D>(dp, Os, Vs);
+    finish(s);
+    mma::fence_acc(dp);
+
+    // P = exp(S scale - lse) and dS = P (dP - delta) scale, in f32, masked
+    // (finite -1e30) where the tile crosses the diagonal or a ragged edge
+    const bool edge = k0 + BK > sk || q0 + BQ > sq || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int qp = q0 + row0 + g + 8 * h, kp = k0 + j * 8 + 2 * t + (e & 1);
+        const bool valid = !edge || (kp < sk && qp < sq && (!causal || qp >= kp));
+        const float p = exp2f(valid ? fmaf(s[j][e], scale2, -lse2[h]) : NEG * LOG2E - lse2[h]);
+        dp[j][e] = p * (dp[j][e] - dl[h]) * sm_scale;
+      }
+    uint32_t a[4][4];
+    issue_accumulate<T, D>(acc, a, dp, Ks);  // dQ += dS K
+    finish(acc);
+  }
+
+  mma::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with Q, K, V: stage dQ in the Q tile
+  acc_to_tile<T, D>(tc_smem, acc, lane);
+  __syncthreads();
+  tile_to_global<D>(dq + bh * sq * D, tc_smem, q0, sq, tid);
+}
+
+// K4 on the tensor cores. Block (bh, 64-key tile); warp w owns keys
+// w*16 .. w*16+15 of the tile, so the score tiles are transposed: rows are
+// keys and columns q rows, and lse, delta are read per column.
+template <typename T, int D>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+    flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const T* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            T* __restrict__ dk, T* __restrict__ dv, int sq, int sk,
+                            float sm_scale, int causal) {
+  constexpr int TILE = Tile<D>::BYTES;
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  const uint32_t Ks = mma::smem_addr(tc_smem);
+  const uint32_t Vs = Ks + TILE;
+  const uint32_t QO0 = Ks + 2 * TILE;  // buffer b: Q at QO0 + 2b TILE, dO one TILE on
+  // buffer b: 64 floats of lse at LD0 + 2b * 64, then 64 of delta
+  float* const LD0 = reinterpret_cast<float*>(tc_smem + 6 * TILE);
+
+  const int64_t bh = blockIdx.x;
+  const int k0 = blockIdx.y * BK;  // under causal masking key tile 0 has the most q tiles
+  const int tid = threadIdx.x, lane = tid & 31, row0 = (tid >> 5) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const T* qb = q + bh * sq * D;
+  const T* ob = dout + bh * sq * D;
+  const float* lb = lse + bh * sq;
+  const float* db = delta + bh * sq;
+
+  const int n_q = (sq + BQ - 1) / BQ;
+  // start at the first q tile whose last row is on or below the tile's first
+  // key; with no such tile (keys past every query) dK = dV = 0
+  const int first = causal ? k0 / BQ : 0;
+
+  // rows of lse and delta past sq are zero-filled, never read
+  auto stage_q = [&](int q0, int buf) {
+    const uint32_t qs = QO0 + buf * 2 * TILE;
+    stage_async<T, D>(qs, qb, q0, sq, tid);
+    stage_async<T, D>(qs + TILE, ob, q0, sq, tid);
+    const int r = tid & (BQ - 1);
+    const float* src = tid < BQ ? lb : db;
+    const bool in = q0 + r < sq;
+    mma::cp_async4(mma::smem_addr(LD0 + (2 * buf + (tid >= BQ)) * BQ + r), src + (in ? q0 + r : 0),
+                   in);
+  };
+
+  stage_async<T, D>(Ks, k + bh * sk * D, k0, sk, tid);
+  stage_async<T, D>(Vs, v + bh * sk * D, k0, sk, tid);
+  if (first < n_q) stage_q(first * BQ, 0);
+  mma::cp_async_commit();
+
+  const float scale2 = sm_scale * LOG2E;
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  for (int qt = first; qt < n_q; ++qt) {
+    const int q0 = qt * BQ, buf = (qt - first) & 1;
+    tiles_ready();  // tile qt is in; every warp is done with tile qt-1's buffer
+    if (qt + 1 < n_q) stage_q(q0 + BQ, buf ^ 1);
+    mma::cp_async_commit();
+    const uint32_t Qs = QO0 + buf * 2 * TILE, Os = Qs + TILE;
+    const float* Ls = LD0 + 2 * buf * BQ;
+    const float* Dl = Ls + BQ;
+
+    // P^T = exp(S^T scale - lse), masked as in K3 with (row, col) = (key, q)
+    float s[8][4];
+    issue_scores<T, D>(s, Ks, Qs);  // S^T = K Q^T
+    finish(s);
+    const bool edge = k0 + BK > sk || q0 + BQ > sq || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(Ls + j * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = k0 + row0 + g + 8 * (e >> 1), qp = q0 + j * 8 + 2 * t + (e & 1);
+        const bool valid = !edge || (kp < sk && qp < sq && (!causal || qp >= kp));
+        const float l2 = ((e & 1) ? l.y : l.x) * LOG2E;
+        s[j][e] = exp2f(valid ? fmaf(s[j][e], scale2, -l2) : NEG * LOG2E - l2);
+      }
+    }
+    uint32_t a[4][4];
+    issue_accumulate<T, D>(dva, a, s, Os);  // dV += P^T dO
+    finish(dva);
+
+    // dS^T = P^T (dP^T - delta) scale; dP^T = V dO^T is computed only now
+    // (not in one group with S^T, as dQ does): live through the dV product,
+    // it made the accumulators spill at d = 128
+    float dp[8][4];
+    issue_scores<T, D>(dp, Vs, Os);
+    finish(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dl = *reinterpret_cast<const float2*>(Dl + j * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[j][e] = s[j][e] * (dp[j][e] - ((e & 1) ? dl.y : dl.x)) * sm_scale;
+    }
+    issue_accumulate<T, D>(dka, a, dp, Qs);  // dK += dS^T Q
+    finish(dka);
+  }
+
+  mma::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with K and V: stage dK, dV there
+  acc_to_tile<T, D>(tc_smem, dka, lane);
+  acc_to_tile<T, D>(tc_smem + TILE, dva, lane);
+  __syncthreads();
+  tile_to_global<D>(dk + bh * sk * D, tc_smem, k0, sk, tid);
+  tile_to_global<D>(dv + bh * sk * D, tc_smem + TILE, k0, sk, tid);
+}
+
+// Raise the kernel's dynamic shared-memory limit to `smem` and ask for the
+// largest carveout, so that two tensor-core blocks fit on an SM.
+template <typename K>
+cudaError_t set_smem(K kernel, size_t smem) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+// bf16 and f16 run the tensor-core kernels, f32 the CUDA-core ones.
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int bh, int sq, int sk,
                       float sm_scale, int causal, cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr bool tc = !std::is_same<T, float>::value;
+  void (*kernel)(const T*, const T*, const T*, const T*, const float*, const float*, T*, int,
+                 int, float, int);
+  size_t smem;
+  if constexpr (tc) {
+    kernel = flash_bwd_dq_tc_kernel<T, D>;
+    smem = dq_tc_smem_bytes<D>();
+  } else {
+    kernel = flash_bwd_dq_kernel<T, D>;
+    smem = dq_smem_bytes(D);
+  }
+  const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (sq + BQ - 1) / BQ);
-  flash_bwd_dq_kernel<T, D><<<grid, DQ_THREADS, smem, stream>>>(
+  kernel<<<grid, tc ? TC_THREADS : DQ_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dq), sq, sk, sm_scale, causal);
@@ -374,12 +753,21 @@ template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
                        int sk, float sm_scale, int causal, cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr bool tc = !std::is_same<T, float>::value;
+  void (*kernel)(const T*, const T*, const T*, const T*, const float*, const float*, T*, T*, int,
+                 int, float, int);
+  size_t smem;
+  if constexpr (tc) {
+    kernel = flash_bwd_dkv_tc_kernel<T, D>;
+    smem = dkv_tc_smem_bytes<D>();
+  } else {
+    kernel = flash_bwd_dkv_kernel<T, D>;
+    smem = dkv_smem_bytes(D);
+  }
+  const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (sk + BK - 1) / BK);
-  flash_bwd_dkv_kernel<T, D><<<grid, DKV_THREADS, smem, stream>>>(
+  kernel<<<grid, tc ? TC_THREADS : DKV_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), sq, sk,

@@ -9,8 +9,13 @@ Kernels (CUDA C++, sm_90a), one per Pallas TPU kernel of the reference:
   dQ, and dK with dV, recomputed blockwise from the saved lse.
 
 Bytes bound the forward at the serving shapes; operations bound the backward
-at the training shapes. The first versions run their products on f32 FMAs
-(see the sources for the designs).
+at the training shapes. The forward runs its products on f32 FMAs. The
+backward picks its design by dtype: bf16 and f16 run on the tensor cores
+(warpgroup ``wgmma``, ``csrc/mma.cuh``) and round P and dS to the input dtype
+before the second products, which the plain versions repeat with
+``round_ps=True`` (:func:`flash_bwd_rounding_bound` bounds what that costs
+against the f32 plain version); f32 runs on f32 FMAs, like the forward (see
+the sources for the designs).
 
 :func:`flash_attention_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`
 are the wrappers over (batch*heads, seq, d): a CUDA tensor launches the
@@ -163,19 +168,62 @@ def _bwd_probs_and_ds(q, k, v, do, lse, delta, sm_scale, causal):
     return p, p * (dp - delta[..., None]) * sm_scale
 
 
-def flash_bwd_dq_reference(q, k, v, do, lse, delta, *, sm_scale: float, causal: bool):
-    """Plain version of the dQ kernel: dQ = dS K, in q's dtype."""
+def _round_to(x: torch.Tensor, dtype: torch.dtype, on: bool) -> torch.Tensor:
+    """``x`` rounded to ``dtype`` and back to f32 (to nearest even) if
+    ``on``; for f32 the identity."""
+    return x.to(dtype).float() if on else x
+
+
+def flash_bwd_dq_reference(
+    q, k, v, do, lse, delta, *, sm_scale: float, causal: bool, round_ps: bool = False
+):
+    """Plain version of the dQ kernel: dQ = dS K, in q's dtype. With
+    ``round_ps`` dS is rounded to q's dtype before the product, as the
+    bf16/f16 tensor-core kernel rounds it."""
     _, ds = _bwd_probs_and_ds(q, k, v, do, lse, delta, sm_scale, causal)
+    ds = _round_to(ds, q.dtype, round_ps)
     return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
 
 
-def flash_bwd_dkv_reference(q, k, v, do, lse, delta, *, sm_scale: float, causal: bool):
+def flash_bwd_dkv_reference(
+    q, k, v, do, lse, delta, *, sm_scale: float, causal: bool, round_ps: bool = False
+):
     """Plain version of the dK/dV kernel: dK = dS^T Q and dV = P^T dO, in
-    k's and v's dtype."""
+    k's and v's dtype. With ``round_ps`` P and dS are rounded to q's dtype
+    before the products, as the bf16/f16 tensor-core kernel rounds them."""
     p, ds = _bwd_probs_and_ds(q, k, v, do, lse, delta, sm_scale, causal)
+    p, ds = _round_to(p, q.dtype, round_ps), _round_to(ds, q.dtype, round_ps)
     dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
     dv = torch.einsum("bqk,bqd->bkd", p, do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_rounding_bound(q, k, v, do, lse, delta, *, sm_scale: float, causal: bool):
+    """How far rounding P and dS to q's dtype can move dQ, dK and dV, element
+    by element, from the f32 plain version: the tolerance that holds the
+    bf16/f16 kernels (and ``round_ps=True``) to the unrounded f32 result.
+
+    Rounding to nearest moves a value x by at most u|x| + eta/2, with u the
+    dtype's unit roundoff (half its eps) and eta its smallest subnormal (the
+    absolute term covers values that round to a subnormal or to zero). A sum
+    of products of rounded x with exact y therefore moves by at most
+    u (|x| @ |y|) + eta/2 (1 @ |y|). Returns ``(dq, dk, dv, n_subnormal)``:
+    the three bounds in f32 and how many elements of P and dS that are not
+    zero round to a subnormal or to zero. For f32 inputs the bounds are 0."""
+    p, ds = _bwd_probs_and_ds(q, k, v, do, lse, delta, sm_scale, causal)
+    if q.dtype == torch.float32:
+        zero = torch.zeros((), device=q.device)
+        return (zero.expand(q.shape), zero.expand(k.shape), zero.expand(v.shape), 0)
+    info = torch.finfo(q.dtype)
+    u, half_eta = info.eps / 2, info.smallest_normal * info.eps / 2
+    ak, aq, ado = k.float().abs(), q.float().abs(), do.float().abs()
+    bq = u * torch.einsum("bqk,bkd->bqd", ds.abs(), ak) + half_eta * ak.sum(1, keepdim=True)
+    bk = u * torch.einsum("bqk,bqd->bkd", ds.abs(), aq) + half_eta * aq.sum(1, keepdim=True)
+    bv = u * torch.einsum("bqk,bqd->bkd", p.abs(), ado) + half_eta * ado.sum(1, keepdim=True)
+    n_sub = sum(
+        int(((x != 0) & (x.abs() < info.smallest_normal)).sum()) for x in (p, ds)
+    )
+    return bq, bk, bv, n_sub
 
 
 def _check_bwd(q, k, v, do, lse, delta):
