@@ -8,13 +8,14 @@ Kernels (CUDA C++, sm_90a), one per Pallas TPU kernel of the reference:
   ``_bwd_dkv_kernel`` (launched by ``flash_bwd_dq`` and ``flash_bwd_dkv``):
   dQ, and dK with dV, recomputed blockwise from the saved lse.
 
-Bytes bound the forward at the serving shapes; operations bound the backward
-at the training shapes. The forward runs its products on f32 FMAs. The
-backward picks its design by dtype: bf16 and f16 run on the tensor cores
-(warpgroup ``wgmma``, ``csrc/mma.cuh``) and round P and dS to the input dtype
-before the second products, which the plain versions repeat with
-``round_ps=True`` (:func:`flash_bwd_rounding_bound` bounds what that costs
-against the f32 plain version); f32 runs on f32 FMAs, like the forward (see
+Bytes bound the forward at the serving shapes; operations bound the forward
+and the backward at the training shapes. Both pick their design by dtype:
+bf16 and f16 run on the tensor cores (warpgroup ``wgmma``, ``csrc/mma.cuh``
+and ``csrc/flash_tiles.cuh``) and round P (the forward; dS too in the
+backward) to the input dtype before the products that read it, which the
+plain versions repeat with ``round_p=True`` / ``round_ps=True``
+(:func:`flash_fwd_rounding_bound` and :func:`flash_bwd_rounding_bound` bound
+what that costs against the f32 plain version); f32 runs on f32 FMAs (see
 the sources for the designs).
 
 :func:`flash_attention_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`
@@ -66,30 +67,147 @@ _HEAD_DIMS = (32, 64, 128)
 _BLOCK_Q = 64  # q rows (and keys) per CUDA tile, as in csrc/flash_attention*.cu
 
 
+def _scores(q, k, valid, sm_scale):
+    """S = Q K^T scale in f32, (bh, sq, sk), masked entries at -1e30."""
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * sm_scale
+    return s.masked_fill(~valid, _NEG_INF)
+
+
+def _softmax_parts(q, k, valid, sm_scale):
+    """The plain version's softmax, f32: each row's max m of the masked
+    scores, P = exp(s - m) with masked entries 0, and l = sum P."""
+    s = _scores(q, k, valid, sm_scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    return m, p, p.sum(dim=-1, keepdim=True)
+
+
 def _masked_attention(q, k, v, valid, sm_scale):
     """Softmax attention of (bh, sq, d) q over (bh, sk, d) k, v where
     ``valid`` (sq, sk) marks the visible keys; f32 throughout. A row with
     no visible key gives o = 0 and lse = -1e30 + log(1)."""
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * sm_scale
-    s = s.masked_fill(~valid, _NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(valid, torch.exp(s - m), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
+    m, p, l = _softmax_parts(q, k, valid, sm_scale)
     l_safe = torch.where(l == 0.0, 1.0, l)
     o = torch.einsum("bqk,bkd->bqd", p, v.float()) / l_safe
     return o.to(q.dtype), (m + torch.log(l_safe))[..., 0]
 
 
+def _visible(sq: int, sk: int, causal: bool, device) -> torch.Tensor:
+    """(sq, sk) mask of the keys each query sees, top-left causal."""
+    q_pos = torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(sk, device=device)[None, :]
+    return q_pos >= k_pos if causal else torch.ones(sq, sk, dtype=torch.bool, device=device)
+
+
+def _tiled_rounded_attention(q, k, v, valid, sm_scale, rel=None):
+    """The bf16/f16 kernel's order of work: 64-key tiles in turn, a running
+    max in f32, each tile's P (against the running max) rounded to q's dtype
+    before P V, and l summed from the unrounded P. Tiles the kernel skips
+    under causal masking are fully masked here, which leaves m, l and acc
+    exactly as they were. Returns o, lse and, with ``rel``, the sum over
+    tiles, rescaled as acc is, of gap @ |V| with gap = round(P (1 + rel)) -
+    round(P (1 - rel)) (see :func:`flash_fwd_round_p_tolerance`)."""
+    s = _scores(q, k, valid, sm_scale)
+    bh, sq, d = q.shape
+    m = torch.full((bh, sq, 1), _NEG_INF, device=q.device)
+    l = torch.zeros((bh, sq, 1), device=q.device)
+    acc = torch.zeros((bh, sq, d), device=q.device)
+    gap = torch.zeros((bh, sq, d), device=q.device) if rel else None
+    for k0 in range(0, k.shape[1], _BLOCK_Q):
+        st, vt = s[..., k0:k0 + _BLOCK_Q], valid[:, k0:k0 + _BLOCK_Q]
+        m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(vt, torch.exp(st - m_new), 0.0)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        v_t = v[:, k0:k0 + _BLOCK_Q].float()
+        acc = acc * alpha + torch.einsum("bqk,bkd->bqd", p.to(q.dtype).float(), v_t)
+        if rel:
+            g = (p * (1 + rel)).to(q.dtype).float() - (p * (1 - rel)).to(q.dtype).float()
+            gap = gap * alpha + torch.einsum("bqk,bkd->bqd", g, v_t.abs())
+        m = m_new
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    return (acc / l_safe).to(q.dtype), (m + torch.log(l_safe))[..., 0], gap
+
+
 def flash_attention_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, sm_scale: float, causal: bool
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, sm_scale: float, causal: bool,
+    round_p: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the forward kernel: o (bh, sq, d) in q's dtype and
-    lse (bh, sq) in f32, top-left causal."""
-    sq, sk = q.shape[1], k.shape[1]
-    q_pos = torch.arange(sq, device=q.device)[:, None]
-    k_pos = torch.arange(sk, device=q.device)[None, :]
-    valid = q_pos >= k_pos if causal else torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    lse (bh, sq) in f32, top-left causal. With ``round_p`` it walks the keys
+    in the bf16/f16 kernel's 64-key tiles and rounds each tile's P to q's
+    dtype before P V, as the tensor-core kernel does; for f32 inputs that is
+    the identity."""
+    valid = _visible(q.shape[1], k.shape[1], causal, q.device)
+    if round_p and q.dtype != torch.float32:
+        return _tiled_rounded_attention(q, k, v, valid, sm_scale)[:2]
     return _masked_attention(q, k, v, valid, sm_scale)
+
+
+def flash_fwd_rounding_bound(q, k, v, *, sm_scale: float, causal: bool) -> torch.Tensor:
+    """How far rounding P to q's dtype can move o, element by element, from
+    the f32 plain version: the tolerance that holds the bf16/f16 kernel (and
+    ``round_p=True``) to the unrounded f32 result. (bh, sq, d) f32; 0 for f32
+    inputs.
+
+    Let m be a row's final max, l = sum_visible exp(s - m) its f32 sum and
+    P = exp(s - m). The kernel rounds, per 64-key tile t, P_t = exp(s - m_t)
+    against the running max m_t <= m; rounding to nearest moves it by at most
+    u P_t + eta/2, with u the dtype's unit roundoff (half its eps) and eta
+    its smallest subnormal (the absolute term covers values that round to a
+    subnormal or to zero). The later rescales multiply tile t's share of acc
+    by exp(m_t - m) <= 1, so the rounding moves acc by at most
+    u (P @ |V|) + eta/2 (visible @ |V|), and o = acc / l by that over l. l is
+    summed from the unrounded P and lse does not move."""
+    if q.dtype == torch.float32:
+        return torch.zeros(q.shape, device=q.device)
+    valid = _visible(q.shape[1], k.shape[1], causal, q.device)
+    _, p, l = _softmax_parts(q, k, valid, sm_scale)
+    info = torch.finfo(q.dtype)
+    u, half_eta = info.eps / 2, info.smallest_normal * info.eps / 2
+    av = v.float().abs()
+    moved = u * torch.einsum("bqk,bkd->bqd", p, av) + half_eta * torch.einsum(
+        "qk,bkd->bqd", valid.float(), av
+    )
+    return moved / torch.where(l == 0.0, 1.0, l)
+
+
+# how far, relative, the bf16/f16 kernel's f32 P may sit from the plain
+# version's before both round it: scores summed in another order and the
+# hardware's exp2 move it by about 1e-6 for scores of a few units
+FWD_P_REL = 2.0 ** -14
+
+
+def flash_fwd_round_p_tolerance(
+    q, k, v, *, sm_scale: float, causal: bool, rel: float = FWD_P_REL
+) -> torch.Tensor:
+    """How far the bf16/f16 kernel's o may sit from ``round_p=True``'s,
+    element by element: the tight tolerance of the kernel. (bh, sq, d) f32,
+    for bf16 and f16 inputs.
+
+    Both walk the same 64-key tiles and round P to the dtype before P V, but
+    each computes P in f32 its own way, so before the rounding their P differ
+    by a relative ``rel`` at most. Rounding is monotone, so the rounded
+    values then differ by at most gap = round(P (1 + rel)) - round(P (1 -
+    rel)): 0 unless P lies within ``rel`` of a rounding midpoint, one step of
+    the dtype there. The rescales (each <= 1) carry that into acc as they
+    carry P V, giving G; the unrounded P in acc's rescales and in l moves acc
+    and l by ``rel`` (P @ |V|) each, and f32 inputs below 2^-126 that the
+    hardware's exp2 flushes to zero by tiny (visible @ |V|). o = acc / l is
+    then rounded to the dtype once by each, one step of the dtype at |o|
+    (eps |o| + eta) at most. So |o - o_round_p| <= eps |o| + eta +
+    (G + 2 rel (P @ |V|) + tiny (visible @ |V|)) / l."""
+    if q.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"the tensor-core kernel takes bf16 or f16, not {q.dtype}")
+    valid = _visible(q.shape[1], k.shape[1], causal, q.device)
+    ro, _, gap = _tiled_rounded_attention(q, k, v, valid, sm_scale, rel=rel)
+    _, p, l = _softmax_parts(q, k, valid, sm_scale)
+    info, av = torch.finfo(q.dtype), v.float().abs()
+    noise = gap + 2 * rel * torch.einsum("bqk,bkd->bqd", p, av) + torch.finfo(
+        torch.float32
+    ).tiny * torch.einsum("qk,bkd->bqd", valid.float(), av)
+    return (info.eps * ro.float().abs() + info.smallest_normal * info.eps
+            + noise / torch.where(l == 0.0, 1.0, l))
 
 
 def _check_qkv(q, k, v):
