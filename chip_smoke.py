@@ -27,8 +27,22 @@ Phases, each of which exits non-zero on failure:
   6. the full forward: Llama's full-sequence forward (flash attention) on the
      same 4 prompts against the cache path's prefill, in bf16 and again with
      f32 activations;
-  7. the device busy share of one served request, under torch.profiler;
-  8. the training path: TorchTrainer.fit() of the llama_lora loop at full
+  7. continuous batching over the paged prefix KV cache (LLMServer with
+     kv_cache_blocks, on phase 5's weights): 16 greedy requests sharing a
+     256-token prefix from 8 threads, with the exact prefix-hit and
+     computed-token counts, no lease pin left, and K1 launched 65 times per
+     model call the engine counts; the pooled decode step with 8 slots
+     active (time, and its device busy share under torch.profiler); TTFT
+     of a 512-token miss and of a hit sharing 480 tokens;
+  8. the continuous-batching engine against the dense engine at full width,
+     2 layers, f32 activations: greedy tokens equal with mixed lengths and a
+     shared prefix, with chunked prefill, and with speculative decoding (the
+     target as its own draft, acceptance 1, and a random 1-layer draft);
+  9. speculation (k=4, the 7B target as its own draft) and chunked prefill
+     (an 896-token prompt arriving beside 7 decoding requests, which must
+     each emit a token in every step) at full width in bf16;
+  10. the device busy share of one served request, under torch.profiler;
+  11. the training path: TorchTrainer.fit() of the llama_lora loop at full
      Llama-2-7B width (bf16 weights, seq 2048, batch 2, LoRA rank 16) for 2
      epochs of 2 steps, with its checkpoint and exact per-step launch counts;
      then 3 timed warm steps of lora_train_step and the device busy share of
@@ -36,9 +50,10 @@ Phases, each of which exits non-zero on failure:
      kernels, found by symbol and counted by their wrappers, must equal the
      per-step counts.
 Main paths: the launch counters are set to 0 just before phase 5 and read
-just after phase 6 (serving), and set to 0 just before phase 8's fit() and
-read just after it (training). The last lines are a JSON line of the
-kernels and the result line.
+just after phase 6 (serving), set to 0 just before phase 7 and read just
+after phase 9 (continuous batching, ``serve_cb``), and set to 0 just before
+phase 11's fit() and read just after it (training). The last lines are a
+JSON line of the kernels and the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -62,6 +77,11 @@ F32_FLOPS = 67e12
 
 SEED = 0
 N_REQUESTS, PROMPT_LEN, NEW_TOKENS = 4, 128, 32
+# continuous batching: 8 slots over 256 blocks of 32 tokens (4.3 GB of bf16
+# K/V at 7B width, as much as the dense slot pool at max_seq_len 1024)
+CB = {"slots": 8, "blocks": 256, "block": 32, "max_seq_len": 1024}
+CB_REQUESTS, CB_PREFIX, CB_OWN = 16, 256, 64
+CB_LONG = 896  # the chunked phase's long prompt
 # the training path: llama_lora's "7b" loop, 2 epochs of 2 steps
 TRAIN_CONFIG = {"model": "7b", "seq": 2048, "batch_per_worker": 2, "lora_rank": 16,
                 "epochs": 2, "steps_per_epoch": 2}
@@ -126,6 +146,14 @@ def rmsnorm_phase(torch, F):
         ((1, 4096), torch.bfloat16),  # one streamed request
         # a training step's rows: batch 2 x seq 2048
         ((TRAIN_CONFIG["batch_per_worker"] * TRAIN_CONFIG["seq"], 4096), torch.bfloat16),
+        # the serve_cb path's rows: the pooled decode step, the k=4 verify
+        # over the pool, a block-long suffix or chunk, a prompt that misses,
+        # and the chunked phase's long prompt prefilled whole
+        ((CB["slots"], 4096), torch.bfloat16),
+        ((CB["slots"] * 5, 4096), torch.bfloat16),
+        ((CB["block"], 4096), torch.bfloat16),
+        ((CB_PREFIX + CB_OWN, 4096), torch.bfloat16),
+        ((CB_LONG, 4096), torch.bfloat16),
         ((300, 1024), torch.float16),
         ((7, 128), torch.float32),
     ]
@@ -628,6 +656,260 @@ def forward_phase(torch, server, prompts):
     return fwd
 
 
+def _step_until(engine, cond, limit=400):
+    for _ in range(limit):
+        if cond():
+            return
+        engine.step()
+    fail("the engine did not reach the awaited state")
+
+
+def cb_serve_phase(torch, np, dense_server, dense_serve):
+    """Continuous batching over the paged prefix cache at 7B width, served
+    through LLMServer on the dense server's weights (shared, not copied)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ray_tpu_torch.llm import GenerationRequest, LLMConfig, LLMServer
+    from ray_tpu_torch.ops.rmsnorm import rmsnorm_fwd
+
+    server = LLMServer(LLMConfig(
+        model_id="llama2-7b", max_seq_len=CB["max_seq_len"], max_batch_size=CB["slots"],
+        kv_cache_blocks=CB["blocks"], kv_block_size=CB["block"],
+        model_kwargs={"param_dtype": torch.bfloat16},
+    ), params=dense_server.engine._params)
+    engine, cfg = server.engine, server.engine._cfg
+    check(engine._params is dense_server.engine._params, "the paged server copied the weights")
+    rng = np.random.default_rng(SEED + 5)
+
+    def tokens(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    # warm-up (cuBLAS, allocator), on a prefix of its own
+    server({"token_ids": tokens(CB_PREFIX + CB_OWN), "max_new_tokens": 2})
+    torch.cuda.synchronize()
+    prefix = tokens(CB_PREFIX)
+    prompts = [prefix + tokens(CB_OWN) for _ in range(CB_REQUESTS)]
+    before, calls0, k1_0 = server.kvcache_stats(), engine.forward_calls, rmsnorm_fwd.launches
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(CB["slots"]) as pool:
+        answers = list(pool.map(
+            lambda p: server({"token_ids": p, "max_new_tokens": NEW_TOKENS, "temperature": 0.0}),
+            prompts))
+    wall = time.perf_counter() - t0
+    for a in answers:
+        check(a["num_prompt_tokens"] == CB_PREFIX + CB_OWN and len(a["token_ids"]) == NEW_TOKENS
+              and a["finished_reason"] == "length", f"bad paged answer {a}")
+        check(all(0 <= t < cfg.vocab_size for t in a["token_ids"]), "token out of range")
+    after = server.kvcache_stats()
+    hit = after["prefix_hit_tokens"] - before["prefix_hit_tokens"]
+    computed = after["prefill_tokens_computed"] - before["prefill_tokens_computed"]
+    check(hit == (CB_REQUESTS - 1) * CB_PREFIX, f"prefix hit tokens {hit}")
+    check(computed == CB_PREFIX + CB_OWN + (CB_REQUESTS - 1) * CB_OWN,
+          f"prefill tokens computed {computed}")
+    check(after["blocks_in_use"] == after["index_nodes"],
+          f"lease pins left: {after['blocks_in_use']} blocks in use, index holds "
+          f"{after['index_nodes']}")
+    calls, k1 = engine.forward_calls - calls0, rmsnorm_fwd.launches - k1_0
+    per_call = 2 * cfg.n_layers + 1
+    check(k1 == per_call * calls, f"K1 launched {k1} times in {calls} model calls, "
+                                  f"want {per_call} each")
+    # occupancy: one prefill call for the miss, one per 32-token suffix
+    # chunk for each hit; the rest are pooled decode steps
+    decode_steps = calls - 1 - (CB_REQUESTS - 1) * -(-CB_OWN // CB["block"])
+
+    # the pooled decode step with every slot active
+    rids = [engine.add_request(GenerationRequest(token_ids=tokens(CB_OWN), max_new_tokens=24))
+            for _ in range(CB["slots"])]
+    _step_until(engine, lambda: len(engine._slots) == CB["slots"] and not engine._pending)
+    step_ms = []
+    for _ in range(16):
+        t0 = time.perf_counter()
+        engine.step()  # ends in the host transfer of the sampled tokens
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(len(engine._slots) == CB["slots"], "a slot left the timed steps")
+    prof = device_profile(torch, engine.step)
+    done = engine.run_until_complete()
+    check(set(done) == set(rids), "the timed requests did not all finish")
+
+    # TTFT of a miss, then of a hit that shares 480 of its 512 tokens
+    def ttft(prompt):
+        t0 = time.perf_counter()
+        items = server.stream({"token_ids": prompt, "max_new_tokens": 4})
+        next(items)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        final = list(items)[-1]
+        check(final.get("finished") and len(final["token_ids"]) == 4, f"bad stream end {final}")
+        return first_ms
+
+    miss = tokens(512)
+    s0 = server.kvcache_stats()
+    ttft_miss = ttft(miss)
+    s1 = server.kvcache_stats()
+    ttft_hit = ttft(miss[:480] + tokens(32))
+    s2 = server.kvcache_stats()
+    check(s1["prefix_hit_tokens"] == s0["prefix_hit_tokens"], "the 512-token miss hit the cache")
+    check(s2["prefix_hit_tokens"] - s1["prefix_hit_tokens"] == 480, "the hit was not served 480")
+    out = dict(
+        requests=CB_REQUESTS, threads=CB["slots"], prompt_tokens=CB_PREFIX + CB_OWN,
+        new_tokens=NEW_TOKENS, wall_s=wall, tokens_per_s=CB_REQUESTS * NEW_TOKENS / wall,
+        dense_tokens_per_s=dense_serve["call_tokens_per_s"],
+        prefix_hit_tokens=hit, prefill_tokens_computed=computed,
+        prefill_tokens_saved_share=hit / (hit + computed), model_calls=calls,
+        decode_steps=decode_steps,
+        rows_per_decode_step=CB_REQUESTS * (NEW_TOKENS - 1) / decode_steps,
+        rmsnorm_launches=k1, decode_ms_per_step_8_slots=statistics.median(step_ms),
+        decode_ms_per_step_all=step_ms, step_profile=prof,
+        ttft_ms_miss_512=ttft_miss, ttft_ms_hit_480_of_512=ttft_hit,
+        kvcache=server.kvcache_stats(),
+    )
+    print("serve_cb", json.dumps(out))
+    return out
+
+
+def cb_parity_phase(torch, np, params):
+    """ContinuousBatchingEngine against LLMEngine on the first 2 layers of
+    the 7B weights with f32 activations: greedy tokens equal, paged, chunked
+    and speculative."""
+    from ray_tpu_torch.kvcache import KVCacheManager
+    from ray_tpu_torch.llm import ContinuousBatchingEngine, GenerationRequest, LLMEngine
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = LlamaConfig.llama2_7b(n_layers=2, max_seq_len=512, dtype=torch.float32,
+                                param_dtype=torch.bfloat16)
+    params2 = {k: v for k, v in params.items()
+               if not k.startswith("layer_") or k.split(".")[0] in ("layer_0", "layer_1")}
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    drand = init_params(dcfg, torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    rng = np.random.default_rng(SEED + 6)
+    shared = rng.integers(0, cfg.vocab_size, 96).tolist()
+    prompts = [shared + rng.integers(0, cfg.vocab_size, n).tolist() for n in (0, 9, 40, 70)]
+    prompts.append(rng.integers(0, cfg.vocab_size, 20).tolist())
+    reqs = [GenerationRequest(token_ids=p, max_new_tokens=24) for p in prompts]
+    want = [r.token_ids for r in LLMEngine(cfg, params2, max_batch_size=8).generate(reqs)]
+    cases = {
+        "paged": {},
+        "chunked_64": {"prefill_chunk_tokens": 64},
+        "spec_k4_draft_is_target": {"draft": (cfg, params2), "spec_tokens": 4},
+        "spec_k4_random_1_layer_draft": {"draft": (dcfg, drand), "spec_tokens": 4},
+    }
+    out = {}
+    for name, kw in cases.items():
+        kv = KVCacheManager(64, CB["block"])
+        engine = ContinuousBatchingEngine(cfg, params2, num_slots=CB["slots"], kv_cache=kv,
+                                          seed=0, **kw)
+        runs = []
+        for _ in range(2):  # the second run hits every prompt's cached blocks
+            in_use = kv.blocks_in_use
+            got = [r.token_ids for r in engine.generate(reqs)]
+            check(got == want, f"{name}: greedy tokens differ from LLMEngine's")
+            check(kv.blocks_in_use == kv.stats()["index_nodes"], f"{name}: lease pins left")
+            runs.append((in_use, kv.blocks_in_use))
+        # the second run adds nothing to the index: back to its count
+        check(runs[1][0] == runs[1][1], f"{name}: blocks in use {runs[1]}")
+        stats = kv.stats()
+        check(stats["prefix_hit_tokens"] > 0, f"{name}: no prefix hit")
+        row = dict(tokens_equal=True, blocks_in_use=runs, prefix_hit_tokens=stats["prefix_hit_tokens"])
+        if "draft" in kw:
+            acc = engine.spec_accepted / engine.spec_proposed
+            row.update(spec_proposed=engine.spec_proposed, spec_accepted=engine.spec_accepted,
+                       acceptance=acc)
+            if name == "spec_k4_draft_is_target":
+                check(acc == 1.0, f"{name}: acceptance {acc}, want 1")
+            else:
+                check(acc < 1.0, f"{name}: acceptance {acc}: no rejection ran")
+        out[name] = row
+        del engine, kv
+    print("cb_parity", json.dumps(out))
+    torch.cuda.empty_cache()
+    return out
+
+
+def cb_spec_chunk_phase(torch, np, params):
+    """Speculation and chunked prefill at 7B width in bf16."""
+    from ray_tpu_torch.kvcache import KVCacheManager
+    from ray_tpu_torch.llm import ContinuousBatchingEngine, GenerationRequest
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.llama2_7b(max_seq_len=CB["max_seq_len"], param_dtype=torch.bfloat16)
+    rng = np.random.default_rng(SEED + 7)
+
+    def tokens(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    def engine(**kw):
+        return ContinuousBatchingEngine(cfg, params, num_slots=CB["slots"], seed=0,
+                                        kv_cache=KVCacheManager(CB["blocks"], CB["block"]), **kw)
+
+    # speculation, k=4, the target as its own draft (shared weights)
+    spec = engine(draft=(cfg, params), spec_tokens=4)
+    for _ in range(CB["slots"]):
+        spec.add_request(GenerationRequest(token_ids=tokens(CB_OWN), max_new_tokens=48))
+    _step_until(spec, lambda: len(spec._slots) == CB["slots"] and not spec._pending)
+    p0, a0, ms, emitted = spec.spec_proposed, spec.spec_accepted, [], 0
+    for _ in range(4):
+        n0 = sum(len(s.generated) for s in spec._slots.values())
+        t0 = time.perf_counter()
+        spec.step()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(len(spec._slots) == CB["slots"], "a slot finished inside the timed spec steps")
+        emitted += sum(len(s.generated) for s in spec._slots.values()) - n0
+    results = spec.run_until_complete()
+    check(all(len(r.token_ids) == 48 for r in results.values()), "bad speculative results")
+    acc = (spec.spec_accepted - a0) / (spec.spec_proposed - p0)
+    spec_out = dict(k=4, slots=CB["slots"], step_ms=ms, step_ms_median=statistics.median(ms),
+                    tokens_per_step_per_row=emitted / (len(ms) * CB["slots"]),
+                    acceptance=acc, acceptance_all=spec.spec_accepted / spec.spec_proposed)
+    del spec, results
+    torch.cuda.empty_cache()
+
+    # chunked prefill: 7 decoding requests, then an 896-token prompt
+    long_prompt = tokens(CB_LONG)
+    short = [tokens(CB_OWN) for _ in range(CB["slots"] - 1)]
+    chunk_out = {}
+    for name, budget in (("chunked_128", 128), ("unchunked", 0)):
+        eng = engine(prefill_chunk_tokens=budget)
+        for p in short:
+            eng.add_request(GenerationRequest(token_ids=p, max_new_tokens=24))
+        _step_until(eng, lambda: len(eng._slots) == len(short) and not eng._pending
+                    and not eng._prefilling)
+        eng.step()  # warm: every row decoding
+        eng.add_request(GenerationRequest(token_ids=long_prompt, max_new_tokens=8))
+        gaps, stalls, steps = [], 0, 0
+        while eng._pending or eng._prefilling or len(eng._slots) < CB["slots"]:
+            n0 = {si: len(s.generated) for si, s in eng._slots.items()}
+            t0 = time.perf_counter()
+            eng.step()
+            gaps.append((time.perf_counter() - t0) * 1e3)
+            steps += 1
+            check(steps <= 64, f"{name}: the long prompt did not land")
+            for si, n in n0.items():
+                if si in eng._slots and len(eng._slots[si].generated) != n + 1:
+                    stalls += 1
+        if budget:
+            check(stalls == 0, f"{name}: {stalls} in-flight rows missed a step")
+            check(steps >= CB_LONG // budget, f"{name}: prefill took {steps} steps")
+        chunk_out[name] = dict(steps=steps, max_gap_ms=max(gaps), gaps_ms=gaps, stalls=stalls)
+        if budget:
+            # one 32-token chunk forward of a 1-row cache, timed and profiled
+            row, chunk = eng._empty_row(), eng._tokens([long_prompt[:CB["block"]]])
+            fwd_ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng._decode(row, chunk)
+                torch.cuda.synchronize()
+                fwd_ms.append((time.perf_counter() - t0) * 1e3)
+            chunk_out[name].update(chunk_forward_ms=fwd_ms, chunk_forward_profile=device_profile(
+                torch, lambda: eng._decode(row, chunk)))
+            del row
+        eng.run_until_complete()
+        del eng
+        torch.cuda.empty_cache()
+    out = dict(spec=spec_out, chunked=chunk_out)
+    print("cb_spec_chunk", json.dumps(out))
+    return out
+
+
 # the port's kernels in a profile, by a part of their CUDA symbol
 # (the forward: flash_fwd_tc_kernel in bf16/f16, flash_fwd_kernel in f32)
 PORT_KERNELS = {"rmsnorm_fwd": "rmsnorm_fwd_kernel", "flash_attention_fwd": "flash_fwd_",
@@ -803,13 +1085,26 @@ def main() -> None:
                 "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
     # the serving path: serving, then the full forward; counts set to 0
     # inside serve_phase just before its requests and read here, after both
-    server, prompts, _ = serve_phase(torch, np)
+    server, prompts, serve = serve_phase(torch, np)
     forward_phase(torch, server, prompts)
     serve_launches = {name: fn.launches for name, fn in counters.items()}
     for name in ("rmsnorm_fwd", "flash_attention_fwd"):
         check(serve_launches[name] > 0, f"{name} was not launched on the serving path")
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         check(serve_launches[name] == 0, f"{name} was launched on the serving path")
+
+    # the continuous-batching path: counts set to 0 here, read after its
+    # three phases; it runs K1 only (decode-mode attention throughout)
+    for fn in counters.values():
+        fn.launches = 0
+    cb_serve_phase(torch, np, server, serve)
+    torch.cuda.empty_cache()
+    cb_parity_phase(torch, np, server.engine._params)
+    cb_spec_chunk_phase(torch, np, server.engine._params)
+    cb_launches = {name: fn.launches for name, fn in counters.items()}
+    check(cb_launches["rmsnorm_fwd"] > 0, "rmsnorm_fwd was not launched on the serve_cb path")
+    for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(cb_launches[name] == 0, f"{name} was launched on the serve_cb path")
     profile_phase(torch, server, prompts[1])
     del server  # the training phase's peak memory is its own
     torch.cuda.empty_cache()
@@ -817,14 +1112,15 @@ def main() -> None:
     # the training path: counts set to 0 inside train_phase just before
     # fit() and read just after it
     train_launches, _ = train_phase(torch, counters)
-    launches = {name: serve_launches[name] + train_launches[name] for name in counters}
+    paths = {"serve": serve_launches, "serve_cb": cb_launches, "train": train_launches}
+    launches = {name: sum(p[name] for p in paths.values()) for name in counters}
 
     def entry(name, source, replaces, rows):
         main_row = rows[0]
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name],
-            "launches_by_path": {"serve": serve_launches[name], "train": train_launches[name]},
+            "launches_by_path": {path: p[name] for path, p in paths.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

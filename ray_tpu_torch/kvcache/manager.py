@@ -1,0 +1,356 @@
+"""KVCacheManager: paged KV pool + prefix reuse behind a lease API.
+
+The port of ray_tpu/kvcache/manager.py. The manager owns two pooled device
+tensors, K and V, each ``(n_layers, num_blocks, n_kv_heads, block_size,
+head_dim)`` in the cache dtype on the device of the first row committed,
+and wires the logical halves together: the refcounted
+:class:`~ray_tpu_torch.kvcache.block_allocator.BlockAllocator` and the
+:class:`~ray_tpu_torch.kvcache.prefix_index.PrefixIndex` radix tree. The
+engine talks to it through four calls:
+
+- ``acquire(token_ids)``: longest-prefix match and admission gate. Matched
+  blocks are pinned and the blocks the prompt will need are *reserved* up
+  front (evicting LRU leaves as needed); if the pool cannot cover the
+  prompt, every ref is rolled back and ``None`` is returned, so the engine
+  keeps the request pending: backpressure instead of running out of memory.
+- ``assemble(lease)``: gather the matched block chain into a fresh 1-row
+  :class:`~ray_tpu_torch.models.llama.DecodeCache` whose write position is
+  the cached length; the engine then prefills only the uncached suffix.
+- ``commit(lease, token_ids, cache_row)``: copy full blocks out of a
+  prefilled or decoded row into pool blocks and insert them into the radix
+  tree.
+- ``release(lease)``: drop the request's pins; blocks whose only remaining
+  reference is the index become LRU-evictable.
+
+Blocks in the index are immutable: only *full* blocks are ever committed,
+so shared prefixes never see partial writes. ``update_block`` exposes the
+copy-on-write path (shared block -> fresh copy) for callers that do mutate
+per-request state in place.
+
+The layers are stacked in one tensor (the cache layout of models/llama.py),
+so a commit, a copy-on-write copy or an assembly is two or three device ops
+for the whole model, not a few per layer. The KV tier's shipment interop
+(``extract_row_payload``, ``adopt_blocks``, ``build_row``) comes with the
+port's cluster KV tier slice; the reference's metric gauges come with its
+observability plane (``stats()`` keeps the same counters and keys).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence
+
+import torch
+
+from ..models.llama import DecodeCache
+from .block_allocator import BlockAllocator
+from .prefix_index import PrefixIndex
+
+
+@dataclasses.dataclass
+class KVCacheLease:
+    """One request's claim on the pool: matched chain + reserved blocks."""
+
+    num_cached_tokens: int
+    block_ids: List[int]  # matched prefix chain, root-to-leaf order
+    reserved: List[int]  # pre-allocated for the prompt's uncached blocks
+    pinned: List[int]  # every block this lease holds a reference on
+    cacheable: bool = True  # False: prompt exceeds pool, serve hits only
+    closed: bool = False
+
+
+class KVCacheManager:
+    def __init__(self, num_blocks: int, block_size: int = 32):
+        if block_size <= 0:
+            raise ValueError(f"block_size must be positive, got {block_size}")
+        self._block_size = int(block_size)
+        self._alloc = BlockAllocator(num_blocks)
+        self._index = PrefixIndex(self._block_size, self._alloc)
+        # device state, shaped from the first committed cache row
+        self._pool_k: Optional[torch.Tensor] = None
+        self._pool_v: Optional[torch.Tensor] = None
+        self._max_seq_len = 0
+        self._stats: Dict[str, int] = {
+            "requests": 0,
+            "hits": 0,
+            "misses": 0,
+            "prefix_hit_tokens": 0,
+            "prefill_tokens_computed": 0,
+            "admission_blocked": 0,
+            "adopted_blocks": 0,  # stays 0 until the KV tier slice adopts
+        }
+
+    # -- accounting ----------------------------------------------------------
+
+    @property
+    def block_size(self) -> int:
+        return self._block_size
+
+    def cached_blocks(self, token_ids: Sequence[int]) -> int:
+        """Leading full blocks the index already holds for this prompt
+        (capped like acquire: the last prompt token is never matched).
+        Takes no references."""
+        plen = len(token_ids)
+        max_blocks = (plen - 1) // self._block_size if plen else 0
+        return len(self._index.match(token_ids, max_blocks))
+
+    @property
+    def capacity(self) -> int:
+        return self._alloc.capacity
+
+    @property
+    def blocks_in_use(self) -> int:
+        return self._alloc.num_allocated
+
+    def stats(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = dict(self._stats)
+        out.update(
+            capacity=self._alloc.capacity,
+            block_size=self._block_size,
+            blocks_in_use=self._alloc.num_allocated,
+            blocks_free=self._alloc.num_free,
+            evictions=self._index.num_evictions,
+            index_nodes=self._index.num_nodes,
+            # one device until the port's tensor-parallel slice
+            mesh="tp=1",
+            num_devices=1,
+        )
+        out.update(self.pool_accounting())
+        return out
+
+    def pool_accounting(self) -> Dict[str, Any]:
+        """Block-pool bytes and KV heads on the (one) device: the numbers
+        an operator needs to size ``num_blocks`` against device memory.
+        Zeros before the first commit shapes the pools."""
+        if self._pool_k is None:
+            return {
+                "kv_pool_bytes_total": 0,
+                "kv_pool_bytes_per_device": 0,
+                "heads_per_device": 0,
+            }
+        total = sum(p.numel() * p.element_size() for p in (self._pool_k, self._pool_v))
+        return {
+            "kv_pool_bytes_total": total,
+            "kv_pool_bytes_per_device": total,
+            "heads_per_device": self._pool_k.shape[2],
+        }
+
+    # -- lease lifecycle -----------------------------------------------------
+
+    def acquire(self, token_ids: Sequence[int]) -> Optional[KVCacheLease]:
+        """Match + admission gate. None == not enough blocks: the caller
+        must keep the request queued and retry after a release."""
+        plen = len(token_ids)
+        # never match the whole prompt: at least one token must be
+        # prefilled to produce the first-token logits
+        max_blocks = (plen - 1) // self._block_size if plen else 0
+        matched = self._index.match(token_ids, max_blocks)
+        lease = KVCacheLease(
+            num_cached_tokens=len(matched) * self._block_size,
+            block_ids=[n.block_id for n in matched],
+            reserved=[],
+            pinned=[],
+        )
+        for node in matched:
+            self._alloc.ref(node.block_id)
+            lease.pinned.append(node.block_id)
+        needed = plen // self._block_size - len(matched)
+        if needed > self._alloc.capacity - len(matched):
+            # the prompt can never fit alongside its own matched chain:
+            # degrade to an uncacheable lease (hits still served) rather
+            # than deadlocking admission forever
+            lease.cacheable = False
+            return lease
+        for _ in range(needed):
+            bid = self._allocate_or_evict()
+            if bid is None:
+                self.release(lease)
+                self._stats["admission_blocked"] += 1
+                return None
+            lease.reserved.append(bid)
+        return lease
+
+    def release(self, lease: KVCacheLease) -> None:
+        """Drop every reference the lease holds (idempotent)."""
+        if lease.closed:
+            return
+        lease.closed = True
+        for bid in lease.pinned:
+            self._alloc.release(bid)
+        for bid in lease.reserved:
+            self._alloc.release(bid)
+        lease.pinned = []
+        lease.reserved = []
+
+    def extend(self, lease: KVCacheLease, n_blocks: int) -> int:
+        """Best-effort lease extension: reserve up to ``n_blocks`` more pool
+        blocks for decode-tail commits (an accepted speculative run can
+        cross several block boundaries in one engine step). Returns how many
+        were obtained: on pool pressure the tail simply goes uncached;
+        reserved blocks that never get committed are returned by release()
+        like any other."""
+        if lease.closed or lease.cacheable is False:
+            return 0
+        got = 0
+        for _ in range(max(int(n_blocks), 0)):
+            bid = self._allocate_or_evict()
+            if bid is None:
+                break
+            lease.reserved.append(bid)
+            got += 1
+        return got
+
+    # -- device state --------------------------------------------------------
+
+    def initialize(self, cache_row: DecodeCache) -> None:
+        """Shape the block pools from a 1-row cache (no-op after the first
+        call): the row's layers, heads, head_dim, dtype and device."""
+        if self._pool_k is not None:
+            return
+        n_layers, rows, heads, seq_len, head_dim = cache_row.key.shape
+        if rows != 1:
+            raise ValueError(f"initialize() takes a 1-row cache, got {rows} rows")
+        if seq_len < self._block_size:
+            raise ValueError(
+                f"block_size {self._block_size} exceeds max_seq_len {seq_len}"
+            )
+        self._max_seq_len = seq_len
+        shape = (n_layers, self._alloc.capacity, heads, self._block_size, head_dim)
+        kw = dict(dtype=cache_row.key.dtype, device=cache_row.key.device)
+        self._pool_k = torch.zeros(shape, **kw)
+        self._pool_v = torch.zeros(shape, **kw)
+
+    def assemble(self, lease: KVCacheLease) -> DecodeCache:
+        """Gather the lease's matched chain into a fresh 1-row cache: the
+        chain's K/V in order, zeros past it, and every layer's write
+        position at the cached token count, ready for the engine to decode
+        the uncached suffix into."""
+        if self._pool_k is None:
+            raise RuntimeError("assemble() before any commit")
+        n = len(lease.block_ids)
+        if n == 0:
+            raise ValueError("assemble() on a lease with no cached blocks")
+        n_layers, _, heads, bs, head_dim = self._pool_k.shape
+        device = self._pool_k.device
+        bids = torch.tensor(lease.block_ids, device=device)
+        out = []
+        for pool in (self._pool_k, self._pool_v):
+            row = torch.zeros(
+                (n_layers, 1, heads, self._max_seq_len, head_dim),
+                dtype=pool.dtype, device=device,
+            )
+            # (L, n, hk, bs, d) -> the row's first n*bs positions
+            row[:, 0, :, :n * bs].unflatten(2, (n, bs)).copy_(
+                pool.index_select(1, bids).transpose(1, 2)
+            )
+            out.append(row)
+        index = torch.full(
+            (n_layers, 1), lease.num_cached_tokens, dtype=torch.int32, device=device
+        )
+        return DecodeCache(out[0], out[1], index)
+
+    # -- commit --------------------------------------------------------------
+
+    def commit(
+        self,
+        lease: KVCacheLease,
+        token_ids: Sequence[int],
+        cache_row: DecodeCache,
+        pin: bool = True,
+    ) -> int:
+        """Walk/extend the radix tree with every full block of
+        ``token_ids``, copying missing blocks out of ``cache_row`` (whose
+        K/V must cover the sequence). Reserved blocks are consumed first;
+        past the reservation (decode tail at retire) allocation is
+        best-effort: on exhaustion the tail simply is not cached. With
+        ``pin``, blocks touched are pinned into the lease so they survive
+        until release. Returns the number of newly committed blocks."""
+        if lease.cacheable is False:
+            return 0
+        self.initialize(cache_row)
+        written: List[int] = []
+        offsets: List[int] = []
+        node = self._index.root
+        for i in range(len(token_ids) // self._block_size):
+            key = tuple(
+                int(t)
+                for t in token_ids[
+                    i * self._block_size : (i + 1) * self._block_size
+                ]
+            )
+            child = self._index.child(node, key)
+            if child is None:
+                if lease.reserved:
+                    bid = lease.reserved.pop(0)
+                else:
+                    bid = self._allocate_or_evict()
+                    if bid is None:
+                        break
+                written.append(bid)
+                offsets.append(i * self._block_size)
+                child = self._index.insert_child(node, key, bid)
+                if pin:
+                    lease.pinned.append(bid)  # reservation ref becomes pin
+                else:
+                    self._alloc.release(bid)
+            else:
+                self._index.touch(child)
+                if pin and child.block_id not in lease.pinned:
+                    self._alloc.ref(child.block_id)
+                    lease.pinned.append(child.block_id)
+            node = child
+        self._write_blocks(written, cache_row, offsets)
+        return len(written)
+
+    def update_block(self, block_id: int, cache_row: DecodeCache, tok_offset: int):
+        """Overwrite one block from ``cache_row`` at ``tok_offset``,
+        copy-on-write when the block is shared. The caller must own a
+        reference on ``block_id``; that reference moves to the returned
+        block id. None == pool exhausted mid-COW."""
+        new_id = self._alloc.copy_on_write(block_id, copy_fn=self._copy_block)
+        if new_id is None:
+            return None
+        self._write_blocks([new_id], cache_row, [tok_offset])
+        return new_id
+
+    def _write_blocks(self, bids: List[int], cache_row: DecodeCache,
+                      offsets: List[int]) -> None:
+        """Copy the block_size tokens of ``cache_row`` from each offset into
+        the pool block of the same rank: one gather and one scatter per
+        pool for all blocks and layers. An offset is clamped to [0,
+        max_seq_len - block_size], as the reference's dynamic slice clamps
+        its start."""
+        if not bids:
+            return
+        bs = self._block_size
+        device = self._pool_k.device
+        starts = [min(max(int(o), 0), self._max_seq_len - bs) for o in offsets]
+        pos = torch.tensor(
+            [s + j for s in starts for j in range(bs)], device=device
+        )
+        dst = torch.tensor(bids, device=device)
+        for pool, src in ((self._pool_k, cache_row.key), (self._pool_v, cache_row.value)):
+            # (L, hk, m*bs, d) -> (L, m, hk, bs, d)
+            blocks = src[:, 0].index_select(2, pos).unflatten(2, (len(bids), bs))
+            pool[:, dst] = blocks.transpose(1, 2).to(pool.dtype)
+
+    def _copy_block(self, src: int, dst: int) -> None:
+        for pool in (self._pool_k, self._pool_v):
+            pool[:, dst].copy_(pool[:, src])
+
+    def _allocate_or_evict(self) -> Optional[int]:
+        bid = self._alloc.allocate()
+        while bid is None:
+            if not self._index.evict_lru(1):
+                return None
+            bid = self._alloc.allocate()
+        return bid
+
+    # -- counters ------------------------------------------------------------
+
+    def record_prefill(self, hit_tokens: int, computed_tokens: int) -> None:
+        """Called by the engine after each admission prefill."""
+        self._stats["requests"] += 1
+        self._stats["hits" if hit_tokens else "misses"] += 1
+        self._stats["prefix_hit_tokens"] += hit_tokens
+        self._stats["prefill_tokens_computed"] += computed_tokens

@@ -1,10 +1,16 @@
-"""Dense LLM serving on the card: config, engine and server."""
+"""LLM serving on the card: config, engines and server."""
 
 from .config import LLMConfig
-from .engine import GenerationRequest, GenerationResult, LLMEngine
+from .engine import (
+    ContinuousBatchingEngine,
+    GenerationRequest,
+    GenerationResult,
+    LLMEngine,
+)
 from .serving import LLMServer
 
 __all__ = [
+    "ContinuousBatchingEngine",
     "GenerationRequest",
     "GenerationResult",
     "LLMConfig",

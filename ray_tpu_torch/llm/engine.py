@@ -1,32 +1,40 @@
-"""The dense LLM engine: the port of ray_tpu/llm/engine.py (``LLMEngine``).
+"""The LLM engines: the port of ray_tpu/llm/engine.py.
+
+:class:`LLMEngine`, the dense engine:
 
 - **prefill** runs the model in decode mode over the whole prompt batch,
   writing every layer's K/V into a fresh dense cache (models/llama.py
-  ``LayerCache``), as the reference does; it does not take the flash path;
+  ``DecodeCache``), as the reference does; it does not take the flash path;
 - **decode** feeds one token per row per step through the same cache, which
   each call updates in place;
 - requests are grouped by prompt length (no padding), each group is one
   prefill and one decode loop of at most ``max_batch_size`` rows, and rows
   that hit EOS keep decoding with their outputs dropped.
 
+:class:`ContinuousBatchingEngine`, continuous (in-flight) batching over a
+fixed pool of decode slots, optionally over the paged prefix KV cache
+(``ray_tpu_torch.kvcache``), with chunked prefill and speculative decoding.
+
 Greedy where the temperature is 0, otherwise a categorical draw from a
-``torch.Generator`` reseeded per step from the engine seed, the counterpart
-of the reference's ``fold_in(key, step)``: the same request gives the same
-tokens from one engine seed. PyTorch draws other bits than JAX, so sampled
-tokens agree with the reference only at temperature 0.
+``torch.Generator`` reseeded per random stream from the engine seed
+(:func:`_stream_seed`), the counterpart of the reference's ``fold_in``: the
+same requests give the same tokens from one engine seed. PyTorch draws other
+bits than JAX, so sampled tokens agree with the reference only at
+temperature 0.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, List, Optional
+import threading
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .._internal.device import DeviceLike, resolve_device
-from ..models.llama import build_llama, new_cache
+from ..models.llama import DecodeCache, build_llama, new_cache
 
 
 def _resolve_seed(seed: Optional[int]) -> int:
@@ -35,6 +43,14 @@ def _resolve_seed(seed: Optional[int]) -> int:
     if seed is not None:
         return int(seed)
     return int.from_bytes(os.urandom(4), "little")
+
+
+def _stream_seed(seed: int, *stream: int) -> int:
+    """The seed of one random stream, the counterpart of the reference's
+    ``fold_in(... fold_in(key(seed), stream[0]) ..., stream[-1])``."""
+    for n in stream:
+        seed = (seed * 1_000_003 + n) % (1 << 63)
+    return seed
 
 
 def host_sync(x: torch.Tensor) -> np.ndarray:
@@ -83,19 +99,26 @@ class _DecodeModelBase:
             raise ValueError(f"params on {sorted(wrong)}, engine on {self._device}")
         self._params = params
         self._model = build_llama(model_config, params)
+        self.forward_calls = 0
 
     @torch.inference_mode()
+    def _forward(self, tokens: torch.Tensor, cache: DecodeCache) -> torch.Tensor:
+        """The decode-mode model call every engine path makes: logits for
+        every position, ``cache`` updated in place. Counted in
+        ``forward_calls``: on the card each call launches the RMSNorm kernel
+        2 * n_layers + 1 times."""
+        self.forward_calls += 1
+        return self._model(tokens, cache)
+
     def _prefill(self, tokens: torch.Tensor):
         """tokens (b, plen) -> (last-position logits (b, vocab), new cache)."""
         cache = new_cache(self._cfg, tokens.shape[0], self._device)
-        logits = self._model(tokens, cache)
-        return logits[:, -1, :], cache
+        return self._forward(tokens, cache)[:, -1, :], cache
 
-    @torch.inference_mode()
-    def _decode(self, cache, last_tokens: torch.Tensor):
-        """last_tokens (b, 1) -> (logits (b, vocab), cache updated in place)."""
-        logits = self._model(last_tokens, cache)
-        return logits[:, -1, :], cache
+    def _decode(self, cache: DecodeCache, last_tokens: torch.Tensor):
+        """last_tokens (b, s) -> (last-position logits (b, vocab), cache
+        updated in place)."""
+        return self._forward(last_tokens, cache)[:, -1, :], cache
 
     def _tokens(self, rows) -> torch.Tensor:
         return torch.as_tensor(np.asarray(rows, np.int64), device=self._device)
@@ -193,7 +216,7 @@ class LLMEngine(_DecodeModelBase):
             [max(r.temperature, 0.0) for r in requests], np.float32
         )
         # the counterpart of fold_in(key, step): one stream per step index
-        self._generator.manual_seed((self._seed * 1_000_003 + step) % (1 << 63))
+        self._generator.manual_seed(_stream_seed(self._seed, step))
         return self._sample_tokens(logits, temps, self._generator)
 
     def generate_stream(self, request: GenerationRequest):
@@ -242,3 +265,634 @@ class LLMEngine(_DecodeModelBase):
 
     def _sample_step(self, logits, request, step) -> int:
         return int(self._sample(logits, [request], step)[0])
+
+
+@dataclasses.dataclass
+class _Slot:
+    request_id: int
+    request: GenerationRequest
+    generated: List[int]
+    last_token: int
+    lease: Any = None  # KVCacheLease when the engine runs paged
+    # leading full blocks of (prompt + generated[:-1]) already committed
+    # into the radix index: the speculative path commits decode-tail
+    # blocks eagerly (accepted runs cross block boundaries mid-flight)
+    committed_blocks: int = 0
+
+
+class ContinuousBatchingEngine(_DecodeModelBase):
+    """Continuous (in-flight) batching: a fixed pool of decode slots; new
+    requests prefill into free slots while other slots keep decoding, so
+    short requests don't wait for long ones and the decode batch stays full.
+
+    The decode step is ONE model call over the full (num_slots, 1) batch of
+    a pooled :class:`~ray_tpu_torch.models.llama.DecodeCache` with a per-row
+    cache index; prefill runs per request at its prompt length and its K/V
+    row is copied into its slot. With a ``kv_cache``
+    (:class:`~ray_tpu_torch.kvcache.KVCacheManager`) admission serves the
+    longest cached prefix, prefills only the suffix, and waits when the
+    block pool is full (backpressure); ``kv_cache=None`` is the dense
+    per-slot pool.
+
+    ``draft=(draft_config, draft_params)`` with ``spec_tokens=k`` turns on
+    speculative decoding: the draft proposes k tokens per row and the target
+    verifies them in one (num_slots, k+1) call. ``prefill_chunk_tokens`` caps
+    the prefill tokens computed per step, so a long prompt advances in
+    chunks beside the in-flight decodes instead of stalling them.
+
+    Every cache here is written in place by each model call (the reference's
+    are immutable values), so a prefill row is never shared: each chunked
+    prefill starts from a fresh zero row, a slot row handed to the KV
+    manager is a view that is committed before the next step writes the
+    pool, and the speculative rollback resets the write position of every
+    layer of both pools. Cluster KV tier shipments (``kv_tier``,
+    ``shipment``, ``prefill_only``) and adapter banks (``adapter_store``)
+    come with later slices of the port and raise.
+    """
+
+    def __init__(
+        self,
+        model_config,
+        params: Dict[str, torch.Tensor],
+        num_slots: int = 8,
+        kv_cache=None,
+        seed: Optional[int] = None,
+        draft=None,
+        spec_tokens: int = 0,
+        prefill_chunk_tokens: int = 0,
+        kv_tier=None,
+        adapter_store=None,
+        device: DeviceLike = None,
+    ):
+        if kv_tier is not None:
+            raise NotImplementedError(
+                "the cluster KV tier comes with the port's KV tier slice"
+            )
+        if adapter_store is not None:
+            raise NotImplementedError(
+                "adapter banks come with the port's LoRA serving slice"
+            )
+        super().__init__(model_config, params, device)
+        self._num_slots = num_slots
+        self._slots: Dict[int, _Slot] = {}  # slot index -> active request
+        self._pending: List[tuple] = []  # (request_id, GenerationRequest)
+        self._next_id = 0
+        self._seed = _resolve_seed(seed)
+        self._generator = torch.Generator(device=self._device)
+        self._step_count = 0
+        self._cache: Optional[DecodeCache] = None  # pooled, on first admission
+        self._kv = kv_cache
+        # serve replicas call sync methods from a thread pool. One thread
+        # at a time steps the shared pool, under _lock; the other callers
+        # never wait on it: they enqueue, and wait for the stepper's next
+        # step, under _progress only. (A lock that every caller takes to
+        # step is taken back at once by the thread that releases it, and
+        # the others' requests and results queue behind all of its steps.)
+        self._lock = threading.Lock()
+        self._progress = threading.Condition(threading.Lock())
+        # under _progress: results finished by any step until their
+        # generate() call collects them, and the tokens of every request
+        # in a slot after the latest step, for generate_stream()
+        self._finished_buf: Dict[int, GenerationResult] = {}
+        self._in_flight: Dict[int, List[int]] = {}
+        self._steps_published = 0
+        # -- speculative decoding (draft proposes, target verifies) --------
+        # The draft keeps its own dense per-slot pool (no paging: it is
+        # small) with the SAME position invariant as the target: K/V for
+        # prompt + generated[:-1], last_token not yet fed.
+        self._spec_k = int(spec_tokens) if draft is not None else 0
+        self._draft: Optional[_DecodeModelBase] = None
+        self._draft_cache: Optional[DecodeCache] = None
+        if draft is not None and self._spec_k > 0:
+            draft_cfg, draft_params = draft
+            if draft_cfg.max_seq_len < model_config.max_seq_len:
+                raise ValueError(
+                    "draft max_seq_len must cover the target's "
+                    f"({draft_cfg.max_seq_len} < {model_config.max_seq_len})"
+                )
+            self._draft = _DecodeModelBase(draft_cfg, draft_params, self._device)
+        self.spec_proposed = 0  # draft tokens proposed, over all steps
+        self.spec_accepted = 0  # of which the target accepted
+        # -- chunked prefill ----------------------------------------------
+        # per-STEP token budget across all in-progress prefills; 0 = run
+        # each admission prefill to completion. In-progress prefills park
+        # in _prefilling keyed by their reserved slot index.
+        self._prefill_chunk = int(prefill_chunk_tokens or 0)
+        self._prefilling: Dict[int, dict] = {}
+        # prefill tokens computed by the most recent step()
+        self.last_step_prefill_tokens = 0
+
+    # -- public API ----------------------------------------------------------
+
+    def add_request(self, request: GenerationRequest, shipment=None) -> int:
+        if shipment is not None:
+            raise NotImplementedError(
+                "directed KV shipments come with the port's disaggregated "
+                "prefill/decode slice"
+            )
+        if len(request.token_ids) + request.max_new_tokens > self._cfg.max_seq_len:
+            raise ValueError("prompt + max_new_tokens exceeds max_seq_len")
+        if self._spec_k and (
+            len(request.token_ids) + request.max_new_tokens + self._spec_k
+            > self._cfg.max_seq_len
+        ):
+            # the verify pass writes k+1 provisional positions past the
+            # current index, and the cache write CLAMPS a start past the
+            # end, which would silently overwrite earlier entries near
+            # max_seq_len: refuse up front instead
+            raise ValueError(
+                "prompt + max_new_tokens + spec_tokens exceeds max_seq_len "
+                "(speculative verification needs headroom)"
+            )
+        with self._progress:
+            rid = self._next_id
+            self._next_id += 1
+            # the stepping thread only pops the head and puts a blocked
+            # request back there: an append stays behind both
+            self._pending.append((rid, request))
+        return rid
+
+    @property
+    def num_active(self) -> int:
+        return len(self._slots) + len(self._pending) + len(self._prefilling)
+
+    def step(self) -> List[tuple]:
+        """One engine iteration: admit pending requests into free slots
+        (prefill), decode one token for every occupied slot, retire finished
+        requests. Returns [(request_id, GenerationResult)] finished now."""
+        with self._lock:
+            return self._step_locked()
+
+    def _step_locked(self) -> List[tuple]:
+        self.last_step_prefill_tokens = 0
+        finished: List[tuple] = self._admit()
+        if self._prefilling:
+            self._advance_prefills(finished)
+        if not self._slots:
+            return finished
+        if self._draft is not None:
+            self._spec_step(finished)
+        else:
+            self._dense_step(finished)
+        return finished
+
+    def _dense_step(self, finished: List[tuple]) -> None:
+        # one decode step for the whole pool; free rows compute garbage at
+        # their stale positions (both the RoPE rows and the cache write are
+        # clamped into range) and are ignored
+        last = np.zeros((self._num_slots, 1), np.int64)
+        for si, slot in self._slots.items():
+            last[si, 0] = slot.last_token
+        logits, _ = self._decode(self._cache, self._tokens(last))
+        self._step_count += 1
+        tokens = self._sample_rows(logits)
+        for si in list(self._slots):
+            slot = self._slots[si]
+            tok = int(tokens[si])
+            slot.generated.append(tok)
+            slot.last_token = tok
+            req = slot.request
+            done_eos = req.eos_token_id is not None and tok == req.eos_token_id
+            done_len = len(slot.generated) >= req.max_new_tokens
+            if done_eos or done_len:
+                self._finish_slot(
+                    si, slot, "eos" if done_eos else "length", finished
+                )
+
+    def _spec_step(self, finished: List[tuple]) -> None:
+        """One speculative iteration for the whole pool: the draft proposes
+        k tokens per row, the target verifies all k in ONE (num_slots, k+1)
+        call that also yields the accepted-prefix length and the bonus /
+        correction token; both pools roll back to the corrected position.
+        One host transfer of (tokens, counts) per step."""
+        S, k = self._num_slots, self._spec_k
+        last = np.zeros((S, 1), np.int64)
+        temps = np.zeros(S, np.float32)
+        start = np.zeros(S, np.int64)
+        for si, slot in self._slots.items():
+            last[si, 0] = slot.last_token
+            temps[si] = max(slot.request.temperature, 0.0)
+            # cache invariant: K/V covers prompt + generated[:-1]
+            start[si] = len(slot.request.token_ids) + len(slot.generated) - 1
+        stream = 10_000 + self._step_count
+        self._step_count += 1
+        # None: every row greedy (decided on the host, no device sync)
+        temps_d = torch.as_tensor(temps, device=self._device) if temps.any() else None
+        chunk, draft_logits = self._propose(self._tokens(last), temps_d, stream)
+        emitted, counts = self._verify(
+            chunk, draft_logits, temps_d, self._tokens(start), stream
+        )
+        em = host_sync(emitted)
+        cnt = host_sync(counts)
+        for si in list(self._slots):
+            slot = self._slots[si]
+            req = slot.request
+            n = int(cnt[si])
+            self.spec_proposed += k
+            self.spec_accepted += n - 1  # the last emitted is bonus/correction
+            done_reason = None
+            for j in range(n):
+                tok = int(em[si, j])
+                slot.generated.append(tok)
+                slot.last_token = tok
+                if req.eos_token_id is not None and tok == req.eos_token_id:
+                    done_reason = "eos"
+                    break
+                if len(slot.generated) >= req.max_new_tokens:
+                    done_reason = "length"
+                    break
+            if done_reason is not None:
+                self._finish_slot(si, slot, done_reason, finished)
+            else:
+                self._commit_decode_tail(si, slot)
+
+    def _finish_slot(self, si: int, slot: _Slot, reason: str,
+                     finished: List[tuple]) -> None:
+        req = slot.request
+        finished.append((slot.request_id, GenerationResult(
+            token_ids=slot.generated[: req.max_new_tokens],
+            num_prompt_tokens=len(req.token_ids),
+            finished_reason=reason,
+        )))
+        self._retire_slot(si)
+
+    def _commit_decode_tail(self, si: int, slot: _Slot) -> None:
+        """Speculative mode commits decode-tail blocks eagerly: an accepted
+        run can cross several block boundaries in one step, and waiting for
+        retire would keep long-lived sequences' tails invisible to
+        concurrent shared-prefix requests. Best-effort: the lease is
+        extended for the new blocks first; on pool pressure the tail simply
+        is not cached (never an error)."""
+        if self._kv is None or slot.lease is None or slot.lease.cacheable is False:
+            return
+        bs = self._kv.block_size
+        tokens = list(slot.request.token_ids) + slot.generated[:-1]
+        avail = len(tokens) // bs
+        if avail <= slot.committed_blocks:
+            return
+        self._kv.extend(slot.lease, avail - slot.committed_blocks)
+        # a view of the slot's row: committed (copied) before any write
+        self._kv.commit(
+            slot.lease, tokens[: avail * bs], self._cache.row(si), pin=False
+        )
+        slot.committed_blocks = avail
+
+    def _retire_slot(self, si: int) -> None:
+        """Free the slot; with a KV manager, first commit the sequence's
+        full blocks (prompt + generated tail) so a follow-up request
+        sharing the prefix hits, then release the lease's pins."""
+        slot = self._slots.pop(si)
+        if self._kv is None or slot.lease is None:
+            return
+        req = slot.request
+        # K/V exists for prompt + generated[:-1]: the final sampled token
+        # was never fed back through the model
+        tokens = list(req.token_ids) + slot.generated[:-1]
+        already = max(
+            slot.committed_blocks, len(req.token_ids) // self._kv.block_size
+        )
+        if len(tokens) // self._kv.block_size > already:
+            self._kv.commit(slot.lease, tokens, self._cache.row(si), pin=False)
+        self._kv.release(slot.lease)
+
+    def run_until_complete(self) -> Dict[int, GenerationResult]:
+        """Drain every queued request; returns request_id -> result.
+        Long-running callers should consume step()'s return value instead:
+        the engine keeps NO finished-result state."""
+        out: Dict[int, GenerationResult] = {}
+        with self._lock:
+            while self.num_active:
+                for rid, result in self._step_locked():
+                    out[rid] = result
+        return out
+
+    def generate(self, requests: List[GenerationRequest]) -> List[GenerationResult]:
+        """Batch API matching LLMEngine.generate: enqueue every request and
+        wait for all of them. Safe to call from several threads at once:
+        one of the callers steps the shared pool for all (see _advance)."""
+        return self._collect([self.add_request(r) for r in requests])
+
+    def generate_one(self, request: GenerationRequest,
+                     shipment=None) -> GenerationResult:
+        """generate() for ONE request."""
+        return self._collect([self.add_request(request, shipment=shipment)])[0]
+
+    def generate_stream(self, request: GenerationRequest):
+        """Streaming API matching LLMEngine.generate_stream: yields each
+        token of ONE request as the shared pool produces it, then the final
+        GenerationResult. Other requests keep decoding in the same steps."""
+        rid = self.add_request(request)
+        emitted = 0
+        while True:
+            with self._progress:
+                final = self._finished_buf.pop(rid, None)
+                tokens = self._in_flight.get(rid, []) if final is None else final.token_ids
+            for tok in tokens[emitted:]:
+                yield tok
+            emitted = max(emitted, len(tokens))
+            if final is not None:
+                yield final
+                return
+            self._advance()
+
+    def _collect(self, rids: List[int]) -> List[GenerationResult]:
+        out: Dict[int, GenerationResult] = {}
+        while True:
+            with self._progress:
+                for rid in rids:
+                    if rid in self._finished_buf:
+                        out[rid] = self._finished_buf.pop(rid)
+            if len(out) == len(rids):
+                return [out[rid] for rid in rids]
+            self._advance()
+
+    def _advance(self) -> None:
+        """Step the pool if no other thread is stepping it, else wait for
+        that thread's next step. So one caller runs the steps for all, a
+        request sent meanwhile is admitted at its next step, and when it
+        leaves, a waiting caller takes over after its last step."""
+        with self._progress:
+            seen = self._steps_published
+        if not self._lock.acquire(blocking=False):
+            with self._progress:
+                # the timeout covers a stepper that publishes nothing
+                # (step() or run_until_complete() called directly)
+                self._progress.wait_for(lambda: self._steps_published != seen, timeout=0.05)
+            return
+        try:
+            finished = self._step_locked()
+            in_flight = {s.request_id: list(s.generated) for s in self._slots.values()}
+        finally:
+            self._lock.release()
+        with self._progress:
+            self._finished_buf.update(finished)
+            self._in_flight = in_flight
+            self._steps_published += 1
+            self._progress.notify_all()
+
+    def prefill_only(self, request: GenerationRequest):
+        raise NotImplementedError(
+            "the prefill role comes with the port's disaggregated "
+            "prefill/decode slice"
+        )
+
+    # -- internals -----------------------------------------------------------
+
+    def _admit(self) -> List[tuple]:
+        """Prefill pending requests into free slots; returns the (rare)
+        requests that finish AT admission (eos on the first token, or
+        max_new_tokens == 1) so step() reports every finish.
+
+        With a KV manager the admission is memory-aware: the request first
+        acquires a lease (longest cached prefix + reserved blocks for the
+        rest of the prompt). A None lease means the pool is exhausted: the
+        request goes back to the HEAD of the pending queue and admission
+        stops, preserving FIFO order, until a retiring request releases
+        blocks. Cached prefixes are gathered into the slot row and only the
+        uncached suffix is prefilled."""
+        finished: List[tuple] = []
+        free = [
+            i for i in range(self._num_slots)
+            if i not in self._slots and i not in self._prefilling
+        ]
+        while free and self._pending:
+            si = free.pop(0)
+            rid, req = self._pending.pop(0)
+            lease = None
+            if self._kv is not None:
+                lease = self._kv.acquire(req.token_ids)
+                if lease is None:  # backpressure: wait for a release
+                    self._pending.insert(0, (rid, req))
+                    break
+            if self._prefill_chunk:
+                # budgeted prefill: the request keeps its slot reservation
+                # but computes nothing yet; _advance_prefills spreads the
+                # prompt over engine steps alongside in-flight decodes
+                self._prefilling[si] = {
+                    "rid": rid, "req": req, "lease": lease,
+                    "row": None, "pos": 0, "logits": None, "committed": 0,
+                }
+                continue
+            logits, solo = self._prefill_leased(req, lease)
+            self.last_step_prefill_tokens += len(req.token_ids) - (
+                lease.num_cached_tokens if lease is not None else 0
+            )
+            first = self._sample_first(logits, req, rid)
+            if not self._finish_admission(si, rid, req, lease, solo, first, finished):
+                free.insert(0, si)
+        return finished
+
+    def _finish_admission(self, si, rid, req, lease, solo: DecodeCache, first: int,
+                          finished: List[tuple]) -> bool:
+        """The admission tail both prefill paths (inline, chunked) funnel
+        through: prefill counters, prompt-block commit, pool row insert,
+        slot creation. Returns False when the request finished AT admission
+        (eos on the first token / max_new_tokens <= 1): the caller returns
+        the slot."""
+        plen = len(req.token_ids)
+        if self._kv is not None:
+            cached = lease.num_cached_tokens
+            self._kv.record_prefill(cached, plen - cached)
+            # commit the prompt's full blocks while the prefilled row is at
+            # hand; reserved blocks are consumed here
+            self._kv.commit(lease, req.token_ids, solo)
+        if self._cache is None:
+            self._cache = new_cache(self._cfg, self._num_slots, self._device)
+        self._cache.insert_row(si, solo)
+        req_eos = req.eos_token_id is not None and first == req.eos_token_id
+        if req_eos or req.max_new_tokens <= 1:
+            finished.append((rid, GenerationResult(
+                token_ids=[first][: req.max_new_tokens],
+                num_prompt_tokens=plen,
+                finished_reason="eos" if req_eos else "length",
+            )))
+            if self._kv is not None:
+                self._kv.release(lease)
+            return False
+        if self._draft is not None:
+            self._admit_draft_row(req, si)
+        self._slots[si] = _Slot(
+            request_id=rid, request=req, generated=[first], last_token=first,
+            lease=lease,
+            committed_blocks=plen // self._kv.block_size if self._kv is not None else 0,
+        )
+        return True
+
+    def _advance_prefills(self, finished: List[tuple]) -> None:
+        """Advance in-progress chunked prefills, spending at most
+        ``prefill_chunk_tokens`` across ALL of them this step. Chunks stay
+        <= block_size (paged), as in suffix prefill; a completed prompt
+        takes the normal admission tail (first-token sample, commit, slot
+        insert) and decodes in the very same step."""
+        budget = self._prefill_chunk - self.last_step_prefill_tokens
+        chunk_max = self._kv.block_size if self._kv is not None else 32
+        for si in list(self._prefilling):
+            if budget <= 0:
+                break
+            st = self._prefilling[si]
+            req, lease = st["req"], st["lease"]
+            tokens = req.token_ids
+            if st["row"] is None:
+                if lease is not None and lease.num_cached_tokens:
+                    st["row"] = self._kv.assemble(lease)
+                    st["pos"] = lease.num_cached_tokens
+                    st["committed"] = lease.num_cached_tokens // self._kv.block_size
+                else:
+                    st["row"] = self._empty_row()
+            pos = st["pos"]
+            while pos < len(tokens) and budget > 0:
+                take = min(chunk_max, len(tokens) - pos, budget)
+                st["logits"], _ = self._decode(
+                    st["row"], self._tokens([tokens[pos:pos + take]])
+                )
+                pos += take
+                budget -= take
+                self.last_step_prefill_tokens += take
+            st["pos"] = pos
+            if pos < len(tokens):
+                bs = self._kv.block_size if self._kv is not None else 0
+                if (
+                    self._kv is not None and lease is not None
+                    and pos // bs > st["committed"]
+                ):
+                    # partial commit: completed full blocks become hittable
+                    # for concurrent shared-prefix admissions NOW, not when
+                    # the whole prompt lands
+                    self._kv.commit(lease, tokens[:pos], st["row"])
+                    st["committed"] = pos // bs
+                continue
+            del self._prefilling[si]
+            first = self._sample_first(st["logits"], req, st["rid"])
+            self._finish_admission(
+                si, st["rid"], req, lease, st["row"], first, finished
+            )
+
+    def _empty_row(self) -> DecodeCache:
+        """A fresh all-zero 1-row cache with write position 0: the chunked
+        prefill seed when no cached prefix exists. Never shared or reused:
+        every decode call writes its row in place, so a shared template
+        would carry one prompt's K/V into the next."""
+        return new_cache(self._cfg, 1, self._device)
+
+    def _admit_draft_row(self, req: GenerationRequest, si: int) -> None:
+        """Full-prompt draft prefill into the draft pool. The draft never
+        pages or prefix-caches (it is small enough that recomputing its
+        prompt K/V is the cheap part of the speculative trade) but it keeps
+        the target's exact position invariant, so both caches roll back to
+        the same corrected index."""
+        _, dsolo = self._draft._prefill(self._tokens([req.token_ids]))
+        if self._draft_cache is None:
+            self._draft_cache = new_cache(self._draft._cfg, self._num_slots, self._device)
+        self._draft_cache.insert_row(si, dsolo)
+
+    def _propose(self, last: torch.Tensor, temps: Optional[torch.Tensor], stream: int):
+        """The k-step draft proposal: decode and sample d_1..d_k from the
+        draft pool, then one extra feed writes d_k's K/V so that the
+        rollback index ``start + counts`` is valid for EVERY acceptance
+        count. Tokens stay on the device. Returns (chunk (S, k+1) =
+        [last, d_1..d_k], draft logits (S, k, V))."""
+        tok, fed, dlogits = last, [], []
+        for j in range(self._spec_k):
+            lg, _ = self._draft._decode(self._draft_cache, tok)
+            if temps is None:
+                nxt = lg.argmax(dim=-1)
+            else:
+                self._generator.manual_seed(_stream_seed(self._seed, stream, j + 1))
+                nxt = _sample_impl(lg, temps, self._generator)
+            fed.append(tok[:, 0])
+            dlogits.append(lg)
+            tok = nxt[:, None]
+        self._draft._decode(self._draft_cache, tok)
+        chunk = torch.cat([torch.stack(fed, dim=1), tok], dim=1)
+        return chunk, torch.stack(dlogits, dim=1)
+
+    def _verify(self, chunk, draft_logits, temps, start, stream: int):
+        """The speculative verify: ONE target call over the (num_slots, k+1)
+        chunk [last_token, d_1..d_k] scores every proposal (position j's
+        logits predict the token after input j); then acceptance, the bonus
+        / correction token and the rollback of both pools' write positions.
+
+        Lossless by construction: at temperature 0 a proposal is accepted
+        iff it equals the target argmax, so the emitted prefix is exactly
+        the greedy trajectory; at temperature > 0 standard rejection
+        sampling (accept d_j w.p. min(1, p_t/p_d), resample the first
+        rejection from the normalized residual max(p_t - p_d, 0)) keeps the
+        output distribution that of ancestral sampling from the target.
+        ``temps`` None means every row is greedy. Returns (emitted (S, k+1),
+        counts (S,))."""
+        draft_tok = chunk[:, 1:]
+        k = draft_tok.shape[1]
+        logits = self._forward(chunk, self._cache)  # (S, k+1, V)
+        vocab = logits.shape[-1]
+        ok = logits[:, :k].argmax(dim=-1) == draft_tok
+        if temps is not None:
+            self._generator.manual_seed(_stream_seed(self._seed, stream, 0))
+            tscale = temps.clamp_min(1e-6)
+            pt = torch.softmax(logits[:, :k].float() / tscale[:, None, None], dim=-1)
+            pd = torch.softmax(draft_logits.float() / tscale[:, None, None], dim=-1)
+            pt_d = pt.gather(-1, draft_tok[..., None])[..., 0]
+            pd_d = pd.gather(-1, draft_tok[..., None])[..., 0]
+            u = torch.rand(draft_tok.shape, generator=self._generator, device=self._device)
+            stoch_ok = u * pd_d.clamp_min(1e-20) < pt_d
+            ok = torch.where((temps == 0.0)[:, None], ok, stoch_ok)
+        # longest accepted prefix: cumprod flips to 0 at the 1st rejection
+        a = ok.long().cumprod(dim=-1).sum(dim=-1)
+        # the target's logits right after the accepted prefix
+        pos_logits = logits.gather(1, a[:, None, None].expand(-1, 1, vocab))[:, 0]
+        bonus = pos_logits.argmax(dim=-1)
+        if temps is not None:
+            pt_a = torch.softmax(pos_logits.float() / tscale[:, None], dim=-1)
+            pd_a = pd.gather(
+                1, a.clamp_max(k - 1)[:, None, None].expand(-1, 1, vocab)
+            )[:, 0]
+            resid = torch.where((a < k)[:, None], (pt_a - pd_a).clamp_min(0.0), pt_a)
+            resid = torch.where(resid.sum(dim=-1, keepdim=True) > 1e-20, resid, pt_a)
+            stoch_bonus = torch.multinomial(
+                resid.clamp_min(1e-20), 1, generator=self._generator
+            )[:, 0]
+            bonus = torch.where(temps == 0.0, bonus, stoch_bonus)
+        counts = a + 1  # accepted prefix + the bonus/correction token
+        jpos = torch.arange(k + 1, device=self._device)[None, :]
+        padded = torch.nn.functional.pad(draft_tok, (0, 1))
+        emitted = torch.where(
+            jpos < a[:, None], padded,
+            torch.where(jpos == a[:, None], bonus[:, None], torch.zeros_like(padded)),
+        )
+        # rollback-as-index-reset, every layer of both pools: K/V past the
+        # new index is garbage the causal mask never reads and the next
+        # verify overwrites before attending
+        new_idx = start + counts
+        self._cache.set_index(new_idx)
+        self._draft_cache.set_index(new_idx)
+        return emitted, counts
+
+    def _prefill_leased(self, req: GenerationRequest, lease):
+        """Prefill a request, reusing the lease's cached prefix: a full
+        prefill on a miss; on a hit, gather the cached blocks into a fresh
+        row and run only the uncached suffix through the decode path in
+        chunks of at most block_size tokens."""
+        tokens = req.token_ids
+        if lease is None or lease.num_cached_tokens == 0:
+            return self._prefill(self._tokens([tokens]))
+        row = self._kv.assemble(lease)
+        logits = None
+        pos = lease.num_cached_tokens
+        while pos < len(tokens):
+            take = min(self._kv.block_size, len(tokens) - pos)
+            logits, _ = self._decode(row, self._tokens([tokens[pos:pos + take]]))
+            pos += take
+        return logits, row
+
+    def _sample_first(self, logits, req: GenerationRequest, rid: int) -> int:
+        """A request's first token, from its own stream (fold_in(rng, rid)
+        in the reference)."""
+        self._generator.manual_seed(_stream_seed(self._seed, rid))
+        temps = np.array([max(req.temperature, 0.0)], np.float32)
+        return int(self._sample_tokens(logits, temps, self._generator)[0])
+
+    def _sample_rows(self, logits) -> np.ndarray:
+        temps = np.zeros(self._num_slots, np.float32)
+        for si, slot in self._slots.items():
+            temps[si] = max(slot.request.temperature, 0.0)
+        self._generator.manual_seed(_stream_seed(self._seed, 10_000 + self._step_count))
+        return self._sample_tokens(logits, temps, self._generator)

@@ -1,10 +1,14 @@
-"""LLM serving: the port of ray_tpu/llm/serving.py, dense branch.
+"""LLM serving: the port of ray_tpu/llm/serving.py, fused replica.
 
 :class:`LLMServer` is the counterpart of the reference's replica callable
-``_LLMReplica`` for ``kv_cache_blocks=None``: it builds the model and the
-dense :class:`~ray_tpu_torch.llm.engine.LLMEngine` and answers token-level
-requests. The serve control plane, the weight plane and tokenizers come
-with later slices of the port.
+``_LLMReplica`` without roles, tier or adapters: it builds the model and an
+engine and answers token-level requests. With ``kv_cache_blocks=None`` the
+engine is the dense :class:`~ray_tpu_torch.llm.engine.LLMEngine`; with it
+set, a :class:`~ray_tpu_torch.llm.engine.ContinuousBatchingEngine` over a
+:class:`~ray_tpu_torch.kvcache.KVCacheManager` (prefix reuse, memory-gated
+admission), with the config's chunked prefill and speculative draft. The
+serve control plane, the weight plane and tokenizers come with later slices
+of the port.
 
 Request/response shape:
   {"token_ids": [...], "max_new_tokens": 32, "temperature": 0.0,
@@ -19,16 +23,18 @@ from typing import Any, Dict, Optional
 import torch
 
 from .._internal.device import DeviceLike, resolve_device
+from ..kvcache import KVCacheManager
 from ..models.llama import init_params
 from .config import LLMConfig
-from .engine import GenerationRequest, LLMEngine
+from .engine import ContinuousBatchingEngine, GenerationRequest, LLMEngine
 
 
 class LLMServer:
     """Holds one engine with its weights on ``device`` (default: the card).
     Without ``params`` the weights are random, from the port's
     ``init_params`` under seed 0, as the reference's replica draws them
-    under ``PRNGKey(0)``."""
+    under ``PRNGKey(0)``; given ``params`` are shared, not copied. A
+    speculative draft is drawn likewise under seed 1."""
 
     def __init__(self, llm_config: LLMConfig,
                  params: Optional[Dict[str, torch.Tensor]] = None,
@@ -38,16 +44,48 @@ class LLMServer:
         model_config = llm_config.build_model_config()
         if params is None:
             params = init_params(model_config, device=self._device)
-        self._engine = LLMEngine(
-            model_config, params,
-            max_batch_size=llm_config.max_batch_size,
-            seed=llm_config.seed,
-            device=self._device,
-        )
+        self._kv_cache: Optional[KVCacheManager] = None
+        if llm_config.kv_cache_blocks:
+            # paged prefix-reusing engine: requests stream through a slot
+            # pool over a shared KV block pool; admission is memory-gated
+            # and prompts sharing cached prefixes prefill only the suffix
+            self._kv_cache = KVCacheManager(
+                num_blocks=llm_config.kv_cache_blocks,
+                block_size=llm_config.kv_block_size,
+            )
+            draft = None
+            if llm_config.draft_model is not None:
+                draft_cfg = llm_config.build_draft_model_config()
+                gen = torch.Generator(device=self._device).manual_seed(1)
+                draft = (draft_cfg, init_params(draft_cfg, gen, device=self._device))
+            self._engine = ContinuousBatchingEngine(
+                model_config, params,
+                num_slots=llm_config.max_batch_size,
+                kv_cache=self._kv_cache,
+                seed=llm_config.seed,
+                draft=draft,
+                spec_tokens=llm_config.spec_tokens,
+                prefill_chunk_tokens=llm_config.prefill_chunk_tokens,
+                device=self._device,
+            )
+        else:
+            self._engine = LLMEngine(
+                model_config, params,
+                max_batch_size=llm_config.max_batch_size,
+                seed=llm_config.seed,
+                device=self._device,
+            )
 
     @property
-    def engine(self) -> LLMEngine:
+    def engine(self):
+        """The :class:`LLMEngine` or :class:`ContinuousBatchingEngine`."""
         return self._engine
+
+    def kvcache_stats(self) -> Optional[Dict[str, Any]]:
+        """The KV cache's stats (None on the dense engine)."""
+        if self._kv_cache is None:
+            return None
+        return self._kv_cache.stats()
 
     def _parse_request(self, request: Dict[str, Any]) -> GenerationRequest:
         if request.get("adapter_id") is not None:

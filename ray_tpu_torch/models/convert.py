@@ -11,6 +11,10 @@ The reference's ``scan_layers`` tree stacks every block's parameters under
 ``layers/block/...`` with a leading ``n_layers`` axis. PyTorch has no scan:
 the port loops over blocks (with per-block checkpointing in training), so
 the stacked leaves are unstacked into ``layer_{i}.<path>`` here.
+
+:func:`cache_from_jax` carries the reference's decode cache (its flax
+``cache`` collection) into the port's :class:`~.llama.DecodeCache`, so that
+both sides can start from the same K/V.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import numpy as np
 import torch
 
 from .._internal.device import DeviceLike, resolve_device
-from .llama import LlamaConfig, param_shapes
+from .llama import DecodeCache, LlamaConfig, param_shapes
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -88,3 +92,39 @@ def params_from_jax(
             )
         out[name] = t.to(device=device, dtype=config.param_dtype)
     return out
+
+
+def cache_from_jax(
+    flax_cache: Mapping[str, Any], config: LlamaConfig, device: DeviceLike = None
+) -> DecodeCache:
+    """The port's decode cache from the reference's decode-cache collection
+    (``layer_{i}/attn/{cached_key,cached_value,cache_index}``, leaves as
+    numpy): K/V cast to ``config.dtype``, the index to int32, on ``device``.
+    Layers are found by name, never by leaf order (flax flattens
+    ``layer_10`` before ``layer_2``). Raises on a missing or unknown layer
+    and on a shape that is not the config's."""
+    device = resolve_device(device)
+    names = [f"layer_{i}" for i in range(config.n_layers)]
+    if sorted(flax_cache) != sorted(names):
+        raise KeyError(
+            f"cache layers {sorted(flax_cache)} are not the config's {names}"
+        )
+    parts = {"cached_key": [], "cached_value": [], "cache_index": []}
+    for name in names:
+        attn = flax_cache[name]["attn"]
+        for leaf, out in parts.items():
+            out.append(_to_tensor(attn[leaf]))
+    key, value, index = (torch.stack(parts[leaf]) for leaf in parts)
+    rows = key.shape[1]
+    want = (config.n_layers, rows, config.n_kv_heads, config.max_seq_len,
+            config.head_dim)
+    if key.shape != want or value.shape != want or index.shape != want[:2]:
+        raise ValueError(
+            f"cache K/V {tuple(key.shape)}, {tuple(value.shape)} and index "
+            f"{tuple(index.shape)}: want K/V {want} and index {want[:2]}"
+        )
+    return DecodeCache(
+        key.to(device=device, dtype=config.dtype),
+        value.to(device=device, dtype=config.dtype),
+        index.to(device=device, dtype=torch.int32),
+    )

@@ -15,7 +15,8 @@ are f32, and the logits come out in ``config.dtype``.
 ``Llama.forward(tokens)`` is the full-sequence forward (flash attention,
 the reference's ``decode=False``). ``Llama.forward(tokens, cache)`` is the
 reference's ``decode=True`` path: attention over a dense per-layer KV cache
-(see :class:`LayerCache`) as plain f32 einsum, as in the reference.
+(a :class:`DecodeCache` of :class:`LayerCache` views) as plain f32 einsum,
+as in the reference.
 
 Training: with ``config.remat`` and autograd recording, each block of the
 full-sequence forward runs under ``torch.utils.checkpoint`` and is
@@ -104,17 +105,48 @@ class LayerCache:
     cache_index: torch.Tensor
 
 
-def new_cache(config: LlamaConfig, batch: int, device) -> List[LayerCache]:
-    """An empty cache for ``batch`` rows: one :class:`LayerCache` per layer."""
-    shape = (batch, config.n_kv_heads, config.max_seq_len, config.head_dim)
-    return [
-        LayerCache(
-            torch.zeros(shape, dtype=config.dtype, device=device),
-            torch.zeros(shape, dtype=config.dtype, device=device),
-            torch.zeros((batch,), dtype=torch.int32, device=device),
+class DecodeCache(list):
+    """The decode cache of every layer, stacked: ``key`` and ``value``
+    (n_layers, rows, n_kv_heads, max_seq_len, head_dim) and ``index``
+    (n_layers, rows). Its items are one :class:`LayerCache` per layer, views
+    into those tensors, which the model reads and writes in place. A row
+    copy, a block gather or an index reset is then one op for all layers,
+    not one per layer: serving pays for every launch."""
+
+    def __init__(self, key: torch.Tensor, value: torch.Tensor, index: torch.Tensor):
+        super().__init__(
+            LayerCache(key[i], value[i], index[i]) for i in range(key.shape[0])
         )
-        for _ in range(config.n_layers)
-    ]
+        self.key, self.value, self.index = key, value, index
+
+    def row(self, si: int) -> "DecodeCache":
+        """Row ``si`` as a 1-row cache that shares this one's storage: a
+        decode call on it writes here."""
+        return DecodeCache(
+            self.key[:, si:si + 1], self.value[:, si:si + 1], self.index[:, si:si + 1]
+        )
+
+    def insert_row(self, si: int, row: "DecodeCache") -> None:
+        """Copy a 1-row cache, K/V and write position, into row ``si``."""
+        self.key[:, si].copy_(row.key[:, 0])
+        self.value[:, si].copy_(row.value[:, 0])
+        self.index[:, si].copy_(row.index[:, 0])
+
+    def set_index(self, index: torch.Tensor) -> None:
+        """Set every layer's write position of each row to ``index``
+        (rows,); K/V stay as they are."""
+        self.index.copy_(index.to(self.index)[None].expand_as(self.index))
+
+
+def new_cache(config: LlamaConfig, batch: int, device) -> DecodeCache:
+    """An empty (all-zero) cache for ``batch`` rows."""
+    shape = (config.n_layers, batch, config.n_kv_heads, config.max_seq_len,
+             config.head_dim)
+    return DecodeCache(
+        torch.zeros(shape, dtype=config.dtype, device=device),
+        torch.zeros(shape, dtype=config.dtype, device=device),
+        torch.zeros((config.n_layers, batch), dtype=torch.int32, device=device),
+    )
 
 
 def _param(*shape, dtype) -> nn.Parameter:

@@ -153,10 +153,12 @@ def test_server_answers_like_replica():
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(kv_cache_blocks=16),
+        # the paged engine is ported; the cluster KV tier over it is not
+        dict(kv_cache_blocks=16, kv_tier=True),
         dict(mesh={"tp": 2}),
         dict(tensor_parallel_size=2),
-        dict(draft_model="llama-tiny"),
+        # speculative decoding is ported; adapters beside it are not
+        dict(draft_model="llama-tiny", kv_cache_blocks=16, adapters={"max_live": 2}),
         dict(adapters={"max_live": 2}),
         dict(roles={"prefill": 1, "decode": 1}),
         dict(kv_tier=True),
@@ -167,6 +169,36 @@ def test_server_answers_like_replica():
 def test_later_slice_features_raise(kwargs):
     with pytest.raises(NotImplementedError, match="slice"):
         LLMConfig(**kwargs)
+
+
+@pytest.mark.parametrize(
+    "kwargs, match",
+    [
+        (dict(draft_model="llama-tiny"), "kv_cache_blocks"),
+        (dict(prefill_chunk_tokens=256), "kv_cache_blocks"),
+        (dict(spec_tokens=4, kv_cache_blocks=32), "draft_model"),
+        (dict(prefill_chunk_tokens=-1, kv_cache_blocks=32), "prefill_chunk_tokens"),
+    ],
+    ids=["spec_without_pool", "chunked_without_pool", "spec_without_draft",
+         "negative_chunk"],
+)
+def test_paged_feature_guards_like_reference(kwargs, match):
+    with pytest.raises(ValueError, match=match):
+        JaxLLMConfig(**kwargs)
+    with pytest.raises(ValueError, match=match):
+        LLMConfig(**kwargs)
+
+
+def test_draft_config_like_reference():
+    kw = dict(draft_model="llama-tiny", kv_cache_blocks=32, max_seq_len=96,
+              draft_model_kwargs={"n_layers": 1})
+    cfg, ref = LLMConfig(**kw), JaxLLMConfig(**kw)
+    assert cfg.spec_tokens == ref.spec_tokens == 4
+    draft, ref_draft = cfg.build_draft_model_config(), ref.build_draft_model_config()
+    assert (draft.n_layers, draft.dim, draft.vocab_size, draft.max_seq_len) == (
+        ref_draft.n_layers, ref_draft.dim, ref_draft.vocab_size, ref_draft.max_seq_len
+    ) == (1, 128, 256, 96)
+    assert LLMConfig().build_draft_model_config() is None
 
 
 def test_build_model_config_tiny_suffix_rule():
@@ -227,3 +259,17 @@ def test_no_card_means_error_not_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LLMServer(LLMConfig(model_id="llama-tiny", max_seq_len=32))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_no_card_means_error_on_the_paged_server(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = LLMConfig(model_id="llama-tiny", max_seq_len=32, kv_cache_blocks=4,
+                    kv_block_size=8, draft_model="llama-tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LLMServer(cfg)
+    params = {"w": torch.zeros(1)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LLMServer(cfg, params=params)
+    server = LLMServer(cfg, device="cpu")
+    assert server.engine._device == torch.device("cpu")
+    assert server.kvcache_stats()["capacity"] == 4
