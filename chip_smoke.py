@@ -41,8 +41,23 @@ Phases, each of which exits non-zero on failure:
   9. speculation (k=4, the 7B target as its own draft) and chunked prefill
      (an 896-token prompt arriving beside 7 decoding requests, which must
      each emit a token in every step) at full width in bf16;
-  10. the device busy share of one served request, under torch.profiler;
-  11. the training path: TorchTrainer.fit() of the llama_lora loop at full
+  10. multi-tenant LoRA serving (LLMServer with kv_cache_blocks and
+     adapters, on phase 5's weights; ``serve_lora``): 4 adapters of rank 16
+     on every wq/wk/wv/wo from numpy seeds, prewarmed into 8 slots; phase
+     7's 16 requests, request i naming tenant i % 5 (0: the base model),
+     with the exact salted prefix accounting (one miss per key space) and K1
+     launched 65 times per model call; in one pooled step with mixed slots
+     the base rows' logits equal those of the same step with every slot at
+     -1, and the adapter rows' logits differ from them; adapter rows against
+     one model per tenant with the same A and B as static LoRA weights; a
+     base-only pooled step with a store launches what phase 7's step
+     launched; the pooled step's time, launches and busy share with mixed
+     slots against all -1; TTFT of a tenant's miss and hit; then, at 2
+     layers in f32 activations, greedy tokens of a mixed batch equal each
+     tenant served alone, LLMPredictor, and the speculative and chunked
+     engines with adapters; and LLMPredictor at 7B over 8 rows;
+  11. the device busy share of one served request, under torch.profiler;
+  12. the training path: TorchTrainer.fit() of the llama_lora loop at full
      Llama-2-7B width (bf16 weights, seq 2048, batch 2, LoRA rank 16) for 2
      epochs of 2 steps, with its checkpoint and exact per-step launch counts;
      then 3 timed warm steps of lora_train_step and the device busy share of
@@ -51,8 +66,9 @@ Phases, each of which exits non-zero on failure:
      per-step counts.
 Main paths: the launch counters are set to 0 just before phase 5 and read
 just after phase 6 (serving), set to 0 just before phase 7 and read just
-after phase 9 (continuous batching, ``serve_cb``), and set to 0 just before
-phase 11's fit() and read just after it (training). The last lines are a
+after phase 9 (continuous batching, ``serve_cb``), set to 0 just before
+phase 10 and read just after it (``serve_lora``), and set to 0 just before
+phase 12's fit() and read just after it (training). The last lines are a
 JSON line of the kernels and the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -82,6 +98,10 @@ N_REQUESTS, PROMPT_LEN, NEW_TOKENS = 4, 128, 32
 CB = {"slots": 8, "blocks": 256, "block": 32, "max_seq_len": 1024}
 CB_REQUESTS, CB_PREFIX, CB_OWN = 16, 256, 64
 CB_LONG = 896  # the chunked phase's long prompt
+# multi-tenant LoRA: 4 adapters of rank 16 (alpha 16, so lora_b is scaled by
+# 1) in a bank of 8 slots; request i of the serve_cb traffic names tenant
+# i % 5, tenant 0 being the base model
+LORA = {"max_live": 8, "rank": 16, "alpha": 16.0, "tenants": 4, "lora_b_std": 0.1}
 # the training path: llama_lora's "7b" loop, 2 epochs of 2 steps
 TRAIN_CONFIG = {"model": "7b", "seq": 2048, "batch_per_worker": 2, "lora_rank": 16,
                 "epochs": 2, "steps_per_epoch": 2}
@@ -154,6 +174,15 @@ def rmsnorm_phase(torch, F):
         ((CB["block"], 4096), torch.bfloat16),
         ((CB_PREFIX + CB_OWN, 4096), torch.bfloat16),
         ((CB_LONG, 4096), torch.bfloat16),
+        # the serve_lora path's rows besides those: LLMPredictor's grouped
+        # prefill, and the static-LoRA models' prefills of one and two
+        # tenants' rows; its 2-layer parity engines run f32 at width 4096
+        # (a prompt's suffix, the pooled step)
+        ((CB["slots"] * PROMPT_LEN, 4096), torch.bfloat16),
+        ((CB_OWN, 4096), torch.bfloat16),
+        ((2 * CB_OWN, 4096), torch.bfloat16),
+        ((CB_OWN, 4096), torch.float32),
+        ((CB["slots"], 4096), torch.float32),
         ((300, 1024), torch.float16),
         ((7, 128), torch.float32),
     ]
@@ -910,6 +939,376 @@ def cb_spec_chunk_phase(torch, np, params):
     return out
 
 
+def lora_tree(np, cfg, seed):
+    """One tenant's adapter from a numpy seed, nested as the reference's
+    trees are (numpy leaves): rank LORA["rank"] on every wq/wk/wv/wo,
+    lora_a with variance 1/in (lecun, as init_params draws it) and lora_b
+    normal with std LORA["lora_b_std"]: each projection's delta is then
+    about 0.4 of its base output (4 x 0.1 over the 16 ranks), so adapter
+    rows move far from the base model's."""
+    from ray_tpu_torch.lora import adapter_target_paths
+
+    rng, r = np.random.default_rng(seed), LORA["rank"]
+    tree = {}
+    for path, d_in, d_out in adapter_target_paths(cfg):
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = {
+            "lora_a": rng.standard_normal((d_in, r), dtype=np.float32) / np.sqrt(d_in),
+            "lora_b": rng.standard_normal((r, d_out), dtype=np.float32) * LORA["lora_b_std"],
+        }
+    return tree
+
+
+def _lora_static_params(torch, tree, device):
+    """A tenant's adapter as static LoRADense weights (flat port keys, bf16)."""
+    out = {}
+    for layer, sub in tree.items():
+        for name, factors in sub["attn"].items():
+            for factor, value in factors.items():
+                out[f"{layer}.attn.{name}.{factor}"] = torch.from_numpy(value).to(
+                    device, torch.bfloat16)
+    return out
+
+
+def serve_lora_phase(torch, np, params, cb_out):
+    """Multi-tenant LoRA serving at 7B width through LLMServer with an
+    adapter store, on the serve_cb weights (shared, not copied)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ray_tpu_torch.llm import AdapterConfig, GenerationRequest, LLMConfig, LLMEngine, LLMServer
+    from ray_tpu_torch.llm import LLMPredictor
+    from ray_tpu_torch.ops.rmsnorm import rmsnorm_fwd
+
+    adapters = AdapterConfig(max_live=LORA["max_live"], slot_rank=LORA["rank"], alpha=LORA["alpha"])
+    server = LLMServer(LLMConfig(
+        model_id="llama2-7b", max_seq_len=CB["max_seq_len"], max_batch_size=CB["slots"],
+        kv_cache_blocks=CB["blocks"], kv_block_size=CB["block"],
+        model_kwargs={"param_dtype": torch.bfloat16}, adapters=adapters,
+    ), params=params)
+    engine, cfg, store = server.engine, server.engine._cfg, server.adapter_store
+    check(engine._params is params, "the LoRA server copied the weights")
+    tenants = [f"tenant_{i}" for i in range(1, LORA["tenants"] + 1)]
+    trees = {t: lora_tree(np, cfg, SEED + 10 + i) for i, t in enumerate(tenants)}
+    n_adapter = sum(v.size for sub in trees[tenants[0]].values()
+                    for fs in sub["attn"].values() for v in fs.values())
+    check(n_adapter == cfg.n_layers * 4 * 2 * cfg.dim * LORA["rank"],
+          f"an adapter holds {n_adapter} parameters")
+    attach_ms = {}
+    for t in tenants:
+        store.prewarm(t, trees[t])
+        attach_ms[t] = store.stats()["last_attach_ms"]
+    bank_bytes = sum(x.numel() * x.element_size() for f in store.bank().values() for x in f.values())
+    print("serve_lora: prewarm last_attach_ms", json.dumps(attach_ms))
+
+    def tenant(i):  # request i names tenant i % 5; 0 is the base model
+        return None if i % (len(tenants) + 1) == 0 else tenants[i % (len(tenants) + 1) - 1]
+
+    rng = np.random.default_rng(SEED + 8)
+
+    def tokens(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    # warm-up (cuBLAS, allocator), an adapter request and a base one, each
+    # on a prefix of its own
+    for aid in (tenants[0], None):
+        server({"token_ids": tokens(CB_PREFIX + CB_OWN), "max_new_tokens": 2, "adapter_id": aid})
+    torch.cuda.synchronize()
+
+    # the serve_cb traffic, each wave on a prefix of its own: request i
+    # names tenant i % 5 in the mixed wave, no adapter in the base-only
+    # waves before and after it (tokens/s compared on one server, in one
+    # phase: host time drifts between phases)
+    per_call = 2 * cfg.n_layers + 1
+
+    def wave(tenant_of):
+        prefix = tokens(CB_PREFIX)
+        prompts = [prefix + tokens(CB_OWN) for _ in range(CB_REQUESTS)]
+        before, calls0, k1_0 = server.kvcache_stats(), engine.forward_calls, rmsnorm_fwd.launches
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(CB["slots"]) as pool:
+            answers = list(pool.map(lambda i: server({
+                "token_ids": prompts[i], "max_new_tokens": NEW_TOKENS, "temperature": 0.0,
+                "adapter_id": tenant_of(i)}), range(CB_REQUESTS)))
+        wall = time.perf_counter() - t0
+        for a in answers:
+            check(a["num_prompt_tokens"] == CB_PREFIX + CB_OWN and len(a["token_ids"]) == NEW_TOKENS
+                  and a["finished_reason"] == "length", f"bad LoRA answer {a}")
+            check(all(0 <= t < cfg.vocab_size for t in a["token_ids"]), "token out of range")
+        after = server.kvcache_stats()
+        hit = after["prefix_hit_tokens"] - before["prefix_hit_tokens"]
+        computed = after["prefill_tokens_computed"] - before["prefill_tokens_computed"]
+        # one miss a key space: a tenant's, or the base model's
+        spaces = len({tenant_of(i) for i in range(CB_REQUESTS)})
+        check(hit == (CB_REQUESTS - spaces) * CB_PREFIX, f"salted prefix hit tokens {hit}")
+        check(computed == spaces * (CB_PREFIX + CB_OWN) + (CB_REQUESTS - spaces) * CB_OWN,
+              f"salted prefill tokens computed {computed}")
+        check(after["blocks_in_use"] == after["index_nodes"], "lease pins left in the KV pool")
+        check(store.stats()["slots_pinned"] == 0, f"adapter pins left: {store.stats()}")
+        calls, k1 = engine.forward_calls - calls0, rmsnorm_fwd.launches - k1_0
+        check(k1 == per_call * calls, f"K1 launched {k1} times in {calls} model calls, "
+                                      f"want {per_call} each")
+        return dict(wall_s=wall, tokens_per_s=CB_REQUESTS * NEW_TOKENS / wall, hit=hit,
+                    computed=computed, calls=calls, k1=k1)
+
+    waves = [wave(lambda i: None), wave(tenant), wave(lambda i: None)]
+    mixed_wave = waves[1]
+    wall, hit, computed = mixed_wave["wall_s"], mixed_wave["hit"], mixed_wave["computed"]
+    calls, k1 = mixed_wave["calls"], mixed_wave["k1"]
+    base_tps = [waves[0]["tokens_per_s"], waves[2]["tokens_per_s"]]
+
+    # the pooled step, 8 rows: base, 4 tenants, base, 2 tenants
+    leases = [store.acquire(tenant(i)) if tenant(i) else None for i in range(CB["slots"])]
+    for i, lease in enumerate(leases):
+        engine.add_request(GenerationRequest(
+            token_ids=tokens(CB_OWN), max_new_tokens=48, adapter_id=tenant(i),
+            adapter_slot=lease.slot if lease else -1))
+    _step_until(engine, lambda: len(engine._slots) == CB["slots"] and not engine._pending)
+    mixed = engine._row_adapter_slots().tolist()
+    base_rows = [r for r, sl in enumerate(mixed) if sl < 0]
+    lora_rows = [r for r, sl in enumerate(mixed) if sl >= 0]
+    check(len(base_rows) == 2 and len(lora_rows) == 6, f"pooled slots {mixed}")
+    requests = {si: sl.request for si, sl in engine._slots.items()}
+
+    def set_slots(slots):
+        for si, req in requests.items():
+            req.adapter_slot = slots[si]
+
+    # one pooled step's logits with mixed slots, then with every slot at -1,
+    # from the same cache positions
+    idx0 = engine._cache.index.clone()
+    last = engine._tokens([[engine._slots[si].last_token] for si in range(CB["slots"])])
+    step_logits = {}
+    for kind, slots in (("mixed", mixed), ("base", [-1] * CB["slots"])):
+        engine._cache.index.copy_(idx0)
+        step_logits[kind] = engine._forward(last, engine._cache, slots)[:, -1].float()
+    engine._cache.index.copy_(idx0)
+    check(torch.equal(step_logits["mixed"][base_rows], step_logits["base"][base_rows]),
+          "base rows of a mixed pooled step differ from the all-base step")
+    step_effect = (step_logits["mixed"] - step_logits["base"])[lora_rows].abs().max().item()
+
+    # the timed steps, mixed and all -1 in turns (host time drifts within a
+    # run), then one profiled step of each
+    step_ms = {"mixed": [], "base": []}
+    for i in range(32):
+        kind = "mixed" if i % 2 == 0 else "base"
+        set_slots(mixed if kind == "mixed" else [-1] * CB["slots"])
+        t0 = time.perf_counter()
+        engine.step()  # ends in the host transfer of the sampled tokens
+        step_ms[kind].append((time.perf_counter() - t0) * 1e3)
+    check(len(engine._slots) == CB["slots"], "a slot left the timed LoRA steps")
+    profiles = {}
+    for kind in ("base", "mixed"):
+        set_slots(mixed if kind == "mixed" else [-1] * CB["slots"])
+        profiles[kind] = device_profile(torch, engine.step)
+    set_slots(mixed)
+    engine.run_until_complete()
+    for lease in leases:
+        store.release(lease)
+    base_launches = profiles["base"]["kernel_launches"]
+    check(base_launches == cb_out["step_profile"]["kernel_launches"],
+          f"a base-only pooled step with a store launched {base_launches} kernels, the "
+          f"serve_cb step {cb_out['step_profile']['kernel_launches']}")
+    # the adapter path of one call: one gather per factor and projection,
+    # then bmm and baddbmm_ per projection and layer
+    extra_ops = {op: profiles["mixed"]["host_ops"][op] - profiles["base"]["host_ops"][op]
+                 for op in HOST_OPS}
+    want_ops = {"aten::bmm": 4 * cfg.n_layers, "aten::baddbmm_": 4 * cfg.n_layers,
+                "aten::index": 8}
+    check(extra_ops == want_ops, f"the adapter path ran {extra_ops}, want {want_ops}")
+    extra_launches = profiles["mixed"]["kernel_launches"] - base_launches
+    check(extra_launches >= sum(want_ops.values()),
+          f"the adapter path launched {extra_launches} kernels for {want_ops}")
+
+    # adapter rows at full width against one model per tenant with the same
+    # A and B as static LoRA weights (rank 16, alpha 16: the same scale 1),
+    # over a fresh cache: a decode-mode prefill of 8 rows of 64 tokens
+    rows_t = engine._tokens([tokens(CB_OWN) for _ in range(CB["slots"])])
+    gathered, _ = engine._prefill(rows_t, mixed)
+    base_pre, _ = engine._prefill(rows_t)
+    check(torch.equal(gathered[base_rows], base_pre[base_rows]),
+          "base rows of a mixed prefill differ from the all-base prefill")
+    static_cfg = dataclasses.replace(cfg, lora_rank=LORA["rank"], lora_alpha=LORA["alpha"])
+    static = {"max_abs_err": 0.0, "max_abs_logit": 0.0, "min_effect": float("inf")}
+    for t in tenants:
+        rows = [r for r in lora_rows if tenant(r) == t]
+        s_eng = LLMEngine(static_cfg, {**params, **_lora_static_params(
+            torch, trees[t], params["embed"].device)})
+        want, _ = s_eng._prefill(rows_t[rows])
+        want, got = want.float(), gathered[rows].float()
+        static["max_abs_err"] = max(static["max_abs_err"], (got - want).abs().max().item())
+        static["max_abs_logit"] = max(static["max_abs_logit"], want.abs().max().item())
+        static["min_effect"] = min(static["min_effect"],
+                                   (got - base_pre[rows].float()).abs().max().item())
+        del s_eng
+    # tolerance: the two paths run the same bf16 weights and activations and
+    # round the adapter's product differently (static: x@A, then @B, then the
+    # add, each rounded to bf16; gathered: x@A, then @B added inside the
+    # product and rounded once), one rounding step of bf16 per projection and
+    # layer; like the full forward against the prefill (forward phase), that
+    # stays within 5% of the largest logit after 32 layers (2.2-2.3% at
+    # widths 512 and 1024 with 32 layers on the CPU)
+    tol = 0.05 * static["max_abs_logit"]
+    check(static["max_abs_err"] <= tol,
+          f"adapter rows vs static LoRA: max_abs_err {static['max_abs_err']} > {tol}")
+    # "far more than the tolerance": at least 4x, in the prefill and the step
+    check(static["min_effect"] >= 4 * tol and step_effect >= 4 * tol,
+          f"adapters moved the logits by {static['min_effect']} / {step_effect}, "
+          f"want at least {4 * tol}")
+
+    # TTFT of a tenant's miss, then of its hit sharing 480 of 512 tokens
+    def ttft(prompt):
+        t0 = time.perf_counter()
+        items = server.stream({"token_ids": prompt, "max_new_tokens": 4, "adapter_id": tenants[0]})
+        next(items)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        final = list(items)[-1]
+        check(final.get("finished") and len(final["token_ids"]) == 4, f"bad stream end {final}")
+        return first_ms
+
+    miss = tokens(512)
+    s0 = server.kvcache_stats()
+    ttft_miss = ttft(miss)
+    s1 = server.kvcache_stats()
+    ttft_hit = ttft(miss[:480] + tokens(32))
+    s2 = server.kvcache_stats()
+    check(s1["prefix_hit_tokens"] == s0["prefix_hit_tokens"], "the tenant's miss hit the cache")
+    check(s2["prefix_hit_tokens"] - s1["prefix_hit_tokens"] == 480, "the tenant's hit was not 480")
+    stats = server.adapters_stats()
+    del server, engine, store
+    torch.cuda.empty_cache()
+
+    parity = lora_parity_phase(torch, np, params, trees)
+
+    # LLMPredictor at 7B: one batch of 8 rows over the 4 tenants and the
+    # base, its adapters attached cold from a callable source
+    pred = LLMPredictor(LLMConfig(
+        model_id="llama2-7b", max_seq_len=CB["max_seq_len"], max_batch_size=CB["slots"],
+        max_new_tokens=16, kv_cache_blocks=1, model_kwargs={"param_dtype": torch.bfloat16},
+        adapters=dataclasses.replace(adapters, source=trees.__getitem__),
+    ), params=params)
+    batch = {"token_ids": [tokens(PROMPT_LEN) for _ in range(CB["slots"])],
+             "adapter_id": [tenant(i) for i in range(CB["slots"])]}
+    t0 = time.perf_counter()
+    generated = pred(batch)["generated"]
+    pred_s = time.perf_counter() - t0
+    check(all(len(g) == 16 and all(0 <= t < cfg.vocab_size for t in g) for g in generated),
+          "bad LLMPredictor rows")
+    pred_stats = pred.adapter_store.stats()
+    check(pred_stats["cold_attaches"] == len(tenants) and pred_stats["slots_pinned"] == 0,
+          f"LLMPredictor store {pred_stats}")
+    del pred
+    torch.cuda.empty_cache()
+
+    out = dict(
+        tenants=len(tenants), rank=LORA["rank"], max_live=LORA["max_live"],
+        adapter_params=n_adapter, bank_bytes=bank_bytes, prewarm_last_attach_ms=attach_ms,
+        requests=CB_REQUESTS, threads=CB["slots"], new_tokens=NEW_TOKENS, wall_s=wall,
+        tokens_per_s=CB_REQUESTS * NEW_TOKENS / wall, serve_cb_tokens_per_s=cb_out["tokens_per_s"],
+        base_only_tokens_per_s=base_tps,
+        tokens_per_s_over_base_only=CB_REQUESTS * NEW_TOKENS / wall / statistics.mean(base_tps),
+        base_only_waves=[waves[0], waves[2]],
+        prefix_hit_tokens=hit, prefill_tokens_computed=computed, model_calls=calls,
+        rmsnorm_launches=k1,
+        step_ms_mixed=statistics.median(step_ms["mixed"]),
+        step_ms_base=statistics.median(step_ms["base"]),
+        step_ms_all=step_ms, step_launches_mixed=profiles["mixed"]["kernel_launches"],
+        step_launches_base=base_launches,
+        step_launches_serve_cb=cb_out["step_profile"]["kernel_launches"],
+        adapter_path_ops=extra_ops, adapter_path_launches=extra_launches,
+        step_profile_mixed=profiles["mixed"], step_profile_base=profiles["base"],
+        base_rows_equal=True, adapter_effect_step=step_effect, static_lora=static, tol=tol,
+        ttft_ms_miss_512=ttft_miss, ttft_ms_hit_480_of_512=ttft_hit, adapter_stats=stats,
+        predictor_rows=CB["slots"], predictor_new_tokens=16, predictor_s=pred_s,
+        predictor_stats=pred_stats, parity=parity,
+    )
+    print("serve_lora", json.dumps(out))
+    return out
+
+
+def lora_parity_phase(torch, np, params, trees):
+    """Greedy tokens at 2 layers of the 7B weights with f32 activations: a
+    mixed batch of tenants and base rows, several sharing one prompt, equals
+    each request served alone (LLMEngine with the store), on the paged, the
+    chunked (128) and the speculative (k=4, the base target as draft)
+    engines, and LLMPredictor on the same rows."""
+    from ray_tpu_torch.kvcache import KVCacheManager
+    from ray_tpu_torch.llm import (AdapterConfig, ContinuousBatchingEngine, GenerationRequest,
+                                   LLMConfig, LLMEngine, LLMPredictor)
+    from ray_tpu_torch.lora import AdapterStore
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.llama2_7b(n_layers=2, max_seq_len=512, dtype=torch.float32,
+                                param_dtype=torch.bfloat16)
+    params2 = {k: v for k, v in params.items()
+               if not k.startswith("layer_") or k.split(".")[0] in ("layer_0", "layer_1")}
+    store = AdapterStore(cfg, max_live=LORA["max_live"], rank=LORA["rank"], alpha=LORA["alpha"])
+    for t, tree in trees.items():
+        store.prewarm(t, tree)  # the 32-layer trees: the store reads layers 0 and 1
+    t1, t2, t3, t4 = trees
+    rng = np.random.default_rng(SEED + 9)
+    shared = rng.integers(0, cfg.vocab_size, 96).tolist()
+    p = {n: shared + rng.integers(0, cfg.vocab_size, n).tolist() for n in (9, 40, 70)}
+    rows = [(t1, p[9]), (t2, p[9]), (None, p[9]), (t3, p[40]), (t4, p[40]), (t1, p[70]),
+            (None, rng.integers(0, cfg.vocab_size, 20).tolist())]
+
+    def requests():
+        leases = [store.acquire(t) if t else None for t, _ in rows]
+        return [GenerationRequest(token_ids=q, max_new_tokens=24, adapter_id=t,
+                                  adapter_slot=lease.slot if lease else -1)
+                for (t, q), lease in zip(rows, leases)], leases
+
+    def release(leases):
+        for lease in leases:
+            store.release(lease)
+
+    reqs, leases = requests()
+    alone = LLMEngine(cfg, params2, adapter_store=store)
+    want = [alone.generate([r])[0].token_ids for r in reqs]
+    release(leases)
+    check(want[0] != want[2] and want[0] != want[1], "adapters did not move the greedy tokens")
+    cases = {
+        "paged": {},
+        "chunked_128": {"prefill_chunk_tokens": 128},
+        "spec_k4_base_draft": {"draft": (cfg, params2), "spec_tokens": 4},
+    }
+    out = {}
+    for name, kw in cases.items():
+        kv = KVCacheManager(64, CB["block"])
+        engine = ContinuousBatchingEngine(cfg, params2, num_slots=CB["slots"], kv_cache=kv,
+                                          seed=0, adapter_store=store, **kw)
+        for _ in range(2):  # the second run hits every key space's cached blocks
+            reqs, leases = requests()
+            got = [r.token_ids for r in engine.generate(reqs)]
+            release(leases)
+            check(got == want, f"LoRA {name}: greedy tokens differ from each tenant alone")
+            check(kv.blocks_in_use == kv.stats()["index_nodes"], f"LoRA {name}: lease pins left")
+        row = dict(tokens_equal=True, prefix_hit_tokens=kv.stats()["prefix_hit_tokens"])
+        if "draft" in kw:
+            row["acceptance"] = engine.spec_accepted / engine.spec_proposed
+        out[name] = row
+        del engine, kv
+    pred = LLMPredictor(LLMConfig(
+        model_id="llama2-7b", max_seq_len=512, max_new_tokens=24, max_batch_size=CB["slots"],
+        kv_cache_blocks=1, model_kwargs={"n_layers": 2, "dtype": torch.float32,
+                                         "param_dtype": torch.bfloat16},
+        adapters=AdapterConfig(max_live=LORA["max_live"], slot_rank=LORA["rank"],
+                               alpha=LORA["alpha"], source=trees.__getitem__),
+    ), params=params2)
+    got = pred({"token_ids": [q for _, q in rows], "adapter_id": [t for t, _ in rows]})
+    check(got["generated"] == want, "LLMPredictor's greedy tokens differ from each tenant alone")
+    out["predictor"] = dict(tokens_equal=True)
+    check(store.stats()["slots_pinned"] == 0, "adapter pins left in the parity store")
+    del pred, store, alone
+    torch.cuda.empty_cache()
+    return out
+
+
+# the aten ops of the adapter path, counted in a profiled call
+HOST_OPS = ("aten::bmm", "aten::baddbmm_", "aten::index")
+
+
 # the port's kernels in a profile, by a part of their CUDA symbol
 # (the forward: flash_fwd_tc_kernel in bf16/f16, flash_fwd_kernel in f32)
 PORT_KERNELS = {"rmsnorm_fwd": "rmsnorm_fwd_kernel", "flash_attention_fwd": "flash_fwd_",
@@ -948,10 +1347,14 @@ def device_profile(torch, fn):
     for name, symbol in PORT_KERNELS.items():
         mine = [e for e in kernels if symbol in e.name]
         port[name] = {"ms": sum(e.device_time for e in mine) / 1e3, "launches": len(mine)}
+    host_ops = {op: 0 for op in HOST_OPS}
+    for e in prof.key_averages():
+        if e.key in host_ops:
+            host_ops[e.key] = e.count
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, kernel_launches=len(kernels),
                 device_busy_share=busy_ms / wall_ms if busy_ms else None,
                 top_kernels_ms=[[name[:80], ms] for name, ms in top], port_kernels=port,
-                pad_kernels_lost=pads_lost)
+                pad_kernels_lost=pads_lost, host_ops=host_ops)
 
 
 def profile_phase(torch, server, prompt):
@@ -1097,7 +1500,7 @@ def main() -> None:
     # three phases; it runs K1 only (decode-mode attention throughout)
     for fn in counters.values():
         fn.launches = 0
-    cb_serve_phase(torch, np, server, serve)
+    cb = cb_serve_phase(torch, np, server, serve)
     torch.cuda.empty_cache()
     cb_parity_phase(torch, np, server.engine._params)
     cb_spec_chunk_phase(torch, np, server.engine._params)
@@ -1105,6 +1508,16 @@ def main() -> None:
     check(cb_launches["rmsnorm_fwd"] > 0, "rmsnorm_fwd was not launched on the serve_cb path")
     for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         check(cb_launches[name] == 0, f"{name} was launched on the serve_cb path")
+
+    # the multi-tenant LoRA path: counts set to 0 here, read after its phase;
+    # it runs K1 only, as serve_cb does
+    for fn in counters.values():
+        fn.launches = 0
+    serve_lora_phase(torch, np, server.engine._params, cb)
+    lora_launches = {name: fn.launches for name, fn in counters.items()}
+    check(lora_launches["rmsnorm_fwd"] > 0, "rmsnorm_fwd was not launched on the serve_lora path")
+    for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(lora_launches[name] == 0, f"{name} was launched on the serve_lora path")
     profile_phase(torch, server, prompts[1])
     del server  # the training phase's peak memory is its own
     torch.cuda.empty_cache()
@@ -1112,7 +1525,8 @@ def main() -> None:
     # the training path: counts set to 0 inside train_phase just before
     # fit() and read just after it
     train_launches, _ = train_phase(torch, counters)
-    paths = {"serve": serve_launches, "serve_cb": cb_launches, "train": train_launches}
+    paths = {"serve": serve_launches, "serve_cb": cb_launches, "serve_lora": lora_launches,
+             "train": train_launches}
     launches = {name: sum(p[name] for p in paths.values()) for name in counters}
 
     def entry(name, source, replaces, rows):

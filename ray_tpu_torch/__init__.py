@@ -14,7 +14,12 @@ Covered so far:
 - LoRA fine-tuning of Llama: ``train.TorchTrainer(...).fit()`` ->
   ``train.examples.llama_lora`` -> ``models.llama.next_token_loss`` ->
   ``loss.backward()`` through the flash-attention backward kernels -> AdamW
-  on the adapters.
+  on the adapters;
+- continuous batching over the paged prefix KV cache (``kvcache``), with
+  chunked prefill and speculative decoding;
+- multi-tenant LoRA serving: ``llm.LLMConfig(adapters=...)`` ->
+  ``lora.AdapterStore`` slot bank -> batched-gather ``LoRADense`` in every
+  model call; ``llm.LLMPredictor`` for batches with per-row adapters.
 
 Every Pallas kernel of ``ray_tpu`` now has its CUDA counterpart. The package
 imports neither JAX nor ``ray_tpu``.

@@ -1,6 +1,7 @@
-"""LLM serving on the card: config, engines and server."""
+"""LLM serving on the card: config, engines, server and batch predictor."""
 
-from .config import LLMConfig
+from .batch import LLMPredictor
+from .config import AdapterConfig, LLMConfig
 from .engine import (
     ContinuousBatchingEngine,
     GenerationRequest,
@@ -10,10 +11,12 @@ from .engine import (
 from .serving import LLMServer
 
 __all__ = [
+    "AdapterConfig",
     "ContinuousBatchingEngine",
     "GenerationRequest",
     "GenerationResult",
     "LLMConfig",
     "LLMEngine",
+    "LLMPredictor",
     "LLMServer",
 ]

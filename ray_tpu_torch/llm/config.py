@@ -1,12 +1,15 @@
 """LLM deployment configuration: the port of ray_tpu/llm/config.py.
 
-Carries the fields the serving paths read: the dense engine, and the
+Carries the fields the serving paths read: the dense engine, the
 continuous-batching engine over the paged KV cache (``kv_cache_blocks``)
 with speculative decoding (``draft_model``) and chunked prefill
-(``prefill_chunk_tokens``). The fields of features that later slices of the
-port bring (tensor/sequence parallel meshes, multi-tenant adapters,
-disaggregated roles, the cluster KV tier, MoE) are accepted so that a config
-written for ray_tpu reads the same, and asking for any of them raises.
+(``prefill_chunk_tokens``), and multi-tenant LoRA adapters (``adapters``).
+Every field of the reference's config is a field here, with its default
+and its checks, so that a config written for ray_tpu reads the same. The
+fields of features that later slices of the port bring (tensor/sequence
+parallel meshes, disaggregated roles, the cluster KV tier, MoE, the serve
+control plane's replicas and autoscaling, the weight plane's quantized
+publishes) are accepted, and asking for any of them raises.
 """
 
 from __future__ import annotations
@@ -14,7 +17,41 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
+from ..exceptions import MeshValidationError
 from ..models.llama import LlamaConfig
+
+
+@dataclass
+class AdapterConfig:
+    """Multi-tenant LoRA serving (ray_tpu_torch.lora): each server keeps an
+    :class:`~ray_tpu_torch.lora.AdapterStore` of ``max_live`` slots on the
+    card at rank ``slot_rank``; requests name an adapter by an explicit
+    ``adapter_id`` field. A cold adapter refills from ``source``: a
+    callable ``source(adapter_id) -> adapter tree``, or None to serve only
+    prewarmed adapters. ``"weights:<prefix>"`` passes this check, as in the
+    reference, but refilling from it raises until the weight plane is
+    ported."""
+
+    max_live: int = 8  # resident adapter slots per server
+    slot_rank: int = 8  # the bank-wide LoRA rank (fixed: slots are paged)
+    alpha: float = 16.0  # lora_b is pre-scaled by alpha/rank at attach
+    source: Optional[Any] = None  # "weights:<prefix>" | callable | None
+    # acquire() retry budget when every slot is pinned before the server
+    # raises BackPressureError
+    acquire_timeout_s: float = 5.0
+
+    def __post_init__(self):
+        if self.max_live < 1:
+            raise ValueError("AdapterConfig.max_live must be >= 1")
+        if self.slot_rank < 1:
+            raise ValueError("AdapterConfig.slot_rank must be >= 1")
+        if self.source is not None and not (
+            callable(self.source) or str(self.source).startswith("weights:")
+        ):
+            raise ValueError(
+                'AdapterConfig.source must be "weights:<prefix>" or a '
+                f"callable, got {self.source!r}"
+            )
 
 
 @dataclass
@@ -45,21 +82,68 @@ class LLMConfig:
     # prompt interleaves with in-flight decodes; 0 = prefill runs to
     # completion at admission. Requires kv_cache_blocks.
     prefill_chunk_tokens: int = 0
+    # multi-tenant LoRA (ray_tpu_torch.lora): an AdapterConfig, or its
+    # dict form, gives the server an adapter slot bank and serves batches
+    # whose rows name different adapters. Requires kv_cache_blocks.
+    adapters: Optional[AdapterConfig] = None
+    # read by the reference's serve router (prefix-affinity routing over
+    # the leading tokens; 0 disables); the port has no router yet
+    prefix_affinity_tokens: int = 16
     # later slices of the port
     tensor_parallel_size: int = 1
     sequence_parallel_size: int = 1
     mesh: Optional[Dict[str, int]] = None
-    adapters: Any = None
     roles: Optional[Dict[str, int]] = None
     kv_tier: bool = False
+    kv_ship_codec: str = "raw"  # "raw" | "int8", for the KV tier's shipments
+    num_replicas: int = 1
+    autoscaling_config: Optional[Dict[str, Any]] = None
+    autoscale_policy: Optional[Dict[str, Any]] = None
+    resources_per_replica: Dict[str, float] = field(
+        default_factory=lambda: {"TPU": 0.0, "CPU": 1.0}
+    )
+    quantized: bool = False
 
     def __post_init__(self):
+        # the reference's checks of values come before any not-ported raise
+        if self.mesh is not None:
+            unknown = set(self.mesh) - {"tp", "sp"}
+            if unknown:
+                raise MeshValidationError(
+                    f"LLMConfig.mesh axes {sorted(unknown)} not supported "
+                    "for serving replicas; use 'tp' (tensor parallel) "
+                    "and/or 'sp' (sequence parallel)"
+                )
+            for axis, size in self.mesh.items():
+                if not isinstance(size, int) or size < 1:
+                    raise MeshValidationError(
+                        f"LLMConfig.mesh[{axis!r}] must be a positive "
+                        f"int, got {size!r}"
+                    )
+        if self.kv_ship_codec not in ("raw", "int8"):
+            raise ValueError(
+                f"LLMConfig.kv_ship_codec must be 'raw' or 'int8', got "
+                f"{self.kv_ship_codec!r}"
+            )
+        if self.roles is not None:
+            unknown = set(self.roles) - {"prefill", "decode"}
+            if unknown:
+                raise ValueError(
+                    f"LLMConfig.roles keys {sorted(unknown)} not "
+                    "supported; use 'prefill' and 'decode'"
+                )
+            for role_name in ("prefill", "decode"):
+                count = self.roles.get(role_name)
+                if not isinstance(count, int) or count < 1:
+                    raise ValueError(
+                        f"LLMConfig.roles[{role_name!r}] must be a "
+                        f"positive int, got {count!r}"
+                    )
         later = {
             "mesh / tensor_parallel_size / sequence_parallel_size": (
                 max(self.effective_parallelism()) > 1,
                 "the tensor-parallel slice",
             ),
-            "adapters": (self.adapters is not None, "the LoRA serving slice"),
             "roles": (
                 self.roles is not None,
                 "the disaggregated prefill/decode slice",
@@ -69,6 +153,13 @@ class LLMConfig:
                 self.model_family == "moe",
                 "the MoE slice",
             ),
+            "num_replicas / autoscaling_config / autoscale_policy": (
+                self.num_replicas != 1
+                or self.autoscaling_config is not None
+                or self.autoscale_policy is not None,
+                "the serve control plane slice",
+            ),
+            "quantized": (self.quantized, "the weight plane slice"),
         }
         for name, (asked, slice_name) in later.items():
             if asked:
@@ -90,6 +181,13 @@ class LLMConfig:
             raise ValueError(
                 "speculative decoding / chunked prefill run on the "
                 "continuous-batching engine: set kv_cache_blocks"
+            )
+        if isinstance(self.adapters, dict):
+            self.adapters = AdapterConfig(**self.adapters)
+        if self.adapters is not None and not self.kv_cache_blocks:
+            raise ValueError(
+                "multi-tenant adapters run on the continuous-batching "
+                "engine: set kv_cache_blocks"
             )
 
     def effective_parallelism(self) -> tuple:

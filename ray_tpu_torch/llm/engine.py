@@ -15,6 +15,15 @@
 fixed pool of decode slots, optionally over the paged prefix KV cache
 (``ray_tpu_torch.kvcache``), with chunked prefill and speculative decoding.
 
+Multi-tenant LoRA: with an ``adapter_store`` (ray_tpu_torch.lora
+``AdapterStore``) every model call carries its rows' adapter slots
+(``GenerationRequest.adapter_slot``, -1 = base), so one call serves rows of
+different adapters; a call whose rows are all -1 skips the adapter path and
+is the call of an engine without a store. The paged engine salts each
+adapter request's prefix-cache keys with its adapter id
+(:meth:`ContinuousBatchingEngine._kv_key_tokens`), so that tenants never
+share K/V.
+
 Greedy where the temperature is 0, otherwise a categorical draw from a
 ``torch.Generator`` reseeded per random stream from the engine seed
 (:func:`_stream_seed`), the counterpart of the reference's ``fold_in``: the
@@ -28,7 +37,8 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
-from typing import Any, Dict, List, Optional
+import zlib
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -71,12 +81,81 @@ def _sample_impl(
     return torch.where(temps == 0.0, greedy, sampled)
 
 
+def speculative_accept(
+    target_logits: torch.Tensor,
+    draft_logits: torch.Tensor,
+    draft_tokens: torch.Tensor,
+    temps: Optional[torch.Tensor],
+    generator: Optional[torch.Generator],
+):
+    """Acceptance of k draft proposals per row against the target, and the
+    token after the accepted prefix. A pure function of its inputs and the
+    generator's draws.
+
+    ``target_logits`` (S, k+1, V): position j predicts the token after input
+    j of [last, d_1..d_k]; ``draft_logits`` (S, k, V): the draft's logits
+    that proposed d_1..d_k; ``draft_tokens`` (S, k); ``temps`` (S,), or None
+    when every row is greedy (then ``generator`` is unused).
+
+    At temperature 0 a proposal is accepted iff it equals the target argmax,
+    and the next token is the target argmax after the accepted prefix: the
+    greedy trajectory. At temperature T > 0 this is rejection sampling:
+    accept d_j with probability min(1, p_t(d_j) / p_d(d_j)) (p = softmax of
+    logits / T); the first rejected position draws from the normalized
+    residual max(p_t - p_d, 0), and a row that accepted all k draws its
+    bonus from p_t. Each emitted token is then distributed as ancestral
+    sampling from the target.
+
+    Returns (emitted (S, k+1): the accepted prefix, then the bonus /
+    correction token, then zeros; counts (S,): accepted + 1)."""
+    k = draft_tokens.shape[1]
+    vocab = target_logits.shape[-1]
+    device = target_logits.device
+    ok = target_logits[:, :k].argmax(dim=-1) == draft_tokens
+    if temps is not None:
+        tscale = temps.clamp_min(1e-6)
+        pt = torch.softmax(target_logits[:, :k].float() / tscale[:, None, None], dim=-1)
+        pd = torch.softmax(draft_logits.float() / tscale[:, None, None], dim=-1)
+        pt_d = pt.gather(-1, draft_tokens[..., None])[..., 0]
+        pd_d = pd.gather(-1, draft_tokens[..., None])[..., 0]
+        u = torch.rand(draft_tokens.shape, generator=generator, device=device)
+        stoch_ok = u * pd_d.clamp_min(1e-20) < pt_d
+        ok = torch.where((temps == 0.0)[:, None], ok, stoch_ok)
+    # longest accepted prefix: cumprod flips to 0 at the 1st rejection
+    a = ok.long().cumprod(dim=-1).sum(dim=-1)
+    # the target's logits right after the accepted prefix
+    pos_logits = target_logits.gather(1, a[:, None, None].expand(-1, 1, vocab))[:, 0]
+    bonus = pos_logits.argmax(dim=-1)
+    if temps is not None:
+        pt_a = torch.softmax(pos_logits.float() / tscale[:, None], dim=-1)
+        pd_a = pd.gather(1, a.clamp_max(k - 1)[:, None, None].expand(-1, 1, vocab))[:, 0]
+        resid = torch.where((a < k)[:, None], (pt_a - pd_a).clamp_min(0.0), pt_a)
+        # a residual of no mass (p_t == p_d there) falls back to p_t
+        resid = torch.where(resid.sum(dim=-1, keepdim=True) > 1e-20, resid, pt_a)
+        stoch_bonus = torch.multinomial(resid, 1, generator=generator)[:, 0]
+        bonus = torch.where(temps == 0.0, bonus, stoch_bonus)
+    counts = a + 1
+    jpos = torch.arange(k + 1, device=device)[None, :]
+    padded = torch.nn.functional.pad(draft_tokens, (0, 1))
+    emitted = torch.where(
+        jpos < a[:, None], padded,
+        torch.where(jpos == a[:, None], bonus[:, None], torch.zeros_like(padded)),
+    )
+    return emitted, counts
+
+
 @dataclasses.dataclass
 class GenerationRequest:
     token_ids: List[int]
     max_new_tokens: int = 64
     temperature: float = 0.0
     eos_token_id: Optional[int] = None
+    # multi-tenant LoRA: the server resolves adapter_id to an AdapterStore
+    # slot lease before admission and stamps the slot index here; -1 = base
+    # model. The engine only reads the index: the lease's pin and release
+    # belong to the caller that holds it.
+    adapter_id: Optional[str] = None
+    adapter_slot: int = -1
 
 
 @dataclasses.dataclass
@@ -88,37 +167,55 @@ class GenerationResult:
 
 class _DecodeModelBase:
     """Prefill and decode over the cached Llama, sharing ``params`` (the
-    port's state dict, on ``device``) without copying them."""
+    port's state dict, on ``device``) without copying them, and with an
+    ``adapter_store`` reading its slot bank in every call that names an
+    adapter."""
 
     def __init__(self, model_config, params: Dict[str, torch.Tensor],
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, adapter_store=None):
         self._cfg = model_config
         self._device = resolve_device(device)
         wrong = {str(t.device) for t in params.values() if t.device != self._device}
         if wrong:
             raise ValueError(f"params on {sorted(wrong)}, engine on {self._device}")
+        if adapter_store is not None and adapter_store.device != self._device:
+            raise ValueError(
+                f"adapter store on {adapter_store.device}, engine on {self._device}"
+            )
         self._params = params
         self._model = build_llama(model_config, params)
+        self._adapter_store = adapter_store
         self.forward_calls = 0
 
     @torch.inference_mode()
-    def _forward(self, tokens: torch.Tensor, cache: DecodeCache) -> torch.Tensor:
+    def _forward(self, tokens: torch.Tensor, cache: DecodeCache,
+                 slots: Optional[Sequence[int]] = None) -> torch.Tensor:
         """The decode-mode model call every engine path makes: logits for
-        every position, ``cache`` updated in place. Counted in
-        ``forward_calls``: on the card each call launches the RMSNorm kernel
-        2 * n_layers + 1 times."""
+        every position, ``cache`` updated in place; ``slots`` are the rows'
+        adapter slots (-1 = base). A call whose rows are all base skips the
+        adapter path and is the call of an engine without a store. Counted
+        in ``forward_calls``: on the card each call launches the RMSNorm
+        kernel 2 * n_layers + 1 times."""
         self.forward_calls += 1
+        if slots is not None and max(slots) >= 0:
+            if self._adapter_store is None:
+                raise ValueError(
+                    f"rows name adapter slots {list(slots)} but the engine has "
+                    "no adapter_store"
+                )
+            return self._model(tokens, cache, self._adapter_store.bank(), slots)
         return self._model(tokens, cache)
 
-    def _prefill(self, tokens: torch.Tensor):
+    def _prefill(self, tokens: torch.Tensor, slots: Optional[Sequence[int]] = None):
         """tokens (b, plen) -> (last-position logits (b, vocab), new cache)."""
         cache = new_cache(self._cfg, tokens.shape[0], self._device)
-        return self._forward(tokens, cache)[:, -1, :], cache
+        return self._forward(tokens, cache, slots)[:, -1, :], cache
 
-    def _decode(self, cache: DecodeCache, last_tokens: torch.Tensor):
+    def _decode(self, cache: DecodeCache, last_tokens: torch.Tensor,
+                slots: Optional[Sequence[int]] = None):
         """last_tokens (b, s) -> (last-position logits (b, vocab), cache
         updated in place)."""
-        return self._forward(last_tokens, cache)[:, -1, :], cache
+        return self._forward(last_tokens, cache, slots)[:, -1, :], cache
 
     def _tokens(self, rows) -> torch.Tensor:
         return torch.as_tensor(np.asarray(rows, np.int64), device=self._device)
@@ -140,8 +237,9 @@ class LLMEngine(_DecodeModelBase):
         max_batch_size: int = 8,
         seed: Optional[int] = None,
         device: DeviceLike = None,
+        adapter_store=None,
     ):
-        super().__init__(model_config, params, device)
+        super().__init__(model_config, params, device, adapter_store)
         self._max_batch = max_batch_size
         self._seed = _resolve_seed(seed)
         self._generator = torch.Generator(device=self._device)
@@ -175,7 +273,8 @@ class LLMEngine(_DecodeModelBase):
                 f"prompt ({plen}) + max_new_tokens ({max_new}) exceeds "
                 f"max_seq_len ({cfg.max_seq_len})"
             )
-        logits, cache = self._prefill(self._tokens([r.token_ids for r in requests]))
+        slots = [r.adapter_slot for r in requests]
+        logits, cache = self._prefill(self._tokens([r.token_ids for r in requests]), slots)
         generated: List[List[int]] = [[] for _ in range(b)]
         finished = [False] * b
         reasons = ["length"] * b
@@ -198,7 +297,7 @@ class LLMEngine(_DecodeModelBase):
                 for i in range(b)
             ):
                 break
-            logits, cache = self._decode(cache, self._tokens(last).reshape(b, 1))
+            logits, cache = self._decode(cache, self._tokens(last).reshape(b, 1), slots)
             last = self._sample(logits, requests, step)
             record(last)
 
@@ -237,7 +336,8 @@ class LLMEngine(_DecodeModelBase):
                 token_ids=[], num_prompt_tokens=plen, finished_reason="length"
             )
             return
-        logits, cache = self._prefill(self._tokens([request.token_ids]))
+        slots = [request.adapter_slot]
+        logits, cache = self._prefill(self._tokens([request.token_ids]), slots)
         generated: List[int] = []
         reason = "length"
         last = self._sample_step(logits, request, 0)
@@ -247,7 +347,7 @@ class LLMEngine(_DecodeModelBase):
             reason = "eos"
         else:
             for step in range(1, request.max_new_tokens):
-                logits, cache = self._decode(cache, self._tokens([[last]]))
+                logits, cache = self._decode(cache, self._tokens([[last]]), slots)
                 last = self._sample_step(logits, request, step)
                 generated.append(last)
                 yield last
@@ -306,8 +406,14 @@ class ContinuousBatchingEngine(_DecodeModelBase):
     manager is a view that is committed before the next step writes the
     pool, and the speculative rollback resets the write position of every
     layer of both pools. Cluster KV tier shipments (``kv_tier``,
-    ``shipment``, ``prefill_only``) and adapter banks (``adapter_store``)
-    come with later slices of the port and raise.
+    ``shipment``, ``prefill_only``) come with a later slice of the port and
+    raise.
+
+    With an ``adapter_store``, every target-model call carries its rows'
+    adapter slots: the pooled step and the verify read
+    :meth:`_row_adapter_slots` (free rows -1), every prefill route its
+    request's slot. The draft stays the base model: it proposes base tokens
+    and the verify holds them to the adapter-applied target.
     """
 
     def __init__(
@@ -328,11 +434,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             raise NotImplementedError(
                 "the cluster KV tier comes with the port's KV tier slice"
             )
-        if adapter_store is not None:
-            raise NotImplementedError(
-                "adapter banks come with the port's LoRA serving slice"
-            )
-        super().__init__(model_config, params, device)
+        super().__init__(model_config, params, device, adapter_store)
         self._num_slots = num_slots
         self._slots: Dict[int, _Slot] = {}  # slot index -> active request
         self._pending: List[tuple] = []  # (request_id, GenerationRequest)
@@ -443,7 +545,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         last = np.zeros((self._num_slots, 1), np.int64)
         for si, slot in self._slots.items():
             last[si, 0] = slot.last_token
-        logits, _ = self._decode(self._cache, self._tokens(last))
+        logits, _ = self._decode(self._cache, self._tokens(last), self._row_adapter_slots())
         self._step_count += 1
         tokens = self._sample_rows(logits)
         for si in list(self._slots):
@@ -506,6 +608,28 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             else:
                 self._commit_decode_tail(si, slot)
 
+    def _row_adapter_slots(self) -> np.ndarray:
+        """Per-row adapter slots of the pooled batch; free rows read -1
+        (base: their garbage compute stays adapter-free)."""
+        slots = np.full(self._num_slots, -1, np.int64)
+        for si, slot in self._slots.items():
+            slots[si] = slot.request.adapter_slot
+        return slots
+
+    @staticmethod
+    def _kv_key_tokens(req: GenerationRequest, tokens=None) -> List[int]:
+        """The prefix-cache identity of a request's K/V: adapter-tinted K/V
+        (wq/wk/wv run through the adapter) must never collide with the base
+        model's, or another adapter's, cached prefixes, so an adapter
+        request salts every token id with its adapter id, one key space per
+        tenant in the shared radix index. Salted ids never reach the device:
+        they are index keys only (``_tokens`` takes the plain ids)."""
+        toks = list(req.token_ids if tokens is None else tokens)
+        if req.adapter_id is None:
+            return toks
+        salt = (zlib.crc32(req.adapter_id.encode("utf-8")) + 1) << 32
+        return [int(t) + salt for t in toks]
+
     def _finish_slot(self, si: int, slot: _Slot, reason: str,
                      finished: List[tuple]) -> None:
         req = slot.request
@@ -533,7 +657,8 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         self._kv.extend(slot.lease, avail - slot.committed_blocks)
         # a view of the slot's row: committed (copied) before any write
         self._kv.commit(
-            slot.lease, tokens[: avail * bs], self._cache.row(si), pin=False
+            slot.lease, self._kv_key_tokens(slot.request, tokens[: avail * bs]),
+            self._cache.row(si), pin=False,
         )
         slot.committed_blocks = avail
 
@@ -552,7 +677,9 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             slot.committed_blocks, len(req.token_ids) // self._kv.block_size
         )
         if len(tokens) // self._kv.block_size > already:
-            self._kv.commit(slot.lease, tokens, self._cache.row(si), pin=False)
+            self._kv.commit(
+                slot.lease, self._kv_key_tokens(req, tokens), self._cache.row(si), pin=False
+            )
         self._kv.release(slot.lease)
 
     def run_until_complete(self) -> Dict[int, GenerationResult]:
@@ -580,20 +707,50 @@ class ContinuousBatchingEngine(_DecodeModelBase):
     def generate_stream(self, request: GenerationRequest):
         """Streaming API matching LLMEngine.generate_stream: yields each
         token of ONE request as the shared pool produces it, then the final
-        GenerationResult. Other requests keep decoding in the same steps."""
+        GenerationResult. Other requests keep decoding in the same steps.
+        Closing the generator early cancels the request (:meth:`cancel`)."""
         rid = self.add_request(request)
         emitted = 0
-        while True:
+        done = False
+        try:
+            while True:
+                with self._progress:
+                    final = self._finished_buf.pop(rid, None)
+                    tokens = self._in_flight.get(rid, []) if final is None else final.token_ids
+                for tok in tokens[emitted:]:
+                    yield tok
+                emitted = max(emitted, len(tokens))
+                if final is not None:
+                    done = True
+                    yield final
+                    return
+                self._advance()
+        finally:
+            if not done:
+                self.cancel(rid)
+
+    def cancel(self, rid: int) -> None:
+        """Drop a request its caller abandoned (a closed stream), wherever
+        it is: pending, prefilling or decoding in a slot. It runs under the
+        step lock, so on return no step computes the request's row any more:
+        the caller may then release what the request held, such as its
+        adapter lease, whose slot may be rewritten at once. A decoding row
+        retires as a finished one does (its full blocks, computed while the
+        adapter was leased, are committed); a prefill in progress releases
+        its KV lease. No result is kept."""
+        with self._lock:
             with self._progress:
-                final = self._finished_buf.pop(rid, None)
-                tokens = self._in_flight.get(rid, []) if final is None else final.token_ids
-            for tok in tokens[emitted:]:
-                yield tok
-            emitted = max(emitted, len(tokens))
-            if final is not None:
-                yield final
-                return
-            self._advance()
+                self._pending = [(r, q) for r, q in self._pending if r != rid]
+                self._finished_buf.pop(rid, None)
+                self._in_flight.pop(rid, None)
+            for si, slot in list(self._slots.items()):
+                if slot.request_id == rid:
+                    self._retire_slot(si)
+            for si, st in list(self._prefilling.items()):
+                if st["rid"] == rid:
+                    del self._prefilling[si]
+                    if st["lease"] is not None:
+                        self._kv.release(st["lease"])
 
     def _collect(self, rids: List[int]) -> List[GenerationResult]:
         out: Dict[int, GenerationResult] = {}
@@ -660,7 +817,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             rid, req = self._pending.pop(0)
             lease = None
             if self._kv is not None:
-                lease = self._kv.acquire(req.token_ids)
+                lease = self._kv.acquire(self._kv_key_tokens(req))
                 if lease is None:  # backpressure: wait for a release
                     self._pending.insert(0, (rid, req))
                     break
@@ -695,7 +852,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             self._kv.record_prefill(cached, plen - cached)
             # commit the prompt's full blocks while the prefilled row is at
             # hand; reserved blocks are consumed here
-            self._kv.commit(lease, req.token_ids, solo)
+            self._kv.commit(lease, self._kv_key_tokens(req), solo)
         if self._cache is None:
             self._cache = new_cache(self._cfg, self._num_slots, self._device)
         self._cache.insert_row(si, solo)
@@ -743,7 +900,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             while pos < len(tokens) and budget > 0:
                 take = min(chunk_max, len(tokens) - pos, budget)
                 st["logits"], _ = self._decode(
-                    st["row"], self._tokens([tokens[pos:pos + take]])
+                    st["row"], self._tokens([tokens[pos:pos + take]]), [req.adapter_slot]
                 )
                 pos += take
                 budget -= take
@@ -758,7 +915,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
                     # partial commit: completed full blocks become hittable
                     # for concurrent shared-prefix admissions NOW, not when
                     # the whole prompt lands
-                    self._kv.commit(lease, tokens[:pos], st["row"])
+                    self._kv.commit(lease, self._kv_key_tokens(req, tokens[:pos]), st["row"])
                     st["committed"] = pos // bs
                 continue
             del self._prefilling[si]
@@ -808,55 +965,16 @@ class ContinuousBatchingEngine(_DecodeModelBase):
 
     def _verify(self, chunk, draft_logits, temps, start, stream: int):
         """The speculative verify: ONE target call over the (num_slots, k+1)
-        chunk [last_token, d_1..d_k] scores every proposal (position j's
-        logits predict the token after input j); then acceptance, the bonus
-        / correction token and the rollback of both pools' write positions.
-
-        Lossless by construction: at temperature 0 a proposal is accepted
-        iff it equals the target argmax, so the emitted prefix is exactly
-        the greedy trajectory; at temperature > 0 standard rejection
-        sampling (accept d_j w.p. min(1, p_t/p_d), resample the first
-        rejection from the normalized residual max(p_t - p_d, 0)) keeps the
-        output distribution that of ancestral sampling from the target.
-        ``temps`` None means every row is greedy. Returns (emitted (S, k+1),
-        counts (S,))."""
-        draft_tok = chunk[:, 1:]
-        k = draft_tok.shape[1]
-        logits = self._forward(chunk, self._cache)  # (S, k+1, V)
-        vocab = logits.shape[-1]
-        ok = logits[:, :k].argmax(dim=-1) == draft_tok
+        chunk [last_token, d_1..d_k], with the rows' adapters (the draft
+        proposed base tokens), scores every proposal; then
+        :func:`speculative_accept` and the rollback of both pools' write
+        positions. ``temps`` None means every row is greedy. Returns
+        (emitted (S, k+1), counts (S,))."""
+        logits = self._forward(chunk, self._cache, self._row_adapter_slots())  # (S, k+1, V)
         if temps is not None:
             self._generator.manual_seed(_stream_seed(self._seed, stream, 0))
-            tscale = temps.clamp_min(1e-6)
-            pt = torch.softmax(logits[:, :k].float() / tscale[:, None, None], dim=-1)
-            pd = torch.softmax(draft_logits.float() / tscale[:, None, None], dim=-1)
-            pt_d = pt.gather(-1, draft_tok[..., None])[..., 0]
-            pd_d = pd.gather(-1, draft_tok[..., None])[..., 0]
-            u = torch.rand(draft_tok.shape, generator=self._generator, device=self._device)
-            stoch_ok = u * pd_d.clamp_min(1e-20) < pt_d
-            ok = torch.where((temps == 0.0)[:, None], ok, stoch_ok)
-        # longest accepted prefix: cumprod flips to 0 at the 1st rejection
-        a = ok.long().cumprod(dim=-1).sum(dim=-1)
-        # the target's logits right after the accepted prefix
-        pos_logits = logits.gather(1, a[:, None, None].expand(-1, 1, vocab))[:, 0]
-        bonus = pos_logits.argmax(dim=-1)
-        if temps is not None:
-            pt_a = torch.softmax(pos_logits.float() / tscale[:, None], dim=-1)
-            pd_a = pd.gather(
-                1, a.clamp_max(k - 1)[:, None, None].expand(-1, 1, vocab)
-            )[:, 0]
-            resid = torch.where((a < k)[:, None], (pt_a - pd_a).clamp_min(0.0), pt_a)
-            resid = torch.where(resid.sum(dim=-1, keepdim=True) > 1e-20, resid, pt_a)
-            stoch_bonus = torch.multinomial(
-                resid.clamp_min(1e-20), 1, generator=self._generator
-            )[:, 0]
-            bonus = torch.where(temps == 0.0, bonus, stoch_bonus)
-        counts = a + 1  # accepted prefix + the bonus/correction token
-        jpos = torch.arange(k + 1, device=self._device)[None, :]
-        padded = torch.nn.functional.pad(draft_tok, (0, 1))
-        emitted = torch.where(
-            jpos < a[:, None], padded,
-            torch.where(jpos == a[:, None], bonus[:, None], torch.zeros_like(padded)),
+        emitted, counts = speculative_accept(
+            logits, draft_logits, chunk[:, 1:], temps, self._generator
         )
         # rollback-as-index-reset, every layer of both pools: K/V past the
         # new index is garbage the causal mask never reads and the next
@@ -871,15 +989,15 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         prefill on a miss; on a hit, gather the cached blocks into a fresh
         row and run only the uncached suffix through the decode path in
         chunks of at most block_size tokens."""
-        tokens = req.token_ids
+        tokens, slots = req.token_ids, [req.adapter_slot]
         if lease is None or lease.num_cached_tokens == 0:
-            return self._prefill(self._tokens([tokens]))
+            return self._prefill(self._tokens([tokens]), slots)
         row = self._kv.assemble(lease)
         logits = None
         pos = lease.num_cached_tokens
         while pos < len(tokens):
             take = min(self._kv.block_size, len(tokens) - pos)
-            logits, _ = self._decode(row, self._tokens([tokens[pos:pos + take]]))
+            logits, _ = self._decode(row, self._tokens([tokens[pos:pos + take]]), slots)
             pos += take
         return logits, row
 

@@ -1,29 +1,34 @@
 """LLM serving: the port of ray_tpu/llm/serving.py, fused replica.
 
 :class:`LLMServer` is the counterpart of the reference's replica callable
-``_LLMReplica`` without roles, tier or adapters: it builds the model and an
-engine and answers token-level requests. With ``kv_cache_blocks=None`` the
-engine is the dense :class:`~ray_tpu_torch.llm.engine.LLMEngine`; with it
-set, a :class:`~ray_tpu_torch.llm.engine.ContinuousBatchingEngine` over a
+``_LLMReplica`` without roles or tier: it builds the model and an engine and
+answers token-level requests. With ``kv_cache_blocks=None`` the engine is
+the dense :class:`~ray_tpu_torch.llm.engine.LLMEngine`; with it set, a
+:class:`~ray_tpu_torch.llm.engine.ContinuousBatchingEngine` over a
 :class:`~ray_tpu_torch.kvcache.KVCacheManager` (prefix reuse, memory-gated
-admission), with the config's chunked prefill and speculative draft. The
+admission), with the config's chunked prefill, speculative draft and
+multi-tenant adapters (an :class:`~ray_tpu_torch.lora.AdapterStore`). The
 serve control plane, the weight plane and tokenizers come with later slices
-of the port.
+of the port; so a request names its adapter by an explicit ``adapter_id``
+only (the reference also reads serve's multiplexed model id).
 
 Request/response shape:
   {"token_ids": [...], "max_new_tokens": 32, "temperature": 0.0,
-   "eos_token_id": None, "stream": False}
+   "eos_token_id": None, "adapter_id": None, "stream": False}
 -> {"token_ids": [...], "num_prompt_tokens": N, "finished_reason": ...}
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional
 
 import torch
 
 from .._internal.device import DeviceLike, resolve_device
+from ..exceptions import BackPressureError
 from ..kvcache import KVCacheManager
+from ..lora import AdapterLease, AdapterStore
 from ..models.llama import init_params
 from .config import LLMConfig
 from .engine import ContinuousBatchingEngine, GenerationRequest, LLMEngine
@@ -34,7 +39,10 @@ class LLMServer:
     Without ``params`` the weights are random, from the port's
     ``init_params`` under seed 0, as the reference's replica draws them
     under ``PRNGKey(0)``; given ``params`` are shared, not copied. A
-    speculative draft is drawn likewise under seed 1."""
+    speculative draft is drawn likewise under seed 1. With
+    ``LLMConfig.adapters`` the server holds an adapter store on ``device``
+    (:attr:`adapter_store`): fill it with ``prewarm`` or a callable
+    ``AdapterConfig.source``."""
 
     def __init__(self, llm_config: LLMConfig,
                  params: Optional[Dict[str, torch.Tensor]] = None,
@@ -45,6 +53,7 @@ class LLMServer:
         if params is None:
             params = init_params(model_config, device=self._device)
         self._kv_cache: Optional[KVCacheManager] = None
+        self._adapter_store: Optional[AdapterStore] = None
         if llm_config.kv_cache_blocks:
             # paged prefix-reusing engine: requests stream through a slot
             # pool over a shared KV block pool; admission is memory-gated
@@ -58,6 +67,11 @@ class LLMServer:
                 draft_cfg = llm_config.build_draft_model_config()
                 gen = torch.Generator(device=self._device).manual_seed(1)
                 draft = (draft_cfg, init_params(draft_cfg, gen, device=self._device))
+            if llm_config.adapters is not None:
+                # callers' threads resolve slot leases before admission, so
+                # a cold attach never runs on the thread that steps the pool
+                self._adapter_store = AdapterStore.from_config(
+                    model_config, llm_config.adapters, self._device)
             self._engine = ContinuousBatchingEngine(
                 model_config, params,
                 num_slots=llm_config.max_batch_size,
@@ -66,6 +80,7 @@ class LLMServer:
                 draft=draft,
                 spec_tokens=llm_config.spec_tokens,
                 prefill_chunk_tokens=llm_config.prefill_chunk_tokens,
+                adapter_store=self._adapter_store,
                 device=self._device,
             )
         else:
@@ -81,17 +96,57 @@ class LLMServer:
         """The :class:`LLMEngine` or :class:`ContinuousBatchingEngine`."""
         return self._engine
 
+    @property
+    def adapter_store(self) -> Optional[AdapterStore]:
+        """The adapter store (None without ``LLMConfig.adapters``)."""
+        return self._adapter_store
+
     def kvcache_stats(self) -> Optional[Dict[str, Any]]:
         """The KV cache's stats (None on the dense engine)."""
         if self._kv_cache is None:
             return None
         return self._kv_cache.stats()
 
-    def _parse_request(self, request: Dict[str, Any]) -> GenerationRequest:
-        if request.get("adapter_id") is not None:
-            raise NotImplementedError(
-                "per-request adapters come with the port's LoRA serving slice"
+    def adapters_stats(self) -> Optional[Dict[str, Any]]:
+        """The adapter store's stats (None without an adapter store)."""
+        if self._adapter_store is None:
+            return None
+        return self._adapter_store.stats()
+
+    def _resolve_adapter(self, request: Dict[str, Any]) -> Optional[AdapterLease]:
+        """Resolve the request's ``adapter_id`` to a slot lease BEFORE engine
+        admission, on the caller's thread: a cold attach runs here, never on
+        the thread that steps the pool, so in-flight decodes keep stepping.
+        When every slot is pinned the request backpressures: ``acquire`` is
+        polled until ``acquire_timeout_s``, then BackPressureError (which is
+        retryable) is raised."""
+        aid = request.get("adapter_id")
+        if aid is None:
+            return None
+        if self._adapter_store is None:
+            raise ValueError(
+                f"request names adapter {aid!r} but the deployment has no "
+                "adapter plane; set LLMConfig(adapters=AdapterConfig(...))"
             )
+        deadline = time.monotonic() + self._config.adapters.acquire_timeout_s
+        while True:
+            lease = self._adapter_store.acquire(aid)
+            if lease is not None:
+                return lease
+            if time.monotonic() >= deadline:
+                raise BackPressureError(
+                    f"adapter store exhausted: all "
+                    f"{self._adapter_store.num_slots} slots pinned by "
+                    "in-flight requests"
+                )
+            time.sleep(0.02)
+
+    def _release(self, lease: Optional[AdapterLease]) -> None:
+        if self._adapter_store is not None:
+            self._adapter_store.release(lease)
+
+    def _parse_request(self, request: Dict[str, Any],
+                       lease: Optional[AdapterLease] = None) -> GenerationRequest:
         token_ids = request.get("token_ids")
         if token_ids is None:
             raise ValueError(
@@ -107,12 +162,18 @@ class LLMServer:
                 request.get("temperature", self._config.temperature)
             ),
             eos_token_id=request.get("eos_token_id"),
+            adapter_id=lease.adapter_id if lease is not None else None,
+            adapter_slot=lease.slot if lease is not None else -1,
         )
 
     def __call__(self, request: Dict[str, Any]) -> Dict[str, Any]:
         if request.get("stream"):
             return list(self.stream(request))[-1]
-        result = self._engine.generate([self._parse_request(request)])[0]
+        lease = self._resolve_adapter(request)
+        try:
+            result = self._engine.generate([self._parse_request(request, lease)])[0]
+        finally:
+            self._release(lease)
         return {
             "token_ids": result.token_ids,
             "num_prompt_tokens": result.num_prompt_tokens,
@@ -121,8 +182,17 @@ class LLMServer:
 
     def stream(self, request: Dict[str, Any]):
         """Yields one dict per generated token as it is sampled, then a
-        final summary dict."""
-        gen_req = self._parse_request(request)
+        final summary dict. The adapter lease is held until the generator
+        ends or is closed; closing it early first cancels the engine's
+        request, so no step decodes it with the slot after the release."""
+        lease = self._resolve_adapter(request)
+        try:
+            yield from self._stream_leased(request, lease)
+        finally:
+            self._release(lease)
+
+    def _stream_leased(self, request: Dict[str, Any], lease: Optional[AdapterLease]):
+        gen_req = self._parse_request(request, lease)
         index = 0
         for item in self._engine.generate_stream(gen_req):
             if isinstance(item, int):

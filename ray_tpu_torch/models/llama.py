@@ -20,11 +20,19 @@ as in the reference.
 
 Training: with ``config.remat`` and autograd recording, each block of the
 full-sequence forward runs under ``torch.utils.checkpoint`` and is
-recomputed in the backward, the reference's save-nothing ``nn.remat``. The
-reference's ``scan_layers`` (the layers stacked under ``lax.scan``) has no
-counterpart field: PyTorch has no scan, and the loop over blocks with
-per-block checkpointing takes its place (models/convert.py unstacks the
-stacked weights).
+recomputed in the backward, the reference's save-nothing ``nn.remat``.
+``config.scan_layers`` (the reference's layers stacked under ``lax.scan``)
+builds the same unstacked model: PyTorch has no scan, the loop over blocks
+with per-block checkpointing takes its place, and models/convert.py
+unstacks the stacked weights.
+
+Multi-tenant serving: ``Llama.forward(tokens, cache, adapters,
+adapter_slots)`` takes an adapter slot bank (ray_tpu_torch.lora
+``AdapterStore.bank()``) and one slot per row, -1 for the base model. The
+bank is stacked over layers, so the rows of every layer are gathered once
+per model call (:func:`gather_adapters`), and each q/k/v/o projection adds
+``x @ A[slot] @ B[slot]`` in two batched products; slot -1 reads the bank's
+all-zero last row, so a base row adds exactly zero.
 """
 
 from __future__ import annotations
@@ -58,6 +66,9 @@ class LlamaConfig:
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
     remat: bool = True
+    # the reference's stacked-layer layout; the port builds the same model
+    # either way (see the module docstring)
+    scan_layers: bool = False
     lora_rank: int = 0
     lora_alpha: float = 16.0
 
@@ -169,7 +180,13 @@ class Dense(nn.Module):
 class LoRADense(nn.Module):
     """Dense with the optional static low-rank adapter of the reference:
     y = xW + (alpha/r)·xAB, with ``lora_a`` (in, r) and ``lora_b`` (r, out).
-    The multi-tenant slot-bank gather comes with the port's LoRA slice."""
+
+    Multi-tenant serving path: ``adapter`` is a pair of per-row factors
+    ``(a (batch, in, r), b (batch, r, out))`` in ``x.dtype``, the rows of a
+    slot bank gathered for this call (:func:`gather_adapters`; ``lora_b``
+    pre-scaled by alpha/r at attach), and the delta is ``x @ a @ b`` per
+    row: ``baddbmm_`` adds it to the base output, exactly zero for a row
+    that gathered the bank's zero row."""
 
     def __init__(self, in_features, out_features, rank, alpha, param_dtype, dtype):
         super().__init__()
@@ -180,15 +197,40 @@ class LoRADense(nn.Module):
             self.lora_a = _param(in_features, rank, dtype=param_dtype)
             self.lora_b = _param(rank, out_features, dtype=param_dtype)
 
-    def forward(self, x, adapter=None, adapter_slots=None):
-        if adapter is not None or adapter_slots is not None:
-            raise NotImplementedError(
-                "multi-tenant adapter banks come with the port's LoRA slice"
-            )
+    def forward(self, x, adapter=None):
         y = self.base(x)
         if self.rank > 0:
             y = y + (x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype) * self.scale
+        if adapter is not None:
+            a, b = adapter
+            # in place: y is this call's own output, and an out-of-place
+            # baddbmm would first copy it (one more launch per projection)
+            y = y.baddbmm_(torch.bmm(x, a), b)
         return y
+
+
+PROJECTIONS = ("wq", "wk", "wv", "wo")  # the LoRADense layers of Attention
+
+
+def gather_adapters(bank, adapter_slots, dtype, device) -> Dict[str, tuple]:
+    """The rows of ``bank`` that a call's rows name, for every layer at once.
+
+    ``bank`` maps each projection of :data:`PROJECTIONS` to ``{"lora_a":
+    (n_layers, rows, in, r), "lora_b": (n_layers, rows, r, out)}``, whose
+    last row is all zero; ``adapter_slots`` are the call's slots on the host
+    (one int per row, -1 for the base model, which reads the zero row).
+    Returns ``{projection: (a (n_layers, batch, in, r), b (n_layers, batch,
+    r, out))}`` in ``dtype``: one gather per factor, and one cast where the
+    bank's dtype differs."""
+    rows = bank[PROJECTIONS[0]]["lora_a"].shape[1]
+    idx = torch.as_tensor(adapter_slots, dtype=torch.long).flatten()
+    if bool(((idx < -1) | (idx >= rows - 1)).any()):
+        raise ValueError(f"adapter slots {idx.tolist()} outside [-1, {rows - 1})")
+    idx = idx.remainder(rows).to(device)
+    return {
+        name: (bank[name]["lora_a"][:, idx].to(dtype), bank[name]["lora_b"][:, idx].to(dtype))
+        for name in PROJECTIONS
+    }
 
 
 class Attention(nn.Module):
@@ -213,13 +255,16 @@ class Attention(nn.Module):
         self.wv = proj(cfg.dim, hk * d)
         self.wo = proj(h * d, cfg.dim)
 
-    def forward(self, x, cos, sin, cache: Optional[LayerCache] = None):
+    def forward(self, x, cos, sin, cache: Optional[LayerCache] = None, adapters=None):
+        """``adapters``: this layer's per-row factors by projection name
+        (:func:`gather_adapters`, indexed at the layer), or None."""
         cfg = self.config
         b, s, _ = x.shape
         h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q = self.wq(x).reshape(b, s, h, d).transpose(1, 2)
-        k = self.wk(x).reshape(b, s, hk, d).transpose(1, 2)
-        v = self.wv(x).reshape(b, s, hk, d).transpose(1, 2)
+        adapters = adapters or {}
+        q = self.wq(x, adapters.get("wq")).reshape(b, s, h, d).transpose(1, 2)
+        k = self.wk(x, adapters.get("wk")).reshape(b, s, hk, d).transpose(1, 2)
+        v = self.wv(x, adapters.get("wv")).reshape(b, s, hk, d).transpose(1, 2)
         if cache is not None:
             out = self._decode_attention(q, k, v, cos, sin, cache)
         else:
@@ -227,7 +272,7 @@ class Attention(nn.Module):
             k = apply_rope(k, cos, sin)
             out = flash_attention(q, k, v, causal=True)
         out = out.transpose(1, 2).reshape(b, s, h * d)
-        return self.wo(out)
+        return self.wo(out, adapters.get("wo"))
 
     def _decode_attention(self, q, k, v, cos, sin, cache: LayerCache):
         """The reference's KV-cache path: write this call's K/V at each
@@ -280,9 +325,11 @@ class Block(nn.Module):
         self.mlp_norm = _param(config.dim, dtype=config.param_dtype)
         self.mlp = MLP(config)
 
-    def forward(self, x, cos, sin, cache: Optional[LayerCache] = None):
+    def forward(self, x, cos, sin, cache: Optional[LayerCache] = None, adapters=None):
         eps = self.config.norm_eps
-        h = x + self.attn(rmsnorm(x, self.attn_norm.to(x.dtype), eps), cos, sin, cache)
+        h = x + self.attn(
+            rmsnorm(x, self.attn_norm.to(x.dtype), eps), cos, sin, cache, adapters
+        )
         return h + self.mlp(rmsnorm(h, self.mlp_norm.to(h.dtype), eps))
 
 
@@ -318,23 +365,26 @@ class Llama(nn.Module):
     ) -> torch.Tensor:
         """tokens (batch, seq) -> logits (batch, seq, vocab) in
         ``config.dtype``. With ``cache`` (one :class:`LayerCache` per layer)
-        this is the decode-mode call, which updates the cache in place."""
-        if adapters is not None or adapter_slots is not None:
-            raise NotImplementedError(
-                "multi-tenant adapter banks come with the port's LoRA slice"
-            )
+        this is the decode-mode call, which updates the cache in place.
+        With ``adapters`` (an adapter slot bank, see :func:`gather_adapters`)
+        and ``adapter_slots`` (one slot per row on the host, -1 = base) each
+        row's adapter is added to its q/k/v/o projections."""
         cfg = self.config
         x = self.embed[tokens].to(cfg.dtype)
         cos, sin = self._rope_table(x.device)
+        rows = None
+        if adapters is not None and adapter_slots is not None:
+            rows = gather_adapters(adapters, adapter_slots, cfg.dtype, x.device)
         remat = cache is None and cfg.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks()):
+            layer = None if rows is None else {n: (a[i], b[i]) for n, (a, b) in rows.items()}
             if remat:
                 # use_reentrant=False: with a frozen base the block's input
                 # needs no grad, and the reentrant form would then drop the
                 # adapters' gradients
-                x = checkpoint(block, x, cos, sin, use_reentrant=False)
+                x = checkpoint(block, x, cos, sin, None, layer, use_reentrant=False)
             else:
-                x = block(x, cos, sin, None if cache is None else cache[i])
+                x = block(x, cos, sin, None if cache is None else cache[i], layer)
         x = rmsnorm(x, self.final_norm.to(x.dtype), cfg.norm_eps)
         return x @ self.lm_head.to(x.dtype)
 

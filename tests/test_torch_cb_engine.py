@@ -472,3 +472,56 @@ def test_paged_server_answers_like_replica():
                 "blocks_in_use", "index_nodes"):
         assert stats[key] == ref_stats[key], key
     assert set(stats) == set(ref_stats)
+
+
+# ---------------------------------------------------------------------------
+# the law of speculative sampling at temperature > 0
+
+# the 0.999 quantile of chi-square with 7 degrees of freedom
+# (scipy.stats.chi2.ppf(0.999, 7)): a right law fails 1 seed in 1000
+_CHI2_7_999 = 24.322
+
+
+def _first_token_law(target, draft, temp, rows=20_000, seed=0):
+    """speculative_accept at k=1 over ``rows`` identical rows of one
+    (target, draft) pair of 8-way logits: the emitted first token's counts,
+    its probability under softmax(target / temp), and the acceptance."""
+    from ray_tpu_torch.llm.engine import speculative_accept
+
+    gen = torch.Generator().manual_seed(seed)
+    t = torch.as_tensor(target, dtype=torch.float32)
+    d = torch.as_tensor(draft, dtype=torch.float32)
+    temps = torch.full((rows,), temp)
+    # the draft proposes from its own law, as _propose does
+    proposal = torch.multinomial(torch.softmax(d / temp, -1).expand(rows, -1), 1,
+                                 replacement=True, generator=gen)
+    # position 1's logits (the bonus after an accepted proposal) are those
+    # of position 0 here: only the first emitted token is held to the law
+    tl = t.expand(rows, 2, -1)
+    emitted, counts = speculative_accept(tl, d.expand(rows, 1, -1), proposal, temps, gen)
+    freq = torch.bincount(emitted[:, 0], minlength=t.numel()).double()
+    law = torch.softmax(t.double() / temp, -1)
+    return freq, law, (counts == 2).double().mean().item()
+
+
+@pytest.mark.parametrize("temp", [1.0, 0.7])
+def test_speculative_sampling_keeps_the_target_law(temp):
+    """Rejection sampling with the residual correction must emit the
+    target's law, whatever the draft: with a draft far from the target, the
+    first emitted token's frequencies over 20,000 rows agree with
+    softmax(target / T) within the 0.999 chi-square bound (7 degrees of
+    freedom); and a draft equal to the target accepts every proposal."""
+    rng = np.random.default_rng(12)
+    target = rng.normal(0.0, 1.5, 8)
+    draft = rng.normal(0.0, 1.5, 8)
+    freq, law, acceptance = _first_token_law(target, draft, temp)
+    expected = law * freq.sum()
+    chi2 = ((freq - expected) ** 2 / expected).sum().item()
+    assert chi2 < _CHI2_7_999, (chi2, freq.tolist(), expected.tolist())
+    assert 0.0 < acceptance < 1.0  # both branches ran: accepts and residual draws
+    # the proposals alone follow the draft's law, which the test must tell
+    # apart from the target's: the bound has power here
+    d_law = torch.softmax(torch.as_tensor(draft, dtype=torch.float64) / temp, -1)
+    assert (((d_law - law) * freq.sum()) ** 2 / expected).sum().item() > 10 * _CHI2_7_999
+    _, _, same = _first_token_law(target, target, temp, rows=2_000)
+    assert same == 1.0

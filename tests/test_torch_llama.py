@@ -253,8 +253,8 @@ def test_lora_grads_match_jax_grad():
 def test_stacked_scan_layers_tree_converts_and_remat_keeps_grads():
     import dataclasses
 
-    # the port has no scan_layers field: its loop with per-block
-    # checkpointing stands in for the reference's scan
+    # the port's scan_layers builds the unstacked model: its loop with
+    # per-block checkpointing stands in for the reference's scan
     jcfg = JaxLlamaConfig.tiny(dtype=jnp.float32, lora_rank=4, scan_layers=True, remat=True)
     _, tcfg = _configs(dtype=jnp.float32, lora_rank=4, remat=True)
     jparams = _nonzero_lora_b(_jax_params(jcfg))

@@ -7,6 +7,7 @@ Temperature sampling draws other bits in PyTorch than in JAX, so it is held
 to reproducibility within the port only.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from ray_tpu._internal import serialization
+from ray_tpu.exceptions import MeshValidationError as JaxMeshValidationError
 from ray_tpu.llm import GenerationRequest as JaxRequest
 from ray_tpu.llm import LLMConfig as JaxLLMConfig
 from ray_tpu.llm import LLMEngine as JaxEngine
@@ -27,9 +29,10 @@ from ray_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from ray_tpu.models.llama import init_params as jax_init_params
 from ray_tpu.parallel.sharding import unbox_params
 from ray_tpu_torch._internal.device import resolve_device
-from ray_tpu_torch.llm import GenerationRequest, LLMConfig, LLMEngine, LLMServer
+from ray_tpu_torch.exceptions import MeshValidationError
+from ray_tpu_torch.llm import AdapterConfig, GenerationRequest, LLMConfig, LLMEngine, LLMServer
 from ray_tpu_torch.models.convert import params_from_jax
-from ray_tpu_torch.models.llama import LlamaConfig
+from ray_tpu_torch.models.llama import LlamaConfig, param_shapes
 
 _REPO = Path(__file__).resolve().parent.parent
 
@@ -150,25 +153,45 @@ def test_server_answers_like_replica():
     assert server(dict(request, stream=True)) == streamed[-1]
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [
-        # the paged engine is ported; the cluster KV tier over it is not
-        dict(kv_cache_blocks=16, kv_tier=True),
-        dict(mesh={"tp": 2}),
-        dict(tensor_parallel_size=2),
-        # speculative decoding is ported; adapters beside it are not
-        dict(draft_model="llama-tiny", kv_cache_blocks=16, adapters={"max_live": 2}),
-        dict(adapters={"max_live": 2}),
-        dict(roles={"prefill": 1, "decode": 1}),
-        dict(kv_tier=True),
-        dict(model_family="moe"),
-    ],
-    ids=lambda kw: next(iter(kw)),
-)
-def test_later_slice_features_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="slice"):
-        LLMConfig(**kwargs)
+# id: (config, what the port does with it). The adapter cases construct
+# since adapters are ported: beside a draft as in the reference, and
+# without a KV pool refused with the reference's ValueError
+_LATER_SLICES = {
+    # the paged engine is ported; the cluster KV tier over it is not
+    "kv_cache_blocks": (dict(kv_cache_blocks=16, kv_tier=True), NotImplementedError),
+    "mesh": (dict(mesh={"tp": 2}), NotImplementedError),
+    "tensor_parallel_size": (dict(tensor_parallel_size=2), NotImplementedError),
+    "draft_model": (
+        dict(draft_model="llama-tiny", kv_cache_blocks=16, adapters={"max_live": 2}), None
+    ),
+    "adapters": (dict(adapters={"max_live": 2}), ValueError),
+    "roles": (dict(roles={"prefill": 1, "decode": 1}), NotImplementedError),
+    "kv_tier": (dict(kv_tier=True), NotImplementedError),
+    "model_family": (dict(model_family="moe"), NotImplementedError),
+    # the serve control plane and the weight plane
+    "num_replicas": (dict(num_replicas=2), NotImplementedError),
+    "autoscaling_config": (dict(autoscaling_config={"min_replicas": 1}), NotImplementedError),
+    "autoscale_policy": (dict(autoscale_policy={"min_replicas": 1}), NotImplementedError),
+    "quantized": (dict(quantized=True), NotImplementedError),
+}
+
+
+@pytest.mark.parametrize("case", list(_LATER_SLICES))
+def test_later_slice_features_raise(case):
+    kwargs, raises = _LATER_SLICES[case]
+    if raises is NotImplementedError:
+        with pytest.raises(NotImplementedError, match="slice"):
+            LLMConfig(**kwargs)
+    elif raises is ValueError:
+        with pytest.raises(ValueError, match="kv_cache_blocks"):
+            JaxLLMConfig(**kwargs)
+        with pytest.raises(ValueError, match="kv_cache_blocks"):
+            LLMConfig(**kwargs)
+    else:
+        cfg, ref = LLMConfig(**kwargs), JaxLLMConfig(**kwargs)
+        assert isinstance(cfg.adapters, AdapterConfig)
+        assert dataclasses.asdict(cfg.adapters) == dataclasses.asdict(ref.adapters)
+        assert (cfg.spec_tokens, cfg.kv_cache_blocks) == (ref.spec_tokens, ref.kv_cache_blocks)
 
 
 @pytest.mark.parametrize(
@@ -178,15 +201,68 @@ def test_later_slice_features_raise(kwargs):
         (dict(prefill_chunk_tokens=256), "kv_cache_blocks"),
         (dict(spec_tokens=4, kv_cache_blocks=32), "draft_model"),
         (dict(prefill_chunk_tokens=-1, kv_cache_blocks=32), "prefill_chunk_tokens"),
+        (dict(adapters={"max_live": 2}), "kv_cache_blocks"),
+        (dict(adapters={"max_live": 0}, kv_cache_blocks=32), "max_live"),
+        (dict(adapters={"source": "s3://x"}, kv_cache_blocks=32), "source"),
     ],
     ids=["spec_without_pool", "chunked_without_pool", "spec_without_draft",
-         "negative_chunk"],
+         "negative_chunk", "adapters_without_pool", "adapters_no_slot", "adapters_bad_source"],
 )
 def test_paged_feature_guards_like_reference(kwargs, match):
     with pytest.raises(ValueError, match=match):
         JaxLLMConfig(**kwargs)
     with pytest.raises(ValueError, match=match):
         LLMConfig(**kwargs)
+
+
+@pytest.mark.parametrize(
+    "kwargs, error",
+    [
+        (dict(mesh={"dp": 4}), "mesh"),
+        (dict(mesh={"tp": 0}), "mesh"),
+        (dict(mesh={"tp": "2"}), "mesh"),
+        (dict(mesh={"tp": 2, "sp": -1}), "mesh"),
+        (dict(kv_ship_codec="fp8"), ValueError),
+        (dict(roles={"prefill": 1, "decode": 1, "router": 1}), ValueError),
+        (dict(roles={"prefill": 0, "decode": 1}), ValueError),
+        (dict(roles={"prefill": 1}), ValueError),
+    ],
+    ids=["mesh_axis_dp", "mesh_tp_0", "mesh_tp_str", "mesh_sp_negative", "kv_ship_codec",
+         "roles_key", "roles_zero", "roles_missing"],
+)
+def test_config_checks_like_reference(kwargs, error):
+    """The reference's checks of values run before any not-ported raise:
+    the same error class and message on both sides."""
+    if error == "mesh":
+        ref_error, error = JaxMeshValidationError, MeshValidationError
+    else:
+        ref_error = error
+    with pytest.raises(ref_error) as ref:
+        JaxLLMConfig(**kwargs)
+    with pytest.raises(error) as got:
+        LLMConfig(**kwargs)
+    assert str(got.value) == str(ref.value)
+    assert issubclass(MeshValidationError, ValueError)
+
+
+def test_every_reference_config_field_is_a_port_field():
+    """A config written for ray_tpu reads the same: every field of the
+    reference's LLMConfig and LlamaConfig is accepted, with its default
+    (dtypes are torch's in the port)."""
+    ref_defaults, port_defaults = JaxLLMConfig(), LLMConfig()
+    for name in (f.name for f in dataclasses.fields(JaxLLMConfig)):
+        assert hasattr(port_defaults, name), name
+        assert getattr(port_defaults, name) == getattr(ref_defaults, name), name
+    ref_model, port_model = JaxLlamaConfig(), LlamaConfig()
+    for name in (f.name for f in dataclasses.fields(JaxLlamaConfig)):
+        assert hasattr(port_model, name), name
+        if name not in ("dtype", "param_dtype"):
+            assert getattr(port_model, name) == getattr(ref_model, name), name
+    LLMConfig(prefix_affinity_tokens=8, resources_per_replica={"GPU": 1.0}, kv_ship_codec="int8")
+    # scan_layers builds the same (unstacked) model
+    scanned = LLMConfig(model_kwargs={"scan_layers": True}).build_model_config()
+    assert scanned.scan_layers and param_shapes(scanned) == param_shapes(
+        dataclasses.replace(scanned, scan_layers=False))
 
 
 def test_draft_config_like_reference():
