@@ -63,13 +63,26 @@ Phases, each of which exits non-zero on failure:
      then 3 timed warm steps of lora_train_step and the device busy share of
      one step under torch.profiler, whose launches of each of the port's
      kernels, found by symbol and counted by their wrappers, must equal the
-     per-step counts.
+     per-step counts;
+  13. ResNet-50 training (``train_resnet``): make_trainer(...).fit() of the
+     resnet loop at 224, batch 256 (bf16 activations over f32 parameters,
+     SGD with momentum), finite losses, running statistics that move, K1-K4
+     launched 0 times; median of 5 timed warm steps, images/s, peak memory,
+     a profile of one step (convolutions against the elementwise chain);
+     f32 card-vs-host parity at full width (4 images at 96x96);
+  14. ViT-B/16 training (``train_vit``): batch 128 at 224, AdamW, exactly
+     12/12/12 launches of K2/K3/K4 per step (24 K2 with remat), K1 none,
+     remat-invariant loss and gradients, 5 timed warm steps, a profile of
+     one step (K2-K4's share) and f32 card-vs-host parity at 2 layers of
+     ViT-B width.
 Main paths: the launch counters are set to 0 just before phase 5 and read
 just after phase 6 (serving), set to 0 just before phase 7 and read just
 after phase 9 (continuous batching, ``serve_cb``), set to 0 just before
 phase 10 and read just after it (``serve_lora``), and set to 0 just before
-phase 12's fit() and read just after it (training). The last lines are a
-JSON line of the kernels and the result line.
+phase 12's fit() and read just after it (training), and set to 0 at the
+start of phases 13 and 14 and read after their timed and profiled steps
+(``train_resnet``, ``train_vit``). The last lines are a JSON line of the
+kernels and the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -106,6 +119,14 @@ LORA = {"max_live": 8, "rank": 16, "alpha": 16.0, "tenants": 4, "lora_b_std": 0.
 TRAIN_CONFIG = {"model": "7b", "seq": 2048, "batch_per_worker": 2, "lora_rank": 16,
                 "epochs": 2, "steps_per_epoch": 2}
 TRAIN_STEPS = TRAIN_CONFIG["epochs"] * TRAIN_CONFIG["steps_per_epoch"]
+# vision training: ResNet-50 through make_trainer(...).fit() at the NVIDIA
+# DeepLearningExamples ResNet-50 v1.5 recipe's 256 images a card, and
+# ViT-B/16 at DeiT-B's 128 a card (1024 over 8), both at 224
+RESNET_CONFIG = {"model": "50", "image_size": 224, "batch_per_worker": 256, "epochs": 1,
+                 "steps_per_epoch": 3, "device": "cuda"}
+VIT_BATCH = 128
+VIT_SEQ = (224 // 16) ** 2 + 1  # 196 patches + CLS
+VISION_STEPS = 5  # timed warm steps of each vision loop
 # rounding unit of each dtype (one ulp of a value in [1, 2))
 ULP = {"torch.bfloat16": 2.0 ** -7, "torch.float16": 2.0 ** -10, "torch.float32": 2.0 ** -23}
 
@@ -216,26 +237,32 @@ def flash_phase(torch, F):
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     b, seq = TRAIN_CONFIG["batch_per_worker"], TRAIN_CONFIG["seq"]
-    # (bh, sq, sk, d, causal, dtype); bf16 and f16 run the tensor-core
-    # kernel, f32 the CUDA-core one
+    # (bh, sq, sk, d, causal, dtype, batch); bf16 and f16 run the
+    # tensor-core kernel, f32 the CUDA-core one. The calls with a batch are
+    # timed (q viewed as (batch, heads, seq, d) for SDPA).
     cases = [
         # the 7B full forward's per-layer call: 4 prompts x 32 heads, 128
         # tokens, head_dim 128
-        (N_REQUESTS * 32, PROMPT_LEN, PROMPT_LEN, 128, True, torch.bfloat16),
+        (N_REQUESTS * 32, PROMPT_LEN, PROMPT_LEN, 128, True, torch.bfloat16, N_REQUESTS),
         # the 7B training call: batch 2 x 32 heads, seq 2048
-        (b * 32, seq, seq, 128, True, torch.bfloat16),
-        (8, 96, 96, 32, True, torch.bfloat16),  # tiny's head_dim
-        (8, 100, 100, 64, False, torch.float16),
-        (4, 77, 77, 128, True, torch.bfloat16),  # ragged q and key tiles
-        (4, 77, 77, 128, True, torch.float16),
-        (2, 40, 130, 128, True, torch.bfloat16),  # sq < sk, top-left causal
-        (2, 130, 40, 128, True, torch.bfloat16),  # sq > sk
-        (4, 200, 200, 64, True, torch.float16),  # four key tiles, the last of 8 keys
-        (2, 40, 130, 64, True, torch.float32),
-        (2, 130, 40, 128, False, torch.float32),
+        (b * 32, seq, seq, 128, True, torch.bfloat16, b),
+        # the ViT-B/16 training call: batch 128 x 12 heads, 197 tokens,
+        # bidirectional; ragged last q and key tiles (197 = 3 x 64 + 5)
+        (VIT_BATCH * 12, VIT_SEQ, VIT_SEQ, 64, False, torch.bfloat16, VIT_BATCH),
+        (12, VIT_SEQ, VIT_SEQ, 64, False, torch.bfloat16, None),
+        (8, 100, 100, 64, False, torch.bfloat16, None),
+        (8, 96, 96, 32, True, torch.bfloat16, None),  # tiny's head_dim
+        (8, 100, 100, 64, False, torch.float16, None),
+        (4, 77, 77, 128, True, torch.bfloat16, None),  # ragged q and key tiles
+        (4, 77, 77, 128, True, torch.float16, None),
+        (2, 40, 130, 128, True, torch.bfloat16, None),  # sq < sk, top-left causal
+        (2, 130, 40, 128, True, torch.bfloat16, None),  # sq > sk
+        (4, 200, 200, 64, True, torch.float16, None),  # four key tiles, the last of 8 keys
+        (2, 40, 130, 64, True, torch.float32, None),
+        (2, 130, 40, 128, False, torch.float32, None),
     ]
     rows = []
-    for bh, sq, sk, d, causal, dtype in cases:
+    for bh, sq, sk, d, causal, dtype, bb in cases:
         q = torch.randn(bh, sq, d, generator=g, device="cuda").to(dtype)
         k = torch.randn(bh, sk, d, generator=g, device="cuda").to(dtype)
         v = torch.randn(bh, sk, d, generator=g, device="cuda").to(dtype)
@@ -282,8 +309,7 @@ def flash_phase(torch, F):
                    max_abs_o=ro.float().abs().max().item(), lse_max_abs_err=lse_err,
                    f32_plain_max_abs_err=f32_err, f32_plain_err_over_tol_max=f32_worst)
         del ro, fo, bound, tol, diff, f32_diff
-        if len(rows) < 2:  # the serving call, then the training call
-            bb = N_REQUESTS if len(rows) == 0 else b
+        if bb is not None:  # the serving, the 7B training and the ViT training call
             q4, k4, v4 = (t.view(bb, bh // bb, -1, d) for t in (q, k, v))
             row["ms"] = time_ms(lambda: flash_attention_fwd(q, k, v, **kw))
             row["plain_ms"] = time_ms(
@@ -318,25 +344,29 @@ def flash_bwd_phase(torch, F):
     )
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    # (bh, sq, sk, d, causal, dtype); the first is the 7B training call:
-    # batch 2 x 32 heads, seq 2048, head_dim 128. bf16 and f16 run the
+    # (bh, sq, sk, d, causal, dtype, batch); the first is the 7B training
+    # call: batch 2 x 32 heads, seq 2048, head_dim 128; the second the
+    # ViT-B/16 one. Those two, with a batch, are timed. bf16 and f16 run the
     # tensor-core kernels, f32 the CUDA-core ones.
     b, seq = TRAIN_CONFIG["batch_per_worker"], TRAIN_CONFIG["seq"]
     cases = [
-        (b * 32, seq, seq, 128, True, torch.bfloat16),
-        (8, 96, 96, 32, True, torch.bfloat16),
-        (4, 77, 77, 128, True, torch.bfloat16),  # ragged last tiles
-        (4, 77, 77, 128, True, torch.float16),
-        (8, 100, 100, 64, False, torch.float16),
-        (2, 40, 130, 128, True, torch.bfloat16),  # sq < sk, top-left causal
-        (2, 40, 130, 128, True, torch.float16),
-        (2, 130, 40, 128, True, torch.bfloat16),  # sq > sk
-        (2, 130, 40, 128, False, torch.float16),
-        (2, 40, 130, 64, True, torch.float32),
-        (2, 130, 40, 128, False, torch.float32),
+        (b * 32, seq, seq, 128, True, torch.bfloat16, b),
+        (VIT_BATCH * 12, VIT_SEQ, VIT_SEQ, 64, False, torch.bfloat16, VIT_BATCH),
+        (12, VIT_SEQ, VIT_SEQ, 64, False, torch.bfloat16, None),
+        (8, 100, 100, 64, False, torch.bfloat16, None),
+        (8, 96, 96, 32, True, torch.bfloat16, None),
+        (4, 77, 77, 128, True, torch.bfloat16, None),  # ragged last tiles
+        (4, 77, 77, 128, True, torch.float16, None),
+        (8, 100, 100, 64, False, torch.float16, None),
+        (2, 40, 130, 128, True, torch.bfloat16, None),  # sq < sk, top-left causal
+        (2, 40, 130, 128, True, torch.float16, None),
+        (2, 130, 40, 128, True, torch.bfloat16, None),  # sq > sk
+        (2, 130, 40, 128, False, torch.float16, None),
+        (2, 40, 130, 64, True, torch.float32, None),
+        (2, 130, 40, 128, False, torch.float32, None),
     ]
     rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
-    for bh, sq, sk, d, causal, dtype in cases:
+    for bh, sq, sk, d, causal, dtype, bb in cases:
         q, do = (torch.randn(bh, sq, d, generator=g, device="cuda").to(dtype) for _ in range(2))
         k, v = (torch.randn(bh, sk, d, generator=g, device="cuda").to(dtype) for _ in range(2))
         kw = dict(sm_scale=d ** -0.5, causal=causal)
@@ -388,7 +418,7 @@ def flash_bwd_phase(torch, F):
                 f32_plain_tol_max=max(errs[n][3] for n in names),
                 p_ds_subnormal=n_sub,
             ))
-        if len(rows["flash_bwd_dq"]) == 1:
+        if bb is not None:
             pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
             reads = 2 * (2 * bh * sq * d + 2 * bh * sk * d) + 2 * 4 * bh * sq
             main = {
@@ -405,15 +435,15 @@ def flash_bwd_phase(torch, F):
             }
             # yardstick: SDPA's backward, one call for dQ, dK and dV
             # together, with the forward outside the timing
-            q4, k4, v4 = (t.view(b, bh // b, -1, d).detach().requires_grad_(True)
+            q4, k4, v4 = (t.view(bb, bh // bb, -1, d).detach().requires_grad_(True)
                           for t in (q, k, v))
             o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal, scale=kw["sm_scale"])
-            do4 = do.view(b, bh // b, sq, d)
+            do4 = do.view(bb, bh // bb, sq, d)
             library_ms = time_ms(
                 lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
             )
             for kernel, (fn, plain_fn, n_bytes, n_ops) in main.items():
-                row = rows[kernel][0]
+                row = rows[kernel][-1]
                 row["ms"] = time_ms(fn)
                 row["plain_ms"] = time_ms(plain_fn, reps=5, inner=2)
                 row["library_ms"] = library_ms
@@ -1315,28 +1345,41 @@ PORT_KERNELS = {"rmsnorm_fwd": "rmsnorm_fwd_kernel", "flash_attention_fwd": "fla
                 "flash_bwd_dq": "flash_bwd_dq_", "flash_bwd_dkv": "flash_bwd_dkv_"}
 
 
-def device_profile(torch, fn):
+def device_profile(torch, fn, groups=None):
     """Wall time, device busy share, the kernels that take the most device
     time of one call of ``fn`` under torch.profiler, and the device time and
-    launches of each of the port's kernels in it."""
+    launches of each of the port's kernels in it. ``groups`` (name -> parts
+    of kernel symbols) adds the device time of each group, a kernel going to
+    the first group with a part in its name, and of the kernels in none."""
     from torch.profiler import ProfilerActivity, profile
 
-    # the profiler can lose the first few device records of a session, more
-    # of them in later sessions of the process, whatever idle time precedes
-    # them, so a step's first kernels (the embedding gather, then the first
-    # RMSNorm) could go missing. Short spin kernels ahead of fn take the loss;
-    # they are left out of every figure, and their losses are reported.
-    pad, pad_symbol = 64, "spin_kernel"
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(pad):
-            torch.cuda._sleep(100)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    pads_lost = pad - sum(pad_symbol in e.name for e in kernels)
+    # the profiler can lose the first device records of a session, whatever
+    # idle time precedes them: mostly a few, at times over a hundred, while
+    # the host's launch calls are all recorded (chip_profile_loss.py). Short
+    # spin kernels ahead of fn take the loss; they are left out of every
+    # figure, and their losses are reported. The loss is a prefix of the
+    # records, so a profile that kept a pad kept all of fn's; one that lost
+    # every pad may have lost fn's first kernels, and fn runs again under a
+    # new session.
+    pad, pad_symbol, attempts = 256, "spin_kernel", 3
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(pad):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        # a user annotation on the device timeline (``Optimizer.step#AdamW.step``)
+        # spans kernels that are counted on their own: it is no kernel
+        notes = [e for e in device if getattr(e, "is_user_annotation", False)]
+        kernels = [e for e in device if not getattr(e, "is_user_annotation", False)]
+        pads_lost = pad - sum(pad_symbol in e.name for e in kernels)
+        if pads_lost < pad:
+            break
+    check(pads_lost < pad, f"{attempts} profiles in a row lost all {pad} pad records")
     kernels = [e for e in kernels if pad_symbol not in e.name]
     busy_ms = sum(e.device_time for e in kernels) / 1e3
     by_name = {}
@@ -1351,10 +1394,22 @@ def device_profile(torch, fn):
     for e in prof.key_averages():
         if e.key in host_ops:
             host_ops[e.key] = e.count
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, kernel_launches=len(kernels),
-                device_busy_share=busy_ms / wall_ms if busy_ms else None,
-                top_kernels_ms=[[name[:80], ms] for name, ms in top], port_kernels=port,
-                pad_kernels_lost=pads_lost, host_ops=host_ops)
+    out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms, kernel_launches=len(kernels),
+               device_busy_share=busy_ms / wall_ms if busy_ms else None,
+               top_kernels_ms=[[name[:80], ms] for name, ms in top], port_kernels=port,
+               pad_kernels_lost=pads_lost, profile_attempts=attempt, host_ops=host_ops,
+               annotations_ms={e.name: e.device_time / 1e3 for e in notes})
+    if groups:
+        members = {g: [] for g in [*groups, "other"]}
+        for name, t in sorted(by_name.items(), key=lambda kv: -kv[1]):
+            hit = [g for g, parts in groups.items() if any(x in name for x in parts)]
+            members[hit[0] if hit else "other"].append((name, t))
+        out["groups_ms"] = {g: sum(t for _, t in m) for g, m in members.items()}
+        out["groups_share"] = {g: t / busy_ms if busy_ms else None
+                               for g, t in out["groups_ms"].items()}
+        out["groups_top"] = {g: [[name[:100], t] for name, t in m[:3]]
+                             for g, m in members.items()}
+    return out
 
 
 def profile_phase(torch, server, prompt):
@@ -1448,6 +1503,358 @@ def train_phase(torch, counters):
     return launches, out
 
 
+def _launches(counters):
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def _zero(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _timed_steps(torch, step, n):
+    """Host-clock ms of ``n`` calls of ``step``, each ending in a
+    synchronize, after one warm-up call; and the peak memory over them."""
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, torch.cuda.max_memory_allocated()
+
+
+def _rel_err(got, want):
+    """Largest |got - want| over the largest |want|, in f64 on the host."""
+    want = want.detach().double().cpu()
+    return ((got.detach().double().cpu() - want).abs().max() / want.abs().max()).item()
+
+
+def _control_check(tag, errs, control):
+    """Hold the card's f32 errors against an f64 host run to at most 4x the
+    host's own f32 errors against it (``control``, the largest over the same
+    group of tensors): both are f32 runs of the same arithmetic that sum in
+    other orders, so their errors are of one size, and 4x leaves room for
+    the spread of a maximum over many elements. A control of a quarter or
+    more would mean the host run itself is broken and would hide a fault."""
+    check(0 < control < 0.25, f"{tag}: f32 host vs f64 host error {control}")
+    worst = max(errs.values())
+    check(worst <= 4 * control, f"{tag}: card vs f64 host error {worst} > 4 x {control} ({errs})")
+    return dict(max_rel_err=worst, control=control, tol=4 * control)
+
+
+def resnet_macs(cfg, size: int) -> int:
+    """Multiply-adds of one image's ResNet forward: convolutions (the
+    bottleneck's 1x1 conv1 at the block's input size, conv2 and the
+    projection at its stride) and the head."""
+    s = -(-size // 2)  # the stem, stride 2
+    macs = s * s * cfg.width * 3 * 49
+    s = (s - 1) // 2 + 1  # max pool 3x3, stride 2, pad 1
+    in_ch = cfg.width
+    for stage, n_blocks in enumerate(cfg.stage_sizes):
+        f = cfg.width * 2 ** stage
+        for block in range(n_blocks):
+            stride = 2 if stage > 0 and block == 0 else 1
+            out = -(-s // stride)
+            macs += s * s * in_ch * f + out * out * (9 * f * f + 4 * f * f)
+            if in_ch != 4 * f or stride != 1:
+                macs += out * out * in_ch * 4 * f
+            in_ch, s = 4 * f, out
+    return macs + in_ch * cfg.num_classes
+
+
+# device-time groups of a vision step's profile, by parts of kernel symbols
+VISION_GROUPS = {
+    "flash_attention": ("flash_fwd_", "flash_bwd_"),
+    "pooling": ("pool",),
+    "convolutions": ("conv", "xmma", "fprop", "dgrad", "wgrad", "cudnn", "implicit_gemm", "nhwc",
+                     "nchw"),
+    "gemms": ("nvjet", "gemm", "cutlass"),
+    "reductions": ("reduce", "norm"),
+    "elementwise": ("elementwise", "copy"),
+}
+
+
+def resnet_parity(torch):
+    """Card vs host at full ResNet-50 width, 4 images at 96x96 (the last
+    stage 3x3, 36 values a channel), TF32 off. In f32: train-mode logits
+    and the updated running statistics against an f64 host run, within 4x
+    the f32 host run's own error (``_control_check``). The gradients are
+    held in f64: in f32 those of the early layers sit 1e-2 to 1e-1 from f64
+    on the host itself (BatchNorm's backward cancels across a small batch,
+    in 53 norms in a row), which would hide a fault. In f64 only the head
+    rounds to f32 (``nn.Dense(dtype=float32)`` in the reference), which
+    leaves the host 8.5e-8 from itself with the batch in another order.
+    Card f64 against host f64: logits, statistics and six gradients within
+    1e-5 of each tensor's largest value, 100x that floor and 1,000x below
+    the f32 errors."""
+    from ray_tpu_torch.models import resnet as R
+
+    cfg = R.ResNetConfig.resnet50(dtype=torch.float32)
+    g = torch.Generator().manual_seed(SEED + 5)
+    params, stats = R.init_train_state(cfg, g, "cpu")
+    for k, p in params.items():  # bn3's zero scale would silence every block
+        if k.endswith("scale"):
+            p.uniform_(0.5, 1.5, generator=g)
+        elif k.endswith("bias"):
+            p.normal_(0.0, 0.1, generator=g)
+    images = torch.randn(4, 96, 96, 3, generator=g)
+    labels = torch.tensor([3, 7, 500, 999])
+    names = ["stem_conv.kernel", "stage0_block0.conv2.kernel", "stage1_block0.proj_conv.kernel",
+             "stage2_block5.bn2.scale", "stage3_block2.conv3.kernel", "head.kernel"]
+
+    def run(device, dtype):
+        c = dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype)
+        p = {k: v.to(device, dtype).requires_grad_(True) for k, v in params.items()}
+        st = {k: v.to(device, dtype) for k, v in stats.items()}
+        logits, new = R.apply_train(c, p, st, images.to(device, dtype))
+        grads = torch.autograd.grad(R.cross_entropy(logits, labels.to(device)),
+                                    [p[n] for n in names])
+        return {"logits": logits}, new, dict(zip(names, grads))
+
+    f32, f64 = torch.float32, torch.float64
+    runs = {key: run(*key) for key in (("cuda", f32), ("cpu", f32), ("cuda", f64), ("cpu", f64))}
+    truth = runs[("cpu", f64)]
+
+    def errs(run, i):
+        return {k: _rel_err(runs[run][i][k], truth[i][k]) for k in truth[i]}
+
+    out = {}
+    for i, what in enumerate(("logits", "stats")):
+        out[what] = _control_check(f"resnet parity {what}", errs(("cuda", f32), i),
+                                   max(errs(("cpu", f32), i).values()))
+    f64_err = max(max(errs(("cuda", f64), i).values()) for i in range(3))
+    check(f64_err <= 1e-5, f"resnet parity f64: card vs host rel err {f64_err} > 1e-5")
+    out["f64"] = dict(max_rel_err=f64_err, tol=1e-5,
+                      grads_f32_host_rel_err=max(errs(("cpu", f32), 2).values()),
+                      grads_f32_card_rel_err=max(errs(("cuda", f32), 2).values()))
+    return out
+
+
+def train_resnet_phase(torch, counters):
+    """ResNet-50 at 224 through DataParallelTrainer.fit() (batch 256, 3
+    steps), then warm steps of the same loop body, a profile of one step and
+    the f32 card-vs-host parity at full width. No kernel of the port runs on
+    this path: K1-K4 must be launched 0 times."""
+    import math
+    import os
+    import tempfile
+
+    from ray_tpu_torch.train.examples import resnet as example
+
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resnet_") as storage:
+        os.environ["RAY_TPU_STORAGE_PATH"] = storage
+        try:
+            t0 = time.perf_counter()
+            result = example.make_trainer(train_config=dict(RESNET_CONFIG)).fit()
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        finally:
+            del os.environ["RAY_TPU_STORAGE_PATH"]
+    if result.error is not None:
+        raise result.error
+    fit_peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in result.metrics_history]
+    check(len(losses) == RESNET_CONFIG["epochs"] and all(math.isfinite(x) for x in losses),
+          f"bad resnet losses {losses}")
+
+    cfg, size = example.model_config(RESNET_CONFIG)
+    b = RESNET_CONFIG["batch_per_worker"]
+    device = torch.device("cuda", torch.cuda.current_device())
+    model, optimizer = example.sgd_model(cfg, device)
+    images, labels = example.step_batch(cfg, b, size, 0, 0, 0, device)
+    start = {k: v.clone() for k, v in model.batch_stats().items()}
+    losses_timed = []
+
+    def step():
+        losses_timed.append(example.train_step(model, optimizer, images, labels))
+
+    step_ms, step_peak = _timed_steps(torch, step, VISION_STEPS)
+    check(all(math.isfinite(x.item()) for x in losses_timed), "non-finite resnet loss")
+    moved = max((v - start[k]).abs().max().item() for k, v in model.batch_stats().items())
+    check(moved > 0, "the running statistics did not move")
+    check(model.stem_conv.kernel.is_contiguous(memory_format=torch.channels_last),
+          "the conv kernels are not channels_last")
+    prof = device_profile(torch, step, groups=VISION_GROUPS)
+    launches = _launches(counters)
+    check(all(n == 0 for n in launches.values()), f"port kernels launched on ResNet: {launches}")
+    del model, optimizer, images, labels
+    torch.cuda.empty_cache()
+    parity = resnet_parity(torch)
+    med = statistics.median(step_ms)
+    macs = resnet_macs(cfg, size)
+    out = dict(fit_s=fit_s, losses=losses, launches=launches, batch=b, image_size=size,
+               step_ms=step_ms, step_ms_median=med, images_per_s=b / med * 1e3,
+               fit_peak_bytes=fit_peak, step_peak_bytes=step_peak, stats_moved_max=moved,
+               forward_gmac_per_image=macs / 1e9,
+               trained_gflop_per_image=6 * macs / 1e9,  # forward 2, backward 4 per MAC
+               tflop_s=6 * macs * b / med / 1e9, profile=prof, parity=parity)
+    print("train_resnet", json.dumps(out))
+    return launches, out
+
+
+def vit_macs(cfg) -> int:
+    """Multiply-adds of one image's ViT forward: the patch embedding, per
+    layer the four projections, the MLP and the two attention products, and
+    the head."""
+    s, dim, p = cfg.num_patches + 1, cfg.dim, cfg.patch_size
+    per_layer = 4 * s * dim * dim + 2 * s * dim * cfg.mlp_dim + 2 * s * s * dim
+    return cfg.num_patches * dim * 3 * p * p + cfg.n_layers * per_layer + dim * cfg.num_classes
+
+
+def _vit_randomise(torch, params, g):
+    """Random values for the zero-start head and cls_token and the biases:
+    at init every logit is 0 and a comparison proves nothing."""
+    for k, p in params.items():
+        if k in ("head", "cls_token"):
+            p.normal_(0.0, 0.05, generator=g)
+        elif k.endswith("bias"):
+            p.normal_(0.0, 0.1, generator=g)
+
+
+def vit_parity(torch):
+    """Card vs host, 2 layers at ViT-B/16 width (head_dim 64) in f32: logits
+    and every gradient of ``classification_loss`` against an f64 host run,
+    within 4x the f32 host run's own error (``_control_check``). The keys'
+    bias is left out: softmax cancels it, so its true gradient is 0 and
+    both sides hold rounding noise."""
+    from ray_tpu_torch.models import vit as V
+
+    cfg = V.ViTConfig.base(n_layers=2, dtype=torch.float32)
+    g = torch.Generator().manual_seed(SEED + 6)
+    params = V.init_params(cfg, g, "cpu")
+    _vit_randomise(torch, params, g)
+    images = torch.randn(2, cfg.image_size, cfg.image_size, 3, generator=g)
+    labels = torch.tensor([3, 7])
+
+    def run(device, dtype):
+        c = dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype)
+        model = V.build_vit(c, {k: v.to(device, dtype) for k, v in params.items()})
+        x = images.to(device, dtype)
+        logits = model(x)
+        V.classification_loss(c, None, model, x, labels.to(device)).backward()
+        return logits, {n: p.grad for n, p in model.named_parameters()
+                        if not n.endswith("wk.bias")}
+
+    runs = {key: run(*key) for key in (("cuda", torch.float32), ("cpu", torch.float32),
+                                       ("cpu", torch.float64))}
+    truth = runs[("cpu", torch.float64)]
+    out = {}
+    for i, what in enumerate(("logits", "grads")):
+        def errs(run):
+            got = runs[run][i]
+            if what == "logits":
+                return {"logits": _rel_err(got, truth[0])}
+            return {k: _rel_err(got[k], truth[1][k]) for k in truth[1]}
+
+        out[what] = _control_check(f"vit parity {what}", errs(("cuda", torch.float32)),
+                                   max(errs(("cpu", torch.float32)).values()))
+    return out
+
+
+def train_vit_phase(torch, counters):
+    """ViT-B/16 at 224, batch 128, bf16 activations over f32 parameters,
+    AdamW (optax's defaults): exact launches of K1-K4 per step with and
+    without remat, remat-invariant loss and gradients, warm steps, a
+    profile of one step and the f32 card-vs-host parity at 2 layers."""
+    import math
+
+    from ray_tpu_torch.models import vit as V
+
+    _zero(counters)
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg = V.ViTConfig.base()
+    g = torch.Generator(device=device).manual_seed(SEED + 7)
+    params = V.init_params(cfg, g, device)
+    _vit_randomise(torch, params, g)
+    images = torch.randn(VIT_BATCH, cfg.image_size, cfg.image_size, 3, generator=g,
+                         device=device)
+    labels = torch.randint(0, cfg.num_classes, (VIT_BATCH,), generator=g, device=device)
+
+    # one loss and backward per remat setting on the same parameters and
+    # inputs: the launches of each, and the gradients of both
+    grads, loss, per_step = {}, {}, {}
+    n = cfg.n_layers
+    want = {False: {"rmsnorm_fwd": 0, "flash_attention_fwd": n, "flash_bwd_dq": n,
+                    "flash_bwd_dkv": n},
+            True: {"rmsnorm_fwd": 0, "flash_attention_fwd": 2 * n, "flash_bwd_dq": n,
+                   "flash_bwd_dkv": n}}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        model = V.build_vit(c, {k: v.clone() for k, v in params.items()})
+        before = _launches(counters)
+        l = V.classification_loss(c, None, model, images, labels)
+        l.backward()
+        torch.cuda.synchronize()
+        per_step[remat] = {k: v - before[k] for k, v in _launches(counters).items()}
+        check(per_step[remat] == want[remat],
+              f"ViT step launches with remat={remat}: {per_step[remat]}, want {want[remat]}")
+        loss[remat] = l.item()
+        grads[remat] = {k: p.grad for k, p in model.named_parameters()}
+        del model
+    check(math.isfinite(loss[False]), f"non-finite ViT loss {loss[False]}")
+    # remat recomputes each block from its saved input with the same
+    # kernels, so loss and gradients agree to the last bits; a wrong
+    # recompute would move them by O(1) of their size. Tolerance: 1e-6 of
+    # the loss, 1e-3 of each tensor's largest gradient.
+    loss_rel = abs(loss[True] - loss[False]) / abs(loss[False])
+    check(loss_rel <= 1e-6, f"ViT loss remat {loss[True]} vs no remat {loss[False]}")
+    remat_err = max(_rel_err(grads[True][k], grads[False][k]) for k in grads[False]
+                    if not k.endswith("wk.bias"))
+    check(remat_err <= 1e-3, f"ViT gradients remat vs no remat: rel err {remat_err} > 1e-3")
+    del grads
+    torch.cuda.empty_cache()
+
+    # the timed loop: remat off, AdamW with optax's defaults (weight decay
+    # 1e-4, as llama_lora.py)
+    model = V.build_vit(cfg, {k: v.clone() for k, v in params.items()})
+    optimizer = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=1e-4)
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        loss = V.classification_loss(cfg, None, model, images, labels)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    losses = []
+    step_ms, step_peak = _timed_steps(torch, lambda: losses.append(step()), VISION_STEPS)
+    check(all(math.isfinite(x.item()) for x in losses), "non-finite ViT loss in the timed steps")
+    before = _launches(counters)
+    prof = device_profile(torch, step, groups=VISION_GROUPS)
+    for name, per in want[False].items():
+        got = prof["port_kernels"][name]["launches"]
+        check(got == per, f"{name}: {got} launches in the ViT step profile, want {per}")
+        check(counters[name].launches - before[name] == per,
+              f"{name}: {counters[name].launches - before[name]} launches in the profiled step")
+    port_ms = sum(prof["port_kernels"][k]["ms"] for k in ("flash_attention_fwd", "flash_bwd_dq",
+                                                          "flash_bwd_dkv"))
+    launches = _launches(counters)
+    del model, optimizer, step
+    torch.cuda.empty_cache()
+    parity = vit_parity(torch)
+    med = statistics.median(step_ms)
+    macs = vit_macs(cfg)
+    out = dict(batch=VIT_BATCH, seq=cfg.num_patches + 1, head_dim=cfg.head_dim,
+               launches_per_step=per_step[False], launches_per_step_remat=per_step[True],
+               loss=loss[False], loss_remat_rel_err=loss_rel, grads_remat_rel_err=remat_err,
+               step_ms=step_ms, step_ms_median=med, images_per_s=VIT_BATCH / med * 1e3,
+               step_peak_bytes=step_peak, forward_gmac_per_image=macs / 1e9,
+               trained_gflop_per_image=6 * macs / 1e9, tflop_s=6 * macs * VIT_BATCH / med / 1e9,
+               flash_ms_in_step=port_ms,
+               flash_share_of_busy=(port_ms / prof["device_busy_ms"]
+                                    if prof["device_busy_ms"] else None),
+               launches=launches, profile=prof, parity=parity)
+    print("train_vit", json.dumps(out))
+    return launches, out
+
+
 def main() -> None:
     import torch
 
@@ -1525,8 +1932,14 @@ def main() -> None:
     # the training path: counts set to 0 inside train_phase just before
     # fit() and read just after it
     train_launches, _ = train_phase(torch, counters)
+    torch.cuda.empty_cache()
+    # the vision training paths: counts set to 0 inside each phase just
+    # before its first step and read just after its last (before its parity
+    # runs)
+    resnet_launches, _ = train_resnet_phase(torch, counters)
+    vit_launches, _ = train_vit_phase(torch, counters)
     paths = {"serve": serve_launches, "serve_cb": cb_launches, "serve_lora": lora_launches,
-             "train": train_launches}
+             "train": train_launches, "train_resnet": resnet_launches, "train_vit": vit_launches}
     launches = {name: sum(p[name] for p in paths.values()) for name in counters}
 
     def entry(name, source, replaces, rows):

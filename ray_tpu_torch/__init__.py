@@ -20,6 +20,11 @@ Covered so far:
 - multi-tenant LoRA serving: ``llm.LLMConfig(adapters=...)`` ->
   ``lora.AdapterStore`` slot bank -> batched-gather ``LoRADense`` in every
   model call; ``llm.LLMPredictor`` for batches with per-row adapters.
+- vision training: ResNet through ``train.DataParallelTrainer(...).fit()``
+  -> ``train.examples.resnet`` -> ``models.resnet`` (cuDNN convolutions,
+  flax's BatchNorm) -> SGD with momentum; ViT through
+  ``models.vit.classification_loss`` -> ``loss.backward()``, its encoder
+  attention through the flash-attention kernels, non-causal.
 
 Every Pallas kernel of ``ray_tpu`` now has its CUDA counterpart. The package
 imports neither JAX nor ``ray_tpu``.

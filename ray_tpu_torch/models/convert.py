@@ -1,4 +1,4 @@
-"""Carry ray_tpu's flax Llama weights into the port.
+"""Carry ray_tpu's flax weights (Llama, ResNet, ViT) into the port.
 
 The input is the reference's unboxed parameter tree
 (``ray_tpu.parallel.sharding.unbox_params`` of ``init_params``) with every
@@ -12,6 +12,10 @@ The reference's ``scan_layers`` tree stacks every block's parameters under
 the port loops over blocks (with per-block checkpointing in training), so
 the stacked leaves are unstacked into ``layer_{i}.<path>`` here.
 
+Vision models: flax conv kernels are HWIO and become the port's OIHW
+(stored ``channels_last``); ResNet's ``batch_stats`` collection (``mean``,
+``var`` of every BatchNorm) becomes its running-statistics buffers.
+
 :func:`cache_from_jax` carries the reference's decode cache (its flax
 ``cache`` collection) into the port's :class:`~.llama.DecodeCache`, so that
 both sides can start from the same K/V.
@@ -19,13 +23,17 @@ both sides can start from the same K/V.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from .._internal.device import DeviceLike, resolve_device
 from .llama import DecodeCache, LlamaConfig, param_shapes
+from .resnet import ResNetConfig
+from .resnet import shapes as resnet_shapes
+from .vit import ViTConfig
+from .vit import param_shapes as vit_param_shapes
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -73,25 +81,60 @@ def params_from_jax(
     ``config.param_dtype`` on ``device``. Raises on a key the port does not
     know, on a shape mismatch and on a missing parameter, all checked after
     unstacking."""
-    device = resolve_device(device)
     flat = _unstack(_flatten(flax_params))
-    expected = param_shapes(config)
+    return _load(flat, param_shapes(config), config.param_dtype, resolve_device(device))
+
+
+def _load(flat, expected, dtype, device, what="parameters"):
+    """``flat`` (flax path -> numpy leaf) as the port's tensors named in
+    ``expected``, cast to ``dtype`` on ``device``. A 4-D leaf is a flax conv
+    kernel, HWIO: it becomes OIHW, stored ``channels_last``. Raises on a
+    key the port does not know, on a missing one and on a shape mismatch."""
     unknown = sorted(set(flat) - set(expected))
     if unknown:
-        raise KeyError(f"parameters the port does not know: {unknown}")
+        raise KeyError(f"{what} the port does not know: {unknown}")
     missing = sorted(set(expected) - set(flat))
     if missing:
-        raise KeyError(f"parameters missing from the tree: {missing}")
+        raise KeyError(f"{what} missing from the tree: {missing}")
     out: Dict[str, torch.Tensor] = {}
     for name, shape in expected.items():
         t = _to_tensor(flat[name])
+        if t.dim() == 4:
+            t = t.permute(3, 2, 0, 1)
         if t.shape != shape:
             raise ValueError(
                 f"{name}: shape {tuple(t.shape)} does not match the port's "
                 f"{tuple(shape)}"
             )
-        out[name] = t.to(device=device, dtype=config.param_dtype)
+        t = t.to(device=device, dtype=dtype)
+        out[name] = t.contiguous(memory_format=torch.channels_last) if t.dim() == 4 else t
     return out
+
+
+def resnet_params_from_jax(
+    flax_params: Mapping[str, Any],
+    flax_batch_stats: Mapping[str, Any],
+    config: ResNetConfig,
+    device: DeviceLike = None,
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The port's ``(params, batch_stats)`` for ``config`` from the
+    reference's ``init_train_state`` trees: parameters in
+    ``config.param_dtype``, running statistics in f32, on ``device``."""
+    device = resolve_device(device)
+    param_want, stat_want = resnet_shapes(config)
+    params = _load(_flatten(flax_params), param_want, config.param_dtype, device)
+    stats = _load(_flatten(flax_batch_stats), stat_want, torch.float32, device,
+                  what="batch statistics")
+    return params, stats
+
+
+def vit_params_from_jax(
+    flax_params: Mapping[str, Any], config: ViTConfig, device: DeviceLike = None
+) -> Dict[str, torch.Tensor]:
+    """The port's state dict for ``config`` from the reference's ViT
+    parameter tree (unboxed), in ``config.param_dtype`` on ``device``."""
+    return _load(_flatten(flax_params), vit_param_shapes(config), config.param_dtype,
+                 resolve_device(device))
 
 
 def cache_from_jax(

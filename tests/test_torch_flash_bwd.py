@@ -32,6 +32,9 @@ _CASES = {
     "sq_gt_sk_top_left": (2, 56, 24, 64, True),
     "ragged": (2, 41, 41, 64, True),
     "d128": (1, 32, 32, 128, True),
+    # ViT-B/16's encoder call: 196 patches + CLS, head_dim 64, bidirectional;
+    # ragged last tiles on both sides (197 = 3 x 64 + 5)
+    "vit": (1, 197, 197, 64, False),
 }
 
 
