@@ -74,15 +74,28 @@ Phases, each of which exits non-zero on failure:
      12/12/12 launches of K2/K3/K4 per step (24 K2 with remat), K1 none,
      remat-invariant loss and gradients, 5 timed warm steps, a profile of
      one step (K2-K4's share) and f32 card-vs-host parity at 2 layers of
-     ViT-B width.
+     ViT-B width;
+  15. RLlib PPO (``train_ppo``): PPOConfig().environment(CartPoleEnv)
+     .env_runners(...).build().train(), the learner on the card and the env
+     runners on the host: (a) the repo's defaults (2 runners x 4 envs x 64
+     steps, minibatch 128, 4 epochs) for 3 iterations, the learner's
+     parameters and Adam moments on the card, the runners' policies on the
+     host, a save/restore round trip bit for bit; (b) upstream RLlib PPO's
+     batch (2 x 32 x 64 = 4,096 rows, minibatch 128, 30 epochs: 960
+     minibatch updates), one warm and 2 timed iterations split into
+     sampling, GAE and learner ms, env steps/s, peak memory, and one learner
+     update under torch.profiler (launches per minibatch update, busy
+     share); (c) one update of 512 rows card vs host in f32 against an f64
+     host run, discrete and Gaussian heads; K1-K4 launched 0 times.
 Main paths: the launch counters are set to 0 just before phase 5 and read
 just after phase 6 (serving), set to 0 just before phase 7 and read just
 after phase 9 (continuous batching, ``serve_cb``), set to 0 just before
 phase 10 and read just after it (``serve_lora``), and set to 0 just before
 phase 12's fit() and read just after it (training), and set to 0 at the
 start of phases 13 and 14 and read after their timed and profiled steps
-(``train_resnet``, ``train_vit``). The last lines are a JSON line of the
-kernels and the result line.
+(``train_resnet``, ``train_vit``), and set to 0 at the start of phase 15 and
+read after its timed iterations and profiled update (``train_ppo``). The
+last lines are a JSON line of the kernels and the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -127,6 +140,22 @@ RESNET_CONFIG = {"model": "50", "image_size": 224, "batch_per_worker": 256, "epo
 VIT_BATCH = 128
 VIT_SEQ = (224 // 16) ** 2 + 1  # 196 patches + CLS
 VISION_STEPS = 5  # timed warm steps of each vision loop
+# RLlib PPO on the port's CartPole: the repo's PPOConfig defaults (2 runners
+# x 4 envs x 64 steps, minibatch 128, 4 epochs), then upstream RLlib PPO's
+# documented train_batch_size 4000, minibatch 128 and 30 epochs, as 2 runners
+# x 32 envs x 64 steps (4,096 rows)
+PPO_DEFAULT_ENVS = 4
+PPO_UPSTREAM = {"envs": 32, "num_epochs": 30, "minibatch_size": 128}
+PPO_TIMED_ITERS = 2
+PPO_PROFILE_EPOCHS = 3  # of (b)'s 30, in the profiled update: 96 minibatch updates
+# a PPO minibatch update's kernels by kind (the first group with a part in a
+# kernel's symbol takes it)
+PPO_GROUPS = {"gemm": ("gemm", "gemv"), "adam_and_clip": ("multi_tensor_apply",),
+              "reductions": ("reduce_kernel",), "gather": ("index", "gather", "scatter"),
+              "elementwise": ("elementwise", "unrolled")}
+# card-vs-host parity of one update: 512 rows, (obs_dim, action_dim, discrete)
+PPO_PARITY_ROWS = 512
+PPO_PARITY_HEADS = {"discrete": (4, 2, True), "gaussian": (3, 1, False)}
 # rounding unit of each dtype (one ulp of a value in [1, 2))
 ULP = {"torch.bfloat16": 2.0 ** -7, "torch.float16": 2.0 ** -10, "torch.float32": 2.0 ** -23}
 
@@ -1855,6 +1884,163 @@ def train_vit_phase(torch, counters):
     return launches, out
 
 
+def ppo_parity(torch, np):
+    """One PPOLearner update (512 rows, 4 epochs of 4 minibatches, the same
+    injected permutations) on the card and on the host, both f32 with TF32
+    off, for a discrete and a Gaussian head, from the same initial weights.
+    Each run's parameter change and stats are held against an f64 host run
+    of the same update; the card's f32 errors within 4x the host's own
+    (``_control_check``)."""
+    from ray_tpu_torch.rllib.learner import STAT_KEYS, PPOLearner
+
+    out = {}
+    for head, (obs_dim, action_dim, discrete) in PPO_PARITY_HEADS.items():
+        rng = np.random.default_rng(SEED)
+        B = PPO_PARITY_ROWS
+        batch = {
+            "obs": rng.standard_normal((B, obs_dim)).astype(np.float32),
+            "actions": (rng.integers(0, action_dim, B) if discrete
+                        else rng.standard_normal((B, action_dim)).astype(np.float32)),
+            "logp_old": (rng.standard_normal(B) - 1.0).astype(np.float32),
+            "advantages": rng.standard_normal(B).astype(np.float32),
+            "returns": rng.standard_normal(B).astype(np.float32),
+        }
+        perms = np.stack([rng.permutation(B) for _ in range(4)])
+        runs = {}
+        for name, device, dtype in (("card", "cuda", torch.float32),
+                                    ("host", "cpu", torch.float32),
+                                    ("f64", "cpu", torch.float64)):
+            learner = PPOLearner(obs_dim, action_dim, discrete, num_epochs=4,
+                                 minibatch_size=128, seed=SEED, device=device)
+            state = learner.state_dict()
+            cast = {k: v.to(dtype) for k, v in state["params"].items()}
+            learner.load_state_dict({"params": cast, "opt_state": {
+                "mu": {k: torch.zeros_like(v) for k, v in cast.items()},
+                "nu": {k: torch.zeros_like(v) for k, v in cast.items()}, "count": 0}})
+            stats = learner.update(batch, perms=perms)
+            check(all(p.device.type == device and p.dtype == dtype
+                      for p in learner.model.parameters()),
+                  f"ppo parity {head}: the {name} learner's parameters left {device} {dtype}")
+            delta = {k: p.double() - cast[k].double() for k, p in learner.get_params().items()}
+            runs[name] = (delta, torch.tensor([stats[k] for k in STAT_KEYS]))
+        card_vs_host = max(_rel_err(v, runs["host"][0][k]) for k, v in runs["card"][0].items())
+
+        def errs(name):
+            delta, stats = runs[name]
+            e = {k: _rel_err(v, runs["f64"][0][k]) for k, v in delta.items()}
+            e["stats"] = _rel_err(stats, runs["f64"][1])
+            return e
+
+        out[head] = dict(_control_check(f"ppo parity {head}", errs("card"),
+                                        max(errs("host").values())),
+                         card_vs_host_rel_err=card_vs_host)
+    return out
+
+
+def train_ppo_phase(torch, np, counters):
+    """RLlib PPO on CartPole through PPOConfig(...).build().train(): (a) the
+    repo's defaults for 3 iterations, the learner on the card and the
+    runners' policies on the host, and a save/restore round trip; (b)
+    upstream RLlib PPO's documented batch (4,096 rows, minibatch 128, 30
+    epochs), one warm and 2 timed iterations and a profile of one learner
+    update; (c) card-vs-host parity of one update. K1-K4 must be launched 0
+    times."""
+    import math
+    import tempfile
+
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib.learner import STAT_KEYS
+
+    def config(envs, **training):
+        return (rllib.PPOConfig().environment(rllib.CartPoleEnv)
+                .env_runners(num_env_runners=2, num_envs_per_env_runner=envs,
+                             rollout_fragment_length=64)
+                .training(**training).debugging(seed=SEED))
+
+    def finite(result):
+        return all(math.isfinite(result[k]) for k in STAT_KEYS)
+
+    _zero(counters)
+    # (a) the repo's defaults: 2 runners x 4 envs x 64 steps, minibatch 128,
+    # 4 epochs
+    algo = config(PPO_DEFAULT_ENVS).build()
+    results = [algo.train() for _ in range(3)]
+    check(all(finite(r) for r in results), f"non-finite PPO stats {results}")
+    card = torch.device("cuda", torch.cuda.current_device())
+    on_card = [p.device == card for p in algo.learner.model.parameters()]
+    on_card += [t.device == card for m in ("mu", "nu") for t in algo.learner.opt_state[m].values()]
+    check(all(on_card), "the PPO learner's parameters or Adam moments are not on the card")
+    check(all(p.device.type == "cpu" for r in algo.runners for p in r.model.parameters()),
+          "a runner's policy is not on the host")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ppo_") as ckpt:
+        algo.save(ckpt)
+        fresh = config(PPO_DEFAULT_ENVS).build()
+        fresh.restore(ckpt)
+    want, got = algo.learner.state_dict(), fresh.learner.state_dict()
+    same = [torch.equal(got["params"][k], v) for k, v in want["params"].items()]
+    same += [torch.equal(got["opt_state"][m][k], v) for m in ("mu", "nu")
+             for k, v in want["opt_state"][m].items()]
+    check(all(same) and fresh.iteration == algo.iteration == 3
+          and got["opt_state"]["count"] == want["opt_state"]["count"],
+          "PPO save/restore did not give the same learner state")
+    check(fresh.learner.model.Dense_0.kernel.device == card, "a restored learner left the card")
+    algo.stop()
+    fresh.stop()
+    defaults = dict(rows=results[0]["num_env_steps_sampled"],
+                    episode_return_mean=[r["episode_return_mean"] for r in results],
+                    iteration_s=[r["time_this_iter_s"] for r in results])
+
+    # (b) upstream RLlib PPO's batch: train_batch_size 4000 -> 2 x 32 x 64 =
+    # 4,096 rows, minibatch 128, 30 epochs: 960 minibatch updates
+    algo = config(PPO_UPSTREAM["envs"], num_epochs=PPO_UPSTREAM["num_epochs"],
+                  minibatch_size=PPO_UPSTREAM["minibatch_size"]).build()
+    warm = algo.train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = []
+    for _ in range(PPO_TIMED_ITERS):
+        r = algo.train()
+        timed.append(dict(r, **{k.replace("_s", "_ms"): v * 1e3 for k, v in algo.timers.items()}))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(finite(r) for r in [warm, *timed]), f"non-finite PPO stats {timed}")
+    rows = timed[0]["num_env_steps_sampled"]
+    minibatches = PPO_UPSTREAM["num_epochs"] * (rows // PPO_UPSTREAM["minibatch_size"])
+    # one update of (b)'s batch under the profiler, cut to a few epochs: the
+    # profiler's post-processing of all 960 minibatch updates (~107k kernel
+    # records) takes about a minute
+    batch, _, _ = algo._postprocess([r.sample(algo.learner.get_params()) for r in algo.runners])
+    algo.learner.num_epochs = PPO_PROFILE_EPOCHS
+    profiled = PPO_PROFILE_EPOCHS * (rows // PPO_UPSTREAM["minibatch_size"])
+    t0 = time.perf_counter()
+    prof = device_profile(torch, lambda: algo.learner.update(batch), groups=PPO_GROUPS)
+    profile_s = time.perf_counter() - t0
+    algo.stop()
+    launches = _launches(counters)
+    check(all(n == 0 for n in launches.values()), f"port kernels launched on PPO: {launches}")
+
+    learn_ms = [r["learn_ms"] for r in timed]
+    iter_ms = [r["time_this_iter_s"] * 1e3 for r in timed]
+    upstream = dict(
+        rows=rows, minibatch_updates=minibatches,
+        episode_return_mean=[r["episode_return_mean"] for r in [warm, *timed]],
+        iteration_ms=iter_ms, sample_ms=[r["sample_ms"] for r in timed],
+        postprocess_ms=[r["postprocess_ms"] for r in timed], learn_ms=learn_ms,
+        env_steps_per_s=[rows / ms * 1e3 for ms in iter_ms],
+        sample_env_steps_per_s=[rows / r["sample_ms"] * 1e3 for r in timed],
+        learner_ms_per_minibatch=[ms / minibatches for ms in learn_ms],
+        peak_bytes=peak, profile_s=profile_s, profiled_minibatch_updates=profiled,
+        launches_per_minibatch=prof["kernel_launches"] / profiled,
+        device_ms_per_minibatch=prof["device_busy_ms"] / profiled,
+        device_busy_share_profiled=prof["device_busy_share"],
+        device_busy_share_of_timed_update=(prof["device_busy_ms"] / profiled)
+        / (statistics.median(learn_ms) / minibatches),
+        profile=prof)
+    parity = ppo_parity(torch, np)
+    out = dict(defaults=defaults, upstream=upstream, launches=launches, parity=parity)
+    print("train_ppo", json.dumps(out))
+    return launches, out
+
+
 def main() -> None:
     import torch
 
@@ -1938,8 +2124,13 @@ def main() -> None:
     # runs)
     resnet_launches, _ = train_resnet_phase(torch, counters)
     vit_launches, _ = train_vit_phase(torch, counters)
+    torch.cuda.empty_cache()
+    # RLlib PPO: counts set to 0 at the start of the phase and read after
+    # its timed iterations and profiled update (before its parity runs)
+    ppo_launches, _ = train_ppo_phase(torch, np, counters)
     paths = {"serve": serve_launches, "serve_cb": cb_launches, "serve_lora": lora_launches,
-             "train": train_launches, "train_resnet": resnet_launches, "train_vit": vit_launches}
+             "train": train_launches, "train_resnet": resnet_launches, "train_vit": vit_launches,
+             "train_ppo": ppo_launches}
     launches = {name: sum(p[name] for p in paths.values()) for name in counters}
 
     def entry(name, source, replaces, rows):

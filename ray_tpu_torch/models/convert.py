@@ -1,4 +1,5 @@
-"""Carry ray_tpu's flax weights (Llama, ResNet, ViT) into the port.
+"""Carry ray_tpu's flax weights (Llama, ResNet, ViT, PPO's ActorCritic) into
+the port.
 
 The input is the reference's unboxed parameter tree
 (``ray_tpu.parallel.sharding.unbox_params`` of ``init_params``) with every
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from .._internal.device import DeviceLike, resolve_device
+from ..rllib.models import MLP_HIDDEN, ActorCritic
 from .llama import DecodeCache, LlamaConfig, param_shapes
 from .resnet import ResNetConfig
 from .resnet import shapes as resnet_shapes
@@ -135,6 +137,24 @@ def vit_params_from_jax(
     parameter tree (unboxed), in ``config.param_dtype`` on ``device``."""
     return _load(_flatten(flax_params), vit_param_shapes(config), config.param_dtype,
                  resolve_device(device))
+
+
+def actor_critic_params_from_jax(
+    flax_params: Mapping[str, Any],
+    obs_dim: int,
+    action_dim: int,
+    discrete: bool,
+    hidden: Tuple[int, ...] = MLP_HIDDEN,
+    device: DeviceLike = None,
+) -> Dict[str, torch.Tensor]:
+    """The state dict of ``rllib.models.ActorCritic(obs_dim, action_dim,
+    discrete, hidden)`` from the reference's ActorCritic parameter tree
+    (``Dense_0`` .. ``Dense_{h+1}``, ``log_std`` for a continuous head), in
+    f32 on ``device``. Leaves are matched by name, never by order; a
+    missing or extra leaf, or a shape that is not the module's, raises."""
+    want = {k: v.shape for k, v in
+            ActorCritic(obs_dim, action_dim, discrete, hidden).state_dict().items()}
+    return _load(_flatten(flax_params), want, torch.float32, resolve_device(device))
 
 
 def cache_from_jax(

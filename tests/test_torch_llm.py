@@ -288,12 +288,14 @@ def test_build_model_config_tiny_suffix_rule():
 
 
 def test_port_imports_neither_jax_nor_ray_tpu():
-    """Import every module of the package in a fresh interpreter."""
+    """Import every module of the package in a fresh interpreter: none of them
+    brings in JAX, ray_tpu or gymnasium (which the card's machine lacks)."""
     code = (
         "import importlib, pkgutil, sys, ray_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__, 'ray_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'ray_tpu'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'ray_tpu', 'gymnasium'))\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -303,7 +305,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 23  # every module was walked
+    assert int(proc.stdout.split()[0]) >= 43  # every module was walked, rllib's included
 
 
 def test_port_sources_name_neither_jax_nor_ray_tpu():
