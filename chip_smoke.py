@@ -86,7 +86,23 @@ Phases, each of which exits non-zero on failure:
      sampling, GAE and learner ms, env steps/s, peak memory, and one learner
      update under torch.profiler (launches per minibatch update, busy
      share); (c) one update of 512 rows card vs host in f32 against an f64
-     host run, discrete and Gaussian heads; K1-K4 launched 0 times.
+     host run, discrete and Gaussian heads; K1-K4 launched 0 times;
+  16. Mixtral-8x7B training (``train_moe``): the MoE transformer at full
+     Mixtral-8x7B width, 4 of its 32 layers, bf16 parameters, batch 2 x seq
+     4096, remat, AdamW at lr 1e-3 (next_token_loss, backward, step): a
+     first step whose routing is recorded (each layer's recompute must
+     route as its forward; the dropped fraction per layer), 3 timed warm
+     steps with exactly 4L+1 / 2L / L / L launches of K1/K2/K3/K4 a step,
+     finite losses, a non-zero router gradient in every layer, tokens/s and
+     peak memory; the full forward under no_grad; a profile of one step by
+     kernel group; the indexed dispatch/combine against the reference's
+     dense one-hot einsums at one layer's call (slabs bit for bit, outputs
+     within the rounding of a sum of two products), both timed; card vs
+     host at one full-width layer in f32 (routing first, any flip a
+     near-tie, then the loss and gradients of the positions routed alike
+     against an f64 host run). The kernel phases hold and time K1 at
+     (8192, 4096) and K2-K4 at (64, 4096, 4096, d=128) causal, the MoE
+     step's calls.
 Main paths: the launch counters are set to 0 just before phase 5 and read
 just after phase 6 (serving), set to 0 just before phase 7 and read just
 after phase 9 (continuous batching, ``serve_cb``), set to 0 just before
@@ -94,8 +110,10 @@ phase 10 and read just after it (``serve_lora``), and set to 0 just before
 phase 12's fit() and read just after it (training), and set to 0 at the
 start of phases 13 and 14 and read after their timed and profiled steps
 (``train_resnet``, ``train_vit``), and set to 0 at the start of phase 15 and
-read after its timed iterations and profiled update (``train_ppo``). The
-last lines are a JSON line of the kernels and the result line.
+read after its timed iterations and profiled update (``train_ppo``), and
+set to 0 at the start of phase 16 and read after its profiled step
+(``train_moe``). The last lines are a JSON line of the kernels and the
+result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -156,6 +174,18 @@ PPO_GROUPS = {"gemm": ("gemm", "gemv"), "adam_and_clip": ("multi_tensor_apply",)
 # card-vs-host parity of one update: 512 rows, (obs_dim, action_dim, discrete)
 PPO_PARITY_ROWS = 512
 PPO_PARITY_HEADS = {"discrete": (4, 2, True), "gaussian": (3, 1, False)}
+# Mixtral-8x7B training (train_moe): MoEConfig.mixtral_8x7b at full width and
+# 4 of its 32 layers with bf16 parameters (f32 ones with AdamW would take 16 B
+# a parameter, 97 GB at 4 layers), batch 2 x seq 4096 with remat, AdamW at the
+# reference program's lr 1e-3 (optax's other defaults, weight decay 1e-4)
+MOE = {"n_layers": 4, "batch": 2, "seq": 4096, "lr": 1e-3, "timed_steps": 3}
+# card-vs-host parity: one layer at full width, b=1 x seq 256, f32
+MOE_PARITY_SEQ = 256
+# a routing choice that differs between card and host must be a near-tie:
+# the gap between the two probabilities it chose between under this. Router
+# logits of a few units computed in f32 in two summation orders differ by
+# about 1e-6, and so do their softmax probabilities
+MOE_NEAR_TIE = 1e-5
 # rounding unit of each dtype (one ulp of a value in [1, 2))
 ULP = {"torch.bfloat16": 2.0 ** -7, "torch.float16": 2.0 ** -10, "torch.float32": 2.0 ** -23}
 
@@ -233,6 +263,8 @@ def rmsnorm_phase(torch, F):
         ((2 * CB_OWN, 4096), torch.bfloat16),
         ((CB_OWN, 4096), torch.float32),
         ((CB["slots"], 4096), torch.float32),
+        # a Mixtral-8x7B training step's rows (train_moe): batch 2 x seq 4096
+        ((MOE["batch"] * MOE["seq"], 4096), torch.bfloat16),
         ((300, 1024), torch.float16),
         ((7, 128), torch.float32),
     ]
@@ -278,6 +310,9 @@ def flash_phase(torch, F):
         # the ViT-B/16 training call: batch 128 x 12 heads, 197 tokens,
         # bidirectional; ragged last q and key tiles (197 = 3 x 64 + 5)
         (VIT_BATCH * 12, VIT_SEQ, VIT_SEQ, 64, False, torch.bfloat16, VIT_BATCH),
+        # the Mixtral-8x7B training call (train_moe): batch 2 x 32 heads (its
+        # 8 KV heads repeated), seq 4096
+        (MOE["batch"] * 32, MOE["seq"], MOE["seq"], 128, True, torch.bfloat16, MOE["batch"]),
         (12, VIT_SEQ, VIT_SEQ, 64, False, torch.bfloat16, None),
         (8, 100, 100, 64, False, torch.bfloat16, None),
         (8, 96, 96, 32, True, torch.bfloat16, None),  # tiny's head_dim
@@ -375,12 +410,14 @@ def flash_bwd_phase(torch, F):
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     # (bh, sq, sk, d, causal, dtype, batch); the first is the 7B training
     # call: batch 2 x 32 heads, seq 2048, head_dim 128; the second the
-    # ViT-B/16 one. Those two, with a batch, are timed. bf16 and f16 run the
+    # ViT-B/16 one, the third the Mixtral-8x7B one (batch 2 x 32 heads, seq
+    # 4096). Those three, with a batch, are timed. bf16 and f16 run the
     # tensor-core kernels, f32 the CUDA-core ones.
     b, seq = TRAIN_CONFIG["batch_per_worker"], TRAIN_CONFIG["seq"]
     cases = [
         (b * 32, seq, seq, 128, True, torch.bfloat16, b),
         (VIT_BATCH * 12, VIT_SEQ, VIT_SEQ, 64, False, torch.bfloat16, VIT_BATCH),
+        (MOE["batch"] * 32, MOE["seq"], MOE["seq"], 128, True, torch.bfloat16, MOE["batch"]),
         (12, VIT_SEQ, VIT_SEQ, 64, False, torch.bfloat16, None),
         (8, 100, 100, 64, False, torch.bfloat16, None),
         (8, 96, 96, 32, True, torch.bfloat16, None),
@@ -1389,9 +1426,12 @@ def device_profile(torch, fn, groups=None):
     # figure, and their losses are reported. The loss is a prefix of the
     # records, so a profile that kept a pad kept all of fn's; one that lost
     # every pad may have lost fn's first kernels, and fn runs again under a
-    # new session.
-    pad, pad_symbol, attempts = 256, "spin_kernel", 3
+    # new session behind four times the pads. fn runs once an attempt, so a
+    # caller that holds the kernels' launch counters over this call expects
+    # ``profile_attempts`` times one run's launches.
+    pad_symbol, attempts = "spin_kernel", 3
     for attempt in range(1, attempts + 1):
+        pad = 256 * 4 ** (attempt - 1)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(pad):
                 torch.cuda._sleep(100)
@@ -1408,7 +1448,7 @@ def device_profile(torch, fn, groups=None):
         pads_lost = pad - sum(pad_symbol in e.name for e in kernels)
         if pads_lost < pad:
             break
-    check(pads_lost < pad, f"{attempts} profiles in a row lost all {pad} pad records")
+    check(pads_lost < pad, f"{attempts} profiles in a row lost all their pad records")
     kernels = [e for e in kernels if pad_symbol not in e.name]
     busy_ms = sum(e.device_time for e in kernels) / 1e3
     by_name = {}
@@ -1426,7 +1466,8 @@ def device_profile(torch, fn, groups=None):
     out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms, kernel_launches=len(kernels),
                device_busy_share=busy_ms / wall_ms if busy_ms else None,
                top_kernels_ms=[[name[:80], ms] for name, ms in top], port_kernels=port,
-               pad_kernels_lost=pads_lost, profile_attempts=attempt, host_ops=host_ops,
+               pad_kernels=pad, pad_kernels_lost=pads_lost, profile_attempts=attempt,
+               host_ops=host_ops,
                annotations_ms={e.name: e.device_time / 1e3 for e in notes})
     if groups:
         members = {g: [] for g in [*groups, "other"]}
@@ -1517,10 +1558,12 @@ def train_phase(torch, counters):
         fn.launches = 0
     prof = device_profile(torch, lambda: llama_lora.lora_train_step(model, optimizer, tokens))
     # the profile finds each kernel by its symbol: a renamed one would count 0
+    runs = prof["profile_attempts"]
     for name, per_step in want.items():
         got = prof["port_kernels"][name]["launches"]
         launched = counters[name].launches
-        check(launched == per_step, f"{name}: {launched} launches in the profiled step, want {per_step}")
+        check(launched == per_step * runs,
+              f"{name}: {launched} launches in {runs} profiled steps, want {per_step * runs}")
         check(got == per_step, f"{name}: {got} launches in the step profile, want {per_step}")
     med = statistics.median(step_ms)
     out = dict(fit_s=fit_s, losses=losses, checkpoint_tensors=len(lora),
@@ -1562,17 +1605,19 @@ def _rel_err(got, want):
     return ((got.detach().double().cpu() - want).abs().max() / want.abs().max()).item()
 
 
-def _control_check(tag, errs, control):
-    """Hold the card's f32 errors against an f64 host run to at most 4x the
-    host's own f32 errors against it (``control``, the largest over the same
-    group of tensors): both are f32 runs of the same arithmetic that sum in
-    other orders, so their errors are of one size, and 4x leaves room for
-    the spread of a maximum over many elements. A control of a quarter or
-    more would mean the host run itself is broken and would hide a fault."""
+def _control_check(tag, errs, control, times=4):
+    """Hold the card's f32 errors against an f64 host run to at most
+    ``times`` (4) x the host's own f32 errors against it (``control``, the
+    largest over the same group of tensors): both are f32 runs of the same
+    arithmetic that sum in other orders, so their errors are of one size,
+    and 4x leaves room for the spread of a maximum over many elements. A
+    control of a quarter or more would mean the host run itself is broken
+    and would hide a fault."""
     check(0 < control < 0.25, f"{tag}: f32 host vs f64 host error {control}")
     worst = max(errs.values())
-    check(worst <= 4 * control, f"{tag}: card vs f64 host error {worst} > 4 x {control} ({errs})")
-    return dict(max_rel_err=worst, control=control, tol=4 * control)
+    check(worst <= times * control,
+          f"{tag}: card vs f64 host error {worst} > {times} x {control} ({errs})")
+    return dict(max_rel_err=worst, control=control, tol=times * control)
 
 
 def resnet_macs(cfg, size: int) -> int:
@@ -1860,8 +1905,10 @@ def train_vit_phase(torch, counters):
     for name, per in want[False].items():
         got = prof["port_kernels"][name]["launches"]
         check(got == per, f"{name}: {got} launches in the ViT step profile, want {per}")
-        check(counters[name].launches - before[name] == per,
-              f"{name}: {counters[name].launches - before[name]} launches in the profiled step")
+        runs = prof["profile_attempts"]
+        check(counters[name].launches - before[name] == per * runs,
+              f"{name}: {counters[name].launches - before[name]} launches in {runs} profiled "
+              f"steps, want {per * runs}")
     port_ms = sum(prof["port_kernels"][k]["ms"] for k in ("flash_attention_fwd", "flash_bwd_dq",
                                                           "flash_bwd_dkv"))
     launches = _launches(counters)
@@ -2041,6 +2088,383 @@ def train_ppo_phase(torch, np, counters):
     return launches, out
 
 
+# a MoE training step's kernels by kind (the first group with a part in a
+# kernel's symbol takes it): K1-K4; cuBLAS GEMMs (projections, experts, the
+# router, the head); gating (softmax, argmax, cumsum); dispatch and combine
+# (gathers, index_put, scatters, the embedding's lookup); AdamW (fused);
+# reductions; elementwise
+MOE_GROUPS = {
+    "k1_k4": tuple(PORT_KERNELS.values()),
+    "gemm": ("nvjet", "gemm", "gemv", "cutlass", "xmma"),
+    "adamw": ("Adam", "adam"),
+    "gating": ("SoftMax", "softmax", "ArgMax", "scan", "cumsum"),
+    "dispatch_combine": ("index", "gather", "scatter", "put_"),
+    "reductions": ("reduce",),
+    "elementwise": ("elementwise", "unrolled", "vectorized", "copy"),
+}
+
+
+def moe_flops(cfg, batch: int, seq: int):
+    """FLOPs of the MoE forward and of a training step with remat: per
+    layer the q/k/v/o projections, causal attention (4d a visible pair),
+    the f32 router and the three expert products over every capacity slot
+    (E·C, padding included), and the head. A step is 4 forwards of the
+    layers (the forward, the recompute and a backward of twice the work)
+    and 3 of the head. ``expert_padding`` is the share of the expert
+    products spent on empty slots of this shape's capacity (E·C slots
+    against t·k choices; dropped choices are not subtracted)."""
+    from ray_tpu_torch.parallel.expert import expert_capacity
+
+    t, d, f, e = batch * seq, cfg.dim, cfg.intermediate, cfg.n_experts
+    hd, h, hk = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    c = expert_capacity(t, e, cfg.capacity_factor, cfg.experts_per_token)
+    proj = 2 * t * d * (h + 2 * hk) * hd + 2 * t * h * hd * d
+    attn = 4 * batch * h * (seq * (seq + 1) // 2) * hd
+    experts = 3 * 2 * e * c * d * f
+    layer = proj + attn + 2 * t * d * e + experts
+    head = 2 * t * d * cfg.vocab_size
+    return dict(capacity=c, layer_forward=layer, experts_forward=experts,
+                forward=cfg.n_layers * layer + head, step=4 * cfg.n_layers * layer + 3 * head,
+                expert_padding=1 - t * cfg.experts_per_token / (e * c))
+
+
+def moe_dense_vs_indexed(torch, moe, x):
+    """One layer's call (x: the layer's MoE input from a training step, the
+    layer's own router): the indexed dispatch/combine against the dense
+    one-hot einsums, then both timed. The slabs handed to the experts must
+    be equal bit for bit (each is a copy of one token's row, or zero); each
+    combined output sums at most k products w·y, which the indexed form
+    rounds and adds and a GEMM may fuse into one multiply-add, so outputs
+    must agree within 2^-22 of sum |w·y| (three roundings of 2^-24), plus
+    one bf16 step of the output for bf16 x; the count of outputs that are
+    not equal is printed. Checked for bf16 x (the layer's call) and again
+    for its f32 copy (outputs in f32)."""
+    from ray_tpu_torch.parallel import expert as X
+
+    out = {}
+    with torch.no_grad():
+        r = moe.route(x)
+        e, c, k = r.n_experts, r.capacity, r.keep.shape[1]
+        logits = x.float() @ moe.router.float()
+        dispatch, combine, _ = X.top_k_gating(logits, c, k=k)
+        torch.cuda.synchronize()
+        check(int(dispatch.sum().item()) == int(r.keep.sum().item()),
+              "the dense dispatch does not hold each kept choice once")
+        slabs = {}
+
+        def experts(name):
+            def fn(inp):
+                slabs[name] = inp
+                return moe.experts(inp.to(x.dtype))
+            return fn
+
+        y = slab = None
+        for tag, xin in (("bf16", x), ("f32", x.float())):
+            dense = X.moe_apply_gspmd(xin, dispatch, combine, experts("dense"))
+            indexed = X.moe_apply_indexed(xin, r, experts("indexed"))
+            check(torch.equal(slabs["dense"], slabs["indexed"]),
+                  f"moe {tag}: the indexed dispatch's slabs differ from the dense einsum's")
+            if y is None:
+                slab = slabs["indexed"]
+                y = moe.experts(slab).reshape(e * c, -1).float()
+                at = torch.where(r.keep, r.expert * c + r.slot, 0)
+                mag = (y[at] * r.weight[..., None]).abs().sum(dim=1)
+                del at
+            tol = 2.0 ** -22 * mag
+            if tag == "bf16":
+                tol = tol + 2.0 ** -7 * indexed.float().abs()
+            diff = (dense.float() - indexed.float()).abs()
+            worst = (diff / tol.clamp_min(1e-30)).max().item()
+            check(bool((diff <= tol).all()),
+                  f"moe {tag}: indexed vs dense combine beyond the rounding bound ({worst:.3f})")
+            out[tag] = dict(outputs=dense.numel(), unequal=int((dense != indexed).sum().item()),
+                            max_abs_diff=diff.max().item(), worst_over_tol=worst)
+            del dense, indexed, diff, tol
+        x32, y3 = x.float(), y.view(e, c, -1)
+        heavy = dict(reps=5, inner=2)
+        out["ms"] = dict(
+            route=time_ms(lambda: moe.route(x)),
+            top_k_gating_dense=time_ms(lambda: X.top_k_gating(logits, c, k=k), **heavy),
+            experts=time_ms(lambda: moe.experts(slab), **heavy),
+            apply_indexed=time_ms(lambda: X.moe_apply_indexed(x, r, moe.experts), **heavy),
+            apply_dense=time_ms(lambda: X.moe_apply_gspmd(x, dispatch, combine, moe.experts),
+                                **heavy),
+            dispatch_einsum_f32=time_ms(lambda: torch.einsum("td,tec->ecd", x32, dispatch),
+                                        **heavy),
+            combine_einsum_f32=time_ms(lambda: torch.einsum("ecd,tec->td", y3, combine), **heavy),
+        )
+    ms = out["ms"]
+    out["dispatch_combine_ms"] = {"indexed": ms["apply_indexed"] - ms["experts"],
+                                  "dense": ms["apply_dense"] - ms["experts"]}
+    einsum_flops = 2 * x.shape[0] * e * c * x.shape[1]
+    out["einsum_flops"] = einsum_flops
+    out["einsum_tflop_s"] = {k_: einsum_flops / ms[k_] / 1e9
+                             for k_ in ("dispatch_einsum_f32", "combine_einsum_f32")}
+    out["dropped_fraction"] = (~r.keep).float().mean().item()
+    return out
+
+
+def moe_parity(torch, card="cuda"):
+    """Card vs host at one layer of full Mixtral-8x7B width, b=1 x seq 256,
+    f32, TF32 off. Routing first: each run's expert choices and kept flags
+    (from the layer's own ``route`` on its MoE input) against an f64 host
+    run's; a choice that differs must come from a near-tie (the first pass
+    that differs chose between probabilities closer than MOE_NEAR_TIE, on
+    the f64 run) and a kept flag may differ only behind such a choice.
+    Then the loss and every gradient of the positions routed alike in all
+    runs (in one layer a position's experts reach only its own logits):
+    the NLL averaged over those positions, plus the weighted aux losses if
+    every position is routed alike. The card's f32 logits against the f64
+    run within 4x the f32 host run's own error, its gradients within 8x
+    (``_control_check``; see there why 8x); the loss within 1e-5."""
+    from ray_tpu_torch.models import moe as M
+
+    cfg = M.MoEConfig.mixtral_8x7b(n_layers=1, max_seq_len=MOE_PARITY_SEQ,
+                                   dtype=torch.float32, remat=False)
+    g = torch.Generator(device=card).manual_seed(SEED + 9)
+    base = {k: v.cpu() for k, v in M.init_params(cfg, g, card).items()}
+    tokens = torch.randint(0, cfg.vocab_size, (1, MOE_PARITY_SEQ),
+                           generator=torch.Generator().manual_seed(SEED + 9))
+    runs = {"f64": ("cpu", torch.float64), "host": ("cpu", torch.float32),
+            "card": (card, torch.float32)}
+
+    def build(run):
+        dev, dtype = runs[run]
+        c = dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype)
+        params = {k: v.to(dev, dtype, copy=True) for k, v in base.items()}
+        return c, M.build_moe(c, params, trainable=True)
+
+    # pass 1: each run's routing, from the layer's own route() on its input
+    routing, gaps = {}, None
+    for run in runs:
+        c, model = build(run)
+        seen = []
+
+        def record(mod, args):
+            h = args[0].reshape(-1, cfg.dim)
+            seen.append((mod.route(h), h.float() @ mod.router.float()))
+
+        hook = model.layer_0.moe.register_forward_pre_hook(record)
+        with torch.no_grad():
+            model(tokens.to(runs[run][0]))
+        hook.remove()
+        r, logits = seen[0]
+        routing[run] = (r.expert.cpu(), r.keep.cpu())
+        if run == "f64":
+            p = torch.softmax(logits.cpu(), dim=-1).sort(dim=-1, descending=True).values
+            gaps = p[:, :-1] - p[:, 1:]  # (t, E - 1): pass j chose between p[j] and p[j + 1]
+        del model, seen
+    same = torch.ones(MOE_PARITY_SEQ, dtype=torch.bool)
+    flips = {}
+    for run in ("host", "card"):
+        choice = routing[run][0] != routing["f64"][0]  # (t, k)
+        kept = routing[run][1] != routing["f64"][1]
+        differs = choice.any(dim=1)
+        first = choice.float().argmax(dim=1)
+        gap = gaps.gather(1, first[:, None])[:, 0]
+        check(bool((gap[differs] < MOE_NEAR_TIE).all()),
+              f"moe parity {run}: a routing choice differs by more than a near-tie "
+              f"(gaps {gap[differs].tolist()})")
+        check(bool(differs.any()) or not bool(kept.any()),
+              f"moe parity {run}: kept flags differ with every choice equal")
+        flips[run] = dict(tokens_choice_differs=int(differs.sum()),
+                          tokens_kept_differs=int(kept.any(dim=1).sum()),
+                          min_gap=gaps[:, : cfg.experts_per_token].min().item())
+        same &= ~(choice.any(dim=1) | kept.any(dim=1))
+    mask = same[:-1].double()  # position i's logits predict token i + 1
+    check(mask.sum() > MOE_PARITY_SEQ // 2, f"moe parity: only {int(mask.sum())} positions alike")
+    all_same = bool(same.all())
+
+    # pass 2: the loss of the positions routed alike and its gradients
+    results, truth = {}, None
+    for run in runs:
+        c, model = build(run)
+        dev = runs[run][0]
+        logits, aux = model(tokens.to(dev))
+        lse = torch.logsumexp(logits[0, :-1].float(), dim=-1)
+        tgt = logits[0, :-1].gather(-1, tokens[0, 1:, None].to(dev))[:, 0].float()
+        m = mask.to(dev, lse.dtype)
+        loss = ((lse - tgt) * m).sum() / m.sum()
+        if all_same:
+            loss = loss + aux.sum().to(loss.dtype)
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        if run == "f64":
+            truth = (loss.item(), logits.detach()[0, same], grads)
+        else:
+            errs = {n: _rel_err(gr, truth[2][n]) for n, gr in grads.items()}
+            results[run] = dict(loss=loss.item(),
+                                loss_rel_err=abs(loss.item() - truth[0]) / abs(truth[0]),
+                                logits_rel_err=_rel_err(logits.detach()[0, same], truth[1]),
+                                grads_rel_err=errs)
+        del model, logits, aux, loss, grads
+    check(all(truth[2][n].abs().max() > 0 for n in truth[2]), "moe parity: a zero gradient")
+    host, cardr = results["host"], results["card"]
+    out = dict(seq=MOE_PARITY_SEQ, positions_alike=int(same.sum()), all_alike=all_same,
+               near_tie_bound=MOE_NEAR_TIE, flips=flips, loss_f64=truth[0],
+               loss_rel_err={r: results[r]["loss_rel_err"] for r in results})
+    check(cardr["loss_rel_err"] <= 1e-5, f"moe parity: card loss rel err {cardr['loss_rel_err']}")
+    out["logits"] = _control_check("moe parity logits", {"logits": cardr["logits_rel_err"]},
+                                   host["logits_rel_err"])
+    # 8x, not 4x: at this width the products sum over d = 4096, f = 14336
+    # and the vocabulary's 32,000, and the card's f32 GEMMs sum such long
+    # reductions less accurately than the host's. chip_moe_error.py splits
+    # it on this layer (NVIDIA H100 80GB HBM3, 700.00 W): w_down's own
+    # product (80 slots) errs alike on both (3.5e-7 and 3.4e-7 of its
+    # largest value), but its inputs err 3.1x (the SwiGLU product, from d =
+    # 4096) and 4.4x (its output gradient, from the head's 32,000) the
+    # host's, and w_down's gradient 5.1x. A fault in routing or in a kernel
+    # moves a gradient by 1e-3 of its size or more, 100x beyond.
+    out["grads"] = _control_check("moe parity grads", cardr["grads_rel_err"],
+                                  max(host["grads_rel_err"].values()), times=8)
+    out["host_grads_rel_err"] = host["grads_rel_err"]
+    out["card_grads_rel_err"] = cardr["grads_rel_err"]
+    out["router_grad_rel_err"] = cardr["grads_rel_err"]["layer_0.moe.router"]
+    return out
+
+
+def train_moe_phase(torch, counters):
+    """Mixtral-8x7B at full width, 4 layers, bf16 parameters, batch 2 x seq
+    4096, remat, AdamW: (a) a first step with its routing recorded (each
+    layer's forward and recompute must route alike; the dropped fraction
+    per layer), then 3 timed warm steps with exactly 4L+1 / 2L / L / L
+    launches of K1/K2/K3/K4 a step, finite losses and a non-zero router
+    gradient in every layer, and the peak memory; (b) the full forward
+    under no_grad; (c) one profiled step, by kernel group; (d) the indexed
+    dispatch/combine against the dense einsums at one layer's call; (e)
+    card vs host at one full-width layer."""
+    import math
+
+    from ray_tpu_torch.models import moe as M
+
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg = M.MoEConfig.mixtral_8x7b(n_layers=MOE["n_layers"], param_dtype=torch.bfloat16,
+                                   max_seq_len=MOE["seq"])
+    g = torch.Generator(device=device).manual_seed(SEED + 8)
+    t0 = time.perf_counter()
+    model = M.build_moe(cfg, M.init_params(cfg, g, device), trainable=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    # fused: one multi-tensor kernel per group, no temporary parameter list
+    optimizer = torch.optim.AdamW(model.parameters(), lr=MOE["lr"], betas=(0.9, 0.999),
+                                  eps=1e-8, weight_decay=1e-4, fused=True)
+    b, s = MOE["batch"], MOE["seq"]
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=device)
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        loss = M.next_token_loss(cfg, model, tokens)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    n = cfg.n_layers
+    per_step = {"rmsnorm_fwd": 4 * n + 1, "flash_attention_fwd": 2 * n, "flash_bwd_dq": n,
+                "flash_bwd_dkv": n}
+    per_forward = {"rmsnorm_fwd": 2 * n + 1, "flash_attention_fwd": n, "flash_bwd_dq": 0,
+                   "flash_bwd_dkv": 0}
+
+    def launched_since(before):
+        return {k: v - before[k] for k, v in _launches(counters).items()}
+
+    # (a) the first step, each layer's routing recorded on every call
+    records = {i: [] for i in range(n)}
+    layer0_input = []
+
+    def recorder(i):
+        def pre(mod, args):
+            h = args[0].reshape(-1, cfg.dim)
+            with torch.no_grad():
+                records[i].append(mod.route(h))
+            if i == 0 and not layer0_input:
+                layer0_input.append(h.detach())
+        return pre
+
+    hooks = [blk.moe.register_forward_pre_hook(recorder(i)) for i, blk in enumerate(model.blocks())]
+    before = _launches(counters)
+    t0 = time.perf_counter()
+    losses = [step()]
+    torch.cuda.synchronize()
+    first_step_ms = (time.perf_counter() - t0) * 1e3
+    for hk in hooks:
+        hk.remove()
+    got = launched_since(before)
+    check(got == per_step, f"MoE first step launches {got}, want {per_step}")
+    first_peak = torch.cuda.max_memory_allocated()
+    dropped = []
+    for i, rec in records.items():
+        check(len(rec) == 2, f"MoE layer {i} routed {len(rec)} times in a remat step, want 2")
+        fwd, rec2 = rec
+        check(all(torch.equal(getattr(fwd, a), getattr(rec2, a))
+                  for a in ("expert", "slot", "keep", "weight")),
+              f"MoE layer {i}: the recompute routed otherwise than the forward")
+        dropped.append((~fwd.keep).float().mean().item())
+    del records
+    router_grad = [blk.moe.router.grad.float().abs().max().item() for blk in model.blocks()]
+    check(all(x > 0 for x in router_grad), f"a router has no gradient: {router_grad}")
+
+    before = _launches(counters)
+    step_ms, step_peak = _timed_steps(torch, lambda: losses.append(step()), MOE["timed_steps"])
+    got = launched_since(before)
+    want = {k: v * (MOE["timed_steps"] + 1) for k, v in per_step.items()}
+    check(got == want, f"MoE launches over the warm-up and timed steps {got}, want {want}")
+    losses = [x.item() for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"non-finite MoE losses {losses}")
+
+    # (b) the full forward, no autograd
+    before = _launches(counters)
+    with torch.no_grad():
+        fwd_ms, fwd_peak = _timed_steps(torch, lambda: model(tokens), MOE["timed_steps"])
+    got = launched_since(before)
+    want = {k: v * (MOE["timed_steps"] + 1) for k, v in per_forward.items()}
+    check(got == want, f"MoE forward launches {got}, want {want}")
+
+    # (c) one step under the profiler
+    before = _launches(counters)
+    prof = device_profile(torch, step, groups=MOE_GROUPS)
+    for name, per in per_step.items():
+        got_prof = prof["port_kernels"][name]["launches"]
+        check(got_prof == per, f"{name}: {got_prof} launches in the MoE step profile, want {per}")
+    runs = prof["profile_attempts"]
+    got, want = launched_since(before), {k: v * runs for k, v in per_step.items()}
+    check(got == want, f"MoE launches in {runs} profiled steps {got}, want {want}")
+    launches = _launches(counters)
+
+    # (d) dense against indexed at layer 0's call, on the step's input
+    del optimizer
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    dense_vs_indexed = moe_dense_vs_indexed(torch, model.layer_0.moe, layer0_input[0])
+    del model, layer0_input
+    torch.cuda.empty_cache()
+
+    flops = moe_flops(cfg, b, s)
+    med, fmed = statistics.median(step_ms), statistics.median(fwd_ms)
+    out = dict(n_layers=n, batch=b, seq=s, params=n_params, init_s=init_s,
+               launches_per_step=per_step, launches_per_forward=per_forward,
+               losses=losses, router_grad_max=router_grad, dropped_fraction=dropped,
+               first_step_ms=first_step_ms, step_ms=step_ms, step_ms_median=med,
+               tokens_per_s=b * s / med * 1e3, forward_ms=fwd_ms, forward_ms_median=fmed,
+               forward_tokens_per_s=b * s / fmed * 1e3,
+               peak_bytes_first_step=first_peak, peak_bytes_timed_steps=step_peak,
+               peak_bytes_forward=fwd_peak, flops=flops,
+               step_tflop_s=flops["step"] / med / 1e9,
+               forward_tflop_s=flops["forward"] / fmed / 1e9,
+               step_bound_ms=flops["step"] / BF16_TENSOR_FLOPS * 1e3,
+               forward_bound_ms=flops["forward"] / BF16_TENSOR_FLOPS * 1e3,
+               launches=launches, profile=prof, dense_vs_indexed=dense_vs_indexed)
+    print("train_moe", json.dumps(out))
+    # (e) card vs host
+    t0 = time.perf_counter()
+    parity = moe_parity(torch)
+    parity["s"] = time.perf_counter() - t0
+    print("train_moe_parity", json.dumps(parity))
+    return launches, out
+
+
 def main() -> None:
     import torch
 
@@ -2128,9 +2552,14 @@ def main() -> None:
     # RLlib PPO: counts set to 0 at the start of the phase and read after
     # its timed iterations and profiled update (before its parity runs)
     ppo_launches, _ = train_ppo_phase(torch, np, counters)
+    torch.cuda.empty_cache()
+    # Mixtral-8x7B training: counts set to 0 at the start of the phase and
+    # read after its profiled step (before its dense-vs-indexed and parity
+    # runs)
+    moe_launches, _ = train_moe_phase(torch, counters)
     paths = {"serve": serve_launches, "serve_cb": cb_launches, "serve_lora": lora_launches,
              "train": train_launches, "train_resnet": resnet_launches, "train_vit": vit_launches,
-             "train_ppo": ppo_launches}
+             "train_ppo": ppo_launches, "train_moe": moe_launches}
     launches = {name: sum(p[name] for p in paths.values()) for name in counters}
 
     def entry(name, source, replaces, rows):

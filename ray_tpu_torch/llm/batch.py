@@ -16,7 +16,7 @@ import torch
 from .._internal.device import DeviceLike, resolve_device
 from ..lora import AdapterLease, AdapterStore
 from ..models.llama import init_params
-from .config import LLMConfig
+from .config import LLMConfig, require_servable
 from .engine import GenerationRequest, LLMEngine
 
 _WEIGHT_PLANE = (
@@ -55,8 +55,8 @@ class LLMPredictor:
         if weights_name is not None:
             raise NotImplementedError(_WEIGHT_PLANE.format("weights_name"))
         self._config = llm_config or LLMConfig()
+        model_config = require_servable(self._config.build_model_config())
         self._device = resolve_device(device)
-        model_config = self._config.build_model_config()
         if params is None:
             params = init_params(model_config, device=self._device)
         self._adapter_store: Optional[AdapterStore] = None

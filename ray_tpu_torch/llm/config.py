@@ -7,18 +7,24 @@ with speculative decoding (``draft_model``) and chunked prefill
 Every field of the reference's config is a field here, with its default
 and its checks, so that a config written for ray_tpu reads the same. The
 fields of features that later slices of the port bring (tensor/sequence
-parallel meshes, disaggregated roles, the cluster KV tier, MoE, the serve
+parallel meshes, disaggregated roles, the cluster KV tier, the serve
 control plane's replicas and autoscaling, the weight plane's quantized
 publishes) are accepted, and asking for any of them raises.
+
+``model_family="moe"`` builds a :class:`~ray_tpu_torch.models.moe.MoEConfig`
+by the reference's grammar. Nothing serves it: the reference has no MoE
+decode path (its replica fails on the config), so the port's servers refuse
+it with a ValueError (:func:`require_servable`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 from ..exceptions import MeshValidationError
 from ..models.llama import LlamaConfig
+from ..models.moe import MoEConfig
 
 
 @dataclass
@@ -149,10 +155,6 @@ class LLMConfig:
                 "the disaggregated prefill/decode slice",
             ),
             "kv_tier": (self.kv_tier, "the cluster KV tier slice"),
-            "model_family='moe'": (
-                self.model_family == "moe",
-                "the MoE slice",
-            ),
             "num_replicas / autoscaling_config / autoscale_policy": (
                 self.num_replicas != 1
                 or self.autoscaling_config is not None
@@ -167,7 +169,7 @@ class LLMConfig:
                     f"LLMConfig {name} is not ported yet: it comes with "
                     f"{slice_name} of the PyTorch port"
                 )
-        if self.model_family != "llama":
+        if self.model_family not in ("llama", "moe"):
             raise ValueError(f"unknown model family {self.model_family!r}")
         if self.draft_model is not None and self.spec_tokens <= 0:
             self.spec_tokens = 4
@@ -196,12 +198,13 @@ class LLMConfig:
             return (self.mesh.get("tp", 1), self.mesh.get("sp", 1))
         return (self.tensor_parallel_size, self.sequence_parallel_size)
 
-    def build_model_config(self) -> LlamaConfig:
+    def build_model_config(self) -> Union[LlamaConfig, MoEConfig]:
         kwargs = dict(self.model_kwargs)
         kwargs.setdefault("max_seq_len", self.max_seq_len)
+        cls = MoEConfig if self.model_family == "moe" else LlamaConfig
         if self.model_id.endswith("tiny"):
-            return LlamaConfig.tiny(**kwargs)
-        return LlamaConfig(**kwargs)
+            return cls.tiny(**kwargs)
+        return cls(**kwargs)
 
     def build_draft_model_config(self) -> Optional[LlamaConfig]:
         """Model config for the speculative draft, same name grammar as
@@ -215,3 +218,17 @@ class LLMConfig:
         if self.draft_model.endswith("tiny"):
             return LlamaConfig.tiny(**kwargs)
         return LlamaConfig(**kwargs)
+
+
+def require_servable(model_config) -> LlamaConfig:
+    """``model_config`` if the port's engines can serve it; a MoEConfig
+    raises ValueError: the reference has no MoE decode path (its replica
+    fails with an AttributeError when it builds Llama weights from one)."""
+    if isinstance(model_config, MoEConfig):
+        raise ValueError(
+            "model_family='moe' cannot be served: the reference has no MoE "
+            "decode path (ray_tpu's replica fails on a MoEConfig), so the "
+            "port has none either; train or score it with "
+            "ray_tpu_torch.models.moe"
+        )
+    return model_config

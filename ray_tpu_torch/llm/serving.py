@@ -30,7 +30,7 @@ from ..exceptions import BackPressureError
 from ..kvcache import KVCacheManager
 from ..lora import AdapterLease, AdapterStore
 from ..models.llama import init_params
-from .config import LLMConfig
+from .config import LLMConfig, require_servable
 from .engine import ContinuousBatchingEngine, GenerationRequest, LLMEngine
 
 
@@ -48,8 +48,8 @@ class LLMServer:
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  device: DeviceLike = None):
         self._config = llm_config
+        model_config = require_servable(llm_config.build_model_config())
         self._device = resolve_device(device)
-        model_config = llm_config.build_model_config()
         if params is None:
             params = init_params(model_config, device=self._device)
         self._kv_cache: Optional[KVCacheManager] = None

@@ -1,5 +1,5 @@
-"""Carry ray_tpu's flax weights (Llama, ResNet, ViT, PPO's ActorCritic) into
-the port.
+"""Carry ray_tpu's flax weights (Llama, the MoE transformer, ResNet, ViT,
+PPO's ActorCritic) into the port.
 
 The input is the reference's unboxed parameter tree
 (``ray_tpu.parallel.sharding.unbox_params`` of ``init_params``) with every
@@ -32,6 +32,8 @@ import torch
 from .._internal.device import DeviceLike, resolve_device
 from ..rllib.models import MLP_HIDDEN, ActorCritic
 from .llama import DecodeCache, LlamaConfig, param_shapes
+from .moe import MoEConfig
+from .moe import param_shapes as moe_param_shapes
 from .resnet import ResNetConfig
 from .resnet import shapes as resnet_shapes
 from .vit import ViTConfig
@@ -85,6 +87,19 @@ def params_from_jax(
     unstacking."""
     flat = _unstack(_flatten(flax_params))
     return _load(flat, param_shapes(config), config.param_dtype, resolve_device(device))
+
+
+def moe_params_from_jax(
+    flax_params: Mapping[str, Any], config: MoEConfig, device: DeviceLike = None
+) -> Dict[str, torch.Tensor]:
+    """The port's state dict for ``config`` from the reference's MoE
+    parameter tree (``embed``, ``final_norm``, ``lm_head``;
+    ``layer_{i}/attn/{wq,wk,wv,wo}/base/kernel``, ``layer_{i}/{attn_norm,
+    ffn_norm}``, ``layer_{i}/moe/{router, w_gate, w_up, w_down}``), cast to
+    ``config.param_dtype`` on ``device``. Raises on a key the port does not
+    know, on a shape mismatch and on a missing parameter."""
+    return _load(_flatten(flax_params), moe_param_shapes(config), config.param_dtype,
+                 resolve_device(device))
 
 
 def _load(flat, expected, dtype, device, what="parameters"):

@@ -391,8 +391,10 @@ class Llama(nn.Module):
 
 def _lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> None:
     """flax ``lecun_normal``: truncated normal on [-2, 2] scaled to variance
-    1/fan_in, fan_in being the leading (input) axis of an (in, out) kernel."""
-    fan_in = t.shape[0]
+    1/fan_in, fan_in being every axis but the last: the input axis of an
+    (in, out) kernel, and flax counts a leading axis, such as the MoE's
+    experts, as receptive field (E·d for an (E, d, f) kernel)."""
+    fan_in = t.numel() // t.shape[-1]
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     w = torch.empty(t.shape, dtype=torch.float32, device=t.device)
     nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)

@@ -30,9 +30,17 @@ from ray_tpu.models.llama import init_params as jax_init_params
 from ray_tpu.parallel.sharding import unbox_params
 from ray_tpu_torch._internal.device import resolve_device
 from ray_tpu_torch.exceptions import MeshValidationError
-from ray_tpu_torch.llm import AdapterConfig, GenerationRequest, LLMConfig, LLMEngine, LLMServer
+from ray_tpu_torch.llm import (
+    AdapterConfig,
+    GenerationRequest,
+    LLMConfig,
+    LLMEngine,
+    LLMPredictor,
+    LLMServer,
+)
 from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.models.llama import LlamaConfig, param_shapes
+from ray_tpu_torch.models.moe import MoEConfig
 
 _REPO = Path(__file__).resolve().parent.parent
 
@@ -155,7 +163,9 @@ def test_server_answers_like_replica():
 
 # id: (config, what the port does with it). The adapter cases construct
 # since adapters are ported: beside a draft as in the reference, and
-# without a KV pool refused with the reference's ValueError
+# without a KV pool refused with the reference's ValueError. The MoE family
+# constructs since the MoE model is ported, and builds the reference's
+# MoEConfig ("moe"); serving it is refused (test_moe_is_not_served)
 _LATER_SLICES = {
     # the paged engine is ported; the cluster KV tier over it is not
     "kv_cache_blocks": (dict(kv_cache_blocks=16, kv_tier=True), NotImplementedError),
@@ -167,7 +177,7 @@ _LATER_SLICES = {
     "adapters": (dict(adapters={"max_live": 2}), ValueError),
     "roles": (dict(roles={"prefill": 1, "decode": 1}), NotImplementedError),
     "kv_tier": (dict(kv_tier=True), NotImplementedError),
-    "model_family": (dict(model_family="moe"), NotImplementedError),
+    "model_family": (dict(model_family="moe"), "moe"),
     # the serve control plane and the weight plane
     "num_replicas": (dict(num_replicas=2), NotImplementedError),
     "autoscaling_config": (dict(autoscaling_config={"min_replicas": 1}), NotImplementedError),
@@ -187,6 +197,12 @@ def test_later_slice_features_raise(case):
             JaxLLMConfig(**kwargs)
         with pytest.raises(ValueError, match="kv_cache_blocks"):
             LLMConfig(**kwargs)
+    elif raises == "moe":
+        for model_id in ("moe-tiny", "mixtral-8x7b"):
+            got = LLMConfig(model_id=model_id, **kwargs).build_model_config()
+            want = JaxLLMConfig(model_id=model_id, **kwargs).build_model_config()
+            assert isinstance(got, MoEConfig)
+            assert _fields(got) == _fields(want)
     else:
         cfg, ref = LLMConfig(**kwargs), JaxLLMConfig(**kwargs)
         assert isinstance(cfg.adapters, AdapterConfig)
@@ -277,6 +293,31 @@ def test_draft_config_like_reference():
     assert LLMConfig().build_draft_model_config() is None
 
 
+def _fields(config):
+    """A model config's fields, dtypes by name (jnp's or torch's)."""
+    def name(v):
+        if isinstance(v, torch.dtype):
+            return str(v).replace("torch.", "")
+        return jnp.dtype(v).name if isinstance(v, type) else v
+
+    return {k: name(v) for k, v in dataclasses.asdict(config).items()}
+
+
+def test_moe_is_not_served():
+    """The reference has no MoE decode path: its replica fails while it
+    builds Llama weights from a MoEConfig. The port refuses the config with
+    a ValueError before any weight is drawn."""
+    kwargs = dict(model_family="moe", model_id="moe-tiny", max_seq_len=32)
+    with pytest.raises(AttributeError, match="scan_layers"):
+        _LLMReplica(JaxLLMConfig(**kwargs))
+    with pytest.raises(ValueError, match="no MoE decode path"):
+        LLMServer(LLMConfig(**kwargs), device="cpu")
+    with pytest.raises(ValueError, match="no MoE decode path"):
+        LLMServer(LLMConfig(kv_cache_blocks=4, **kwargs), device="cpu")
+    with pytest.raises(ValueError, match="no MoE decode path"):
+        LLMPredictor(LLMConfig(**kwargs), device="cpu")
+
+
 def test_build_model_config_tiny_suffix_rule():
     tiny = LLMConfig(model_id="llama-tiny", max_seq_len=128).build_model_config()
     full = LLMConfig(model_id="llama2-7b", model_kwargs={"n_layers": 2}).build_model_config()
@@ -289,14 +330,16 @@ def test_build_model_config_tiny_suffix_rule():
 
 def test_port_imports_neither_jax_nor_ray_tpu():
     """Import every module of the package in a fresh interpreter: none of them
-    brings in JAX, ray_tpu or gymnasium (which the card's machine lacks)."""
+    brings in JAX, ray_tpu or gymnasium (which the card's machine lacks).
+    The walk includes the parallel package and the MoE model."""
     code = (
         "import importlib, pkgutil, sys, ray_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__, 'ray_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'ray_tpu', 'gymnasium'))\n"
-        "print(len(mods), bad)\n"
+        "need = {'ray_tpu_torch.parallel.expert', 'ray_tpu_torch.models.moe'}\n"
+        "print(len(mods), bad, sorted(need - set(mods)))\n"
         "sys.exit(1 if bad else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(_REPO))
@@ -305,7 +348,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 43  # every module was walked, rllib's included
+    # every module was walked, rllib's, parallel's and the MoE model's included
+    assert int(proc.stdout.split()[0]) >= 46 and proc.stdout.rstrip().endswith("[]")
 
 
 def test_port_sources_name_neither_jax_nor_ray_tpu():
