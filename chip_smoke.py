@@ -33,14 +33,39 @@ Phases, each of which exits non-zero on failure:
      computed-token counts, no lease pin left, and K1 launched 65 times per
      model call the engine counts; the pooled decode step with 8 slots
      active (time, and its device busy share under torch.profiler); TTFT
-     of a 512-token miss and of a hit sharing 480 tokens;
+     of a 512-token miss and of a hit sharing 480 tokens. The metrics
+     registry (ray_tpu_torch.util) must hold the manager's own counts
+     exactly over the 16 requests (3,840 hit and 1,280 computed tokens), 1
+     miss and 15 hit TTFT observations and 16 x 31 ITL observations, and
+     each of the two TTFTs the engine recorded must be above 0 and no more
+     than the one this phase measures on its host clock (both printed);
+  7b. the observability plane on phase 7's server (``serve_obs``): (a) a
+     wave of phase 7's traffic on a fresh prefix (to fill the cache), then
+     the same wave with tracing off and with it on: equal greedy tokens, and
+     every traced request's trace holds engine.queue_wait, kvcache.acquire,
+     kvcache.assemble, engine.prefill, kvcache.commit and engine.decode;
+     (b) the pooled step with 8 slots active, one profile each with tracing
+     off and on: equal kernel launches (equal to phase 7's step), device-to-
+     host copies and synchronising calls, and 16 timed steps each way in
+     turns; (c) the host cost of record_serve_itl, record_kvcache_ttft,
+     emit_span and record_event over 10,000 calls each, and 8 ITL records'
+     share of phase 7's step; (d) sample_device_memory() beside
+     torch.cuda.memory_allocated() and mem_get_info(); (e)
+     tracing.device_profile around one served request with an
+     annotate_device_trace region: the trace holds the region and K1
+     launches; (f) the Prometheus text of this process, parsed back:
+     cumulative buckets that never decrease, each _count the registry's;
   8. the continuous-batching engine against the dense engine at full width,
      2 layers, f32 activations: greedy tokens equal with mixed lengths and a
      shared prefix, with chunked prefill, and with speculative decoding (the
      target as its own draft, acceptance 1, and a random 1-layer draft);
   9. speculation (k=4, the 7B target as its own draft) and chunked prefill
      (an 896-token prompt arriving beside 7 decoding requests, which must
-     each emit a token in every step) at full width in bf16;
+     each emit a token in every step) at full width in bf16; the registry's
+     spec counters move by the engine's own, the acceptance gauge is their
+     lifetime ratio, the ITL observations of the timed steps are the tokens
+     they landed and over the engine's life sum(cnt); the chunked runs print
+     the ITL histogram's p50 and p99 beside their largest step gap;
   10. multi-tenant LoRA serving (LLMServer with kv_cache_blocks and
      adapters, on phase 5's weights; ``serve_lora``): 4 adapters of rank 16
      on every wq/wk/wv/wo from numpy seeds, prewarmed into 8 slots; phase
@@ -55,7 +80,9 @@ Phases, each of which exits non-zero on failure:
      slots against all -1; TTFT of a tenant's miss and hit; then, at 2
      layers in f32 activations, greedy tokens of a mixed batch equal each
      tenant served alone, LLMPredictor, and the speculative and chunked
-     engines with adapters; and LLMPredictor at 7B over 8 rows;
+     engines with adapters; and LLMPredictor at 7B over 8 rows. Over the
+     server's traffic the registry's adapter counters move by the store's
+     own, with one adapter_cold_attach event per cold attach, at its slot;
   11. the device busy share of one served request, under torch.profiler;
   12. the training path: TorchTrainer.fit() of the llama_lora loop at full
      Llama-2-7B width (bf16 weights, seq 2048, batch 2, LoRA rank 16) for 2
@@ -86,7 +113,9 @@ Phases, each of which exits non-zero on failure:
      sampling, GAE and learner ms, env steps/s, peak memory, and one learner
      update under torch.profiler (launches per minibatch update, busy
      share); (c) one update of 512 rows card vs host in f32 against an f64
-     host run, discrete and Gaussian heads; K1-K4 launched 0 times;
+     host run, discrete and Gaussian heads; K1-K4 launched 0 times; the
+     rllib step breakdown's efficiency lies in (0, 1] and its components sum
+     to its total;
   16. Mixtral-8x7B training (``train_moe``): the MoE transformer at full
      Mixtral-8x7B width, 4 of its 32 layers, bf16 parameters, batch 2 x seq
      4096, remat, AdamW at lr 1e-3 (next_token_loss, backward, step): a
@@ -105,7 +134,7 @@ Phases, each of which exits non-zero on failure:
      step's calls.
 Main paths: the launch counters are set to 0 just before phase 5 and read
 just after phase 6 (serving), set to 0 just before phase 7 and read just
-after phase 9 (continuous batching, ``serve_cb``), set to 0 just before
+after phase 9 (continuous batching, ``serve_cb``, with ``serve_obs``), set to 0 just before
 phase 10 and read just after it (``serve_lora``), and set to 0 just before
 phase 12's fit() and read just after it (training), and set to 0 at the
 start of phases 13 and 14 and read after their timed and profiled steps
@@ -781,6 +810,26 @@ def forward_phase(torch, server, prompts):
     return fwd
 
 
+# the TTFT histogram's tags (cache, mesh, tier) of a miss and of a local hit
+TTFT_MISS, TTFT_HIT = ("miss", "tp=1", "miss"), ("hit", "tp=1", "local")
+
+
+def _hist_counts(hist):
+    """Observations per tag tuple of a registry histogram."""
+    with hist._lock:
+        return {k: sum(v) for k, v in hist._counts.items()}
+
+
+def _hist_sums(hist):
+    with hist._lock:
+        return dict(hist._sums)
+
+
+def _delta(after, before):
+    """The entries of a counter dict that moved, and by how much."""
+    return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+
 def _step_until(engine, cond, limit=400):
     for _ in range(limit):
         if cond():
@@ -796,7 +845,9 @@ def cb_serve_phase(torch, np, dense_server, dense_serve):
 
     from ray_tpu_torch.llm import GenerationRequest, LLMConfig, LLMServer
     from ray_tpu_torch.ops.rmsnorm import rmsnorm_fwd
+    from ray_tpu_torch.util import metrics
 
+    ttft_hist = metrics._ensure_kvcache_metrics()["ttft"]
     server = LLMServer(LLMConfig(
         model_id="llama2-7b", max_seq_len=CB["max_seq_len"], max_batch_size=CB["slots"],
         kv_cache_blocks=CB["blocks"], kv_block_size=CB["block"],
@@ -815,12 +866,16 @@ def cb_serve_phase(torch, np, dense_server, dense_serve):
     prefix = tokens(CB_PREFIX)
     prompts = [prefix + tokens(CB_OWN) for _ in range(CB_REQUESTS)]
     before, calls0, k1_0 = server.kvcache_stats(), engine.forward_calls, rmsnorm_fwd.launches
+    reg0 = (metrics.kvcache_counters(), _hist_counts(ttft_hist), metrics.llm_counters())
     t0 = time.perf_counter()
     with ThreadPoolExecutor(CB["slots"]) as pool:
         answers = list(pool.map(
             lambda p: server({"token_ids": p, "max_new_tokens": NEW_TOKENS, "temperature": 0.0}),
             prompts))
     wall = time.perf_counter() - t0
+    registry = dict(kvcache=_delta(metrics.kvcache_counters(), reg0[0]),
+                    ttft_observations=_delta(_hist_counts(ttft_hist), reg0[1]),
+                    llm=_delta(metrics.llm_counters(), reg0[2]))
     for a in answers:
         check(a["num_prompt_tokens"] == CB_PREFIX + CB_OWN and len(a["token_ids"]) == NEW_TOKENS
               and a["finished_reason"] == "length", f"bad paged answer {a}")
@@ -834,6 +889,15 @@ def cb_serve_phase(torch, np, dense_server, dense_serve):
     check(after["blocks_in_use"] == after["index_nodes"],
           f"lease pins left: {after['blocks_in_use']} blocks in use, index holds "
           f"{after['index_nodes']}")
+    # the registry holds the manager's own counts exactly: one TTFT per
+    # request (1 miss, 15 hits), one ITL per token after a request's first
+    check(registry["kvcache"] == {"prefix_hit_tokens": hit, "prefill_tokens_computed": computed},
+          f"registry kvcache deltas {registry['kvcache']}, stats {hit} / {computed}")
+    check(registry["ttft_observations"] == {TTFT_MISS: 1, TTFT_HIT: CB_REQUESTS - 1},
+          f"TTFT observations {registry['ttft_observations']}")
+    registry["ttft_observations"] = {"/".join(k): v for k, v in registry["ttft_observations"].items()}
+    check(registry["llm"] == {"itl_observations": CB_REQUESTS * (NEW_TOKENS - 1)},
+          f"ITL observations {registry['llm']}, want {CB_REQUESTS * (NEW_TOKENS - 1)}")
     calls, k1 = engine.forward_calls - calls0, rmsnorm_fwd.launches - k1_0
     per_call = 2 * cfg.n_layers + 1
     check(k1 == per_call * calls, f"K1 launched {k1} times in {calls} model calls, "
@@ -856,22 +920,35 @@ def cb_serve_phase(torch, np, dense_server, dense_serve):
     done = engine.run_until_complete()
     check(set(done) == set(rids), "the timed requests did not all finish")
 
-    # TTFT of a miss, then of a hit that shares 480 of its 512 tokens
-    def ttft(prompt):
+    # TTFT of a miss, then of a hit that shares 480 of its 512 tokens, on
+    # the host's clock around the stream and as the engine recorded it (the
+    # TTFT histogram's _sum delta: the engine stamps at the first token's
+    # host sync in admission, the stream yields it after that step's decode)
+    engine_ttft = {}
+
+    def ttft(prompt, tag):
+        sums0, n0 = _hist_sums(ttft_hist).get(tag, 0.0), _hist_counts(ttft_hist).get(tag, 0)
         t0 = time.perf_counter()
         items = server.stream({"token_ids": prompt, "max_new_tokens": 4})
         next(items)
         first_ms = (time.perf_counter() - t0) * 1e3
         final = list(items)[-1]
         check(final.get("finished") and len(final["token_ids"]) == 4, f"bad stream end {final}")
+        check(_hist_counts(ttft_hist)[tag] - n0 == 1, f"not one TTFT observation tagged {tag}")
+        engine_ms = _hist_sums(ttft_hist)[tag] - sums0
+        check(0 < engine_ms <= first_ms,
+              f"engine TTFT {engine_ms} ms against the host's {first_ms} ms")
+        engine_ttft[tag[0]] = dict(engine_ms=engine_ms, host_ms=first_ms,
+                                   host_minus_engine_ms=first_ms - engine_ms)
         return first_ms
 
     miss = tokens(512)
     s0 = server.kvcache_stats()
-    ttft_miss = ttft(miss)
+    ttft_miss = ttft(miss, TTFT_MISS)
     s1 = server.kvcache_stats()
-    ttft_hit = ttft(miss[:480] + tokens(32))
+    ttft_hit = ttft(miss[:480] + tokens(32), TTFT_HIT)
     s2 = server.kvcache_stats()
+    print("serve_cb: TTFT, engine vs host clock", json.dumps(engine_ttft))
     check(s1["prefix_hit_tokens"] == s0["prefix_hit_tokens"], "the 512-token miss hit the cache")
     check(s2["prefix_hit_tokens"] - s1["prefix_hit_tokens"] == 480, "the hit was not served 480")
     out = dict(
@@ -885,9 +962,191 @@ def cb_serve_phase(torch, np, dense_server, dense_serve):
         rmsnorm_launches=k1, decode_ms_per_step_8_slots=statistics.median(step_ms),
         decode_ms_per_step_all=step_ms, step_profile=prof,
         ttft_ms_miss_512=ttft_miss, ttft_ms_hit_480_of_512=ttft_hit,
-        kvcache=server.kvcache_stats(),
+        kvcache=server.kvcache_stats(), registry=registry, engine_ttft=engine_ttft,
     )
     print("serve_cb", json.dumps(out))
+    return server, out
+
+
+def serve_obs_phase(torch, np, server, cb_out):
+    """The observability plane on the serve_cb server: (a) a wave of its
+    traffic with tracing off, then on; (b) the pooled step's launches,
+    copies and syncs with tracing off and on, and its time each way; (c) the
+    host cost of one record of each kind; (d) the device-memory gauges; (e)
+    the device profile of one served request; (f) the Prometheus text."""
+    import re
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ray_tpu_torch.llm import GenerationRequest
+    from ray_tpu_torch.util import events, metrics, tracing
+
+    t_phase = time.perf_counter()
+    engine, cfg = server.engine, server.engine._cfg
+    rng = np.random.default_rng(SEED + 11)
+
+    def tokens(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    # (a) phase 7's traffic on a fresh prefix, once to put its blocks in the
+    # cache, then off and on: both serve every prompt from the same cached
+    # blocks, so the greedy tokens must be equal
+    prefix = tokens(CB_PREFIX)
+    prompts = [prefix + tokens(CB_OWN) for _ in range(CB_REQUESTS)]
+
+    def one(prompt):
+        ctx = tracing.new_trace_context() if tracing.is_tracing_enabled() else None
+        with tracing.request_span("serve_obs.request", ctx):
+            answer = server({"token_ids": prompt, "max_new_tokens": NEW_TOKENS, "temperature": 0.0})
+        return answer["token_ids"], ctx
+
+    def wave():
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(CB["slots"]) as pool:
+            got = list(pool.map(one, prompts))
+        return got, time.perf_counter() - t0
+
+    wave()
+    tracing.clear_spans()
+    off, wall_off = wave()
+    check(tracing.get_spans() == [], "a wave with tracing off recorded spans")
+    tracing.enable_tracing()
+    on, wall_on = wave()
+    tracing._enabled = False
+    check([t for t, _ in on] == [t for t, _ in off], "tracing on changed the greedy tokens")
+    spans = tracing.get_spans()
+    need = {"serve_obs.request", "engine.queue_wait", "kvcache.acquire", "kvcache.assemble",
+            "engine.prefill", "kvcache.commit", "engine.decode"}
+    per_request = []
+    for _, ctx in on:
+        mine = [s for s in spans if s["trace_id"] == ctx["trace_id"]]
+        names = {s["name"] for s in mine}
+        check(need <= names, f"a traced request lacks {need - names}")
+        prefill = [s for s in mine if s["name"] == "engine.prefill"]
+        check(len(prefill) == 1 and prefill[0]["args"]["hit"], f"prefill spans {prefill}")
+        per_request.append(len(mine))
+    tracing.clear_spans()
+    traced = dict(wall_s_off=wall_off, wall_s_on=wall_on, spans_per_request=per_request,
+                  tokens_equal=True)
+
+    # (b) the pooled step, all 8 slots active: one profile and 16 timed
+    # steps each way, in turns
+    rids = [engine.add_request(GenerationRequest(token_ids=tokens(CB_OWN), max_new_tokens=48))
+            for _ in range(CB["slots"])]
+    _step_until(engine, lambda: len(engine._slots) == CB["slots"] and not engine._pending)
+    profs, step_ms = {}, {"off": [], "on": []}
+    for mode in ("off", "on"):
+        tracing._enabled = mode == "on"
+        profs[mode] = device_profile(torch, engine.step)
+    for i in range(32):
+        mode = "on" if i % 2 else "off"
+        tracing._enabled = mode == "on"
+        t0 = time.perf_counter()
+        engine.step()  # ends in the host transfer of the sampled tokens
+        step_ms[mode].append((time.perf_counter() - t0) * 1e3)
+    tracing._enabled = False
+    check(len(engine._slots) == CB["slots"], "a slot left the serve_obs steps")
+    done = engine.run_until_complete()
+    check(set(done) == set(rids), "the serve_obs step requests did not all finish")
+    for key in ("kernel_launches", "dtoh_copies", "sync_calls"):
+        check(profs["on"][key] == profs["off"][key],
+              f"tracing on: {key} {profs['on'][key]}, off: {profs['off'][key]}")
+    check(profs["off"]["kernel_launches"] == cb_out["step_profile"]["kernel_launches"],
+          f"pooled step launched {profs['off']['kernel_launches']}, serve_cb's "
+          f"{cb_out['step_profile']['kernel_launches']}")
+    step = dict(
+        kernel_launches=profs["off"]["kernel_launches"], dtoh_copies=profs["off"]["dtoh_copies"],
+        sync_calls=profs["off"]["sync_calls"], step_ms_off=statistics.median(step_ms["off"]),
+        step_ms_on=statistics.median(step_ms["on"]), step_ms_all=step_ms,
+        profile_attempts=[profs[m]["profile_attempts"] for m in ("off", "on")])
+
+    # (c) the host cost of one record, in us, over 10,000 calls each (under
+    # a tag of their own, so that no serving series moves); the flight
+    # recorder's ring holds 4,096, so most of its calls also drop one
+    def per_call_us(fn, n=10_000):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    tracing.enable_tracing()
+    ctx = tracing.new_trace_context()
+    events.clear_events()
+    cost_us = {
+        "record_serve_itl": per_call_us(lambda: metrics.record_serve_itl(0.03, mesh="cost")),
+        "record_kvcache_ttft": per_call_us(
+            lambda: metrics.record_kvcache_ttft(0.1, True, mesh="cost")),
+        "emit_span": per_call_us(
+            lambda: tracing.emit_span("serve_obs.cost", ctx, time.time(), 0.0, category="engine")),
+        "record_event": per_call_us(lambda: events.record_event("serve_obs_cost", n=1)),
+    }
+    tracing._enabled = False
+    tracing.clear_spans()
+    events.clear_events()
+    serve_cb_step_ms = cb_out["decode_ms_per_step_8_slots"]
+    cost = dict(us_per_call=cost_us,
+                step_records_share_of_serve_cb_step=CB["slots"] * cost_us["record_serve_itl"]
+                / (serve_cb_step_ms * 1e3),
+                traced_request_spans_us=statistics.mean(per_request) * cost_us["emit_span"])
+
+    # (d) device memory: one row, cuda:0, read beside the allocator
+    rows = metrics.sample_device_memory()
+    allocated, (_, total) = torch.cuda.memory_allocated(), torch.cuda.mem_get_info()
+    kind = torch.cuda.get_device_name(0)
+    check(set(rows) == {"cuda:0"}, f"device memory rows {rows}")
+    check(rows["cuda:0"]["used"] == allocated >= 13.5e9,
+          f"used {rows['cuda:0']['used']}, memory_allocated {allocated}")
+    check(rows["cuda:0"]["limit"] == total, f"limit {rows['cuda:0']['limit']}, total {total}")
+    check(("", "cuda:0", kind) in metrics._ensure_device_metrics()["used"]._values,
+          f"no gauge tagged {kind}")
+    memory = dict(rows=rows, memory_allocated=allocated, mem_get_info_total=total, kind=kind)
+
+    # (e) tracing.device_profile around one served request, spin kernels
+    # first (the profiler can drop a prefix of its device records)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as logdir:
+        request = {"token_ids": tokens(CB_OWN), "max_new_tokens": 8}
+        with tracing.device_profile(logdir):
+            for _ in range(256):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            with tracing.annotate_device_trace("serve_obs.request"):
+                server(request)
+            torch.cuda.synchronize()
+        files = list(Path(logdir).glob("*.pt.trace.json"))
+        check(len(files) == 1, f"device_profile wrote {files}")
+        trace = json.loads(files[0].read_text())["traceEvents"]
+    region = [e.get("cat") for e in trace if e.get("name") == "serve_obs.request"]
+    k1 = sum(e.get("cat") == "kernel" and PORT_KERNELS["rmsnorm_fwd"] in e.get("name", "")
+             for e in trace)
+    check(region and k1 >= 1, f"the device profile holds region {region} and {k1} K1 launches")
+    profile = dict(events=len(trace), region_categories=region, k1_launches=k1,
+                   pads_kept=sum("spin_kernel" in e.get("name", "") for e in trace))
+
+    # (f) the Prometheus text over this process's payload, parsed back: the
+    # cumulative buckets never decrease and each _count is the registry's
+    text = metrics.render_prometheus([metrics.local_payload()])
+    series = {}
+    for line in text.splitlines():
+        m = re.fullmatch(r"(\w+)(?:\{(.*)\})? (\S+)", line)
+        if line.startswith("#") or not m:
+            continue
+        labels = dict(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"', m.group(2) or ""))
+        le = labels.pop("le", None)
+        series.setdefault((m.group(1), tuple(sorted(labels.items()))), []).append(
+            (le, float(m.group(3))))
+    prom = {}
+    for hist in (metrics._ensure_kvcache_metrics()["ttft"], metrics._ensure_llm_metrics()["itl"]):
+        for tags, count in _hist_counts(hist).items():
+            key = tuple(sorted((k, v) for k, v in zip(hist._tag_keys, tags) if v))
+            buckets = [v for _, v in series[(hist._name + "_bucket", key)]]
+            (_, n), = series[(hist._name + "_count", key)]
+            check(all(a <= b for a, b in zip(buckets, buckets[1:])) and n == buckets[-1] == count,
+                  f"{hist._name}{dict(key)}: buckets {buckets}, _count {n}, registry {count}")
+            prom[hist._name + str(dict(key))] = n
+    out = dict(traced=traced, step=step, record_cost=cost, device_memory=memory,
+               device_profile=profile, prometheus_counts=prom, prometheus_lines=len(text.splitlines()),
+               phase_s=time.perf_counter() - t_phase)
+    print("serve_obs", json.dumps(out))
     return out
 
 
@@ -954,9 +1213,11 @@ def cb_spec_chunk_phase(torch, np, params):
     from ray_tpu_torch.kvcache import KVCacheManager
     from ray_tpu_torch.llm import ContinuousBatchingEngine, GenerationRequest
     from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.util import metrics
 
     cfg = LlamaConfig.llama2_7b(max_seq_len=CB["max_seq_len"], param_dtype=torch.bfloat16)
     rng = np.random.default_rng(SEED + 7)
+    llm = metrics._ensure_llm_metrics()
 
     def tokens(n):
         return rng.integers(0, cfg.vocab_size, n).tolist()
@@ -966,11 +1227,13 @@ def cb_spec_chunk_phase(torch, np, params):
                                         kv_cache=KVCacheManager(CB["blocks"], CB["block"]), **kw)
 
     # speculation, k=4, the target as its own draft (shared weights)
+    llm0 = metrics.llm_counters()
     spec = engine(draft=(cfg, params), spec_tokens=4)
     for _ in range(CB["slots"]):
         spec.add_request(GenerationRequest(token_ids=tokens(CB_OWN), max_new_tokens=48))
     _step_until(spec, lambda: len(spec._slots) == CB["slots"] and not spec._pending)
     p0, a0, ms, emitted = spec.spec_proposed, spec.spec_accepted, [], 0
+    itl0 = metrics.llm_counters()["itl_observations"]
     for _ in range(4):
         n0 = sum(len(s.generated) for s in spec._slots.values())
         t0 = time.perf_counter()
@@ -978,12 +1241,28 @@ def cb_spec_chunk_phase(torch, np, params):
         ms.append((time.perf_counter() - t0) * 1e3)
         check(len(spec._slots) == CB["slots"], "a slot finished inside the timed spec steps")
         emitted += sum(len(s.generated) for s in spec._slots.values()) - n0
+    # no row stopped in these steps: the ITL observations are the tokens
+    # the verify passes landed, counted here from the slots
+    itl_timed = metrics.llm_counters()["itl_observations"] - itl0
+    check(itl_timed == emitted, f"{itl_timed} ITL observations in steps that emitted {emitted}")
     results = spec.run_until_complete()
     check(all(len(r.token_ids) == 48 for r in results.values()), "bad speculative results")
     acc = (spec.spec_accepted - a0) / (spec.spec_proposed - p0)
+    # the registry's spec counters move by the engine's own; the gauge is
+    # the registry's lifetime ratio; every verify step records sum(cnt) =
+    # accepted + one per row ITL observations (spec_proposed / k row steps)
+    reg = _delta(metrics.llm_counters(), llm0)
+    want = {"spec_proposed_tokens": spec.spec_proposed, "spec_accepted_tokens": spec.spec_accepted,
+            "itl_observations": spec.spec_accepted + spec.spec_proposed // 4}
+    check(reg == want, f"registry deltas {reg}, engine {want}")
+    totals = metrics.llm_counters()
+    gauge = llm["acceptance"]._values[("tp=1",)]
+    check(gauge == totals["spec_accepted_tokens"] / totals["spec_proposed_tokens"],
+          f"acceptance gauge {gauge}, registry ratio {totals}")
     spec_out = dict(k=4, slots=CB["slots"], step_ms=ms, step_ms_median=statistics.median(ms),
                     tokens_per_step_per_row=emitted / (len(ms) * CB["slots"]),
-                    acceptance=acc, acceptance_all=spec.spec_accepted / spec.spec_proposed)
+                    acceptance=acc, acceptance_all=spec.spec_accepted / spec.spec_proposed,
+                    registry=reg, itl_observations_timed=itl_timed, acceptance_gauge=gauge)
     del spec, results
     torch.cuda.empty_cache()
 
@@ -1000,6 +1279,7 @@ def cb_spec_chunk_phase(torch, np, params):
         eng.step()  # warm: every row decoding
         eng.add_request(GenerationRequest(token_ids=long_prompt, max_new_tokens=8))
         gaps, stalls, steps = [], 0, 0
+        buckets0 = list(llm["itl"]._counts[("tp=1",)])
         while eng._pending or eng._prefilling or len(eng._slots) < CB["slots"]:
             n0 = {si: len(s.generated) for si, s in eng._slots.items()}
             t0 = time.perf_counter()
@@ -1013,7 +1293,12 @@ def cb_spec_chunk_phase(torch, np, params):
         if budget:
             check(stalls == 0, f"{name}: {stalls} in-flight rows missed a step")
             check(steps >= CB_LONG // budget, f"{name}: prefill took {steps} steps")
-        chunk_out[name] = dict(steps=steps, max_gap_ms=max(gaps), gaps_ms=gaps, stalls=stalls)
+        # the ITL histogram over the same steps, beside the largest step gap
+        itl_counts = [b - a for a, b in zip(buckets0, llm["itl"]._counts[("tp=1",)])]
+        itl_q = {f"itl_p{round(q * 100)}_ms": metrics.quantile_from_buckets(
+            llm["itl"]._boundaries, itl_counts, q) * 1e3 for q in (0.5, 0.99)}
+        chunk_out[name] = dict(steps=steps, max_gap_ms=max(gaps), gaps_ms=gaps, stalls=stalls,
+                               itl_observations=sum(itl_counts), **itl_q)
         if budget:
             # one 32-token chunk forward of a 1-row cache, timed and profiled
             row, chunk = eng._empty_row(), eng._tokens([long_prompt[:CB["block"]]])
@@ -1076,8 +1361,12 @@ def serve_lora_phase(torch, np, params, cb_out):
     from ray_tpu_torch.llm import AdapterConfig, GenerationRequest, LLMConfig, LLMEngine, LLMServer
     from ray_tpu_torch.llm import LLMPredictor
     from ray_tpu_torch.ops.rmsnorm import rmsnorm_fwd
+    from ray_tpu_torch.util import events, metrics
 
     adapters = AdapterConfig(max_live=LORA["max_live"], slot_rank=LORA["rank"], alpha=LORA["alpha"])
+    # the registry and the flight recorder from here to the server's last
+    # request (this server's store is the only one that records meanwhile)
+    adapter0, t_events = metrics.adapter_counters(), time.time()
     server = LLMServer(LLMConfig(
         model_id="llama2-7b", max_seq_len=CB["max_seq_len"], max_batch_size=CB["slots"],
         kv_cache_blocks=CB["blocks"], kv_block_size=CB["block"],
@@ -1272,6 +1561,15 @@ def serve_lora_phase(torch, np, params, cb_out):
     check(s1["prefix_hit_tokens"] == s0["prefix_hit_tokens"], "the tenant's miss hit the cache")
     check(s2["prefix_hit_tokens"] - s1["prefix_hit_tokens"] == 480, "the tenant's hit was not 480")
     stats = server.adapters_stats()
+    registry = _delta(metrics.adapter_counters(), adapter0)
+    want = {"adapter_hits": stats["hits"], "adapter_cold_attaches": stats["cold_attaches"],
+            "adapter_evictions": stats["evictions"]}
+    check(registry == {k: v for k, v in want.items() if v},
+          f"registry adapter deltas {registry}, store {want}")
+    cold = [e for e in events.get_events(events.ADAPTER_COLD_ATTACH) if e["ts"] >= t_events]
+    check(len(cold) == stats["cold_attaches"]
+          and all(e["slot"] == store._slot_of[e["adapter_id"]] for e in cold),
+          f"cold-attach events {cold}, store slots {store._slot_of}")
     del server, engine, store
     torch.cuda.empty_cache()
 
@@ -1317,7 +1615,8 @@ def serve_lora_phase(torch, np, params, cb_out):
         base_rows_equal=True, adapter_effect_step=step_effect, static_lora=static, tol=tol,
         ttft_ms_miss_512=ttft_miss, ttft_ms_hit_480_of_512=ttft_hit, adapter_stats=stats,
         predictor_rows=CB["slots"], predictor_new_tokens=16, predictor_s=pred_s,
-        predictor_stats=pred_stats, parity=parity,
+        predictor_stats=pred_stats, parity=parity, registry=registry,
+        cold_attach_events=cold,
     )
     print("serve_lora", json.dumps(out))
     return out
@@ -1463,7 +1762,13 @@ def device_profile(torch, fn, groups=None):
     for e in prof.key_averages():
         if e.key in host_ops:
             host_ops[e.key] = e.count
+    # device-to-host copies on the device, and the host's synchronising
+    # runtime calls (the two this call makes around fn included)
+    dtoh = sum("DtoH" in e.name for e in kernels)
+    syncs = sum(e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("cuda")
+                and "Synchronize" in e.name for e in prof.events())
     out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms, kernel_launches=len(kernels),
+               dtoh_copies=dtoh, sync_calls=syncs,
                device_busy_share=busy_ms / wall_ms if busy_ms else None,
                top_kernels_ms=[[name[:80], ms] for name, ms in top], port_kernels=port,
                pad_kernels=pad, pad_kernels_lost=pads_lost, profile_attempts=attempt,
@@ -1997,6 +2302,7 @@ def train_ppo_phase(torch, np, counters):
 
     from ray_tpu_torch import rllib
     from ray_tpu_torch.rllib.learner import STAT_KEYS
+    from ray_tpu_torch.util import metrics
 
     def config(envs, **training):
         return (rllib.PPOConfig().environment(rllib.CartPoleEnv)
@@ -2050,6 +2356,15 @@ def train_ppo_phase(torch, np, counters):
         timed.append(dict(r, **{k.replace("_s", "_ms"): v * 1e3 for k, v in algo.timers.items()}))
     peak = torch.cuda.max_memory_allocated()
     check(all(finite(r) for r in [warm, *timed]), f"non-finite PPO stats {timed}")
+    # the rllib step breakdown of the last iteration: no collectives, so
+    # the efficiency is the compute share of the step past the idle gap,
+    # and the components sum to the total (exactly: the same sum)
+    efficiency = metrics.scaling_efficiency("rllib")
+    seconds = metrics._ensure_step_metrics()["seconds"]
+    step_s = {k[1]: v for k, v in seconds._values.items() if k[0] == "rllib"}
+    check(efficiency is not None and 0 < efficiency <= 1, f"rllib scaling efficiency {efficiency}")
+    check(step_s["compute"] + step_s["collective"] + step_s["idle"] == step_s["total"],
+          f"rllib step_time_seconds {step_s}")
     rows = timed[0]["num_env_steps_sampled"]
     minibatches = PPO_UPSTREAM["num_epochs"] * (rows // PPO_UPSTREAM["minibatch_size"])
     # one update of (b)'s batch under the profiler, cut to a few epochs: the
@@ -2081,7 +2396,7 @@ def train_ppo_phase(torch, np, counters):
         device_busy_share_profiled=prof["device_busy_share"],
         device_busy_share_of_timed_update=(prof["device_busy_ms"] / profiled)
         / (statistics.median(learn_ms) / minibatches),
-        profile=prof)
+        profile=prof, scaling_efficiency=efficiency, step_time_seconds=step_s)
     parity = ppo_parity(torch, np)
     out = dict(defaults=defaults, upstream=upstream, launches=launches, parity=parity)
     print("train_ppo", json.dumps(out))
@@ -2517,7 +2832,9 @@ def main() -> None:
     # three phases; it runs K1 only (decode-mode attention throughout)
     for fn in counters.values():
         fn.launches = 0
-    cb = cb_serve_phase(torch, np, server, serve)
+    cb_server, cb = cb_serve_phase(torch, np, server, serve)
+    serve_obs_phase(torch, np, cb_server, cb)
+    del cb_server
     torch.cuda.empty_cache()
     cb_parity_phase(torch, np, server.engine._params)
     cb_spec_chunk_phase(torch, np, server.engine._params)

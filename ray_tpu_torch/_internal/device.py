@@ -14,6 +14,10 @@ import torch
 
 DeviceLike = Union[None, str, torch.device]
 
+#: the mesh tag of every serving metric and stats() dict: one device until
+#: the port's tensor-parallel slice (the reference's ``plan.describe()``)
+MESH_TAG = "tp=1"
+
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` means ``cuda``; raises if CUDA is asked for and absent. A

@@ -31,8 +31,10 @@ The layers are stacked in one tensor (the cache layout of models/llama.py),
 so a commit, a copy-on-write copy or an assembly is two or three device ops
 for the whole model, not a few per layer. The KV tier's shipment interop
 (``extract_row_payload``, ``adopt_blocks``, ``build_row``) comes with the
-port's cluster KV tier slice; the reference's metric gauges come with its
-observability plane (``stats()`` keeps the same counters and keys).
+port's cluster KV tier slice. ``stats()`` keeps the reference's counters
+and keys; the same events go to the process's metrics (``util/metrics``:
+prefix hits and computed tokens, evictions, blocked admissions, the block
+gauges) and a blocked admission to its flight recorder (``util/events``).
 """
 
 from __future__ import annotations
@@ -42,7 +44,10 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from .._internal.device import MESH_TAG
 from ..models.llama import DecodeCache
+from ..util import events as _events
+from ..util import metrics as _metrics
 from .block_allocator import BlockAllocator
 from .prefix_index import PrefixIndex
 
@@ -111,8 +116,7 @@ class KVCacheManager:
             blocks_free=self._alloc.num_free,
             evictions=self._index.num_evictions,
             index_nodes=self._index.num_nodes,
-            # one device until the port's tensor-parallel slice
-            mesh="tp=1",
+            mesh=MESH_TAG,
             num_devices=1,
         )
         out.update(self.pool_accounting())
@@ -166,6 +170,7 @@ class KVCacheManager:
             if bid is None:
                 self.release(lease)
                 self._stats["admission_blocked"] += 1
+                self._record_blocked()
                 return None
             lease.reserved.append(bid)
         return lease
@@ -181,6 +186,7 @@ class KVCacheManager:
             self._alloc.release(bid)
         lease.pinned = []
         lease.reserved = []
+        self._update_gauges()
 
     def extend(self, lease: KVCacheLease, n_blocks: int) -> int:
         """Best-effort lease extension: reserve up to ``n_blocks`` more pool
@@ -300,6 +306,7 @@ class KVCacheManager:
                     lease.pinned.append(child.block_id)
             node = child
         self._write_blocks(written, cache_row, offsets)
+        self._update_gauges()
         return len(written)
 
     def update_block(self, block_id: int, cache_row: DecodeCache, tok_offset: int):
@@ -343,10 +350,11 @@ class KVCacheManager:
         while bid is None:
             if not self._index.evict_lru(1):
                 return None
+            _metrics.record_kvcache_eviction(1, mesh=MESH_TAG)
             bid = self._alloc.allocate()
         return bid
 
-    # -- counters ------------------------------------------------------------
+    # -- counters and metrics ------------------------------------------------
 
     def record_prefill(self, hit_tokens: int, computed_tokens: int) -> None:
         """Called by the engine after each admission prefill."""
@@ -354,3 +362,18 @@ class KVCacheManager:
         self._stats["hits" if hit_tokens else "misses"] += 1
         self._stats["prefix_hit_tokens"] += hit_tokens
         self._stats["prefill_tokens_computed"] += computed_tokens
+        _metrics.record_kvcache_prefill(hit_tokens, computed_tokens, mesh=MESH_TAG)
+        self._update_gauges()
+
+    def _record_blocked(self) -> None:
+        _metrics.record_kvcache_blocked(mesh=MESH_TAG)
+        _events.record_event(
+            _events.ADMISSION_BLOCKED,
+            blocks_free=self._alloc.num_free,
+            blocked_total=self._stats["admission_blocked"],
+        )
+
+    def _update_gauges(self) -> None:
+        _metrics.set_kvcache_blocks(
+            self._alloc.num_allocated, self._alloc.capacity, mesh=MESH_TAG
+        )

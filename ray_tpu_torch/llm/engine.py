@@ -30,6 +30,16 @@ Greedy where the temperature is 0, otherwise a categorical draw from a
 same requests give the same tokens from one engine seed. PyTorch draws other
 bits than JAX, so sampled tokens agree with the reference only at
 temperature 0.
+
+Observability, as the reference's: the continuous-batching engine records
+TTFT (with a KV manager, tagged by cache outcome), inter-token latency and
+the speculative proposed / accepted counts in ``util/metrics``, a blocked
+admission in ``util/events``, and for a request added while tracing is on
+the spans ``engine.queue_wait``, ``kvcache.acquire``, ``kvcache.assemble``,
+``engine.prefill``, ``kvcache.commit`` and ``engine.decode`` under the
+caller's trace context (``util/tracing``). Every clock is read on the host
+after the sampled tokens came back (:func:`host_sync`), so that it stamps
+completion, not launch, and no record reads a device tensor.
 """
 
 from __future__ import annotations
@@ -37,14 +47,18 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
+import time
 import zlib
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .._internal.device import DeviceLike, resolve_device
+from .._internal.device import MESH_TAG, DeviceLike, resolve_device
 from ..models.llama import DecodeCache, build_llama, new_cache
+from ..util import events as _events
+from ..util import metrics as _metrics
+from ..util import tracing as _tracing
 
 
 def _resolve_seed(seed: Optional[int]) -> int:
@@ -374,10 +388,12 @@ class _Slot:
     generated: List[int]
     last_token: int
     lease: Any = None  # KVCacheLease when the engine runs paged
+    trace: Any = None  # {"ctx", "wall"} when the request is traced
     # leading full blocks of (prompt + generated[:-1]) already committed
     # into the radix index: the speculative path commits decode-tail
     # blocks eagerly (accepted runs cross block boundaries mid-flight)
     committed_blocks: int = 0
+    last_emit_ts: float = 0.0  # monotonic stamp of the last emitted token
 
 
 class ContinuousBatchingEngine(_DecodeModelBase):
@@ -458,6 +474,12 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         self._finished_buf: Dict[int, GenerationResult] = {}
         self._in_flight: Dict[int, List[int]] = {}
         self._steps_published = 0
+        # rid -> monotonic stamp at add_request, for TTFT; rid -> {"ctx",
+        # "wall"} only while the request is traced; rids already reported
+        # blocked on KV admission (one event per episode, not one per step)
+        self._enqueue_ts: Dict[int, float] = {}
+        self._req_trace: Dict[int, Any] = {}
+        self._blocked_rids: set = set()
         # -- speculative decoding (draft proposes, target verifies) --------
         # The draft keeps its own dense per-slot pool (no paging: it is
         # small) with the SAME position invariant as the target: K/V for
@@ -506,9 +528,15 @@ class ContinuousBatchingEngine(_DecodeModelBase):
                 "prompt + max_new_tokens + spec_tokens exceeds max_seq_len "
                 "(speculative verification needs headroom)"
             )
+        tr = None
+        if _tracing.is_tracing_enabled():
+            tr = {"ctx": _tracing.current_context(), "wall": time.time()}
         with self._progress:
             rid = self._next_id
             self._next_id += 1
+            self._enqueue_ts[rid] = time.monotonic()
+            if tr is not None:
+                self._req_trace[rid] = tr
             # the stepping thread only pops the head and puts a blocked
             # request back there: an append stays behind both
             self._pending.append((rid, request))
@@ -547,12 +575,16 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             last[si, 0] = slot.last_token
         logits, _ = self._decode(self._cache, self._tokens(last), self._row_adapter_slots())
         self._step_count += 1
-        tokens = self._sample_rows(logits)
+        tokens = self._sample_rows(logits)  # ends in host_sync
+        now = time.monotonic()
         for si in list(self._slots):
             slot = self._slots[si]
             tok = int(tokens[si])
             slot.generated.append(tok)
             slot.last_token = tok
+            if slot.last_emit_ts:
+                _metrics.record_serve_itl(now - slot.last_emit_ts, mesh=MESH_TAG)
+            slot.last_emit_ts = now
             req = slot.request
             done_eos = req.eos_token_id is not None and tok == req.eos_token_id
             done_len = len(slot.generated) >= req.max_new_tokens
@@ -586,12 +618,14 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         )
         em = host_sync(emitted)
         cnt = host_sync(counts)
+        now = time.monotonic()
+        proposed = accepted = 0
         for si in list(self._slots):
             slot = self._slots[si]
             req = slot.request
             n = int(cnt[si])
-            self.spec_proposed += k
-            self.spec_accepted += n - 1  # the last emitted is bonus/correction
+            proposed += k
+            accepted += n - 1  # the last emitted is bonus/correction
             done_reason = None
             for j in range(n):
                 tok = int(em[si, j])
@@ -603,10 +637,20 @@ class ContinuousBatchingEngine(_DecodeModelBase):
                 if len(slot.generated) >= req.max_new_tokens:
                     done_reason = "length"
                     break
+            if slot.last_emit_ts:
+                # n tokens landed in one step: each saw gap/n of latency
+                _metrics.record_serve_itl(
+                    (now - slot.last_emit_ts) / max(n, 1), n=n, mesh=MESH_TAG
+                )
+            slot.last_emit_ts = now
             if done_reason is not None:
                 self._finish_slot(si, slot, done_reason, finished)
             else:
                 self._commit_decode_tail(si, slot)
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
+        if proposed:
+            _metrics.record_spec_tokens(proposed, accepted, mesh=MESH_TAG)
 
     def _row_adapter_slots(self) -> np.ndarray:
         """Per-row adapter slots of the pooled batch; free rows read -1
@@ -638,6 +682,13 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             num_prompt_tokens=len(req.token_ids),
             finished_reason=reason,
         )))
+        if slot.trace is not None:
+            _tracing.emit_span(
+                "engine.decode", slot.trace["ctx"], slot.trace["wall"],
+                time.time() - slot.trace["wall"], category="engine",
+                request_id=slot.request_id, tokens=len(slot.generated),
+                finished=reason, mesh=MESH_TAG,
+            )
         self._retire_slot(si)
 
     def _commit_decode_tail(self, si: int, slot: _Slot) -> None:
@@ -677,9 +728,16 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             slot.committed_blocks, len(req.token_ids) // self._kv.block_size
         )
         if len(tokens) // self._kv.block_size > already:
+            cm_t0 = time.time() if slot.trace else 0.0
             self._kv.commit(
                 slot.lease, self._kv_key_tokens(req, tokens), self._cache.row(si), pin=False
             )
+            if slot.trace:
+                _tracing.emit_span(
+                    "kvcache.commit", slot.trace["ctx"], cm_t0,
+                    time.time() - cm_t0, category="kvcache",
+                    request_id=slot.request_id, tokens=len(tokens), tail=True,
+                )
         self._kv.release(slot.lease)
 
     def run_until_complete(self) -> Dict[int, GenerationResult]:
@@ -743,6 +801,9 @@ class ContinuousBatchingEngine(_DecodeModelBase):
                 self._pending = [(r, q) for r, q in self._pending if r != rid]
                 self._finished_buf.pop(rid, None)
                 self._in_flight.pop(rid, None)
+                self._enqueue_ts.pop(rid, None)
+                self._req_trace.pop(rid, None)
+                self._blocked_rids.discard(rid)
             for si, slot in list(self._slots.items()):
                 if slot.request_id == rid:
                     self._retire_slot(si)
@@ -815,44 +876,89 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         while free and self._pending:
             si = free.pop(0)
             rid, req = self._pending.pop(0)
+            tr = self._req_trace.get(rid)
             lease = None
             if self._kv is not None:
+                kv_t0 = time.time() if tr else 0.0
                 lease = self._kv.acquire(self._kv_key_tokens(req))
                 if lease is None:  # backpressure: wait for a release
                     self._pending.insert(0, (rid, req))
+                    if rid not in self._blocked_rids:
+                        self._blocked_rids.add(rid)
+                        _events.record_event(
+                            _events.ENGINE_ADMISSION_BLOCKED, request_id=rid,
+                            prompt_tokens=len(req.token_ids), pending=len(self._pending),
+                        )
                     break
+                self._blocked_rids.discard(rid)
+                if tr:
+                    _tracing.emit_span(
+                        "kvcache.acquire", tr["ctx"], kv_t0, time.time() - kv_t0,
+                        category="kvcache", request_id=rid,
+                        cached_tokens=lease.num_cached_tokens,
+                    )
+            tr = self._req_trace.pop(rid, None)
+            if tr:
+                _tracing.emit_span(
+                    "engine.queue_wait", tr["ctx"], tr["wall"], time.time() - tr["wall"],
+                    category="engine", request_id=rid,
+                )
             if self._prefill_chunk:
                 # budgeted prefill: the request keeps its slot reservation
                 # but computes nothing yet; _advance_prefills spreads the
                 # prompt over engine steps alongside in-flight decodes
                 self._prefilling[si] = {
-                    "rid": rid, "req": req, "lease": lease,
+                    "rid": rid, "req": req, "lease": lease, "tr": tr,
                     "row": None, "pos": 0, "logits": None, "committed": 0,
+                    "pf_wall": time.time() if tr else 0.0,
                 }
                 continue
-            logits, solo = self._prefill_leased(req, lease)
+            pf_wall = time.time() if tr else 0.0
+            logits, solo = self._prefill_leased(req, lease, trace=tr)
             self.last_step_prefill_tokens += len(req.token_ids) - (
                 lease.num_cached_tokens if lease is not None else 0
             )
             first = self._sample_first(logits, req, rid)
-            if not self._finish_admission(si, rid, req, lease, solo, first, finished):
+            if not self._finish_admission(si, rid, req, lease, solo, first, tr, pf_wall,
+                                          finished):
                 free.insert(0, si)
         return finished
 
     def _finish_admission(self, si, rid, req, lease, solo: DecodeCache, first: int,
-                          finished: List[tuple]) -> bool:
+                          tr, pf_wall: float, finished: List[tuple]) -> bool:
         """The admission tail both prefill paths (inline, chunked) funnel
-        through: prefill counters, prompt-block commit, pool row insert,
-        slot creation. Returns False when the request finished AT admission
-        (eos on the first token / max_new_tokens <= 1): the caller returns
-        the slot."""
+        through: TTFT and prefill metrics, prompt-block commit, pool row
+        insert, slot creation. ``first`` came back through host_sync, so the
+        TTFT stamp is the first token's completion. Returns False when the
+        request finished AT admission (eos on the first token /
+        max_new_tokens <= 1): the caller returns the slot."""
         plen = len(req.token_ids)
+        if tr:
+            cached = lease.num_cached_tokens if lease is not None else 0
+            _tracing.emit_span(
+                "engine.prefill", tr["ctx"], pf_wall, time.time() - pf_wall,
+                category="engine", request_id=rid, cached_tokens=cached,
+                computed_tokens=plen - cached, hit=cached > 0, tier="local",
+                mesh=MESH_TAG,
+            )
+        ts = self._enqueue_ts.pop(rid, None)
         if self._kv is not None:
             cached = lease.num_cached_tokens
             self._kv.record_prefill(cached, plen - cached)
+            if ts is not None:
+                _metrics.record_kvcache_ttft(
+                    time.monotonic() - ts, hit=cached > 0, mesh=MESH_TAG,
+                    tier="local" if cached > 0 else "miss",
+                )
             # commit the prompt's full blocks while the prefilled row is at
             # hand; reserved blocks are consumed here
+            cm_t0 = time.time() if tr else 0.0
             self._kv.commit(lease, self._kv_key_tokens(req), solo)
+            if tr:
+                _tracing.emit_span(
+                    "kvcache.commit", tr["ctx"], cm_t0, time.time() - cm_t0,
+                    category="kvcache", request_id=rid, tokens=plen,
+                )
         if self._cache is None:
             self._cache = new_cache(self._cfg, self._num_slots, self._device)
         self._cache.insert_row(si, solo)
@@ -872,6 +978,8 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             request_id=rid, request=req, generated=[first], last_token=first,
             lease=lease,
             committed_blocks=plen // self._kv.block_size if self._kv is not None else 0,
+            last_emit_ts=time.monotonic(),
+            trace={"ctx": tr["ctx"], "wall": time.time()} if tr else None,
         )
         return True
 
@@ -887,11 +995,11 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             if budget <= 0:
                 break
             st = self._prefilling[si]
-            req, lease = st["req"], st["lease"]
+            req, lease, tr = st["req"], st["lease"], st["tr"]
             tokens = req.token_ids
             if st["row"] is None:
                 if lease is not None and lease.num_cached_tokens:
-                    st["row"] = self._kv.assemble(lease)
+                    st["row"] = self._assemble(lease, tr)
                     st["pos"] = lease.num_cached_tokens
                     st["committed"] = lease.num_cached_tokens // self._kv.block_size
                 else:
@@ -921,7 +1029,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             del self._prefilling[si]
             first = self._sample_first(st["logits"], req, st["rid"])
             self._finish_admission(
-                si, st["rid"], req, lease, st["row"], first, finished
+                si, st["rid"], req, lease, st["row"], first, tr, st["pf_wall"], finished
             )
 
     def _empty_row(self) -> DecodeCache:
@@ -984,7 +1092,19 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         self._draft_cache.set_index(new_idx)
         return emitted, counts
 
-    def _prefill_leased(self, req: GenerationRequest, lease):
+    def _assemble(self, lease, trace) -> DecodeCache:
+        """The lease's cached prefix as a fresh row, with its
+        ``kvcache.assemble`` span when the request is traced."""
+        as_t0 = time.time() if trace else 0.0
+        row = self._kv.assemble(lease)
+        if trace:
+            _tracing.emit_span(
+                "kvcache.assemble", trace["ctx"], as_t0, time.time() - as_t0,
+                category="kvcache", cached_tokens=lease.num_cached_tokens,
+            )
+        return row
+
+    def _prefill_leased(self, req: GenerationRequest, lease, trace=None):
         """Prefill a request, reusing the lease's cached prefix: a full
         prefill on a miss; on a hit, gather the cached blocks into a fresh
         row and run only the uncached suffix through the decode path in
@@ -992,7 +1112,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         tokens, slots = req.token_ids, [req.adapter_slot]
         if lease is None or lease.num_cached_tokens == 0:
             return self._prefill(self._tokens([tokens]), slots)
-        row = self._kv.assemble(lease)
+        row = self._assemble(lease, trace)
         logits = None
         pos = lease.num_cached_tokens
         while pos < len(tokens):

@@ -35,9 +35,14 @@ step, and costs no second bank.
 ``lora_b`` is pre-scaled by ``alpha/rank`` at attach (in f32, then cast to
 the bank's dtype, as the reference's write casts), so a row's delta is
 exactly ``x @ A[slot] @ B[slot]``. The weight plane (``publish_adapter``,
-``source="weights:<prefix>"``) is not ported yet and raises; the
-reference's metric and event hooks wait for the observability plane, and
-the store keeps its plain counters (``stats()``).
+``source="weights:<prefix>"``) is not ported yet and raises.
+
+Besides its plain counters (``stats()``), the store records each hit, cold
+attach (with its latency) and eviction, and the live slots, in the process's
+metrics (``util/metrics``), and each cold attach and eviction in its flight
+recorder (``util/events``), as the reference does. The attach time is the
+host's: the slot copies are queued on the device's stream and not waited
+for (see above), as the reference's dispatch is asynchronous.
 """
 
 from __future__ import annotations
@@ -51,8 +56,10 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from .._internal.device import DeviceLike, resolve_device
+from .._internal.device import MESH_TAG, DeviceLike, resolve_device
 from ..models.llama import PROJECTIONS
+from ..util import events as _events
+from ..util import metrics as _metrics
 
 _WEIGHT_PLANE = (
     "the weight plane (publish / fetch of adapters) is not ported yet: it "
@@ -216,6 +223,7 @@ class AdapterStore:
                 self._idle.pop(adapter_id, None)
                 self._refcnt[slot] += 1
                 self.hits += 1
+                _metrics.record_adapter_hit(mesh=MESH_TAG)
                 return AdapterLease(adapter_id, slot)
             slot = self._allocate_or_evict()
             if slot is None:
@@ -231,6 +239,12 @@ class AdapterStore:
             self._refcnt[slot] = 1
             self.cold_attaches += 1
             self.last_attach_s = time.perf_counter() - t0
+            _metrics.record_adapter_cold_attach(self.last_attach_s, mesh=MESH_TAG)
+            _metrics.set_adapter_slots_live(len(self._slot_of), mesh=MESH_TAG)
+            _events.record_event(
+                _events.ADAPTER_COLD_ATTACH, adapter_id=adapter_id, slot=slot,
+                attach_ms=round(self.last_attach_s * 1000.0, 3),
+            )
             return AdapterLease(adapter_id, slot)
 
     def release(self, lease: Optional[AdapterLease]) -> None:
@@ -268,6 +282,9 @@ class AdapterStore:
         del self._slot_of[old_id]
         self._refcnt[slot] = 0
         self.evictions += 1
+        _metrics.record_adapter_evict(mesh=MESH_TAG)
+        _metrics.set_adapter_slots_live(len(self._slot_of), mesh=MESH_TAG)
+        _events.record_event(_events.ADAPTER_EVICT, adapter_id=old_id, slot=slot)
         return slot
 
     def _write_slot(self, slot: int, adapter: Dict[str, Tuple[torch.Tensor, torch.Tensor]]):
@@ -363,5 +380,5 @@ class AdapterStore:
                 "evictions": self.evictions,
                 "last_attach_ms": round(self.last_attach_s * 1000.0, 3),
                 "resident": sorted(self._slot_of),
-                "mesh": "tp=1",
+                "mesh": MESH_TAG,
             }

@@ -10,7 +10,10 @@ checkpoint the learner and the iteration count.
 
 The reference runs its runners as actors that sample in parallel; the port
 has no actor runtime, so they sample one after another, and ``train()``
-records the host time of each part of an iteration in ``PPO.timers``.
+records the host time of each part of an iteration in ``PPO.timers``. Each
+iteration also feeds the ``rllib`` step breakdown (``util/metrics``
+``StepBreakdown``: the ``step_time_seconds`` and
+``scaling_efficiency_ratio`` gauges), as the reference's does.
 ``as_trainable`` waits for the port of ``tune/``.
 """
 
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from .._internal.device import DeviceLike
+from ..util.metrics import StepBreakdown
 from .config_base import AlgorithmConfig
 from .connectors import ConnectorContext, default_env_to_module
 from .env import make_env, space_dims
@@ -136,19 +140,23 @@ class PPO:
         #: host seconds of the last iteration's parts: sampling (every runner,
         #: one after another), GAE and batching, the learner update
         self.timers: Dict[str, float] = {}
+        # per-iteration compute / collective / idle split, feeding the
+        # scaling-efficiency gauge
+        self._step_breakdown = StepBreakdown(role="rllib")
 
     # -- training -----------------------------------------------------------
 
     def train(self) -> Dict[str, Any]:
         """One iteration: rollouts -> GAE -> learner update."""
-        t0 = time.perf_counter()
-        params_handle = self._broadcaster.handle(self.learner.get_params())
-        rollouts = [r.sample(params_handle) for r in self.runners]
-        t1 = time.perf_counter()
-        batch, ep_returns, ep_lengths = self._postprocess(rollouts)
-        t2 = time.perf_counter()
-        stats = self.learner.update(batch)  # ends on the host: waits for the device
-        t3 = time.perf_counter()
+        with self._step_breakdown.step():
+            t0 = time.perf_counter()
+            params_handle = self._broadcaster.handle(self.learner.get_params())
+            rollouts = [r.sample(params_handle) for r in self.runners]
+            t1 = time.perf_counter()
+            batch, ep_returns, ep_lengths = self._postprocess(rollouts)
+            t2 = time.perf_counter()
+            stats = self.learner.update(batch)  # ends on the host: waits for the device
+            t3 = time.perf_counter()
         self.timers = {"sample_s": t1 - t0, "postprocess_s": t2 - t1, "learn_s": t3 - t2}
         self.iteration += 1
         self._ep_return_window.extend(ep_returns)

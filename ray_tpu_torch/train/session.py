@@ -1,10 +1,11 @@
 """Worker-side training session: the port of ray_tpu/train/session.py.
 
 Inside ``train_loop_per_worker`` the loop asks for its rank and world size
-and reports metrics and checkpoints; the controller drains the reports. The
-reference's step-breakdown and time-series telemetry (``StepBreakdown``, the
-step-time series) wait for the port's telemetry slice, and its collective
-and dataset-shard fields for the slices that bring them.
+and reports metrics and checkpoints; the controller drains the reports. Each
+report marks a step boundary of the ``train`` step breakdown
+(``util/metrics`` ``StepBreakdown``), as the reference's does. The
+reference's step-time series waits for the port's telemetry stream, and its
+collective and dataset-shard fields for the slices that bring them.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
+from ..util.metrics import StepBreakdown
 from .checkpoint import Checkpoint
 
 
@@ -40,6 +42,8 @@ class TrainContext:
     _reports: list = field(default_factory=list)
     _lock: threading.Lock = field(default_factory=threading.Lock)
     _report_count: int = 0
+    # report-to-report step telemetry (the scaling-efficiency gauge)
+    _step_breakdown: StepBreakdown = field(default_factory=lambda: StepBreakdown(role="train"))
 
     def get_world_rank(self) -> int:
         return self.world_rank
@@ -67,6 +71,7 @@ class TrainContext:
         is copied into the run's storage as ``checkpoint_{index:06d}``."""
         index = self._report_count
         self._report_count += 1
+        self._step_breakdown.mark()
         persisted: Optional[Checkpoint] = None
         if checkpoint is not None:
             dest = os.path.join(self.run_dir, f"checkpoint_{index:06d}")

@@ -331,14 +331,17 @@ def test_build_model_config_tiny_suffix_rule():
 def test_port_imports_neither_jax_nor_ray_tpu():
     """Import every module of the package in a fresh interpreter: none of them
     brings in JAX, ray_tpu or gymnasium (which the card's machine lacks).
-    The walk includes the parallel package and the MoE model."""
+    The walk includes the parallel package, the MoE model and the
+    observability plane (util)."""
     code = (
         "import importlib, pkgutil, sys, ray_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__, 'ray_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'ray_tpu', 'gymnasium'))\n"
-        "need = {'ray_tpu_torch.parallel.expert', 'ray_tpu_torch.models.moe'}\n"
+        "need = {'ray_tpu_torch.parallel.expert', 'ray_tpu_torch.models.moe',\n"
+        "        'ray_tpu_torch.util.metrics', 'ray_tpu_torch.util.tracing',\n"
+        "        'ray_tpu_torch.util.events'}\n"
         "print(len(mods), bad, sorted(need - set(mods)))\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -348,8 +351,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # every module was walked, rllib's, parallel's and the MoE model's included
-    assert int(proc.stdout.split()[0]) >= 46 and proc.stdout.rstrip().endswith("[]")
+    # every module was walked, rllib's, parallel's, the MoE model's and util's
+    # included
+    assert int(proc.stdout.split()[0]) >= 50 and proc.stdout.rstrip().endswith("[]")
 
 
 def test_port_sources_name_neither_jax_nor_ray_tpu():
