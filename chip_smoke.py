@@ -10,7 +10,9 @@ Phases, each of which exits non-zero on failure:
   3. hold each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it and at edge cases, and time kernel, plain
      version and one PyTorch library call (a yardstick only: the port never
-     calls it) with CUDA events, median of 21 timings of 10 launches: RMSNorm,
+     calls it) with CUDA events, median of 21 timings of 10 launches: RMSNorm
+     (beside its pooled-step rows, (8, 4096), the time of a one-element
+     elementwise launch timed the same way: the launch floor),
      the flash-attention forward, then the flash-attention backward (dQ, and
      dK/dV) with lse from the forward kernel; the bf16/f16 flash kernels run
      on the tensor cores and are held both to the plain version that rounds
@@ -83,6 +85,26 @@ Phases, each of which exits non-zero on failure:
      engines with adapters; and LLMPredictor at 7B over 8 rows. Over the
      server's traffic the registry's adapter counters move by the store's
      own, with one adapter_cold_attach event per cold attach, at its slot;
+  10b. disaggregated prefill/decode and the KV tier (``serve_disagg``, on
+     phase 5's weights): (a) a prefill and a decode LLMServer (role=) over
+     one kvtier.LocalTierBackend behind _DisaggIngress, 8 distinct
+     512-token prompts from 8 threads, 32 new greedy tokens, against a
+     fused paged server: tokens equal, the decode side computes no prefill
+     token and adopts 16 blocks a prompt, raw wire bytes = logical bytes;
+     (b) the same with the int8 shipment codec (a second pair): wire /
+     logical <= 0.51, the codes the card made equal quantize_np's of the
+     same K copied to the host, adopted K/V within half a scale step of the
+     shipped K/V, and the first token where int8 parts from raw printed;
+     (d) a prefill holder killed after shipping: the handoff recomputes;
+     (c) a fresh server on the tier of a warm fused server (kv_tier=True)
+     takes a warm 512-token prompt with zero prefill tokens (16 blocks
+     pulled), then one sharing 480 tokens of another (15 pulled, 32
+     computed), tokens equal the warm server's. The tier counters,
+     kvtier_summary and the KV_SHIPPED events equal the counts the traffic
+     implies; K1 launches 65 times per model call and K2 never (admission
+     prefill is decode-mode, as in the reference). Each step of a handoff
+     is timed on its own (extract, encode, fetch, decode, adopt, build_row;
+     median over 8) beside the waves' walls and mean engine TTFTs;
   11. the device busy share of one served request, under torch.profiler;
   12. the training path: TorchTrainer.fit() of the llama_lora loop at full
      Llama-2-7B width (bf16 weights, seq 2048, batch 2, LoRA rank 16) for 2
@@ -135,7 +157,8 @@ Phases, each of which exits non-zero on failure:
 Main paths: the launch counters are set to 0 just before phase 5 and read
 just after phase 6 (serving), set to 0 just before phase 7 and read just
 after phase 9 (continuous batching, ``serve_cb``, with ``serve_obs``), set to 0 just before
-phase 10 and read just after it (``serve_lora``), and set to 0 just before
+phase 10 and read just after it (``serve_lora``), set to 0 just before phase
+10b and read just after it (``serve_disagg``), and set to 0 just before
 phase 12's fit() and read just after it (training), and set to 0 at the
 start of phases 13 and 14 and read after their timed and profiled steps
 (``train_resnet``, ``train_vit``), and set to 0 at the start of phase 15 and
@@ -175,6 +198,12 @@ CB_LONG = 896  # the chunked phase's long prompt
 # 1) in a bank of 8 slots; request i of the serve_cb traffic names tenant
 # i % 5, tenant 0 being the base model
 LORA = {"max_live": 8, "rank": 16, "alpha": 16.0, "tenants": 4, "lora_b_std": 0.1}
+# disaggregated prefill/decode and the KV tier (serve_disagg): servers of the
+# serve_cb config (8 slots, 256 blocks of 32 tokens, max_seq_len 1024) over
+# one in-process tier backend; waves of 8 distinct 512-token prompts (16
+# blocks: 268,435,456 bytes of bf16 K/V) with 32 new greedy tokens each
+DISAGG = {"prompts": 8, "prompt_len": 512, "new_tokens": 32, "partial_shared": 480,
+          "roles": {"prefill": 1, "decode": 1}}
 # the training path: llama_lora's "7b" loop, 2 epochs of 2 steps
 TRAIN_CONFIG = {"model": "7b", "seq": 2048, "batch_per_worker": 2, "lora_rank": 16,
                 "epochs": 2, "steps_per_epoch": 2}
@@ -308,6 +337,11 @@ def rmsnorm_phase(torch, F):
         row = dict(shape=list(shape), dtype=str(dtype), max_abs_err=err, tol=tols[dtype])
         if dtype == torch.bfloat16:
             n, d = shape
+            if shape == (CB["slots"], 4096):
+                # the launch floor beside the pooled step's launch-bound rows:
+                # a one-element elementwise kernel, timed the same way
+                one = torch.zeros(1, device="cuda")
+                row["launch_floor_ms"] = time_ms(lambda: one.add_(1.0))
             row["ms"] = time_ms(lambda: rmsnorm_fwd(x, w, eps))
             row["plain_ms"] = time_ms(lambda: rmsnorm_reference(x, w, eps))
             row["library_ms"] = time_ms(lambda: F.rms_norm(x, (d,), w, eps))
@@ -1710,6 +1744,378 @@ PORT_KERNELS = {"rmsnorm_fwd": "rmsnorm_fwd_kernel", "flash_attention_fwd": "fla
                 "flash_bwd_dq": "flash_bwd_dq_", "flash_bwd_dkv": "flash_bwd_dkv_"}
 
 
+TTFT_PEER = ("hit", "tp=1", "peer")
+
+
+def _first_parting(a, b):
+    """The first position where two token lists differ, or None."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def serve_disagg_phase(torch, np, params):
+    """Disaggregated prefill/decode and the KV tier at full Llama-2-7B width,
+    on phase 5's weights (shared, not copied): (a) a prefill and a decode
+    server (raw codec) behind _DisaggIngress against a fused paged server;
+    (b) the same with kv_ship_codec="int8", then (d) a dead prefill holder;
+    (c) a scale-up server on the tier of a warm fused server, pulling a whole
+    prompt and then a 480-token prefix. Returns the phase's summary."""
+    import gc
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ray_tpu_torch._internal.quantization import QuantizedArray, quantize_np, quantize_torch
+    from ray_tpu_torch.kvcache import KVCacheManager
+    from ray_tpu_torch.kvtier import (
+        KVShipment, LocalTierBackend, block_fingerprints, decode_payload, encode_payload)
+    from ray_tpu_torch.llm import LLMConfig, LLMServer
+    from ray_tpu_torch.llm.serving import _DisaggIngress
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from ray_tpu_torch.ops.rmsnorm import rmsnorm_fwd
+    from ray_tpu_torch.util import events, metrics
+
+    n, plen, new, bs = (DISAGG["prompts"], DISAGG["prompt_len"], DISAGG["new_tokens"],
+                        CB["block"])
+    nblocks = plen // bs
+    ttft_hist = metrics._ensure_kvcache_metrics()["ttft"]
+    k1_0, k2_0 = rmsnorm_fwd.launches, flash_attention_fwd.launches
+    tier_0 = metrics.kvtier_counters()
+    summary_0 = metrics.kvtier_summary([metrics.local_payload()])
+    shipped_0 = len(events.get_events(events.KV_SHIPPED))
+    live, calls_retired, registers = [], [0], []
+
+    def config(**kw):
+        return LLMConfig(model_id="llama2-7b", max_seq_len=CB["max_seq_len"],
+                         max_batch_size=CB["slots"], kv_cache_blocks=CB["blocks"],
+                         kv_block_size=bs, max_new_tokens=new,
+                         model_kwargs={"param_dtype": torch.bfloat16}, **kw)
+
+    def make(cfg, **kw):
+        s = LLMServer(cfg, params=params, **kw)
+        check(s.engine._params is params, "a serve_disagg server copied the weights")
+        live.append(s)
+        return s
+
+    def free(*servers):
+        for s in servers:
+            calls_retired[0] += s.engine.forward_calls
+            live.remove(s)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def retire_backend(backend):
+        registers.append(backend.stats()["registers"])
+
+    model_cfg = config().build_model_config()
+    esize = torch.empty(0, dtype=model_cfg.dtype).element_size()
+    rng = np.random.default_rng(SEED + 11)
+
+    def tokens(k):
+        return rng.integers(0, model_cfg.vocab_size, k).tolist()
+
+    def request(prompt):
+        return {"token_ids": prompt, "max_new_tokens": new, "temperature": 0.0}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    def wave(call, prompts):
+        """The prompts from one thread each; (answers, per-request walls ms)."""
+        def one(p):
+            t0 = time.perf_counter()
+            a = call(request(p))
+            return a, (time.perf_counter() - t0) * 1e3
+        with ThreadPoolExecutor(len(prompts)) as pool:
+            res = list(pool.map(one, prompts))
+        for a, _ in res:
+            check(a["num_prompt_tokens"] == plen and len(a["token_ids"]) == new
+                  and a["finished_reason"] == "length", f"bad serve_disagg answer {a}")
+        return [a["token_ids"] for a, _ in res], [w for _, w in res]
+
+    def ttft_mean(tag, fn):
+        """fn()'s result, and the mean engine TTFT (ms) of what it admitted
+        under ``tag`` (the histogram's _sum and count deltas)."""
+        s0, c0 = _hist_sums(ttft_hist).get(tag, 0.0), _hist_counts(ttft_hist).get(tag, 0)
+        out = fn()
+        cnt = _hist_counts(ttft_hist).get(tag, 0) - c0
+        return out, (_hist_sums(ttft_hist).get(tag, 0.0) - s0) / max(cnt, 1), cnt
+
+    def shipment_of(backend, prompt):
+        """The registered shipment of a prompt's full chain."""
+        fps = block_fingerprints(prompt, bs)
+        got = backend.resolve("llama2-7b", fps[::-1])
+        check(got is not None and got["fp"] == fps[-1], "a prompt's shipment is not registered")
+        return KVShipment.from_blob(got["blob"])
+
+    def components(backend, dec, prompts, codec):
+        """Each step of a handoff on its own, median over the wave's
+        prompts: decode and fetch (host -> card, int8 dequantized on the
+        card), build_row and adopt (on the card), extract (card) and encode
+        (int8 on the card, then card -> pinned host); and, raw only, adopt
+        from the pinned host payload (host -> card)."""
+        rows = {}
+        for prompt in prompts:
+            ship = shipment_of(backend, prompt)
+            values = [backend._store[c.object_id] for c in ship.chunks]
+            t = {}
+            t["decode_ms"], payload = timed(lambda: decode_payload(ship.treedef_blob, values, "cuda"))
+            t["fetch_ms"], _ = timed(lambda: backend.fetch_payload(ship, ("local", 0), "cuda"))
+            t["build_row_ms"], row = timed(lambda: dec.engine._kv.build_row(payload, plen))
+            t["extract_ms"], ext = timed(lambda: dec.engine._kv.extract_row_payload(row, plen))
+            t["encode_ms"], enc = timed(lambda: encode_payload(ext, codec))
+            check(enc[2:] == (ship.logical_bytes, ship.wire_bytes), "re-encoded bytes differ")
+            fresh = KVCacheManager(nblocks, bs)
+            fresh.initialize_for(model_cfg, "cuda")
+            t["adopt_ms"], got = timed(lambda: fresh.adopt_blocks(prompt, payload["blocks"], nblocks))
+            check(got == nblocks, f"adopted {got} of {nblocks} blocks")
+            if codec == "raw":
+                host = decode_payload(ship.treedef_blob, values)  # the pinned chunks
+                check(host["blocks"][0].is_pinned(), "the shipped chunks are not pinned")
+                fresh = KVCacheManager(nblocks, bs)
+                fresh.initialize_for(model_cfg, "cuda")
+                t["adopt_from_host_ms"], _ = timed(
+                    lambda: fresh.adopt_blocks(prompt, host["blocks"], nblocks))
+            del payload, row, ext, enc, fresh
+            for k, v in t.items():
+                rows.setdefault(k, []).append(v)
+        out = {k: statistics.median(v) for k, v in rows.items()}
+        wire = shipment_of(backend, prompts[0]).wire_bytes
+        out["encode_gb_per_s"] = wire / out["encode_ms"] / 1e6
+        out["fetch_gb_per_s"] = wire / out["fetch_ms"] / 1e6
+        if "adopt_from_host_ms" in out:
+            out["adopt_from_host_gb_per_s"] = wire / out["adopt_from_host_ms"] / 1e6
+        return out
+
+    def pair(backend, codec):
+        cfg = config(roles=DISAGG["roles"], kv_ship_codec=codec)
+        pre = make(cfg, role="prefill", tier_backend=backend)
+        dec = make(cfg, role="decode", tier_backend=backend)
+        return pre, dec, _DisaggIngress(pre, dec)
+
+    def disagg_wave(pre, dec, ingress, prompts):
+        s_pre, s_dec = pre.kvcache_stats(), dec.kvcache_stats()
+        calls_dec, k2 = dec.engine.forward_calls, flash_attention_fwd.launches
+        (toks, walls), ttft, cnt = ttft_mean(TTFT_PEER, lambda: wave(ingress, prompts))
+        a_pre, a_dec = pre.kvcache_stats(), dec.kvcache_stats()
+        d_pre = {k: a_pre[k] - s_pre[k] for k in ("prefill_tokens_computed", "prefix_hit_tokens")}
+        d_dec = {k: a_dec[k] - s_dec[k] for k in
+                 ("prefill_tokens_computed", "prefix_hit_tokens", "adopted_blocks")}
+        # the decode side computed nothing: every prompt token came shipped
+        check(d_pre == {"prefill_tokens_computed": n * plen, "prefix_hit_tokens": 0},
+              f"prefill side {d_pre}")
+        check(d_dec == {"prefill_tokens_computed": 0, "prefix_hit_tokens": n * plen,
+                        "adopted_blocks": n * nblocks}, f"decode side {d_dec}")
+        check(cnt == n, f"{cnt} peer TTFT observations, want {n}")
+        check(flash_attention_fwd.launches == k2, "K2 was launched in a disaggregated wave")
+        return toks, walls, ttft, dec.engine.forward_calls - calls_dec
+
+    out = {}
+    # -- (a) raw -------------------------------------------------------------
+    mem_0 = torch.cuda.memory_allocated()
+    backend = LocalTierBackend()
+    pre, dec, ingress = pair(backend, "raw")
+    fused = make(config())
+    warm_prompt = tokens(plen)  # warm-up: cuBLAS, the pools, pinned memory
+    check(ingress(request(warm_prompt))["token_ids"] == fused(request(warm_prompt))["token_ids"],
+          "the warm-up's disaggregated tokens differ from the fused ones")
+    torch.cuda.synchronize()
+    mem = {"three_servers_bytes": torch.cuda.memory_allocated() - mem_0,
+           "kv_pool_bytes_per_server": dec.kvcache_stats()["kv_pool_bytes_total"],
+           "slot_pool_bytes_per_server": sum(
+               t.numel() * t.element_size() for t in (dec.engine._cache.key, dec.engine._cache.value))}
+    check(mem["kv_pool_bytes_per_server"] == 2 * model_cfg.n_layers * CB["blocks"]
+          * model_cfg.n_kv_heads * bs * model_cfg.head_dim * esize,
+          f"kv pool bytes {mem['kv_pool_bytes_per_server']}")
+    prompts_a = [tokens(plen) for _ in range(n)]
+    t0 = metrics.kvtier_counters()
+    toks_a, walls_a, ttft_a, dec_calls = disagg_wave(pre, dec, ingress, prompts_a)
+    d_a = _delta(metrics.kvtier_counters(), t0)
+    (fused_a, fwalls_a), fttft_a, fcnt = ttft_mean(TTFT_MISS, lambda: wave(fused, prompts_a))
+    check(fcnt == n, f"{fcnt} miss TTFT observations on the fused server")
+    for i, (got, want) in enumerate(zip(toks_a, fused_a)):
+        check(got == want, f"raw disaggregated tokens of prompt {i} differ from fused: "
+                           f"first at {_first_parting(got, want)}")
+    logical = (nblocks * 2 * model_cfg.n_layers * model_cfg.n_kv_heads * bs * model_cfg.head_dim
+               * esize)
+    check(d_a == {"peer_pull": n, "transfer_logical_bytes": n * logical,
+                  "transfer_wire_bytes": n * logical}, f"raw wave tier counters {d_a}")
+    for p in prompts_a:
+        ship = shipment_of(backend, p)
+        check(ship.wire_bytes == ship.logical_bytes == logical and ship.nblocks == nblocks
+              and ship.tail_len == 0 and ship.first_token is not None, f"raw shipment {ship}")
+    out["raw"] = dict(
+        tier=d_a, disagg_wall_ms=statistics.median(walls_a),
+        fused_wall_ms=statistics.median(fwalls_a), decode_side_ttft_ms_mean=ttft_a,
+        fused_ttft_ms_mean=fttft_a, decode_server_calls=dec_calls,
+        **components(backend, dec, prompts_a, "raw"))
+    print("serve_disagg raw", json.dumps(out["raw"]))
+    free(pre, dec)
+    retire_backend(backend)
+    del pre, dec, ingress, backend
+
+    # -- (b) int8, then (d) a dead holder --------------------------------------
+    backend = LocalTierBackend()
+    pre, dec, ingress = pair(backend, "int8")
+    check(ingress(request(warm_prompt))["token_ids"] is not None, "int8 warm-up")
+    prompts_b = [tokens(plen) for _ in range(n)]
+    t0 = metrics.kvtier_counters()
+    toks_b, walls_b, ttft_b, _ = disagg_wave(pre, dec, ingress, prompts_b)
+    d_b = _delta(metrics.kvtier_counters(), t0)
+    fused_b, _ = wave(fused, prompts_b)
+    ship = shipment_of(backend, prompts_b[0])
+    wire = ship.wire_bytes
+    # a code byte an element and an f32 scale per 256 elements
+    check(wire == logical // esize + logical // esize // 256 * 4,
+          f"int8 wire bytes {wire} for {logical} logical")
+    check(wire <= 0.51 * logical, f"int8 wire/logical {wire / logical}")
+    check(d_b == {"peer_pull": n, "transfer_logical_bytes": n * logical,
+                  "transfer_wire_bytes": n * wire}, f"int8 wave tier counters {d_b}")
+    # the codes the card made for the shipment equal quantize_np's of the
+    # same K blocks copied to the host, and so do a fresh card encode's
+    kv_pre = pre.engine._kv
+    bids = torch.tensor([nd.block_id for nd in kv_pre._index.match(prompts_b[0], nblocks)],
+                        device="cuda")
+    check(len(bids) == nblocks, "the prefill side's radix lost the prompt")
+    k_blocks = kv_pre._pool_k[:, bids].transpose(0, 1).contiguous()  # (16, L, hk, bs, d)
+    ref = quantize_np(k_blocks.cpu())
+    q_card, s_card = quantize_torch(k_blocks)
+    # the shipment's first leaf, in flatten order, is the K blocks
+    shipped_k = backend._store[ship.chunks[0].object_id][0]
+    check(isinstance(shipped_k, QuantizedArray) and shipped_k.shape == tuple(k_blocks.shape),
+          f"the shipment's first leaf is not the int8 K blocks: {shipped_k}")
+    for q, s, what in ((q_card.cpu(), s_card.cpu(), "a card encode"),
+                       (shipped_k.q, shipped_k.scales, "the shipment")):
+        check(torch.equal(torch.as_tensor(q), torch.from_numpy(ref.q))
+              and torch.equal(torch.as_tensor(s).view(torch.int32),
+                              torch.from_numpy(ref.scales).view(torch.int32)),
+              f"int8 codes or scales of {what} differ from quantize_np's")
+    # adopted K/V within half a scale step (plus the bf16 rounding of the
+    # dequantized value) of what the prefill side shipped
+    kv_dec = dec.engine._kv
+    dbids = torch.tensor([nd.block_id for nd in kv_dec._index.match(prompts_b[0], nblocks)],
+                         device="cuda")
+    step_err = {}
+    for name, pool_pre, pool_dec in (("k", kv_pre._pool_k, kv_dec._pool_k),
+                                     ("v", kv_pre._pool_v, kv_dec._pool_v)):
+        x = pool_pre[:, bids].transpose(0, 1).contiguous().float()
+        y = pool_dec[:, dbids].transpose(0, 1).contiguous().float()
+        _, scales = quantize_torch(x)
+        half = (scales / 2).repeat_interleave(256)[: x.numel()].view(x.shape)
+        tol = half + (x.abs() + half) * 2.0 ** -8
+        step_err[name] = float(((y - x).abs() / tol).max())
+        check(step_err[name] <= 1.0, f"adopted {name} off by {step_err[name]} of its bound")
+    parting = [_first_parting(a, b) for a, b in zip(toks_b, fused_b)]
+    out["int8"] = dict(
+        tier=d_b, wire_over_logical=wire / logical, disagg_wall_ms=statistics.median(walls_b),
+        decode_side_ttft_ms_mean=ttft_b, adopted_err_over_bound=step_err,
+        first_token_parting_from_raw=parting,
+        **components(backend, dec, prompts_b, "int8"))
+    print("serve_disagg int8", json.dumps(out["int8"]))
+    # (d) the prefill side dies after shipping: the handoff recomputes
+    dead_prompt = tokens(plen)
+    blob = pre.prefill(request(dead_prompt))
+    backend.kill_holder(pre.kvtier_stats()["holder_id"])
+    t0, s0 = metrics.kvtier_counters(), dec.kvcache_stats()
+    got = dec.decode_shipped(request(dead_prompt), blob)
+    d_d = _delta(metrics.kvtier_counters(), t0)
+    computed = dec.kvcache_stats()["prefill_tokens_computed"] - s0["prefill_tokens_computed"]
+    check(got["token_ids"] == fused(request(dead_prompt))["token_ids"],
+          "the dead-holder request's tokens differ from fused")
+    # the directed fetch fails, then admission's pull hits the stale entry
+    check(d_d == {"hit": 1, "recompute": 2} and computed == plen,
+          f"dead holder: tier {d_d}, computed {computed}")
+    out["dead_holder"] = dict(tier=d_d, prefill_tokens_computed=computed)
+    free(pre, dec, fused)
+    retire_backend(backend)
+    del pre, dec, ingress, fused, backend
+
+    # -- (c) a scale-up server pulls through the registered tier ---------------
+    backend = LocalTierBackend()
+    warm = make(config(kv_tier=True), tier_backend=backend)
+    w1, w2 = tokens(plen), tokens(plen)
+    check(block_fingerprints(w1, bs)[0] != block_fingerprints(w2, bs)[0], "W1, W2 share a block")
+    t0 = metrics.kvtier_counters()
+    (want_w1,), warm_ttft, _ = ttft_mean(TTFT_MISS, lambda: [warm(request(w1))["token_ids"]])
+    warm(request(w2))
+    check(backend.stats()["entries"] == 2, f"warm registered {backend.stats()['entries']}")
+    for p in (w1, w2):
+        s = shipment_of(backend, p)
+        check(s.nblocks == nblocks and s.first_token is not None, "a warm export")
+    fresh = make(config(kv_tier=True), tier_backend=backend)
+    check(not fresh.engine._kv.ready, "the scale-up server's pools exist before a request")
+    s0 = fresh.kvcache_stats()
+    (got_w1,), fresh_ttft, _ = ttft_mean(TTFT_PEER, lambda: [fresh(request(w1))["token_ids"]])
+    s1 = fresh.kvcache_stats()
+    partial = w2[:DISAGG["partial_shared"]] + tokens(plen - DISAGG["partial_shared"])
+    got_partial = fresh(request(partial))["token_ids"]
+    s2 = fresh.kvcache_stats()
+    want_partial = warm(request(partial))["token_ids"]
+    d_c = _delta(metrics.kvtier_counters(), t0)
+    check(got_w1 == want_w1, "the scale-up server's W1 tokens differ from the warm server's")
+    check(got_partial == want_partial, "the partial prompt's tokens differ from the warm server's")
+    check((s1["prefill_tokens_computed"] - s0["prefill_tokens_computed"],
+           s1["adopted_blocks"] - s0["adopted_blocks"]) == (0, nblocks),
+          f"W1 on the scale-up server: {s1}")
+    shared_blocks = DISAGG["partial_shared"] // bs
+    check((s2["prefill_tokens_computed"] - s1["prefill_tokens_computed"],
+           s2["adopted_blocks"] - s1["adopted_blocks"]) == (plen - DISAGG["partial_shared"],
+                                                            shared_blocks),
+          f"the partial prompt on the scale-up server: {s2}")
+    # warm's two misses consult the empty tier (recompute); the scale-up's
+    # two pulls hit and fetch whole 16-block entries
+    check(d_c == {"hit": 2, "peer_pull": 2, "recompute": 2,
+                  "transfer_logical_bytes": 2 * logical, "transfer_wire_bytes": 2 * logical},
+          f"scale-up tier counters {d_c}")
+    out["scale_up"] = dict(tier=d_c, warm_ttft_ms_w1=warm_ttft, fresh_ttft_ms_w1=fresh_ttft,
+                           fresh_kvcache=fresh.kvcache_stats())
+    print("serve_disagg scale_up", json.dumps(out["scale_up"]))
+    free(warm, fresh)
+    retire_backend(backend)
+    del warm, fresh, backend
+
+    # -- the phase's records ---------------------------------------------------
+    calls = calls_retired[0]
+    k1 = rmsnorm_fwd.launches - k1_0
+    check(k1 == (2 * model_cfg.n_layers + 1) * calls,
+          f"K1 launched {k1} times in {calls} model calls, want 65 each")
+    check(flash_attention_fwd.launches == k2_0,
+          "K2 was launched on the serve_disagg path (admission prefill is decode-mode)")
+    tier = _delta(metrics.kvtier_counters(), tier_0)
+    # pulls: each pair's warm-up and wave, and the scale-up server's two;
+    # hits and recomputes: (d)'s one and two, (c)'s two and two
+    want = {"hit": 1 + 2, "peer_pull": 2 * (n + 1) + 2, "recompute": 2 + 2,
+            "transfer_logical_bytes": (2 * (n + 1) + 2) * logical,
+            "transfer_wire_bytes": (n + 1) * logical + (n + 1) * wire + 2 * logical}
+    check(tier == want, f"the phase's tier counters {tier}, want {want}")
+    summary = metrics.kvtier_summary([metrics.local_payload()])
+    rolled = {"hit": summary["hit"] - summary_0["hit"],
+              "peer_pull": summary["peer_pull"] - summary_0["peer_pull"],
+              "recompute": summary["recompute"] - summary_0["recompute"],
+              "transfer_logical_bytes": summary["transfer_bytes"]["logical"]
+              - summary_0["transfer_bytes"]["logical"],
+              "transfer_wire_bytes": summary["transfer_bytes"]["wire"]
+              - summary_0["transfer_bytes"]["wire"]}
+    check(rolled == tier, f"kvtier_summary {rolled} against the counters {tier}")
+    peer_ttft = summary["ttft_ms_by_tier"]["peer"]["count"] - summary_0[
+        "ttft_ms_by_tier"].get("peer", {}).get("count", 0.0)
+    check(peer_ttft == 2 * (n + 1) + 2, f"{peer_ttft} peer TTFT observations")
+    shipped = len(events.get_events(events.KV_SHIPPED)) - shipped_0
+    # exports: each pair's prefill side ships its warm-up and its wave, (b)'s
+    # also the dead holder's prompt, which its decode side then computes and
+    # exports; warm exports W1, W2 and the partial, the scale-up server the
+    # partial it computed
+    check(shipped == sum(registers) == (n + 1) + (n + 3) + 4,
+          f"{shipped} KV_SHIPPED events, {sum(registers)} registrations")
+    out.update(memory=mem, model_calls=calls, rmsnorm_launches=k1, kv_shipped_events=shipped,
+               kvtier_summary={k: summary[k] for k in ("hit", "peer_pull", "recompute",
+                                                       "transfer_bytes", "ttft_ms_by_tier")})
+    print("kvtier", json.dumps(dict(counters=tier, summary=out["kvtier_summary"])))
+    print("serve_disagg", json.dumps({k: v for k, v in out.items() if k != "kvtier_summary"}))
+    return out
+
+
 def device_profile(torch, fn, groups=None):
     """Wall time, device busy share, the kernels that take the most device
     time of one call of ``fn`` under torch.profiler, and the device time and
@@ -2852,6 +3258,19 @@ def main() -> None:
     check(lora_launches["rmsnorm_fwd"] > 0, "rmsnorm_fwd was not launched on the serve_lora path")
     for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         check(lora_launches[name] == 0, f"{name} was launched on the serve_lora path")
+
+    # disaggregated prefill/decode and the KV tier: counts set to 0 here,
+    # read after its phase; it runs K1 only: both roles' admission prefill
+    # is decode-mode, as the reference's (no flash attention)
+    for fn in counters.values():
+        fn.launches = 0
+    serve_disagg_phase(torch, np, server.engine._params)
+    disagg_launches = {name: fn.launches for name, fn in counters.items()}
+    check(disagg_launches["rmsnorm_fwd"] > 0,
+          "rmsnorm_fwd was not launched on the serve_disagg path")
+    for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(disagg_launches[name] == 0, f"{name} was launched on the serve_disagg path")
+    torch.cuda.empty_cache()
     profile_phase(torch, server, prompts[1])
     del server  # the training phase's peak memory is its own
     torch.cuda.empty_cache()
@@ -2875,7 +3294,7 @@ def main() -> None:
     # runs)
     moe_launches, _ = train_moe_phase(torch, counters)
     paths = {"serve": serve_launches, "serve_cb": cb_launches, "serve_lora": lora_launches,
-             "train": train_launches, "train_resnet": resnet_launches, "train_vit": vit_launches,
+             "serve_disagg": disagg_launches, "train": train_launches, "train_resnet": resnet_launches, "train_vit": vit_launches,
              "train_ppo": ppo_launches, "train_moe": moe_launches}
     launches = {name: sum(p[name] for p in paths.values()) for name in counters}
 

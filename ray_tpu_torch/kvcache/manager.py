@@ -30,9 +30,10 @@ per-request state in place.
 The layers are stacked in one tensor (the cache layout of models/llama.py),
 so a commit, a copy-on-write copy or an assembly is two or three device ops
 for the whole model, not a few per layer. The KV tier's shipment interop
-(``extract_row_payload``, ``adopt_blocks``, ``build_row``) comes with the
-port's cluster KV tier slice. ``stats()`` keeps the reference's counters
-and keys; the same events go to the process's metrics (``util/metrics``:
+(``extract_row_payload``, ``adopt_blocks``, ``build_row``; see "Tier
+shipment interop" below) moves a prefix out of a row and into the pool or a
+row, likewise a few ops for all layers. ``stats()`` keeps the reference's
+counters and keys; the same events go to the process's metrics (``util/metrics``:
 prefix hits and computed tokens, evictions, blocked admissions, the block
 gauges) and a blocked admission to its flight recorder (``util/events``).
 """
@@ -82,7 +83,7 @@ class KVCacheManager:
             "prefix_hit_tokens": 0,
             "prefill_tokens_computed": 0,
             "admission_blocked": 0,
-            "adopted_blocks": 0,  # stays 0 until the KV tier slice adopts
+            "adopted_blocks": 0,
         }
 
     # -- accounting ----------------------------------------------------------
@@ -90,6 +91,13 @@ class KVCacheManager:
     @property
     def block_size(self) -> int:
         return self._block_size
+
+    @property
+    def ready(self) -> bool:
+        """True once the block pools are shaped (first commit, or
+        ``initialize`` / ``initialize_for``); adopt_blocks and build_row
+        need it."""
+        return self._pool_k is not None
 
     def cached_blocks(self, token_ids: Sequence[int]) -> int:
         """Leading full blocks the index already holds for this prompt
@@ -216,15 +224,29 @@ class KVCacheManager:
         n_layers, rows, heads, seq_len, head_dim = cache_row.key.shape
         if rows != 1:
             raise ValueError(f"initialize() takes a 1-row cache, got {rows} rows")
+        self._shape_pools(n_layers, heads, seq_len, head_dim,
+                          cache_row.key.dtype, cache_row.key.device)
+
+    def initialize_for(self, model_config, device) -> None:
+        """Shape the block pools from the model config, before any prefill
+        (no-op once shaped): a scale-up replica's first request can arrive
+        by the tier before it has computed anything. The reference shapes
+        them from ``eval_shape`` of its prefill program."""
+        if self._pool_k is not None:
+            return
+        c = model_config
+        self._shape_pools(c.n_layers, c.n_kv_heads, c.max_seq_len, c.head_dim,
+                          c.dtype, torch.device(device))
+
+    def _shape_pools(self, n_layers, heads, seq_len, head_dim, dtype, device) -> None:
         if seq_len < self._block_size:
             raise ValueError(
                 f"block_size {self._block_size} exceeds max_seq_len {seq_len}"
             )
         self._max_seq_len = seq_len
         shape = (n_layers, self._alloc.capacity, heads, self._block_size, head_dim)
-        kw = dict(dtype=cache_row.key.dtype, device=cache_row.key.device)
-        self._pool_k = torch.zeros(shape, **kw)
-        self._pool_v = torch.zeros(shape, **kw)
+        self._pool_k = torch.zeros(shape, dtype=dtype, device=device)
+        self._pool_v = torch.zeros(shape, dtype=dtype, device=device)
 
     def assemble(self, lease: KVCacheLease) -> DecodeCache:
         """Gather the lease's matched chain into a fresh 1-row cache: the
@@ -353,6 +375,152 @@ class KVCacheManager:
             _metrics.record_kvcache_eviction(1, mesh=MESH_TAG)
             bid = self._alloc.allocate()
         return bid
+
+    # -- tier shipment interop ----------------------------------------------
+    #
+    # The KV tier ships committed prefixes between replicas as a payload
+    # pytree of tensors (on the cache's device; the tier's encode moves them
+    # to the host):
+    #
+    #   {"blocks": [K, V], each (nblocks, n_layers, n_kv_heads, block_size,
+    #               head_dim): block b, layer l is blocks[.][b, l];
+    #    "tail": [K_0, V_0, K_1, V_1, ..., K_{L-1}, V_{L-1}], each
+    #            (n_kv_heads, tail_len, head_dim), or None without a tail}
+    #
+    # The reference's payload has one leaf per layer and K/V, (nblocks, hk,
+    # bs, d) blocks and (hk, tail_len, d) tails, in flax's name order
+    # (layer_0, layer_1, layer_10, ..., layer_2). The int8 codec codes each
+    # leaf in 256-element groups from its start. A (block, layer) slab here
+    # is hk * bs * d elements, a whole number of groups whenever that is a
+    # multiple of 256 (7B at block 32: 131,072; the tiny test model at block
+    # 8: 1,024), so every group of a blocks leaf covers the elements of one
+    # group of the reference's leaf, and codes, scales and dequantized K/V
+    # are equal. The tail stays one leaf per layer, as the reference's: its
+    # slab hk * tail_len * d need not be a multiple of 256.
+    #
+    # extract_row_payload builds the payload from a request's 1-row cache,
+    # adopt_blocks lands shipped blocks in the pool and the radix index (so
+    # later LOCAL requests hit them), and build_row turns a full payload
+    # back into a 1-row cache, so the decode engine starts without running
+    # prefill. The engine calls them in admission, on the thread that steps
+    # it, never inside the pooled decode forward.
+
+    def extract_row_payload(self, cache_row: DecodeCache, ntokens: int):
+        """The first ``ntokens`` tokens of a 1-row cache's K/V as a shipment
+        payload (the layout above): one gather copy per pool for the blocks
+        and one for the tail, on the cache's device."""
+        if self._pool_k is None:
+            self.initialize(cache_row)
+        bs = self._block_size
+        nblocks = ntokens // bs
+        tail_len = ntokens - nblocks * bs
+        blocks, tail = [], []
+        for src in (cache_row.key, cache_row.value):
+            x = src[:, 0]  # (L, hk, S, d)
+            # (L, hk, nb*bs, d) -> (nb, L, hk, bs, d)
+            blocks.append(
+                x[:, :, :nblocks * bs].unflatten(2, (nblocks, bs))
+                .permute(2, 0, 1, 3, 4).clone(memory_format=torch.contiguous_format)
+            )
+            if tail_len:
+                tail.append(x[:, :, nblocks * bs:ntokens].clone(
+                    memory_format=torch.contiguous_format).unbind(0))
+        return {
+            "blocks": blocks,
+            # per layer: K_0, V_0, K_1, V_1, ...
+            "tail": [t for kv in zip(*tail) for t in kv] if tail else None,
+        }
+
+    def adopt_blocks(self, token_ids: Sequence[int], block_leaves, nblocks: int) -> int:
+        """Admit shipped blocks into the pool and the radix index. Walks the
+        first ``nblocks`` full-block keys of ``token_ids``: blocks the index
+        already holds are touched (a shipped copy never overwrites a live
+        shared block), missing ones get a fresh pool slot. Allocation
+        failure stops the walk: partial adoption in chain order keeps the
+        prefix property, and the un-adopted rest is recomputed (admission
+        backpressure, not an error). The walked chain is pinned while the
+        new blocks are allocated, so the walk never evicts a node of its own
+        chain. Once a key is missing, every later key is missing too, so the
+        new blocks are one run of the shipment: they land with one copy to
+        the pool's device and one scatter per pool, and enter the index only
+        after it. An adopted block is then referenced by the index alone, so
+        it is evictable like a committed one (the reference's keeps its
+        allocation reference too, so it is never evicted). Returns how many
+        leading blocks the index holds afterwards."""
+        if self._pool_k is None:
+            raise RuntimeError("adopt_blocks() before the pools are initialized")
+        bs = self._block_size
+        keys = [tuple(int(t) for t in token_ids[i * bs:(i + 1) * bs])
+                for i in range(nblocks)]
+        node = self._index.root
+        chain = []
+        for key in keys:
+            child = self._index.child(node, key)
+            if child is None:
+                break
+            self._index.touch(child)
+            chain.append(child)
+            node = child
+        first = len(chain)
+        pinned = [n.block_id for n in chain]
+        for bid in pinned:
+            self._alloc.ref(bid)
+        dst: List[int] = []
+        try:
+            for _ in range(first, nblocks):
+                bid = self._allocate_or_evict()
+                if bid is None:
+                    break
+                # the allocation's reference is the pin
+                pinned.append(bid)
+                dst.append(bid)
+            if dst:
+                device = self._pool_k.device
+                dst_t = torch.tensor(dst, device=device)
+                for pool, leaf in zip((self._pool_k, self._pool_v), block_leaves):
+                    # (m, L, hk, bs, d) -> (L, m, hk, bs, d)
+                    src = leaf[first:first + len(dst)].to(
+                        device=device, dtype=pool.dtype, non_blocking=True)
+                    pool[:, dst_t] = src.transpose(0, 1)
+                for key, bid in zip(keys[first:], dst):
+                    node = self._index.insert_child(node, key, bid)
+                self._stats["adopted_blocks"] += len(dst)
+        finally:
+            # the index keeps its own reference, as after commit(pin=False);
+            # a block that never entered it goes back to the free list
+            for bid in pinned:
+                self._alloc.release(bid)
+        present = first + len(dst)
+        self._update_gauges()
+        return present
+
+    def build_row(self, payload, ntokens: int) -> DecodeCache:
+        """A FULL shipment payload (blocks and tail covering exactly
+        ``ntokens``) as a fresh 1-row cache whose write position is past the
+        whole prompt: the zero-prefill decode entry point."""
+        if self._pool_k is None:
+            raise RuntimeError("build_row() before the pools are initialized")
+        bs = self._block_size
+        nblocks = ntokens // bs
+        tail_len = ntokens - nblocks * bs
+        n_layers, _, heads, _, head_dim = self._pool_k.shape
+        device = self._pool_k.device
+        out = []
+        for i, (pool, blocks) in enumerate(zip((self._pool_k, self._pool_v),
+                                                payload["blocks"])):
+            row = torch.zeros((n_layers, 1, heads, self._max_seq_len, head_dim),
+                              dtype=pool.dtype, device=device)
+            if nblocks:
+                # (nb, L, hk, bs, d) -> the row's first nb*bs positions
+                row[:, 0, :, :nblocks * bs].unflatten(2, (nblocks, bs)).copy_(
+                    blocks.to(device, non_blocking=True).permute(1, 2, 0, 3, 4)
+                )
+            if tail_len:
+                tail = torch.stack(payload["tail"][i::2])  # (L, hk, tail, d)
+                row[:, 0, :, nblocks * bs:ntokens].copy_(tail.to(device, non_blocking=True))
+            out.append(row)
+        index = torch.full((n_layers, 1), ntokens, dtype=torch.int32, device=device)
+        return DecodeCache(out[0], out[1], index)
 
     # -- counters and metrics ------------------------------------------------
 

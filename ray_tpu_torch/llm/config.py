@@ -3,13 +3,15 @@
 Carries the fields the serving paths read: the dense engine, the
 continuous-batching engine over the paged KV cache (``kv_cache_blocks``)
 with speculative decoding (``draft_model``) and chunked prefill
-(``prefill_chunk_tokens``), and multi-tenant LoRA adapters (``adapters``).
-Every field of the reference's config is a field here, with its default
-and its checks, so that a config written for ray_tpu reads the same. The
-fields of features that later slices of the port bring (tensor/sequence
-parallel meshes, disaggregated roles, the cluster KV tier, the serve
-control plane's replicas and autoscaling, the weight plane's quantized
-publishes) are accepted, and asking for any of them raises.
+(``prefill_chunk_tokens``), multi-tenant LoRA adapters (``adapters``), and
+the cluster KV tier (``kv_tier``, ``kv_ship_codec``) with disaggregated
+prefill/decode roles (``roles``; ``LLMServer(role=)`` plays one). Every
+field of the reference's config is a field here, with its default and its
+checks, so that a config written for ray_tpu reads the same. The fields of
+features that later slices of the port bring (tensor/sequence parallel
+meshes, the serve control plane's replicas and autoscaling, the weight
+plane's quantized publishes) are accepted, and asking for any of them
+raises.
 
 ``model_family="moe"`` builds a :class:`~ray_tpu_torch.models.moe.MoEConfig`
 by the reference's grammar. Nothing serves it: the reference has no MoE
@@ -95,13 +97,18 @@ class LLMConfig:
     # read by the reference's serve router (prefix-affinity routing over
     # the leading tokens; 0 disables); the port has no router yet
     prefix_affinity_tokens: int = 16
+    # disaggregated prefill/decode: {"prefill": n, "decode": m} replica
+    # counts (the deployment graph waits for the serve control plane; an
+    # LLMServer(role=) plays one role). Requires kv_cache_blocks.
+    roles: Optional[Dict[str, int]] = None
+    # the cluster KV tier: share computed prefixes across servers, and the
+    # codec of KV shipments ("raw" | "int8"). Requires kv_cache_blocks.
+    kv_tier: bool = False
+    kv_ship_codec: str = "raw"
     # later slices of the port
     tensor_parallel_size: int = 1
     sequence_parallel_size: int = 1
     mesh: Optional[Dict[str, int]] = None
-    roles: Optional[Dict[str, int]] = None
-    kv_tier: bool = False
-    kv_ship_codec: str = "raw"  # "raw" | "int8", for the KV tier's shipments
     num_replicas: int = 1
     autoscaling_config: Optional[Dict[str, Any]] = None
     autoscale_policy: Optional[Dict[str, Any]] = None
@@ -145,16 +152,16 @@ class LLMConfig:
                         f"LLMConfig.roles[{role_name!r}] must be a "
                         f"positive int, got {count!r}"
                     )
+        if (self.roles is not None or self.kv_tier) and not self.kv_cache_blocks:
+            raise ValueError(
+                "disaggregated roles / kv_tier need the paged engine: "
+                "set kv_cache_blocks"
+            )
         later = {
             "mesh / tensor_parallel_size / sequence_parallel_size": (
                 max(self.effective_parallelism()) > 1,
                 "the tensor-parallel slice",
             ),
-            "roles": (
-                self.roles is not None,
-                "the disaggregated prefill/decode slice",
-            ),
-            "kv_tier": (self.kv_tier, "the cluster KV tier slice"),
             "num_replicas / autoscaling_config / autoscale_policy": (
                 self.num_replicas != 1
                 or self.autoscaling_config is not None

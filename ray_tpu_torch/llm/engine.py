@@ -13,7 +13,11 @@
 
 :class:`ContinuousBatchingEngine`, continuous (in-flight) batching over a
 fixed pool of decode slots, optionally over the paged prefix KV cache
-(``ray_tpu_torch.kvcache``), with chunked prefill and speculative decoding.
+(``ray_tpu_torch.kvcache``), with chunked prefill and speculative decoding,
+and over the cluster KV tier (``ray_tpu_torch.kvtier``): admission resolves
+a prompt local-hit -> peer-pull -> recompute, a directed shipment from a
+prefill replica is adopted without prefill, and :meth:`prefill_only` is the
+prefill role of disaggregated serving.
 
 Multi-tenant LoRA: with an ``adapter_store`` (ray_tpu_torch.lora
 ``AdapterStore``) every model call carries its rows' adapter slots
@@ -32,7 +36,8 @@ bits than JAX, so sampled tokens agree with the reference only at
 temperature 0.
 
 Observability, as the reference's: the continuous-batching engine records
-TTFT (with a KV manager, tagged by cache outcome), inter-token latency and
+TTFT (with a KV manager, tagged by cache outcome and by tier: local, peer
+or miss), inter-token latency and
 the speculative proposed / accepted counts in ``util/metrics``, a blocked
 admission in ``util/events``, and for a request added while tracing is on
 the spans ``engine.queue_wait``, ``kvcache.acquire``, ``kvcache.assemble``,
@@ -55,6 +60,7 @@ import numpy as np
 import torch
 
 from .._internal.device import MESH_TAG, DeviceLike, resolve_device
+from ..kvtier import PulledPrefix
 from ..models.llama import DecodeCache, build_llama, new_cache
 from ..util import events as _events
 from ..util import metrics as _metrics
@@ -421,9 +427,16 @@ class ContinuousBatchingEngine(_DecodeModelBase):
     prefill starts from a fresh zero row, a slot row handed to the KV
     manager is a view that is committed before the next step writes the
     pool, and the speculative rollback resets the write position of every
-    layer of both pools. Cluster KV tier shipments (``kv_tier``,
-    ``shipment``, ``prefill_only``) come with a later slice of the port and
-    raise.
+    layer of both pools.
+
+    With a ``kv_tier`` (:class:`~ray_tpu_torch.kvtier.KVTierClient`) over
+    the ``kv_cache``, a prompt the local radix cannot cover consults the
+    tier and adopts pulled blocks before it acquires, and a prefix computed
+    here is exported for the other replicas. A directed ``shipment`` (the
+    decode role) or an exact tier hit, which carries the whole prompt and
+    its first sampled token, takes the zero-prefill path: the payload
+    becomes the slot row and no model call runs. Adapter requests stay off
+    the tier and off shipments: their K/V is adapter-tinted.
 
     With an ``adapter_store``, every target-model call carries its rows'
     adapter slots: the pooled step and the verify read
@@ -446,20 +459,22 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         adapter_store=None,
         device: DeviceLike = None,
     ):
-        if kv_tier is not None:
-            raise NotImplementedError(
-                "the cluster KV tier comes with the port's KV tier slice"
-            )
         super().__init__(model_config, params, device, adapter_store)
         self._num_slots = num_slots
         self._slots: Dict[int, _Slot] = {}  # slot index -> active request
-        self._pending: List[tuple] = []  # (request_id, GenerationRequest)
+        # (request_id, GenerationRequest, shipment or None): the third
+        # element carries a directed prefill->decode handoff
+        self._pending: List[tuple] = []
         self._next_id = 0
         self._seed = _resolve_seed(seed)
         self._generator = torch.Generator(device=self._device)
         self._step_count = 0
         self._cache: Optional[DecodeCache] = None  # pooled, on first admission
         self._kv = kv_cache
+        # the cluster KV tier (a KVTierClient) over the paged pool, or None
+        if kv_tier is not None and kv_tier.device != self._device:
+            raise ValueError(f"kv tier on {kv_tier.device}, engine on {self._device}")
+        self._tier = kv_tier
         # serve replicas call sync methods from a thread pool. One thread
         # at a time steps the shared pool, under _lock; the other callers
         # never wait on it: they enqueue, and wait for the stepper's next
@@ -509,11 +524,10 @@ class ContinuousBatchingEngine(_DecodeModelBase):
     # -- public API ----------------------------------------------------------
 
     def add_request(self, request: GenerationRequest, shipment=None) -> int:
-        if shipment is not None:
-            raise NotImplementedError(
-                "directed KV shipments come with the port's disaggregated "
-                "prefill/decode slice"
-            )
+        """Queue a request; returns its id. ``shipment`` is an optional
+        directed KV handoff: a ``(KVShipment, payload)`` pair from a prefill
+        replica (fetched by the caller through the tier). Admission adopts
+        the shipped blocks instead of running prefill."""
         if len(request.token_ids) + request.max_new_tokens > self._cfg.max_seq_len:
             raise ValueError("prompt + max_new_tokens exceeds max_seq_len")
         if self._spec_k and (
@@ -539,7 +553,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
                 self._req_trace[rid] = tr
             # the stepping thread only pops the head and puts a blocked
             # request back there: an append stays behind both
-            self._pending.append((rid, request))
+            self._pending.append((rid, request, shipment))
         return rid
 
     @property
@@ -759,7 +773,8 @@ class ContinuousBatchingEngine(_DecodeModelBase):
 
     def generate_one(self, request: GenerationRequest,
                      shipment=None) -> GenerationResult:
-        """generate() for ONE request."""
+        """generate() for ONE request, with an optional directed KV
+        ``shipment`` (see add_request): the decode role's entry point."""
         return self._collect([self.add_request(request, shipment=shipment)])[0]
 
     def generate_stream(self, request: GenerationRequest):
@@ -798,7 +813,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         its KV lease. No result is kept."""
         with self._lock:
             with self._progress:
-                self._pending = [(r, q) for r, q in self._pending if r != rid]
+                self._pending = [p for p in self._pending if p[0] != rid]
                 self._finished_buf.pop(rid, None)
                 self._in_flight.pop(rid, None)
                 self._enqueue_ts.pop(rid, None)
@@ -849,10 +864,43 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             self._progress.notify_all()
 
     def prefill_only(self, request: GenerationRequest):
-        raise NotImplementedError(
-            "the prefill role comes with the port's disaggregated "
-            "prefill/decode slice"
-        )
+        """The prefill role of disaggregated serving: run the admission
+        prefill of ONE request and ship its K/V (every prompt token and the
+        first sampled token) through the tier. Returns the KVShipment the
+        decode role adopts, or None when this engine cannot serve it now
+        (no pool or tier, an adapter request, or an exhausted pool): the
+        caller then serves the request fused, so a prefill-side problem
+        costs latency, never a request."""
+        if self._kv is None or self._tier is None:
+            return None
+        if request.adapter_id is not None:
+            return None  # adapter-tinted K/V never ships through the base tier
+        if len(request.token_ids) + request.max_new_tokens > self._cfg.max_seq_len:
+            raise ValueError("prompt + max_new_tokens exceeds max_seq_len")
+        with self._lock:
+            plen = len(request.token_ids)
+            lease = self._kv.acquire(request.token_ids)
+            if lease is None:
+                return None
+            with self._progress:
+                rid = self._next_id
+                self._next_id += 1
+            try:
+                logits, solo = self._prefill_leased(request, lease)
+                first = self._sample_first(logits, request, rid)
+                cached = lease.num_cached_tokens
+                self._kv.record_prefill(cached, plen - cached)
+                self._kv.commit(lease, request.token_ids, solo)
+                payload = self._kv.extract_row_payload(solo, plen)
+                return self._tier.ship_direct(
+                    request.token_ids, payload, plen // self._kv.block_size,
+                    first_token=first,
+                )
+            finally:
+                # committed blocks stay in the radix index (referenced by
+                # the index itself): the prefill replica's cache warms
+                # though it never decodes
+                self._kv.release(lease)
 
     # -- internals -----------------------------------------------------------
 
@@ -867,7 +915,14 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         request goes back to the HEAD of the pending queue and admission
         stops, preserving FIFO order, until a retiring request releases
         blocks. Cached prefixes are gathered into the slot row and only the
-        uncached suffix is prefilled."""
+        uncached suffix is prefilled.
+
+        With a KV tier on top, resolution is local-hit -> peer-pull ->
+        recompute: a prompt the local radix can't cover consults the tier
+        and adopts pulled blocks before acquiring. A directed shipment or
+        an exact tier hit that carries the whole prompt and the first
+        sampled token takes the zero-prefill path: the shipped payload
+        becomes the slot row outright."""
         finished: List[tuple] = []
         free = [
             i for i in range(self._num_slots)
@@ -875,19 +930,41 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         ]
         while free and self._pending:
             si = free.pop(0)
-            rid, req = self._pending.pop(0)
+            rid, req, ship = self._pending.pop(0)
             tr = self._req_trace.get(rid)
+            plen = len(req.token_ids)
+            pulled = None
+            # the tier and directed shipments carry BASE-model K/V; adapter
+            # requests stay off both (their prefixes live in the adapter-
+            # salted local key space)
+            if self._kv is not None and req.adapter_id is None:
+                if ship is not None:
+                    pulled = self._as_pulled(ship, req)
+                elif self._tier is not None:
+                    local = self._kv.cached_blocks(req.token_ids)
+                    if local < (plen - 1) // self._kv.block_size:
+                        pulled = self._tier.pull(req.token_ids, min_blocks=local)
+            fast = pulled is not None and pulled.exact
+            tier_src = "peer" if pulled is not None else None
             lease = None
             if self._kv is not None:
                 kv_t0 = time.time() if tr else 0.0
+                if pulled is not None:
+                    # shipped blocks land in the pool and the radix BEFORE
+                    # the acquire, so the lease pins them like a local hit
+                    self._kv.initialize_for(self._cfg, self._device)
+                    self._kv.adopt_blocks(
+                        req.token_ids, pulled.payload["blocks"],
+                        pulled.shipment.nblocks if fast else pulled.matched_blocks,
+                    )
                 lease = self._kv.acquire(self._kv_key_tokens(req))
                 if lease is None:  # backpressure: wait for a release
-                    self._pending.insert(0, (rid, req))
+                    self._pending.insert(0, (rid, req, ship))
                     if rid not in self._blocked_rids:
                         self._blocked_rids.add(rid)
                         _events.record_event(
                             _events.ENGINE_ADMISSION_BLOCKED, request_id=rid,
-                            prompt_tokens=len(req.token_ids), pending=len(self._pending),
+                            prompt_tokens=plen, pending=len(self._pending),
                         )
                     break
                 self._blocked_rids.discard(rid)
@@ -903,62 +980,85 @@ class ContinuousBatchingEngine(_DecodeModelBase):
                     "engine.queue_wait", tr["ctx"], tr["wall"], time.time() - tr["wall"],
                     category="engine", request_id=rid,
                 )
-            if self._prefill_chunk:
+            if self._prefill_chunk and not fast:
                 # budgeted prefill: the request keeps its slot reservation
                 # but computes nothing yet; _advance_prefills spreads the
                 # prompt over engine steps alongside in-flight decodes
                 self._prefilling[si] = {
-                    "rid": rid, "req": req, "lease": lease, "tr": tr,
-                    "row": None, "pos": 0, "logits": None, "committed": 0,
+                    "rid": rid, "req": req, "lease": lease, "tier_src": tier_src,
+                    "tr": tr, "row": None, "pos": 0, "logits": None, "committed": 0,
                     "pf_wall": time.time() if tr else 0.0,
                 }
                 continue
             pf_wall = time.time() if tr else 0.0
-            logits, solo = self._prefill_leased(req, lease, trace=tr)
-            self.last_step_prefill_tokens += len(req.token_ids) - (
-                lease.num_cached_tokens if lease is not None else 0
-            )
-            first = self._sample_first(logits, req, rid)
-            if not self._finish_admission(si, rid, req, lease, solo, first, tr, pf_wall,
-                                          finished):
+            if fast:
+                # zero prefill: the payload covers every prompt token and
+                # the shipping replica sampled the first token
+                solo = self._kv.build_row(pulled.payload, plen)
+                first = int(pulled.shipment.first_token)
+            else:
+                logits, solo = self._prefill_leased(req, lease, trace=tr)
+                self.last_step_prefill_tokens += plen - (
+                    lease.num_cached_tokens if lease is not None else 0
+                )
+                first = self._sample_first(logits, req, rid)
+            if not self._finish_admission(si, rid, req, lease, solo, first, fast,
+                                          tier_src, tr, pf_wall, finished):
                 free.insert(0, si)
         return finished
 
     def _finish_admission(self, si, rid, req, lease, solo: DecodeCache, first: int,
-                          tr, pf_wall: float, finished: List[tuple]) -> bool:
-        """The admission tail both prefill paths (inline, chunked) funnel
-        through: TTFT and prefill metrics, prompt-block commit, pool row
-        insert, slot creation. ``first`` came back through host_sync, so the
-        TTFT stamp is the first token's completion. Returns False when the
+                          fast: bool, tier_src: Optional[str], tr, pf_wall: float,
+                          finished: List[tuple]) -> bool:
+        """The admission tail every prefill path (inline, chunked, zero-
+        prefill) funnels through: TTFT and prefill metrics, prompt-block
+        commit and tier export, pool row insert, slot creation. ``first``
+        came back through host_sync (or with the shipment), so the TTFT
+        stamp is the first token's completion. Returns False when the
         request finished AT admission (eos on the first token /
         max_new_tokens <= 1): the caller returns the slot."""
         plen = len(req.token_ids)
         if tr:
-            cached = lease.num_cached_tokens if lease is not None else 0
+            cached = plen if fast else lease.num_cached_tokens if lease is not None else 0
             _tracing.emit_span(
                 "engine.prefill", tr["ctx"], pf_wall, time.time() - pf_wall,
                 category="engine", request_id=rid, cached_tokens=cached,
-                computed_tokens=plen - cached, hit=cached > 0, tier="local",
-                mesh=MESH_TAG,
+                computed_tokens=plen - cached, hit=cached > 0,
+                tier=tier_src or "local", mesh=MESH_TAG,
             )
         ts = self._enqueue_ts.pop(rid, None)
         if self._kv is not None:
-            cached = lease.num_cached_tokens
+            cached = plen if fast else lease.num_cached_tokens
             self._kv.record_prefill(cached, plen - cached)
             if ts is not None:
                 _metrics.record_kvcache_ttft(
                     time.monotonic() - ts, hit=cached > 0, mesh=MESH_TAG,
-                    tier="local" if cached > 0 else "miss",
+                    tier=tier_src or ("local" if cached > 0 else "miss"),
                 )
-            # commit the prompt's full blocks while the prefilled row is at
-            # hand; reserved blocks are consumed here
-            cm_t0 = time.time() if tr else 0.0
-            self._kv.commit(lease, self._kv_key_tokens(req), solo)
-            if tr:
-                _tracing.emit_span(
-                    "kvcache.commit", tr["ctx"], cm_t0, time.time() - cm_t0,
-                    category="kvcache", request_id=rid, tokens=plen,
-                )
+            if not fast:
+                # commit the prompt's full blocks while the prefilled row is
+                # at hand; reserved blocks are consumed here (the zero-
+                # prefill path adopted them instead)
+                cm_t0 = time.time() if tr else 0.0
+                self._kv.commit(lease, self._kv_key_tokens(req), solo)
+                if tr:
+                    _tracing.emit_span(
+                        "kvcache.commit", tr["ctx"], cm_t0, time.time() - cm_t0,
+                        category="kvcache", request_id=rid, tokens=plen,
+                    )
+                if (
+                    self._tier is not None
+                    and lease.cacheable
+                    and req.adapter_id is None
+                    and self._tier.should_export(req.token_ids, plen // self._kv.block_size)
+                ):
+                    # the first computation of this prefix here: publish it,
+                    # so other replicas (and fresh scale-ups) pull instead
+                    # of recomputing
+                    self._tier.export_and_register(
+                        req.token_ids, self._kv.extract_row_payload(solo, plen),
+                        plen // self._kv.block_size, first_token=first,
+                    )
         if self._cache is None:
             self._cache = new_cache(self._cfg, self._num_slots, self._device)
         self._cache.insert_row(si, solo)
@@ -1029,8 +1129,36 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             del self._prefilling[si]
             first = self._sample_first(st["logits"], req, st["rid"])
             self._finish_admission(
-                si, st["rid"], req, lease, st["row"], first, tr, st["pf_wall"], finished
+                si, st["rid"], req, lease, st["row"], first, False, st["tier_src"], tr,
+                st["pf_wall"], finished,
             )
+
+    @staticmethod
+    def _as_pulled(ship, req: GenerationRequest):
+        """A directed ``(KVShipment, payload)`` handoff in the shape a tier
+        pull returns, trimmed to OUR prompt: matched blocks is the common
+        full-block prefix, and exact means the payload covers the whole
+        prompt token for token with a first token. None when it covers none
+        of it."""
+        shipment, payload = ship
+        prompt = [int(t) for t in req.token_ids]
+        bs = shipment.block_size
+        nb = 0
+        for i in range(min(shipment.nblocks, len(prompt) // bs)):
+            if prompt[i * bs:(i + 1) * bs] == [
+                int(t) for t in shipment.token_ids[i * bs:(i + 1) * bs]
+            ]:
+                nb += 1
+            else:
+                break
+        exact = (
+            shipment.first_token is not None
+            and shipment.ntokens == len(prompt)
+            and [int(t) for t in shipment.token_ids] == prompt
+        )
+        if nb == 0 and not exact:
+            return None
+        return PulledPrefix(shipment=shipment, payload=payload, matched_blocks=nb, exact=exact)
 
     def _empty_row(self) -> DecodeCache:
         """A fresh all-zero 1-row cache with write position 0: the chunked

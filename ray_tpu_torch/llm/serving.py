@@ -1,16 +1,29 @@
-"""LLM serving: the port of ray_tpu/llm/serving.py, fused replica.
+"""LLM serving: the port of ray_tpu/llm/serving.py's replica and
+disaggregated ingress.
 
 :class:`LLMServer` is the counterpart of the reference's replica callable
-``_LLMReplica`` without roles or tier: it builds the model and an engine and
-answers token-level requests. With ``kv_cache_blocks=None`` the engine is
+``_LLMReplica``: it builds the model and an engine and answers token-level
+requests. With ``kv_cache_blocks=None`` the engine is
 the dense :class:`~ray_tpu_torch.llm.engine.LLMEngine`; with it set, a
 :class:`~ray_tpu_torch.llm.engine.ContinuousBatchingEngine` over a
 :class:`~ray_tpu_torch.kvcache.KVCacheManager` (prefix reuse, memory-gated
 admission), with the config's chunked prefill, speculative draft and
-multi-tenant adapters (an :class:`~ray_tpu_torch.lora.AdapterStore`). The
-serve control plane, the weight plane and tokenizers come with later slices
-of the port; so a request names its adapter by an explicit ``adapter_id``
-only (the reference also reads serve's multiplexed model id).
+multi-tenant adapters (an :class:`~ray_tpu_torch.lora.AdapterStore`).
+
+With ``LLMConfig.kv_tier`` or a ``role``, the server holds a
+:class:`~ray_tpu_torch.kvtier.KVTierClient` over ``tier_backend``. A fused
+server on the tier (no role) exports the prefixes it computes and pulls
+warm ones from its peers. ``role="prefill"`` serves :meth:`LLMServer.prefill`
+(run the admission prefill, ship the K/V) and ``role="decode"``
+:meth:`LLMServer.decode_shipped` (adopt the shipment, decode with zero
+prefill tokens); :class:`_DisaggIngress` routes a request through one of
+each. The cluster's tier backend (``kvtier.GcsTierBackend``), the
+deployment graph that builds role pools (``build_llm_deployment``) and
+prefix-affinity routing wait for the runtime and the serve control plane;
+in process, servers share a ``kvtier.LocalTierBackend``. The weight plane
+and tokenizers come with later slices of the port; so a request names its
+adapter by an explicit ``adapter_id`` only (the reference also reads
+serve's multiplexed model id).
 
 Request/response shape:
   {"token_ids": [...], "max_new_tokens": 32, "temperature": 0.0,
@@ -28,6 +41,7 @@ import torch
 from .._internal.device import DeviceLike, resolve_device
 from ..exceptions import BackPressureError
 from ..kvcache import KVCacheManager
+from ..kvtier import GcsTierBackend, KVShipment, KVTierClient
 from ..lora import AdapterLease, AdapterStore
 from ..models.llama import init_params
 from .config import LLMConfig, require_servable
@@ -42,12 +56,24 @@ class LLMServer:
     speculative draft is drawn likewise under seed 1. With
     ``LLMConfig.adapters`` the server holds an adapter store on ``device``
     (:attr:`adapter_store`): fill it with ``prewarm`` or a callable
-    ``AdapterConfig.source``."""
+    ``AdapterConfig.source``. ``role`` is None (fused), ``"prefill"`` or
+    ``"decode"``; a role, or ``LLMConfig.kv_tier``, puts the server on the
+    KV tier of ``tier_backend`` (the cluster's backend is not ported yet)."""
 
     def __init__(self, llm_config: LLMConfig,
                  params: Optional[Dict[str, torch.Tensor]] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 role: Optional[str] = None,
+                 tier_backend=None):
+        if role not in (None, "prefill", "decode"):
+            raise ValueError(f"unknown replica role {role!r}")
+        if role is not None and not llm_config.kv_cache_blocks:
+            raise ValueError(
+                f"role={role!r} needs the paged engine: set kv_cache_blocks"
+            )
         self._config = llm_config
+        self._role = role
+        self._kv_tier: Optional[KVTierClient] = None
         model_config = require_servable(llm_config.build_model_config())
         self._device = resolve_device(device)
         if params is None:
@@ -62,6 +88,16 @@ class LLMServer:
                 num_blocks=llm_config.kv_cache_blocks,
                 block_size=llm_config.kv_block_size,
             )
+            if llm_config.kv_tier or role is not None:
+                # role servers need the tier for the prefill->decode
+                # handoff; fused servers opt in to share warm prefixes
+                self._kv_tier = KVTierClient(
+                    model=llm_config.model_id,
+                    backend=tier_backend if tier_backend is not None else GcsTierBackend(),
+                    block_size=llm_config.kv_block_size,
+                    codec=llm_config.kv_ship_codec,
+                    device=self._device,
+                )
             draft = None
             if llm_config.draft_model is not None:
                 draft_cfg = llm_config.build_draft_model_config()
@@ -80,6 +116,7 @@ class LLMServer:
                 draft=draft,
                 spec_tokens=llm_config.spec_tokens,
                 prefill_chunk_tokens=llm_config.prefill_chunk_tokens,
+                kv_tier=self._kv_tier,
                 adapter_store=self._adapter_store,
                 device=self._device,
             )
@@ -106,6 +143,15 @@ class LLMServer:
         if self._kv_cache is None:
             return None
         return self._kv_cache.stats()
+
+    def kvtier_stats(self) -> Optional[Dict[str, Any]]:
+        """The KV tier client's stats (exports held, the registry's totals)
+        and this server's role; None when the server is not on the tier."""
+        if self._kv_tier is None:
+            return None
+        out = self._kv_tier.stats()
+        out["role"] = self._role or "fused"
+        return out
 
     def adapters_stats(self) -> Optional[Dict[str, Any]]:
         """The adapter store's stats (None without an adapter store)."""
@@ -166,6 +212,47 @@ class LLMServer:
             adapter_slot=lease.slot if lease is not None else -1,
         )
 
+    @staticmethod
+    def _result(result) -> Dict[str, Any]:
+        return {
+            "token_ids": result.token_ids,
+            "num_prompt_tokens": result.num_prompt_tokens,
+            "finished_reason": result.finished_reason,
+        }
+
+    # -- disaggregated roles -------------------------------------------------
+
+    def prefill(self, request: Dict[str, Any]) -> Optional[bytes]:
+        """The prefill role: run ONLY the admission prefill and ship the
+        committed K/V and the first sampled token. Returns the shipment
+        blob for :meth:`decode_shipped`, or None when this server can't
+        serve it now (no tier, an adapter request, pool backpressure): the
+        ingress then has the decode server compute it, so the request
+        still completes."""
+        if self._kv_tier is None or request.get("adapter_id") is not None:
+            return None
+        shipment = self._engine.prefill_only(self._parse_request(request))
+        return shipment.to_blob() if shipment is not None else None
+
+    def decode_shipped(self, request: Dict[str, Any],
+                       shipment_blob: Optional[bytes]) -> Dict[str, Any]:
+        """The decode role: fetch a shipped prefix, adopt it and decode. A
+        missing blob or a dead prefill holder degrades to a computed
+        admission: a transfer problem costs latency, never a request."""
+        lease = self._resolve_adapter(request)
+        try:
+            gen_req = self._parse_request(request, lease)
+            ship = None
+            if shipment_blob is not None and self._kv_tier is not None:
+                shipment = KVShipment.from_blob(shipment_blob)
+                payload = self._kv_tier.fetch_shipment(shipment)
+                if payload is not None:
+                    ship = (shipment, payload)
+            result = self._engine.generate_one(gen_req, shipment=ship)
+        finally:
+            self._release(lease)
+        return self._result(result)
+
     def __call__(self, request: Dict[str, Any]) -> Dict[str, Any]:
         if request.get("stream"):
             return list(self.stream(request))[-1]
@@ -174,11 +261,7 @@ class LLMServer:
             result = self._engine.generate([self._parse_request(request, lease)])[0]
         finally:
             self._release(lease)
-        return {
-            "token_ids": result.token_ids,
-            "num_prompt_tokens": result.num_prompt_tokens,
-            "finished_reason": result.finished_reason,
-        }
+        return self._result(result)
 
     def stream(self, request: Dict[str, Any]):
         """Yields one dict per generated token as it is sampled, then a
@@ -205,3 +288,30 @@ class LLMServer:
                     "finished_reason": item.finished_reason,
                     "finished": True,
                 }
+
+
+class _DisaggIngress:
+    """Disaggregated serving ingress over a prefill server and a decode
+    server (objects with :meth:`LLMServer.prefill` and
+    :meth:`LLMServer.decode_shipped`): the prefill side runs the prompt and
+    ships its K/V, then the decode side adopts the shipment and decodes. A
+    prefill side that returns no blob (it could not serve the request now)
+    degrades to ``decode_shipped(request, None)``, a computed admission on
+    the decode side. Unlike the reference's ingress, which holds serve
+    handles and turns any exception of the prefill call into that
+    fallback, an exception here propagates: in process there is no
+    transport to fail, so it is a fault of the code. Prefix-affinity
+    routing over pools of servers waits for the serve control plane."""
+
+    def __init__(self, prefill_server, decode_server):
+        self._prefill = prefill_server
+        self._decode = decode_server
+
+    def __call__(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        return self._decode.decode_shipped(request, self._prefill.prefill(request))
+
+    def stream(self, request: Dict[str, Any]):
+        """Streaming through the disaggregated path: the handoff happens up
+        front, then the decode side's result is yielded (as the
+        reference's ingress does)."""
+        yield self(request)

@@ -6,7 +6,7 @@ the loop in the caller's process with a session context (``get_context``,
 of Llama is ``train.examples.llama_lora``.
 """
 
-from .checkpoint import Checkpoint, CheckpointManager
+from .checkpoint import Checkpoint, CheckpointManager, load_latest_checkpoint
 from .config import CheckpointConfig, RunConfig, ScalingConfig
 from .controller import Result, TrainController
 from .lora import lora_label_fn, merge_lora, split_lora
@@ -17,6 +17,7 @@ __all__ = [
     "Checkpoint",
     "CheckpointManager",
     "CheckpointConfig",
+    "load_latest_checkpoint",
     "RunConfig",
     "ScalingConfig",
     "Result",

@@ -39,9 +39,20 @@ class ScalingConfig:
 
 @dataclass
 class CheckpointConfig:
-    """Checkpoint policy. Every reported checkpoint is kept; the
-    reference's top-K retention (``num_to_keep``, ``checkpoint_score_*``)
-    is ported with the first path that sets it."""
+    """Top-K checkpoint retention: keep at most ``num_to_keep`` checkpoints
+    (None keeps all), the best by ``checkpoint_score_attribute`` of their
+    reported metrics under ``checkpoint_score_order``, else the newest. The
+    latest checkpoint is always kept."""
+
+    num_to_keep: Optional[int] = None
+    checkpoint_score_attribute: Optional[str] = None
+    checkpoint_score_order: str = "max"
+
+    def __post_init__(self):
+        if self.checkpoint_score_order not in ("max", "min"):
+            raise ValueError("checkpoint_score_order must be 'max' or 'min'")
+        if self.num_to_keep is not None and self.num_to_keep <= 0:
+            raise ValueError("num_to_keep must be positive")
 
 
 def _default_storage_path() -> str:

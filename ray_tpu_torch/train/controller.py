@@ -3,7 +3,10 @@
 The reference's controller brings up a worker group of actors, bootstraps
 the backend, polls the workers and restarts or resizes the gang on failure.
 The port runs ONE worker in the caller's process: it sets the session
-context, calls the loop, and drains the reports into a :class:`Result`.
+context, with the checkpoint to resume from (this controller's latest, else
+the run directory's manifest, as the reference's ``_push_resume`` does on
+every attempt), calls the loop, and drains the reports into a
+:class:`Result`, keeping checkpoints by ``RunConfig.checkpoint_config``.
 Actors, worker groups and the failure policy come with the control-plane
 slice. As in the reference, an exception in the loop lands in
 ``Result.error``; it is not raised.
@@ -17,7 +20,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 from . import session
-from .checkpoint import Checkpoint, CheckpointManager
+from .checkpoint import Checkpoint, CheckpointManager, load_latest_checkpoint
 from .config import RunConfig
 from .session import TrainContext, TrainingReport
 
@@ -45,7 +48,9 @@ class TrainController:
         self._train_fn = train_fn
         self._train_fn_config = train_fn_config
         self._run_config = run_config
-        self._checkpoints = CheckpointManager(run_config.run_dir)
+        self._checkpoints = CheckpointManager(
+            run_config.run_dir, run_config.checkpoint_config
+        )
         self._metrics_history: List[Dict[str, Any]] = []
 
     def run(self) -> Result:
@@ -54,6 +59,9 @@ class TrainController:
         ctx = TrainContext(
             world_rank=0, local_rank=0, node_rank=0, world_size=1, local_world_size=1,
             experiment_name=self._run_config.name, run_dir=run_dir,
+            latest_checkpoint=(
+                self._checkpoints.latest_checkpoint or load_latest_checkpoint(run_dir)
+            ),
         )
         if session.in_session():
             raise RuntimeError("fit() called from inside a training loop")

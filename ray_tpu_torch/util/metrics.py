@@ -6,7 +6,8 @@ reference's dicts, so that its rollups and Prometheus exposition read the
 port's payloads and the other way round.
 
 Ported families: the KV cache (prefix hits, computed prefill tokens,
-evictions, blocked admissions, block gauges, TTFT by cache outcome), the
+evictions, blocked admissions, block gauges, TTFT by cache outcome and
+tier), the KV tier (resolution outcomes, logical and wire bytes moved), the
 LLM decode (inter-token latency, speculative proposed / accepted tokens and
 acceptance), the adapters (hits, cold attaches and their latency,
 evictions, live slots), the step breakdown (``StepBreakdown``, the
@@ -20,8 +21,8 @@ thread and renders the cluster's payloads. The port has no runtime yet:
 :func:`local_payload` returns the payload the pusher builds, from this
 process's registry, and the summaries and :func:`render_prometheus` run on
 it. No thread is started. The other families of the reference (rpc,
-weights, train and serve fault tolerance, partitions, KV tier, ingress,
-watchdog, autoscale) wait for their planes.
+weights, train and serve fault tolerance, partitions, ingress, watchdog,
+autoscale) wait for their planes.
 """
 
 from __future__ import annotations
@@ -664,6 +665,136 @@ def kvcache_summary(payloads: List[dict]) -> Dict[str, object]:
             counts = ttft_buckets.get(cache)
             if counts:
                 bounds = ttft_bounds[cache]
+                row["p50_ms"] = quantile_from_buckets(bounds, counts, 0.50)
+                row["p99_ms"] = quantile_from_buckets(bounds, counts, 0.99)
+    return out
+
+
+# -- KV tier ------------------------------------------------------------------
+# Per-request resolution outcomes (hit = the registry had a deeper prefix
+# than the local radix, peer_pull = the blocks arrived and decoded,
+# recompute = the tier was consulted but the prefix was prefilled anyway:
+# a miss, a lease conflict or a dead holder), and the logical / wire byte
+# split, so the int8 shipment codec's compression shows. The per-tier TTFT
+# split rides the kvcache histogram's "tier" tag.
+
+_KVTIER_OUTCOMES = ("hit", "peer_pull", "recompute")
+
+
+def _ensure_kvtier_metrics() -> dict:
+    return _family("kvtier", lambda: {
+        "hit": Counter(
+            "kvtier_hit_total",
+            "Tier resolutions that found a registered prefix "
+            "deeper than the local radix",
+            tag_keys=("model",),
+        ),
+        "peer_pull": Counter(
+            "kvtier_peer_pull_total",
+            "Warm prefixes successfully pulled from a peer "
+            "replica and adopted",
+            tag_keys=("model",),
+        ),
+        "recompute": Counter(
+            "kvtier_recompute_total",
+            "Tier consultations that fell back to prefill "
+            "(miss, lease conflict, or dead holder)",
+            tag_keys=("model",),
+        ),
+        "transfer_bytes": Counter(
+            "kvtier_transfer_bytes_total",
+            "KV bytes moved through the tier by kind "
+            "(logical = raw leaf bytes, wire = encoded)",
+            tag_keys=("model", "kind"),
+        ),
+    })
+
+
+def record_kvtier(outcome: str, model: str = ""):
+    """One tier resolution outcome: hit | peer_pull | recompute."""
+    if outcome not in _KVTIER_OUTCOMES:
+        raise ValueError(
+            f"kvtier outcome must be one of {_KVTIER_OUTCOMES}, got {outcome!r}"
+        )
+    _ensure_kvtier_metrics()[outcome].inc(1.0, {"model": model})
+
+
+def record_kvtier_transfer(logical_nbytes: int, wire_nbytes: int, model: str = ""):
+    m = _ensure_kvtier_metrics()
+    m["transfer_bytes"].inc(float(logical_nbytes), {"model": model, "kind": "logical"})
+    m["transfer_bytes"].inc(float(wire_nbytes), {"model": model, "kind": "wire"})
+
+
+def kvtier_counters() -> Dict[str, float]:
+    """This process's KV-tier counters."""
+    m = _ensure_kvtier_metrics()
+
+    def _kind(kind: str) -> float:
+        tm = m["transfer_bytes"]
+        with tm._lock:
+            return float(sum(v for k, v in tm._values.items() if kind in k))
+
+    return {
+        "hit": _total(m["hit"]),
+        "peer_pull": _total(m["peer_pull"]),
+        "recompute": _total(m["recompute"]),
+        "transfer_logical_bytes": _kind("logical"),
+        "transfer_wire_bytes": _kind("wire"),
+    }
+
+
+def kvtier_summary(payloads: List[dict]) -> Dict[str, object]:
+    """KV-tier rollup over payloads: outcome counters and byte totals summed
+    across replicas, plus the TTFT split by tier (local | peer | miss) read
+    off the kvcache histogram's tier tag."""
+    out: Dict[str, object] = {
+        "hit": 0.0,
+        "peer_pull": 0.0,
+        "recompute": 0.0,
+        "transfer_bytes": {"logical": 0.0, "wire": 0.0},
+        "ttft_ms_by_tier": {},
+    }
+    simple = {
+        "kvtier_hit_total": "hit",
+        "kvtier_peer_pull_total": "peer_pull",
+        "kvtier_recompute_total": "recompute",
+    }
+    ttft: Dict[str, Dict[str, float]] = out["ttft_ms_by_tier"]  # type: ignore[assignment]
+    ttft_buckets: Dict[str, List[float]] = {}
+    ttft_bounds: Dict[str, List[float]] = {}
+    xfer: Dict[str, float] = out["transfer_bytes"]  # type: ignore[assignment]
+    for payload in payloads:
+        for snap in payload.get("metrics", []):
+            name = snap["name"]
+            if name in simple:
+                out[simple[name]] += float(sum(snap["values"].values()))
+            elif name == "kvtier_transfer_bytes_total":
+                for tag_json, v in snap["values"].items():
+                    tags = dict(zip(snap["tag_keys"], json.loads(tag_json)))
+                    kind = tags.get("kind", "?")
+                    xfer[kind] = xfer.get(kind, 0.0) + float(v)
+            elif name == "kvcache_ttft_ms":
+                for tag_json, counts in snap.get("counts", {}).items():
+                    tags = dict(zip(snap["tag_keys"], json.loads(tag_json)))
+                    tier = tags.get("tier", "local")
+                    row = ttft.setdefault(tier, {"count": 0.0, "sum_ms": 0.0})
+                    row["count"] += float(sum(counts))
+                    row["sum_ms"] += float(snap["values"].get(tag_json, 0.0))
+                    merged = ttft_buckets.setdefault(tier, [0.0] * len(counts))
+                    if len(merged) < len(counts):
+                        merged.extend([0.0] * (len(counts) - len(merged)))
+                    for i, c in enumerate(counts):
+                        merged[i] += c
+                    ttft_bounds.setdefault(
+                        tier,
+                        list(snap.get("boundaries") or _KVCACHE_TTFT_BOUNDARIES_MS),
+                    )
+    for tier, row in ttft.items():
+        if row["count"]:
+            row["mean_ms"] = row["sum_ms"] / row["count"]
+            counts = ttft_buckets.get(tier)
+            if counts:
+                bounds = ttft_bounds[tier]
                 row["p50_ms"] = quantile_from_buckets(bounds, counts, 0.50)
                 row["p99_ms"] = quantile_from_buckets(bounds, counts, 0.99)
     return out

@@ -11,7 +11,10 @@ context.
 The device side: :func:`device_profile` records CPU and CUDA activity
 with ``torch.profiler`` and writes a chrome trace under its log
 directory, the counterpart of the reference's ``jax.profiler`` XPlane
-trace; :func:`annotate_device_trace` names a region inside it.
+trace; :func:`start_device_trace` / :func:`stop_device_trace` (and
+:func:`device_trace` over them) do the same around an open span of work,
+one trace at a time; :func:`annotate_device_trace` names a region inside
+it.
 
 The reference streams spans to its GCS span store from a background
 thread, and ``timeline()`` / ``task_execution_span`` read and write the
@@ -300,11 +303,57 @@ def device_profile(logdir: str):
         yield
 
 
+# the one open device trace of this process (start_device_trace /
+# stop_device_trace), and the log directory it writes to
+_device_trace: Optional[tuple] = None
+_device_trace_lock = threading.Lock()
+
+
+def start_device_trace(log_dir: str) -> str:
+    """Start recording a :func:`device_profile`-style trace (CPU activity,
+    and CUDA activity when this process can reach a card) that
+    :func:`stop_device_trace` writes as a chrome trace under ``log_dir``.
+    One trace at a time: starting a second while one is open raises. The
+    log directory has no default (the reference's is a fixed /tmp path)."""
+    global _device_trace
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    with _device_trace_lock:
+        if _device_trace is not None:
+            raise RuntimeError(
+                f"a device trace into {_device_trace[1]!r} is already open"
+            )
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities,
+                       on_trace_ready=tensorboard_trace_handler(log_dir))
+        prof.start()
+        _device_trace = (prof, log_dir)
+    return log_dir
+
+
+def stop_device_trace() -> None:
+    """Stop the open device trace and write it; raises if none is open."""
+    global _device_trace
+    with _device_trace_lock:
+        if _device_trace is None:
+            raise RuntimeError("no device trace is open")
+        prof, _ = _device_trace
+        _device_trace = None
+    prof.stop()
+
+
 @contextmanager
 def device_trace(log_dir: str):
-    """:func:`device_profile` that yields its log directory."""
-    with device_profile(log_dir):
+    """:func:`start_device_trace` and :func:`stop_device_trace` around the
+    block; yields the log directory."""
+    start_device_trace(log_dir)
+    try:
         yield log_dir
+    finally:
+        stop_device_trace()
 
 
 def annotate_device_trace(name: str):

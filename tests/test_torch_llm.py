@@ -165,18 +165,20 @@ def test_server_answers_like_replica():
 # since adapters are ported: beside a draft as in the reference, and
 # without a KV pool refused with the reference's ValueError. The MoE family
 # constructs since the MoE model is ported, and builds the reference's
-# MoEConfig ("moe"); serving it is refused (test_moe_is_not_served)
+# MoEConfig ("moe"); serving it is refused (test_moe_is_not_served). The KV
+# tier and disaggregated roles are ported: over a KV pool they construct
+# ("tier"), without one they are refused with the reference's ValueError
 _LATER_SLICES = {
-    # the paged engine is ported; the cluster KV tier over it is not
-    "kv_cache_blocks": (dict(kv_cache_blocks=16, kv_tier=True), NotImplementedError),
+    # the paged engine and the cluster KV tier over it
+    "kv_cache_blocks": (dict(kv_cache_blocks=16, kv_tier=True), "tier"),
     "mesh": (dict(mesh={"tp": 2}), NotImplementedError),
     "tensor_parallel_size": (dict(tensor_parallel_size=2), NotImplementedError),
     "draft_model": (
         dict(draft_model="llama-tiny", kv_cache_blocks=16, adapters={"max_live": 2}), None
     ),
     "adapters": (dict(adapters={"max_live": 2}), ValueError),
-    "roles": (dict(roles={"prefill": 1, "decode": 1}), NotImplementedError),
-    "kv_tier": (dict(kv_tier=True), NotImplementedError),
+    "roles": (dict(roles={"prefill": 1, "decode": 1}), ValueError),
+    "kv_tier": (dict(kv_tier=True), ValueError),
     "model_family": (dict(model_family="moe"), "moe"),
     # the serve control plane and the weight plane
     "num_replicas": (dict(num_replicas=2), NotImplementedError),
@@ -197,6 +199,10 @@ def test_later_slice_features_raise(case):
             JaxLLMConfig(**kwargs)
         with pytest.raises(ValueError, match="kv_cache_blocks"):
             LLMConfig(**kwargs)
+    elif raises == "tier":
+        cfg, ref = LLMConfig(**kwargs), JaxLLMConfig(**kwargs)
+        assert (cfg.kv_tier, cfg.kv_cache_blocks, cfg.kv_ship_codec) == (
+            ref.kv_tier, ref.kv_cache_blocks, ref.kv_ship_codec) == (True, 16, "raw")
     elif raises == "moe":
         for model_id in ("moe-tiny", "mixtral-8x7b"):
             got = LLMConfig(model_id=model_id, **kwargs).build_model_config()
@@ -330,18 +336,24 @@ def test_build_model_config_tiny_suffix_rule():
 
 def test_port_imports_neither_jax_nor_ray_tpu():
     """Import every module of the package in a fresh interpreter: none of them
-    brings in JAX, ray_tpu or gymnasium (which the card's machine lacks).
-    The walk includes the parallel package, the MoE model and the
-    observability plane (util)."""
+    brings in JAX, ray_tpu, gymnasium, ml_dtypes or cloudpickle (which the
+    card's machine lacks). The walk includes the parallel package, the MoE
+    model, the observability plane (util) and the KV tier with what it
+    imports."""
     code = (
         "import importlib, pkgutil, sys, ray_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__, 'ray_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'ray_tpu', 'gymnasium'))\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'ray_tpu', 'gymnasium',\n"
+        "                                    'ml_dtypes', 'cloudpickle'))\n"
         "need = {'ray_tpu_torch.parallel.expert', 'ray_tpu_torch.models.moe',\n"
         "        'ray_tpu_torch.util.metrics', 'ray_tpu_torch.util.tracing',\n"
-        "        'ray_tpu_torch.util.events'}\n"
+        "        'ray_tpu_torch.util.events', 'ray_tpu_torch.kvtier.tier',\n"
+        "        'ray_tpu_torch.kvtier.shipping', 'ray_tpu_torch.kvtier.fingerprint',\n"
+        "        'ray_tpu_torch.runtime.gcs.kvtier_registry', 'ray_tpu_torch.weights.manifest',\n"
+        "        'ray_tpu_torch._internal.quantization', 'ray_tpu_torch._internal.serialization',\n"
+        "        'ray_tpu_torch._internal.transfer'}\n"
         "print(len(mods), bad, sorted(need - set(mods)))\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -351,13 +363,15 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # every module was walked, rllib's, parallel's, the MoE model's and util's
-    # included
-    assert int(proc.stdout.split()[0]) >= 50 and proc.stdout.rstrip().endswith("[]")
+    # every module was walked, rllib's, parallel's, the MoE model's, util's
+    # and the KV tier's included
+    assert int(proc.stdout.split()[0]) >= 60 and proc.stdout.rstrip().endswith("[] []")
 
 
 def test_port_sources_name_neither_jax_nor_ray_tpu():
-    """No import of jax, flax, optax or ray_tpu anywhere, lazy ones included."""
+    """No import of jax, flax, optax, ray_tpu, ml_dtypes or cloudpickle
+    anywhere, lazy ones included (the card's machine has neither of the
+    last two)."""
     import ast
 
     offenders = []
@@ -373,7 +387,8 @@ def test_port_sources_name_neither_jax_nor_ray_tpu():
                 names = [node.module or ""]
             offenders += [
                 f"{path.name}: {n}" for n in names
-                if n.split(".")[0] in ("jax", "flax", "optax", "ray_tpu")
+                if n.split(".")[0] in ("jax", "flax", "optax", "ray_tpu", "ml_dtypes",
+                                       "cloudpickle")
             ]
     assert offenders == []
 

@@ -491,6 +491,41 @@ def test_device_profile_writes_a_chrome_trace_with_the_region(tmp_path):
     assert log_dir == str(tmp_path / "again") and list((tmp_path / "again").glob("*.json"))
 
 
+def test_device_trace_needs_a_log_dir():
+    """Kept item 12: the log directory is required. The reference defaults
+    it to a fixed /tmp path (its TPU profiler's), which the port does not
+    carry."""
+    with pytest.raises(TypeError):
+        tracing.device_trace()
+    with pytest.raises(TypeError):
+        tracing.start_device_trace()
+
+
+def test_start_stop_device_trace_writes_one_trace_and_one_at_a_time(tmp_path):
+    x = torch.ones(32, 32)
+    assert tracing.start_device_trace(str(tmp_path / "a")) == str(tmp_path / "a")
+    try:
+        with pytest.raises(RuntimeError, match="already open"):
+            tracing.start_device_trace(str(tmp_path / "b"))
+        with pytest.raises(RuntimeError, match="already open"):
+            with tracing.device_trace(str(tmp_path / "c")):
+                pass
+        with tracing.annotate_device_trace("obs.open_trace"):
+            (x @ x).sum()
+    finally:
+        tracing.stop_device_trace()
+    files = list((tmp_path / "a").glob("*.pt.trace.json"))
+    assert len(files) == 1 and not (tmp_path / "b").exists()
+    names = {e.get("name") for e in json.loads(files[0].read_text())["traceEvents"]}
+    assert "obs.open_trace" in names
+    with pytest.raises(RuntimeError, match="no device trace"):
+        tracing.stop_device_trace()
+    # closed: a new one may start
+    with tracing.device_trace(str(tmp_path / "d")):
+        x.sum()
+    assert len(list((tmp_path / "d").glob("*.pt.trace.json"))) == 1
+
+
 def test_device_memory_without_a_card_is_empty_and_starts_nothing():
     assert not torch.cuda.is_initialized()
     assert metrics.sample_device_memory() == {}
