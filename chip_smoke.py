@@ -138,6 +138,22 @@ Phases, each of which exits non-zero on failure:
      host run, discrete and Gaussian heads; K1-K4 launched 0 times; the
      rllib step breakdown's efficiency lies in (0, 1] and its components sum
      to its total;
+  15b. the rest of RLlib (``train_rl``), each through <Algo>Config(...)
+     .build().train() with the learner on the card and the env runners
+     and replay buffers on the host, at the reference's network widths and
+     config defaults (RL below says where a setting departs): DQN on
+     CartPole until 4 iterations have learned, SAC on Pendulum through its
+     warm-up and 4 learning iterations (its env actions inside [-2, 2]),
+     IMPALA and APPO (mean_rho away from 1: rollouts one update stale),
+     BC, MARWIL, CQL and IQL (discrete and continuous) on synthetic
+     100,000-transition datasets, and multi-agent PPO on the reference
+     test's cooperative toy. For each: iteration ms by timers, env steps
+     (offline: rows) per s, learner ms per update, peak memory, launches,
+     device ms and busy share per update from a profiled update; finite
+     stats; learners on the card and runner policies on the host; a
+     save/restore round trip bit for bit. Then one update each of DQN,
+     SAC, IMPALA, APPO, CQL and continuous IQL card vs host in f32 against
+     an f64 host run; K1-K4 launched 0 times;
   16. Mixtral-8x7B training (``train_moe``): the MoE transformer at full
      Mixtral-8x7B width, 4 of its 32 layers, bf16 parameters, batch 2 x seq
      4096, remat, AdamW at lr 1e-3 (next_token_loss, backward, step): a
@@ -162,7 +178,8 @@ phase 10 and read just after it (``serve_lora``), set to 0 just before phase
 phase 12's fit() and read just after it (training), and set to 0 at the
 start of phases 13 and 14 and read after their timed and profiled steps
 (``train_resnet``, ``train_vit``), and set to 0 at the start of phase 15 and
-read after its timed iterations and profiled update (``train_ppo``), and
+read after its timed iterations and profiled update (``train_ppo``), set
+to 0 at the start of phase 15b and read at its end (``train_rl``), and
 set to 0 at the start of phase 16 and read after its profiled step
 (``train_moe``). The last lines are a JSON line of the kernels and the
 result line.
@@ -232,6 +249,23 @@ PPO_GROUPS = {"gemm": ("gemm", "gemv"), "adam_and_clip": ("multi_tensor_apply",)
 # card-vs-host parity of one update: 512 rows, (obs_dim, action_dim, discrete)
 PPO_PARITY_ROWS = 512
 PPO_PARITY_HEADS = {"discrete": (4, 2, True), "gaussian": (3, 1, False)}
+# the rest of RLlib (train_rl): every algorithm at the reference's network
+# widths and config defaults, except where noted beside the setting. DQN's
+# runners are train_ppo (a)'s (2 x 4 envs x 64 steps; the DQNConfig default
+# is 2 x 2 x 32) and it runs until 4 iterations have learned; SAC runs
+# through its warm-up (learning_starts 1000) and 4 learning iterations;
+# IMPALA and APPO 4 iterations of 4 batches; the offline algorithms 2
+# iterations (one epoch each) over synthetic 100,000-transition datasets at
+# batch 256 (390 updates an epoch); multi-agent PPO 3 iterations of the
+# reference test's cooperative toy at its settings (1 runner x 128 steps,
+# lr 5e-3, 6 epochs, minibatch 64, no entropy bonus)
+RL = {"dqn_runners": {"num_env_runners": 2, "num_envs_per_env_runner": 4,
+                      "rollout_fragment_length": 64},
+      "dqn_learning_iters": 4, "sac_learning_iters": 4, "impala_iters": 4,
+      "offline_rows": 100_000, "offline_iters": 2, "multi_agent_iters": 3,
+      "multi_agent_training": {"lr": 5e-3, "num_epochs": 6, "minibatch_size": 64,
+                               "entropy_coeff": 0.0},
+      "profiled_offline_steps": 8, "parity_rows": 256}
 # Mixtral-8x7B training (train_moe): MoEConfig.mixtral_8x7b at full width and
 # 4 of its 32 layers with bf16 parameters (f32 ones with AdamW would take 16 B
 # a parameter, 97 GB at 4 layers), batch 2 x seq 4096 with remat, AdamW at the
@@ -2809,6 +2843,444 @@ def train_ppo_phase(torch, np, counters):
     return launches, out
 
 
+def rl_datasets(np, n):
+    """Synthetic offline datasets of n transitions from SEED, the reference
+    tests' rules: CartPole-shaped (obs 4, expert action obs[0] > 0, 20% of
+    actions corrupted and rewarded 0, episodes of 20) and Pendulum-shaped
+    (obs 3, expert action -obs[0] clipped to the Box's [-2, 2], Gaussian
+    noise of 0.5 on half the rows, clipped again; episodes of 50)."""
+    rng = np.random.default_rng(SEED)
+    obs = rng.normal(size=(n, 4)).astype(np.float32)
+    actions = (obs[:, 0] > 0).astype(np.int64)
+    corrupt = rng.random(n) < 0.2
+    actions[corrupt] = rng.integers(0, 2, corrupt.sum())
+    dones = np.zeros(n, np.float32)
+    dones[19::20] = 1.0
+    discrete = {"obs": obs, "actions": actions,
+                "rewards": (actions == (obs[:, 0] > 0)).astype(np.float32),
+                "dones": dones, "next_obs": np.roll(obs, -1, axis=0)}
+    obs = rng.normal(size=(n, 3)).astype(np.float32)
+    expert = np.clip(-obs[:, :1], -2.0, 2.0)
+    noise = rng.normal(scale=0.5, size=(n, 1)).astype(np.float32)
+    actions = np.clip(expert + noise * (rng.random((n, 1)) < 0.5), -2.0, 2.0)
+    dones = np.zeros(n, np.float32)
+    dones[49::50] = 1.0
+    continuous = {"obs": obs, "actions": actions.astype(np.float32),
+                  "rewards": -np.abs(actions - expert)[:, 0].astype(np.float32),
+                  "dones": dones, "next_obs": np.roll(obs, -1, axis=0)}
+    return discrete, continuous
+
+
+def coop_env_class():
+    """The reference multi-agent test's cooperative toy (``CoopMatch``) on
+    the port's MultiAgentEnv: two agents see one Discrete(3) context, each
+    earns 0.2 for matching it, both 1 more when both match; 8 steps."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import Discrete, MultiAgentEnv
+
+    class CoopMatch(MultiAgentEnv):
+        possible_agents = ("a0", "a1")
+
+        def __init__(self, config=None):
+            self._rng = np.random.default_rng(0)
+            self._t = 0
+            self._ctx = 0
+
+        def observation_space(self, agent_id):
+            return Discrete(3)
+
+        def action_space(self, agent_id):
+            return Discrete(3)
+
+        def _obs(self):
+            return {a: self._ctx for a in self.possible_agents}
+
+        def reset(self, seed=None):
+            if seed is not None:
+                self._rng = np.random.default_rng(seed)
+            self._t = 0
+            self._ctx = int(self._rng.integers(3))
+            return self._obs(), {}
+
+        def step(self, action_dict):
+            hits = {a: int(action_dict[a]) == self._ctx for a in self.possible_agents}
+            both = all(hits.values())
+            rewards = {a: 0.2 * hits[a] + (1.0 if both else 0.0) for a in self.possible_agents}
+            self._t += 1
+            done = self._t >= 8
+            self._ctx = int(self._rng.integers(3))
+            flags = {a: done for a in self.possible_agents}
+            return (self._obs(), rewards, dict(flags, __all__=done),
+                    {a: False for a in [*self.possible_agents, "__all__"]}, {})
+
+    return CoopMatch
+
+
+def _state_equal(torch, got, want) -> bool:
+    """Two checkpoint trees equal bit for bit (tensors: dtype and values)."""
+    if isinstance(want, dict):
+        return got.keys() == want.keys() and all(
+            _state_equal(torch, got[k], want[k]) for k in want)
+    if isinstance(want, torch.Tensor):
+        return got.dtype == want.dtype and torch.equal(got, want)
+    return got == want
+
+
+def _learner_tensors(torch, algo):
+    """Every tensor an algorithm's learner keeps in its public attributes:
+    the parameters of its modules (targets included), its other tensors
+    (SAC's log_alpha), every Adam moment, and the same of each per-policy
+    learner."""
+    out = []
+
+    def walk(v):
+        if isinstance(v, torch.nn.Module):
+            out.extend(v.parameters())
+        elif isinstance(v, torch.Tensor):
+            out.append(v)
+        elif isinstance(v, dict):
+            for x in v.values():
+                walk(x)
+        elif hasattr(v, "model") and hasattr(v, "opt_state"):  # a PPOLearner
+            walk(v.model)
+            walk(v.opt_state)
+
+    for key, v in vars(algo).items():
+        if not key.startswith("_"):  # not the host snapshot, dataset or constants
+            walk(v)
+    return out
+
+
+def _rl_run(torch, name, algo, learning_iters, updates, stat_keys,
+            rows_key="num_env_steps_sampled", learned=lambda result: True):
+    """``algo.train()`` until ``learning_iters`` iterations have learned
+    (``learned(result)``), the card's peak memory over them, and per
+    iteration: wall ms, the timers in ms, env steps (offline: rows) per s
+    and, of a learning iteration, learner ms per update (``updates`` an
+    iteration). Every stat in ``stat_keys`` of a learning iteration must be
+    finite."""
+    import math
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    results, timers = [], []
+    while sum(map(learned, results)) < learning_iters:
+        results.append(algo.train())
+        timers.append({k.replace("_s", "_ms"): v * 1e3 for k, v in algo.timers.items()})
+        check(len(results) <= 64, f"{name}: no end after 64 iterations")
+    peak = torch.cuda.max_memory_allocated()
+    learned = [i for i, r in enumerate(results) if learned(r)]
+    bad = [(i, k, results[i][k]) for i in learned for k in stat_keys
+           if not math.isfinite(results[i][k])]
+    check(not bad, f"{name}: non-finite stats {bad}")
+    iter_ms = [r["time_this_iter_s"] * 1e3 for r in results]
+    return dict(
+        iterations=len(results), learning_iterations=learned,
+        iteration_ms=iter_ms, timers_ms=timers,
+        steps_per_s=[r[rows_key] / ms * 1e3 for r, ms in zip(results, iter_ms)],
+        learner_ms_per_update=[timers[i]["learn_ms"] / updates for i in learned],
+        updates_per_iteration=updates, peak_bytes=peak,
+        stats={k: [results[i][k] for i in learned] for k in stat_keys},
+        episode_return_mean=[r.get("episode_return_mean") for r in results])
+
+
+def _rl_profile(torch, fn, n_updates):
+    """Kernel launches, device ms and busy share of one call of ``fn`` (n
+    updates) under torch.profiler, per update."""
+    prof = device_profile(torch, fn)
+    return dict(profiled_updates=n_updates,
+                launches_per_update=prof["kernel_launches"] / n_updates,
+                device_ms_per_update=prof["device_busy_ms"] / n_updates,
+                wall_ms_per_update=prof["wall_ms"] / n_updates,
+                device_busy_share=prof["device_busy_share"],
+                dtoh_copies=prof["dtoh_copies"], sync_calls=prof["sync_calls"],
+                top_kernels_ms=prof["top_kernels_ms"][:3])
+
+
+def _rl_placement(torch, name, on_card, on_host):
+    """Every learner tensor (parameters, targets, Adam moments) on the card,
+    every runner policy on the host."""
+    card = torch.device("cuda", torch.cuda.current_device())
+    check(all(t.device == card for t in on_card),
+          f"{name}: a learner tensor is not on the card")
+    check(all(t.device.type == "cpu" for t in on_host), f"{name}: a runner policy left the host")
+
+
+def _rl_roundtrip(torch, name, algo, build, state_of):
+    """save, restore into a fresh build, and the same state bit for bit."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as ckpt:
+        algo.save(ckpt)
+        fresh = build()
+        fresh.restore(ckpt)
+    check(_state_equal(torch, state_of(fresh), state_of(algo)),
+          f"{name}: save/restore did not give the same state")
+    fresh.stop()
+
+
+def _cast_state(torch, tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_state(torch, v, dtype) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
+def rl_parity(torch, np, discrete_data, continuous_data):
+    """One update each of DQN, SAC (injected normal draws), IMPALA, APPO,
+    CQL and continuous IQL, from the same weights and batch, on the card
+    (f32, TF32 off), on the host in f32 and on the host in f64. Each run's
+    change of every learner tensor and its stats are held against the f64
+    run's; the card's f32 errors within 4x the host's own
+    (``_control_check``), as ``ppo_parity`` does."""
+    from ray_tpu_torch import rllib
+
+    rng = np.random.default_rng(SEED + 1)
+    B = RL["parity_rows"]
+    idx = rng.integers(0, RL["offline_rows"], B)
+    cases = {
+        "dqn": (lambda dev: rllib.DQNConfig().environment(rllib.CartPoleEnv)
+                .debugging(seed=SEED).build(device=dev),
+                {"obs": rng.standard_normal((1, B, 4)).astype(np.float32),
+                 "actions": rng.integers(0, 2, (1, B)),
+                 "rewards": rng.standard_normal((1, B)).astype(np.float32),
+                 "next_obs": rng.standard_normal((1, B, 4)).astype(np.float32),
+                 "dones": (rng.random((1, B)) < 0.1).astype(np.float32)},
+                lambda a, b: a._update(b)),
+        "sac": (lambda dev: rllib.SACConfig().environment(rllib.PendulumEnv)
+                .debugging(seed=SEED).build(device=dev),
+                {"obs": rng.standard_normal((1, B, 3)).astype(np.float32),
+                 "actions": rng.uniform(-1, 1, (1, B, 1)).astype(np.float32),
+                 "rewards": rng.standard_normal((1, B)).astype(np.float32),
+                 "next_obs": rng.standard_normal((1, B, 3)).astype(np.float32),
+                 "dones": (rng.random((1, B)) < 0.1).astype(np.float32),
+                 "noise": rng.standard_normal((2, B, 1)).astype(np.float32)},
+                lambda a, b: a._update({k: v for k, v in b.items() if k != "noise"},
+                                       noises=[b["noise"]])),
+    }
+    for variant in ("impala", "appo"):
+        cls = rllib.APPOConfig if variant == "appo" else rllib.IMPALAConfig
+        T, N = 32, 4
+        cases[variant] = (
+            lambda dev, cls=cls: cls().environment(rllib.CartPoleEnv).debugging(seed=SEED)
+            .build(device=dev),
+            {"obs": rng.standard_normal((T, N, 4)).astype(np.float32),
+             "actions": rng.integers(0, 2, (T, N)).astype(np.int32),
+             "behavior_logp": (np.log(0.5) + 0.3 * rng.standard_normal((T, N))).astype(
+                 np.float32),
+             "rewards": np.ones((T, N), np.float32),
+             "dones": (rng.random((T, N)) < 0.05).astype(np.float32),
+             "bootstrap_obs": rng.standard_normal((N, 4)).astype(np.float32)},
+            lambda a, b: a._update(b))
+    for name, cfg_cls, data in (("cql", rllib.CQLConfig, discrete_data),
+                                ("iql_continuous", rllib.IQLConfig, continuous_data)):
+        env_cls = rllib.CartPoleEnv if name == "cql" else rllib.PendulumEnv
+        small = {k: v[:B] for k, v in data.items()}
+        cases[name] = (
+            lambda dev, c=cfg_cls, e=env_cls, d=small: c().environment(e).offline_data(d)
+            .debugging(seed=SEED).build(device=dev),
+            {k: v[idx] for k, v in data.items()},
+            lambda a, b: a._step({k: torch.as_tensor(v).to(a.device, a._dtype()
+                                                           if v.dtype.kind == "f" else None)
+                                  for k, v in b.items()})[None])
+    out = {}
+    for name, (build, batch, update) in cases.items():
+        if name.startswith("iql"):
+            check(np.sum(np.abs(batch["actions"]) == 2.0) > 0,
+                  "iql parity: the batch has no row on the Box's edge")
+        base = build("cpu")
+        get = (lambda a: a._state_dict()) if hasattr(base, "_state_dict") else (
+            lambda a: a.state_dict())
+        put = (lambda a, s: a._load_state_dict(s)) if hasattr(base, "_load_state_dict") else (
+            lambda a, s: a.load_state_dict(s))
+        start = get(base)
+        base.stop()
+        runs = {}
+        for run, device, dtype in (("card", "cuda", torch.float32),
+                                   ("host", "cpu", torch.float32),
+                                   ("f64", "cpu", torch.float64)):
+            algo = build(device)
+            put(algo, _cast_state(torch, start, dtype))
+            stats = update(algo, batch).detach().double().cpu().reshape(-1)
+            check(all(t.device.type == device and t.dtype == dtype
+                      for t in _learner_tensors(torch, algo) if t.is_floating_point()),
+                  f"rl parity {name}: the {run} learner left {device} {dtype}")
+            runs[run] = (get(algo), stats)
+            algo.stop()
+
+        def deltas(after):
+            """Each tensor's change, but a polyak target's value: its change
+            tau * (p - t), read back from (1 - tau) * t + tau * p, cancels
+            (about 5% of it in f32) on every device alike."""
+            flat = {}
+
+            def walk(prefix, a, s):
+                if isinstance(s, dict):
+                    for k in s:
+                        walk(f"{prefix}.{k}", a[k], s[k])
+                elif isinstance(s, torch.Tensor) and s.is_floating_point():
+                    value = a.double()
+                    flat[prefix] = value if "target" in prefix else value - s.double()
+            walk("", after, start)
+            return flat
+
+        want = deltas(runs["f64"][0])
+        moved = [k for k, v in want.items() if v.abs().max() > 0]
+
+        def errs(run):
+            got = deltas(runs[run][0])
+            e = {k: _rel_err(got[k], want[k]) for k in moved}
+            e["stats"] = _rel_err(runs[run][1], runs["f64"][1])
+            return e
+
+        out[name] = dict(_control_check(f"rl parity {name}", errs("card"),
+                                        max(errs("host").values())),
+                         tensors_compared=len(moved))
+    return out
+
+
+def train_rl_phase(torch, np, counters):
+    """The rest of RLlib through ``<Algo>Config(...).build().train()``, the
+    learners on the card and the env runners and replay buffers on the
+    host (RL above): DQN, SAC, IMPALA, APPO, BC, MARWIL, CQL, IQL (discrete
+    and continuous) and multi-agent PPO. For each: iteration ms split by
+    its timers, env steps (offline: rows) per s, learner ms per update,
+    launches, device ms and busy share per update from a profiled update,
+    peak memory; finite stats; learners on the card and runner policies on
+    the host; a save/restore round trip bit for bit. IMPALA's mean_rho
+    departs from 1 (stale rollouts); SAC's env actions stay in Pendulum's
+    [-2, 2]. Then card-vs-host parity of one update each (rl_parity).
+    K1-K4 must be launched 0 times."""
+    from ray_tpu_torch import rllib
+
+    _zero(counters)
+    t_phase = time.perf_counter()
+    out = {"settings": RL}
+
+    def state_of(algo):
+        return algo._state_dict() if hasattr(algo, "_state_dict") else algo.state_dict()
+
+    def finish(name, build, algo, run, profile_fn, n_profiled, runner_models):
+        _rl_placement(torch, name, _learner_tensors(torch, algo),
+                      [p for m in runner_models for p in m.parameters()])
+        _rl_roundtrip(torch, name, algo, build, state_of)
+        run["profile"] = prof = _rl_profile(torch, profile_fn, n_profiled)
+        # the profiler slows the host: the device's share of the timed update
+        learn_ms = statistics.median(run["learner_ms_per_update"])
+        prof["device_busy_share_of_timed_update"] = prof["device_ms_per_update"] / learn_ms
+        out[name] = run
+        learning = run["learning_iterations"]
+        print(f"train_rl {name}: learning iterations' ms "
+              f"{[round(run['iteration_ms'][i], 2) for i in learning]}, steps/s "
+              f"{[round(run['steps_per_s'][i]) for i in learning]}, learner ms/update "
+              f"{learn_ms:.4f}, launches/update {prof['launches_per_update']:.1f}, device "
+              f"ms/update {prof['device_ms_per_update']:.5f}, busy (profiled) "
+              f"{prof['device_busy_share']:.3f}, of the timed update "
+              f"{prof['device_busy_share_of_timed_update']:.3f}, peak {run['peak_bytes']}",
+              flush=True)
+        algo.stop()
+        torch.cuda.empty_cache()
+
+    # DQN on CartPole
+    def dqn_build():
+        return (rllib.DQNConfig().environment(rllib.CartPoleEnv)
+                .env_runners(**RL["dqn_runners"]).debugging(seed=SEED).build())
+    algo = dqn_build()
+    cfg = algo.config
+    run = _rl_run(torch, "dqn", algo, RL["dqn_learning_iters"], cfg.num_updates_per_iter,
+                  ("loss_mean",), learned=lambda r: r["buffer_size"] >= cfg.learning_starts)
+    batches = rllib.dqn.stack_batches([algo.buffer.sample(cfg.train_batch_size, seed=u)
+                                       for u in range(cfg.num_updates_per_iter)])
+    finish("dqn", dqn_build, algo, run, lambda: algo._update(batches),
+           cfg.num_updates_per_iter, [r.model for r in algo.runners])
+
+    # SAC on Pendulum, its env actions recorded
+    class RecordedPendulum(rllib.PendulumEnv):
+        torque = [np.inf, -np.inf]
+
+        def step(self, u):
+            self.torque[0] = min(self.torque[0], float(np.min(u)))
+            self.torque[1] = max(self.torque[1], float(np.max(u)))
+            return super().step(u)
+
+    def sac_build():
+        return rllib.SACConfig().environment(RecordedPendulum).debugging(seed=SEED).build()
+    algo = sac_build()
+    cfg = algo.config
+    run = _rl_run(torch, "sac", algo, RL["sac_learning_iters"], cfg.num_updates_per_iter,
+                  rllib.sac.STAT_KEYS, learned=lambda r: "critic_loss" in r)
+    lo, hi = RecordedPendulum.torque
+    check(-2.0 <= lo < hi <= 2.0, f"sac: env actions outside Pendulum's [-2, 2]: {lo}, {hi}")
+    run["env_action_range"] = [lo, hi]
+    batches = algo.buffer.sample_many(cfg.train_batch_size, cfg.num_updates_per_iter, seed=SEED)
+    finish("sac", sac_build, algo, run, lambda: algo._update(batches),
+           cfg.num_updates_per_iter, [r.actor for r in algo.runners])
+
+    # IMPALA and APPO on CartPole
+    for name, cls in (("impala", rllib.IMPALAConfig), ("appo", rllib.APPOConfig)):
+        def build(cls=cls):
+            return cls().environment(rllib.CartPoleEnv).debugging(seed=SEED).build()
+        algo = build()
+        run = _rl_run(torch, name, algo, RL["impala_iters"], algo.config.num_batches_per_iter,
+                      rllib.impala.STAT_KEYS)
+        rhos = run["stats"]["mean_rho"]
+        # an on-policy update's ratio is 1 within f32 rounding (1e-7): each
+        # iteration holds three updates on rollouts one update stale
+        check(all(abs(r - 1) > 1e-5 for r in rhos), f"{name}: mean_rho stays at 1: {rhos}")
+        rollout = algo.runners[0].sample(algo.get_params())
+        finish(name, build, algo, run, lambda: algo._update(rollout), 1,
+               [r.model for r in algo.runners])
+
+    # the offline algorithms on synthetic datasets
+    discrete, continuous = rl_datasets(np, RL["offline_rows"])
+    for name, cls, env_cls, data in (
+            ("bc", rllib.BCConfig, rllib.CartPoleEnv, discrete),
+            ("marwil", rllib.MARWILConfig, rllib.CartPoleEnv, discrete),
+            ("cql", rllib.CQLConfig, rllib.CartPoleEnv, discrete),
+            ("iql", rllib.IQLConfig, rllib.CartPoleEnv, discrete),
+            ("iql_continuous", rllib.IQLConfig, rllib.PendulumEnv, continuous)):
+        def build(cls=cls, env_cls=env_cls, data=data):
+            return cls().environment(env_cls).offline_data(data).debugging(seed=SEED).build()
+        algo = build()
+        per_epoch = RL["offline_rows"] // algo.config.train_batch_size
+        run = _rl_run(torch, name, algo, RL["offline_iters"], per_epoch, (algo.loss_key,),
+                      rows_key="num_samples")
+        n = RL["profiled_offline_steps"]
+        rows = torch.arange(n * algo.config.train_batch_size, device=algo.device).view(n, -1)
+        steps = [{k: v[r] for k, v in algo._data.items()} for r in rows]
+        finish(name, build, algo, run, lambda: [algo._step(b) for b in steps], n, [])
+
+    # multi-agent PPO on the cooperative toy
+    coop = coop_env_class()
+
+    def ma_build():
+        return (rllib.MultiAgentPPOConfig().environment(coop)
+                .multi_agent(["shared"], lambda agent: "shared")
+                .env_runners(num_env_runners=1, rollout_fragment_length=128)
+                .training(**RL["multi_agent_training"]).debugging(seed=SEED).build())
+    algo = ma_build()
+    cfg = algo.config
+    updates = cfg.num_epochs * (128 * 2 // cfg.minibatch_size)
+    run = _rl_run(torch, "multi_agent_ppo", algo, RL["multi_agent_iters"], updates,
+                  tuple(f"shared/{k}" for k in rllib.learner.STAT_KEYS))
+    learner = algo.learners["shared"]
+    ro = algo.runners[0].sample({"shared": learner.get_params()})
+    batch = rllib.algorithm.gae_batch([ro["policies"]["shared"]], cfg.gamma, cfg.lam)
+    finish("multi_agent_ppo", ma_build, algo, run, lambda: learner.update(batch), updates,
+           [m for r in algo.runners for m in r.models.values()])
+
+    out["parity"] = rl_parity(torch, np, discrete, continuous)
+    launches = _launches(counters)
+    check(all(n == 0 for n in launches.values()), f"port kernels launched on RL: {launches}")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"train_rl parity {json.dumps(out['parity'])}; phase {out['phase_s']:.1f} s")
+    print("train_rl", json.dumps(out))
+    return launches, out
+
+
 # a MoE training step's kernels by kind (the first group with a part in a
 # kernel's symbol takes it): K1-K4; cuBLAS GEMMs (projections, experts, the
 # router, the head); gating (softmax, argmax, cumsum); dispatch and combine
@@ -3289,13 +3761,17 @@ def main() -> None:
     # its timed iterations and profiled update (before its parity runs)
     ppo_launches, _ = train_ppo_phase(torch, np, counters)
     torch.cuda.empty_cache()
+    # the rest of RLlib: counts set to 0 at the start of the phase and read
+    # at its end (its parity runs included)
+    rl_launches, _ = train_rl_phase(torch, np, counters)
+    torch.cuda.empty_cache()
     # Mixtral-8x7B training: counts set to 0 at the start of the phase and
     # read after its profiled step (before its dense-vs-indexed and parity
     # runs)
     moe_launches, _ = train_moe_phase(torch, counters)
     paths = {"serve": serve_launches, "serve_cb": cb_launches, "serve_lora": lora_launches,
              "serve_disagg": disagg_launches, "train": train_launches, "train_resnet": resnet_launches, "train_vit": vit_launches,
-             "train_ppo": ppo_launches, "train_moe": moe_launches}
+             "train_ppo": ppo_launches, "train_rl": rl_launches, "train_moe": moe_launches}
     launches = {name: sum(p[name] for p in paths.values()) for name in counters}
 
     def entry(name, source, replaces, rows):

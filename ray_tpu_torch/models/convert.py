@@ -1,5 +1,6 @@
 """Carry ray_tpu's flax weights (Llama, the MoE transformer, ResNet, ViT,
-PPO's ActorCritic) into the port.
+RLlib's ActorCritic, QNetwork, TwinQ and squashed Gaussian actor) into the
+port.
 
 The input is the reference's unboxed parameter tree
 (``ray_tpu.parallel.sharding.unbox_params`` of ``init_params``) with every
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from .._internal.device import DeviceLike, resolve_device
-from ..rllib.models import MLP_HIDDEN, ActorCritic
+from ..rllib.models import MLP_HIDDEN, ActorCritic, QNetwork, SquashedGaussianActor, TwinQ
 from .llama import DecodeCache, LlamaConfig, param_shapes
 from .moe import MoEConfig
 from .moe import param_shapes as moe_param_shapes
@@ -154,6 +155,13 @@ def vit_params_from_jax(
                  resolve_device(device))
 
 
+def _module_params(flax_params, module, device) -> Dict[str, torch.Tensor]:
+    """``module``'s state dict from a flax tree, in f32 on ``device``,
+    leaves matched by name (a missing, extra or misshapen leaf raises)."""
+    want = {k: v.shape for k, v in module.state_dict().items()}
+    return _load(_flatten(flax_params), want, torch.float32, resolve_device(device))
+
+
 def actor_critic_params_from_jax(
     flax_params: Mapping[str, Any],
     obs_dim: int,
@@ -167,9 +175,48 @@ def actor_critic_params_from_jax(
     (``Dense_0`` .. ``Dense_{h+1}``, ``log_std`` for a continuous head), in
     f32 on ``device``. Leaves are matched by name, never by order; a
     missing or extra leaf, or a shape that is not the module's, raises."""
-    want = {k: v.shape for k, v in
-            ActorCritic(obs_dim, action_dim, discrete, hidden).state_dict().items()}
-    return _load(_flatten(flax_params), want, torch.float32, resolve_device(device))
+    return _module_params(flax_params, ActorCritic(obs_dim, action_dim, discrete, hidden),
+                          device)
+
+
+def q_network_params_from_jax(
+    flax_params: Mapping[str, Any],
+    obs_dim: int,
+    action_dim: int,
+    hidden: Tuple[int, ...] = MLP_HIDDEN,
+    device: DeviceLike = None,
+) -> Dict[str, torch.Tensor]:
+    """The state dict of ``rllib.models.QNetwork(obs_dim, action_dim,
+    hidden)`` from the reference's QNetwork tree (``Dense_0`` ..
+    ``Dense_h``), in f32 on ``device``."""
+    return _module_params(flax_params, QNetwork(obs_dim, action_dim, hidden), device)
+
+
+def twin_q_params_from_jax(
+    flax_params: Mapping[str, Any],
+    obs_dim: int,
+    action_dim: int,
+    hidden: Tuple[int, ...] = (256, 256),
+    device: DeviceLike = None,
+) -> Dict[str, torch.Tensor]:
+    """The state dict of ``rllib.models.TwinQ(obs_dim, action_dim, hidden)``
+    from the reference's TwinQ tree (``q1_d{i}``, ``q1_out``, ``q2_d{i}``,
+    ``q2_out``), in f32 on ``device``."""
+    return _module_params(flax_params, TwinQ(obs_dim, action_dim, hidden), device)
+
+
+def squashed_actor_params_from_jax(
+    flax_params: Mapping[str, Any],
+    obs_dim: int,
+    action_dim: int,
+    hidden: Tuple[int, ...] = (256, 256),
+    device: DeviceLike = None,
+) -> Dict[str, torch.Tensor]:
+    """The state dict of ``rllib.models.SquashedGaussianActor(obs_dim,
+    action_dim, hidden)`` from the reference's tree (``Dense_0`` ..
+    ``Dense_{h+1}``: hidden, mean, log std), in f32 on ``device``."""
+    return _module_params(flax_params, SquashedGaussianActor(obs_dim, action_dim, hidden),
+                          device)
 
 
 def cache_from_jax(

@@ -1,16 +1,21 @@
-"""ray_tpu_torch.rllib: PPO, the port of ray_tpu.rllib's PPO path.
+"""ray_tpu_torch.rllib: the port of ray_tpu.rllib.
 
-``PPOConfig().environment(...).env_runners(...).training(...).build()``:
-the PPO learner runs on the card as an eager PyTorch update loop (the
-reference compiles it into one ``lax.scan``), and the env runners step
-their envs and a CPU copy of the policy in the caller's process. The port
-needs no gymnasium: ``env.CartPoleEnv`` is gymnasium's ``CartPole-v1``
-written out in numpy, and any env factory with the gymnasium step API works.
-DQN, SAC, IMPALA, BC, the offline algorithms, DreamerV3 and multi-agent are
-not ported yet.
+``<Algo>Config().environment(...).env_runners(...).training(...).build()``
+for PPO, DQN, SAC, IMPALA / APPO, multi-agent PPO and, with
+``.offline_data(...)``, BC, MARWIL, CQL and IQL. Every learner (parameters,
+target networks, Adam's moments) runs on the card as an eager PyTorch
+update loop (the reference compiles its updates into jitted ``lax.scan``
+programs) unless ``build(device=...)`` names another device; the env
+runners and replay buffers stay on the host, stepping their envs and a CPU
+copy of the policy in the caller's process. The port needs no gymnasium:
+``env.CartPoleEnv`` and ``env.PendulumEnv`` are gymnasium's ``CartPole-v1``
+and ``Pendulum-v1`` written out in numpy, and any env factory with the
+gymnasium step API works. DreamerV3 is not ported yet; ``as_trainable``
+waits for the port of ``tune/``.
 """
 
 from .algorithm import PPO, PPOConfig
+from .bc import BC, BCConfig
 from .connectors import (
     ClipActions,
     Connector,
@@ -20,20 +25,47 @@ from .connectors import (
     Lambda,
     NormalizeObservations,
 )
-from .env import Box, CartPoleEnv, Discrete, VectorEnv, make_env
+from .dqn import DQN, DQNConfig, ReplayBuffer
+from .env import Box, CartPoleEnv, Discrete, PendulumEnv, VectorEnv, make_env
 from .env_runner import EnvRunner
+from .impala import IMPALA, APPOConfig, IMPALAConfig
 from .learner import PPOLearner
+from .multi_agent import MultiAgentEnvRunner, MultiAgentPPO, MultiAgentPPOConfig
+from .multi_agent_env import MultiAgentEnv
+from .offline import CQL, IQL, MARWIL, CQLConfig, IQLConfig, MARWILConfig
+from .sac import SAC, SACConfig
 
 __all__ = [
     "PPO",
     "PPOConfig",
+    "DQN",
+    "DQNConfig",
+    "IMPALA",
+    "IMPALAConfig",
+    "APPOConfig",
+    "SAC",
+    "SACConfig",
+    "BC",
+    "BCConfig",
+    "MARWIL",
+    "MARWILConfig",
+    "CQL",
+    "CQLConfig",
+    "IQL",
+    "IQLConfig",
+    "ReplayBuffer",
     "PPOLearner",
     "EnvRunner",
     "VectorEnv",
     "make_env",
     "CartPoleEnv",
+    "PendulumEnv",
     "Box",
     "Discrete",
+    "MultiAgentEnv",
+    "MultiAgentPPO",
+    "MultiAgentPPOConfig",
+    "MultiAgentEnvRunner",
     "Connector",
     "ConnectorContext",
     "ConnectorPipeline",

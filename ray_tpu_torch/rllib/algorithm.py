@@ -30,7 +30,7 @@ from .._internal.device import DeviceLike
 from ..util.metrics import StepBreakdown
 from .config_base import AlgorithmConfig
 from .connectors import ConnectorContext, default_env_to_module
-from .env import make_env, space_dims
+from .env import probe_spaces, space_dims
 from .env_runner import EnvRunner
 from .learner import PPOLearner
 from .models import compute_gae, sample_actions
@@ -90,17 +90,8 @@ class PPO:
         self.config = config
         self.iteration = 0
         self._broadcaster = broadcaster_for(config)
-        # probe spaces locally (cheap env instance)
-        probe = make_env(config.env_spec, config.env_config)()
-        self.observation_space = probe.observation_space
-        self.action_space = probe.action_space
-        obs_dim, act_dim, discrete = space_dims(
-            probe.observation_space, probe.action_space
-        )
-        try:
-            probe.close()
-        except Exception:
-            pass
+        self.observation_space, self.action_space = probe_spaces(config)
+        obs_dim, act_dim, discrete = space_dims(self.observation_space, self.action_space)
         self.learner = PPOLearner(
             obs_dim,
             act_dim,

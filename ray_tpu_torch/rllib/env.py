@@ -5,8 +5,9 @@ id string or an env-factory callable. The port does not depend on
 gymnasium: a string id imports it lazily inside the factory it returns (the
 only gymnasium import of the package), and spaces are recognised by their
 attributes, so gymnasium's spaces and the port's own :class:`Box` and
-:class:`Discrete` both pass. :class:`CartPoleEnv` is gymnasium's
-``CartPole-v1`` written out in numpy, for machines without gymnasium.
+:class:`Discrete` both pass. :class:`CartPoleEnv` and :class:`PendulumEnv`
+are gymnasium's ``CartPole-v1`` and ``Pendulum-v1`` written out in numpy,
+for machines without gymnasium.
 """
 
 from __future__ import annotations
@@ -78,6 +79,16 @@ def make_env(env: Union[str, Callable[[], Any]], env_config: Optional[dict] = No
 
         return _make
     raise TypeError(f"env must be a gymnasium id or callable, got {type(env)}")
+
+
+def probe_spaces(config):
+    """(observation space, action space) of one env built from ``config``."""
+    probe = make_env(config.env_spec, config.env_config)()
+    spaces = probe.observation_space, probe.action_space
+    close = getattr(probe, "close", None)
+    if close is not None:
+        close()
+    return spaces
 
 
 def _wants_config(fn) -> bool:
@@ -259,3 +270,76 @@ class CartPoleEnv:
 
     def close(self):
         pass
+
+
+class PendulumEnv:
+    """gymnasium 1.2.2's ``Pendulum-v1`` as ``gym.make`` builds it: the
+    swing-up pendulum with state (theta, thetadot) in float64, torque
+    clipped to [-2, 2] before the dynamics (g = 10.0 unless ``env_config``
+    sets ``g``), observation ``[cos, sin, thetadot]`` in float32, reward
+    ``-(angle_normalize(theta)^2 + 0.1 thetadot^2 + 0.001 u^2)``, never
+    terminated, truncated after ``max_episode_steps`` (200; ``env_config``
+    may set it). ``reset(seed=s)`` draws (theta, thetadot) over
+    [-pi, pi] x [-1, 1] from ``np.random.default_rng(s)``; a reset without
+    a seed keeps drawing from the same generator. Same seeds and actions
+    give gymnasium's observations, rewards and flags bit for bit."""
+
+    max_speed = 8
+    max_torque = 2.0
+    dt = 0.05
+    m = 1.0
+    l = 1.0  # noqa: E741 (gymnasium's name)
+
+    def __init__(self, env_config: Optional[dict] = None):
+        cfg = dict(env_config or {})
+        self.max_episode_steps = int(cfg.pop("max_episode_steps", 200))
+        self.g = cfg.pop("g", 10.0)
+        if cfg:
+            raise TypeError(f"PendulumEnv does not take {sorted(cfg)}")
+        high = np.array([1.0, 1.0, self.max_speed], dtype=np.float32)
+        self.action_space = Box(-self.max_torque, self.max_torque, (1,), dtype=np.float32)
+        self.observation_space = Box(-high, high, dtype=np.float32)
+        self.state: Optional[np.ndarray] = None
+        self._rng: Optional[np.random.Generator] = None
+        self._elapsed = 0
+
+    def reset(self, *, seed: Optional[int] = None, options: Optional[dict] = None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        elif self._rng is None:
+            self._rng = np.random.default_rng()
+        high = np.array([np.pi, 1.0])
+        self.state = self._rng.uniform(low=-high, high=high)
+        self._elapsed = 0
+        return self._obs(), {}
+
+    def _obs(self) -> np.ndarray:
+        theta, thetadot = self.state
+        return np.array([np.cos(theta), np.sin(theta), thetadot], dtype=np.float32)
+
+    def step(self, u):
+        if self.state is None:
+            raise RuntimeError("call reset before step")
+        arr = np.asarray(u)
+        if arr.shape != (1,) or not np.issubdtype(arr.dtype, np.number) \
+                or np.issubdtype(arr.dtype, np.complexfloating):
+            raise ValueError(f"{u!r} ({type(u)}) invalid")
+        # the arithmetic below is gymnasium's, operation for operation
+        th, thdot = self.state
+        g, m, l, dt = self.g, self.m, self.l, self.dt  # noqa: E741
+        u = np.clip(u, -self.max_torque, self.max_torque)[0]
+        costs = _angle_normalize(th) ** 2 + 0.1 * thdot**2 + 0.001 * (u**2)
+        newthdot = thdot + (3 * g / (2 * l) * np.sin(th) + 3.0 / (m * l**2) * u) * dt
+        newthdot = np.clip(newthdot, -self.max_speed, self.max_speed)
+        newth = th + newthdot * dt
+        self.state = np.array([newth, newthdot])
+        self._elapsed += 1
+        truncated = self._elapsed >= self.max_episode_steps
+        return self._obs(), -costs, False, truncated, {}
+
+    def close(self):
+        pass
+
+
+def _angle_normalize(x):
+    return ((x + np.pi) % (2 * np.pi)) - np.pi

@@ -12,7 +12,7 @@ plain objects in the caller's process (``PPO`` samples them in turn).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -21,6 +21,16 @@ from .connectors import ConnectorContext, default_env_to_module, default_module_
 from .env import VectorEnv, make_env, space_dims
 from .models import init_actor_critic, sample_actions
 from .weight_sync import resolve_params
+
+
+def collect_episodes(ep_ret, ep_len, dones, returns: list, lengths: list) -> None:
+    """Close the episodes of the envs whose ``dones`` are set: record
+    their return and length, and start them again from 0."""
+    for i in np.nonzero(dones)[0]:
+        returns.append(float(ep_ret[i]))
+        lengths.append(int(ep_len[i]))
+        ep_ret[i] = 0.0
+        ep_len[i] = 0
 
 
 class EnvRunner:
@@ -61,7 +71,6 @@ class EnvRunner:
         # episode-return bookkeeping
         self._ep_returns = np.zeros(num_envs, np.float32)
         self._ep_lengths = np.zeros(num_envs, np.int64)
-        self._completed: list = []
 
     def _encode(self, obs) -> np.ndarray:
         return np.asarray(self._env_to_module(obs, self._ctx), np.float32)
@@ -79,6 +88,8 @@ class EnvRunner:
         val_buf = np.zeros((T, N), np.float32)
         rew_buf = np.zeros((T, N), np.float32)
         done_buf = np.zeros((T, N), bool)
+        ep_returns: List[float] = []
+        ep_lengths: List[int] = []
         with torch.inference_mode():
             for t in range(T):
                 actions, logp, values = sample_actions(
@@ -100,15 +111,10 @@ class EnvRunner:
                 done_buf[t] = dones
                 self._ep_returns += rewards
                 self._ep_lengths += 1
-                for i in np.nonzero(dones)[0]:
-                    self._completed.append(
-                        (float(self._ep_returns[i]), int(self._ep_lengths[i]))
-                    )
-                    self._ep_returns[i] = 0.0
-                    self._ep_lengths[i] = 0
+                collect_episodes(self._ep_returns, self._ep_lengths, dones,
+                                 ep_returns, ep_lengths)
                 self._obs = self._encode(next_obs)
             _, last_values = self.model(torch.from_numpy(self._obs))
-        completed, self._completed = self._completed, []
         return {
             "obs": obs_buf,
             "actions": act_buf,
@@ -117,8 +123,8 @@ class EnvRunner:
             "rewards": rew_buf,
             "dones": done_buf,
             "last_values": last_values.numpy(),
-            "episode_returns": [r for r, _ in completed],
-            "episode_lengths": [l for _, l in completed],
+            "episode_returns": ep_returns,
+            "episode_lengths": ep_lengths,
         }
 
     def stop(self):

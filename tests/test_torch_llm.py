@@ -338,8 +338,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     """Import every module of the package in a fresh interpreter: none of them
     brings in JAX, ray_tpu, gymnasium, ml_dtypes or cloudpickle (which the
     card's machine lacks). The walk includes the parallel package, the MoE
-    model, the observability plane (util) and the KV tier with what it
-    imports."""
+    model, the observability plane (util), the KV tier with what it
+    imports, and every RLlib algorithm."""
     code = (
         "import importlib, pkgutil, sys, ray_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__, 'ray_tpu_torch.')]\n"
@@ -353,7 +353,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "        'ray_tpu_torch.kvtier.shipping', 'ray_tpu_torch.kvtier.fingerprint',\n"
         "        'ray_tpu_torch.runtime.gcs.kvtier_registry', 'ray_tpu_torch.weights.manifest',\n"
         "        'ray_tpu_torch._internal.quantization', 'ray_tpu_torch._internal.serialization',\n"
-        "        'ray_tpu_torch._internal.transfer'}\n"
+        "        'ray_tpu_torch._internal.transfer', 'ray_tpu_torch.rllib.dqn',\n"
+        "        'ray_tpu_torch.rllib.sac', 'ray_tpu_torch.rllib.impala', 'ray_tpu_torch.rllib.bc',\n"
+        "        'ray_tpu_torch.rllib.offline', 'ray_tpu_torch.rllib.multi_agent',\n"
+        "        'ray_tpu_torch.rllib.multi_agent_env'}\n"
         "print(len(mods), bad, sorted(need - set(mods)))\n"
         "sys.exit(1 if bad else 0)\n"
     )
