@@ -154,6 +154,21 @@ Phases, each of which exits non-zero on failure:
      save/restore round trip bit for bit. Then one update each of DQN,
      SAC, IMPALA, APPO, CQL and continuous IQL card vs host in f32 against
      an f64 host run; K1-K4 launched 0 times;
+  15c. DreamerV3 (``train_dreamer``): DreamerV3Config().environment(...)
+     .build().train() at the reference's defaults (deter 256, 16 x 16
+     latents, hidden 256, 41 bins, batch 8 x seq 16, horizon 15), the
+     learner (world model, actor, critics, three Adam states) on the card
+     and the runner and sequence buffer on the host, on CartPole and on
+     Pendulum until 3 iterations have learned: iteration ms by timers,
+     env steps/s, learner ms per update; 3 timed updates on one of its
+     batches and 3 at upstream RLlib's batch (16 x 64: 1,024 imagination
+     starts), each with launches, device ms and busy share from a profiled
+     update; peak memory; finite stats with kl_dyn at the free-nats floor
+     or above; learner on the card and runner nets on the host; a
+     save/restore round trip bit for bit; Pendulum's env actions in [-2,
+     2]; one update card vs host in f32 against an f64 host run, discrete
+     and continuous, with the categorical choices and normal draws
+     injected; K1-K4 launched 0 times;
   16. Mixtral-8x7B training (``train_moe``): the MoE transformer at full
      Mixtral-8x7B width, 4 of its 32 layers, bf16 parameters, batch 2 x seq
      4096, remat, AdamW at lr 1e-3 (next_token_loss, backward, step): a
@@ -179,7 +194,8 @@ phase 12's fit() and read just after it (training), and set to 0 at the
 start of phases 13 and 14 and read after their timed and profiled steps
 (``train_resnet``, ``train_vit``), and set to 0 at the start of phase 15 and
 read after its timed iterations and profiled update (``train_ppo``), set
-to 0 at the start of phase 15b and read at its end (``train_rl``), and
+to 0 at the start of phase 15b and read at its end (``train_rl``), set to 0
+at the start of phase 15c and read at its end (``train_dreamer``), and
 set to 0 at the start of phase 16 and read after its profiled step
 (``train_moe``). The last lines are a JSON line of the kernels and the
 result line.
@@ -266,6 +282,13 @@ RL = {"dqn_runners": {"num_env_runners": 2, "num_envs_per_env_runner": 4,
       "multi_agent_training": {"lr": 5e-3, "num_epochs": 6, "minibatch_size": 64,
                                "entropy_coeff": 0.0},
       "profiled_offline_steps": 8, "parity_rows": 256}
+# DreamerV3 (train_dreamer): the reference's DreamerV3Config defaults (deter
+# 256, 16 x 16 latents, hidden 256, 41 bins, batch 8 x seq 16, horizon 15, 1
+# runner x 1 env x 64 steps, learning_starts 256) on CartPole and Pendulum
+# until 3 iterations have learned; 3 timed updates on one of its batches, and
+# 3 more at upstream RLlib's DreamerV3Config batch (batch_size_B 16 x
+# batch_length_T 64: 1,024 imagination starts) at the same widths
+DREAMER = {"learning_iters": 3, "timed_updates": 3, "upstream_batch": (16, 64)}
 # Mixtral-8x7B training (train_moe): MoEConfig.mixtral_8x7b at full width and
 # 4 of its 32 layers with bf16 parameters (f32 ones with AdamW would take 16 B
 # a parameter, 97 GB at 4 layers), batch 2 x seq 4096 with remat, AdamW at the
@@ -2350,6 +2373,12 @@ def _rel_err(got, want):
     return ((got.detach().double().cpu() - want).abs().max() / want.abs().max()).item()
 
 
+def _rel_l2(got, want):
+    """||got - want|| over ||want||, in f64 on the host."""
+    want = want.detach().double().cpu()
+    return ((got.detach().double().cpu() - want).norm() / want.norm()).item()
+
+
 def _control_check(tag, errs, control, times=4):
     """Hold the card's f32 errors against an f64 host run to at most
     ``times`` (4) x the host's own f32 errors against it (``control``, the
@@ -2917,6 +2946,25 @@ def coop_env_class():
     return CoopMatch
 
 
+def recorded_pendulum_class():
+    """A fresh subclass of the port's PendulumEnv whose class attribute
+    ``torque`` holds the least and the largest action any of its instances
+    stepped with."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import PendulumEnv
+
+    class RecordedPendulum(PendulumEnv):
+        torque = [np.inf, -np.inf]
+
+        def step(self, u):
+            self.torque[0] = min(self.torque[0], float(np.min(u)))
+            self.torque[1] = max(self.torque[1], float(np.max(u)))
+            return super().step(u)
+
+    return RecordedPendulum
+
+
 def _state_equal(torch, got, want) -> bool:
     """Two checkpoint trees equal bit for bit (tensors: dtype and values)."""
     if isinstance(want, dict):
@@ -3028,6 +3076,24 @@ def _cast_state(torch, tree, dtype):
     return tree
 
 
+def _deltas(torch, after, start, by_value=("target", "slow_critic")):
+    """Each floating tensor's change from ``start`` in f64, by dotted name;
+    an EMA or polyak target (a name holding one of ``by_value``) by its
+    value: its change, tau * (p - t) read back from (1 - tau) * t + tau * p,
+    cancels in f32 on every device alike."""
+    flat = {}
+
+    def walk(prefix, a, s):
+        if isinstance(s, dict):
+            for k in s:
+                walk(f"{prefix}.{k}", a[k], s[k])
+        elif isinstance(s, torch.Tensor) and s.is_floating_point():
+            value = a.double()
+            flat[prefix] = value if any(x in prefix for x in by_value) else value - s.double()
+    walk("", after, start)
+    return flat
+
+
 def rl_parity(torch, np, discrete_data, continuous_data):
     """One update each of DQN, SAC (injected normal draws), IMPALA, APPO,
     CQL and continuous IQL, from the same weights and batch, on the card
@@ -3110,27 +3176,11 @@ def rl_parity(torch, np, discrete_data, continuous_data):
             runs[run] = (get(algo), stats)
             algo.stop()
 
-        def deltas(after):
-            """Each tensor's change, but a polyak target's value: its change
-            tau * (p - t), read back from (1 - tau) * t + tau * p, cancels
-            (about 5% of it in f32) on every device alike."""
-            flat = {}
-
-            def walk(prefix, a, s):
-                if isinstance(s, dict):
-                    for k in s:
-                        walk(f"{prefix}.{k}", a[k], s[k])
-                elif isinstance(s, torch.Tensor) and s.is_floating_point():
-                    value = a.double()
-                    flat[prefix] = value if "target" in prefix else value - s.double()
-            walk("", after, start)
-            return flat
-
-        want = deltas(runs["f64"][0])
+        want = _deltas(torch, runs["f64"][0], start)
         moved = [k for k, v in want.items() if v.abs().max() > 0]
 
         def errs(run):
-            got = deltas(runs[run][0])
+            got = _deltas(torch, runs[run][0], start)
             e = {k: _rel_err(got[k], want[k]) for k in moved}
             e["stats"] = _rel_err(runs[run][1], runs["f64"][1])
             return e
@@ -3197,13 +3247,7 @@ def train_rl_phase(torch, np, counters):
            cfg.num_updates_per_iter, [r.model for r in algo.runners])
 
     # SAC on Pendulum, its env actions recorded
-    class RecordedPendulum(rllib.PendulumEnv):
-        torque = [np.inf, -np.inf]
-
-        def step(self, u):
-            self.torque[0] = min(self.torque[0], float(np.min(u)))
-            self.torque[1] = max(self.torque[1], float(np.max(u)))
-            return super().step(u)
+    RecordedPendulum = recorded_pendulum_class()
 
     def sac_build():
         return rllib.SACConfig().environment(RecordedPendulum).debugging(seed=SEED).build()
@@ -3278,6 +3322,162 @@ def train_rl_phase(torch, np, counters):
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"train_rl parity {json.dumps(out['parity'])}; phase {out['phase_s']:.1f} s")
     print("train_rl", json.dumps(out))
+    return launches, out
+
+
+def dreamer_parity(torch, np):
+    """One DreamerV3 update at the reference's defaults, discrete (CartPole)
+    and continuous (Pendulum), from the same weights and batch, on the card
+    (f32, TF32 off), on the host in f32 and on the host in f64. The draws
+    are injected: every categorical choice (latents and discrete actions) as
+    its class index, drawn uniformly from numpy, so that a near-tie cannot
+    send the f32 and f64 runs down different latents, and the continuous
+    actions' normal noise. Each run's change of every learner tensor
+    (parameters, the slow critic by value, Adam moments, retnorm) and its
+    stats against the f64 run's; the card's f32 errors within 4x the host's
+    own (``_control_check``). Errors are relative L2 norms over each tensor
+    (``_rel_l2``), not its largest element: a first Adam step moves each of
+    the 2 M parameters by about lr x the sign of its gradient, so an element
+    whose gradient cancels to f32 rounding moves either way on either
+    device, and the largest elementwise error is that one element's."""
+    from ray_tpu_torch import rllib
+
+    out = {}
+    for name, env_cls in (("cartpole", rllib.CartPoleEnv), ("pendulum", rllib.PendulumEnv)):
+        def build(dev, env_cls=env_cls):
+            return rllib.DreamerV3Config().environment(env_cls).debugging(seed=SEED).build(
+                device=dev)
+        base = build("cpu")
+        cfg, nets = base.config, base.nets
+        B, T, H = cfg.batch_size, cfg.seq_len, cfg.horizon
+        N, G, C = B * T, cfg.stoch_groups, cfg.stoch_classes
+        rng = np.random.default_rng(SEED + 2)
+        if nets.discrete:
+            action = np.eye(nets.act_dim, dtype=np.float32)[rng.integers(0, nets.act_dim, (B, T))]
+        else:
+            action = rng.uniform(-1, 1, (B, T, nets.act_dim)).astype(np.float32)
+        first = rng.random((B, T)) < 0.1
+        first[:, 0] = True
+        batch = {"obs": rng.standard_normal((B, T, nets.obs_dim)).astype(np.float32),
+                 "action": action, "reward": rng.standard_normal((B, T)).astype(np.float32),
+                 "is_first": first, "is_terminal": rng.random((B, T)) < 0.05}
+        draws = {"observe": [rng.integers(0, C, (B, G)) for _ in range(T)],
+                 "imagine": [(rng.integers(0, nets.act_dim, N) if nets.discrete
+                              else rng.standard_normal((N, nets.act_dim)),
+                              rng.integers(0, C, (N, G))) for _ in range(H)]}
+        start = base.state_dict()
+        base.stop()
+        runs = {}
+        for run, device, dtype in (("card", "cuda", torch.float32),
+                                   ("host", "cpu", torch.float32),
+                                   ("f64", "cpu", torch.float64)):
+            algo = build(device)
+            algo.load_state_dict(_cast_state(torch, start, dtype))
+            stats = algo._update(batch, draws=draws).detach().double().cpu()
+            check(all(t.device.type == device and t.dtype == dtype
+                      for t in _learner_tensors(torch, algo) if t.is_floating_point()),
+                  f"dreamer parity {name}: the {run} learner left {device} {dtype}")
+            runs[run] = (algo.state_dict(), stats)
+            algo.stop()
+        want = _deltas(torch, runs["f64"][0], start)
+        moved = [k for k, v in want.items() if v.abs().max() > 0]
+
+        def errs(run):
+            got = _deltas(torch, runs[run][0], start)
+            e = {k: _rel_l2(got[k], want[k]) for k in moved}
+            e["stats"] = _rel_l2(runs[run][1], runs["f64"][1])
+            return e
+
+        out[name] = dict(_control_check(f"dreamer parity {name}", errs("card"),
+                                        max(errs("host").values())),
+                         tensors_compared=len(moved))
+    return out
+
+
+def train_dreamer_phase(torch, np, counters):
+    """DreamerV3 through ``DreamerV3Config().environment(...).build().train()``
+    at the reference's defaults (DREAMER above), the learner on the card and
+    the runner and sequence buffer on the host, on CartPole and Pendulum:
+    iteration ms by timers (sample, buffer, learn), env steps/s and learner
+    ms per update over the iterations that learned; then 3 timed updates on
+    one of its batches and 3 at upstream RLlib's batch (16 x 64), each with
+    launches, device ms and busy share from one profiled update; peak
+    memory. Checks: finite stats with kl_dyn at the free-nats floor or
+    above, learner tensors on the card and runner nets on the host,
+    save/restore bit for bit, Pendulum's env actions in [-2, 2]; then
+    card-vs-host parity of one update (dreamer_parity). K1-K4 must be
+    launched 0 times."""
+    from ray_tpu_torch import rllib
+
+    _zero(counters)
+    t_phase = time.perf_counter()
+    out = {"settings": DREAMER}
+
+    RecordedPendulum = recorded_pendulum_class()
+    for name, env_cls in (("cartpole", rllib.CartPoleEnv), ("pendulum", RecordedPendulum)):
+        def build(env_cls=env_cls):
+            return rllib.DreamerV3Config().environment(env_cls).debugging(seed=SEED).build()
+        algo = build()
+        cfg = algo.config
+        run = _rl_run(torch, f"dreamer {name}", algo, DREAMER["learning_iters"], 1,
+                      rllib.dreamer.STAT_KEYS, learned=lambda r: "wm_loss" in r)
+        kl = run["stats"]["kl_dyn"]
+        check(all(k >= cfg.free_nats - 1e-5 for k in kl),
+              f"dreamer {name}: kl_dyn under the free-nats floor: {kl}")
+        _rl_placement(torch, f"dreamer {name}", _learner_tensors(torch, algo),
+                      [p for r in algo.runners for p in r.nets.parameters()])
+        _rl_roundtrip(torch, f"dreamer {name}", algo, build, lambda a: a.state_dict())
+        timed = {}
+        for size, (B, T) in (("default", (cfg.batch_size, cfg.seq_len)),
+                             ("upstream", DREAMER["upstream_batch"])):
+            batch = algo.buffer.sample(B, T, seed=SEED)
+            times, peak = _timed_steps(torch, lambda: algo._update(batch),
+                                       DREAMER["timed_updates"])
+            prof = _rl_profile(torch, lambda: algo._update(batch), 1)
+            prof["device_busy_share_of_timed_update"] = (
+                prof["device_ms_per_update"] / statistics.median(times))
+            timed[size] = dict(batch=[B, T], imagination_starts=B * T, update_ms=times,
+                               peak_bytes=peak, profile=prof)
+        run["timed_updates"] = timed
+        if name == "pendulum":
+            lo, hi = RecordedPendulum.torque
+            check(-2.0 <= lo < hi <= 2.0,
+                  f"dreamer: env actions outside Pendulum's [-2, 2]: {lo}, {hi}")
+            run["env_action_range"] = [lo, hi]
+            a = algo.compute_single_action(np.zeros(3, np.float32))
+            check(a.shape == (1,) and -2.0 <= float(a[0]) <= 2.0,
+                  f"dreamer: deployed action {a} outside [-2, 2]")
+        else:
+            check(algo.compute_single_action(np.zeros(4, np.float32)) in (0, 1),
+                  "dreamer: CartPole's deployed action is not 0 or 1")
+        out[name] = run
+        learning = run["learning_iterations"]
+        d, u = timed["default"], timed["upstream"]
+        print(f"train_dreamer {name}: learning iterations' ms "
+              f"{[round(run['iteration_ms'][i], 2) for i in learning]} (timers "
+              f"{[{k: round(v, 2) for k, v in run['timers_ms'][i].items()} for i in learning]}), "
+              f"steps/s {[round(run['steps_per_s'][i]) for i in learning]}, learner ms/update "
+              f"{[round(x, 2) for x in run['learner_ms_per_update']]}; timed update ms "
+              f"{[round(x, 2) for x in d['update_ms']]} (8 x 16), "
+              f"{[round(x, 2) for x in u['update_ms']]} (16 x 64); launches/update "
+              f"{d['profile']['launches_per_update']:.0f}, "
+              f"{u['profile']['launches_per_update']:.0f}; device ms/update "
+              f"{d['profile']['device_ms_per_update']:.4f}, "
+              f"{u['profile']['device_ms_per_update']:.4f}; busy of the timed update "
+              f"{d['profile']['device_busy_share_of_timed_update']:.4f}, "
+              f"{u['profile']['device_busy_share_of_timed_update']:.4f}; peak "
+              f"{run['peak_bytes']}, {d['peak_bytes']}, {u['peak_bytes']}", flush=True)
+        algo.stop()
+        del algo
+        torch.cuda.empty_cache()
+
+    out["parity"] = dreamer_parity(torch, np)
+    launches = _launches(counters)
+    check(all(n == 0 for n in launches.values()), f"port kernels launched on DreamerV3: {launches}")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"train_dreamer parity {json.dumps(out['parity'])}; phase {out['phase_s']:.1f} s")
+    print("train_dreamer", json.dumps(out))
     return launches, out
 
 
@@ -3765,13 +3965,18 @@ def main() -> None:
     # at its end (its parity runs included)
     rl_launches, _ = train_rl_phase(torch, np, counters)
     torch.cuda.empty_cache()
+    # DreamerV3: counts set to 0 at the start of the phase and read at its
+    # end (its parity runs included)
+    dreamer_launches, _ = train_dreamer_phase(torch, np, counters)
+    torch.cuda.empty_cache()
     # Mixtral-8x7B training: counts set to 0 at the start of the phase and
     # read after its profiled step (before its dense-vs-indexed and parity
     # runs)
     moe_launches, _ = train_moe_phase(torch, counters)
     paths = {"serve": serve_launches, "serve_cb": cb_launches, "serve_lora": lora_launches,
              "serve_disagg": disagg_launches, "train": train_launches, "train_resnet": resnet_launches, "train_vit": vit_launches,
-             "train_ppo": ppo_launches, "train_rl": rl_launches, "train_moe": moe_launches}
+             "train_ppo": ppo_launches, "train_rl": rl_launches,
+             "train_dreamer": dreamer_launches, "train_moe": moe_launches}
     launches = {name: sum(p[name] for p in paths.values()) for name in counters}
 
     def entry(name, source, replaces, rows):

@@ -1,6 +1,6 @@
 """Carry ray_tpu's flax weights (Llama, the MoE transformer, ResNet, ViT,
-RLlib's ActorCritic, QNetwork, TwinQ and squashed Gaussian actor) into the
-port.
+RLlib's ActorCritic, QNetwork, TwinQ, squashed Gaussian actor and
+DreamerV3's networks) into the port.
 
 The input is the reference's unboxed parameter tree
 (``ray_tpu.parallel.sharding.unbox_params`` of ``init_params``) with every
@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .._internal.device import DeviceLike, resolve_device
+from ..rllib.dreamer import DreamerNets
 from ..rllib.models import MLP_HIDDEN, ActorCritic, QNetwork, SquashedGaussianActor, TwinQ
 from .llama import DecodeCache, LlamaConfig, param_shapes
 from .moe import MoEConfig
@@ -217,6 +218,45 @@ def squashed_actor_params_from_jax(
     ``Dense_{h+1}``: hidden, mean, log std), in f32 on ``device``."""
     return _module_params(flax_params, SquashedGaussianActor(obs_dim, action_dim, hidden),
                           device)
+
+
+# flax nn.GRUCell's leaves -> the port's GRUCell (rllib/dreamer.py): the
+# gates' kernels and input biases side by side in r, z, n order
+_GRU_LEAVES = {
+    "kernel_i": ("ir.kernel", "iz.kernel", "in.kernel"),
+    "kernel_h": ("hr.kernel", "hz.kernel", "hn.kernel"),
+    "bias_i": ("ir.bias", "iz.bias", "in.bias"),
+    "bias_hn": ("hn.bias",),
+}
+
+
+def dreamer_params_from_jax(
+    flax_params: Mapping[str, Any],
+    config,
+    obs_dim: int,
+    action_dim: int,
+    discrete: bool,
+    device: DeviceLike = None,
+) -> Dict[str, torch.Tensor]:
+    """The state dict of ``rllib.dreamer.DreamerNets(config, obs_dim,
+    action_dim, discrete)`` from the reference's ``DreamerNets.init_params``
+    tree (``wm`` with ``encoder``, ``inp_proj``, ``gru``, ``prior``,
+    ``post``, ``decoder``, ``reward``, ``cont``; ``actor``, ``critic``,
+    ``slow_critic``), in f32 on ``device``. The GRU's six flax gates become
+    the port's fused ``kernel_i``, ``kernel_h``, ``bias_i`` and ``bias_hn``;
+    every other leaf keeps its flax path. A missing, extra or misshapen
+    leaf raises."""
+    flat = dict(_flatten(flax_params))
+    for name, leaves in _GRU_LEAVES.items():
+        keys = [f"wm.gru.{leaf}" for leaf in leaves]
+        present = [k for k in keys if k in flat]
+        if present and len(present) < len(keys):
+            raise KeyError(f"parameters missing from the tree: {sorted(set(keys) - set(present))}")
+        if present:
+            flat[f"wm.gru.{name}"] = np.concatenate([np.asarray(flat.pop(k)) for k in keys], -1)
+    nets = DreamerNets(config, obs_dim, action_dim, discrete)
+    want = {k: v.shape for k, v in nets.state_dict().items()}
+    return _load(flat, want, torch.float32, resolve_device(device))
 
 
 def cache_from_jax(

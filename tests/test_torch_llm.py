@@ -339,7 +339,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     brings in JAX, ray_tpu, gymnasium, ml_dtypes or cloudpickle (which the
     card's machine lacks). The walk includes the parallel package, the MoE
     model, the observability plane (util), the KV tier with what it
-    imports, and every RLlib algorithm."""
+    imports, and every RLlib algorithm, DreamerV3 included."""
     code = (
         "import importlib, pkgutil, sys, ray_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__, 'ray_tpu_torch.')]\n"
@@ -356,7 +356,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "        'ray_tpu_torch._internal.transfer', 'ray_tpu_torch.rllib.dqn',\n"
         "        'ray_tpu_torch.rllib.sac', 'ray_tpu_torch.rllib.impala', 'ray_tpu_torch.rllib.bc',\n"
         "        'ray_tpu_torch.rllib.offline', 'ray_tpu_torch.rllib.multi_agent',\n"
-        "        'ray_tpu_torch.rllib.multi_agent_env'}\n"
+        "        'ray_tpu_torch.rllib.multi_agent_env', 'ray_tpu_torch.rllib.dreamer'}\n"
         "print(len(mods), bad, sorted(need - set(mods)))\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -374,26 +374,30 @@ def test_port_imports_neither_jax_nor_ray_tpu():
 def test_port_sources_name_neither_jax_nor_ray_tpu():
     """No import of jax, flax, optax, ray_tpu, ml_dtypes or cloudpickle
     anywhere, lazy ones included (the card's machine has neither of the
-    last two)."""
+    last two), and of gymnasium nowhere but in rllib/env.py's lazy
+    ``make_env`` of a string id. The scan covers every module, DreamerV3's
+    and the converters' included."""
     import ast
 
-    offenders = []
+    offenders, scanned = [], set()
     pkg = _REPO / "ray_tpu_torch"
     for path in pkg.rglob("*.py"):
         if path.relative_to(pkg).parts[0] == "_build":  # build outputs
             continue
+        rel = path.relative_to(pkg).as_posix()
+        scanned.add(rel)
+        banned = ("jax", "flax", "optax", "ray_tpu", "ml_dtypes", "cloudpickle")
+        if rel != "rllib/env.py":
+            banned += ("gymnasium",)
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 names = [node.module or ""]
-            offenders += [
-                f"{path.name}: {n}" for n in names
-                if n.split(".")[0] in ("jax", "flax", "optax", "ray_tpu", "ml_dtypes",
-                                       "cloudpickle")
-            ]
+            offenders += [f"{path.name}: {n}" for n in names if n.split(".")[0] in banned]
     assert offenders == []
+    assert {"rllib/dreamer.py", "rllib/sac.py", "models/convert.py"} <= scanned
 
 
 def test_no_card_means_error_not_cpu(monkeypatch):
