@@ -113,6 +113,24 @@ Phases, each of which exits non-zero on failure:
      one step under torch.profiler, whose launches of each of the port's
      kernels, found by symbol and counted by their wrappers, must equal the
      per-step counts;
+  12b. data-parallel training (``train_dp``): (a) NcclGroup at world size 1
+     in this process: every op on bf16 and f32 tensors of 4 MiB and 33.5 MB
+     (the 7B adapters' gradient) equals its input, timed (a one-rank op is
+     a copy on the card, not a link's speed); 10 quantized allreduce rounds
+     of each dtype equal the codec's formula on the card with the residual
+     carried; wire and logical bytes in collective_summary; an async
+     allreduce's overlap split; moe_dispatch / moe_combine over the group
+     equal the local ones; (b) phase 12's fit() again in process (the
+     bound: two in-process runs), then TorchTrainer of the llama_lora loop
+     with a spawned NCCL worker (TorchConfig(backend="nccl"), overlap on):
+     its losses and 256 adapters within that bound, K1-K4 129/64/32/32 a
+     step counted in the worker, 8 buckets of 4 MiB and 8 allreduce ops a
+     step (33.5 MB), the NCCL kernels a profiled step launches, step ms,
+     overlap split and peak memory; (c) two gloo ranks sharing the card
+     (ScalingConfig(2, {"GPU": 0.5})) at 2 layers of 7B width, batch 1
+     each: adapters equal across ranks after every step and within a
+     stated bound of one rank at batch 2; the gloo allreduce timed alone;
+     (d) NCCL for two ranks on one card refused before any spawn;
   13. ResNet-50 training (``train_resnet``): make_trainer(...).fit() of the
      resnet loop at 224, batch 256 (bf16 activations over f32 parameters,
      SGD with momentum), finite losses, running statistics that move, K1-K4
@@ -190,7 +208,10 @@ just after phase 6 (serving), set to 0 just before phase 7 and read just
 after phase 9 (continuous batching, ``serve_cb``, with ``serve_obs``), set to 0 just before
 phase 10 and read just after it (``serve_lora``), set to 0 just before phase
 10b and read just after it (``serve_disagg``), and set to 0 just before
-phase 12's fit() and read just after it (training), and set to 0 at the
+phase 12's fit() and read just after it (training), set to 0 just before
+phase 12b (b)'s fit() and read just after it, with the spawned worker's own
+counts, set to 0 before its loop and read after it, added (``train_dp``),
+and set to 0 at the
 start of phases 13 and 14 and read after their timed and profiled steps
 (``train_resnet``, ``train_vit``), and set to 0 at the start of phase 15 and
 read after its timed iterations and profiled update (``train_ppo``), set
@@ -2173,12 +2194,15 @@ def serve_disagg_phase(torch, np, params):
     return out
 
 
-def device_profile(torch, fn, groups=None):
+def device_profile(torch, fn, groups=None, attempts=3):
     """Wall time, device busy share, the kernels that take the most device
     time of one call of ``fn`` under torch.profiler, and the device time and
     launches of each of the port's kernels in it. ``groups`` (name -> parts
-    of kernel symbols) adds the device time of each group, a kernel going to
-    the first group with a part in its name, and of the kernels in none."""
+    of kernel symbols) adds the device time and launches of each group, a
+    kernel going to the first group with a part in its name, and of the
+    kernels in none. ``attempts`` bounds the profiles taken (see below): a
+    rank of a gang passes 1, since a retry on one rank alone would add
+    collectives the others never join."""
     from torch.profiler import ProfilerActivity, profile
 
     # the profiler can lose the first device records of a session, whatever
@@ -2191,7 +2215,7 @@ def device_profile(torch, fn, groups=None):
     # new session behind four times the pads. fn runs once an attempt, so a
     # caller that holds the kernels' launch counters over this call expects
     # ``profile_attempts`` times one run's launches.
-    pad_symbol, attempts = "spin_kernel", 3
+    pad_symbol = "spin_kernel"
     for attempt in range(1, attempts + 1):
         pad = 256 * 4 ** (attempt - 1)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2213,9 +2237,10 @@ def device_profile(torch, fn, groups=None):
     check(pads_lost < pad, f"{attempts} profiles in a row lost all their pad records")
     kernels = [e for e in kernels if pad_symbol not in e.name]
     busy_ms = sum(e.device_time for e in kernels) / 1e3
-    by_name = {}
+    by_name, count_by_name = {}, {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+        count_by_name[e.name] = count_by_name.get(e.name, 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     port = {}
     for name, symbol in PORT_KERNELS.items():
@@ -2243,6 +2268,8 @@ def device_profile(torch, fn, groups=None):
             hit = [g for g, parts in groups.items() if any(x in name for x in parts)]
             members[hit[0] if hit else "other"].append((name, t))
         out["groups_ms"] = {g: sum(t for _, t in m) for g, m in members.items()}
+        out["groups_launches"] = {g: sum(count_by_name[name] for name, _ in m)
+                                  for g, m in members.items()}
         out["groups_share"] = {g: t / busy_ms if busy_ms else None
                                for g, t in out["groups_ms"].items()}
         out["groups_top"] = {g: [[name[:100], t] for name, t in m[:3]]
@@ -2340,7 +2367,7 @@ def train_phase(torch, counters):
                fit_peak_bytes=fit_peak, step_peak_bytes=step_peak, profile=prof)
     print("train", json.dumps(out))
     del model, optimizer
-    return launches, out
+    return launches, out, lora
 
 
 def _launches(counters):
@@ -2392,6 +2419,413 @@ def _control_check(tag, errs, control, times=4):
     check(worst <= times * control,
           f"{tag}: card vs f64 host error {worst} > {times} x {control} ({errs})")
     return dict(max_rel_err=worst, control=control, tol=times * control)
+
+
+# -- data-parallel training (``train_dp``) -----------------------------------
+
+#: (a)'s one-rank operands: 4 MiB, and the 7B adapters' gradient, 32 layers
+#: x 4 projections x (4096 x 16 + 16 x 4096) bf16 elements = 33.5 MB
+DP_OP_BYTES = (4 << 20, 32 * 4 * (4096 * 16 + 16 * 4096) * 2)
+DP_QUANT_ROUNDS = 10
+#: the 7B adapters' 256 leaves of 128 KiB, bucketed at 4 MiB: 8 buckets
+DP_BUCKETS_PER_STEP = 8
+#: what NCCL launches on the card in a step for its 8 one-rank allreduces
+#: (torch.profiler, kernels whose symbol holds "nccl")
+DP_NCCL_KERNELS_PER_STEP = 0
+#: (c): two ranks sharing the card over gloo, 2 layers of 7B width
+DP_GLOO = {"n_layers": 2, "steps": 2, "batch": 1}
+DP_GROUPS = {"nccl": ("nccl",), "memcpy_dtod": ("Memcpy DtoD",)}
+
+
+def _port_counters():
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq
+    from ray_tpu_torch.ops.rmsnorm import rmsnorm_fwd
+
+    return {"rmsnorm_fwd": rmsnorm_fwd, "flash_attention_fwd": flash_attention_fwd,
+            "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
+
+
+def _host_ms(torch, fn, n=10):
+    """Median host-clock ms of ``n`` calls of ``fn``, each ending in a
+    synchronize, after a warm-up call."""
+    return statistics.median(_timed_steps(torch, fn, n)[0])
+
+
+def train_dp_loop(config):
+    """The ``train_dp`` worker: llama_lora's own loop (the main path, with
+    this process's K1-K4 launches and collective records around it), then 3
+    timed steps and a profiled one of a fresh model through the same
+    gradient hook; reported to the controller."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.train import collective as tcol
+    from ray_tpu_torch.train.examples import llama_lora
+    from ray_tpu_torch.util import metrics
+
+    # the flags of the in-process run this one is held to
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = _port_counters()
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llama_lora.train_loop_per_worker(config)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    summary = metrics.collective_summary()
+    overlap = metrics.collective_overlap_summary()
+    buckets = tcol.gradient_scheduler()._bucketizer.buckets
+
+    ctx = train.get_context()
+    cfg = llama_lora.model_config(config)
+    device = torch.device("cuda", torch.cuda.current_device())
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    model, _, optimizer = llama_lora.lora_model(cfg, params)
+    del params
+    reduce = llama_lora.data_parallel_mean(ctx.world_size)
+    tokens = llama_lora.step_tokens(cfg, config["batch_per_worker"], 0, 0, ctx.world_rank, device)
+    step_ms, step_peak = _timed_steps(
+        torch, lambda: llama_lora.lora_train_step(model, optimizer, tokens, reduce), 3)
+    ops0 = metrics.collective_summary()["allreduce"]["count"]
+    prof = device_profile(torch, lambda: llama_lora.lora_train_step(model, optimizer, tokens, reduce),
+                          groups=DP_GROUPS, attempts=3 if ctx.world_size == 1 else 1)
+    prof_ops = (metrics.collective_summary()["allreduce"]["count"] - ops0) / prof["profile_attempts"]
+    train.report({"dp_stats": dict(
+        fit_s=fit_s, launches=launches, peak_bytes=peak, summary=summary, overlap=overlap,
+        buckets=[[len(b.paths), b.nbytes, b.dtype] for b in buckets],
+        step_ms=step_ms, step_peak_bytes=step_peak, profile=prof, profile_allreduce_ops=prof_ops,
+    )})
+
+
+def _dp_gloo_model(torch, device):
+    """(c)'s model: llama_lora's 7B config cut to 2 layers, the same seed."""
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.train.examples import llama_lora
+
+    cfg = dataclasses.replace(llama_lora.model_config(TRAIN_CONFIG), n_layers=DP_GLOO["n_layers"])
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    model, lora, optimizer = llama_lora.lora_model(cfg, params)
+    return cfg, model, lora, optimizer
+
+
+def _dp_gloo_tokens(torch, cfg, device):
+    """The global batch of each step: 2 rows from a seed, rank r takes row r."""
+    gen = torch.Generator(device=device).manual_seed(1234)
+    return [torch.randint(0, cfg.vocab_size, (2, cfg.max_seq_len), generator=gen, device=device)
+            for _ in range(DP_GLOO["steps"])]
+
+
+def _host_adapters(lora):
+    return {k: p.detach().float().cpu().numpy() for k, p in lora.items()}
+
+
+def train_dp_gloo_loop(config):
+    """(c)'s worker: two ranks on one card, llama_lora's step at batch 1
+    each through the gloo tensor group; the adapters after each step."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.collective import get_group
+    from ray_tpu_torch.train import collective as tcol
+    from ray_tpu_torch.train.examples import llama_lora
+    from ray_tpu_torch.util import metrics
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = train.get_context()
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg, model, lora, optimizer = _dp_gloo_model(torch, device)
+    reduce = llama_lora.data_parallel_mean(ctx.world_size)
+    r, b = ctx.world_rank, DP_GLOO["batch"]
+    for step, tokens in enumerate(_dp_gloo_tokens(torch, cfg, device)):
+        loss = llama_lora.lora_train_step(model, optimizer, tokens[r * b:(r + 1) * b], reduce)
+        train.report({"step": step, "rank": r, "loss": float(loss), "device": str(device),
+                      "adapters": _host_adapters(lora)})
+    summary = metrics.collective_summary()["allreduce"]
+    # the op alone: in the steps its clock also holds the wait for the other
+    # rank's backward on the shared card (a rendezvous) and for this rank's
+    # queued backward (the copy to the host)
+    group = get_group(ctx.collective_tensor_group)
+    grads = torch.randn(sum(p.numel() for p in lora.values()), device=device).to(torch.bfloat16)
+    alone = []
+    for _ in range(6):
+        tcol.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        group.allreduce(grads)
+        torch.cuda.synchronize()
+        alone.append((time.perf_counter() - t0) * 1e3)
+    train.report({"rank": r, "allreduce": summary, "allreduce_alone_ms": alone[1:],
+                  "grad_bytes": grads.numel() * grads.element_size()})
+
+
+def _dp_nccl_one_rank(torch):
+    """(a): every op of NcclGroup at world size 1 in this process."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import collective as col
+    from ray_tpu_torch._internal.quantization import (
+        dequantize_torch,
+        quantize_torch,
+        quantized_wire_nbytes,
+    )
+    from ray_tpu_torch.collective import ReduceOp
+    from ray_tpu_torch.collective.scheduler import GradientReduceScheduler
+    from ray_tpu_torch.parallel import expert as texp
+    from ray_tpu_torch.util import metrics
+
+    store = dist.TCPStore("127.0.0.1", 0, 1, is_master=True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    device = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=device).manual_seed(7)
+    g = col.init_collective_group(1, 0, backend="nccl", group_name="dp-smoke")
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for nbytes in DP_OP_BYTES:
+            n = nbytes // torch.empty((), dtype=dtype).element_size()
+            x = torch.randn(n, generator=gen, device=device).to(dtype)
+            ops = {"allreduce_sum": lambda: g.allreduce(x),
+                   "allreduce_min": lambda: g.allreduce(x, ReduceOp.MIN),
+                   "allreduce_max": lambda: g.allreduce(x, ReduceOp.MAX),
+                   "allgather": lambda: g.allgather(x),
+                   "reducescatter": lambda: g.reducescatter(x),
+                   "broadcast": lambda: g.broadcast(x)}
+            for op, fn in ops.items():
+                check(torch.equal(fn(), x), f"one-rank {op} of {dtype} {nbytes} B is not its input")
+                ms = _host_ms(torch, fn)
+                rows.append(dict(op=op, dtype=str(dtype), bytes=nbytes, ms=ms,
+                                 gb_per_s=nbytes / ms / 1e6))
+    try:
+        g.allreduce(torch.ones(4, device=device), ReduceOp.PRODUCT)
+        fail("NcclGroup reduced with PRODUCT")
+    except NotImplementedError:
+        pass
+    try:
+        g.allreduce(torch.ones(4))
+        fail("NcclGroup took a host operand")
+    except TypeError:
+        pass
+
+    # the quantized allreduce: 10 rounds of each dtype at the 7B size, each
+    # equal to the codec's formula on the card, the residual carried
+    q = col.init_collective_group(1, 0, backend="nccl", group_name="dp-smoke-q", quantized=True)
+    before = metrics.collective_summary()["allreduce"]
+    logical = wire = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        n = DP_OP_BYTES[1] // torch.empty((), dtype=dtype).element_size()
+        residual = None
+        for _ in range(DP_QUANT_ROUNDS):
+            x = torch.randn(n, generator=gen, device=device).to(dtype)
+            out = q.allreduce(x)
+            comp = x.float() if residual is None else x.float() + residual
+            codes, scales = quantize_torch(comp, q.quant_block)
+            deq = dequantize_torch(codes, scales, comp.shape, torch.float32)
+            check(torch.equal(out, deq.to(dtype)), f"quantized {dtype} allreduce is not the codec's")
+            residual = comp - deq
+            carried = q._ef_residuals[("allreduce", (n,), str(dtype))]
+            check(torch.equal(carried, residual), f"quantized {dtype} residual is not carried")
+            logical += x.numel() * x.element_size()
+            wire += quantized_wire_nbytes(n, q.quant_block)
+    after = metrics.collective_summary()["allreduce"]
+    check(after["bytes"] - before["bytes"] == logical,
+          f"collective_summary logical bytes {after['bytes'] - before['bytes']} != {logical}")
+    check(after["wire_bytes"] - before["wire_bytes"] == wire,
+          f"collective_summary wire bytes {after['wire_bytes'] - before['wire_bytes']} != {wire}")
+    quant_ms = _host_ms(torch, lambda: q.allreduce(x))
+
+    # one async allreduce through the scheduler records an overlap split
+    pending = GradientReduceScheduler(g, overlap=True).reduce({"g": x})
+    pending.wait()
+    split = metrics.collective_overlap_summary()["dp-smoke"]
+    check(split["exposed_s"] + split["overlapped_s"] > 0, f"no overlap split recorded: {split}")
+
+    # moe_dispatch / moe_combine through the one-rank all_to_all
+    t, e, d = 256, 8, 4096
+    xs = torch.randn(t, d, generator=gen, device=device).to(torch.bfloat16)
+    logits = torch.randn(t, e, generator=gen, device=device)
+    dispatch, combine, _ = texp.top_k_gating(logits, texp.expert_capacity(t, e, 1.0, 2), k=2)
+    slabs = texp.moe_dispatch(xs, dispatch, group=g)
+    check(torch.equal(slabs, texp.moe_dispatch(xs, dispatch)), "moe_dispatch over NCCL != local")
+    check(torch.equal(texp.moe_combine(slabs * 2, combine, group=g),
+                      texp.moe_combine(slabs * 2, combine)), "moe_combine over NCCL != local")
+    for name in ("dp-smoke", "dp-smoke-q"):
+        col.destroy_collective_group(name)
+    dist.destroy_process_group()
+    return dict(ops=rows, quantized_rounds=2 * DP_QUANT_ROUNDS, quantized_logical_bytes=logical,
+                quantized_wire_bytes=wire, quantized_allreduce_ms=quant_ms, overlap_split=split,
+                note="one rank: each op is a copy on the card (or nothing), not a link's speed")
+
+
+def train_dp_phase(torch, np, counters, train_out, train_lora):
+    """Data-parallel training: (a) NcclGroup at world size 1; (b) the 7B
+    LoRA loop through TorchTrainer with a spawned NCCL worker, held to the
+    ``train`` phase's in-process fit(); (c) two ranks sharing the card over
+    gloo at 2 layers; (d) NCCL for two ranks on one card is refused."""
+    import multiprocessing
+    import pickle
+    import tempfile
+
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchConfig, TorchTrainer
+    from ray_tpu_torch.train.examples import llama_lora
+
+    out = {"nccl_one_rank": _dp_nccl_one_rank(torch)}
+    for row in out["nccl_one_rank"]["ops"]:
+        print("train_dp op", json.dumps(row))
+
+    def fit(loop, storage, **kw):
+        result = TorchTrainer(loop, train_loop_config=dict(TRAIN_CONFIG),
+                              run_config=RunConfig(name="llama-lora", storage_path=storage),
+                              **kw).fit()
+        if result.error is not None:
+            raise result.error
+        with open(Path(result.checkpoint.path) / "lora.pkl", "rb") as f:
+            return result, pickle.load(f)["lora"]
+
+    def max_diff(a, b):
+        check(sorted(a) == sorted(b), "the checkpoints hold other adapters")
+        return max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+
+    # the bound: a second in-process fit against the train phase's
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as storage:
+        again, again_lora = fit(llama_lora.train_loop_per_worker, storage)
+    train_losses = train_out["losses"]
+    bound_loss = max(abs(a - b) for a, b in zip(train_losses,
+                                                [m["loss"] for m in again.metrics_history]))
+    bound_lora = max_diff(train_lora, again_lora)
+    del again_lora
+    torch.cuda.empty_cache()
+
+    # (b) the worker-group path: one NCCL worker, spawned
+    _zero(counters)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as storage:
+        t0 = time.perf_counter()
+        result, dp_lora = fit(train_dp_loop, storage, scaling_config=ScalingConfig(num_workers=1),
+                              backend_config=TorchConfig(backend="nccl"), overlap=True)
+        fit_s = time.perf_counter() - t0
+    parent = _launches(counters)
+    check(not any(parent.values()), f"the train_dp loop launched kernels in the parent: {parent}")
+    check(not multiprocessing.active_children(), "the worker group left a process")
+    stats = next(m["dp_stats"] for m in result.metrics_history if "dp_stats" in m)
+    losses = [m["loss"] for m in result.metrics_history if "loss" in m]
+    check(len(losses) == TRAIN_CONFIG["epochs"], f"worker losses {losses}")
+    loss_diff = max(abs(a - b) for a, b in zip(losses, train_losses))
+    lora_diff = max_diff(dp_lora, train_lora)
+    check(len(dp_lora) == 32 * 4 * 2, f"the worker's checkpoint holds {len(dp_lora)} adapters")
+    check(loss_diff <= bound_loss, f"worker losses part from in-process by {loss_diff} > {bound_loss}")
+    check(lora_diff <= bound_lora, f"worker adapters part from in-process by {lora_diff} > {bound_lora}")
+    n_layers = 32
+    want = {"rmsnorm_fwd": 4 * n_layers + 1, "flash_attention_fwd": 2 * n_layers,
+            "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers}
+    launches = {name: parent[name] + stats["launches"][name] for name in counters}
+    for name, per_step in want.items():
+        check(stats["launches"][name] == per_step * TRAIN_STEPS,
+              f"{name}: {stats['launches'][name]} launches in the worker's {TRAIN_STEPS} steps, "
+              f"want {per_step} each")
+    grad_bytes = DP_OP_BYTES[1]
+    check(stats["buckets"] == [[32, 4 << 20, "bfloat16"]] * DP_BUCKETS_PER_STEP,
+          f"buckets {stats['buckets']}")
+    ar = stats["summary"]["allreduce"]
+    check(ar["count"] == DP_BUCKETS_PER_STEP * TRAIN_STEPS,
+          f"{ar['count']} allreduce ops in {TRAIN_STEPS} steps, want {DP_BUCKETS_PER_STEP} a step")
+    check(ar["bytes"] == grad_bytes * TRAIN_STEPS and ar["wire_bytes"] == ar["bytes"],
+          f"allreduce bytes {ar}, want {grad_bytes} a step")
+    prof = stats["profile"]
+    check(stats["profile_allreduce_ops"] == DP_BUCKETS_PER_STEP,
+          f"{stats['profile_allreduce_ops']} allreduce ops in the profiled step")
+    nccl = prof["groups_launches"]["nccl"]
+    check(nccl == DP_NCCL_KERNELS_PER_STEP,
+          f"{nccl} NCCL kernels in the profiled step, want {DP_NCCL_KERNELS_PER_STEP}: "
+          f"{prof['groups_top']}")
+    for name, per_step in want.items():
+        check(prof["port_kernels"][name]["launches"] == per_step,
+              f"{name}: {prof['port_kernels'][name]['launches']} launches in the worker's profile")
+    out["nccl_worker"] = dict(
+        fit_s=fit_s, worker_fit_s=stats["fit_s"], losses=losses, bound_loss=bound_loss,
+        loss_diff=loss_diff, bound_adapter=bound_lora, adapter_diff=lora_diff,
+        launches=stats["launches"], launches_per_step=want, buckets=stats["buckets"],
+        allreduce=ar, overlap=stats["overlap"], step_ms=stats["step_ms"],
+        step_ms_median=statistics.median(stats["step_ms"]),
+        train_phase_step_ms_median=train_out["step_ms_median"],
+        worker_peak_bytes=stats["peak_bytes"], worker_step_peak_bytes=stats["step_peak_bytes"],
+        profile=dict(nccl_kernels=nccl, memcpy_dtod=prof["groups_launches"]["memcpy_dtod"],
+                     groups_ms=prof["groups_ms"], groups_top=prof["groups_top"],
+                     device_busy_share=prof["device_busy_share"], wall_ms=prof["wall_ms"],
+                     kernel_launches=prof["kernel_launches"]))
+    del dp_lora
+    torch.cuda.empty_cache()
+
+    # (c) two ranks sharing the card over gloo, against one rank at batch 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as storage:
+        result = TorchTrainer(
+            train_dp_gloo_loop, run_config=RunConfig(name="dp-gloo", storage_path=storage),
+            scaling_config=ScalingConfig(num_workers=2, resources_per_worker={"GPU": 0.5}),
+            backend_config=TorchConfig(backend="gloo"), overlap=True).fit()
+    if result.error is not None:
+        raise result.error
+    steps = {}
+    for m in result.metrics_history:
+        if "step" in m:
+            steps.setdefault(m["step"], {})[m["rank"]] = m
+    check(sorted(steps) == list(range(DP_GLOO["steps"])), f"gloo steps {sorted(steps)}")
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg, model, lora, optimizer = _dp_gloo_model(torch, device)
+    one = []
+    for tokens in _dp_gloo_tokens(torch, cfg, device):
+        loss = llama_lora.lora_train_step(model, optimizer, tokens)
+        one.append((loss.item(), _host_adapters(lora)))
+    lr = 1e-4
+    rows = []
+    for s, (loss, adapters) in enumerate(one):
+        r0, r1 = steps[s][0], steps[s][1]
+        check(r0["device"] == r1["device"] == str(device), "the gloo ranks are not on one card")
+        for k in adapters:
+            check(np.array_equal(r0["adapters"][k], r1["adapters"][k]),
+                  f"step {s}: the gloo ranks' {k} differ")
+        # the mean of two batch-1 gradients against one batch-2 gradient:
+        # each is bf16 arithmetic summed in another order, which can flip
+        # the sign of a near-zero element, and Adam moves an element by
+        # about lr a step whatever its gradient's size; so after n steps an
+        # element may part by 2 n lr, plus a rounding of the bf16 parameter
+        # (half an ulp of |p|) per step on each side
+        worst = 0.0
+        for k, want_a in adapters.items():
+            got = r0["adapters"][k]
+            ulp = np.spacing(np.abs(want_a).astype(np.float32)) * 2 ** 16  # bf16 ulp
+            excess = np.abs(got - want_a) - (2 * (s + 1) * lr + (s + 1) * ulp)
+            worst = max(worst, float(excess.max()))
+        check(worst <= 0, f"step {s}: gloo adapters part from batch 2 by {worst} past the bound")
+        rows.append(dict(step=s, loss_batch2=loss, loss_ranks=[r0["loss"], r1["loss"]],
+                         equal_share=float(np.mean(np.concatenate(
+                             [(r0["adapters"][k] == a).ravel() for k, a in adapters.items()])))))
+    del model, optimizer, lora
+    ends = [m for m in result.metrics_history if "allreduce" in m]
+    check(len(ends) == 2 and all(m["allreduce"]["count"] == DP_GLOO["steps"] for m in ends),
+          f"gloo allreduce records {ends}")
+    # 2 layers x 4 projections x (4096 x 16 + 16 x 4096) bf16: one 2 MiB bucket a step
+    grad_bytes = DP_GLOO["n_layers"] * 4 * 2 * 4096 * 16 * 2
+    check(all(m["grad_bytes"] == grad_bytes
+              and m["allreduce"]["bytes"] == grad_bytes * DP_GLOO["steps"] for m in ends),
+          f"gloo gradient bytes {[m['allreduce'] for m in ends]}, want {grad_bytes} a step")
+    out["gloo_shared_card"] = dict(
+        steps=rows, grad_bytes=grad_bytes,
+        allreduce_in_step_mean_ms=[m["allreduce"]["mean_ms"] for m in ends],
+        allreduce_alone_ms=[m["allreduce_alone_ms"] for m in ends],
+        allreduce_alone_median_ms=[statistics.median(m["allreduce_alone_ms"]) for m in ends])
+
+    # (d) NCCL for two ranks on one card is the port's refusal, before any spawn
+    try:
+        TorchTrainer(train_dp_loop, scaling_config=ScalingConfig(2, {"GPU": 0.5}),
+                     backend_config=TorchConfig(backend="nccl")).fit()
+        fail("NCCL with two ranks on one card was not refused")
+    except ValueError as e:
+        check('backend="gloo"' in str(e), f"refusal without its advice: {e}")
+        out["refusal"] = str(e)
+    check(not multiprocessing.active_children(), "the refusal spawned a process")
+    print("train_dp", json.dumps(out))
+    return launches, out
 
 
 def resnet_macs(cfg, size: int) -> int:
@@ -3891,11 +4325,7 @@ def main() -> None:
     sass_phase()
     grad_parity_phase(torch, np)
 
-    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq
-    from ray_tpu_torch.ops.rmsnorm import rmsnorm_fwd
-
-    counters = {"rmsnorm_fwd": rmsnorm_fwd, "flash_attention_fwd": flash_attention_fwd,
-                "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
+    counters = _port_counters()
     # the serving path: serving, then the full forward; counts set to 0
     # inside serve_phase just before its requests and read here, after both
     server, prompts, serve = serve_phase(torch, np)
@@ -3949,7 +4379,13 @@ def main() -> None:
 
     # the training path: counts set to 0 inside train_phase just before
     # fit() and read just after it
-    train_launches, _ = train_phase(torch, counters)
+    train_launches, train_out, train_lora = train_phase(torch, counters)
+    torch.cuda.empty_cache()
+    # data-parallel training: the counts of this process are set to 0 just
+    # before (b)'s fit() and read just after it (they must stay 0: the loop
+    # runs in a spawned worker), and the worker's own counts, set to 0 just
+    # before its loop and read just after it, are added
+    dp_launches, _ = train_dp_phase(torch, np, counters, train_out, train_lora)
     torch.cuda.empty_cache()
     # the vision training paths: counts set to 0 inside each phase just
     # before its first step and read just after its last (before its parity
@@ -3974,7 +4410,8 @@ def main() -> None:
     # runs)
     moe_launches, _ = train_moe_phase(torch, counters)
     paths = {"serve": serve_launches, "serve_cb": cb_launches, "serve_lora": lora_launches,
-             "serve_disagg": disagg_launches, "train": train_launches, "train_resnet": resnet_launches, "train_vit": vit_launches,
+             "serve_disagg": disagg_launches, "train": train_launches, "train_dp": dp_launches,
+             "train_resnet": resnet_launches, "train_vit": vit_launches,
              "train_ppo": ppo_launches, "train_rl": rl_launches,
              "train_dreamer": dreamer_launches, "train_moe": moe_launches}
     launches = {name: sum(p[name] for p in paths.values()) for name in counters}

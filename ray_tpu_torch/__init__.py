@@ -24,7 +24,12 @@ Covered so far:
   -> ``train.examples.resnet`` -> ``models.resnet`` (cuDNN convolutions,
   flax's BatchNorm) -> SGD with momentum; ViT through
   ``models.vit.classification_loss`` -> ``loss.backward()``, its encoder
-  attention through the flash-attention kernels, non-causal.
+  attention through the flash-attention kernels, non-causal;
+- data-parallel training: ``collective`` (``NcclGroup``, ``GlooGroup``,
+  the bucketized ``GradientReduceScheduler``) under
+  ``train.TorchTrainer(scaling_config=ScalingConfig(num_workers=n),
+  backend_config=TorchConfig())``, whose spawned workers sum their
+  gradients with ``train.collective.reduce_gradients``.
 
 Every Pallas kernel of ``ray_tpu`` now has its CUDA counterpart. The package
 imports neither JAX nor ``ray_tpu``.

@@ -28,8 +28,11 @@ lacks, so a :class:`QuantizedArray` records its dtype by torch's name
 and round half to even (``np.rint``, ``torch.round``), so the codes and
 scales of one input are equal on either path and either device.
 
-The collectives' error-feedback encode (``ef_quantize_np``) and the analytic
-wire size (``quantized_wire_nbytes``) come with the collectives slice.
+The collectives carry an error-feedback residual across rounds: the part
+of each round's compensated input that the codes did not carry
+(:func:`ef_quantize_np` on the host, :func:`ef_quantize_torch` on the
+tensor's device); :func:`quantized_wire_nbytes` is a coded tensor's analytic
+wire size.
 """
 
 from __future__ import annotations
@@ -147,6 +150,36 @@ def dequantize_np(qa: QuantizedArray, dtype: Optional[str] = None) -> torch.Tens
     return torch.from_numpy(flat.reshape(qa.shape)).to(_torch_dtype(dtype or qa.dtype))
 
 
+def ef_quantize_np(
+    arr: Any, residual: Optional[np.ndarray], block: int = DEFAULT_BLOCK
+) -> Tuple[QuantizedArray, np.ndarray]:
+    """Error-feedback encode on the host: compensate with the carried f32
+    ``residual``, quantize, and return (codes, new residual), the new
+    residual being the local quantization error that the next round folds
+    in. ``arr`` is a numpy array or a torch tensor (copied to the host).
+    A non-finite new residual is dropped to 0 at those positions, so that
+    one inf does not poison every later round."""
+    if isinstance(arr, torch.Tensor):
+        comp = arr.detach().to("cpu", torch.float32).contiguous().numpy()
+    else:
+        comp = np.asarray(arr).astype(np.float32, copy=False)
+    if residual is not None:
+        comp = comp + residual
+    qa = quantize_np(comp, block)
+    new_residual = comp - dequantize_np(qa, dtype="float32").numpy()
+    if not np.isfinite(new_residual).all():
+        new_residual = np.nan_to_num(new_residual, nan=0.0, posinf=0.0, neginf=0.0)
+    return qa, new_residual
+
+
+def quantized_wire_nbytes(nelems: int, block: int = DEFAULT_BLOCK) -> int:
+    """Analytic wire size of a coded tensor: one byte per element of int8
+    codes, padded to the block multiple, and four bytes per block of
+    scales."""
+    n_blocks = max(1, -(-nelems // block))
+    return n_blocks * block + 4 * n_blocks
+
+
 # -- torch path (the tensor's own device) ----------------------------------------
 
 
@@ -184,3 +217,17 @@ def dequantize_torch(q: torch.Tensor, scales: torch.Tensor, shape, dtype) -> tor
     lead = tuple(q.shape[:-2])
     flat = (q.to(torch.float32) * scales[..., None]).reshape(*lead, -1)
     return flat[..., :n].reshape(*lead, *shape).to(dtype)
+
+
+def ef_quantize_torch(x: torch.Tensor, residual: Optional[torch.Tensor],
+                      block: int = DEFAULT_BLOCK):
+    """The reference's on-device error-feedback step (``XlaGroup``'s
+    quantized programs): ``comp = x + residual`` in f32, its codes and
+    scales, and the new residual ``comp - dequantize(codes)``, all on
+    ``x``'s device. Returns (comp, q, scales, new residual)."""
+    comp = x.detach().to(torch.float32)
+    if residual is not None:
+        comp = comp + residual
+    q, scales = quantize_torch(comp, block)
+    own = dequantize_torch(q, scales, comp.shape, torch.float32)
+    return comp, q, scales, comp - own

@@ -42,3 +42,22 @@ class MeshValidationError(RayTpuError, ValueError):
     model, e.g. an ``LLMConfig.mesh`` axis other than ``tp``/``sp`` or a
     size that is not a positive int. Raised at construction, before any
     weight is placed."""
+
+
+class CollectiveAbortedError(RayTpuError):
+    """An in-flight collective op was aborted because a group member died
+    (or the group was explicitly aborted). Retryable: the gang re-forms at a
+    new group epoch and the caller re-enters the op from its last published
+    training state."""
+
+    def __init__(self, group_name: str = "", epoch: int = 0,
+                 reason: str = "group member died"):
+        self.group_name = group_name
+        self.epoch = epoch
+        self.reason = reason
+        super().__init__(
+            f"collective group {group_name!r} epoch {epoch} aborted: {reason}"
+        )
+
+    def __reduce__(self):
+        return (type(self), (self.group_name, self.epoch, self.reason))

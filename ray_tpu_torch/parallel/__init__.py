@@ -2,9 +2,10 @@
 ``ray_tpu.parallel``.
 
 So far the expert routing of the MoE model (``expert``): top-k gating with
-static capacity, the dense and the indexed dispatch/combine, at one rank.
-Meshes, sharding plans, ring and Ulysses attention and the pipeline come
-with later slices of the port (ROADMAP items A.4-A.6).
+static capacity, the dense and the indexed dispatch/combine, and the
+all_to_all dispatch/combine over an expert-parallel process group. Meshes,
+sharding plans, ring and Ulysses attention and the pipeline come with later
+slices of the port (ROADMAP items A.5-A.6).
 """
 
 from .expert import (

@@ -27,9 +27,12 @@ into a multiply-add and round once. So for k = 2 the outputs agree to
 within 2^-22 of the sum of |w · y| (three roundings at 2^-24), and are
 equal wherever the GEMM also rounded each product.
 
-``moe_dispatch`` / ``moe_combine``, the reference's explicit all_to_all
-path, run at one rank, where the all_to_all is the identity; more ranks
-wait for collectives over NCCL (ROADMAP item A.4).
+``moe_dispatch`` / ``moe_combine`` are the reference's explicit all_to_all
+path over an expert-parallel process group: each rank holds E / n experts,
+and one ``all_to_all_single`` carries every rank's slabs for them (the
+reference's ``lax.all_to_all`` inside ``shard_map``). The model itself
+(``MoETransformer(mesh=)``) shards its experts with the port's parallel
+plans, ROADMAP item A.5.
 """
 
 from __future__ import annotations
@@ -165,33 +168,61 @@ def moe_apply_indexed(
 
 # -- the explicit all_to_all path --------------------------------------------
 
-_EP = (
-    "moe_{} over {} ranks needs an all_to_all across them, which comes with "
-    "collectives over NCCL (ROADMAP item A.4); at one rank it is the identity"
-)
+
+def _process_group(group):
+    """A torch ProcessGroup, from itself or from a port collective group."""
+    return getattr(group, "process_group", group)
 
 
-def _ranks(group) -> int:
-    if group is None:
-        return 1
-    return torch.distributed.get_world_size(group)
+class _AllToAll(torch.autograd.Function):
+    """Chunk i of dim 0 to rank i; chunk j of the result from rank j. With
+    equal chunks the exchange is its own adjoint, so the backward is the
+    same exchange of the gradient (``lax.all_to_all``'s transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        torch.distributed.all_to_all_single(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllToAll.apply(grad, ctx.group), None
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    return _AllToAll.apply(x, group)
 
 
 def moe_dispatch(x: torch.Tensor, dispatch: torch.Tensor, group=None) -> torch.Tensor:
     """Local tokens -> this rank's local experts' slabs, (E_local, n * C,
-    d). ``group`` is the expert-parallel process group (None: one rank).
-    At one rank the all_to_all is the identity and this is the dense
-    dispatch einsum; more ranks raise."""
-    n = _ranks(group)
-    if n != 1:
-        raise NotImplementedError(_EP.format("dispatch", n))
-    return torch.einsum("td,tec->ecd", x.float(), dispatch).to(x.dtype)
+    d): every rank's contribution to its experts, by source rank. ``group``
+    is the expert-parallel process group (a torch ProcessGroup or a
+    collective group; None: one rank, no exchange). x: (tokens_local, d);
+    dispatch: (tokens_local, E_global, C)."""
+    slabs = torch.einsum("td,tec->ecd", x.float(), dispatch).to(x.dtype)
+    if group is None:
+        return slabs
+    pg = _process_group(group)
+    n = torch.distributed.get_world_size(pg)
+    e, c, d = slabs.shape
+    if e % n:
+        raise ValueError(f"experts ({e}) not divisible by the ep group ({n})")
+    # split the expert dim across ranks; the source rank takes its place
+    recv = _all_to_all(slabs.reshape(n, e // n, c, d), pg)
+    return recv.transpose(0, 1).reshape(e // n, n * c, d)
 
 
 def moe_combine(y_local: torch.Tensor, combine: torch.Tensor, group=None) -> torch.Tensor:
     """Inverse of :func:`moe_dispatch`: local expert outputs (E_local, n *
-    C, d_out) -> local tokens (tokens, d_out). One rank only, as there."""
-    n = _ranks(group)
-    if n != 1:
-        raise NotImplementedError(_EP.format("combine", n))
+    C, d_out) -> local tokens (tokens_local, d_out), sending each source
+    rank's slab home."""
+    if group is not None:
+        pg = _process_group(group)
+        n = torch.distributed.get_world_size(pg)
+        e_local, nc, d = y_local.shape
+        slabs = y_local.reshape(e_local, n, nc // n, d).transpose(0, 1)
+        y_local = _all_to_all(slabs, pg).reshape(n * e_local, nc // n, d)
     return torch.einsum("ecd,tec->td", y_local.float(), combine).to(y_local.dtype)

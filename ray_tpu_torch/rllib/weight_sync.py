@@ -8,8 +8,8 @@ update (the one device-to-host copy of an iteration) and keeps it until the
 parameters change, which is the reference's cache per params object.
 
 The weight plane (``use_weight_plane``, ``quantized_weight_sync``) waits for
-the port of ``weights/``, and the learner group's gradient scheduler for the
-collectives (ROADMAP item A.4): both raise until then.
+the port of ``weights/`` and raises until then. :func:`grad_scheduler_for`
+builds a learner gang's gradient scheduler over a collective group.
 """
 
 from __future__ import annotations
@@ -42,11 +42,18 @@ def broadcaster_for(config) -> ParamsBroadcaster:
 
 
 def grad_scheduler_for(config, group):
-    """The learner group's gradient scheduler: it comes with the port of the
-    collectives (ROADMAP item A.4)."""
-    raise NotImplementedError(
-        "the learner group's gradient scheduler comes with the collectives "
-        "(ROADMAP item A.4); the port's PPO has one learner"
+    """Learner-side gradient scheduler from an AlgorithmConfig's
+    weight-sync fields, as ``broadcaster_for``: ``group`` is the learner
+    gang's collective group (either backend). With ``overlap_grad_sync``
+    off the scheduler still bucketizes but blocks on each bucket: the same
+    calls, an A/B by config alone."""
+    from ..collective.bucketizer import DEFAULT_BUCKET_BYTES
+    from ..collective.scheduler import GradientReduceScheduler
+
+    return GradientReduceScheduler(
+        group,
+        bucket_bytes=getattr(config, "grad_sync_bucket_bytes", None) or DEFAULT_BUCKET_BYTES,
+        overlap=getattr(config, "overlap_grad_sync", False),
     )
 
 

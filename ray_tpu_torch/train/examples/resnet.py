@@ -11,8 +11,10 @@ Data is synthetic, as in the reference.
 
 ``train_loop_config`` keys: model ("tiny" | "50"), image_size, epochs,
 steps_per_epoch, batch_per_worker, lr, device (None means cuda). The
-reference's data-parallel mesh and ``process_local_batch`` wait for the
-port's collectives slice; at one worker they are the identity.
+loop runs at one worker: the reference's data-parallel step computes
+BatchNorm's batch statistics over the global batch in the graph, and a gang
+of ranks each normalising its own shard would train another model. So at
+world size > 1 the loop raises until a sync-BN is ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -74,7 +76,14 @@ def step_batch(
 
 
 def train_loop_per_worker(config: dict):
-    rank = session.get_context().get_world_rank()
+    ctx = session.get_context()
+    if ctx.get_world_size() > 1:
+        raise NotImplementedError(
+            f"the ResNet loop at world size {ctx.get_world_size()} needs a sync-BN "
+            "(BatchNorm statistics over the global batch, as the reference's in-graph "
+            "BatchNorm computes them), which is not ported; run one worker"
+        )
+    rank = ctx.get_world_rank()
     device = resolve_device(config.get("device"))
     cfg, image_size = model_config(config)
     model, optimizer = sgd_model(cfg, device, lr=config.get("lr", 0.1))

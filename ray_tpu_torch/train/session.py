@@ -3,9 +3,16 @@
 Inside ``train_loop_per_worker`` the loop asks for its rank and world size
 and reports metrics and checkpoints; the controller drains the reports. Each
 report marks a step boundary of the ``train`` step breakdown
-(``util/metrics`` ``StepBreakdown``), as the reference's does. The
-reference's step-time series waits for the port's telemetry stream, and its
-collective and dataset-shard fields for the slices that bring them.
+(``util/metrics`` ``StepBreakdown``), as the reference's does.
+
+A worker of a gang carries its run's collective groups by name:
+``collective_group``, the gloo control group (``train.collective``'s
+broadcast, barrier, allreduce, allgather), and ``collective_tensor_group``,
+the gradients' group (NCCL on the card, gloo on the CPU), with the
+gang-uniform knobs of its gradient scheduler. A spawned worker's reports
+stream to the controller through ``_report_sink``. The reference's
+step-time series waits for the port's telemetry stream, and its dataset
+shards for the data plane.
 """
 
 from __future__ import annotations
@@ -14,7 +21,7 @@ import os
 import shutil
 import threading
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 from ..util.metrics import StepBreakdown
 from .checkpoint import Checkpoint
@@ -37,6 +44,19 @@ class TrainContext:
     local_world_size: int
     experiment_name: str
     run_dir: str
+    #: the run's gloo control group, by name ("" without a gang)
+    collective_group: str = ""
+    #: the run's gradient group, by name: NCCL on the card, gloo on the CPU
+    collective_tensor_group: str = ""
+    #: bumped each time the gang re-forms
+    collective_epoch: int = 0
+    # int8 transport with error feedback for the gradient group, and the
+    # scheduler's knobs (collective/scheduler.py): gang-uniform, so every
+    # rank buckets and dispatches alike, and so they ride in the context
+    collective_quantized: bool = False
+    collective_overlap: bool = False
+    collective_bucket_bytes: Optional[int] = None
+    collective_stale_grad: int = 0
     latest_checkpoint: Optional[Checkpoint] = None
 
     _reports: list = field(default_factory=list)
@@ -44,6 +64,10 @@ class TrainContext:
     _report_count: int = 0
     # report-to-report step telemetry (the scaling-efficiency gauge)
     _step_breakdown: StepBreakdown = field(default_factory=lambda: StepBreakdown(role="train"))
+    # the run's GradientReduceScheduler, built on first use from the knobs
+    _grad_scheduler: Any = None
+    # where a spawned worker's reports go (None: queued for drain_reports)
+    _report_sink: Optional[Callable[["TrainingReport"], None]] = None
 
     def get_world_rank(self) -> int:
         return self.world_rank
@@ -80,10 +104,12 @@ class TrainContext:
                 shutil.copytree(checkpoint.path, dest, dirs_exist_ok=True)
             persisted = Checkpoint(dest)
             self.latest_checkpoint = persisted
+        report = TrainingReport(dict(metrics), persisted, index, self.world_rank)
+        if self._report_sink is not None:
+            self._report_sink(report)
+            return
         with self._lock:
-            self._reports.append(
-                TrainingReport(dict(metrics), persisted, index, self.world_rank)
-            )
+            self._reports.append(report)
 
     def drain_reports(self):
         with self._lock:

@@ -12,9 +12,11 @@ LLM decode (inter-token latency, speculative proposed / accepted tokens and
 acceptance), the adapters (hits, cold attaches and their latency,
 evictions, live slots), the step breakdown (``StepBreakdown``, the
 ``step_time_seconds`` and ``scaling_efficiency_ratio`` gauges) with the
-collective and overlap clocks it reads (at 0 until the collectives are
-ported and call :func:`record_collective`), the flight recorder's drop
-counter, and device memory, read from the CUDA caching allocator.
+collective and overlap clocks it reads (recorded by every op of
+``ray_tpu_torch.collective``, with ``collective_summary`` and
+``collective_overlap_summary``, and the abort counter), the flight
+recorder's drop counter, and device memory, read from the CUDA caching
+allocator.
 
 The reference pushes every process's registry to its GCS from a background
 thread and renders the cluster's payloads. The port has no runtime yet:
@@ -241,8 +243,9 @@ def events_dropped_total() -> float:
 # -- collective and overlap clocks --------------------------------------------
 # Every out-of-graph collective op records bytes and wall latency; the step
 # breakdown diffs the latency clock across a step to split compute from
-# collective time. The port's collectives (ROADMAP A.4) call
-# record_collective / record_collective_overlap; until then the clocks read 0.
+# collective time. The groups of ray_tpu_torch.collective call
+# record_collective on every op, and the gradient scheduler calls
+# record_collective_overlap on every reduction.
 
 _COLLECTIVE_LATENCY_BOUNDARIES_MS = [
     0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 1000, 5000,
@@ -302,6 +305,29 @@ def collective_seconds_total() -> float:
         return sum(hist._sums.values()) / 1000.0
 
 
+def collective_summary() -> Dict[str, Dict[str, float]]:
+    """This process's collective ops by op name: {count, mean_ms, bytes,
+    wire_bytes}, summed over backends and groups."""
+    m = _ensure_collective_metrics()
+    out: Dict[str, Dict[str, float]] = {}
+    hist = m["latency"]
+    with hist._lock:
+        for key, counts in hist._counts.items():
+            total = sum(counts)
+            if total:
+                entry = out.setdefault(key[0], {"count": 0.0, "sum_ms": 0.0})
+                entry["count"] += float(total)
+                entry["sum_ms"] += hist._sums.get(key, 0.0)
+    for entry in out.values():
+        entry["mean_ms"] = entry.pop("sum_ms") / entry["count"]
+    for label in ("bytes", "wire_bytes"):
+        with m[label]._lock:
+            for key, v in m[label]._values.items():
+                entry = out.setdefault(key[0], {})
+                entry[label] = entry.get(label, 0.0) + v
+    return out
+
+
 def _ensure_overlap_metrics() -> dict:
     return _family("overlap", lambda: {
         "exposed": Counter(
@@ -347,6 +373,33 @@ def collective_exposed_seconds_total() -> float:
 
 def collective_overlapped_seconds_total() -> float:
     return _total(_ensure_overlap_metrics()["overlapped"])
+
+
+def collective_overlap_summary() -> Dict[str, Dict[str, float]]:
+    """This process's gradient reductions by group: {exposed_s,
+    overlapped_s, overlap_fraction}."""
+    m = _ensure_overlap_metrics()
+    out: Dict[str, Dict[str, float]] = {}
+    for label in ("exposed", "overlapped"):
+        metric = m[label]
+        with metric._lock:
+            for key, v in metric._values.items():
+                out.setdefault(key[0], {})[f"{label}_s"] = v
+    for entry in out.values():
+        total = entry.get("exposed_s", 0.0) + entry.get("overlapped_s", 0.0)
+        entry["overlap_fraction"] = (
+            entry.get("overlapped_s", 0.0) / total if total > 0 else 0.0
+        )
+    return out
+
+
+def record_collective_abort(group: str):
+    """One collective op refused because its group was aborted."""
+    _family("collective_abort", lambda: {"abort": Counter(
+        "collective_abort_total",
+        "In-flight collective ops aborted by member death or explicit abort",
+        tag_keys=("group",),
+    )})["abort"].inc(1.0, {"group": group})
 
 
 # -- step breakdown -----------------------------------------------------------

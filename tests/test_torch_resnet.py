@@ -25,7 +25,7 @@ import torch
 from ray_tpu.models import resnet as jres
 from ray_tpu_torch.models import resnet as tres
 from ray_tpu_torch.models.convert import _flatten, _load, resnet_params_from_jax
-from ray_tpu_torch.train import ScalingConfig
+from ray_tpu_torch.train import ScalingConfig, session
 from ray_tpu_torch.train.examples import resnet as example
 
 _DTYPES = {"f32": (jnp.float32, torch.float32, 1e-5), "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -249,6 +249,15 @@ def test_trainer_needs_a_card_unless_told_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     result = example.make_trainer(train_config={"model": "tiny"}).fit()
     assert isinstance(result.error, RuntimeError) and "no CUDA device" in str(result.error)
-    with pytest.raises(NotImplementedError, match="NCCL"):
-        example.make_trainer(num_workers=2)
+    # more workers are accepted, but the loop refuses a world size > 1 until
+    # a sync-BN is ported (each rank would normalise its own shard)
+    assert example.make_trainer(num_workers=2).scaling_config.num_workers == 2
+    session.set_context(session.TrainContext(
+        world_rank=0, local_rank=0, node_rank=0, world_size=2, local_world_size=2,
+        experiment_name="sync-bn", run_dir=str(tmp_path)))
+    try:
+        with pytest.raises(NotImplementedError, match="sync-BN"):
+            example.train_loop_per_worker({"model": "tiny", "device": "cpu"})
+    finally:
+        session.set_context(None)
     assert example.make_trainer().scaling_config == ScalingConfig(num_workers=1)

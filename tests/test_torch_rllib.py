@@ -632,8 +632,18 @@ def test_weight_plane_raises_until_ported(option):
 
 
 def test_grad_scheduler_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="A.4"):
-        weight_sync.grad_scheduler_for(algorithm.PPOConfig(), None)
+    """Ported with the collectives: the scheduler takes the config's
+    weight-sync fields, as the reference's ``grad_scheduler_for`` does."""
+    from ray_tpu_torch.collective import DEFAULT_BUCKET_BYTES
+
+    group = object()
+    sched = weight_sync.grad_scheduler_for(algorithm.PPOConfig(), group)
+    assert sched.group is group and sched.overlap is False
+    assert sched.bucket_bytes == DEFAULT_BUCKET_BYTES and sched.stale_grad == 0
+    cfg = algorithm.PPOConfig()
+    cfg.overlap_grad_sync, cfg.grad_sync_bucket_bytes = True, 1 << 16
+    sched = weight_sync.grad_scheduler_for(cfg, group)
+    assert sched.overlap is True and sched.bucket_bytes == 1 << 16
 
 
 def test_config_methods_match_the_reference():

@@ -31,6 +31,7 @@ from ray_tpu_torch.ops import rmsnorm as trms
 from ray_tpu_torch.train import (
     RunConfig,
     ScalingConfig,
+    TorchConfig,
     TorchTrainer,
     lora_label_fn,
     merge_lora,
@@ -195,8 +196,18 @@ def test_fit_error_lands_in_result(tmp_path, monkeypatch):
 
 
 def test_more_than_one_worker_raises():
-    with pytest.raises(NotImplementedError, match="NCCL"):
-        llama_lora.make_trainer(num_workers=2)
+    """More workers are accepted (tests/test_torch_train_dp.py runs them);
+    what cannot run raises from fit() before anything spawns: NCCL for two
+    ranks on one card, and a card past the host's."""
+    assert llama_lora.make_trainer(num_workers=2).scaling_config.num_workers == 2
     with pytest.raises(ValueError):
         ScalingConfig(num_workers=0)
     assert llama_lora.make_trainer().scaling_config.num_workers == 1
+    shared = TorchTrainer(llama_lora.train_loop_per_worker,
+                          scaling_config=ScalingConfig(2, {"GPU": 0.5}),
+                          backend_config=TorchConfig(backend="nccl"))
+    with pytest.raises(ValueError, match='backend="gloo"'):
+        shared.fit()
+    assert ScalingConfig(4, {"GPU": 0.5}).worker_cards() == [0, 0, 1, 1]
+    with pytest.raises(ValueError, match="2 card"):
+        ScalingConfig(3, {"GPU": 0.5}).check_cards(1)
