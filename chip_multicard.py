@@ -23,7 +23,19 @@ port's ``TorchTrainer`` (``TorchConfig(backend="nccl")``):
    worker and at n: each worker's K1-K4 launches exact, 8 allreduce ops a
    step of 33.5 MB, the NCCL kernels a profiled step launches, step ms and
    the weak-scaling efficiency (1-worker step ms over n-worker step ms at
-   the same per-worker batch), the exposed / overlapped split.
+   the same per-worker batch), the exposed / overlapped split;
+3. tensor-parallel serving over NCCL (``LLMServer(tensor_parallel_size=m,
+   devices=range(m), tp_backend="nccl")``, m = 2 and 4 where the cards
+   allow) at full Llama-2-7B width on ``chip_smoke``'s serve_tp traffic
+   (8 requests of a shared 128-token prefix + 32 own tokens, 16 new, from 4
+   threads), against tp=1 on card 0 with the same random weights: greedy
+   tokens to their first parting from tp=1, decode ms/step, tokens/s and
+   TTFT against tp=1, the NCCL kernels a pooled step launches on rank 0
+   (one model call: 65 allreduces and 1 all-gather), K1 65 a model call on
+   every rank, and the weight and pool bytes a card. It runs first: its
+   servers form this process's default process group, and close it.
+
+    python3 chip_multicard.py 3      # part 3 alone (no argument: all three)
 
 Prints the cards' names and power limits, one JSON line per part, and
 ends with an ``{"ok": true, ...}`` line. Exits non-zero with fewer than 2
@@ -137,7 +149,63 @@ def nccl_ops_loop(config):
                   "quantized_ms": quant_ms})
 
 
+def tp_part(torch, np, C, n: int) -> None:
+    """3: tensor-parallel serving over NCCL at tp = 2 and 4 (as many as the
+    cards allow) against tp = 1."""
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.models.llama import init_params
+
+    torch.cuda.set_device(0)
+    cfg = C.tp_config(torch).build_model_config()
+    params = init_params(cfg, device="cuda")
+    ref = LLMServer(C.tp_config(torch), params=params)
+    tp1 = C.tp_serve(torch, ref, C.tp_traffic(np))
+    want = tp1.pop("tokens")
+    del ref
+    torch.cuda.empty_cache()
+    out = {"tp1": tp1}
+    per_call = 2 * cfg.n_layers + 1
+    for tp in (m for m in (2, 4) if m <= n):
+        server = LLMServer(C.tp_config(torch, tensor_parallel_size=tp), params=params,
+                           devices=list(range(tp)), tp_backend="nccl")
+        counts0 = server.ranks.run(C.tp_counts)
+        got = C.tp_serve(torch, server, C.tp_traffic(np), profile_groups={"nccl": ("nccl",)})
+        counts1 = server.ranks.run(C.tp_counts)
+        for rank, (c0, c1) in enumerate(zip(counts0, counts1)):
+            calls, k1 = (c1[k] - c0[k] for k in ("forward_calls", "rmsnorm_fwd"))
+            C.check(calls > 0 and k1 == per_call * calls,
+                    f"tp={tp} rank {rank}: K1 {k1} in {calls} model calls")
+        nccl = got["profile"]["groups_launches"]["nccl"]
+        C.check(nccl == per_call + 1, f"tp={tp}: {nccl} NCCL kernels in a pooled step, "
+                                      f"want {per_call} allreduces + 1 all-gather")
+        C.check(server.ranks.failed is None, f"tp={tp}: {server.ranks.failed}")
+        weight_bytes = sum(t.numel() * t.element_size() for t in server.engine._params.values())
+        server.close()
+        del server
+        torch.cuda.empty_cache()
+        C._no_tp_left(torch)
+        # over NCCL the model's collectives do not wait, so the host's clock
+        # reads only their launches: the profile's NCCL device time stands
+        # in for their share
+        for k in ("collective_ms_per_step", "allreduce_share_of_step"):
+            got.pop(k)
+        got["nccl_share_of_profiled_step"] = (got["profile"]["groups_ms"]["nccl"]
+                                              / got["profile"]["wall_ms"])
+        got["profile"] = {k: got["profile"][k] for k in (
+            "wall_ms", "device_busy_ms", "device_busy_share", "kernel_launches",
+            "groups_launches", "groups_ms", "groups_top")}
+        out[f"tp{tp}"] = dict(
+            got, weight_bytes_per_card=weight_bytes,
+            first_parting_vs_tp1=[C._first_parting(a, b)
+                                  for a, b in zip(got.pop("tokens"), want)],
+            decode_ms_vs_tp1=got["decode_ms_per_step_8_slots"] / tp1["decode_ms_per_step_8_slots"],
+            tokens_per_s_vs_tp1=got["tokens_per_s"] / tp1["tokens_per_s"],
+            ttft_miss_vs_tp1=got["ttft_ms_miss"] / tp1["ttft_ms_miss"])
+    print("multicard tp", json.dumps(out))
+
+
 def main() -> None:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
@@ -152,6 +220,7 @@ def main() -> None:
     from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchConfig, TorchTrainer
 
     n = torch.cuda.device_count()
+    tp_only = sys.argv[1:] == ["3"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print("cards:", smi.replace("\n", " | "))
@@ -169,6 +238,12 @@ def main() -> None:
             if result.error is not None:
                 raise result.error
             return result, time.perf_counter() - t0
+
+    tp_part(torch, np, C, n)
+    if tp_only:
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n}}))
+        return
 
     # 1. the ops at n ranks
     result, fit_s = fit(nccl_ops_loop, n)

@@ -105,6 +105,26 @@ Phases, each of which exits non-zero on failure:
      prefill is decode-mode, as in the reference). Each step of a handoff
      is timed on its own (extract, encode, fetch, decode, adopt, build_row;
      median over 8) beside the waves' walls and mean engine TTFTs;
+  10c. tensor-parallel serving (``serve_tp``, on phase 5's weights): two
+     gloo ranks sharing card 0 (this process is rank 0, rank 1 is spawned;
+     NCCL refuses two ranks on one card): (a) LLMServer(tensor_parallel_size
+     =2, devices=[0, 0], tp_backend="gloo") with phase 7's settings, rank
+     1's slices sent through the group and checked by their sums; 8 greedy
+     requests of a shared 128-token prefix + 32 own tokens, 16 new each,
+     from 4 threads, then a stream, 8 timed pooled steps with 8 slots (the
+     gloo collectives' share of them) and TTFT of a miss and a hit, all
+     beside a tp=1 paged server on the same traffic: the exact prefix-hit
+     and computed counts, 16 KV heads and half the pool bytes a rank, K1
+     65 times per model call on each rank (rank 1's counts read back), K2-K4
+     never, the per-sample agreement check never fired, and where each
+     request's tokens part from tp=1's; (b) the first 2 layers with f32
+     activations, a dense and a paged tp=2 server against tp=1 on the card
+     and f32 / f64 host runs: prefill logits within 4x the f32 host's own
+     error against f64, greedy tokens over 24 new tokens equal to tp=1's
+     except where tp=1's top-2 logit gap is under that bound (printed, not
+     failed), speculation with the target as its own draft on every rank
+     accepting every proposal; (c) after each close() no child process
+     and no process group is left, before train_dp forms its own;
   11. the device busy share of one served request, under torch.profiler;
   12. the training path: TorchTrainer.fit() of the llama_lora loop at full
      Llama-2-7B width (bf16 weights, seq 2048, batch 2, LoRA rank 16) for 2
@@ -207,7 +227,10 @@ Main paths: the launch counters are set to 0 just before phase 5 and read
 just after phase 6 (serving), set to 0 just before phase 7 and read just
 after phase 9 (continuous batching, ``serve_cb``, with ``serve_obs``), set to 0 just before
 phase 10 and read just after it (``serve_lora``), set to 0 just before phase
-10b and read just after it (``serve_disagg``), and set to 0 just before
+10b and read just after it (``serve_disagg``), set to 0 inside phase 10c
+just before its first tp=2 server and read just after its last one closes
+(its tp=1 comparisons run before and after), with the spawned ranks' own
+counts, read just before each closes, added (``serve_tp``), and set to 0 just before
 phase 12's fit() and read just after it (training), set to 0 just before
 phase 12b (b)'s fit() and read just after it, with the spawned worker's own
 counts, set to 0 before its loop and read after it, added (``train_dp``),
@@ -2191,6 +2214,365 @@ def serve_disagg_phase(torch, np, params):
                                                        "transfer_bytes", "ttft_ms_by_tier")})
     print("kvtier", json.dumps(dict(counters=tier, summary=out["kvtier_summary"])))
     print("serve_disagg", json.dumps({k: v for k, v in out.items() if k != "kvtier_summary"}))
+    return out
+
+
+# -- tensor-parallel serving (``serve_tp``) ----------------------------------
+
+#: two gloo ranks sharing card 0, the serve_cb server's settings (8 slots, 256
+#: blocks of 32, max_seq_len 1024); (a) 8 greedy requests of a shared
+#: 128-token prefix and 32 own tokens, 16 new tokens each, from 4 threads;
+#: (b) parity at 2 layers of 7B width in f32 activations, 24 new tokens
+TP = {"ranks": 2, "requests": 8, "threads": 4, "prefix": 128, "own": 32, "new_tokens": 16,
+      "timed_steps": 8, "parity_layers": 2, "parity_new": 24, "parity_blocks": 64}
+
+
+def tp_counts(engine):
+    """On every rank of a tensor-parallel server: its own kernel launch
+    counts and model calls."""
+    counts = {name: fn.launches for name, fn in _port_counters().items()}
+    counts["forward_calls"] = engine.forward_calls
+    return counts
+
+
+def tp_shard_sums(engine):
+    """On every rank: the f64 sum of each of its parameter slices."""
+    return {name: t.contiguous().double().sum().item() for name, t in engine._params.items()}
+
+
+def tp_prefill_logits(engine, prompt):
+    """On every rank: the prefill's last-position logits, on the host."""
+    import torch
+
+    logits, _ = engine._prefill(torch.tensor([prompt], device=engine._device))
+    return logits.float().cpu()
+
+
+def tp_spec_tokens(engine, prompts, new_tokens, blocks, block):
+    """On every rank: a speculative engine over this rank's slices and plan
+    with the target as its own draft (k=4); greedy tokens and counts."""
+    from ray_tpu_torch.kvcache import KVCacheManager
+    from ray_tpu_torch.llm import ContinuousBatchingEngine, GenerationRequest
+
+    eng = ContinuousBatchingEngine(
+        engine._cfg, engine._params, num_slots=8, kv_cache=KVCacheManager(blocks, block),
+        seed=0, draft=(engine._cfg, engine._params), spec_tokens=4, device=engine._device,
+        plan=engine._plan)
+    out = eng.generate([GenerationRequest(token_ids=p, max_new_tokens=new_tokens)
+                        for p in prompts])
+    return [r.token_ids for r in out], eng.spec_proposed, eng.spec_accepted
+
+
+def _no_tp_left(torch):
+    """(c): nothing of a closed tensor-parallel server may live on: no child
+    process, no process group."""
+    import multiprocessing
+
+    import torch.distributed as dist
+
+    for p in multiprocessing.active_children():
+        p.join(30)
+    check(not multiprocessing.active_children(),
+          f"child processes left: {multiprocessing.active_children()}")
+    check(not dist.is_initialized(), "a process group is left")
+
+
+def _collective_ms(summary):
+    return {op: v["count"] * v["mean_ms"] for op, v in summary.items()}
+
+
+def tp_traffic(np):
+    """(a)'s traffic: a token maker and the shared prefix from one seed,
+    and the 8 prompts (prefix + 32 own tokens)."""
+    rng = np.random.default_rng(SEED + 15)
+
+    def tokens(n):
+        return rng.integers(0, 32000, n).tolist()
+
+    prefix = tokens(TP["prefix"])
+    return tokens, prefix, [prefix + tokens(TP["own"]) for _ in range(TP["requests"])]
+
+
+def tp_config(torch, **kw):
+    """The serve_cb server's config (8 slots, 256 blocks of 32, max_seq_len
+    1024) at full Llama-2-7B width in bf16, with ``kw``."""
+    from ray_tpu_torch.llm import LLMConfig
+
+    return LLMConfig(model_id="llama2-7b", max_seq_len=CB["max_seq_len"],
+                     max_batch_size=CB["slots"], kv_cache_blocks=CB["blocks"],
+                     kv_block_size=CB["block"], model_kwargs={"param_dtype": torch.bfloat16},
+                     **kw)
+
+
+def tp_serve(torch, server, traffic, profile_groups=None):
+    """(a)'s traffic through a paged server of any tp: a warm-up request, the
+    8 prompts from 4 threads (greedy tokens, wall, prefix accounting), a
+    stream of the first prompt again, 8 timed pooled steps with every slot
+    active (and, with ``profile_groups``, one profiled), and TTFT of a miss
+    and of a hit; collective ms of this process around the timed steps."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ray_tpu_torch.llm import GenerationRequest
+    from ray_tpu_torch.util import metrics
+
+    tokens, prefix, prompts = traffic
+    engine, n = server.engine, TP["requests"]
+    request = {"max_new_tokens": TP["new_tokens"], "temperature": 0.0}
+    server({"token_ids": tokens(TP["prefix"] + TP["own"]), "max_new_tokens": 2})  # warm-up
+    before = server.kvcache_stats()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(TP["threads"]) as pool:
+        answers = list(pool.map(lambda p: server(dict(request, token_ids=p)), prompts))
+    wall = time.perf_counter() - t0
+    after = server.kvcache_stats()
+    got = [a["token_ids"] for a in answers]
+    hit = after["prefix_hit_tokens"] - before["prefix_hit_tokens"]
+    computed = after["prefill_tokens_computed"] - before["prefill_tokens_computed"]
+    check(hit == (n - 1) * TP["prefix"], f"prefix hit tokens {hit}")
+    check(computed == TP["prefix"] + n * TP["own"], f"prefill tokens computed {computed}")
+    streamed = [item["token_id"] for item in server.stream(dict(request, token_ids=prompts[0]))
+                if "token_id" in item]
+    check(len(streamed) == TP["new_tokens"] and all(0 <= t < 32000 for t in streamed),
+          f"bad stream {streamed}")
+
+    # the pooled decode step with every slot active, and the collectives'
+    # share of it (each waits for the other ranks too)
+    rids = [engine.add_request(GenerationRequest(token_ids=prefix + tokens(TP["own"]),
+                                                 max_new_tokens=32))
+            for _ in range(CB["slots"])]
+    _step_until(engine, lambda: len(engine._slots) == CB["slots"] and not engine._pending
+                and not engine._inbox)
+    col0 = _collective_ms(metrics.collective_summary())
+    step_ms = []
+    for _ in range(TP["timed_steps"]):
+        t0 = time.perf_counter()
+        engine.step()  # ends in the host transfer of the sampled tokens
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    col1 = _collective_ms(metrics.collective_summary())
+    prof = device_profile(torch, engine.step, profile_groups) if profile_groups else None
+    check(len(engine._slots) == CB["slots"], "a slot left the timed steps")
+    done = engine.run_until_complete()
+    check(set(done) == set(rids), "the timed requests did not all finish")
+
+    def ttft(prompt):
+        t0 = time.perf_counter()
+        items = server.stream({"token_ids": prompt, "max_new_tokens": 2})
+        next(items)
+        ms = (time.perf_counter() - t0) * 1e3
+        list(items)
+        return ms
+
+    miss = tokens(TP["prefix"] + TP["own"])
+    coll = {op: (ms - col0.get(op, 0.0)) / TP["timed_steps"] for op, ms in col1.items()}
+    return dict(
+        tokens=got, wall_s=wall, tokens_per_s=n * TP["new_tokens"] / wall,
+        prefix_hit_tokens=hit, prefill_tokens_computed=computed,
+        stream_parting_vs_answer=_first_parting(streamed, got[0]),
+        decode_ms_per_step_8_slots=statistics.median(step_ms), decode_ms_per_step_all=step_ms,
+        collective_ms_per_step={op: ms for op, ms in coll.items() if ms},
+        allreduce_share_of_step=coll.get("allreduce", 0.0) * TP["timed_steps"] / sum(step_ms),
+        ttft_ms_miss=ttft(miss), ttft_ms_hit=ttft(miss[:TP["prefix"]] + tokens(TP["own"])),
+        profile=prof, kvcache=after,
+    )
+
+
+def serve_tp_phase(torch, np, params, counters):
+    """Tensor-parallel serving at full Llama-2-7B width with two gloo ranks
+    sharing card 0 (this process is rank 0; NCCL refuses two ranks on one
+    card): (a) (a)'s traffic on phase 5's weights, sliced by the plan and
+    sent to rank 1, against a tp=1 paged server on the same weights; (b)
+    2-layer f32 parity, dense and paged, of tp=2 against tp=1 and an f64
+    host run; (c) no process or process group left. The tp=1 comparisons
+    run off the path: before it (a)'s tp=1 server and (b)'s tp=1 engine
+    and host runs, after it (b)'s partings. This process's counts are set
+    to 0 just before the first tp=2 server starts and read just after the
+    last one closes; the spawned ranks' own counts, read before each
+    closes, are added. Returns (the phase's summary, the path's launches)."""
+    from ray_tpu_torch.llm import LLMServer
+
+    ref = LLMServer(tp_config(torch), params=params)
+    want = tp_serve(torch, ref, tp_traffic(np))
+    del ref
+    torch.cuda.empty_cache()
+    parity_ref = tp_parity_reference(torch, np, params)
+
+    for fn in counters.values():
+        fn.launches = 0
+    # (a) the tp=2 server: rank 0 keeps views of its slices, rank 1 gets its
+    # own through the group
+    t0 = time.perf_counter()
+    server = LLMServer(tp_config(torch, tensor_parallel_size=TP["ranks"]), params=params,
+                       devices=[0] * TP["ranks"], tp_backend="gloo")
+    start_s = time.perf_counter() - t0
+    ranks = server.ranks
+    for rank, got in enumerate(ranks.run(tp_shard_sums)):
+        for name, value in got.items():
+            want_sum = ranks.plan.shard_param(name, params[name], rank)
+            check(value == want_sum.contiguous().double().sum().item(),
+                  f"rank {rank}'s slice of {name} is not the plan's")
+    counts0 = ranks.run(tp_counts)
+    got = tp_serve(torch, server, tp_traffic(np))
+    counts1 = ranks.run(tp_counts)
+    stats = got["kvcache"]
+    check(stats["heads_per_device"] == 16, f"heads per device {stats['heads_per_device']}")
+    check(stats["kv_pool_bytes_per_device"] * 2 == stats["kv_pool_bytes_total"],
+          f"pool bytes {stats['kv_pool_bytes_per_device']} of {stats['kv_pool_bytes_total']}")
+    check(stats["mesh"] == "tp=2" and stats["num_devices"] == 2, f"mesh {stats['mesh']}")
+    per_call = 2 * 32 + 1
+    launches = []
+    for rank, (c0, c1) in enumerate(zip(counts0, counts1)):
+        d = {k: c1[k] - c0[k] for k in c0}
+        check(d["forward_calls"] > 0 and d["rmsnorm_fwd"] == per_call * d["forward_calls"],
+              f"rank {rank}: K1 launched {d['rmsnorm_fwd']} times in {d['forward_calls']} "
+              f"model calls, want {per_call} each")
+        for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            check(d[name] == 0, f"rank {rank} launched {name} on the serve_tp path")
+        launches.append(d)
+    check(launches[0]["forward_calls"] == launches[1]["forward_calls"],
+          "the ranks made different numbers of model calls")
+    check(ranks.failed is None, f"the agreement check fired: {ranks.failed}")
+    rank1 = counts1[1]
+    server.close()
+    del server, ranks
+    torch.cuda.empty_cache()
+    _no_tp_left(torch)
+    out = dict(ranks=TP["ranks"], backend="gloo", card=0, start_s=start_s,
+               requests=TP["requests"], threads=TP["threads"],
+               prompt_tokens=TP["prefix"] + TP["own"], new_tokens=TP["new_tokens"],
+               launches_per_rank=launches,
+               first_parting_vs_tp1=[_first_parting(a, b)
+                                     for a, b in zip(got.pop("tokens"), want.pop("tokens"))],
+               tp2=got, tp1=want)
+    for run in (got, want):
+        run["kvcache"] = {k: run["kvcache"][k] for k in (
+            "mesh", "num_devices", "heads_per_device", "kv_pool_bytes_per_device",
+            "kv_pool_bytes_total")}
+    print("serve_tp", json.dumps(out))
+    # (b) the tp=2 servers of the parity check
+    parity_tokens, parity_rank1 = tp_parity(torch, parity_ref)
+    _no_tp_left(torch)
+    path = {k: fn.launches + rank1[k] + parity_rank1[k] for k, fn in counters.items()}
+    out["parity"] = tp_partings(torch, parity_ref, parity_tokens)
+    print("serve_tp parity", json.dumps(out["parity"]))
+    return out, path
+
+
+def tp_parity_reference(torch, np, params):
+    """(b)'s comparisons, off the path: the first 2 layers of the 7B
+    weights with f32 activations, tp=1 on the card (greedy tokens and
+    prefill logits of 4 prompts) and f32 / f64 host runs of the first
+    prompt's prefill, whose difference bounds the f32 error."""
+    from ray_tpu_torch.llm import GenerationRequest, LLMEngine
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    L = TP["parity_layers"]
+    cfg = LlamaConfig.llama2_7b(n_layers=L, max_seq_len=512, dtype=torch.float32,
+                                param_dtype=torch.bfloat16)
+    keep = {f"layer_{i}" for i in range(L)}
+    params2 = {k: v for k, v in params.items()
+               if not k.startswith("layer_") or k.split(".")[0] in keep}
+    rng = np.random.default_rng(SEED + 16)
+    shared = rng.integers(0, cfg.vocab_size, 96).tolist()
+    prompts = [shared + rng.integers(0, cfg.vocab_size, n).tolist() for n in (0, 9, 40)]
+    prompts.append(rng.integers(0, cfg.vocab_size, 20).tolist())
+    new = TP["parity_new"]
+    tp1 = LLMEngine(cfg, params2, max_batch_size=8, seed=0)
+    want = [r.token_ids for r in tp1.generate(
+        [GenerationRequest(token_ids=p, max_new_tokens=new) for p in prompts])]
+    tp1_logits = tp1._prefill(torch.tensor([prompts[0]], device="cuda"))[0].float().cpu()
+    host = {}
+    for dtype in (torch.float32, torch.float64):
+        hcfg = dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype)
+        hp = {k: v.to("cpu", dtype) for k, v in params2.items()}
+        eng = LLMEngine(hcfg, hp, max_batch_size=1, seed=0, device="cpu")
+        host[dtype] = eng._prefill(torch.tensor([prompts[0]]))[0].double()
+        del eng, hp
+    control = _rel_err(host[torch.float32], host[torch.float64])
+    return dict(L=L, params=params2, prompts=prompts, new=new, tp1=tp1, want=want,
+                tp1_logits=tp1_logits, f64=host[torch.float64], control=control,
+                gap_tol=4 * control * host[torch.float64].abs().max().item())
+
+
+def tp_parity(torch, ref):
+    """(b)'s tp=2 runs, on the path: a dense and a paged tp=2 server over
+    the 2-layer weights. Prefill logits equal on both ranks and within 4x
+    the f32 host run's own error against f64 (``_control_check``);
+    speculation with the target as its own draft on every rank accepts
+    every proposal. Returns (the greedy tokens of the dense, paged and
+    speculative runs, and the logits' check; rank 1's own kernel counts)."""
+    from ray_tpu_torch.llm import LLMConfig, LLMServer
+
+    prompts, new = ref["prompts"], ref["new"]
+
+    def server(**kw):
+        return LLMServer(LLMConfig(
+            model_id="llama2-7b", max_seq_len=512, max_batch_size=8, seed=0,
+            tensor_parallel_size=TP["ranks"],
+            model_kwargs={"n_layers": ref["L"], "dtype": torch.float32,
+                          "param_dtype": torch.bfloat16},
+            **kw), params=ref["params"], devices=[0] * TP["ranks"], tp_backend="gloo")
+
+    out, rank1 = {}, []
+    dense = server()
+    logits = dense.ranks.run(tp_prefill_logits, prompts[0])
+    check(all(torch.equal(l, logits[0]) for l in logits), "the ranks' logits differ")
+    errs = {"tp2_card": _rel_err(logits[0], ref["f64"]),
+            "tp1_card": _rel_err(ref["tp1_logits"], ref["f64"])}
+    out["logits"] = _control_check("serve_tp parity logits", errs, ref["control"])
+    out["logits"].update(errs)
+    out["dense"] = [dense({"token_ids": p, "max_new_tokens": new})["token_ids"] for p in prompts]
+    check(dense.ranks.failed is None, f"the agreement check fired: {dense.ranks.failed}")
+    rank1.append(dense.ranks.run(tp_counts)[1])
+    dense.close()
+    del dense
+    _no_tp_left(torch)
+
+    paged = server(kv_cache_blocks=TP["parity_blocks"], kv_block_size=CB["block"])
+    out["paged"] = [paged({"token_ids": p, "max_new_tokens": new})["token_ids"]
+                    for p in prompts]
+    spec = paged.ranks.run(tp_spec_tokens, prompts, new, TP["parity_blocks"], CB["block"])
+    check(all(s[0] == spec[0][0] for s in spec), "the ranks' speculative tokens differ")
+    out["spec"], proposed, accepted = spec[0]
+    check(proposed > 0 and accepted == proposed,
+          f"speculation with the target as its draft accepted {accepted} of {proposed}")
+    out.update(spec_proposed=proposed, spec_accepted=accepted,
+               paged_kvcache=paged.kvcache_stats())
+    check(paged.ranks.failed is None, f"the agreement check fired: {paged.ranks.failed}")
+    rank1.append(paged.ranks.run(tp_counts)[1])
+    paged.close()
+    del paged
+    return out, {k: sum(c[k] for c in rank1) for k in rank1[0]}
+
+
+def tp_partings(torch, ref, got):
+    """(b)'s tokens against tp=1's, off the path: greedy tokens over 24 new
+    tokens equal to tp=1's, except at a step where tp=1's top-2 logit gap
+    is under 4x the f32 host error bound (printed, not failed)."""
+    tp1, gap_tol = ref["tp1"], ref["gap_tol"]
+
+    def near_ties(tokens):
+        """Each prompt's first parting from tp=1 with tp=1's top-2 logit gap
+        there; a gap at or over the bound fails."""
+        out = []
+        for p, a, b in zip(ref["prompts"], tokens, ref["want"]):
+            j = _first_parting(a, b)
+            if j is None:
+                out.append(None)
+                continue
+            logits = tp1._prefill(torch.tensor([p + b[:j]], device="cuda"))[0].float()
+            top2 = logits.topk(2).values
+            gap = (top2[0] - top2[1]).item()
+            check(gap < gap_tol, f"tp=2 parts from tp=1 at step {j} where tp=1's top-2 gap "
+                                 f"{gap} is not under {gap_tol}")
+            out.append(dict(step=j, top2_gap=gap))
+        return out
+
+    out = {k: v for k, v in got.items() if k not in ("dense", "paged", "spec")}
+    for kind in ("dense", "paged", "spec"):
+        out[f"{kind}_partings"] = near_ties(got[kind])
+    out["gap_tol"] = gap_tol
+    del ref["tp1"]
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4372,6 +4754,16 @@ def main() -> None:
           "rmsnorm_fwd was not launched on the serve_disagg path")
     for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         check(disagg_launches[name] == 0, f"{name} was launched on the serve_disagg path")
+    # tensor-parallel serving: counts of this process (rank 0) set to 0 inside
+    # the phase just before its first tp=2 server and read just after its
+    # last one closes (the tp=1 comparisons run outside), with the spawned
+    # ranks' own counts, read before each closes, added; it runs K1 only, as
+    # serve_cb does
+    torch.cuda.empty_cache()
+    _, tp_launches = serve_tp_phase(torch, np, server.engine._params, counters)
+    check(tp_launches["rmsnorm_fwd"] > 0, "rmsnorm_fwd was not launched on the serve_tp path")
+    for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(tp_launches[name] == 0, f"{name} was launched on the serve_tp path")
     torch.cuda.empty_cache()
     profile_phase(torch, server, prompts[1])
     del server  # the training phase's peak memory is its own
@@ -4410,7 +4802,8 @@ def main() -> None:
     # runs)
     moe_launches, _ = train_moe_phase(torch, counters)
     paths = {"serve": serve_launches, "serve_cb": cb_launches, "serve_lora": lora_launches,
-             "serve_disagg": disagg_launches, "train": train_launches, "train_dp": dp_launches,
+             "serve_disagg": disagg_launches, "serve_tp": tp_launches, "train": train_launches,
+             "train_dp": dp_launches,
              "train_resnet": resnet_launches, "train_vit": vit_launches,
              "train_ppo": ppo_launches, "train_rl": rl_launches,
              "train_dreamer": dreamer_launches, "train_moe": moe_launches}

@@ -14,8 +14,9 @@ import torch
 
 DeviceLike = Union[None, str, torch.device]
 
-#: the mesh tag of every serving metric and stats() dict: one device until
-#: the port's tensor-parallel slice (the reference's ``plan.describe()``)
+#: the mesh tag of a serving metric and stats() dict of one device; under a
+#: tensor-parallel plan the engines and the KV manager tag with
+#: ``plan.describe()`` (``"tp=2"``), as the reference does
 MESH_TAG = "tp=1"
 
 

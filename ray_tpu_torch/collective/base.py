@@ -4,7 +4,10 @@ One five-op surface (allreduce, allgather, reducescatter, broadcast and
 barrier, with send and recv) over two backends: ``GlooGroup`` (host tensors
 and Python objects, the reference's ``GcsStoreGroup``) and ``NcclGroup``
 (CUDA tensors, the reference's ``XlaGroup``). Every op records its bytes
-and wall latency into ``util.metrics.record_collective``.
+and wall latency into ``util.metrics.record_collective``. Both groups also
+give a tensor-parallel model its two collectives, ``allreduce_`` (SUM in
+place) and ``allgather_cat`` (concatenated along a dim), with one contract
+and none of the abort plane's store reads.
 
 The abort plane: ``abort_collective_group`` writes the aborted epoch under
 ``colabort:<group>`` in the process group's store, and every op of a group

@@ -145,6 +145,31 @@ class GlooGroup(BaseGroup):
         self._record_op("allgather", tensor_nbytes(tensor), start, wire_nbytes=wire)
         return out
 
+    # -- a model's collectives (tensor parallelism) ------------------------
+    # Full width with no abort-plane read; a CUDA operand is staged through
+    # the host, as every op of this backend's.
+
+    def _gather_host(self, tensor: torch.Tensor) -> List[torch.Tensor]:
+        x, _ = _host(tensor)
+        parts = [torch.empty_like(x) for _ in range(self.world_size)]
+        dist.all_gather(parts, x, group=self.process_group)
+        return parts
+
+    def allreduce_(self, tensor: torch.Tensor) -> torch.Tensor:
+        """``tensor`` summed over the ranks in rank order, in place; returns
+        it."""
+        start = time.perf_counter()
+        tensor.copy_(reduce_in_rank_order(self._gather_host(tensor), ReduceOp.SUM))
+        self._record_op("allreduce", tensor_nbytes(tensor), start)
+        return tensor
+
+    def allgather_cat(self, tensor: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Every rank's ``tensor`` concatenated along ``dim``, in rank order."""
+        start = time.perf_counter()
+        out = torch.cat(self._gather_host(tensor), dim=dim).to(tensor.device)
+        self._record_op("allgather", tensor_nbytes(tensor), start)
+        return out
+
     def reducescatter(self, tensor, op: ReduceOp = ReduceOp.SUM):
         """The allreduce, then this rank's ``np.array_split`` shard of the
         leading dimension (uneven lengths allowed: the first ``n % world``

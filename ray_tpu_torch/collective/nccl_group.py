@@ -209,6 +209,28 @@ class NcclGroup(BaseGroup):
         self._record_op("allgather", tensor_nbytes(x), start, wire_nbytes=wire)
         return out
 
+    # -- a model's collectives (tensor parallelism) ------------------------
+    # No abort-plane read, no clone and no wait: NCCL orders each op on the
+    # current stream, so the next kernel reads its result and the host runs
+    # ahead. The recorded latency is the launch's host time. Full width
+    # whatever ``quantized`` says: a forward pass carries no residual.
+
+    def allreduce_(self, tensor: torch.Tensor) -> torch.Tensor:
+        """``tensor`` summed over the ranks, in place; returns it."""
+        start = time.perf_counter()
+        dist.all_reduce(tensor, group=self.process_group)
+        self._record_op("allreduce", tensor_nbytes(tensor), start)
+        return tensor
+
+    def allgather_cat(self, tensor: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Every rank's ``tensor`` concatenated along ``dim``, in rank order."""
+        start = time.perf_counter()
+        x = tensor.contiguous()
+        out = x.new_empty((self.world_size * x.shape[0], *x.shape[1:]))
+        _all_gather_tensor(out, x, self.process_group)
+        self._record_op("allgather", tensor_nbytes(x), start)
+        return torch.cat(out.chunk(self.world_size), dim=dim)
+
     def reducescatter(self, tensor, op: ReduceOp = ReduceOp.SUM):
         if op is not ReduceOp.SUM:
             raise NotImplementedError("reducescatter reduces with SUM only; use the gloo backend")

@@ -32,8 +32,12 @@ so a commit, a copy-on-write copy or an assembly is two or three device ops
 for the whole model, not a few per layer. The KV tier's shipment interop
 (``extract_row_payload``, ``adopt_blocks``, ``build_row``; see "Tier
 shipment interop" below) moves a prefix out of a row and into the pool or a
-row, likewise a few ops for all layers. ``stats()`` keeps the reference's
-counters and keys; the same events go to the process's metrics (``util/metrics``:
+row, likewise a few ops for all layers. Under a tensor-parallel plan (``plan=``, or ``adopt_plan`` before the pools
+are shaped) each rank's manager holds its heads-slice of every block
+(parallel/plan.py ``KV_SPEC``), shaped from that rank's cache rows: the
+allocator and the radix index are the same on every rank, because every
+rank runs the same admission decisions in lockstep (llm/tp_ranks.py).
+``stats()`` keeps the reference's counters and keys; the same events go to the process's metrics (``util/metrics``:
 prefix hits and computed tokens, evictions, blocked admissions, the block
 gauges) and a blocked admission to its flight recorder (``util/events``).
 """
@@ -66,12 +70,16 @@ class KVCacheLease:
 
 
 class KVCacheManager:
-    def __init__(self, num_blocks: int, block_size: int = 32):
+    def __init__(self, num_blocks: int, block_size: int = 32, plan=None):
         if block_size <= 0:
             raise ValueError(f"block_size must be positive, got {block_size}")
         self._block_size = int(block_size)
         self._alloc = BlockAllocator(num_blocks)
         self._index = PrefixIndex(self._block_size, self._alloc)
+        # tensor-parallel partition plan: this rank's pools hold its
+        # heads-slice of every block
+        self._plan = plan
+        self._mesh_tag = plan.describe() if plan is not None else MESH_TAG
         # device state, shaped from the first committed cache row
         self._pool_k: Optional[torch.Tensor] = None
         self._pool_v: Optional[torch.Tensor] = None
@@ -85,6 +93,20 @@ class KVCacheManager:
             "admission_blocked": 0,
             "adopted_blocks": 0,
         }
+
+    def adopt_plan(self, plan) -> None:
+        """Late plan wiring (the engine passes its plan at construction).
+        Must land before the first commit shapes the pools; afterwards the
+        layouts would disagree, so a late adopt is an error."""
+        if self._plan is plan or plan is None:
+            return
+        if self._pool_k is not None:
+            raise RuntimeError(
+                "adopt_plan() after the block pools were initialized; "
+                "construct the KVCacheManager with plan= instead"
+            )
+        self._plan = plan
+        self._mesh_tag = plan.describe()
 
     # -- accounting ----------------------------------------------------------
 
@@ -124,26 +146,32 @@ class KVCacheManager:
             blocks_free=self._alloc.num_free,
             evictions=self._index.num_evictions,
             index_nodes=self._index.num_nodes,
-            mesh=MESH_TAG,
-            num_devices=1,
+            mesh=self._mesh_tag,
+            num_devices=self._plan.num_devices if self._plan is not None else 1,
         )
         out.update(self.pool_accounting())
         return out
 
     def pool_accounting(self) -> Dict[str, Any]:
-        """Block-pool bytes and KV heads on the (one) device: the numbers
-        an operator needs to size ``num_blocks`` against device memory.
-        Zeros before the first commit shapes the pools."""
+        """Per-device block-pool accounting, as the reference's: each rank
+        holds its heads-slice of every block, so the replica's pools are
+        ``tp`` times this rank's and a device holds ``heads / tp`` heads:
+        the numbers an operator needs to size ``num_blocks`` against device
+        memory. Zeros before the first commit shapes the pools."""
         if self._pool_k is None:
             return {
                 "kv_pool_bytes_total": 0,
                 "kv_pool_bytes_per_device": 0,
                 "heads_per_device": 0,
             }
-        total = sum(p.numel() * p.element_size() for p in (self._pool_k, self._pool_v))
+        local = sum(p.numel() * p.element_size() for p in (self._pool_k, self._pool_v))
+        # KV_SPEC splits the heads over tp: the tp ranks' slices make up the
+        # replica's pools
+        tp = self._plan.tp if self._plan is not None else 1
+        ndev = self._plan.num_devices if self._plan is not None else 1
         return {
-            "kv_pool_bytes_total": total,
-            "kv_pool_bytes_per_device": total,
+            "kv_pool_bytes_total": local * tp,
+            "kv_pool_bytes_per_device": local * tp // ndev,
             "heads_per_device": self._pool_k.shape[2],
         }
 
@@ -235,7 +263,9 @@ class KVCacheManager:
         if self._pool_k is not None:
             return
         c = model_config
-        self._shape_pools(c.n_layers, c.n_kv_heads, c.max_seq_len, c.head_dim,
+        heads = (c.n_kv_heads if self._plan is None
+                 else self._plan.kv_heads_per_rank(c.n_kv_heads))
+        self._shape_pools(c.n_layers, heads, c.max_seq_len, c.head_dim,
                           c.dtype, torch.device(device))
 
     def _shape_pools(self, n_layers, heads, seq_len, head_dim, dtype, device) -> None:
@@ -372,7 +402,7 @@ class KVCacheManager:
         while bid is None:
             if not self._index.evict_lru(1):
                 return None
-            _metrics.record_kvcache_eviction(1, mesh=MESH_TAG)
+            _metrics.record_kvcache_eviction(1, mesh=self._mesh_tag)
             bid = self._alloc.allocate()
         return bid
 
@@ -530,11 +560,11 @@ class KVCacheManager:
         self._stats["hits" if hit_tokens else "misses"] += 1
         self._stats["prefix_hit_tokens"] += hit_tokens
         self._stats["prefill_tokens_computed"] += computed_tokens
-        _metrics.record_kvcache_prefill(hit_tokens, computed_tokens, mesh=MESH_TAG)
+        _metrics.record_kvcache_prefill(hit_tokens, computed_tokens, mesh=self._mesh_tag)
         self._update_gauges()
 
     def _record_blocked(self) -> None:
-        _metrics.record_kvcache_blocked(mesh=MESH_TAG)
+        _metrics.record_kvcache_blocked(mesh=self._mesh_tag)
         _events.record_event(
             _events.ADMISSION_BLOCKED,
             blocks_free=self._alloc.num_free,
@@ -543,5 +573,5 @@ class KVCacheManager:
 
     def _update_gauges(self) -> None:
         _metrics.set_kvcache_blocks(
-            self._alloc.num_allocated, self._alloc.capacity, mesh=MESH_TAG
+            self._alloc.num_allocated, self._alloc.capacity, mesh=self._mesh_tag
         )

@@ -55,6 +55,12 @@ class LLMPredictor:
         if weights_name is not None:
             raise NotImplementedError(_WEIGHT_PLANE.format("weights_name"))
         self._config = llm_config or LLMConfig()
+        if self._config.effective_parallelism()[0] > 1:
+            raise NotImplementedError(
+                "LLMPredictor under tensor parallelism is not ported yet: it comes "
+                "with the rest of the tensor-parallel slice of the PyTorch port "
+                "(ROADMAP A.5)"
+            )
         model_config = require_servable(self._config.build_model_config())
         self._device = resolve_device(device)
         if params is None:

@@ -7,11 +7,13 @@ with speculative decoding (``draft_model``) and chunked prefill
 the cluster KV tier (``kv_tier``, ``kv_ship_codec``) with disaggregated
 prefill/decode roles (``roles``; ``LLMServer(role=)`` plays one). Every
 field of the reference's config is a field here, with its default and its
-checks, so that a config written for ray_tpu reads the same. The fields of
-features that later slices of the port bring (tensor/sequence parallel
-meshes, the serve control plane's replicas and autoscaling, the weight
-plane's quantized publishes) are accepted, and asking for any of them
-raises.
+checks, so that a config written for ray_tpu reads the same. A tensor-
+parallel mesh (``tensor_parallel_size`` or ``mesh={"tp": n}``) is served by
+``LLMServer`` (llm/tp_ranks.py). The fields of features that later slices of
+the port bring (sequence-parallel meshes, adapters, the KV tier and roles
+under tp > 1, the serve control plane's replicas and autoscaling, the
+weight plane's quantized publishes) are accepted, and asking for any of
+them raises.
 
 ``model_family="moe"`` builds a :class:`~ray_tpu_torch.models.moe.MoEConfig`
 by the reference's grammar. Nothing serves it: the reference has no MoE
@@ -105,10 +107,12 @@ class LLMConfig:
     # codec of KV shipments ("raw" | "int8"). Requires kv_cache_blocks.
     kv_tier: bool = False
     kv_ship_codec: str = "raw"
-    # later slices of the port
+    # parallelism (reference: engine_kwargs tensor_parallel_size / pp): the
+    # replica's mesh; ``mesh`` wins over the scalar fields
     tensor_parallel_size: int = 1
     sequence_parallel_size: int = 1
     mesh: Optional[Dict[str, int]] = None
+    # later slices of the port
     num_replicas: int = 1
     autoscaling_config: Optional[Dict[str, Any]] = None
     autoscale_policy: Optional[Dict[str, Any]] = None
@@ -157,10 +161,15 @@ class LLMConfig:
                 "disaggregated roles / kv_tier need the paged engine: "
                 "set kv_cache_blocks"
             )
+        tp, sp = self.effective_parallelism()
         later = {
-            "mesh / tensor_parallel_size / sequence_parallel_size": (
-                max(self.effective_parallelism()) > 1,
-                "the tensor-parallel slice",
+            "mesh / sequence_parallel_size": (
+                sp > 1, "the sequence-parallel slice (ROADMAP item A.6, ring attention)",
+            ),
+            "adapters / kv_tier / roles with tensor_parallel_size > 1": (
+                tp > 1 and (self.adapters is not None or self.kv_tier
+                            or self.roles is not None),
+                "the rest of the tensor-parallel slice (ROADMAP A.5)",
             ),
             "num_replicas / autoscaling_config / autoscale_policy": (
                 self.num_replicas != 1

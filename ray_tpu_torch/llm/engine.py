@@ -45,6 +45,17 @@ the spans ``engine.queue_wait``, ``kvcache.acquire``, ``kvcache.assemble``,
 caller's trace context (``util/tracing``). Every clock is read on the host
 after the sampled tokens came back (:func:`host_sync`), so that it stamps
 completion, not launch, and no record reads a device tensor.
+
+Tensor parallelism (``plan=``, a :class:`~ray_tpu_torch.parallel.plan.
+PartitionPlan` bound to this process's rank and its group): the model runs
+the rank's slices and the caches hold the rank's KV heads, as the
+reference's engines compile with the plan. Every rank runs the same engine
+in lockstep (llm/tp_ranks.py): rank 0 publishes each public entry point's
+command (a dense ``generate`` or stream, each continuous-batching step with
+the requests added and cancelled since the last one) before it runs it, the
+other ranks replay it, and every sampled array is held to rank 0's
+(``_host_sync``). Spans and metrics carry ``plan.describe()`` as their
+``mesh`` tag.
 """
 
 from __future__ import annotations
@@ -189,11 +200,20 @@ class _DecodeModelBase:
     """Prefill and decode over the cached Llama, sharing ``params`` (the
     port's state dict, on ``device``) without copying them, and with an
     ``adapter_store`` reading its slot bank in every call that names an
-    adapter."""
+    adapter. Under a bound ``plan`` of tp > 1, ``params`` are this rank's
+    slices (``plan.shard_params``), and so are a draft's."""
 
     def __init__(self, model_config, params: Dict[str, torch.Tensor],
-                 device: DeviceLike = None, adapter_store=None):
+                 device: DeviceLike = None, adapter_store=None, plan=None):
         self._cfg = model_config
+        self._plan = plan
+        self._tp = plan.tp if plan is not None else 1
+        self._mesh_tag = plan.describe() if plan is not None else MESH_TAG
+        if self._tp > 1 and adapter_store is not None:
+            raise NotImplementedError(
+                "multi-tenant adapters under tensor parallelism are not ported "
+                "yet (ROADMAP A.5)"
+            )
         self._device = resolve_device(device)
         wrong = {str(t.device) for t in params.values() if t.device != self._device}
         if wrong:
@@ -203,9 +223,13 @@ class _DecodeModelBase:
                 f"adapter store on {adapter_store.device}, engine on {self._device}"
             )
         self._params = params
-        self._model = build_llama(model_config, params)
+        self._model = build_llama(model_config, params, plan=plan)
         self._adapter_store = adapter_store
         self.forward_calls = 0
+        # the rank executor's handle (llm/tp_ranks.py), set on every rank of
+        # a tensor-parallel replica: it publishes rank 0's commands and
+        # holds every sampled array to rank 0's
+        self._lockstep = None
 
     @torch.inference_mode()
     def _forward(self, tokens: torch.Tensor, cache: DecodeCache,
@@ -228,7 +252,7 @@ class _DecodeModelBase:
 
     def _prefill(self, tokens: torch.Tensor, slots: Optional[Sequence[int]] = None):
         """tokens (b, plen) -> (last-position logits (b, vocab), new cache)."""
-        cache = new_cache(self._cfg, tokens.shape[0], self._device)
+        cache = new_cache(self._cfg, tokens.shape[0], self._device, self._plan)
         return self._forward(tokens, cache, slots)[:, -1, :], cache
 
     def _decode(self, cache: DecodeCache, last_tokens: torch.Tensor,
@@ -240,13 +264,21 @@ class _DecodeModelBase:
     def _tokens(self, rows) -> torch.Tensor:
         return torch.as_tensor(np.asarray(rows, np.int64), device=self._device)
 
+    def _host_sync(self, x: torch.Tensor) -> np.ndarray:
+        """:func:`host_sync`, and under tensor parallelism the check that
+        every rank sampled the same (rank 0 raises if not)."""
+        out = host_sync(x)
+        if self._lockstep is not None:
+            self._lockstep.agree(out)
+        return out
+
     def _sample_tokens(self, logits, temps: np.ndarray, generator) -> np.ndarray:
         """Greedy where temps == 0, temperature-categorical elsewhere; an
         all-greedy batch skips the categorical draw."""
         if temps.any():
             t = torch.as_tensor(temps, device=logits.device)
-            return host_sync(_sample_impl(logits, t, generator))
-        return host_sync(logits.argmax(dim=-1))
+            return self._host_sync(_sample_impl(logits, t, generator))
+        return self._host_sync(logits.argmax(dim=-1))
 
 
 class LLMEngine(_DecodeModelBase):
@@ -258,8 +290,9 @@ class LLMEngine(_DecodeModelBase):
         seed: Optional[int] = None,
         device: DeviceLike = None,
         adapter_store=None,
+        plan=None,
     ):
-        super().__init__(model_config, params, device, adapter_store)
+        super().__init__(model_config, params, device, adapter_store, plan)
         self._max_batch = max_batch_size
         self._seed = _resolve_seed(seed)
         self._generator = torch.Generator(device=self._device)
@@ -269,6 +302,12 @@ class LLMEngine(_DecodeModelBase):
     def generate(self, requests: List[GenerationRequest]) -> List[GenerationResult]:
         """Generate for a list of requests, grouping same-length prompts
         into batched prefill/decode loops."""
+        if self._lockstep is not None:
+            with self._lockstep.command(("generate", requests)):
+                return self._generate(requests)
+        return self._generate(requests)
+
+    def _generate(self, requests: List[GenerationRequest]) -> List[GenerationResult]:
         groups: Dict[int, List[int]] = {}
         for i, r in enumerate(requests):
             groups.setdefault(len(r.token_ids), []).append(i)
@@ -342,7 +381,22 @@ class LLMEngine(_DecodeModelBase):
         """Token-by-token generation for ONE request: yields each generated
         token id as soon as it is sampled, then a final GenerationResult.
         Same programs and sampling rule as generate(), so at temperature 0
-        the streamed tokens equal the batch path's."""
+        the streamed tokens equal the batch path's. Under tensor
+        parallelism a stream closed early still runs to its end, unseen:
+        the other ranks run the whole stream."""
+        if self._lockstep is None:
+            yield from self._stream(request)
+            return
+        with self._lockstep.command(("stream", request)):
+            stream = self._stream(request)
+            try:
+                for item in stream:
+                    yield item
+            finally:
+                for _ in stream:
+                    pass
+
+    def _stream(self, request: GenerationRequest):
         cfg = self._cfg
         plen = len(request.token_ids)
         if plen + request.max_new_tokens > cfg.max_seq_len:
@@ -458,19 +512,31 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         kv_tier=None,
         adapter_store=None,
         device: DeviceLike = None,
+        plan=None,
     ):
-        super().__init__(model_config, params, device, adapter_store)
+        super().__init__(model_config, params, device, adapter_store, plan)
+        if self._tp > 1 and kv_tier is not None:
+            raise NotImplementedError(
+                "the KV tier under tensor parallelism is not ported yet (ROADMAP A.5)"
+            )
         self._num_slots = num_slots
         self._slots: Dict[int, _Slot] = {}  # slot index -> active request
         # (request_id, GenerationRequest, shipment or None): the third
         # element carries a directed prefill->decode handoff
         self._pending: List[tuple] = []
+        # under tensor parallelism, requests added since the last step: rank
+        # 0 publishes them with the step and every rank queues them then
+        self._inbox: List[tuple] = []
         self._next_id = 0
         self._seed = _resolve_seed(seed)
         self._generator = torch.Generator(device=self._device)
         self._step_count = 0
         self._cache: Optional[DecodeCache] = None  # pooled, on first admission
         self._kv = kv_cache
+        if kv_cache is not None and plan is not None:
+            # the block pools hold the same heads-slice as the decode cache
+            # they exchange rows with
+            kv_cache.adopt_plan(plan)
         # the cluster KV tier (a KVTierClient) over the paged pool, or None
         if kv_tier is not None and kv_tier.device != self._device:
             raise ValueError(f"kv tier on {kv_tier.device}, engine on {self._device}")
@@ -509,7 +575,8 @@ class ContinuousBatchingEngine(_DecodeModelBase):
                     "draft max_seq_len must cover the target's "
                     f"({draft_cfg.max_seq_len} < {model_config.max_seq_len})"
                 )
-            self._draft = _DecodeModelBase(draft_cfg, draft_params, self._device)
+            # sharded under the same plan: the draft runs in lockstep too
+            self._draft = _DecodeModelBase(draft_cfg, draft_params, self._device, plan=plan)
         self.spec_proposed = 0  # draft tokens proposed, over all steps
         self.spec_accepted = 0  # of which the target accepted
         # -- chunked prefill ----------------------------------------------
@@ -553,12 +620,14 @@ class ContinuousBatchingEngine(_DecodeModelBase):
                 self._req_trace[rid] = tr
             # the stepping thread only pops the head and puts a blocked
             # request back there: an append stays behind both
-            self._pending.append((rid, request, shipment))
+            (self._pending if self._lockstep is None else self._inbox).append(
+                (rid, request, shipment))
         return rid
 
     @property
     def num_active(self) -> int:
-        return len(self._slots) + len(self._pending) + len(self._prefilling)
+        return (len(self._slots) + len(self._pending) + len(self._prefilling)
+                + len(self._inbox))
 
     def step(self) -> List[tuple]:
         """One engine iteration: admit pending requests into free slots
@@ -568,6 +637,12 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             return self._step_locked()
 
     def _step_locked(self) -> List[tuple]:
+        if self._lockstep is not None:
+            # every rank queues the same requests before the same step
+            with self._progress:
+                added, self._inbox = self._inbox, []
+            self._lockstep.publish(("step", [(rid, req) for rid, req, _ in added]))
+            self._pending.extend(added)
         self.last_step_prefill_tokens = 0
         finished: List[tuple] = self._admit()
         if self._prefilling:
@@ -589,7 +664,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             last[si, 0] = slot.last_token
         logits, _ = self._decode(self._cache, self._tokens(last), self._row_adapter_slots())
         self._step_count += 1
-        tokens = self._sample_rows(logits)  # ends in host_sync
+        tokens = self._sample_rows(logits)  # ends in _host_sync
         now = time.monotonic()
         for si in list(self._slots):
             slot = self._slots[si]
@@ -597,7 +672,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             slot.generated.append(tok)
             slot.last_token = tok
             if slot.last_emit_ts:
-                _metrics.record_serve_itl(now - slot.last_emit_ts, mesh=MESH_TAG)
+                _metrics.record_serve_itl(now - slot.last_emit_ts, mesh=self._mesh_tag)
             slot.last_emit_ts = now
             req = slot.request
             done_eos = req.eos_token_id is not None and tok == req.eos_token_id
@@ -630,8 +705,8 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         emitted, counts = self._verify(
             chunk, draft_logits, temps_d, self._tokens(start), stream
         )
-        em = host_sync(emitted)
-        cnt = host_sync(counts)
+        em = self._host_sync(emitted)
+        cnt = self._host_sync(counts)
         now = time.monotonic()
         proposed = accepted = 0
         for si in list(self._slots):
@@ -654,7 +729,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             if slot.last_emit_ts:
                 # n tokens landed in one step: each saw gap/n of latency
                 _metrics.record_serve_itl(
-                    (now - slot.last_emit_ts) / max(n, 1), n=n, mesh=MESH_TAG
+                    (now - slot.last_emit_ts) / max(n, 1), n=n, mesh=self._mesh_tag
                 )
             slot.last_emit_ts = now
             if done_reason is not None:
@@ -664,7 +739,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         self.spec_proposed += proposed
         self.spec_accepted += accepted
         if proposed:
-            _metrics.record_spec_tokens(proposed, accepted, mesh=MESH_TAG)
+            _metrics.record_spec_tokens(proposed, accepted, mesh=self._mesh_tag)
 
     def _row_adapter_slots(self) -> np.ndarray:
         """Per-row adapter slots of the pooled batch; free rows read -1
@@ -701,7 +776,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
                 "engine.decode", slot.trace["ctx"], slot.trace["wall"],
                 time.time() - slot.trace["wall"], category="engine",
                 request_id=slot.request_id, tokens=len(slot.generated),
-                finished=reason, mesh=MESH_TAG,
+                finished=reason, mesh=self._mesh_tag,
             )
         self._retire_slot(si)
 
@@ -812,6 +887,14 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         adapter was leased, are committed); a prefill in progress releases
         its KV lease. No result is kept."""
         with self._lock:
+            if self._lockstep is not None:
+                # a request still in the inbox was never published: the
+                # other ranks never saw it
+                with self._progress:
+                    published = all(p[0] != rid for p in self._inbox)
+                    self._inbox = [p for p in self._inbox if p[0] != rid]
+                if published:
+                    self._lockstep.publish(("cancel", rid))
             with self._progress:
                 self._pending = [p for p in self._pending if p[0] != rid]
                 self._finished_buf.pop(rid, None)
@@ -1024,7 +1107,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
                 "engine.prefill", tr["ctx"], pf_wall, time.time() - pf_wall,
                 category="engine", request_id=rid, cached_tokens=cached,
                 computed_tokens=plen - cached, hit=cached > 0,
-                tier=tier_src or "local", mesh=MESH_TAG,
+                tier=tier_src or "local", mesh=self._mesh_tag,
             )
         ts = self._enqueue_ts.pop(rid, None)
         if self._kv is not None:
@@ -1032,7 +1115,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             self._kv.record_prefill(cached, plen - cached)
             if ts is not None:
                 _metrics.record_kvcache_ttft(
-                    time.monotonic() - ts, hit=cached > 0, mesh=MESH_TAG,
+                    time.monotonic() - ts, hit=cached > 0, mesh=self._mesh_tag,
                     tier=tier_src or ("local" if cached > 0 else "miss"),
                 )
             if not fast:
@@ -1060,7 +1143,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
                         plen // self._kv.block_size, first_token=first,
                     )
         if self._cache is None:
-            self._cache = new_cache(self._cfg, self._num_slots, self._device)
+            self._cache = new_cache(self._cfg, self._num_slots, self._device, self._plan)
         self._cache.insert_row(si, solo)
         req_eos = req.eos_token_id is not None and first == req.eos_token_id
         if req_eos or req.max_new_tokens <= 1:
@@ -1165,7 +1248,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         prefill seed when no cached prefix exists. Never shared or reused:
         every decode call writes its row in place, so a shared template
         would carry one prompt's K/V into the next."""
-        return new_cache(self._cfg, 1, self._device)
+        return new_cache(self._cfg, 1, self._device, self._plan)
 
     def _admit_draft_row(self, req: GenerationRequest, si: int) -> None:
         """Full-prompt draft prefill into the draft pool. The draft never
@@ -1175,7 +1258,8 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         the same corrected index."""
         _, dsolo = self._draft._prefill(self._tokens([req.token_ids]))
         if self._draft_cache is None:
-            self._draft_cache = new_cache(self._draft._cfg, self._num_slots, self._device)
+            self._draft_cache = new_cache(self._draft._cfg, self._num_slots, self._device,
+                                          self._plan)
         self._draft_cache.insert_row(si, dsolo)
 
     def _propose(self, last: torch.Tensor, temps: Optional[torch.Tensor], stream: int):

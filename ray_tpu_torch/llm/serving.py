@@ -20,7 +20,17 @@ prefill tokens); :class:`_DisaggIngress` routes a request through one of
 each. The cluster's tier backend (``kvtier.GcsTierBackend``), the
 deployment graph that builds role pools (``build_llm_deployment``) and
 prefix-affinity routing wait for the runtime and the serve control plane;
-in process, servers share a ``kvtier.LocalTierBackend``. The weight plane
+in process, servers share a ``kvtier.LocalTierBackend``.
+
+With ``LLMConfig.tensor_parallel_size`` (or ``mesh={"tp": n}``) above 1 the
+server is rank 0 of a tensor-parallel replica (llm/tp_ranks.py): its weights,
+decode caches and KV block pools are split over n ranks, one process each,
+on ``devices`` (default: this host's cards; ``"cpu"`` entries for CPU ranks),
+with the collectives of ``tp_backend``: ``"nccl"`` (a card per rank) or
+``"gloo"`` (ranks on the CPU, or several on one card). ``server.engine`` is
+rank 0's engine; the others run in lockstep with it. :meth:`LLMServer.close`
+stops them (a finalizer does too). Adapters, the KV tier, roles and
+``LLMPredictor`` under tp > 1 are not ported yet (ROADMAP A.5). The weight plane
 and tokenizers come with later slices of the port; so a request names its
 adapter by an explicit ``adapter_id`` only (the reference also reads
 serve's multiplexed model id).
@@ -34,7 +44,8 @@ Request/response shape:
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Optional
+import weakref
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
@@ -43,9 +54,13 @@ from ..exceptions import BackPressureError
 from ..kvcache import KVCacheManager
 from ..kvtier import GcsTierBackend, KVShipment, KVTierClient
 from ..lora import AdapterLease, AdapterStore
-from ..models.llama import init_params
+from ..models.llama import init_params, param_shapes
 from .config import LLMConfig, require_servable
 from .engine import ContinuousBatchingEngine, GenerationRequest, LLMEngine
+
+#: the seeds of a server's random weights and of its speculative draft's, at
+#: every tensor-parallel size (llm/tp_ranks.py draws its slices under them)
+PARAMS_SEED, DRAFT_SEED = 0, 1
 
 
 class LLMServer:
@@ -58,13 +73,21 @@ class LLMServer:
     (:attr:`adapter_store`): fill it with ``prewarm`` or a callable
     ``AdapterConfig.source``. ``role`` is None (fused), ``"prefill"`` or
     ``"decode"``; a role, or ``LLMConfig.kv_tier``, puts the server on the
-    KV tier of ``tier_backend`` (the cluster's backend is not ported yet)."""
+    KV tier of ``tier_backend`` (the cluster's backend is not ported yet).
+
+    Tensor parallelism (tp > 1 in the config): ``devices`` and
+    ``tp_backend`` place and join the ranks (see the module docstring);
+    ``device`` must then be None. Given ``params`` are the whole model on
+    rank 0's device: rank 0 keeps views of its slices and sends the other
+    ranks theirs."""
 
     def __init__(self, llm_config: LLMConfig,
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  device: DeviceLike = None,
                  role: Optional[str] = None,
-                 tier_backend=None):
+                 tier_backend=None,
+                 devices: Optional[Sequence[Any]] = None,
+                 tp_backend: str = "nccl"):
         if role not in (None, "prefill", "decode"):
             raise ValueError(f"unknown replica role {role!r}")
         if role is not None and not llm_config.kv_cache_blocks:
@@ -74,10 +97,19 @@ class LLMServer:
         self._config = llm_config
         self._role = role
         self._kv_tier: Optional[KVTierClient] = None
+        self._ranks = None
         model_config = require_servable(llm_config.build_model_config())
+        tp, sp = llm_config.effective_parallelism()
+        if tp > 1:
+            self._start_tensor_parallel(model_config, params, device, role, devices,
+                                        tp_backend)
+            return
+        if devices is not None:
+            raise ValueError("devices= places tensor-parallel ranks; one rank takes device=")
         self._device = resolve_device(device)
         if params is None:
-            params = init_params(model_config, device=self._device)
+            gen = torch.Generator(device=self._device).manual_seed(PARAMS_SEED)
+            params = init_params(model_config, gen, device=self._device)
         self._kv_cache: Optional[KVCacheManager] = None
         self._adapter_store: Optional[AdapterStore] = None
         if llm_config.kv_cache_blocks:
@@ -101,7 +133,7 @@ class LLMServer:
             draft = None
             if llm_config.draft_model is not None:
                 draft_cfg = llm_config.build_draft_model_config()
-                gen = torch.Generator(device=self._device).manual_seed(1)
+                gen = torch.Generator(device=self._device).manual_seed(DRAFT_SEED)
                 draft = (draft_cfg, init_params(draft_cfg, gen, device=self._device))
             if llm_config.adapters is not None:
                 # callers' threads resolve slot leases before admission, so
@@ -128,10 +160,65 @@ class LLMServer:
                 device=self._device,
             )
 
+    def _start_tensor_parallel(self, model_config, params, device, role, devices,
+                               tp_backend) -> None:
+        """Rank 0 of a tensor-parallel replica: validate the mesh (typed
+        MeshValidationError), spawn the other ranks and build every rank's
+        engine over its slices."""
+        from ..parallel.plan import PartitionPlan, validate_mesh_for_model
+        from .engine import _resolve_seed
+        from .tp_ranks import EngineSpec, start_ranks
+
+        cfg = self._config
+        if role is not None:
+            raise NotImplementedError(
+                "disaggregated roles under tensor parallelism are not ported yet "
+                "(ROADMAP A.5)"
+            )
+        if device is not None:
+            raise ValueError("a tensor-parallel server places its ranks by devices=, "
+                             "not device=")
+        tp, sp = cfg.effective_parallelism()
+        plan = PartitionPlan.for_model(model_config, tp, sp, devices=devices,
+                                       backend=tp_backend)
+        # every parameter splits evenly (a ValueError as the reference's
+        # shard_params raises), checked before any rank is spawned
+        param_shapes(model_config, plan)
+        draft_cfg = cfg.build_draft_model_config() if cfg.kv_cache_blocks else None
+        if draft_cfg is not None:
+            validate_mesh_for_model(tp, plan.num_devices, draft_cfg.n_heads,
+                                    draft_cfg.n_kv_heads, "draft")
+        spec = EngineSpec(
+            model_config=model_config, paged=bool(cfg.kv_cache_blocks),
+            batch=cfg.max_batch_size, seed=_resolve_seed(cfg.seed),
+            kv_cache_blocks=cfg.kv_cache_blocks or 0, kv_block_size=cfg.kv_block_size,
+            draft_config=draft_cfg, spec_tokens=cfg.spec_tokens,
+            prefill_chunk_tokens=cfg.prefill_chunk_tokens,
+        )
+        self._ranks = start_ranks(plan, spec, params)
+        self._engine = self._ranks.engine
+        self._device = plan.device(0)
+        self._kv_cache = self._engine._kv if spec.paged else None
+        self._adapter_store = None
+        self._finalizer = weakref.finalize(self, self._ranks.close)
+
     @property
     def engine(self):
-        """The :class:`LLMEngine` or :class:`ContinuousBatchingEngine`."""
+        """The :class:`LLMEngine` or :class:`ContinuousBatchingEngine` (rank
+        0's under tensor parallelism)."""
         return self._engine
+
+    @property
+    def ranks(self):
+        """The tensor-parallel ranks (:class:`~.tp_ranks.TPRanks`), or None
+        at tp = 1."""
+        return self._ranks
+
+    def close(self) -> None:
+        """Stop the other tensor-parallel ranks and leave no process or
+        process group behind; nothing to do at tp = 1. Idempotent."""
+        if self._ranks is not None:
+            self._ranks.close()
 
     @property
     def adapter_store(self) -> Optional[AdapterStore]:

@@ -7,6 +7,18 @@ Dense kernels are stored as flax stores them, (in, out), and applied as
 ``x @ kernel``; ``embed`` (vocab, dim) and ``lm_head`` (dim, vocab) are
 separate weights.
 
+Tensor parallelism (``Llama(config, plan=, rank=, group=)``, Megatron-style
+as the reference's GSPMD plan lays it out, parallel/plan.py): each rank
+holds heads/tp query and KV heads (wq/wk/wv column slices, wo row slice),
+intermediate/tp of the MLP (w_gate/w_up columns, w_down rows) and vocab/tp
+rows of ``embed`` and columns of ``lm_head``; norms are replicated. The
+model calls ``group`` where GSPMD puts a collective: an allreduce (SUM)
+after wo and after w_down, one after the masked embedding lookup (exact:
+one rank's term is non-zero), and an all-gather of the vocab slices of the
+logits (exact: each logit is one whole dot product), so activations and
+logits come out replicated on every rank: 2 * n_layers + 2 collectives a
+model call. The decode caches hold the rank's KV heads.
+
 Numerics follow the reference: a dense layer casts its input and its kernel
 to ``config.dtype`` (flax ``DenseGeneral(dtype=bf16, param_dtype=f32)``),
 norm weights are cast to the activation dtype before the norm, RoPE tables
@@ -39,7 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Mapping, Optional, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -149,10 +161,11 @@ class DecodeCache(list):
         self.index.copy_(index.to(self.index)[None].expand_as(self.index))
 
 
-def new_cache(config: LlamaConfig, batch: int, device) -> DecodeCache:
-    """An empty (all-zero) cache for ``batch`` rows."""
-    shape = (config.n_layers, batch, config.n_kv_heads, config.max_seq_len,
-             config.head_dim)
+def new_cache(config: LlamaConfig, batch: int, device, plan=None) -> DecodeCache:
+    """An empty (all-zero) cache for ``batch`` rows, with a tensor-parallel
+    ``plan``'s KV heads per rank."""
+    heads = config.n_kv_heads if plan is None else plan.kv_heads_per_rank(config.n_kv_heads)
+    shape = (config.n_layers, batch, heads, config.max_seq_len, config.head_dim)
     return DecodeCache(
         torch.zeros(shape, dtype=config.dtype, device=device),
         torch.zeros(shape, dtype=config.dtype, device=device),
@@ -233,8 +246,17 @@ def gather_adapters(bank, adapter_slots, dtype, device) -> Dict[str, tuple]:
     }
 
 
+def _allreduce(group, x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (None: one rank)."""
+    return x if group is None else group.allreduce_(x)
+
+
 class Attention(nn.Module):
-    def __init__(self, config: LlamaConfig, mesh=None):
+    """With a tensor-parallel ``plan``: the rank's KV heads
+    (``plan.kv_heads_per_rank``) and their whole GQA groups of query heads,
+    and the allreduce of wo's partial sums over ``group``."""
+
+    def __init__(self, config: LlamaConfig, mesh=None, plan=None, group=None):
         super().__init__()
         if mesh is not None:
             raise NotImplementedError(
@@ -242,8 +264,11 @@ class Attention(nn.Module):
                 "parallel slice"
             )
         self.config = config
+        self.group = group
         cfg = config
-        h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        hk = cfg.n_kv_heads if plan is None else plan.kv_heads_per_rank(cfg.n_kv_heads)
+        h, d = hk * (cfg.n_heads // cfg.n_kv_heads), cfg.head_dim
+        self.n_heads, self.n_kv_heads = h, hk
 
         def proj(n_in, n_out):
             return LoRADense(
@@ -260,7 +285,7 @@ class Attention(nn.Module):
         (:func:`gather_adapters`, indexed at the layer), or None."""
         cfg = self.config
         b, s, _ = x.shape
-        h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        h, hk, d = self.n_heads, self.n_kv_heads, cfg.head_dim
         adapters = adapters or {}
         q = self.wq(x, adapters.get("wq")).reshape(b, s, h, d).transpose(1, 2)
         k = self.wk(x, adapters.get("wk")).reshape(b, s, hk, d).transpose(1, 2)
@@ -272,7 +297,7 @@ class Attention(nn.Module):
             k = apply_rope(k, cos, sin)
             out = flash_attention(q, k, v, causal=True)
         out = out.transpose(1, 2).reshape(b, s, h * d)
-        return self.wo(out, adapters.get("wo"))
+        return _allreduce(self.group, self.wo(out, adapters.get("wo")))
 
     def _decode_attention(self, q, k, v, cos, sin, cache: LayerCache):
         """The reference's KV-cache path: write this call's K/V at each
@@ -292,8 +317,8 @@ class Attention(nn.Module):
         cache.cached_key.transpose(1, 2)[rows, pos] = k.to(cfg.dtype).transpose(1, 2)
         cache.cached_value.transpose(1, 2)[rows, pos] = v.to(cfg.dtype).transpose(1, 2)
         cache.cache_index.add_(s)
-        k_all = cache.cached_key.repeat_interleave(h // cfg.n_kv_heads, dim=1)
-        v_all = cache.cached_value.repeat_interleave(h // cfg.n_kv_heads, dim=1)
+        k_all = cache.cached_key.repeat_interleave(h // self.n_kv_heads, dim=1)
+        v_all = cache.cached_value.repeat_interleave(h // self.n_kv_heads, dim=1)
         # row r's query i sits at absolute position idx[r]+i; key j is
         # visible iff j <= idx[r]+i (and thus has been written)
         scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k_all.float()) / math.sqrt(d)
@@ -305,25 +330,30 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, config: LlamaConfig):
+    """With ``tp`` > 1: intermediate/tp of the hidden units, and the
+    allreduce of w_down's partial sums over ``group``."""
+
+    def __init__(self, config: LlamaConfig, tp: int = 1, group=None):
         super().__init__()
         cfg = config
-        self.w_gate = Dense(cfg.dim, cfg.intermediate, cfg.param_dtype, cfg.dtype)
-        self.w_up = Dense(cfg.dim, cfg.intermediate, cfg.param_dtype, cfg.dtype)
-        self.w_down = Dense(cfg.intermediate, cfg.dim, cfg.param_dtype, cfg.dtype)
+        self.group = group
+        inter = cfg.intermediate // tp
+        self.w_gate = Dense(cfg.dim, inter, cfg.param_dtype, cfg.dtype)
+        self.w_up = Dense(cfg.dim, inter, cfg.param_dtype, cfg.dtype)
+        self.w_down = Dense(inter, cfg.dim, cfg.param_dtype, cfg.dtype)
 
     def forward(self, x):
-        return self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
+        return _allreduce(self.group, self.w_down(F.silu(self.w_gate(x)) * self.w_up(x)))
 
 
 class Block(nn.Module):
-    def __init__(self, config: LlamaConfig, mesh=None):
+    def __init__(self, config: LlamaConfig, mesh=None, plan=None, group=None):
         super().__init__()
         self.config = config
         self.attn_norm = _param(config.dim, dtype=config.param_dtype)
-        self.attn = Attention(config, mesh)
+        self.attn = Attention(config, mesh, plan, group)
         self.mlp_norm = _param(config.dim, dtype=config.param_dtype)
-        self.mlp = MLP(config)
+        self.mlp = MLP(config, plan.tp if plan is not None else 1, group)
 
     def forward(self, x, cos, sin, cache: Optional[LayerCache] = None, adapters=None):
         eps = self.config.norm_eps
@@ -335,16 +365,33 @@ class Block(nn.Module):
 
 class Llama(nn.Module):
     """Parameters are created empty: fill them with :func:`init_params` or
-    load converted weights (:func:`build_llama`)."""
+    load converted weights (:func:`build_llama`).
 
-    def __init__(self, config: LlamaConfig, mesh=None):
+    With a ``plan`` (parallel/plan.py ``PartitionPlan``) of tp > 1 the
+    modules have rank ``rank``'s widths and ``group`` (a collective group of
+    the plan's tp ranks, one process each) carries the collectives; see the
+    module docstring."""
+
+    def __init__(self, config: LlamaConfig, mesh=None, plan=None, rank: int = 0,
+                 group=None):
         super().__init__()
+        tp = plan.tp if plan is not None else 1
+        if tp > 1 and group is None:
+            raise ValueError(f"a tensor-parallel Llama (tp={tp}) needs the collective "
+                             "group of its ranks")
+        if config.vocab_size % tp:
+            raise ValueError(
+                f"vocab_size {config.vocab_size} is not divisible by tensor_parallel_size "
+                f"{tp}: embed and lm_head split the vocabulary evenly or not at all"
+            )
         self.config = config
-        self.embed = _param(config.vocab_size, config.dim, dtype=config.param_dtype)
+        self.rank = rank
+        self.group = group if tp > 1 else None
+        self.embed = _param(config.vocab_size // tp, config.dim, dtype=config.param_dtype)
         for i in range(config.n_layers):
-            self.add_module(f"layer_{i}", Block(config, mesh))
+            self.add_module(f"layer_{i}", Block(config, mesh, plan, self.group))
         self.final_norm = _param(config.dim, dtype=config.param_dtype)
-        self.lm_head = _param(config.dim, config.vocab_size, dtype=config.param_dtype)
+        self.lm_head = _param(config.dim, config.vocab_size // tp, dtype=config.param_dtype)
         self._rope = None
 
     def blocks(self) -> List[Block]:
@@ -370,7 +417,7 @@ class Llama(nn.Module):
         and ``adapter_slots`` (one slot per row on the host, -1 = base) each
         row's adapter is added to its q/k/v/o projections."""
         cfg = self.config
-        x = self.embed[tokens].to(cfg.dtype)
+        x = self._embed(tokens)
         cos, sin = self._rope_table(x.device)
         rows = None
         if adapters is not None and adapter_slots is not None:
@@ -386,7 +433,20 @@ class Llama(nn.Module):
             else:
                 x = block(x, cos, sin, None if cache is None else cache[i], layer)
         x = rmsnorm(x, self.final_norm.to(x.dtype), cfg.norm_eps)
-        return x @ self.lm_head.to(x.dtype)
+        logits = x @ self.lm_head.to(x.dtype)
+        return logits if self.group is None else self.group.allgather_cat(logits, dim=-1)
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding lookup in ``config.dtype``; with tp > 1 the rank
+        looks up the tokens of its vocab rows, zeros elsewhere, and the
+        allreduce adds the one non-zero term of each token."""
+        if self.group is None:
+            return self.embed[tokens].to(self.config.dtype)
+        rows = self.embed.shape[0]
+        local = tokens - self.rank * rows
+        mine = (local >= 0) & (local < rows)
+        x = self.embed[local.clamp(0, rows - 1)].to(self.config.dtype)
+        return self.group.allreduce_(x.masked_fill(~mine[..., None], 0))
 
 
 def _lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> None:
@@ -406,21 +466,27 @@ def init_params(
     config: LlamaConfig,
     generator: Optional[torch.Generator] = None,
     device: DeviceLike = None,
+    shard: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Random parameters with the reference's initialisers, drawn from
     ``generator`` (default: seed 0 on ``device``): lecun-normal for dense
     kernels and ``lora_a``, normal(0.02) for ``embed`` and ``lm_head``, ones
     for the norms, zeros for ``lora_b``. JAX's PRNG bits cannot be
     reproduced, so these are not the reference's values. Returns the flat
-    state dict, keyed by flax path with dots."""
+    state dict, keyed by flax path with dots.
+
+    ``shard(name, tensor)``, when given, is applied to each full tensor as
+    soon as it is drawn, and its result is kept instead: a tensor-parallel
+    rank draws every tensor in order from the same seed as every other rank
+    and keeps its own slice, so no rank ever holds the whole model."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     if generator.device.type != device.type:
         raise ValueError(f"generator is on {generator.device}, params go to {device}")
-    with torch.device(device):
-        model = Llama(config)
-    for name, p in model.named_parameters():
+    out: Dict[str, torch.Tensor] = {}
+    for name, shape in param_shapes(config).items():
+        p = torch.empty(shape, dtype=config.param_dtype, device=device)
         leaf = name.rsplit(".", 1)[-1]
         if name in ("embed", "lm_head"):
             p.normal_(0.0, 0.02, generator=generator)
@@ -430,21 +496,31 @@ def init_params(
             p.zero_()
         else:  # dense kernels and lora_a
             _lecun_normal_(p, generator)
-    return {k: v.detach() for k, v in model.state_dict().items()}
+        out[name] = p if shard is None else shard(name, p)
+        del p
+    return out
 
 
-def param_shapes(config: LlamaConfig) -> Dict[str, torch.Size]:
-    """Every parameter's name and shape, without allocating it."""
+def param_shapes(config: LlamaConfig, plan=None) -> Dict[str, torch.Size]:
+    """Every parameter's name and shape, without allocating it; with a
+    ``plan``, the shapes of one rank's slices."""
     with torch.device("meta"):
         model = Llama(config)
-    return {k: v.shape for k, v in model.state_dict().items()}
+    shapes = {k: v.shape for k, v in model.state_dict().items()}
+    return shapes if plan is None else plan.local_shapes(shapes)
 
 
-def build_llama(config: LlamaConfig, params: Dict[str, torch.Tensor], mesh=None) -> Llama:
+def build_llama(config: LlamaConfig, params: Dict[str, torch.Tensor], mesh=None,
+                plan=None) -> Llama:
     """A :class:`Llama` whose parameters ARE the given tensors (no copy), so
-    several modules can share one set of weights."""
+    several modules can share one set of weights. With a bound ``plan``
+    (``PartitionPlan.bind``) the params are its rank's slices and the model
+    runs that rank's part of the tensor-parallel forward."""
     with torch.device("meta"):
-        model = Llama(config, mesh)
+        if plan is None:
+            model = Llama(config, mesh)
+        else:
+            model = Llama(config, mesh, plan, plan.rank, plan.group)
     model.load_state_dict(params, strict=True, assign=True)
     for p in model.parameters():
         p.requires_grad_(False)

@@ -98,10 +98,12 @@ class WorkerDiedError(RuntimeError):
 
 
 class WorkerGroup:
-    """N spawned workers, rank r on ``cards[r]``."""
+    """N spawned workers, rank r on ``cards[r]``; ``name`` names their
+    processes and their errors."""
 
-    def __init__(self, cards: Sequence[Optional[int]]):
+    def __init__(self, cards: Sequence[Optional[int]], name: str = "train-worker"):
         self.cards = list(cards)
+        self.name = name
         self.num_workers = len(self.cards)
         self.on_card = self.cards[0] is not None
         ctx = mp.get_context("spawn")
@@ -109,7 +111,7 @@ class WorkerGroup:
         self._commands = [ctx.Queue() for _ in self.cards]
         self._procs = [
             ctx.Process(target=_worker_main, args=(r, c, self._commands[r], self._out),
-                        daemon=True, name=f"train-worker-{r}")
+                        daemon=True, name=f"{name}-{r}")
             for r, c in enumerate(self.cards)
         ]
         #: messages that arrived while :meth:`execute_each` waited for results
@@ -134,7 +136,7 @@ class WorkerGroup:
         gone = self.exited()
         if gone:
             rank, code = gone[0]
-            raise WorkerDiedError(f"train worker rank {rank} exited with code {code}")
+            raise WorkerDiedError(f"{self.name} rank {rank} exited with code {code}")
 
     def _collect(self, deadline: float) -> List[Any]:
         results: List[Any] = [None] * self.num_workers
@@ -144,7 +146,7 @@ class WorkerGroup:
             if msg is None:
                 self._raise_if_exited()
                 if time.monotonic() > deadline:
-                    raise TimeoutError(f"train workers {sorted(pending)} did not answer")
+                    raise TimeoutError(f"{self.name} ranks {sorted(pending)} did not answer")
                 continue
             kind, rank, payload = msg
             if kind == "result":
@@ -156,12 +158,18 @@ class WorkerGroup:
                 self._backlog.append(msg)
         return results
 
+    def submit_each(self, fn: Callable, args_per_rank: Sequence[tuple]) -> None:
+        """Start ``fn(*args_per_rank[r])`` in every worker and return at
+        once; its result, or its exception, arrives on the shared queue
+        (:meth:`poll`)."""
+        for q, args in zip(self._commands, args_per_rank):
+            q.put(("exec", fn, tuple(args)))
+
     def execute_each(self, fn: Callable, args_per_rank: Sequence[tuple],
                      timeout_s: float = 600.0) -> List[Any]:
         """Run ``fn(*args_per_rank[r])`` in every worker at once; their
         results by rank. A worker's exception is raised here."""
-        for q, args in zip(self._commands, args_per_rank):
-            q.put(("exec", fn, tuple(args)))
+        self.submit_each(fn, args_per_rank)
         return self._collect(time.monotonic() + timeout_s)
 
     def execute(self, fn: Callable, *args, timeout_s: float = 600.0) -> List[Any]:
@@ -209,7 +217,7 @@ class WorkerGroup:
             if p.pid is not None:
                 p.join(timeout=1.0)
                 if p.is_alive():
-                    logger.error("train worker %s (pid %d) did not exit", p.name, p.pid)
+                    logger.error("worker %s (pid %d) did not exit", p.name, p.pid)
         for q in [self._out, *self._commands]:
             q.close()
             q.cancel_join_thread()

@@ -167,12 +167,22 @@ def test_server_answers_like_replica():
 # constructs since the MoE model is ported, and builds the reference's
 # MoEConfig ("moe"); serving it is refused (test_moe_is_not_served). The KV
 # tier and disaggregated roles are ported: over a KV pool they construct
-# ("tier"), without one they are refused with the reference's ValueError
+# ("tier"), without one they are refused with the reference's ValueError.
+# A tensor-parallel mesh constructs ("tp"); a sequence-parallel one, and
+# adapters or the KV tier beside tp > 1, wait for later slices
 _LATER_SLICES = {
     # the paged engine and the cluster KV tier over it
     "kv_cache_blocks": (dict(kv_cache_blocks=16, kv_tier=True), "tier"),
-    "mesh": (dict(mesh={"tp": 2}), NotImplementedError),
-    "tensor_parallel_size": (dict(tensor_parallel_size=2), NotImplementedError),
+    "mesh": (dict(mesh={"tp": 2}), "tp"),
+    "tensor_parallel_size": (dict(tensor_parallel_size=2), "tp"),
+    "sequence_parallel_size": (dict(sequence_parallel_size=2), NotImplementedError),
+    "adapters_with_tp": (
+        dict(tensor_parallel_size=2, kv_cache_blocks=16, adapters={"max_live": 2}),
+        NotImplementedError,
+    ),
+    "kv_tier_with_tp": (
+        dict(tensor_parallel_size=2, kv_cache_blocks=16, kv_tier=True), NotImplementedError
+    ),
     "draft_model": (
         dict(draft_model="llama-tiny", kv_cache_blocks=16, adapters={"max_live": 2}), None
     ),
@@ -199,6 +209,9 @@ def test_later_slice_features_raise(case):
             JaxLLMConfig(**kwargs)
         with pytest.raises(ValueError, match="kv_cache_blocks"):
             LLMConfig(**kwargs)
+    elif raises == "tp":
+        cfg, ref = LLMConfig(**kwargs), JaxLLMConfig(**kwargs)
+        assert cfg.effective_parallelism() == ref.effective_parallelism() == (2, 1)
     elif raises == "tier":
         cfg, ref = LLMConfig(**kwargs), JaxLLMConfig(**kwargs)
         assert (cfg.kv_tier, cfg.kv_cache_blocks, cfg.kv_ship_codec) == (
