@@ -32,8 +32,13 @@ port's ``TorchTrainer`` (``TorchConfig(backend="nccl")``):
    tokens to their first parting from tp=1, decode ms/step, tokens/s and
    TTFT against tp=1, the NCCL kernels a pooled step launches on rank 0
    (one model call: 65 allreduces and 1 all-gather), K1 65 a model call on
-   every rank, and the weight and pool bytes a card. It runs first: its
-   servers form this process's default process group, and close it.
+   every rank, and the weight and pool bytes a card; then ``chip_smoke``'s
+   serve_tp_features (d) over NCCL on cards 0 and 1: serve_lora's
+   multi-tenant traffic through a tp=2 server with 8 adapter slots (each
+   rank's bank the plan's slice of a tp=1 bank, the salted accounting,
+   tokens/s, pooled step ms mixed against all -1, cold attach ms). It runs
+   first: its servers form this process's default process group, and
+   close it.
 
     python3 chip_multicard.py 3      # part 3 alone (no argument: all three)
 
@@ -201,6 +206,12 @@ def tp_part(torch, np, C, n: int) -> None:
             decode_ms_vs_tp1=got["decode_ms_per_step_8_slots"] / tp1["decode_ms_per_step_8_slots"],
             tokens_per_s_vs_tp1=got["tokens_per_s"] / tp1["tokens_per_s"],
             ttft_miss_vs_tp1=got["ttft_ms_miss"] / tp1["ttft_ms_miss"])
+    # multi-tenant serving at tp=2 over NCCL; the tp=1 numbers of the same
+    # traffic are chip_smoke's serve_lora's, the accounting is exact
+    tp1_lora = dict(prefix_hit_tokens=2816, prefill_tokens_computed=2304, tokens_per_s=None,
+                    step_ms_mixed=None, step_ms_base=None)
+    out["lora_tp2"], _ = C.tp_lora(torch, np, params, C.tp_lora_reference(torch, np), tp1_lora,
+                                   devices=(0, 1), backend="nccl")
     print("multicard tp", json.dumps(out))
 
 

@@ -125,6 +125,24 @@ Phases, each of which exits non-zero on failure:
      failed), speculation with the target as its own draft on every rank
      accepting every proposal; (c) after each close() no child process
      and no process group is left, before train_dp forms its own;
+  10d. the serving features of a tensor-parallel replica
+     (``serve_tp_features``, on phase 5's weights, two gloo ranks sharing
+     card 0): (d) phase 10's 4 adapters prewarmed into a tp=2 server's 8
+     slots (each rank's slices sent through the store; each rank's bank
+     equal, by SHA-256, to the plan's slices of a tp=1 store's bank) and
+     phase 10's 16 requests from 8 threads: the salted accounting equal to
+     phase 10's (2,816 hit, 2,304 computed), tokens/s, 16 timed pooled steps
+     with mixed slots against all -1 (set on every rank); (e) phase 10b's
+     waves across layouts, a tp=2 and a tp=1 server on one tier behind
+     _DisaggIngress both ways (tp=2 prefill, tp=1 decode; then tp=1
+     prefill, tp=2 decode), raw and int8: the decode side computes no
+     prefill token and adopts 16 blocks a prompt, every shipment carries
+     all 32 KV heads, int8 wire / logical <= 0.51, the handoff's extract
+     (the gather over the ranks included), encode, fetch and adopt (the
+     scatter included) timed, and the tp=2 side's raw K/V of a prompt held
+     to an f32-activation tp=1 prefill within 4x a bf16 tp=1 prefill's own
+     error; K1 65 times a model call on each rank, K2-K4 never, the
+     agreement check never fired, no child or process group left;
   11. the device busy share of one served request, under torch.profiler;
   12. the training path: TorchTrainer.fit() of the llama_lora loop at full
      Llama-2-7B width (bf16 weights, seq 2048, batch 2, LoRA rank 16) for 2
@@ -230,7 +248,8 @@ phase 10 and read just after it (``serve_lora``), set to 0 just before phase
 10b and read just after it (``serve_disagg``), set to 0 inside phase 10c
 just before its first tp=2 server and read just after its last one closes
 (its tp=1 comparisons run before and after), with the spawned ranks' own
-counts, read just before each closes, added (``serve_tp``), and set to 0 just before
+counts, read just before each closes, added (``serve_tp``), likewise inside
+phase 10d (``serve_tp_features``), and set to 0 just before
 phase 12's fit() and read just after it (training), set to 0 just before
 phase 12b (b)'s fit() and read just after it, with the spawned worker's own
 counts, set to 0 before its loop and read after it, added (``train_dp``),
@@ -2576,6 +2595,441 @@ def tp_partings(torch, ref, got):
     return out
 
 
+# -- the serving features under tensor parallelism (``serve_tp_features``) ----
+
+#: (d) serve_lora's traffic and pooled step through a tp=2 server with
+#: adapters; (e) serve_disagg's waves of 8 distinct 512-token prompts through
+#: _DisaggIngress across layouts, tp=2 -> tp=1 and tp=1 -> tp=2, raw and int8
+TPF = {"timed_steps": 16, "directions": ("tp2_to_tp1", "tp1_to_tp2"),
+       "codecs": ("raw", "int8"), "timed_handoffs": 4}
+
+
+def _digest(t):
+    """SHA-256 of a tensor's bytes: equal digests, equal tensors."""
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(t.contiguous().cpu().view(-1).view(torch.uint8).numpy()
+                          .tobytes()).hexdigest()
+
+
+def tp_bank_digests(engine):
+    """On every rank: the digest of each tensor of its adapter bank."""
+    return {f"{proj}.{factor}": _digest(t)
+            for proj, pair in engine._adapter_store.bank().items() for factor, t in pair.items()}
+
+
+def _bank_slice_digests(plan, bank, rank):
+    """The digests ``tp_bank_digests`` must give on ``rank``: the plan's
+    slices of a tp=1 bank, its (layer, slot) axes taken as one replicated
+    axis of a row (``PartitionPlan.lora_row_shards``)."""
+    n, rows = bank["wq"]["lora_a"].shape[:2]
+    merged = {proj: (pair["lora_a"].flatten(0, 1), pair["lora_b"].flatten(0, 1))
+              for proj, pair in bank.items()}
+    return {f"{proj}.{factor}": _digest(t.unflatten(0, (n, rows)))
+            for proj, pair in plan.lora_row_shards(merged, rank).items()
+            for factor, t in zip(("lora_a", "lora_b"), pair)}
+
+
+def tp_set_adapter_slots(engine, slots):
+    """On every rank: the adapter slot of each occupied row of the pool."""
+    for si, slot in engine._slots.items():
+        slot.request.adapter_slot = int(slots[si])
+
+
+def tp_handoff_extract(engine, plen):
+    """On every rank of a replica, or on a tp=1 engine: a row's first
+    ``plen`` tokens of K/V extracted as a shipment payload and, under tensor
+    parallelism, gathered to rank 0 through the group; card ms."""
+    import torch
+
+    from ray_tpu_torch.models.llama import new_cache
+
+    row, kv = new_cache(engine._cfg, 1, engine._device, engine._plan), engine._kv
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kv.gather_payload(kv.extract_row_payload(row, plen))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def tp_handoff_adopt(engine, blob, prompt):
+    """On every rank of a replica, or on a tp=1 engine: a shipment's
+    payload (rank 0 fetches it from the tier, untimed) scattered over the
+    ranks' heads through the group and adopted into a fresh pool; (card ms,
+    blocks adopted)."""
+    import torch
+
+    from ray_tpu_torch.kvcache import KVCacheManager
+    from ray_tpu_torch.kvtier import KVShipment
+
+    plan, bs = engine._plan, engine._kv.block_size
+    nblocks, full = len(prompt) // bs, None
+    if engine._tier is not None:
+        ship, backend = KVShipment.from_blob(blob), engine._tier.backend
+        full = backend.fetch_payload(ship, backend.holder_of(ship), engine._device)
+    fresh = KVCacheManager(nblocks, bs, plan=plan)
+    fresh.initialize_for(engine._cfg, engine._device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payload = fresh.scatter_payload(full, nblocks, len(prompt))
+    got = fresh.adopt_blocks(prompt, payload["blocks"], nblocks)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, got
+
+
+def _on_ranks(server, fn, *args):
+    """``fn(engine, *args)`` on every rank of ``server``; rank 0's result."""
+    if server.ranks is None:
+        return fn(server.engine, *args)
+    return server.ranks.run(fn, *args)[0]
+
+
+def tp_lora_reference(torch, np):
+    """(d)'s comparisons, off the path: the 4 tenants' adapters
+    (serve_lora's seeds) and the digests each rank's bank must hold, the
+    plan's slices of a tp=1 store's bank."""
+    from ray_tpu_torch.lora import AdapterStore
+    from ray_tpu_torch.parallel.plan import PartitionPlan
+
+    cfg = tp_config(torch).build_model_config()
+    trees = {f"tenant_{i}": lora_tree(np, cfg, SEED + 10 + i - 1)
+             for i in range(1, LORA["tenants"] + 1)}
+    store = AdapterStore(cfg, max_live=LORA["max_live"], rank=LORA["rank"], alpha=LORA["alpha"])
+    for t, tree in trees.items():
+        store.prewarm(t, tree)
+    plan = PartitionPlan.for_model(cfg, TP["ranks"], devices=[0] * TP["ranks"], backend="gloo")
+    return dict(trees=trees,
+                digests=[_bank_slice_digests(plan, store.bank(), r) for r in range(TP["ranks"])])
+
+
+def tp_disagg_reference(torch, np, params):
+    """(e)'s comparisons, off the path: the prompts, a fused tp=1 server's
+    greedy tokens for the raw waves, and the K/V of the first raw
+    tp2_to_tp1 prompt from a tp=1 prefill with bf16 and with f32
+    activations."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ray_tpu_torch.kvcache import KVCacheManager
+    from ray_tpu_torch.llm import LLMEngine, LLMServer
+
+    cfg = tp_config(torch).build_model_config()
+    rng = np.random.default_rng(SEED + 18)
+    n, plen, new = DISAGG["prompts"], DISAGG["prompt_len"], DISAGG["new_tokens"]
+
+    def prompt():
+        return rng.integers(0, cfg.vocab_size, plen).tolist()
+
+    prompts = {(codec, d): [prompt() for _ in range(n)]
+               for codec in TPF["codecs"] for d in TPF["directions"]}
+    warm = {key: prompt() for key in prompts}
+    fused = LLMServer(tp_config(torch), params=params)
+    with ThreadPoolExecutor(n) as pool:
+        want = {d: list(pool.map(lambda p: fused({"token_ids": p, "max_new_tokens": new})[
+            "token_ids"], prompts["raw", d])) for d in TPF["directions"]}
+    p0 = prompts["raw", TPF["directions"][0]][0]
+    kv = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        eng = (fused.engine if dtype is torch.bfloat16 else
+               LLMEngine(dataclasses.replace(cfg, dtype=dtype), params, max_batch_size=1, seed=0))
+        _, row = eng._prefill(torch.tensor([p0], device="cuda"))
+        kv[dtype] = KVCacheManager(plen // CB["block"], CB["block"]).extract_row_payload(
+            row, plen)["blocks"]
+        del eng, row
+    del fused
+    torch.cuda.empty_cache()
+    return dict(prompts=prompts, warm=warm, want=want, kv_bf16=kv[torch.bfloat16],
+                kv_f32=kv[torch.float32])
+
+
+def _tp_seeded_check(server, params):
+    """Each rank of a tp=2 server without given weights drew its slices of
+    the seed-0 weights (the servers' ``PARAMS_SEED``, as ``params`` were
+    drawn): the f64 sum of every slice equals that of the plan's slice of
+    ``params``."""
+    ranks = server.ranks
+    for rank, got in enumerate(ranks.run(tp_shard_sums)):
+        for name, value in got.items():
+            want = ranks.plan.shard_param(name, params[name], rank)
+            check(value == want.contiguous().double().sum().item(),
+                  f"rank {rank}'s seeded slice of {name} is not the plan's slice")
+
+
+def tp_lora(torch, np, params, ref, lora_out, devices=(0, 0), backend="gloo"):
+    """(d), on the path: serve_lora's traffic through a tp=2 server with an
+    adapter store of 8 slots (rank 16), its ranks on ``devices`` over
+    ``backend`` (here gloo ranks sharing card 0; chip_multicard.py runs it
+    over NCCL on two cards), each drawing its slices of the seed-0 weights
+    (``params``). Returns (the summary, rank 1's own kernel counts)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ray_tpu_torch.llm import AdapterConfig, GenerationRequest, LLMServer
+
+    adapters = AdapterConfig(max_live=LORA["max_live"], slot_rank=LORA["rank"], alpha=LORA["alpha"])
+    t0 = time.perf_counter()
+    server = LLMServer(tp_config(torch, tensor_parallel_size=TP["ranks"], adapters=adapters),
+                       devices=list(devices), tp_backend=backend)
+    start_s = time.perf_counter() - t0
+    ranks, engine, store = server.ranks, server.engine, server.adapter_store
+    _tp_seeded_check(server, params)
+    counts0 = ranks.run(tp_counts)
+    tenants = list(ref["trees"])
+    attach_ms, load_ms = {}, {}
+    for t in tenants:  # cold attaches: each rank's slices sent through the store
+        t0 = time.perf_counter()
+        store._normalize(ref["trees"][t])  # the host's share: the tree as bank rows
+        load_ms[t] = (time.perf_counter() - t0) * 1e3
+        store.prewarm(t, ref["trees"][t])
+        attach_ms[t] = store.stats()["last_attach_ms"]
+    for rank, got in enumerate(ranks.run(tp_bank_digests)):
+        check(got == ref["digests"][rank],
+              f"rank {rank}'s adapter bank is not the plan's slice of a tp=1 store's bank")
+
+    def tenant(i):  # request i names tenant i % 5; 0 is the base model
+        return None if i % (len(tenants) + 1) == 0 else tenants[i % (len(tenants) + 1) - 1]
+
+    rng = np.random.default_rng(SEED + 17)
+
+    def tokens(n):
+        return rng.integers(0, 32000, n).tolist()
+
+    for aid in (tenants[0], None):  # warm-up, each on a prefix of its own
+        server({"token_ids": tokens(CB_PREFIX + CB_OWN), "max_new_tokens": 2, "adapter_id": aid})
+    prefix = tokens(CB_PREFIX)
+    prompts = [prefix + tokens(CB_OWN) for _ in range(CB_REQUESTS)]
+    before = server.kvcache_stats()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(CB["slots"]) as pool:
+        answers = list(pool.map(lambda i: server({
+            "token_ids": prompts[i], "max_new_tokens": NEW_TOKENS, "temperature": 0.0,
+            "adapter_id": tenant(i)}), range(CB_REQUESTS)))
+    wall = time.perf_counter() - t0
+    for a in answers:
+        check(len(a["token_ids"]) == NEW_TOKENS and all(0 <= t < 32000 for t in a["token_ids"]),
+              f"bad tp=2 LoRA answer {a}")
+    after = server.kvcache_stats()
+    hit = after["prefix_hit_tokens"] - before["prefix_hit_tokens"]
+    computed = after["prefill_tokens_computed"] - before["prefill_tokens_computed"]
+    check((hit, computed) == (lora_out["prefix_hit_tokens"], lora_out["prefill_tokens_computed"])
+          == (2816, 2304), f"salted prefix accounting at tp=2 {hit} / {computed}, at tp=1 "
+                           f"{lora_out['prefix_hit_tokens']} / {lora_out['prefill_tokens_computed']}")
+    check(store.stats()["slots_pinned"] == 0, f"adapter pins left: {store.stats()}")
+
+    # the pooled step, 8 rows (base, 4 tenants, base, 2 tenants), timed with
+    # mixed slots and with every slot at -1 in turns; each rank's rows are
+    # set through the lockstep, so every rank runs the same slots
+    leases = [store.acquire(tenant(i)) if tenant(i) else None for i in range(CB["slots"])]
+    for i, lease in enumerate(leases):
+        engine.add_request(GenerationRequest(
+            token_ids=tokens(CB_OWN), max_new_tokens=32, adapter_id=tenant(i),
+            adapter_slot=lease.slot if lease else -1))
+    _step_until(engine, lambda: len(engine._slots) == CB["slots"] and not engine._pending
+                and not engine._inbox)
+    mixed = engine._row_adapter_slots().tolist()
+    step_ms = {"mixed": [], "base": []}
+    for i in range(TPF["timed_steps"]):
+        kind = "mixed" if i % 2 == 0 else "base"
+        ranks.run(tp_set_adapter_slots, mixed if kind == "mixed" else [-1] * CB["slots"])
+        t0 = time.perf_counter()
+        engine.step()  # ends in the host transfer of the sampled tokens
+        step_ms[kind].append((time.perf_counter() - t0) * 1e3)
+    check(len(engine._slots) == CB["slots"], "a slot left the timed tp=2 LoRA steps")
+    ranks.run(tp_set_adapter_slots, mixed)
+    engine.run_until_complete()
+    for lease in leases:
+        store.release(lease)
+    counts1 = ranks.run(tp_counts)
+    launches = _tp_launch_check("(d)", counts0, counts1)
+    check(ranks.failed is None, f"the agreement check fired: {ranks.failed}")
+    stats = server.adapters_stats()
+    server.close()
+    del server, ranks, engine, store
+    torch.cuda.empty_cache()
+    _no_tp_left(torch)
+    return dict(start_s=start_s, cold_attach_ms=attach_ms, of_which_load_ms=load_ms,
+                requests=CB_REQUESTS,
+                threads=CB["slots"], new_tokens=NEW_TOKENS, wall_s=wall,
+                tokens_per_s=CB_REQUESTS * NEW_TOKENS / wall,
+                tokens_per_s_tp1=lora_out["tokens_per_s"], prefix_hit_tokens=hit,
+                prefill_tokens_computed=computed,
+                step_ms_mixed=statistics.median(step_ms["mixed"]),
+                step_ms_base=statistics.median(step_ms["base"]),
+                step_ms_tp1_mixed=lora_out["step_ms_mixed"],
+                step_ms_tp1_base=lora_out["step_ms_base"], step_ms_all=step_ms,
+                adapter_stats=stats, launches_per_rank=launches), counts1[1]
+
+
+def _tp_launch_check(tag, counts0, counts1, extra_calls=0):
+    """K1 65 times a model call on each rank and K2-K4 never, between two
+    ``tp_counts`` readings; rank 0's process also ran ``extra_calls`` model
+    calls of a tp=1 server. Returns each rank's deltas."""
+    per_call, launches = 2 * 32 + 1, []
+    for rank, (c0, c1) in enumerate(zip(counts0, counts1)):
+        d = {k: c1[k] - c0[k] for k in c0}
+        calls = d["forward_calls"] + (extra_calls if rank == 0 else 0)
+        check(d["forward_calls"] > 0 and d["rmsnorm_fwd"] == per_call * calls,
+              f"{tag} rank {rank}: K1 launched {d['rmsnorm_fwd']} times in {calls} model "
+              f"calls, want {per_call} each")
+        for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            check(d[name] == 0, f"{tag} rank {rank} launched {name}")
+        launches.append(d)
+    check(launches[0]["forward_calls"] == launches[1]["forward_calls"],
+          f"{tag}: the ranks made different numbers of model calls")
+    return launches
+
+
+def tp_disagg(torch, np, params, ref, codec):
+    """(e) for one codec, on the path: a tp=2 and a tp=1 server on one
+    tier, both on the KV tier (kv_tier=True: each serves prefill() and
+    decode_shipped()), behind _DisaggIngress both ways, 8 prompts from 8
+    threads a direction. Returns (the summary, rank 1's own kernel counts,
+    the raw tp2_to_tp1 shipment's K/V blocks of its first prompt)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ray_tpu_torch.kvtier import (
+        KVShipment, LocalTierBackend, block_fingerprints, encode_payload)
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.llm.serving import _DisaggIngress
+
+    n, plen, new, bs = (DISAGG["prompts"], DISAGG["prompt_len"], DISAGG["new_tokens"],
+                        CB["block"])
+    nblocks = plen // bs
+    # the full-head K/V of a prompt: every shipment carries all 32 KV heads
+    logical = nblocks * 2 * 32 * 32 * bs * 128 * 2
+    backend = LocalTierBackend()
+    kw = dict(kv_tier=True, kv_ship_codec=codec, max_new_tokens=new)
+    t0 = time.perf_counter()
+    tp2 = LLMServer(tp_config(torch, tensor_parallel_size=TP["ranks"], **kw),
+                    devices=[0] * TP["ranks"], tp_backend="gloo", tier_backend=backend)
+    start_s = time.perf_counter() - t0
+    _tp_seeded_check(tp2, params)
+    tp1 = LLMServer(tp_config(torch, **kw), params=params, tier_backend=backend)
+    counts0, calls0 = tp2.ranks.run(tp_counts), tp1.engine.forward_calls
+
+    def shipment(prompt):
+        fps = block_fingerprints(prompt, bs)
+        got = backend.resolve("llama2-7b", fps[::-1])
+        check(got is not None and got["fp"] == fps[-1], "a prompt's shipment is not registered")
+        return KVShipment.from_blob(got["blob"])
+
+    out, kv_blocks = {}, None
+    for d, (pre, dec) in zip(TPF["directions"], ((tp2, tp1), (tp1, tp2))):
+        ingress = _DisaggIngress(pre, dec)
+        # warm-up: a handoff and two decode steps
+        ingress({"token_ids": ref["warm"][codec, d], "max_new_tokens": 2})
+        prompts = ref["prompts"][codec, d]
+        s_pre, s_dec = pre.kvcache_stats(), dec.kvcache_stats()
+
+        def one(p):
+            t = time.perf_counter()
+            a = ingress({"token_ids": p, "max_new_tokens": new, "temperature": 0.0})
+            return a, (time.perf_counter() - t) * 1e3
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(n) as pool:
+            res = list(pool.map(one, prompts))
+        wall = time.perf_counter() - t0
+        toks = [a["token_ids"] for a, _ in res]
+        check(all(len(t) == new for t in toks), f"(e) {codec} {d}: bad answers")
+        a_pre, a_dec = pre.kvcache_stats(), dec.kvcache_stats()
+        d_pre = a_pre["prefill_tokens_computed"] - s_pre["prefill_tokens_computed"]
+        d_dec = {k: a_dec[k] - s_dec[k] for k in ("prefill_tokens_computed", "adopted_blocks")}
+        check(d_pre == n * plen, f"(e) {codec} {d}: the prefill side computed {d_pre}")
+        check(d_dec == {"prefill_tokens_computed": 0, "adopted_blocks": n * nblocks},
+              f"(e) {codec} {d}: decode side {d_dec}")
+        ships = [shipment(p) for p in prompts]
+        for s in ships:
+            check(s.logical_bytes == logical and s.nblocks == nblocks and s.tail_len == 0
+                  and s.first_token is not None, f"(e) {codec} {d}: shipment {s} is not "
+                                                 f"all 32 KV heads of 16 blocks")
+            if codec == "int8":
+                check(s.wire_bytes <= 0.51 * s.logical_bytes,
+                      f"(e) int8 wire/logical {s.wire_bytes / s.logical_bytes}")
+        if codec == "raw" and d == TPF["directions"][0]:
+            full = backend.fetch_payload(ships[0], ("local", 0), "cuda")
+            check(full["blocks"][0].shape[2] == 32, "the tp=2 shipment lacks KV heads")
+            kv_blocks = full["blocks"]
+        comp = {"extract_ms": [], "encode_ms": [], "fetch_ms": [], "adopt_ms": []}
+        for p, s in list(zip(prompts, ships))[:TPF["timed_handoffs"]]:
+            comp["extract_ms"].append(_on_ranks(pre, tp_handoff_extract, plen))
+            payload = backend.fetch_payload(s, ("local", 0), "cuda")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            encode_payload(payload, codec)  # int8 coded on the card, then to the host
+            comp["encode_ms"].append((time.perf_counter() - t) * 1e3)
+            del payload
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            backend.fetch_payload(s, ("local", 0), "cuda")
+            torch.cuda.synchronize()
+            comp["fetch_ms"].append((time.perf_counter() - t) * 1e3)
+            ms, got = _on_ranks(dec, tp_handoff_adopt, s.to_blob(), p)
+            check(got == nblocks, f"(e) {codec} {d}: adopted {got} of {nblocks} blocks")
+            comp["adopt_ms"].append(ms)
+        out[d] = dict(wall_s=wall, request_wall_ms=statistics.median(w for _, w in res),
+                      wire_over_logical=ships[0].wire_bytes / ships[0].logical_bytes,
+                      tokens=toks, **{k: statistics.median(v) for k, v in comp.items()})
+        print(f"serve_tp_features (e) {codec} {d}",
+              json.dumps({k: v for k, v in out[d].items() if k != "tokens"}))
+    counts1 = tp2.ranks.run(tp_counts)
+    launches = _tp_launch_check(f"(e) {codec}", counts0, counts1,
+                                extra_calls=tp1.engine.forward_calls - calls0)
+    check(tp2.ranks.failed is None, f"the agreement check fired: {tp2.ranks.failed}")
+    tp2.close()
+    del tp2, tp1
+    torch.cuda.empty_cache()
+    _no_tp_left(torch)
+    out.update(start_s=start_s, launches_per_rank=launches)
+    return out, counts1[1], kv_blocks
+
+
+def serve_tp_features_phase(torch, np, params, counters, lora_out):
+    """The serving features of a tensor-parallel replica at full
+    Llama-2-7B width, two gloo ranks sharing card 0, on phase 5's weights
+    ``params``, drawn under seed 0: the tp=1 servers share them, and each
+    tp=2 rank draws its own slices from the same seed (the servers'
+    ``PARAMS_SEED``; checked by sums), so that no weight crosses between
+    the ranks, which takes tens of seconds a server over gloo: (d)
+    multi-tenant LoRA at tp=2 on serve_lora's traffic, (e) disaggregation
+    across layouts, raw and int8. The comparisons run off the path: before
+    it the tp=1 store's bank and (e)'s fused tp=1 tokens and K/V, after it
+    the partings and the K/V check. This process's counts are set to 0
+    just before the first tp=2 server starts and read just after the last
+    one closes; the spawned ranks' own counts, read before each closes, are
+    added. Returns (the phase's summary, the path's launches)."""
+    lora_ref, ref = tp_lora_reference(torch, np), tp_disagg_reference(torch, np, params)
+    for fn in counters.values():
+        fn.launches = 0
+    lora, rank1 = tp_lora(torch, np, params, lora_ref, lora_out)
+    print("serve_tp_features (d)", json.dumps(lora))
+    disagg, ranks1 = {}, [rank1]
+    for codec in TPF["codecs"]:
+        disagg[codec], r1, blocks = tp_disagg(torch, np, params, ref, codec)
+        ranks1.append(r1)
+        if blocks is not None:
+            kv_tp2 = blocks
+    path = {k: fn.launches + sum(r[k] for r in ranks1) for k, fn in counters.items()}
+    # off the path: the tp=2 shipment's raw K/V against a tp=1 prefill's,
+    # both bf16, each held to an f32-activation tp=1 run: tp=2's error within
+    # 4x tp=1's own (the allreduces add bf16 roundings of partial sums, of
+    # the size of tp=1's roundings)
+    errs = {"tp2_vs_f32": max(_rel_err(a, b) for a, b in zip(kv_tp2, ref["kv_f32"]))}
+    control = max(_rel_err(a, b) for a, b in zip(ref["kv_bf16"], ref["kv_f32"]))
+    kv_check = _control_check("serve_tp_features (e) raw K/V", errs, control)
+    kv_check["tp2_vs_tp1_bf16"] = max(_rel_err(a, b) for a, b in zip(kv_tp2, ref["kv_bf16"]))
+    partings = {d: [_first_parting(a, b) for a, b in zip(disagg["raw"][d].pop("tokens"),
+                                                         ref["want"][d])]
+                for d in TPF["directions"]}
+    for d in TPF["directions"]:
+        disagg["int8"][d].pop("tokens")
+    del ref
+    torch.cuda.empty_cache()
+    out = dict(lora=lora, disagg=disagg, kv_check=kv_check, raw_first_parting_vs_tp1=partings)
+    print("serve_tp_features", json.dumps({k: v for k, v in out.items() if k != "lora"}))
+    return out, path
+
+
 def device_profile(torch, fn, groups=None, attempts=3):
     """Wall time, device busy share, the kernels that take the most device
     time of one call of ``fn`` under torch.profiler, and the device time and
@@ -4737,7 +5191,7 @@ def main() -> None:
     # it runs K1 only, as serve_cb does
     for fn in counters.values():
         fn.launches = 0
-    serve_lora_phase(torch, np, server.engine._params, cb)
+    lora_out = serve_lora_phase(torch, np, server.engine._params, cb)
     lora_launches = {name: fn.launches for name, fn in counters.items()}
     check(lora_launches["rmsnorm_fwd"] > 0, "rmsnorm_fwd was not launched on the serve_lora path")
     for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -4764,6 +5218,17 @@ def main() -> None:
     check(tp_launches["rmsnorm_fwd"] > 0, "rmsnorm_fwd was not launched on the serve_tp path")
     for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         check(tp_launches[name] == 0, f"{name} was launched on the serve_tp path")
+    torch.cuda.empty_cache()
+    # the serving features of a tensor-parallel replica: counts set to 0
+    # inside the phase just before its first tp=2 server and read just after
+    # its last one closes, the spawned ranks' own counts added, as serve_tp;
+    # it runs K1 only
+    _, tpf_launches = serve_tp_features_phase(torch, np, server.engine._params, counters,
+                                              lora_out)
+    check(tpf_launches["rmsnorm_fwd"] > 0,
+          "rmsnorm_fwd was not launched on the serve_tp_features path")
+    for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(tpf_launches[name] == 0, f"{name} was launched on the serve_tp_features path")
     torch.cuda.empty_cache()
     profile_phase(torch, server, prompts[1])
     del server  # the training phase's peak memory is its own
@@ -4802,7 +5267,8 @@ def main() -> None:
     # runs)
     moe_launches, _ = train_moe_phase(torch, counters)
     paths = {"serve": serve_launches, "serve_cb": cb_launches, "serve_lora": lora_launches,
-             "serve_disagg": disagg_launches, "serve_tp": tp_launches, "train": train_launches,
+             "serve_disagg": disagg_launches, "serve_tp": tp_launches,
+             "serve_tp_features": tpf_launches, "train": train_launches,
              "train_dp": dp_launches,
              "train_resnet": resnet_launches, "train_vit": vit_launches,
              "train_ppo": ppo_launches, "train_rl": rl_launches,

@@ -552,6 +552,52 @@ class KVCacheManager:
         index = torch.full((n_layers, 1), ntokens, dtype=torch.int32, device=device)
         return DecodeCache(out[0], out[1], index)
 
+    # Under a tensor-parallel plan each rank's rows and pools hold its KV
+    # heads, while a shipment carries every head whatever the layout (the
+    # reference brings its sharded row to the host whole), so that a tp=2
+    # side and a tp=1 side interoperate. The two calls below move a payload
+    # between the two forms through the plan's group; every rank of the
+    # replica calls them at the same point, on the thread that steps it.
+    # Without a plan of tp > 1 they return the payload as it is.
+
+    def gather_payload(self, payload):
+        """Every rank's payload of its heads (:meth:`extract_row_payload`)
+        gathered to rank 0 along the heads axis, in rank order (the head
+        order of ``PartitionPlan.kv_head_shard``): the all-heads payload on
+        rank 0, None on the other ranks."""
+        plan = self._plan
+        if plan is None or plan.tp == 1:
+            return payload
+        group, parts = plan.group, _payload_parts(payload)
+        if plan.rank != 0:
+            for t, _ in parts:
+                group.send(t, 0)
+            return None
+        return _payload_from_parts(
+            [torch.cat([t] + [group.recv(r).to(t.device) for r in range(1, plan.num_devices)],
+                       dim=axis) for t, axis in parts])
+
+    def scatter_payload(self, payload, nblocks: int, ntokens: int):
+        """Rank 0's all-heads ``payload`` (None on the other ranks), cut to
+        its first ``nblocks`` blocks and, where ``ntokens`` passes them, the
+        tail: this rank's heads of it, each other rank's sent to it from
+        rank 0. ``nblocks`` and ``ntokens`` are the same on every rank."""
+        plan = self._plan
+        if plan is None or plan.tp == 1:
+            return payload
+        group, tail = plan.group, ntokens > nblocks * self._block_size
+        if plan.rank != 0:
+            device = plan.device()
+            return _payload_from_parts(
+                [group.recv(0).to(device) for _ in range(4 if tail else 2)])
+        parts = _payload_parts({"blocks": [b[:nblocks] for b in payload["blocks"]],
+                                "tail": payload["tail"] if tail else None})
+        for r in range(1, plan.num_devices):
+            for t, axis in parts:
+                group.send(plan.kv_head_shard(t, axis, r).clone(
+                    memory_format=torch.contiguous_format), r)
+        return _payload_from_parts([plan.kv_head_shard(t, axis) for t, axis in parts])
+
     # -- counters and metrics ------------------------------------------------
 
     def record_prefill(self, hit_tokens: int, computed_tokens: int) -> None:
@@ -575,3 +621,21 @@ class KVCacheManager:
         _metrics.set_kvcache_blocks(
             self._alloc.num_allocated, self._alloc.capacity, mesh=self._mesh_tag
         )
+
+
+def _payload_parts(payload) -> List[tuple]:
+    """A shipment payload as (tensor, heads axis) parts: the K and V blocks
+    leaves, then, with a tail, every layer's K tail stacked and its V tail
+    stacked."""
+    parts = [(b, 2) for b in payload["blocks"]]
+    if payload["tail"]:
+        parts += [(torch.stack(payload["tail"][kv::2]), 1) for kv in (0, 1)]
+    return parts
+
+
+def _payload_from_parts(parts: List[torch.Tensor]):
+    """The inverse of :func:`_payload_parts`."""
+    tail = None
+    if len(parts) == 4:
+        tail = [t for kv in zip(parts[2].unbind(0), parts[3].unbind(0)) for t in kv]
+    return {"blocks": parts[:2], "tail": tail}

@@ -43,6 +43,10 @@ class LLMPredictor:
     callable source. A batch leases each distinct adapter once and releases
     every lease when it ends; a batch that names more adapters than there
     are free slots raises.
+
+    Like the reference's, the predictor reads no ``tensor_parallel_size``
+    (nor ``mesh``): it builds its one engine on its one device whatever the
+    config's parallelism.
     """
 
     def __init__(self, llm_config: Optional[LLMConfig] = None,
@@ -55,12 +59,6 @@ class LLMPredictor:
         if weights_name is not None:
             raise NotImplementedError(_WEIGHT_PLANE.format("weights_name"))
         self._config = llm_config or LLMConfig()
-        if self._config.effective_parallelism()[0] > 1:
-            raise NotImplementedError(
-                "LLMPredictor under tensor parallelism is not ported yet: it comes "
-                "with the rest of the tensor-parallel slice of the PyTorch port "
-                "(ROADMAP A.5)"
-            )
         model_config = require_servable(self._config.build_model_config())
         self._device = resolve_device(device)
         if params is None:

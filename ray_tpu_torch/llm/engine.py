@@ -54,8 +54,15 @@ in lockstep (llm/tp_ranks.py): rank 0 publishes each public entry point's
 command (a dense ``generate`` or stream, each continuous-batching step with
 the requests added and cancelled since the last one) before it runs it, the
 other ranks replay it, and every sampled array is held to rank 0's
-(``_host_sync``). Spans and metrics carry ``plan.describe()`` as their
-``mesh`` tag.
+(``_host_sync``). Rank 0 alone holds the KV tier client, the directed
+shipments and the adapter store's leases: what only it can decide (a tier
+pull's outcome, an export, whether a disaggregated prefill runs now) it
+decides and posts for the others (``_decide``), and a shipment's K/V heads
+move between it and the ranks through the plan's group (the manager's
+``scatter_payload`` / ``gather_payload``), so that a shipment carries every
+KV head whatever the layout. Adapter rows carry their slot in the published
+request; every rank's bank holds its slices of the slot. Spans and metrics
+carry ``plan.describe()`` as their ``mesh`` tag.
 """
 
 from __future__ import annotations
@@ -207,13 +214,7 @@ class _DecodeModelBase:
                  device: DeviceLike = None, adapter_store=None, plan=None):
         self._cfg = model_config
         self._plan = plan
-        self._tp = plan.tp if plan is not None else 1
         self._mesh_tag = plan.describe() if plan is not None else MESH_TAG
-        if self._tp > 1 and adapter_store is not None:
-            raise NotImplementedError(
-                "multi-tenant adapters under tensor parallelism are not ported "
-                "yet (ROADMAP A.5)"
-            )
         self._device = resolve_device(device)
         wrong = {str(t.device) for t in params.values() if t.device != self._device}
         if wrong:
@@ -263,6 +264,13 @@ class _DecodeModelBase:
 
     def _tokens(self, rows) -> torch.Tensor:
         return torch.as_tensor(np.asarray(rows, np.int64), device=self._device)
+
+    def _decide(self, fn):
+        """``fn()``, a host decision: under tensor parallelism one that only
+        rank 0 can make (it holds the tier client, the shipments and the
+        adapter leases), made there and read by the other ranks at the same
+        point (``fn`` runs on rank 0 only)."""
+        return fn() if self._lockstep is None else self._lockstep.decide(fn)
 
     def _host_sync(self, x: torch.Tensor) -> np.ndarray:
         """:func:`host_sync`, and under tensor parallelism the check that
@@ -442,6 +450,18 @@ class LLMEngine(_DecodeModelBase):
 
 
 @dataclasses.dataclass
+class _Prefix:
+    """A prompt's prefix from a shipment or the tier, on this rank: the
+    payload (this rank's KV heads), its leading blocks to adopt, whether it
+    covers the whole prompt with the shipping side's first token."""
+
+    payload: Any
+    nblocks: int
+    exact: bool
+    first_token: Optional[int]
+
+
+@dataclasses.dataclass
 class _Slot:
     request_id: int
     request: GenerationRequest
@@ -515,10 +535,6 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         plan=None,
     ):
         super().__init__(model_config, params, device, adapter_store, plan)
-        if self._tp > 1 and kv_tier is not None:
-            raise NotImplementedError(
-                "the KV tier under tensor parallelism is not ported yet (ROADMAP A.5)"
-            )
         self._num_slots = num_slots
         self._slots: Dict[int, _Slot] = {}  # slot index -> active request
         # (request_id, GenerationRequest, shipment or None): the third
@@ -541,6 +557,10 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         if kv_tier is not None and kv_tier.device != self._device:
             raise ValueError(f"kv tier on {kv_tier.device}, engine on {self._device}")
         self._tier = kv_tier
+        # whether the replica is on the tier: under tensor parallelism every
+        # rank runs the tier's paths, on rank 0's decisions, and only rank 0
+        # holds the client (llm/tp_ranks.py build_engine sets it there)
+        self._on_tier = kv_tier is not None
         # serve replicas call sync methods from a thread pool. One thread
         # at a time steps the shared pool, under _lock; the other callers
         # never wait on it: they enqueue, and wait for the stepper's next
@@ -597,6 +617,8 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         the shipped blocks instead of running prefill."""
         if len(request.token_ids) + request.max_new_tokens > self._cfg.max_seq_len:
             raise ValueError("prompt + max_new_tokens exceeds max_seq_len")
+        if shipment is not None and self._lockstep is not None and not self._on_tier:
+            raise ValueError("a tensor-parallel engine adopts a shipment only on the KV tier")
         if self._spec_k and (
             len(request.token_ids) + request.max_new_tokens + self._spec_k
             > self._cfg.max_seq_len
@@ -953,37 +975,54 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         decode role adopts, or None when this engine cannot serve it now
         (no pool or tier, an adapter request, or an exhausted pool): the
         caller then serves the request fused, so a prefill-side problem
-        costs latency, never a request."""
-        if self._kv is None or self._tier is None:
+        costs latency, never a request. Under tensor parallelism it is a
+        command the other ranks replay (:meth:`_prefill_only`)."""
+        if self._kv is None or not self._on_tier:
             return None
         if request.adapter_id is not None:
             return None  # adapter-tinted K/V never ships through the base tier
         if len(request.token_ids) + request.max_new_tokens > self._cfg.max_seq_len:
             raise ValueError("prompt + max_new_tokens exceeds max_seq_len")
         with self._lock:
-            plen = len(request.token_ids)
-            lease = self._kv.acquire(request.token_ids)
-            if lease is None:
-                return None
             with self._progress:
                 rid = self._next_id
                 self._next_id += 1
-            try:
-                logits, solo = self._prefill_leased(request, lease)
-                first = self._sample_first(logits, request, rid)
-                cached = lease.num_cached_tokens
-                self._kv.record_prefill(cached, plen - cached)
-                self._kv.commit(lease, request.token_ids, solo)
-                payload = self._kv.extract_row_payload(solo, plen)
-                return self._tier.ship_direct(
-                    request.token_ids, payload, plen // self._kv.block_size,
-                    first_token=first,
-                )
-            finally:
-                # committed blocks stay in the radix index (referenced by
-                # the index itself): the prefill replica's cache warms
-                # though it never decodes
+            if self._lockstep is not None:
+                self._lockstep.publish(("prefill_only", request, rid))
+            return self._prefill_only(request, rid)
+
+    def _prefill_only(self, request: GenerationRequest, rid: int):
+        """:meth:`prefill_only`'s work under the step lock, on every rank of
+        a tensor-parallel replica (the others with rank 0's request id):
+        rank 0 decides whether its pool can take the prompt now, every rank
+        prefills its heads, and rank 0 gathers them and ships."""
+        plen = len(request.token_ids)
+        lease = self._kv.acquire(request.token_ids)
+        if not self._decide(lambda: lease is not None):
+            if lease is not None:
                 self._kv.release(lease)
+            return None
+        if lease is None:
+            raise RuntimeError("tensor-parallel ranks disagree: rank 0's pool took a "
+                               "disaggregated prefill that this rank's pool refuses")
+        try:
+            logits, solo = self._prefill_leased(request, lease)
+            first = self._sample_first(logits, request, rid)
+            cached = lease.num_cached_tokens
+            self._kv.record_prefill(cached, plen - cached)
+            self._kv.commit(lease, request.token_ids, solo)
+            payload = self._kv.gather_payload(self._kv.extract_row_payload(solo, plen))
+            if self._tier is None:
+                return None  # another rank of the replica: rank 0 ships
+            return self._tier.ship_direct(
+                request.token_ids, payload, plen // self._kv.block_size,
+                first_token=first,
+            )
+        finally:
+            # committed blocks stay in the radix index (referenced by
+            # the index itself): the prefill replica's cache warms
+            # though it never decodes
+            self._kv.release(lease)
 
     # -- internals -----------------------------------------------------------
 
@@ -1020,13 +1059,9 @@ class ContinuousBatchingEngine(_DecodeModelBase):
             # the tier and directed shipments carry BASE-model K/V; adapter
             # requests stay off both (their prefixes live in the adapter-
             # salted local key space)
-            if self._kv is not None and req.adapter_id is None:
-                if ship is not None:
-                    pulled = self._as_pulled(ship, req)
-                elif self._tier is not None:
-                    local = self._kv.cached_blocks(req.token_ids)
-                    if local < (plen - 1) // self._kv.block_size:
-                        pulled = self._tier.pull(req.token_ids, min_blocks=local)
+            if (self._kv is not None and req.adapter_id is None
+                    and (ship is not None or self._on_tier)):
+                pulled = self._resolve_prefix(req, ship)
             fast = pulled is not None and pulled.exact
             tier_src = "peer" if pulled is not None else None
             lease = None
@@ -1036,10 +1071,8 @@ class ContinuousBatchingEngine(_DecodeModelBase):
                     # shipped blocks land in the pool and the radix BEFORE
                     # the acquire, so the lease pins them like a local hit
                     self._kv.initialize_for(self._cfg, self._device)
-                    self._kv.adopt_blocks(
-                        req.token_ids, pulled.payload["blocks"],
-                        pulled.shipment.nblocks if fast else pulled.matched_blocks,
-                    )
+                    self._kv.adopt_blocks(req.token_ids, pulled.payload["blocks"],
+                                          pulled.nblocks)
                 lease = self._kv.acquire(self._kv_key_tokens(req))
                 if lease is None:  # backpressure: wait for a release
                     self._pending.insert(0, (rid, req, ship))
@@ -1078,7 +1111,7 @@ class ContinuousBatchingEngine(_DecodeModelBase):
                 # zero prefill: the payload covers every prompt token and
                 # the shipping replica sampled the first token
                 solo = self._kv.build_row(pulled.payload, plen)
-                first = int(pulled.shipment.first_token)
+                first = pulled.first_token
             else:
                 logits, solo = self._prefill_leased(req, lease, trace=tr)
                 self.last_step_prefill_tokens += plen - (
@@ -1129,19 +1162,20 @@ class ContinuousBatchingEngine(_DecodeModelBase):
                         "kvcache.commit", tr["ctx"], cm_t0, time.time() - cm_t0,
                         category="kvcache", request_id=rid, tokens=plen,
                     )
+                nblocks = plen // self._kv.block_size
                 if (
-                    self._tier is not None
+                    self._on_tier
                     and lease.cacheable
                     and req.adapter_id is None
-                    and self._tier.should_export(req.token_ids, plen // self._kv.block_size)
+                    and self._decide(lambda: self._tier.should_export(req.token_ids, nblocks))
                 ):
                     # the first computation of this prefix here: publish it,
                     # so other replicas (and fresh scale-ups) pull instead
                     # of recomputing
-                    self._tier.export_and_register(
-                        req.token_ids, self._kv.extract_row_payload(solo, plen),
-                        plen // self._kv.block_size, first_token=first,
-                    )
+                    payload = self._kv.gather_payload(self._kv.extract_row_payload(solo, plen))
+                    if self._tier is not None:  # rank 0 holds the tier client
+                        self._tier.export_and_register(req.token_ids, payload, nblocks,
+                                                       first_token=first)
         if self._cache is None:
             self._cache = new_cache(self._cfg, self._num_slots, self._device, self._plan)
         self._cache.insert_row(si, solo)
@@ -1215,6 +1249,38 @@ class ContinuousBatchingEngine(_DecodeModelBase):
                 si, st["rid"], req, lease, st["row"], first, False, st["tier_src"], tr,
                 st["pf_wall"], finished,
             )
+
+    def _resolve_prefix(self, req: GenerationRequest, ship) -> Optional["_Prefix"]:
+        """The prefix of ``req`` that comes from elsewhere: the directed
+        ``ship`` trimmed to the prompt, or else, past what the local radix
+        covers, a tier pull; None when neither covers any of it. Under
+        tensor parallelism rank 0, which holds the shipment and the tier
+        client, decides, and the payload's KV heads are scattered to the
+        ranks through the group."""
+        found: List[PulledPrefix] = []
+
+        def decide():
+            if ship is not None:
+                pulled = self._as_pulled(ship, req)
+            else:
+                pulled = None
+                local = self._kv.cached_blocks(req.token_ids)
+                if local < (len(req.token_ids) - 1) // self._kv.block_size:
+                    pulled = self._tier.pull(req.token_ids, min_blocks=local)
+            if pulled is None:
+                return None
+            found.append(pulled)
+            nblocks = pulled.shipment.nblocks if pulled.exact else pulled.matched_blocks
+            first = int(pulled.shipment.first_token) if pulled.exact else None
+            return nblocks, pulled.exact, first
+
+        decided = self._decide(decide)
+        if decided is None:
+            return None
+        nblocks, exact, first = decided
+        ntokens = len(req.token_ids) if exact else nblocks * self._kv.block_size
+        payload = self._kv.scatter_payload(found[0].payload if found else None, nblocks, ntokens)
+        return _Prefix(payload, nblocks, exact, first)
 
     @staticmethod
     def _as_pulled(ship, req: GenerationRequest):

@@ -29,8 +29,12 @@ on ``devices`` (default: this host's cards; ``"cpu"`` entries for CPU ranks),
 with the collectives of ``tp_backend``: ``"nccl"`` (a card per rank) or
 ``"gloo"`` (ranks on the CPU, or several on one card). ``server.engine`` is
 rank 0's engine; the others run in lockstep with it. :meth:`LLMServer.close`
-stops them (a finalizer does too). Adapters, the KV tier, roles and
-``LLMPredictor`` under tp > 1 are not ported yet (ROADMAP A.5). The weight plane
+stops them (a finalizer does too). Such a server serves what a tp=1 one
+does: rank 0 holds the adapter store (each rank's bank holds its slices of
+every slot), the tier client and the role; a shipment carries every KV
+head, so a tp=2 side and a tp=1 side of a disaggregated pair interoperate.
+A process holds one tensor-parallel server at a time, so an in-process
+disaggregated pair puts a tp > 1 side beside a tp=1 side. The weight plane
 and tokenizers come with later slices of the port; so a request names its
 adapter by an explicit ``adapter_id`` only (the reference also reads
 serve's multiplexed model id).
@@ -102,7 +106,7 @@ class LLMServer:
         tp, sp = llm_config.effective_parallelism()
         if tp > 1:
             self._start_tensor_parallel(model_config, params, device, role, devices,
-                                        tp_backend)
+                                        tp_backend, tier_backend)
             return
         if devices is not None:
             raise ValueError("devices= places tensor-parallel ranks; one rank takes device=")
@@ -161,20 +165,16 @@ class LLMServer:
             )
 
     def _start_tensor_parallel(self, model_config, params, device, role, devices,
-                               tp_backend) -> None:
+                               tp_backend, tier_backend) -> None:
         """Rank 0 of a tensor-parallel replica: validate the mesh (typed
-        MeshValidationError), spawn the other ranks and build every rank's
-        engine over its slices."""
+        MeshValidationError), build rank 0's tier client and adapter store
+        under the plan, spawn the other ranks and build every rank's engine
+        over its slices."""
         from ..parallel.plan import PartitionPlan, validate_mesh_for_model
         from .engine import _resolve_seed
         from .tp_ranks import EngineSpec, start_ranks
 
         cfg = self._config
-        if role is not None:
-            raise NotImplementedError(
-                "disaggregated roles under tensor parallelism are not ported yet "
-                "(ROADMAP A.5)"
-            )
         if device is not None:
             raise ValueError("a tensor-parallel server places its ranks by devices=, "
                              "not device=")
@@ -188,18 +188,32 @@ class LLMServer:
         if draft_cfg is not None:
             validate_mesh_for_model(tp, plan.num_devices, draft_cfg.n_heads,
                                     draft_cfg.n_kv_heads, "draft")
+        self._device = plan.device(0)
+        if cfg.kv_cache_blocks and (cfg.kv_tier or role is not None):
+            self._kv_tier = KVTierClient(
+                model=cfg.model_id,
+                backend=tier_backend if tier_backend is not None else GcsTierBackend(),
+                block_size=cfg.kv_block_size, codec=cfg.kv_ship_codec, device=self._device,
+            )
+        self._adapter_store = None
+        if cfg.adapters is not None:
+            self._adapter_store = AdapterStore.from_config(
+                model_config, cfg.adapters, self._device, plan=plan)
+        store = self._adapter_store
         spec = EngineSpec(
             model_config=model_config, paged=bool(cfg.kv_cache_blocks),
             batch=cfg.max_batch_size, seed=_resolve_seed(cfg.seed),
             kv_cache_blocks=cfg.kv_cache_blocks or 0, kv_block_size=cfg.kv_block_size,
             draft_config=draft_cfg, spec_tokens=cfg.spec_tokens,
-            prefill_chunk_tokens=cfg.prefill_chunk_tokens,
+            prefill_chunk_tokens=cfg.prefill_chunk_tokens, tier=self._kv_tier is not None,
+            adapter_slots=store.num_slots if store else 0, adapter_rank=store.rank if store else 0,
+            adapter_alpha=store.alpha if store else 0.0,
+            adapter_dtype=store.dtype if store else None,
         )
-        self._ranks = start_ranks(plan, spec, params)
+        self._ranks = start_ranks(plan, spec, params, kv_tier=self._kv_tier,
+                                  adapter_store=store)
         self._engine = self._ranks.engine
-        self._device = plan.device(0)
         self._kv_cache = self._engine._kv if spec.paged else None
-        self._adapter_store = None
         self._finalizer = weakref.finalize(self, self._ranks.close)
 
     @property

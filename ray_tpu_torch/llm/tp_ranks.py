@@ -17,7 +17,8 @@ the same engine code in n processes over their shards, in lockstep:
 - **Lockstep.** Before rank 0 runs a public entry point of its engine it
   publishes the command in the store (:meth:`TPRanks.publish`): a dense
   ``generate`` or stream, each continuous-batching step with the requests
-  added since the last one, a cancellation. The other ranks replay the
+  added since the last one, a cancellation, a disaggregated prefill
+  (``prefill_only``). The other ranks replay the
   commands in order (:func:`_serve`). Admission, the radix index, chunking
   and speculation are host decisions made from the same commands, so every
   rank makes the same ones; the model's collectives keep the ranks' model
@@ -27,6 +28,22 @@ the same engine code in n processes over their shards, in lockstep:
   counts) is posted to the store and held to rank 0's; on any difference
   rank 0 raises a RuntimeError naming the step and the executor refuses
   every later command.
+- **Rank 0's decisions.** Rank 0 alone holds the KV tier client, the
+  directed shipments and the adapter store's leases. A host decision only
+  it can make (a tier pull's outcome, whether to export a prefix, whether a
+  disaggregated prefill can run now) is made there and posted in the store
+  (:meth:`TPRanks.decide`); the other ranks read it at the same point of
+  the same command, so every rank takes the same branch and their
+  collectives meet. The K/V heads a decision moves go through the group,
+  on the stepping thread (``KVCacheManager.gather_payload`` /
+  ``scatter_payload``).
+- **Adapter slots.** A slot write on rank 0 (a cold attach, on a caller's
+  thread) publishes an ``attach`` command carrying each rank's slices of
+  the adapter through the store, not the group: the stepping thread may be
+  inside the group's collectives meanwhile, and two threads on one
+  communicator would interleave their ops. The ranks replay it in order,
+  so the slot is written before any later step that names it. ``attach``
+  is no engine command: it starts no sample count.
 - **Teardown.** :meth:`TPRanks.close` publishes a stop, destroys rank 0's
   group and process group, and stops the worker processes; the server's
   ``close()`` and its finalizer call it.
@@ -58,6 +75,9 @@ STORE_HOST = "127.0.0.1"
 TIMEOUT_S = 300.0
 #: a worker's wait for rank 0's next command: as long as the server lives
 _IDLE_WAIT = datetime.timedelta(days=7)
+#: the store refuses a value over 8 MiB: a command or a reply travels in
+#: pieces of at most this many bytes
+_PIECE = 4 << 20
 
 
 @dataclasses.dataclass
@@ -75,11 +95,22 @@ class EngineSpec:
     draft_config: Any = None
     spec_tokens: int = 0
     prefill_chunk_tokens: int = 0
+    tier: bool = False  # rank 0 holds a KV tier client
+    # the adapter bank (0 slots: no adapter store): every rank holds one
+    adapter_slots: int = 0
+    adapter_rank: int = 0
+    adapter_alpha: float = 0.0
+    adapter_dtype: Any = None
 
 
-def build_engine(spec: EngineSpec, plan, params, draft_params=None):
-    """The engine of one rank, over its slices and its bound ``plan``."""
+def build_engine(spec: EngineSpec, plan, params, draft_params=None, kv_tier=None,
+                 adapter_store=None):
+    """The engine of one rank, over its slices and its bound ``plan``. Rank
+    0 passes its tier client and adapter store; another rank builds a bank
+    of its slices from ``spec`` and runs the tier's paths on rank 0's
+    decisions, without a client."""
     from ..kvcache import KVCacheManager
+    from ..lora import AdapterStore
     from .engine import ContinuousBatchingEngine, LLMEngine
 
     device = plan.device()
@@ -88,11 +119,18 @@ def build_engine(spec: EngineSpec, plan, params, draft_params=None):
                          device=device, plan=plan)
     kv = KVCacheManager(spec.kv_cache_blocks, spec.kv_block_size, plan=plan)
     draft = (spec.draft_config, draft_params) if spec.draft_config is not None else None
-    return ContinuousBatchingEngine(
+    if adapter_store is None and spec.adapter_slots:
+        adapter_store = AdapterStore(
+            spec.model_config, max_live=spec.adapter_slots, rank=spec.adapter_rank,
+            alpha=spec.adapter_alpha, param_dtype=spec.adapter_dtype, device=device, plan=plan)
+    engine = ContinuousBatchingEngine(
         spec.model_config, params, num_slots=spec.batch, kv_cache=kv, seed=spec.seed,
         draft=draft, spec_tokens=spec.spec_tokens,
-        prefill_chunk_tokens=spec.prefill_chunk_tokens, device=device, plan=plan,
+        prefill_chunk_tokens=spec.prefill_chunk_tokens, kv_tier=kv_tier,
+        adapter_store=adapter_store, device=device, plan=plan,
     )
+    engine._on_tier = spec.tier
+    return engine
 
 
 def seeded_shards(config, plan, seed: int) -> Dict[str, torch.Tensor]:
@@ -122,21 +160,52 @@ def _recv_shards(group, config, plan) -> Dict[str, torch.Tensor]:
     return {name: group.recv(0).to(device) for name in param_shapes(config)}
 
 
+class _Refused:
+    """What rank 0 posts for a decision whose making raised there: the
+    other ranks raise too."""
+
+    def __init__(self, why: str):
+        self.why = why
+
+
 class _Lockstep:
-    """The store plane of one rank: command ``index`` is the latest
-    published (rank 0) or replayed (others), and ``sample`` counts the
-    arrays brought to the host since it."""
+    """The store plane of one rank: ``seq`` numbers the commands published
+    (rank 0) or replayed (others); ``index`` is the latest engine command
+    (every command but ``attach``), and ``sample`` counts the arrays
+    brought to the host and the decisions taken since it."""
 
     def __init__(self, store, prefix: str, rank: int, world: int):
         self.store = store
         self.prefix = prefix
         self.rank = rank
         self.world = world
+        self.seq = -1
         self.index = -1
         self.sample = 0
 
     def _key(self, *parts) -> str:
         return "/".join((self.prefix, *map(str, parts)))
+
+    def _set(self, key: str, value) -> None:
+        """``value`` pickled under ``key``, in pieces of at most
+        :data:`_PIECE` bytes: the pieces after the first under ``key/1``,
+        ``key/2``, ..., then their count and the first under ``key``, which
+        the reader waits for."""
+        blob = pickle.dumps(value)
+        pieces = [blob[i:i + _PIECE] for i in range(0, len(blob), _PIECE)]
+        for i, piece in enumerate(pieces[1:], 1):
+            self.store.set(f"{key}/{i}", piece)
+        self.store.set(key, len(pieces).to_bytes(4, "little") + pieces[0])
+
+    def _take(self, key: str, head: bytes):
+        """The value :meth:`_set` put under ``key``, whose own value is
+        ``head``; its keys are deleted."""
+        parts = [head[4:]]
+        for i in range(1, int.from_bytes(head[:4], "little")):
+            parts.append(self.store.get(f"{key}/{i}"))
+            self.store.delete_key(f"{key}/{i}")
+        self.store.delete_key(key)
+        return pickle.loads(b"".join(parts))
 
 
 class _Follower(_Lockstep):
@@ -153,16 +222,27 @@ class _Follower(_Lockstep):
                        pickle.dumps(np.asarray(arr)))
         self.sample += 1
 
-    def next_command(self):
-        self.index += 1
-        self.sample = 0
-        key = self._key("cmd", self.index, self.rank)
-        cmd = pickle.loads(self.store.get(key))
+    def decide(self, fn):
+        """Rank 0's decision at this point of the command (``fn`` runs
+        there only)."""
+        key = self._key("decide", self.index, self.sample, self.rank)
+        value = pickle.loads(self.store.get(key))
         self.store.delete_key(key)
+        self.sample += 1
+        if isinstance(value, _Refused):
+            raise RuntimeError(value.why)
+        return value
+
+    def next_command(self):
+        self.seq += 1
+        key = self._key("cmd", self.seq, self.rank)
+        cmd = self._take(key, self.store.get(key))
+        if cmd[0] != "attach":
+            self.index, self.sample = self.seq, 0
         return cmd
 
     def reply(self, value) -> None:
-        self.store.set(self._key("ret", self.index, self.rank), pickle.dumps(value))
+        self._set(self._key("ret", self.index, self.rank), value)
 
 
 def _serve(engine, lockstep: _Follower) -> None:
@@ -177,6 +257,10 @@ def _serve(engine, lockstep: _Follower) -> None:
             engine.step()
         elif kind == "cancel":
             engine.cancel(cmd[1])
+        elif kind == "attach":
+            engine._adapter_store.write_rows(cmd[1], cmd[2])
+        elif kind == "prefill_only":
+            engine._prefill_only(cmd[1], cmd[2])
         elif kind == "generate":
             engine.generate(cmd[1])
         elif kind == "stream":
@@ -277,21 +361,33 @@ class TPRanks(_Lockstep):
     def publish(self, cmd) -> None:
         """Send the other ranks the command rank 0 is about to run."""
         with self._lock:
-            if self.failed is not None:
-                raise RuntimeError(f"the tensor-parallel ranks stopped: {self.failed}")
-            if self.closed:
-                raise RuntimeError("the tensor-parallel server is closed")
+            self._check_running()
             self._publish(cmd)
             if cmd[0] == "step":
                 self.steps += 1
 
-    def _publish(self, cmd) -> None:
-        self.index += 1
-        self.sample = 0
-        self._cmd_kind = cmd[0]
-        blob = pickle.dumps(cmd)
+    def attach(self, slot: int, rows: Dict[int, Any]) -> None:
+        """Have every other rank write its slices of an adapter into slot
+        ``slot`` of its bank (``rows``: rank -> ``{projection: (a, b)}``
+        on the host), before any command published after this one. Called
+        from the thread of a cold attach, under the adapter store's lock."""
+        with self._lock:
+            self._check_running()
+            self._publish(("attach", slot), {rank: ("attach", slot, rows[rank])
+                                             for rank in range(1, self.world)})
+
+    def _check_running(self) -> None:
+        if self.failed is not None:
+            raise RuntimeError(f"the tensor-parallel ranks stopped: {self.failed}")
+        if self.closed:
+            raise RuntimeError("the tensor-parallel server is closed")
+
+    def _publish(self, cmd, per_rank: Optional[Dict[int, Any]] = None) -> None:
+        self.seq += 1
+        if cmd[0] != "attach":
+            self.index, self.sample, self._cmd_kind = self.seq, 0, cmd[0]
         for rank in range(1, self.world):  # each rank deletes its copy once read
-            self.store.set(self._key("cmd", self.index, rank), blob)
+            self._set(self._key("cmd", self.seq, rank), cmd if per_rank is None else per_rank[rank])
 
     @contextlib.contextmanager
     def command(self, cmd):
@@ -315,6 +411,27 @@ class TPRanks(_Lockstep):
                     f"has {mine.tolist()}, rank {rank} has {theirs.tolist()}"
                 )
                 raise RuntimeError(self.failed)
+        self.sample += 1
+
+    def decide(self, fn):
+        """``fn()``, a host decision only rank 0 can make, posted for the
+        other ranks, which read it at the same point of the same command
+        (:meth:`_Follower.decide`). If ``fn`` raises, the other ranks are
+        told to raise too and the executor refuses every later command."""
+        try:
+            value = fn()
+        except BaseException as exc:
+            self.failed = (f"rank 0 raised deciding at command {self.index} "
+                           f"({self._cmd_kind!r}): {exc!r}")
+            self._post_decision(_Refused(self.failed))
+            raise
+        self._post_decision(value)
+        return value
+
+    def _post_decision(self, value) -> None:
+        blob = pickle.dumps(value)
+        for rank in range(1, self.world):
+            self.store.set(self._key("decide", self.index, self.sample, rank), blob)
         self.sample += 1
 
     def _get(self, key: str) -> bytes:
@@ -356,8 +473,7 @@ class TPRanks(_Lockstep):
             out = [fn(self.engine, *args)]
             for rank in range(1, self.world):
                 key = self._key("ret", self.index, rank)
-                out.append(pickle.loads(self._get(key)))
-                self.store.delete_key(key)
+                out.append(self._take(key, self._get(key)))
             return out
 
     # -- teardown ----------------------------------------------------------
@@ -379,12 +495,14 @@ class TPRanks(_Lockstep):
 
 
 def start_ranks(plan, spec: EngineSpec, params: Optional[Dict[str, torch.Tensor]] = None,
-                timeout_s: float = TIMEOUT_S) -> TPRanks:
+                timeout_s: float = TIMEOUT_S, kv_tier=None, adapter_store=None) -> TPRanks:
     """Spawn ranks 1..n-1 of ``plan``, form the group with them in this
     process as rank 0, hand out the weights (``params``, the whole model on
     rank 0's device, sliced and sent; None: every rank draws its slices
-    under the server's ``PARAMS_SEED``) and build every rank's engine. Returns the
-    :class:`TPRanks`, whose :attr:`~TPRanks.engine` is rank 0's."""
+    under the server's ``PARAMS_SEED``) and build every rank's engine, rank
+    0's with ``kv_tier`` and ``adapter_store`` (whose slot writes then
+    reach the other ranks' banks). Returns the :class:`TPRanks`, whose
+    :attr:`~TPRanks.engine` is rank 0's."""
     import torch.distributed as dist
 
     from .. import collective
@@ -435,10 +553,12 @@ def start_ranks(plan, spec: EngineSpec, params: Optional[Dict[str, torch.Tensor]
             local = bound.shard_params(params)
         draft = (seeded_shards(spec.draft_config, bound, DRAFT_SEED)
                  if spec.draft_config is not None else None)
-        engine = build_engine(spec, bound, local, draft)
+        engine = build_engine(spec, bound, local, draft, kv_tier, adapter_store)
         for rank in range(1, plan.num_devices):
             ranks._get(ranks._key("ready", rank))
         engine._lockstep = ranks
+        if adapter_store is not None:
+            adapter_store._lockstep = ranks
         ranks.engine = engine
         return ranks
     except BaseException:

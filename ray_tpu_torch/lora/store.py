@@ -37,6 +37,18 @@ the bank's dtype, as the reference's write casts), so a row's delta is
 exactly ``x @ A[slot] @ B[slot]``. The weight plane (``publish_adapter``,
 ``source="weights:<prefix>"``) is not ported yet and raises.
 
+Tensor parallelism (``plan=``, a :class:`~ray_tpu_torch.parallel.plan.
+PartitionPlan`): the bank holds the plan's rank's slices, sharded alongside
+the base weights (``PartitionPlan.lora_row_shards``): wq/wk/wv's ``lora_b``
+split on the output (head) dim, wo's ``lora_a`` on the input dim, the rest
+and the slot axis replicated. Rank 0 of a tensor-parallel replica owns the
+leases, the LRU and the source; the other ranks hold only a bank, which
+rank 0 writes: every slot write sends each of them its slices through the
+rank executor (llm/tp_ranks.py, ``attach``), which replays the write there
+before any later engine step that names the slot. The model needs no more
+collectives: wo's partial ``(x_r A_r) B`` is added before the layer's
+allreduce, which sums it as it sums the base partials.
+
 Besides its plain counters (``stats()``), the store records each hit, cold
 attach (with its latency) and eviction, and the live slots, in the process's
 metrics (``util/metrics``), and each cold attach and eviction in its flight
@@ -140,6 +152,7 @@ class AdapterStore:
         source: Optional[Any] = None,
         param_dtype=None,
         device: DeviceLike = None,
+        plan=None,
     ):
         if max_live < 1 or rank < 1:
             raise ValueError("AdapterStore needs max_live >= 1 and rank >= 1")
@@ -151,7 +164,13 @@ class AdapterStore:
         # serves only prewarm()ed adapters; "weights:<prefix>" raises
         self._source = source
         self._dtype = model_config.param_dtype if param_dtype is None else param_dtype
+        self._plan = plan
+        self._mesh_tag = plan.describe() if plan is not None else MESH_TAG
         self._device = resolve_device(device)
+        # on rank 0 of a tensor-parallel replica, the rank executor
+        # (llm/tp_ranks.py): it sends the other ranks their slices of every
+        # slot write
+        self._lockstep = None
         self._paths = adapter_target_paths(model_config)
         self._lock = threading.RLock()
         self._slot_of: Dict[str, int] = {}
@@ -165,30 +184,37 @@ class AdapterStore:
         self._bank = self._build_bank()
 
     @classmethod
-    def from_config(cls, model_config, adapter_config, device: DeviceLike = None):
+    def from_config(cls, model_config, adapter_config, device: DeviceLike = None, plan=None):
         """The store that ``LLMConfig.adapters`` (an ``AdapterConfig``) asks
         for, in the model's parameter dtype."""
         return cls(model_config, max_live=adapter_config.max_live,
                    rank=adapter_config.slot_rank, alpha=adapter_config.alpha,
-                   source=adapter_config.source, device=device)
+                   source=adapter_config.source, device=device, plan=plan)
 
     # -- bank ----------------------------------------------------------------
 
     def _build_bank(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """All-zero slot tensors, one (lora_a, lora_b) pair per projection,
         every layer stacked, with one more row than there are slots: the
-        zero row that slot -1 reads."""
-        cfg, rows = self._cfg, self._num_slots + 1
-        dims = {name: (d_in, d_out) for (_, _, name), d_in, d_out in self._paths[:4]}
+        zero row that slot -1 reads. Under a plan, of the rank's slices."""
+        n, rows = self._cfg.n_layers, self._num_slots + 1
+        row = self._row_slices({
+            name: (torch.empty((n, d_in, self._rank), device="meta"),
+                   torch.empty((n, self._rank, d_out), device="meta"))
+            for (_, _, name), d_in, d_out in self._paths[:4]})
         return {
-            name: {
-                "lora_a": torch.zeros((cfg.n_layers, rows, d_in, self._rank),
-                                      dtype=self._dtype, device=self._device),
-                "lora_b": torch.zeros((cfg.n_layers, rows, self._rank, d_out),
-                                      dtype=self._dtype, device=self._device),
-            }
-            for name, (d_in, d_out) in dims.items()
+            name: {factor: torch.zeros((n, rows, *t.shape[1:]), dtype=self._dtype,
+                                       device=self._device)
+                   for factor, t in zip(("lora_a", "lora_b"), pair)}
+            for name, pair in row.items()
         }
+
+    def _row_slices(self, adapter, rank: Optional[int] = None):
+        """Rank ``rank``'s (default: this store's) slices of a bank row of
+        ``adapter`` (views), or the row itself without a plan."""
+        if self._plan is None:
+            return adapter
+        return self._plan.lora_row_shards(adapter, rank)
 
     def bank(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """The stacked slot tensors the engine passes into every model call.
@@ -203,6 +229,14 @@ class AdapterStore:
     @property
     def rank(self) -> int:
         return self._rank
+
+    @property
+    def alpha(self) -> float:
+        return self._alpha
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self._dtype
 
     @property
     def device(self) -> torch.device:
@@ -223,7 +257,7 @@ class AdapterStore:
                 self._idle.pop(adapter_id, None)
                 self._refcnt[slot] += 1
                 self.hits += 1
-                _metrics.record_adapter_hit(mesh=MESH_TAG)
+                _metrics.record_adapter_hit(mesh=self._mesh_tag)
                 return AdapterLease(adapter_id, slot)
             slot = self._allocate_or_evict()
             if slot is None:
@@ -239,8 +273,8 @@ class AdapterStore:
             self._refcnt[slot] = 1
             self.cold_attaches += 1
             self.last_attach_s = time.perf_counter() - t0
-            _metrics.record_adapter_cold_attach(self.last_attach_s, mesh=MESH_TAG)
-            _metrics.set_adapter_slots_live(len(self._slot_of), mesh=MESH_TAG)
+            _metrics.record_adapter_cold_attach(self.last_attach_s, mesh=self._mesh_tag)
+            _metrics.set_adapter_slots_live(len(self._slot_of), mesh=self._mesh_tag)
             _events.record_event(
                 _events.ADAPTER_COLD_ATTACH, adapter_id=adapter_id, slot=slot,
                 attach_ms=round(self.last_attach_s * 1000.0, 3),
@@ -282,16 +316,31 @@ class AdapterStore:
         del self._slot_of[old_id]
         self._refcnt[slot] = 0
         self.evictions += 1
-        _metrics.record_adapter_evict(mesh=MESH_TAG)
-        _metrics.set_adapter_slots_live(len(self._slot_of), mesh=MESH_TAG)
+        _metrics.record_adapter_evict(mesh=self._mesh_tag)
+        _metrics.set_adapter_slots_live(len(self._slot_of), mesh=self._mesh_tag)
         _events.record_event(_events.ADAPTER_EVICT, adapter_id=old_id, slot=slot)
         return slot
 
     def _write_slot(self, slot: int, adapter: Dict[str, Tuple[torch.Tensor, torch.Tensor]]):
         """THE bank write: row ``slot`` of every layer, one copy per factor
         and projection, cast to the bank's dtype. Called under the lock for
-        a slot of refcount 0 (see the module docstring)."""
-        for name, (a, b) in adapter.items():
+        a slot of refcount 0 (see the module docstring). On rank 0 of a
+        tensor-parallel replica the other ranks' slices, cast likewise, are
+        sent first, so that a failed send leaves this rank's bank as it
+        was."""
+        if self._lockstep is not None:
+            self._lockstep.attach(slot, {
+                rank: {name: tuple(t.to(self._dtype).clone(memory_format=torch.contiguous_format)
+                                   for t in pair)
+                       for name, pair in self._row_slices(adapter, rank).items()}
+                for rank in range(1, self._plan.num_devices)})
+        self.write_rows(slot, self._row_slices(adapter))
+
+    def write_rows(self, slot: int, rows: Dict[str, Tuple[torch.Tensor, torch.Tensor]]) -> None:
+        """Copy one bank row (this store's slices, ``{projection: (a, b)}``)
+        into slot ``slot``: the write :meth:`_write_slot` makes here, and the
+        rank executor replays on a tensor-parallel replica's other ranks."""
+        for name, (a, b) in rows.items():
             self._bank[name]["lora_a"][:, slot].copy_(a)
             self._bank[name]["lora_b"][:, slot].copy_(b)
 
@@ -380,5 +429,5 @@ class AdapterStore:
                 "evictions": self.evictions,
                 "last_attach_ms": round(self.last_attach_s * 1000.0, 3),
                 "resident": sorted(self._slot_of),
-                "mesh": MESH_TAG,
+                "mesh": self._mesh_tag,
             }

@@ -283,6 +283,23 @@ class PartitionPlan:
         prepended to each spec."""
         return {name: P(None, *spec) for name, spec in self.param_specs(bank).items()}
 
+    def lora_row_shards(self, adapter: Mapping[str, Tuple[torch.Tensor, torch.Tensor]],
+                        rank: Optional[int] = None) -> Dict[str, Tuple[torch.Tensor, ...]]:
+        """Rank ``rank``'s (default: the bound rank's) slice of one slot-bank
+        row, from the full adapter ``{projection: (lora_a (n_layers, in, r),
+        lora_b (n_layers, r, out))}`` (views). The specs are
+        :meth:`lora_bank_shardings`'s, whose replicated leading axis is here
+        the layer axis: wq/wk/wv split ``lora_b`` on the output (head) dim
+        and replicate ``lora_a``, wo splits ``lora_a`` on the input dim and
+        replicates ``lora_b``, as their base kernels split."""
+        names = {f"attn.{proj}.{factor}": t for proj, pair in adapter.items()
+                 for factor, t in zip(("lora_a", "lora_b"), pair)}
+        specs = self.lora_bank_shardings(names)
+        return {proj: tuple(self._shard(names[f"attn.{proj}.{factor}"],
+                                        specs[f"attn.{proj}.{factor}"], rank)
+                            for factor in ("lora_a", "lora_b"))
+                for proj in adapter}
+
     def kv_heads_per_rank(self, n_kv_heads: int) -> int:
         """KV heads in one rank's slice of a decode cache or a block pool
         (:data:`KV_SPEC`'s head axis): the one place that fixes the cache
@@ -290,6 +307,13 @@ class PartitionPlan:
         GQA groups."""
         return self._shard(torch.empty(1, n_kv_heads, 1, 1, device="meta"), KV_SPEC,
                            None).shape[1]
+
+    def kv_head_shard(self, t: torch.Tensor, axis: int,
+                      rank: Optional[int] = None) -> torch.Tensor:
+        """Rank ``rank``'s (default: the bound rank's) KV heads of ``t``,
+        whose heads lie on ``axis``: a view of :data:`KV_SPEC`'s head split,
+        so the ranks' slices in rank order concatenate back to ``t``."""
+        return self._shard(t, P(*([None] * axis), KV_SPEC[1]), rank)
 
     def kv_sharding(self) -> PartitionSpec:
         """KV leaves, decode-cache rows AND paged block pools (heads is axis

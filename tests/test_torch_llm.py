@@ -168,8 +168,9 @@ def test_server_answers_like_replica():
 # MoEConfig ("moe"); serving it is refused (test_moe_is_not_served). The KV
 # tier and disaggregated roles are ported: over a KV pool they construct
 # ("tier"), without one they are refused with the reference's ValueError.
-# A tensor-parallel mesh constructs ("tp"); a sequence-parallel one, and
-# adapters or the KV tier beside tp > 1, wait for later slices
+# A tensor-parallel mesh constructs ("tp"), with adapters, the KV tier or
+# roles beside it as the reference's; a sequence-parallel one waits for a
+# later slice
 _LATER_SLICES = {
     # the paged engine and the cluster KV tier over it
     "kv_cache_blocks": (dict(kv_cache_blocks=16, kv_tier=True), "tier"),
@@ -177,11 +178,12 @@ _LATER_SLICES = {
     "tensor_parallel_size": (dict(tensor_parallel_size=2), "tp"),
     "sequence_parallel_size": (dict(sequence_parallel_size=2), NotImplementedError),
     "adapters_with_tp": (
-        dict(tensor_parallel_size=2, kv_cache_blocks=16, adapters={"max_live": 2}),
-        NotImplementedError,
+        dict(tensor_parallel_size=2, kv_cache_blocks=16, adapters={"max_live": 2}), "tp"
     ),
-    "kv_tier_with_tp": (
-        dict(tensor_parallel_size=2, kv_cache_blocks=16, kv_tier=True), NotImplementedError
+    "kv_tier_with_tp": (dict(tensor_parallel_size=2, kv_cache_blocks=16, kv_tier=True), "tp"),
+    "roles_with_tp": (
+        dict(tensor_parallel_size=2, kv_cache_blocks=16, roles={"prefill": 1, "decode": 1}),
+        "tp",
     ),
     "draft_model": (
         dict(draft_model="llama-tiny", kv_cache_blocks=16, adapters={"max_live": 2}), None
@@ -212,6 +214,10 @@ def test_later_slice_features_raise(case):
     elif raises == "tp":
         cfg, ref = LLMConfig(**kwargs), JaxLLMConfig(**kwargs)
         assert cfg.effective_parallelism() == ref.effective_parallelism() == (2, 1)
+        assert (cfg.kv_tier, cfg.roles, cfg.kv_cache_blocks) == (
+            ref.kv_tier, ref.roles, ref.kv_cache_blocks)
+        assert (dataclasses.asdict(cfg.adapters) if cfg.adapters else None) == (
+            dataclasses.asdict(ref.adapters) if ref.adapters else None)
     elif raises == "tier":
         cfg, ref = LLMConfig(**kwargs), JaxLLMConfig(**kwargs)
         assert (cfg.kv_tier, cfg.kv_cache_blocks, cfg.kv_ship_codec) == (

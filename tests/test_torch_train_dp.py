@@ -189,10 +189,21 @@ def test_failure_policy_restart_resumes_from_checkpoint(tmp_path):
 
 
 def _dying_loop(config):
+    """Rank 1 dies in every attempt, but only after rank 0 has reported: the
+    controller stops the gang at the first exit it sees, so a report rank 0
+    had not sent by then would be lost. Rank 0 leaves a marker after its
+    report, which rank 1 takes (so the next attempt's rank 1 waits again)."""
     ctx = train.get_context()
     train.report({"rank": ctx.get_world_rank()})
-    if ctx.get_world_rank() == 1:
-        os._exit(3)
+    marker = os.path.join(ctx.get_storage_path(), "rank0_reported")
+    if ctx.get_world_rank() == 0:
+        open(marker, "w").close()
+        return
+    deadline = time.monotonic() + _DEADLINE_S
+    while not os.path.exists(marker) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    os.remove(marker)
+    os._exit(3)
 
 
 def test_failure_policy_exhausted(tmp_path):
