@@ -38,9 +38,18 @@ port's ``TorchTrainer`` (``TorchConfig(backend="nccl")``):
    rank's bank the plan's slice of a tp=1 bank, the salted accounting,
    tokens/s, pooled step ms mixed against all -1, cold attach ms). It runs
    first: its servers form this process's default process group, and
-   close it.
+   close it;
+4. ``chip_smoke.train_resnet_dp_loop`` (ResNet-50 with sync-BN, b=256 a
+   rank, SGD through ``DataParallelMean``) at 1 worker and at n: 106
+   sync-BN allreduces and the 102,228,128 B gradient a step on every rank,
+   images/s and the weak-scaling efficiency;
+5. ``chip_smoke.train_fsdp_loop`` (the llama_lora loop at its default mesh,
+   FSDP at fsdp = n, full Llama-2-7B width, seq 2048, batch 2 a worker):
+   K1-K4 exact, step ms and peak memory a rank against part 2's replicated
+   n-worker run.
 
-    python3 chip_multicard.py 3      # part 3 alone (no argument: all three)
+    python3 chip_multicard.py 3      # part 3 alone (no argument: all five;
+                                     # several, as in "4 5", run those)
 
 Prints the cards' names and power limits, one JSON line per part, and
 ends with an ``{"ok": true, ...}`` line. Exits non-zero with fewer than 2
@@ -231,7 +240,7 @@ def main() -> None:
     from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchConfig, TorchTrainer
 
     n = torch.cuda.device_count()
-    tp_only = sys.argv[1:] == ["3"]
+    parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5"}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print("cards:", smi.replace("\n", " | "))
@@ -250,13 +259,21 @@ def main() -> None:
                 raise result.error
             return result, time.perf_counter() - t0
 
-    tp_part(torch, np, C, n)
-    if tp_only:
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n}}))
-        return
+    if "3" in parts:
+        tp_part(torch, np, C, n)
+    if "1" in parts:
+        ops_part(C, fit, n)
+    runs = train_part(C, fit, n) if "2" in parts else None
+    if "4" in parts:
+        resnet_part(C, fit, n)
+    if "5" in parts:
+        fsdp_part(C, fit, n, runs)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": n}}))
 
-    # 1. the ops at n ranks
+
+def ops_part(C, fit, n: int) -> None:
+    """1: the ops at n ranks."""
     result, fit_s = fit(nccl_ops_loop, n)
     reports = [m for m in result.metrics_history if "errors" in m]
     ops = next(m for m in reports if m["rank"] == 0)
@@ -267,7 +284,9 @@ def main() -> None:
     C.check(len(reports) == n, f"{len(reports)} of {n} ranks reported")
     C.check(not any(m["errors"] for m in reports), f"failed checks {[m['errors'] for m in reports]}")
 
-    # 2. the 7B LoRA loop at 1 worker and at n
+
+def train_part(C, fit, n: int) -> dict:
+    """2: the 7B LoRA loop, replicated, at 1 worker and at n."""
     runs = {}
     for workers in (1, n):
         result, fit_s = fit(C.train_dp_loop, workers, C.TRAIN_CONFIG)
@@ -293,15 +312,67 @@ def main() -> None:
         for launches in run["launches"]:
             C.check(launches == {k: v * C.TRAIN_STEPS for k, v in want.items()},
                     f"{workers} workers: launches {launches}")
+        # past one worker, each epoch's report adds the gang's mean loss: one
+        # f32 scalar
+        reports = C.TRAIN_CONFIG["epochs"] if workers > 1 else 0
         for ar in run["allreduce"]:
-            C.check(ar["count"] == C.DP_BUCKETS_PER_STEP * C.TRAIN_STEPS
-                    and ar["bytes"] == C.DP_OP_BYTES[1] * C.TRAIN_STEPS, f"allreduce {ar}")
+            C.check(ar["count"] == C.DP_BUCKETS_PER_STEP * C.TRAIN_STEPS + reports
+                    and ar["bytes"] == C.DP_OP_BYTES[1] * C.TRAIN_STEPS + 4 * reports,
+                    f"allreduce {ar}")
         C.check(all(x == x and abs(x) < 1e3 for x in run["losses"]), f"losses {run['losses']}")
     C.check(all(k == 0 for k in one["nccl_kernels"]), f"1 worker: NCCL kernels {one['nccl_kernels']}")
     C.check(all(k >= C.DP_BUCKETS_PER_STEP for k in many["nccl_kernels"]),
             f"{n} workers: NCCL kernels {many['nccl_kernels']}, want one or more per bucket")
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                             "count": n}}))
+    return runs
+
+
+def resnet_part(C, fit, n: int) -> None:
+    """4: ResNet-50 with sync-BN at 1 worker and at n, b=256 a worker."""
+    import math
+
+    runs = {}
+    for workers in (1, n):
+        result, fit_s = fit(C.train_resnet_dp_loop, workers, C.RESNET_CONFIG)
+        stats = [m["resnet_dp"] for m in result.metrics_history if "resnet_dp" in m]
+        losses = [m["loss"] for m in result.metrics_history if "loss" in m]
+        C.check(len(stats) == workers and all(math.isfinite(x) for x in losses),
+                f"{len(stats)} stats and losses {losses} from {workers} workers")
+        for s in stats:
+            grad_bytes = sum(b[1] for b in s["buckets"])
+            bn_ops = s["step_collectives"]["count"] - len(s["buckets"])
+            C.check(grad_bytes == 4 * C.RESNET_PARAMS and bn_ops == 2 * C.RESNET_BNS,
+                    f"{workers} workers: {bn_ops} sync-BN ops, {grad_bytes} gradient bytes")
+            C.check(not any(s["launches"].values()), f"port kernels on ResNet: {s['launches']}")
+        med = [statistics.median(s["step_ms"]) for s in stats]
+        runs[workers] = dict(fit_s=fit_s, losses=losses, step_ms_median=med,
+                             images_per_s=C.RESNET_CONFIG["batch_per_worker"] * workers / max(med)
+                             * 1e3, peak_bytes=[s["peak_bytes"] for s in stats])
+    efficiency = max(runs[1]["step_ms_median"]) / max(runs[n]["step_ms_median"])
+    print("multicard resnet", json.dumps({"runs": runs, "weak_scaling_efficiency": efficiency}))
+
+
+def fsdp_part(C, fit, n: int, replicated) -> None:
+    """5: the 7B LoRA loop at its default mesh, FSDP at fsdp = n."""
+    result, fit_s = fit(C.train_fsdp_loop, n, C.TRAIN_CONFIG)
+    stats = [m["fsdp_stats"] for m in result.metrics_history if "fsdp_stats" in m]
+    losses = [m["loss"] for m in result.metrics_history if "loss" in m]
+    C.check(len(stats) == n and len(losses) == n * C.TRAIN_CONFIG["epochs"],
+            f"{len(stats)} stats and {len(losses)} losses from {n} workers")
+    C.check(all(x == x and abs(x) < 1e3 for x in losses), f"losses {losses}")
+    n_layers = 32
+    want = {"rmsnorm_fwd": 4 * n_layers + 1, "flash_attention_fwd": 2 * n_layers,
+            "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers}
+    for s in stats:
+        C.check(s["launches"] == {k: v * C.TRAIN_STEPS for k, v in want.items()},
+                f"fsdp={n}: launches {s['launches']}")
+    rep = replicated[n] if replicated else None
+    print("multicard fsdp", json.dumps(dict(
+        ranks=n, fit_s=fit_s, losses=losses,
+        step_ms_median=[statistics.median(s["step_ms"]) for s in stats],
+        per_step=stats[0]["per_step"], peak_bytes=[s["peak_bytes"] for s in stats],
+        step_peak_bytes=[s["step_peak_bytes"] for s in stats],
+        replicated_step_ms_median=rep["step_ms_median"] if rep else None,
+        replicated_peak_bytes=rep["peak_bytes"] if rep else None)))
 
 
 if __name__ == "__main__":

@@ -169,12 +169,29 @@ Phases, each of which exits non-zero on failure:
      each: adapters equal across ranks after every step and within a
      stated bound of one rank at batch 2; the gloo allreduce timed alone;
      (d) NCCL for two ranks on one card refused before any spawn;
+  12c. FSDP (``train_fsdp``): (a) the llama_lora loop at its default mesh
+     in a spawned NCCL worker at fsdp=1 (every gather a one-rank op): its
+     losses and full adapters within (b)'s bound of phase 12's, K1-K4
+     129/64/32/32 a step, a step's gathers and reduce-scatters, step ms and
+     peak memory; (b) two gloo ranks sharing the card at 4 layers of 7B
+     width, every parameter replicated and then at fsdp=2: each rank's
+     base bytes exactly half, adapters within 2n lr + n bf16 ulps of the
+     replicated pair's, gather bytes, step ms and peak a rank; (c) the
+     pair's sharded checkpoint restored whole here, bit for bit;
   13. ResNet-50 training (``train_resnet``): make_trainer(...).fit() of the
      resnet loop at 224, batch 256 (bf16 activations over f32 parameters,
      SGD with momentum), finite losses, running statistics that move, K1-K4
      launched 0 times; median of 5 timed warm steps, images/s, peak memory,
      a profile of one step (convolutions against the elementwise chain);
      f32 card-vs-host parity at full width (4 images at 96x96);
+  13b. sync-BN data parallelism (``train_resnet_dp``): (a) the resnet loop
+     in a spawned NCCL worker at world size 1, then 3 steps of a fresh
+     model whose parameters and running statistics equal the in-process
+     run's (bit for bit, or within two in-process runs' spread), exactly
+     106 sync-BN allreduces and 102,228,128 B of gradient a step, 5 timed
+     steps; (b) two gloo ranks sharing the card at b=128 each, 3 steps:
+     bit-identical to each other, within twice the b=256 run's distance
+     from itself in f32 activations, step ms and the collectives' share;
   14. ViT-B/16 training (``train_vit``): batch 128 at 224, AdamW, exactly
      12/12/12 launches of K2/K3/K4 per step (24 K2 with remat), K1 none,
      remat-invariant loss and gradients, 5 timed warm steps, a profile of
@@ -253,7 +270,9 @@ phase 10d (``serve_tp_features``), and set to 0 just before
 phase 12's fit() and read just after it (training), set to 0 just before
 phase 12b (b)'s fit() and read just after it, with the spawned worker's own
 counts, set to 0 before its loop and read after it, added (``train_dp``),
-and set to 0 at the
+likewise for phase 12c (a)'s worker, with (b)'s FSDP ranks' counts of
+their steps added (``train_fsdp``) and for phase 13b's workers
+(``train_resnet_dp``), and set to 0 at the
 start of phases 13 and 14 and read after their timed and profiled steps
 (``train_resnet``, ``train_vit``), and set to 0 at the start of phase 15 and
 read after its timed iterations and profiled update (``train_ppo``), set
@@ -3289,9 +3308,11 @@ def _host_ms(torch, fn, n=10):
 
 def train_dp_loop(config):
     """The ``train_dp`` worker: llama_lora's own loop (the main path, with
-    this process's K1-K4 launches and collective records around it), then 3
-    timed steps and a profiled one of a fresh model through the same
-    gradient hook; reported to the controller."""
+    this process's K1-K4 launches and collective records around it) with
+    every parameter replicated (``dp`` = the world size; the loop's default
+    mesh is FSDP's, which ``train_fsdp`` runs), then 3 timed steps and a
+    profiled one of a fresh model through the same gradient hook; reported
+    to the controller."""
     import torch
 
     from ray_tpu_torch import train
@@ -3307,7 +3328,7 @@ def train_dp_loop(config):
     _zero(counters)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    llama_lora.train_loop_per_worker(config)
+    llama_lora.train_loop_per_worker(dict(config, dp=train.get_context().world_size))
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = _launches(counters)
@@ -3348,11 +3369,11 @@ def _dp_gloo_model(torch, device):
     return cfg, model, lora, optimizer
 
 
-def _dp_gloo_tokens(torch, cfg, device):
+def _dp_gloo_tokens(torch, cfg, device, steps=DP_GLOO["steps"]):
     """The global batch of each step: 2 rows from a seed, rank r takes row r."""
     gen = torch.Generator(device=device).manual_seed(1234)
     return [torch.randint(0, cfg.vocab_size, (2, cfg.max_seq_len), generator=gen, device=device)
-            for _ in range(DP_GLOO["steps"])]
+            for _ in range(steps)]
 
 
 def _host_adapters(lora):
@@ -3664,6 +3685,263 @@ def train_dp_phase(torch, np, counters, train_out, train_lora):
     return launches, out
 
 
+# -- FSDP for the 7B LoRA loop (``train_fsdp``) -------------------------------
+
+#: (b): two gloo ranks sharing the card at fsdp=2, 7B width cut to 4 layers,
+#: 3 steps of a 2-row global batch
+FSDP_GLOO = {"n_layers": 4, "steps": 3, "ranks": 2}
+
+
+def train_fsdp_loop(config):
+    """(a)'s worker: llama_lora's own loop at its default mesh (FSDP, here
+    fsdp=1: every gather a one-rank NCCL op), this process's K1-K4 counts
+    and collective records around it; then a fresh FSDP model's collectives
+    in one step, and timed steps."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.parallel.fsdp import FSDP
+    from ray_tpu_torch.train import collective as tcol
+    from ray_tpu_torch.train.examples import llama_lora
+    from ray_tpu_torch.util import metrics
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = _port_counters()
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llama_lora.train_loop_per_worker(config)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+
+    ctx = train.get_context()
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg = llama_lora.model_config(config)
+    mesh = tcol.gang_mesh(device, fsdp=ctx.world_size)
+    fsdp = FSDP.for_llama(cfg, mesh.bind(ctx.world_rank, {"fsdp": tcol.tensor_group()}))
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device,
+                         shard=fsdp.shard)
+    model, _, optimizer = llama_lora.lora_model(cfg, params, fsdp=fsdp)
+    del params
+    reduce = llama_lora.data_parallel_mean(ctx.world_size, fsdp.sharded)
+    tokens = llama_lora.step_tokens(cfg, config["batch_per_worker"], 0, 0, ctx.world_rank, device)
+
+    def step():
+        llama_lora.lora_train_step(model, optimizer, tokens, reduce)
+
+    step()
+    torch.cuda.synchronize()
+    before = metrics.collective_summary()
+    step()
+    torch.cuda.synchronize()
+    after = metrics.collective_summary()
+    per_step = {op: {k: after[op][k] - before.get(op, {}).get(k, 0) for k in ("count", "bytes")}
+                for op in ("allgather", "reducescatter", "allreduce") if op in after}
+    step_ms, step_peak = _timed_steps(torch, step, 3)
+    train.report({"fsdp_stats": dict(
+        fit_s=fit_s, launches=launches, peak_bytes=peak, per_step=per_step,
+        sharded=len(fsdp.sharded), step_ms=step_ms, step_peak_bytes=step_peak)})
+
+
+def train_fsdp_gloo_loop(config):
+    """(b)'s worker: one of two ranks sharing the card over gloo, 3 steps of
+    the 7B loop's step cut to 4 layers on row r of each global batch, with
+    FSDP at fsdp=2 (``config["fsdp"]``) or every parameter replicated (as
+    ``train_dp`` (c)'s pair); the full adapters after the steps, and under
+    FSDP a sharded checkpoint of the rank's adapter blocks."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.parallel.fsdp import FSDP
+    from ray_tpu_torch.train import collective as tcol
+    from ray_tpu_torch.train.examples import llama_lora
+    from ray_tpu_torch.train.lora import split_lora
+    from ray_tpu_torch.util import metrics
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = train.get_context()
+    r = ctx.world_rank
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg = dataclasses.replace(llama_lora.model_config(TRAIN_CONFIG),
+                              n_layers=FSDP_GLOO["n_layers"])
+    fsdp = None
+    if config["fsdp"]:
+        mesh = tcol.gang_mesh(device, fsdp=ctx.world_size)
+        fsdp = FSDP.for_llama(cfg, mesh.bind(r, {"fsdp": tcol.tensor_group()}))
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device,
+                         shard=None if fsdp is None else fsdp.shard)
+    model, lora, optimizer = llama_lora.lora_model(cfg, params, fsdp=fsdp)
+    del params
+    base, _ = split_lora(dict(model.named_parameters()))
+    reduce = llama_lora.data_parallel_mean(ctx.world_size, () if fsdp is None else fsdp.sharded)
+    counters = _port_counters()
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    rows, losses = [], []
+    for tokens in _dp_gloo_tokens(torch, cfg, device, FSDP_GLOO["steps"]):
+        torch.cuda.synchronize()
+        before = metrics.collective_summary().get("allgather", {}).get("bytes", 0)
+        t0 = time.perf_counter()
+        loss = llama_lora.lora_train_step(model, optimizer, tokens[r:r + 1], reduce)
+        torch.cuda.synchronize()
+        rows.append(dict(step_ms=(time.perf_counter() - t0) * 1e3,
+                         gather_bytes=metrics.collective_summary().get("allgather", {}).get(
+                             "bytes", 0) - before))
+        losses.append(tcol.gang_mean(loss))
+    launches = _launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    full = lora if fsdp is None else fsdp.full_state(lora)
+    if fsdp is not None:
+        train.save_sharded(config["ckpt"], {"lora": dict(lora)},
+                           {"lora": {n: fsdp.shardings[n] for n in lora}})
+    train.report({"rank": r, "device": str(device), "fsdp": fsdp is not None,
+                  "base_bytes": sum(p.numel() * p.element_size() for p in base.values()),
+                  "adapters": _host_adapters(full), "steps": rows, "losses": losses,
+                  "launches": launches, "peak_bytes": peak})
+
+
+def train_fsdp_phase(torch, np, counters, train_out, train_lora, dp_out):
+    """FSDP of the 7B LoRA loop: (a) a spawned NCCL worker at world size 1
+    and fsdp=1 runs the full loop, held to the ``train`` phase's in-process
+    run (bit for bit, or within the spread of two in-process runs that
+    ``train_dp`` measured); (b) two gloo ranks sharing the card at fsdp=2,
+    4 layers, against the replicated pair on the same data; (c) the pair's
+    sharded checkpoint restored whole in this process."""
+    import multiprocessing
+    import pickle
+    import tempfile
+
+    from ray_tpu_torch.train import (
+        RunConfig,
+        ScalingConfig,
+        TorchConfig,
+        TorchTrainer,
+        restore_sharded,
+    )
+
+    def fit(loop, storage, name, config, **kw):
+        result = TorchTrainer(loop, train_loop_config=config,
+                              run_config=RunConfig(name=name, storage_path=storage), **kw).fit()
+        if result.error is not None:
+            raise result.error
+        return result
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    _zero(counters)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fsdp_") as storage:
+        t0 = time.perf_counter()
+        result = fit(train_fsdp_loop, storage, "llama-lora-fsdp", dict(TRAIN_CONFIG),
+                     scaling_config=ScalingConfig(num_workers=1),
+                     backend_config=TorchConfig(backend="nccl"), overlap=True)
+        fit_s = time.perf_counter() - t0
+        with open(Path(result.checkpoint.path) / "lora.pkl", "rb") as f:
+            fsdp_lora = pickle.load(f)["lora"]
+    parent = _launches(counters)
+    check(not any(parent.values()), f"the train_fsdp loop launched kernels in the parent: {parent}")
+    check(not multiprocessing.active_children(), "the worker group left a process")
+    stats = next(m["fsdp_stats"] for m in result.metrics_history if "fsdp_stats" in m)
+    losses = [m["loss"] for m in result.metrics_history if "loss" in m]
+    bound_loss = dp_out["nccl_worker"]["bound_loss"]
+    bound_lora = dp_out["nccl_worker"]["bound_adapter"]
+    check(sorted(fsdp_lora) == sorted(train_lora), "the FSDP checkpoint holds other adapters")
+    loss_diff = max(abs(a - b) for a, b in zip(losses, train_out["losses"]))
+    lora_diff = max((fsdp_lora[k].float() - train_lora[k].float()).abs().max().item()
+                    for k in train_lora)
+    check(len(losses) == TRAIN_CONFIG["epochs"] and loss_diff <= bound_loss,
+          f"FSDP losses {losses} part from in-process by {loss_diff} > {bound_loss}")
+    check(lora_diff <= bound_lora, f"FSDP adapters part from in-process by {lora_diff} > {bound_lora}")
+    n_layers = 32
+    want = {"rmsnorm_fwd": 4 * n_layers + 1, "flash_attention_fwd": 2 * n_layers,
+            "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers}
+    for name, per_step in want.items():
+        check(stats["launches"][name] == per_step * TRAIN_STEPS,
+              f"{name}: {stats['launches'][name]} launches in the FSDP worker's {TRAIN_STEPS} "
+              f"steps, want {per_step} each")
+    launches = {name: parent[name] + stats["launches"][name] for name in counters}
+    out["nccl_worker"] = dict(
+        fit_s=fit_s, worker_fit_s=stats["fit_s"], losses=losses, loss_diff=loss_diff,
+        bound_loss=bound_loss, adapter_diff=lora_diff, bound_adapter=bound_lora,
+        bit_for_bit=loss_diff == 0 and lora_diff == 0, launches=stats["launches"],
+        launches_per_step=want, sharded_params=stats["sharded"], per_step=stats["per_step"],
+        step_ms=stats["step_ms"], step_ms_median=statistics.median(stats["step_ms"]),
+        train_phase_step_ms_median=train_out["step_ms_median"],
+        peak_bytes=stats["peak_bytes"], step_peak_bytes=stats["step_peak_bytes"],
+        train_phase_step_peak_bytes=train_out["step_peak_bytes"])
+    del fsdp_lora
+    torch.cuda.empty_cache()
+
+    # (b) two gloo ranks on the card: the replicated pair, then FSDP at fsdp=2
+    pairs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fsdp_") as storage:
+        ckpt = str(Path(storage) / "fsdp-ckpt")
+        for sharded in (False, True):
+            t0 = time.perf_counter()
+            result = fit(train_fsdp_gloo_loop, storage, f"fsdp-gloo-{int(sharded)}",
+                         {"fsdp": sharded, "ckpt": ckpt},
+                         scaling_config=ScalingConfig(FSDP_GLOO["ranks"], {"GPU": 0.5}),
+                         backend_config=TorchConfig(backend="gloo"), overlap=True)
+            reports = sorted(result.metrics_history, key=lambda m: m["rank"])
+            check([m["rank"] for m in reports] == [0, 1], f"gloo reports {reports}")
+            check(all(m["fsdp"] == sharded and m["device"] == str(device) for m in reports),
+                  "the gloo ranks are not on one card")
+            for k, a in reports[0]["adapters"].items():
+                check(np.array_equal(a, reports[1]["adapters"][k]), f"the gloo ranks' {k} differ")
+            check(reports[0]["losses"] == reports[1]["losses"], "the ranks report other losses")
+            pairs[sharded] = dict(reports=reports, fit_s=time.perf_counter() - t0)
+        # (c) the pair's blocks, restored whole here
+        restored = restore_sharded(ckpt)["lora"]
+    rep, fs = pairs[False]["reports"], pairs[True]["reports"]
+    for m in fs:
+        check(m["base_bytes"] * FSDP_GLOO["ranks"] == rep[0]["base_bytes"],
+              f"rank {m['rank']} holds {m['base_bytes']} B of a {rep[0]['base_bytes']} B base")
+    per_step = {"rmsnorm_fwd": 4 * FSDP_GLOO["n_layers"] + 1,
+                "flash_attention_fwd": 2 * FSDP_GLOO["n_layers"],
+                "flash_bwd_dq": FSDP_GLOO["n_layers"], "flash_bwd_dkv": FSDP_GLOO["n_layers"]}
+    for m in rep + fs:
+        check(m["launches"] == {k: v * FSDP_GLOO["steps"] for k, v in per_step.items()},
+              f"rank {m['rank']} launches {m['launches']}")
+    for m in fs:
+        for name in counters:
+            launches[name] += m["launches"][name]
+    # the same step on the same data, the gradient sums grouped otherwise:
+    # Adam moves an element by about lr a step whatever its gradient's size,
+    # so a near-zero gradient whose sign a rounding flips parts the two by
+    # up to 2 lr a step, plus half a bf16 step of |p| per step on each side
+    lr, n = 1e-4, FSDP_GLOO["steps"]
+    worst, equal = 0.0, []
+    for k, want_a in rep[0]["adapters"].items():
+        got = fs[0]["adapters"][k]
+        ulp = np.spacing(np.abs(want_a).astype(np.float32)) * 2 ** 16
+        worst = max(worst, float((np.abs(got - want_a) - (2 * n * lr + n * ulp)).max()))
+        equal.append((got == want_a).ravel())
+    check(worst <= 0, f"FSDP adapters part from the replicated pair by {worst} past the bound")
+    check(sorted(restored) == sorted(fs[0]["adapters"]), "the sharded checkpoint's adapters")
+    for k, t in restored.items():
+        check(np.array_equal(t.float().numpy(), fs[0]["adapters"][k]),
+              f"the restored {k} is not the pair's")
+    out["gloo_shared_card"] = dict(
+        fit_s={str(k): v["fit_s"] for k, v in pairs.items()},
+        base_bytes_replicated=rep[0]["base_bytes"], base_bytes_fsdp=[m["base_bytes"] for m in fs],
+        equal_share=float(np.mean(np.concatenate(equal))),
+        max_abs_diff=max(float(np.abs(fs[0]["adapters"][k] - a).max())
+                         for k, a in rep[0]["adapters"].items()),
+        gather_bytes_per_step=[s["gather_bytes"] for s in fs[0]["steps"]],
+        step_ms_fsdp=[[s["step_ms"] for s in m["steps"]] for m in fs],
+        step_ms_replicated=[[s["step_ms"] for s in m["steps"]] for m in rep],
+        peak_bytes_fsdp=[m["peak_bytes"] for m in fs],
+        peak_bytes_replicated=[m["peak_bytes"] for m in rep],
+        losses_fsdp=fs[0]["losses"], losses_replicated=rep[0]["losses"],
+        restored_bit_for_bit=True)
+    print("train_fsdp", json.dumps(out))
+    return launches, out
+
+
 def resnet_macs(cfg, size: int) -> int:
     """Multiply-adds of one image's ResNet forward: convolutions (the
     bottleneck's 1x1 conv1 at the block's input size, conv2 and the
@@ -3813,6 +4091,271 @@ def train_resnet_phase(torch, counters):
                trained_gflop_per_image=6 * macs / 1e9,  # forward 2, backward 4 per MAC
                tflop_s=6 * macs * b / med / 1e9, profile=prof, parity=parity)
     print("train_resnet", json.dumps(out))
+    return launches, out
+
+
+# -- data-parallel ResNet with sync-BN (``train_resnet_dp``) ------------------
+
+#: ResNet-50: 53 BatchNorms over 26,560 channels, 25,557,032 parameters (f32)
+RESNET_BNS, RESNET_BN_CHANNELS, RESNET_PARAMS = 53, 26_560, 25_557_032
+#: (b): two gloo ranks sharing the card, each half of the b=256 batch
+RESNET_GLOO = {"ranks": 2, "batch": RESNET_CONFIG["batch_per_worker"] // 2}
+
+
+def _resnet_batches(torch, device):
+    """The main path's batches of epoch 0 at rank 0: b=256 at 224, one a
+    step."""
+    from ray_tpu_torch.train.examples import resnet as example
+
+    cfg, size = example.model_config(RESNET_CONFIG)
+    return [example.step_batch(cfg, RESNET_CONFIG["batch_per_worker"], size, 0, s, 0, device)
+            for s in range(RESNET_CONFIG["steps_per_epoch"])]
+
+
+def _resnet_steps(torch, device, batches, group=None, reduce=None, rows=slice(None),
+                  dtype=None):
+    """A fresh seed-0 ResNet-50 (sync-BN over ``group``) after one SGD step
+    on ``rows`` of each batch: its parameters and running statistics on the
+    host, and the losses."""
+    from ray_tpu_torch.train.examples import resnet as example
+
+    cfg, _ = example.model_config(RESNET_CONFIG)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    model, optimizer = example.sgd_model(cfg, device, group=group)
+    losses = [example.train_step(model, optimizer, images[rows], labels[rows], reduce)
+              for images, labels in batches]
+    state = {k: p.detach().cpu() for k, p in model.named_parameters()}
+    state.update({k: v.cpu() for k, v in model.batch_stats().items()})
+    return state, [x.item() for x in losses]
+
+
+def _state_diff(got, want):
+    """(largest |got - want|, largest relative error per tensor: that
+    difference over the tensor's largest |value|), over every tensor."""
+    assert sorted(got) == sorted(want)
+    abs_err = max((got[k].double() - want[k].double()).abs().max().item() for k in want)
+    rel_err = max(((got[k].double() - want[k].double()).abs().max()
+                   / want[k].double().abs().max().clamp_min(1e-30)).item() for k in want)
+    return abs_err, rel_err
+
+
+def _collective_totals(metrics):
+    """This process's allreduce count, bytes and ms so far."""
+    ar = metrics.collective_summary().get("allreduce", {})
+    return dict(count=ar.get("count", 0), bytes=ar.get("bytes", 0),
+                ms=ar.get("count", 0) * ar.get("mean_ms", 0))
+
+
+def _totals_delta(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def train_resnet_dp_loop(config):
+    """(a)'s worker (and ``chip_multicard.py`` part 4's): the example's own
+    loop (the main path, this process's K1-K4 counts around it), then 3
+    steps of a fresh model on the main path's batches (rank 0 writes its
+    state beside the run for the parent), one step's collectives, and
+    timed steps."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train import collective as tcol
+    from ray_tpu_torch.train.examples import resnet as example
+    from ray_tpu_torch.util import metrics
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = _port_counters()
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    example.train_loop_per_worker(config)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+
+    ctx = train.get_context()
+    device = torch.device("cuda", torch.cuda.current_device())
+    reduce = tcol.DataParallelMean(ctx.world_size)
+    batches = _resnet_batches(torch, device)
+    state, losses = _resnet_steps(torch, device, batches, tcol.tensor_group(), reduce)
+    if ctx.world_rank == 0:
+        torch.save(state, Path(ctx.get_storage_path()) / "resnet_dp_state.pt")
+    del state
+    cfg, _ = example.model_config(config)
+    model, optimizer = example.sgd_model(cfg, device, group=tcol.tensor_group())
+    n_params = sum(p.numel() for p in model.parameters())
+
+    def step():
+        example.train_step(model, optimizer, *batches[0], reduce)
+
+    step()
+    torch.cuda.synchronize()
+    before = _collective_totals(metrics)
+    step()
+    torch.cuda.synchronize()
+    one = _totals_delta(_collective_totals(metrics), before)
+    buckets = tcol.gradient_scheduler()._bucketizer.buckets
+    step_ms, step_peak = _timed_steps(torch, step, VISION_STEPS)
+    train.report({"resnet_dp": dict(
+        fit_s=fit_s, launches=launches, peak_bytes=peak, losses=losses, params=n_params,
+        step_collectives=one, buckets=[[len(b.paths), b.nbytes, b.dtype] for b in buckets],
+        step_ms=step_ms, step_peak_bytes=step_peak)})
+
+
+def train_resnet_dp_gloo_loop(config):
+    """(b)'s worker: one rank of two sharing the card over gloo, 3 steps of
+    a fresh sync-BN model on its half of each of the main path's b=256
+    batches (``process_local_batch`` of a dp mesh), each timed with its
+    collectives; its state written beside the run."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.parallel.sharding import process_local_batch
+    from ray_tpu_torch.train import collective as tcol
+    from ray_tpu_torch.train.examples import resnet as example
+    from ray_tpu_torch.util import metrics
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = _port_counters()
+    _zero(counters)
+    ctx = train.get_context()
+    r, b = ctx.world_rank, RESNET_GLOO["batch"]
+    device = torch.device("cuda", torch.cuda.current_device())
+    mesh = tcol.gang_mesh(device, dp=ctx.world_size)
+    cfg, _ = example.model_config(RESNET_CONFIG)
+    model, optimizer = example.sgd_model(cfg, device, group=tcol.tensor_group())
+    reduce = tcol.DataParallelMean(ctx.world_size)
+    torch.cuda.reset_peak_memory_stats()
+    rows, losses = [], []
+    for images, labels in _resnet_batches(torch, device):
+        images = process_local_batch(mesh, images[r * b:(r + 1) * b])
+        labels = process_local_batch(mesh, labels[r * b:(r + 1) * b])
+        torch.cuda.synchronize()
+        before = _collective_totals(metrics)
+        t0 = time.perf_counter()
+        loss = example.train_step(model, optimizer, images, labels, reduce)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append(dict(step_ms=ms, collectives=_totals_delta(_collective_totals(metrics), before)))
+        losses.append(tcol.gang_mean(loss))
+    state = {k: p.detach().cpu() for k, p in model.named_parameters()}
+    state.update({k: v.cpu() for k, v in model.batch_stats().items()})
+    torch.save(state, Path(ctx.get_storage_path()) / f"resnet_gloo_rank{r}.pt")
+    train.report({"rank": r, "device": str(device), "steps": rows, "losses": losses,
+                  "launches": _launches(counters), "peak_bytes": torch.cuda.max_memory_allocated()})
+
+
+def train_resnet_dp_phase(torch, counters, resnet_out):
+    """Sync-BN data parallelism of ResNet-50: (a) a spawned NCCL worker at
+    world size 1 (b=256) against the in-process run, bit for bit or within
+    the spread of two in-process runs; (b) two gloo ranks sharing the card
+    at b=128 each against one rank at b=256."""
+    import multiprocessing
+    import tempfile
+
+    from ray_tpu_torch.train import DataParallelTrainer, RunConfig, ScalingConfig, TorchConfig
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    batches = _resnet_batches(torch, device)
+    one, one_losses = _resnet_steps(torch, device, batches)
+    again, _ = _resnet_steps(torch, device, batches)
+    bound = _state_diff(again, one)[0]
+    # (b)'s yardsticks: the halves of each batch swapped, and the whole run
+    # in f32 activations (every output's bf16 rounding undone)
+    swapped = [(torch.cat([i[128:], i[:128]]), torch.cat([l[128:], l[:128]])) for i, l in batches]
+    control_swap = _state_diff(_resnet_steps(torch, device, swapped)[0], one)[1]
+    control_f32 = _state_diff(_resnet_steps(torch, device, batches, dtype=torch.float32)[0],
+                              one)[1]
+    del batches, swapped
+    torch.cuda.empty_cache()
+
+    def fit(loop, storage, name, **kw):
+        result = DataParallelTrainer(
+            loop, train_loop_config=dict(RESNET_CONFIG),
+            run_config=RunConfig(name=name, storage_path=storage), **kw).fit()
+        if result.error is not None:
+            raise result.error
+        return result, Path(storage) / name
+
+    _zero(counters)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resnet_dp_") as storage:
+        t0 = time.perf_counter()
+        result, run_dir = fit(train_resnet_dp_loop, storage, "resnet-dp",
+                              scaling_config=ScalingConfig(num_workers=1),
+                              backend_config=TorchConfig(backend="nccl"), overlap=True)
+        fit_s = time.perf_counter() - t0
+        worker = torch.load(run_dir / "resnet_dp_state.pt")
+    check(not multiprocessing.active_children(), "the worker group left a process")
+    stats = next(m["resnet_dp"] for m in result.metrics_history if "resnet_dp" in m)
+    diff = _state_diff(worker, one)[0]
+    check(diff <= bound, f"the NCCL worker's state parts from in-process by {diff} > {bound}")
+    check(stats["params"] == RESNET_PARAMS, f"{stats['params']} parameters")
+    grad_bytes = sum(b[1] for b in stats["buckets"])
+    check(grad_bytes == 4 * RESNET_PARAMS, f"gradient buckets of {grad_bytes} B")
+    ops = stats["step_collectives"]
+    bn_ops = ops["count"] - len(stats["buckets"])
+    bn_bytes = 2 * 2 * RESNET_BN_CHANNELS * 4  # [mean, mean of squares] f32, forward and backward
+    check(bn_ops == 2 * RESNET_BNS, f"{bn_ops} sync-BN allreduces a step, want {2 * RESNET_BNS}")
+    check(ops["bytes"] == grad_bytes + bn_bytes,
+          f"a step's allreduce bytes {ops['bytes']}, want {grad_bytes} + {bn_bytes}")
+    check(not any(stats["launches"].values()), f"port kernels on ResNet: {stats['launches']}")
+    losses = [m["loss"] for m in result.metrics_history if "loss" in m]
+    med = statistics.median(stats["step_ms"])
+    out["nccl_worker"] = dict(
+        fit_s=fit_s, worker_fit_s=stats["fit_s"], losses=losses, state_diff=diff,
+        bound=bound, bit_for_bit=diff == 0, sync_bn_ops_per_step=bn_ops,
+        sync_bn_bytes_per_step=bn_bytes, gradient_bytes_per_step=grad_bytes,
+        buckets=len(stats["buckets"]), step_ms=stats["step_ms"], step_ms_median=med,
+        in_process_step_ms_median=resnet_out["step_ms_median"],
+        images_per_s=RESNET_CONFIG["batch_per_worker"] / med * 1e3,
+        peak_bytes=stats["peak_bytes"], step_peak_bytes=stats["step_peak_bytes"])
+    launches = dict(stats["launches"])
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resnet_dp_") as storage:
+        t0 = time.perf_counter()
+        result, run_dir = fit(train_resnet_dp_gloo_loop, storage, "resnet-dp-gloo",
+                              scaling_config=ScalingConfig(RESNET_GLOO["ranks"], {"GPU": 0.5}),
+                              backend_config=TorchConfig(backend="gloo"), overlap=True)
+        fit_s = time.perf_counter() - t0
+        ranks = [torch.load(run_dir / f"resnet_gloo_rank{r}.pt")
+                 for r in range(RESNET_GLOO["ranks"])]
+    reports = sorted(result.metrics_history, key=lambda m: m["rank"])
+    check([m["rank"] for m in reports] == [0, 1], f"gloo reports {reports}")
+    check(all(m["device"] == str(device) for m in reports), "the gloo ranks are not on one card")
+    for k, v in ranks[0].items():
+        check(torch.equal(v, ranks[1][k]), f"the gloo ranks' {k} differ")
+    check(reports[0]["losses"] == reports[1]["losses"], "the gloo ranks report other losses")
+    abs_err, rel_err = _state_diff(ranks[0], one)
+    # the split regroups the batch's sums and runs each half's convolutions
+    # on their own: a rounding-level change of some outputs, where the f32
+    # yardstick changes every output by its bf16 rounding. Three SGD steps
+    # amplify either alike, so the pair stays within twice the distance of
+    # the b=256 run from itself in f32 activations (twice: room for the
+    # spread of a largest error over 267 tensors)
+    check(rel_err <= 2 * control_f32,
+          f"the gloo pair parts from one rank at b=256 by {rel_err} > 2 x {control_f32}")
+    for m in reports:
+        for name, n in m["launches"].items():
+            launches[name] += n
+    steps = reports[0]["steps"]
+    out["gloo_shared_card"] = dict(
+        fit_s=fit_s, rel_err=rel_err, abs_err=abs_err, bound=2 * control_f32,
+        f32_activations=control_f32,
+        control_swapped_halves=control_swap, losses=reports[0]["losses"],
+        losses_one_rank=one_losses, step_ms=[[s["step_ms"] for s in m["steps"]] for m in reports],
+        # the ops' host clocks summed (a BatchNorm's waits for the other
+        # rank; the buckets' reduce on the dispatcher thread, under the step)
+        collective_host_share=[[s["collectives"]["ms"] / s["step_ms"] for s in m["steps"]]
+                               for m in reports],
+        collective_ops_per_step=steps[-1]["collectives"]["count"],
+        collective_bytes_per_step=steps[-1]["collectives"]["bytes"],
+        peak_bytes=[m["peak_bytes"] for m in reports])
+    print("train_resnet_dp", json.dumps(out))
     return launches, out
 
 
@@ -5242,12 +5785,25 @@ def main() -> None:
     # before (b)'s fit() and read just after it (they must stay 0: the loop
     # runs in a spawned worker), and the worker's own counts, set to 0 just
     # before its loop and read just after it, are added
-    dp_launches, _ = train_dp_phase(torch, np, counters, train_out, train_lora)
+    dp_launches, dp_out = train_dp_phase(torch, np, counters, train_out, train_lora)
+    torch.cuda.empty_cache()
+    # FSDP: the counts of this process are set to 0 just before (a)'s fit()
+    # and must stay 0 (the loops run in spawned workers); each worker's own
+    # counts, set to 0 just before its loop or steps and read just after,
+    # are added ((a) and (b)'s FSDP pair; the replicated pair is its yardstick)
+    fsdp_launches, _ = train_fsdp_phase(torch, np, counters, train_out, train_lora, dp_out)
+    del train_lora
     torch.cuda.empty_cache()
     # the vision training paths: counts set to 0 inside each phase just
     # before its first step and read just after its last (before its parity
     # runs)
-    resnet_launches, _ = train_resnet_phase(torch, counters)
+    resnet_launches, resnet_out = train_resnet_phase(torch, counters)
+    torch.cuda.empty_cache()
+    # sync-BN data parallelism: the counts of this process are set to 0 just
+    # before (a)'s fit(); the workers' own counts are added (0: ResNet runs
+    # none of the port's kernels)
+    resnet_dp_launches, _ = train_resnet_dp_phase(torch, counters, resnet_out)
+    torch.cuda.empty_cache()
     vit_launches, _ = train_vit_phase(torch, counters)
     torch.cuda.empty_cache()
     # RLlib PPO: counts set to 0 at the start of the phase and read after
@@ -5269,8 +5825,9 @@ def main() -> None:
     paths = {"serve": serve_launches, "serve_cb": cb_launches, "serve_lora": lora_launches,
              "serve_disagg": disagg_launches, "serve_tp": tp_launches,
              "serve_tp_features": tpf_launches, "train": train_launches,
-             "train_dp": dp_launches,
-             "train_resnet": resnet_launches, "train_vit": vit_launches,
+             "train_dp": dp_launches, "train_fsdp": fsdp_launches,
+             "train_resnet": resnet_launches, "train_resnet_dp": resnet_dp_launches,
+             "train_vit": vit_launches,
              "train_ppo": ppo_launches, "train_rl": rl_launches,
              "train_dreamer": dreamer_launches, "train_moe": moe_launches}
     launches = {name: sum(p[name] for p in paths.values()) for name in counters}

@@ -5,9 +5,11 @@ barrier, with send and recv) over two backends: ``GlooGroup`` (host tensors
 and Python objects, the reference's ``GcsStoreGroup``) and ``NcclGroup``
 (CUDA tensors, the reference's ``XlaGroup``). Every op records its bytes
 and wall latency into ``util.metrics.record_collective``. Both groups also
-give a tensor-parallel model its two collectives, ``allreduce_`` (SUM in
-place) and ``allgather_cat`` (concatenated along a dim), with one contract
-and none of the abort plane's store reads.
+give a model its collectives, ``allreduce_`` (SUM in place),
+``allgather_cat`` (concatenated along a dim) and ``reducescatter_sum`` (its
+transpose: the sum, this rank's block along a dim), with one contract and
+none of the abort plane's store reads (over NCCL, no wait either);
+collective/functional.py differentiates them.
 
 The abort plane: ``abort_collective_group`` writes the aborted epoch under
 ``colabort:<group>`` in the process group's store, and every op of a group

@@ -170,6 +170,18 @@ class GlooGroup(BaseGroup):
         self._record_op("allgather", tensor_nbytes(tensor), start)
         return out
 
+    def reducescatter_sum(self, tensor: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The ranks' ``tensor`` summed in rank order, and this rank's even
+        block of it along ``dim``: the transpose of :meth:`allgather_cat`."""
+        start = time.perf_counter()
+        if tensor.shape[dim] % self.world_size:
+            raise ValueError(f"reducescatter_sum over {self.world_size} ranks needs a dim "
+                             f"they divide, got {tensor.shape[dim]}")
+        total = reduce_in_rank_order(self._gather_host(tensor), ReduceOp.SUM)
+        out = total.chunk(self.world_size, dim=dim)[self.rank].to(tensor.device)
+        self._record_op("reducescatter", tensor_nbytes(tensor), start)
+        return out
+
     def reducescatter(self, tensor, op: ReduceOp = ReduceOp.SUM):
         """The allreduce, then this rank's ``np.array_split`` shard of the
         leading dimension (uneven lengths allowed: the first ``n % world``

@@ -231,6 +231,19 @@ class NcclGroup(BaseGroup):
         self._record_op("allgather", tensor_nbytes(x), start)
         return torch.cat(out.chunk(self.world_size), dim=dim)
 
+    def reducescatter_sum(self, tensor: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The ranks' ``tensor`` summed, and this rank's even block of it
+        along ``dim``: the transpose of :meth:`allgather_cat`."""
+        start = time.perf_counter()
+        if tensor.shape[dim] % self.world_size:
+            raise ValueError(f"reducescatter_sum over {self.world_size} ranks needs a dim "
+                             f"they divide, got {tensor.shape[dim]}")
+        x = tensor.movedim(dim, 0).contiguous()
+        out = x.new_empty((x.shape[0] // self.world_size, *x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, group=self.process_group)
+        self._record_op("reducescatter", tensor_nbytes(tensor), start)
+        return out.movedim(0, dim)
+
     def reducescatter(self, tensor, op: ReduceOp = ReduceOp.SUM):
         if op is not ReduceOp.SUM:
             raise NotImplementedError("reducescatter reduces with SUM only; use the gloo backend")

@@ -33,6 +33,9 @@ as in the reference.
 Training: with ``config.remat`` and autograd recording, each block of the
 full-sequence forward runs under ``torch.utils.checkpoint`` and is
 recomputed in the backward, the reference's save-nothing ``nn.remat``.
+A model built by parallel/fsdp.py ``FSDP.build_llama`` holds one rank's
+blocks of its parameters and runs that module's forward, which gathers
+them (``Llama.fsdp``; None otherwise).
 ``config.scan_layers`` (the reference's layers stacked under ``lax.scan``)
 builds the same unstacked model: PyTorch has no scan, the loop over blocks
 with per-block checkpointing takes its place, and models/convert.py
@@ -393,6 +396,8 @@ class Llama(nn.Module):
         self.final_norm = _param(config.dim, dtype=config.param_dtype)
         self.lm_head = _param(config.dim, config.vocab_size // tp, dtype=config.param_dtype)
         self._rope = None
+        #: a parallel.fsdp.FSDP layout whose forward this model runs, or None
+        self.fsdp = None
 
     def blocks(self) -> List[Block]:
         return [getattr(self, f"layer_{i}") for i in range(self.config.n_layers)]
@@ -417,6 +422,10 @@ class Llama(nn.Module):
         and ``adapter_slots`` (one slot per row on the host, -1 = base) each
         row's adapter is added to its q/k/v/o projections."""
         cfg = self.config
+        if self.fsdp is not None:
+            if cache is not None or adapters is not None:
+                raise NotImplementedError("an FSDP model runs the full-sequence forward only")
+            return self.fsdp.forward(self, tokens)
         x = self._embed(tokens)
         cos, sin = self._rope_table(x.device)
         rows = None

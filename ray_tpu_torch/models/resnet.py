@@ -27,6 +27,17 @@ Numerics follow flax, not ``nn.Conv2d``/``nn.BatchNorm2d``:
   ``dtype``; training updates running = 0.9 running + 0.1 batch in place;
 - the head is f32 (``nn.Dense(dtype=float32)``).
 
+Sync-BN (``ResNet(config, group=)``): the reference shards the batch over a
+data-parallel mesh and XLA makes BatchNorm's plain means global. Given a
+collective group of the data-parallel ranks (one process each), every
+BatchNorm in train mode all-reduces one f32 tensor of its local means of x
+and x^2 (2C values) through ``collective.functional.all_reduce_sum``, whose
+backward all-reduces the cotangent, and divides by the world size: with
+equal local batches, the global batch's means, from which the variance and
+the running statistics follow as at one rank (the same on every rank).
+ResNet-50's 53 norms make 53 all-reduces in the forward and 53 in the
+backward. Without a group the module computes what it always did.
+
 No kernel of the port runs here: convolutions, BatchNorm and pooling are
 plain XLA in the reference, and cuDNN and plain PyTorch here.
 """
@@ -42,6 +53,7 @@ from torch import nn
 from torch.func import functional_call
 
 from .._internal.device import DeviceLike, resolve_device
+from ..collective.functional import all_reduce_sum
 from .llama import _lecun_normal_
 
 BN_MOMENTUM = 0.9
@@ -115,11 +127,13 @@ class Conv(nn.Module):
 
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channels of
-    an NCHW tensor (see the module docstring for the arithmetic)."""
+    an NCHW tensor (see the module docstring for the arithmetic); with a
+    ``group``, its statistics in train mode are the ranks' (sync-BN)."""
 
-    def __init__(self, features, dtype, param_dtype):
+    def __init__(self, features, dtype, param_dtype, group=None):
         super().__init__()
         self.dtype = dtype
+        self.group = group
         self.scale = _param(features, dtype=param_dtype)
         self.bias = _param(features, dtype=param_dtype)
         self.register_buffer("mean", torch.zeros(features, dtype=torch.float32))
@@ -130,7 +144,11 @@ class BatchNorm(nn.Module):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
             mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean_sq = (xf * xf).mean(dim=(0, 2, 3))
+            if self.group is not None:
+                both = all_reduce_sum(torch.stack([mean, mean_sq]), self.group)
+                mean, mean_sq = (both / self.group.world_size).unbind()
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
                 self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
@@ -142,22 +160,23 @@ class BatchNorm(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, config: ResNetConfig, in_ch: int, features: int, strides: int = 1):
+    def __init__(self, config: ResNetConfig, in_ch: int, features: int, strides: int = 1,
+                 group=None):
         super().__init__()
         cfg = config
         dt, pdt = cfg.dtype, cfg.param_dtype
         self.conv1 = Conv(in_ch, features, 1, 1, dt, pdt)
-        self.bn1 = BatchNorm(features, dt, pdt)
+        self.bn1 = BatchNorm(features, dt, pdt, group)
         self.conv2 = Conv(features, features, 3, strides, dt, pdt)
-        self.bn2 = BatchNorm(features, dt, pdt)
+        self.bn2 = BatchNorm(features, dt, pdt, group)
         self.conv3 = Conv(features, features * 4, 1, 1, dt, pdt)
-        self.bn3 = BatchNorm(features * 4, dt, pdt)  # scale starts at zero
+        self.bn3 = BatchNorm(features * 4, dt, pdt, group)  # scale starts at zero
         # the reference projects where the residual's shape differs from
         # the output's: another width or a stride
         self.project = in_ch != features * 4 or strides != 1
         if self.project:
             self.proj_conv = Conv(in_ch, features * 4, 1, strides, dt, pdt)
-            self.proj_bn = BatchNorm(features * 4, dt, pdt)
+            self.proj_bn = BatchNorm(features * 4, dt, pdt, group)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x), train))
@@ -170,22 +189,23 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """Parameters are created empty: fill them with
     :func:`init_train_state` or load converted weights
-    (:func:`build_resnet`)."""
+    (:func:`build_resnet`). ``group``: the data-parallel ranks' collective
+    group, for sync-BN (see the module docstring)."""
 
-    def __init__(self, config: ResNetConfig):
+    def __init__(self, config: ResNetConfig, group=None):
         super().__init__()
         self.config = config
         cfg = config
         self.stem_conv = Conv(3, cfg.width, 7, 2, cfg.dtype, cfg.param_dtype,
                               padding=((3, 3), (3, 3)))
-        self.stem_bn = BatchNorm(cfg.width, cfg.dtype, cfg.param_dtype)
+        self.stem_bn = BatchNorm(cfg.width, cfg.dtype, cfg.param_dtype, group)
         in_ch = cfg.width
         for stage, n_blocks in enumerate(cfg.stage_sizes):
             features = cfg.width * 2 ** stage
             for block in range(n_blocks):
                 strides = 2 if stage > 0 and block == 0 else 1
                 self.add_module(f"stage{stage}_block{block}",
-                                Bottleneck(cfg, in_ch, features, strides))
+                                Bottleneck(cfg, in_ch, features, strides, group))
                 in_ch = features * 4
         self.head = nn.Module()
         self.head.kernel = _param(in_ch, cfg.num_classes, dtype=cfg.param_dtype)
@@ -265,13 +285,14 @@ def shapes(config: ResNetConfig) -> Tuple[Dict[str, torch.Size], Dict[str, torch
 
 
 def build_resnet(
-    config: ResNetConfig, params: Dict[str, torch.Tensor], batch_stats: Dict[str, torch.Tensor]
+    config: ResNetConfig, params: Dict[str, torch.Tensor], batch_stats: Dict[str, torch.Tensor],
+    group=None,
 ) -> ResNet:
     """A :class:`ResNet` whose parameters and running statistics ARE the
     given tensors (no copy): training updates them in place. Parameters
-    are trainable leaves."""
+    are trainable leaves. ``group``: sync-BN over its ranks."""
     with torch.device("meta"):
-        model = ResNet(config)
+        model = ResNet(config, group)
     model.load_state_dict({**params, **batch_stats}, strict=True, assign=True)
     for p in model.parameters():
         p.requires_grad_(True)

@@ -3,16 +3,20 @@
 
 - ``mesh``: the rank grid (one device per rank, a process per rank) with
   the reference's axes, and each axis's collective group once bound;
-- ``sharding``: ``PartitionSpec`` and the logical-axis rule table (the
-  placement functions come with FSDP, ROADMAP A.5);
+- ``sharding``: ``PartitionSpec``, the logical-axis rule table, the Llama
+  parameters' logical axes, ``NamedSharding`` (a rank's block of a global
+  tensor), ``param_shardings`` / ``tree_shardings`` and
+  ``process_local_batch``;
+- ``fsdp``: :class:`FSDP`, one rank's blocks of a Llama's parameters over
+  the ``fsdp`` axis, gathered block by block in its forward;
 - ``plan``: :class:`PartitionPlan`, the name-matched rule table of the
   tensor-parallel serving path, each rank's parameter and KV head slices;
 - ``expert``: the MoE model's top-k gating with static capacity, the dense
   and the indexed dispatch/combine, and the all_to_all dispatch/combine over
   an expert-parallel process group.
 
-Ring and Ulysses attention and the pipeline come with later slices of the
-port (ROADMAP items A.5-A.6).
+Ring and Ulysses attention, the pipeline and ``constrain`` (with the ViT
+over a mesh) come with later slices of the port (ROADMAP items A.5-A.6).
 """
 
 from .expert import (
@@ -25,6 +29,7 @@ from .expert import (
     route,
     top_k_gating,
 )
+from .fsdp import FSDP
 from .mesh import AXIS_ORDER, BATCH_AXES, Mesh, MeshSpec, local_batch_size, make_mesh
 from .plan import (
     DEFAULT_LLM_RULES,
@@ -33,16 +38,29 @@ from .plan import (
     match_partition_rules,
     validate_mesh_for_model,
 )
-from .sharding import DEFAULT_RULES, P, PartitionSpec, logical_to_spec
+from .sharding import (
+    DEFAULT_RULES,
+    LLAMA_LOGICAL_AXES,
+    NamedSharding,
+    P,
+    PartitionSpec,
+    logical_to_spec,
+    param_shardings,
+    process_local_batch,
+    tree_shardings,
+)
 
 __all__ = [
     "AXIS_ORDER",
     "BATCH_AXES",
     "DEFAULT_LLM_RULES",
     "DEFAULT_RULES",
+    "FSDP",
     "KV_SPEC",
+    "LLAMA_LOGICAL_AXES",
     "Mesh",
     "MeshSpec",
+    "NamedSharding",
     "P",
     "PartitionPlan",
     "PartitionSpec",
@@ -56,7 +74,10 @@ __all__ = [
     "moe_apply_indexed",
     "moe_combine",
     "moe_dispatch",
+    "param_shardings",
+    "process_local_batch",
     "route",
     "top_k_gating",
+    "tree_shardings",
     "validate_mesh_for_model",
 ]

@@ -41,7 +41,7 @@ import torch
 
 from ..exceptions import MeshValidationError
 from .mesh import make_mesh
-from .sharding import P, PartitionSpec
+from .sharding import P, PartitionSpec, block_index
 
 # Ordered (name-regex, PartitionSpec) table for the Llama family: first
 # match wins. The reference's table with "." for its "/".
@@ -133,23 +133,9 @@ def shard_tensor(t: torch.Tensor, spec: PartitionSpec, index: Mapping[str, int],
     axis sizes in ``sizes``) under ``spec``: a view. A dimension that its
     axes do not divide raises ValueError, as the reference's ``device_put``
     does."""
-    for dim, axes in enumerate(spec):
-        if axes is None:
-            continue
-        names = (axes,) if isinstance(axes, str) else tuple(axes)
-        n, i = 1, 0
-        for a in names:  # major to minor, as a JAX spec of several axes
-            n, i = n * sizes[a], i * sizes[a] + index[a]
-        if n == 1:
-            continue
-        if t.shape[dim] % n:
-            raise ValueError(
-                f"the sharding {spec} implies that the global size of its dimension "
-                f"{dim} should be divisible by {n}, but it is equal to "
-                f"{t.shape[dim]} (full shape: {tuple(t.shape)})"
-            )
-        size = t.shape[dim] // n
-        t = t.narrow(dim, i * size, size)
+    for dim, (offset, length) in enumerate(block_index(t.shape, spec, index, sizes)):
+        if length != t.shape[dim]:
+            t = t.narrow(dim, offset, length)
     return t
 
 

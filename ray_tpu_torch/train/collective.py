@@ -6,11 +6,17 @@ control group. :func:`reduce_gradients` sums a gradient dict across the
 gang over the run's tensor group (NCCL on the card) through the bucketized
 :class:`~ray_tpu_torch.collective.GradientReduceScheduler`, built from the
 context's knobs.
+
+For the example loops: :func:`tensor_group` and :func:`gang_mesh` (the
+run's ranks as a :class:`~ray_tpu_torch.parallel.Mesh`), :func:`gang_mean`
+(the loss a gang reports: the mean of the ranks' values, the reference's
+loss over the global batch) and :class:`DataParallelMean` (the gradient
+hook between ``backward()`` and the optimizer).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Collection, Dict, Mapping, Optional
 
 import torch
 
@@ -71,3 +77,84 @@ def reduce_gradients(grads: Mapping[str, torch.Tensor]) -> Optional[Dict[str, to
     """Sum a gradient dict across the gang. At ``stale_grad=1``, the
     PREVIOUS step's sum (None on the first step: skip the update)."""
     return gradient_scheduler().step(grads)
+
+
+def tensor_group():
+    """The run's tensor group, or None for one worker in the caller's
+    process."""
+    name = get_context().collective_tensor_group
+    return _collective.get_group(name) if name else None
+
+
+def gang_mesh(device, **axes):
+    """The run's ranks as a mesh of ``axes`` (``make_mesh``'s keywords),
+    bound to this rank, each rank on its own device (gathered over the
+    control group)."""
+    from ..parallel.mesh import make_mesh
+
+    ctx = get_context()
+    devices = allgather(str(device)) if ctx.collective_group else [str(device)]
+    return make_mesh(len(devices), devices=devices, **axes).bind(ctx.world_rank)
+
+
+def gang_mean(value: torch.Tensor) -> float:
+    """The mean over the ranks of a scalar tensor (each rank's loss over its
+    own equal batch: the loss over the global batch, as the reference
+    reports under ``jax.distributed``): one all-reduce over the tensor
+    group past one rank, every rank the same value."""
+    ctx = get_context()
+    if ctx.world_size == 1 or not ctx.collective_tensor_group:
+        return float(value)
+    total = tensor_group().allreduce(value.detach().reshape(1).float())
+    return float(total) / ctx.world_size
+
+
+def gradients(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The gradients of ``model``'s parameters by name."""
+    return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+
+
+def set_gradients(model: torch.nn.Module, grads: Optional[Mapping[str, torch.Tensor]]) -> bool:
+    """Set ``model``'s parameters' gradients to ``grads``; False for None
+    (skip the update)."""
+    if grads is None:
+        return False
+    for name, p in model.named_parameters():
+        if name in grads:
+            p.grad = grads[name]
+    return True
+
+
+class DataParallelMean:
+    """A gang's gradient hook: the sum over the ranks through
+    :func:`reduce_gradients`, divided by ``world_size``. With every rank's
+    batch of one size, that is the gradient of the mean loss over the
+    global batch, the reference's. None at ``stale_grad=1``'s first step.
+
+    ``sharded`` names gradients that arrive already summed (an FSDP slice,
+    whose gather's backward reduce-scatters it): they skip
+    :func:`reduce_gradients` and are only divided, once; at ``stale_grad=1``
+    they wait a step with the rest."""
+
+    def __init__(self, world_size: int, sharded: Collection[str] = ()):
+        self.world_size = world_size
+        self.sharded = frozenset(sharded)
+        self._held: Dict[str, torch.Tensor] = {}
+
+    def __call__(self, grads: Mapping[str, torch.Tensor]) -> Optional[Dict[str, torch.Tensor]]:
+        own = {n: g for n, g in grads.items() if n in self.sharded}
+        summed = reduce_gradients({n: g for n, g in grads.items() if n not in own})
+        if gradient_scheduler().stale_grad:
+            own, self._held = self._held, own
+        return self._mean(summed, own)
+
+    def flush(self) -> Optional[Dict[str, torch.Tensor]]:
+        """At ``stale_grad=1``: the last step's gradients, which the
+        scheduler (and this hook) still hold."""
+        own, self._held = self._held, {}
+        return self._mean(gradient_scheduler().flush(), own)
+
+    def _mean(self, summed, own):
+        if summed is None:
+            return None
+        return {name: g.div_(self.world_size) for name, g in {**summed, **own}.items()}

@@ -8,18 +8,36 @@ every block recomputed in the backward (``remat``), ``loss.backward()``
 through the flash-attention backward kernels, and AdamW on the adapters
 only. The base weights are frozen: no gradients, no optimizer state.
 
-With more than one worker (a tensor group in the context) the adapters'
-gradients are summed across the gang by ``train.collective.
-reduce_gradients`` between ``backward()`` and AdamW, and divided by the
-world size: the reference's ``train_step`` runs under ``jax.distributed``,
-where the loss is the mean over the global batch and XLA reduces the
-gradient in the graph. The parameters stay replicated (FSDP sharding is
-ROADMAP item A.5). At ``stale_grad=1`` the first step skips the update and
-the last step's gradients are applied after the loop's last step.
+In a gang (more than one worker, or a ``backend_config``) the loop builds
+the reference's mesh over the ranks: ``fsdp`` (default: the world size) x
+``tp`` (default 1; tp > 1 raises: tensor-parallel training is ROADMAP item
+11), and, beyond the reference's keys, ``dp`` (default 1), the ranks that
+replicate every parameter. Each rank draws its own rows
+(``process_local_batch``).
+
+- By default (the reference's mesh) every rank stores only its block of
+  each parameter the rule table sends to ``fsdp`` (the frozen base and
+  the adapter matrices with an ``embed`` axis; parallel/fsdp.py), gathered
+  block by block in the forward and again in the recompute; the gathered
+  adapter blocks' gradients arrive reduce-scattered. At one rank the
+  gathers are one-rank ops.
+- With ``dp`` given and fsdp = 1 (``dp`` = the world size), every
+  parameter is replicated.
+
+Either way the replicated adapters' gradients are summed across the gang
+by ``train.collective.reduce_gradients``, every gradient is divided by the
+world size once (the reference's loss is the mean over the global batch,
+and XLA reduces the gradient in the graph), and AdamW updates the rank's
+own tensors (elementwise: the replicated run's update, up to the order of
+the gradient sums). Every rank reports the mean of the ranks' last-step
+losses, the loss over the global batch. At ``stale_grad=1`` the first step
+skips the update and the last step's gradients are applied after the
+loop's last step. The epoch's ``lora.pkl`` holds the full adapters,
+gathered to rank 0.
 
 ``train_loop_config`` keys: model ("tiny" | "7b"), epochs, steps_per_epoch,
-batch_per_worker, seq, lora_rank, lr, device (None means cuda). The
-reference's mesh keys (fsdp, tp) wait for the port's parallel slices.
+batch_per_worker, seq, lora_rank, lr, device (None means cuda), fsdp, tp,
+dp.
 """
 
 from __future__ import annotations
@@ -33,6 +51,8 @@ import torch
 
 from ..._internal.device import resolve_device
 from ...models.llama import Llama, LlamaConfig, build_llama, init_params, next_token_loss
+from ...parallel.fsdp import FSDP
+from ...parallel.sharding import process_local_batch
 from .. import collective as train_collective
 from .. import session
 from ..backend import TorchConfig
@@ -62,14 +82,16 @@ def model_config(config: dict) -> LlamaConfig:
 
 
 def lora_model(
-    cfg: LlamaConfig, params: Dict[str, torch.Tensor], lr: float = 1e-4
+    cfg: LlamaConfig, params: Dict[str, torch.Tensor], lr: float = 1e-4,
+    fsdp: Optional[FSDP] = None,
 ) -> Tuple[Llama, Dict[str, torch.nn.Parameter], torch.optim.AdamW]:
     """A Llama over ``params`` whose adapters train and whose base stays
     frozen, the adapters by name, and AdamW over the adapters alone. The
     adapters are leaf parameters in ``cfg.param_dtype``, as are their AdamW
     moments. The hyperparameters are optax.adamw's defaults (weight decay
-    1e-4, not torch's 0.01)."""
-    model = build_llama(cfg, params)
+    1e-4, not torch's 0.01). With ``fsdp``, ``params`` are this rank's
+    blocks (``fsdp.shard``) and the model gathers them."""
+    model = build_llama(cfg, params) if fsdp is None else fsdp.build_llama(cfg, params)
     _, lora = split_lora(dict(model.named_parameters()))
     if not lora:
         raise ValueError("the config has no adapters: set lora_rank > 0")
@@ -92,48 +114,27 @@ def lora_train_step(
     optimizer.zero_grad(set_to_none=True)
     loss = next_token_loss(model.config, model, tokens)
     loss.backward()
-    if reduce_grads is None or _apply(model, reduce_grads(_grads(model))):
+    if reduce_grads is None or train_collective.set_gradients(
+            model, reduce_grads(train_collective.gradients(model))):
         optimizer.step()
     return loss.detach()
 
 
-def _grads(model: Llama) -> Dict[str, torch.Tensor]:
-    return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+def data_parallel_mean(world_size: int, sharded=()) -> train_collective.DataParallelMean:
+    """The gang's gradient hook (``train.collective.DataParallelMean``):
+    the sum over the ranks through ``train.collective.reduce_gradients``,
+    divided by ``world_size``; ``sharded`` names FSDP blocks, whose
+    gradients arrive summed. With every rank's batch of one size, that is
+    the gradient of the mean loss over the global batch, the reference's.
+    None at ``stale_grad=1``'s first step."""
+    return train_collective.DataParallelMean(world_size, sharded)
 
 
-def _apply(model: Llama, grads: Optional[Mapping[str, torch.Tensor]]) -> bool:
-    """Set the parameters' gradients to ``grads``; False for None."""
-    if grads is None:
-        return False
-    for name, p in model.named_parameters():
-        if name in grads:
-            p.grad = grads[name]
-    return True
-
-
-def data_parallel_mean(world_size: int) -> GradReducer:
-    """The gang's gradient hook: the sum over the ranks through
-    ``train.collective.reduce_gradients``, divided by ``world_size``. With
-    every rank's batch of one size, that is the gradient of the mean loss
-    over the global batch, the reference's. None at ``stale_grad=1``'s
-    first step."""
-
-    def reduce(grads: Mapping[str, torch.Tensor]) -> Optional[Dict[str, torch.Tensor]]:
-        return _mean(train_collective.reduce_gradients(grads), world_size)
-
-    return reduce
-
-
-def _mean(summed: Optional[Dict[str, torch.Tensor]], world_size: int):
-    if summed is None:
-        return None
-    return {name: g.div_(world_size) for name, g in summed.items()}
-
-
-def flush_stale_update(model: Llama, optimizer: torch.optim.Optimizer, world_size: int):
+def flush_stale_update(model: Llama, optimizer: torch.optim.Optimizer,
+                       reduce_grads: train_collective.DataParallelMean):
     """At ``stale_grad=1``: apply the last step's reduced gradients, which
-    the scheduler still holds."""
-    if _apply(model, _mean(train_collective.gradient_scheduler().flush(), world_size)):
+    the hook still holds."""
+    if train_collective.set_gradients(model, reduce_grads.flush()):
         optimizer.step()
 
 
@@ -148,35 +149,71 @@ def step_tokens(
     )
 
 
+def mesh_axes(config: dict, world_size: int) -> Dict[str, int]:
+    """The loop's mesh over ``world_size`` ranks: ``fsdp`` (default: the
+    ranks ``dp`` and ``tp`` leave, the reference's ``fsdp = n_dev``), ``tp``
+    and ``dp`` (default 1). Layouts the port cannot train raise."""
+    dp, tp = config.get("dp", 1), config.get("tp", 1)
+    fsdp = config.get("fsdp", world_size // (dp * tp))
+    if tp > 1:
+        raise NotImplementedError(
+            f"tensor-parallel training (tp={tp}) is not ported: ROADMAP item 11 (serving "
+            "runs tensor-parallel through LLMServer(tensor_parallel_size=))")
+    if dp > 1 and fsdp > 1:
+        raise NotImplementedError(
+            f"dp={dp} x fsdp={fsdp}: FSDP within data-parallel replicas needs sub-groups "
+            f"of the gang, which are not ported; use fsdp={world_size} or dp={world_size}")
+    return {"dp": dp, "fsdp": fsdp, "tp": tp}
+
+
 def train_loop_per_worker(config: dict):
     ctx = session.get_context()
-    rank = ctx.get_world_rank()
+    rank, world = ctx.get_world_rank(), ctx.get_world_size()
     device = resolve_device(config.get("device"))
     cfg = model_config(config)
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
-    model, lora, optimizer = lora_model(cfg, params, lr=config.get("lr", 1e-4))
+    group = train_collective.tensor_group()
+    axes = mesh_axes(config, world)
+    mesh = train_collective.gang_mesh(device, **axes)
+    fsdp = None
+    # FSDP unless ``dp`` is given with fsdp = 1 (at one rank the two layouts
+    # are one, and the key picks the replicated path)
+    if group is not None and (axes["fsdp"] > 1 or "dp" not in config):
+        fsdp = FSDP.for_llama(cfg, mesh.bind(rank, {"fsdp": group}))
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_params(cfg, gen, device=device, shard=None if fsdp is None else fsdp.shard)
+    model, lora, optimizer = lora_model(cfg, params, lr=config.get("lr", 1e-4), fsdp=fsdp)
     del params
-    batch = config.get("batch_per_worker", 2)
+    reduce_grads = None
+    if group is not None:
+        reduce_grads = data_parallel_mean(world, () if fsdp is None else fsdp.sharded)
+    # per-process batch: the global batch must divide over the mesh's data
+    # axes, so each rank's rounds to its share of them (one, a rank being a
+    # process with one device)
+    local_shards = max((axes["dp"] * axes["fsdp"]) // world, 1)
+    batch = max(config.get("batch_per_worker", 2), local_shards)
+    batch -= batch % local_shards
     steps = config.get("steps_per_epoch", 4)
     epochs = config.get("epochs", 2)
-    reduce_grads = data_parallel_mean(ctx.world_size) if ctx.collective_tensor_group else None
     # one checkpoint directory for the whole run, overwritten each epoch;
     # report() copies it into the run's storage
     with tempfile.TemporaryDirectory(prefix="lora_ckpt_") as ckpt_dir:
         for epoch in range(epochs):
             for step in range(steps):
-                tokens = step_tokens(cfg, batch, epoch, step, rank, device)
+                tokens = process_local_batch(mesh, step_tokens(cfg, batch, epoch, step, rank,
+                                                               device))
                 loss = lora_train_step(model, optimizer, tokens, reduce_grads)
             if reduce_grads is not None and ctx.collective_stale_grad and epoch == epochs - 1:
-                flush_stale_update(model, optimizer, ctx.world_size)
+                flush_stale_update(model, optimizer, reduce_grads)
+            full = lora if fsdp is None else fsdp.full_state(lora)
             checkpoint = None
             if rank == 0:
-                state = {name: p.detach().cpu() for name, p in lora.items()}
+                state = {name: p.detach().cpu() for name, p in full.items()}
                 with open(os.path.join(ckpt_dir, "lora.pkl"), "wb") as f:
                     pickle.dump({"lora": state, "epoch": epoch}, f)
                 checkpoint = Checkpoint.from_directory(ckpt_dir)
             session.report(
-                {"epoch": epoch, "loss": float(loss), "rank": rank}, checkpoint=checkpoint
+                {"epoch": epoch, "loss": train_collective.gang_mean(loss), "rank": rank},
+                checkpoint=checkpoint,
             )
 
 

@@ -358,7 +358,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     brings in JAX, ray_tpu, gymnasium, ml_dtypes or cloudpickle (which the
     card's machine lacks). The walk includes the parallel package, the MoE
     model, the observability plane (util), the KV tier with what it
-    imports, and every RLlib algorithm, DreamerV3 included."""
+    imports, every RLlib algorithm, DreamerV3 included, FSDP, the
+    differentiable collectives and the sharded checkpoint."""
     code = (
         "import importlib, pkgutil, sys, ray_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__, 'ray_tpu_torch.')]\n"
@@ -375,7 +376,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "        'ray_tpu_torch._internal.transfer', 'ray_tpu_torch.rllib.dqn',\n"
         "        'ray_tpu_torch.rllib.sac', 'ray_tpu_torch.rllib.impala', 'ray_tpu_torch.rllib.bc',\n"
         "        'ray_tpu_torch.rllib.offline', 'ray_tpu_torch.rllib.multi_agent',\n"
-        "        'ray_tpu_torch.rllib.multi_agent_env', 'ray_tpu_torch.rllib.dreamer'}\n"
+        "        'ray_tpu_torch.rllib.multi_agent_env', 'ray_tpu_torch.rllib.dreamer',\n"
+        "        'ray_tpu_torch.parallel.fsdp', 'ray_tpu_torch.collective.functional',\n"
+        "        'ray_tpu_torch.train.sharded_checkpoint'}\n"
         "print(len(mods), bad, sorted(need - set(mods)))\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -416,7 +419,8 @@ def test_port_sources_name_neither_jax_nor_ray_tpu():
                 names = [node.module or ""]
             offenders += [f"{path.name}: {n}" for n in names if n.split(".")[0] in banned]
     assert offenders == []
-    assert {"rllib/dreamer.py", "rllib/sac.py", "models/convert.py"} <= scanned
+    assert {"rllib/dreamer.py", "rllib/sac.py", "models/convert.py", "parallel/fsdp.py",
+            "collective/functional.py", "train/sharded_checkpoint.py"} <= scanned
 
 
 def test_no_card_means_error_not_cpu(monkeypatch):
