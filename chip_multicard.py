@@ -46,9 +46,21 @@ port's ``TorchTrainer`` (``TorchConfig(backend="nccl")``):
 5. ``chip_smoke.train_fsdp_loop`` (the llama_lora loop at its default mesh,
    FSDP at fsdp = n, full Llama-2-7B width, seq 2048, batch 2 a worker):
    K1-K4 exact, step ms and peak memory a rank against part 2's replicated
-   n-worker run.
+   n-worker run;
+6. sequence parallelism over NCCL (``sp_loop``): the 7B LoRA step (all 32
+   layers, rank 16, remat, bf16) at b=2 x 4096 with the sequence split
+   over sp = 2 and 4 cards (``Llama(config, mesh)``, ring attention over
+   the mesh's group, the gradients summed over it), against the same step
+   on one card; then b=1 x 16,384 at sp = 4 (``max_seq_len`` 16,384, past
+   Llama-2's published 4,096: a memory and throughput reading only). Each
+   rank's K1-K4 launches a step exact (K2 2L(r + 1), K3 and K4 L(sp - r)),
+   step ms, tokens/s and peak a rank, and the shifts' bytes and the time
+   the stream waited on them (CUDA events around each wait) as a share of
+   the step; then one more step on rank 0 with the allocator's history
+   recorded (``memory_at_peak``): what the step holds at its peak, by the
+   code that allocated it.
 
-    python3 chip_multicard.py 3      # part 3 alone (no argument: all five;
+    python3 chip_multicard.py 3      # part 3 alone (no argument: all six;
                                      # several, as in "4 5", run those)
 
 Prints the cards' names and power limits, one JSON line per part, and
@@ -68,6 +80,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 QUANT_ROUNDS = 3
+# part 6: (sp, batch, global seq) runs of the 32-layer 7B LoRA step, timed
+# over 3 steps after a warm-up
+SP_RUNS = ((1, 2, 4096), (2, 2, 4096), (4, 2, 4096), (4, 1, 16384))
+SP_TIMED_STEPS = 3
+# memory_at_peak: the allocation sites it lists, the largest first
+PEAK_SITES = 12
 EPS = {"torch.bfloat16": 2.0 ** -8, "torch.float32": 2.0 ** -24}
 
 
@@ -240,7 +258,7 @@ def main() -> None:
     from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchConfig, TorchTrainer
 
     n = torch.cuda.device_count()
-    parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5"}
+    parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5", "6"}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print("cards:", smi.replace("\n", " | "))
@@ -268,6 +286,8 @@ def main() -> None:
         resnet_part(C, fit, n)
     if "5" in parts:
         fsdp_part(C, fit, n, runs)
+    if "6" in parts:
+        sp_part(C, fit, n)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": n}}))
 
@@ -373,6 +393,153 @@ def fsdp_part(C, fit, n: int, replicated) -> None:
         step_peak_bytes=[s["step_peak_bytes"] for s in stats],
         replicated_step_ms_median=rep["step_ms_median"] if rep else None,
         replicated_peak_bytes=rep["peak_bytes"] if rep else None)))
+
+
+def sp_loop(config):
+    """Part 6's worker: the 7B LoRA step with the sequence split over the
+    gang (``gang_mesh(device, sp=n)`` bound to the tensor group through
+    ``chip_smoke._ShiftMeter``; at one rank plain flash), the gradients
+    summed over it; K1-K4 launches of a warm-up step, then timed steps."""
+    import torch
+
+    import chip_smoke as C
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.train import collective as tcol
+    from ray_tpu_torch.train.examples import llama_lora
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = train.get_context()
+    r, n = ctx.world_rank, ctx.world_size
+    device = C._card(torch)
+    cfg = llama_lora.model_config(dict(C.TRAIN_CONFIG, seq=config["seq"]))
+    meter = C._ShiftMeter(tcol.tensor_group()) if n > 1 else None
+    mesh = tcol.gang_mesh(device, sp=n).bind(r, {"sp": meter} if meter else {})
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    model, _, optimizer = llama_lora.lora_model(cfg, params, mesh=mesh)
+    del params
+    g = torch.Generator(device=device).manual_seed(C.SEED + 80)
+    tokens = torch.randint(0, cfg.vocab_size, (config["batch"], config["seq"]), generator=g,
+                           device=device)
+    reduce = tcol.reduce_gradients if n > 1 else None
+    counters = C._port_counters()
+    C._zero(counters)
+    llama_lora.lora_train_step(model, optimizer, tokens, reduce)
+    torch.cuda.synchronize()
+    launches = C._launches(counters)
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for _ in range(SP_TIMED_STEPS):
+        if meter:
+            meter.take()
+        t0 = time.perf_counter()
+        loss = llama_lora.lora_train_step(model, optimizer, tokens, reduce)
+        torch.cuda.synchronize()
+        rows.append(dict(step_ms=(time.perf_counter() - t0) * 1e3,
+                         shifts=meter.take() if meter else None))
+    peak = torch.cuda.max_memory_allocated()
+    memory = None
+    if r == 0:
+        memory = memory_at_peak(
+            torch, lambda: llama_lora.lora_train_step(model, optimizer, tokens, reduce))
+    else:
+        llama_lora.lora_train_step(model, optimizer, tokens, reduce)
+    torch.cuda.synchronize()
+    train.report({"rank": r, "launches": launches, "steps": rows, "loss": float(loss),
+                  "peak_bytes": peak, "memory_at_peak": memory, "n_layers": cfg.n_layers})
+
+
+def _site(frames) -> str:
+    """Where an allocation was made: its two innermost frames in this
+    repository's code, else its innermost frame."""
+    ours = [f for f in frames if "ray_tpu_torch" in f["filename"]
+            or Path(f["filename"]).name.startswith("chip_")]
+    shown = ours[:2] or frames[:1]
+    return " < ".join(f"{Path(f['filename']).name}:{f['line']} {f['name']}"
+                      for f in shown) or "(no Python frame)"
+
+
+def memory_at_peak(torch, step) -> dict:
+    """Run ``step`` with the allocator's history recorded and replay it.
+    The allocated bytes fall when a block's free is asked for (what
+    ``max_memory_allocated`` reads) and the held bytes when the free
+    completes, after every stream that used the block. At the allocated
+    peak: the blocks the step allocated that are live, by ``_site``, the
+    largest ``PEAK_SITES`` first; the bytes live before the step; and the
+    held peak beside it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.memory._record_memory_history(max_entries=2_000_000, stacks="python")
+    try:
+        step()
+        torch.cuda.synchronize()
+        trace = torch.cuda.memory._snapshot()["device_traces"][torch.cuda.current_device()]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+
+    def replay(stop=None):
+        live, freeing, alloc, held, peak, at, held_peak = {}, {}, 0, 0, 0, 0, 0
+        for i, e in enumerate(trace[:stop]):
+            if e["action"] == "alloc":
+                live[e["addr"]] = e
+                alloc, held = alloc + e["size"], held + e["size"]
+            elif e["action"] == "free_requested" and e["addr"] in live:
+                freeing[e["addr"]] = live.pop(e["addr"])["size"]
+                alloc -= freeing[e["addr"]]
+            elif e["action"] == "free_completed" and e["addr"] in freeing:
+                held -= freeing.pop(e["addr"])
+            if alloc > peak:
+                peak, at = alloc, i + 1
+            held_peak = max(held_peak, held)
+        return live, peak, at, held_peak
+
+    _, peak, at, held_peak = replay()
+    live = replay(at)[0]
+    sites = {}
+    for e in live.values():
+        entry = sites.setdefault(_site(e["frames"]), [0, 0])
+        entry[0] += e["size"]
+        entry[1] += 1
+    top = sorted(sites.items(), key=lambda kv: -kv[1][0])[:PEAK_SITES]
+    return dict(before_step_bytes=base, step_peak_bytes=peak,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                held_peak_bytes=held_peak, trace_entries=len(trace),
+                sites=[dict(site=k, bytes=b, blocks=c) for k, (b, c) in top])
+
+
+def sp_part(C, fit, n: int) -> None:
+    """6: the 7B LoRA step at sp = 1, 2 and 4 (as the cards allow), b=2 x
+    4096, and at sp = 4, b=1 x 16,384."""
+    import math
+
+    runs = {}
+    for sp, batch, seq in SP_RUNS:
+        if sp > n:
+            continue
+        result, fit_s = fit(sp_loop, sp, {"batch": batch, "seq": seq})
+        reports = sorted((m for m in result.metrics_history if "steps" in m),
+                         key=lambda m: m["rank"])
+        C.check([m["rank"] for m in reports] == list(range(sp)), f"sp={sp}: reports {reports}")
+        C.check(all(math.isfinite(m["loss"]) and m["loss"] == reports[0]["loss"] for m in reports),
+                f"sp={sp}: losses {[m['loss'] for m in reports]}")
+        for m in reports:
+            layers, r = m["n_layers"], m["rank"]
+            want = {"rmsnorm_fwd": 4 * layers + 1, "flash_attention_fwd": 2 * layers * (r + 1),
+                    "flash_bwd_dq": layers * (sp - r), "flash_bwd_dkv": layers * (sp - r)}
+            C.check(m["launches"] == want, f"sp={sp} rank {r}: launches {m['launches']}, "
+                                           f"want {want}")
+        med = [statistics.median(s["step_ms"] for s in m["steps"]) for m in reports]
+        shifts = [m["steps"][-1]["shifts"] for m in reports]
+        runs[f"sp{sp}_b{batch}x{seq}"] = dict(
+            fit_s=fit_s, loss=reports[0]["loss"],
+            step_ms=[[s["step_ms"] for s in m["steps"]] for m in reports], step_ms_median=med,
+            tokens_per_s=batch * seq / max(med) * 1e3,
+            peak_bytes=[m["peak_bytes"] for m in reports], shifts_last_step=shifts,
+            memory_at_peak_rank0=reports[0]["memory_at_peak"],
+            stream_wait_share=None if sp == 1 else [
+                x["stream_wait_ms"] / m["steps"][-1]["step_ms"] for x, m in zip(shifts, reports)])
+    print("multicard sp", json.dumps(runs))
 
 
 if __name__ == "__main__":

@@ -14,7 +14,9 @@ Phases, each of which exits non-zero on failure:
      (beside its pooled-step rows, (8, 4096), the time of a one-element
      elementwise launch timed the same way: the launch floor),
      the flash-attention forward, then the flash-attention backward (dQ, and
-     dK/dV) with lse from the forward kernel; the bf16/f16 flash kernels run
+     dK/dV) with lse from the forward kernel (at the ring's hops, the lse
+     and delta of a merge of the hop's block with a causal one, as the ring
+     feeds them); the bf16/f16 flash kernels run
      on the tensor cores and are held both to the plain version that rounds
      P (and dS) as they do (tightly) and to the f32 plain version (within
      the bound of that rounding); then the count of tensor-core instructions
@@ -178,6 +180,19 @@ Phases, each of which exits non-zero on failure:
      base bytes exactly half, adapters within 2n lr + n bf16 ulps of the
      replicated pair's, gather bytes, step ms and peak a rank; (c) the
      pair's sharded checkpoint restored whole here, bit for bit;
+  12d. sequence parallelism (``train_sp``): two gloo ranks sharing the card
+     (``train_sp_loop``). (a) ring and Ulysses attention at Llama-2-7B's
+     attention width (b=2, 32 heads, S=4096, 2,048 a rank) and Llama-3-8B's
+     GQA one (b=1, 32/8 heads, S=8192), bf16, causal: o and the q/k/v
+     gradients within 4x the one-rank flash_attention's own distance from
+     f32 plain attention, fwd and bwd ms a rank, the shifts' bytes and
+     waits; (b) 4 layers of the 7B LoRA step at b=2 x 4096 with the
+     sequence split over the ranks (ring attention in every layer, the
+     gradients summed over them), 3 AdamW steps: the ranks bit-identical,
+     losses and adapters within twice the in-process one-rank run's
+     distance from itself in f32 activations, ring bytes exactly
+     1,077,936,128 a step and rank, K1-K4 17 / 8(r+1) / 4(2-r) / 4(2-r) a
+     step on rank r, step ms, peak and the collectives' host share;
   13. ResNet-50 training (``train_resnet``): make_trainer(...).fit() of the
      resnet loop at 224, batch 256 (bf16 activations over f32 parameters,
      SGD with momentum), finite losses, running statistics that move, K1-K4
@@ -271,7 +286,9 @@ phase 12's fit() and read just after it (training), set to 0 just before
 phase 12b (b)'s fit() and read just after it, with the spawned worker's own
 counts, set to 0 before its loop and read after it, added (``train_dp``),
 likewise for phase 12c (a)'s worker, with (b)'s FSDP ranks' counts of
-their steps added (``train_fsdp``) and for phase 13b's workers
+their steps added (``train_fsdp``), for phase 12d's two ranks, each set to
+0 before its ops and again before its steps and read after each
+(``train_sp``), and for phase 13b's workers
 (``train_resnet_dp``), and set to 0 at the
 start of phases 13 and 14 and read after their timed and profiled steps
 (``train_resnet``, ``train_vit``), and set to 0 at the start of phase 15 and
@@ -383,6 +400,19 @@ MOE_PARITY_SEQ = 256
 # logits of a few units computed in f32 in two summation orders differ by
 # about 1e-6, and so do their softmax probabilities
 MOE_NEAR_TIE = 1e-5
+# sequence parallelism (train_sp): two gloo ranks sharing the card. (a) ring
+# and Ulysses attention at full width, bf16, causal, head_dim 128: (name,
+# batch, query heads, KV heads, global seq), Llama-2-7B's at its published
+# context and Llama-3-8B's GQA at 8192; (b) the 7B LoRA step (rank 16 on
+# wq/wk/wv/wo, remat, bf16, lr 1e-4) cut to 4 layers, b=2 x 4096 (Llama-2's
+# published context) split over the ranks, 3 AdamW steps
+SP = {"ranks": 2, "n_layers": 4, "batch": 2, "seq": 4096, "steps": 3, "lr": 1e-4,
+      "op_reps": 3}
+SP_OPS = (("llama2_7b", 2, 32, 32, 4096), ("llama3_8b_gqa", 1, 32, 8, 8192))
+SP_OPS_LOCAL = tuple((n, b, h, hk, s // SP["ranks"]) for n, b, h, hk, s in SP_OPS)
+# (a)'s bound: ring and Ulysses within this many times the one-rank
+# flash_attention's own distance from its f32 plain version, tensor by tensor
+SP_OP_TIMES = 4
 # rounding unit of each dtype (one ulp of a value in [1, 2))
 ULP = {"torch.bfloat16": 2.0 ** -7, "torch.float16": 2.0 ** -10, "torch.float32": 2.0 ** -23}
 
@@ -515,6 +545,11 @@ def flash_phase(torch, F):
         # the Mixtral-8x7B training call (train_moe): batch 2 x 32 heads (its
         # 8 KV heads repeated), seq 4096
         (MOE["batch"] * 32, MOE["seq"], MOE["seq"], 128, True, torch.bfloat16, MOE["batch"]),
+        # the ring's hop of train_sp: an earlier rank's whole K/V block,
+        # non-causal, at Llama-2-7B width (batch 2 x 32 heads, 2048 a rank)
+        # and at Llama-3-8B's GQA call (batch 1 x 32 heads, its 8 KV heads
+        # repeated, 4096 a rank)
+        *((b_ * h_, s_, s_, 128, False, torch.bfloat16, b_) for _, b_, h_, _, s_ in SP_OPS_LOCAL),
         (12, VIT_SEQ, VIT_SEQ, 64, False, torch.bfloat16, None),
         (8, 100, 100, 64, False, torch.bfloat16, None),
         (8, 96, 96, 32, True, torch.bfloat16, None),  # tiny's head_dim
@@ -608,6 +643,7 @@ def flash_bwd_phase(torch, F):
         flash_bwd_dq_reference,
         flash_bwd_rounding_bound,
     )
+    from ray_tpu_torch.parallel.ring_attention import _merge
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     # (bh, sq, sk, d, causal, dtype, batch); the first is the 7B training
@@ -616,10 +652,15 @@ def flash_bwd_phase(torch, F):
     # 4096). Those three, with a batch, are timed. bf16 and f16 run the
     # tensor-core kernels, f32 the CUDA-core ones.
     b, seq = TRAIN_CONFIG["batch_per_worker"], TRAIN_CONFIG["seq"]
+    # the ring's hops (train_sp), as in flash_phase; their lse and delta are
+    # the merged result's (the hop's block and a causal diagonal block of
+    # other keys, merged by log-sum-exp), not the block's own, as in the ring
+    hops = [(b_ * h_, s_, s_, 128, False, torch.bfloat16, b_) for _, b_, h_, _, s_ in SP_OPS_LOCAL]
     cases = [
         (b * 32, seq, seq, 128, True, torch.bfloat16, b),
         (VIT_BATCH * 12, VIT_SEQ, VIT_SEQ, 64, False, torch.bfloat16, VIT_BATCH),
         (MOE["batch"] * 32, MOE["seq"], MOE["seq"], 128, True, torch.bfloat16, MOE["batch"]),
+        *hops,
         (12, VIT_SEQ, VIT_SEQ, 64, False, torch.bfloat16, None),
         (8, 100, 100, 64, False, torch.bfloat16, None),
         (8, 96, 96, 32, True, torch.bfloat16, None),
@@ -639,6 +680,13 @@ def flash_bwd_phase(torch, F):
         k, v = (torch.randn(bh, sk, d, generator=g, device="cuda").to(dtype) for _ in range(2))
         kw = dict(sm_scale=d ** -0.5, causal=causal)
         o, lse = flash_attention_fwd(q, k, v, **kw)
+        ring_hop = (bh, sq, sk, d, causal, dtype, bb) in hops
+        if ring_hop:
+            k2, v2 = (torch.randn(bh, sq, d, generator=g, device="cuda").to(dtype)
+                      for _ in range(2))
+            o2, lse2 = flash_attention_fwd(q, k2, v2, sm_scale=kw["sm_scale"], causal=True)
+            o, lse = _merge(o2, lse2, o, lse)
+            del k2, v2, o2, lse2
         delta = attention_delta(do, o)
         args = (q, k, v, do, lse, delta)
         dq = flash_bwd_dq(*args, **kw)
@@ -679,7 +727,7 @@ def flash_bwd_phase(torch, F):
             errs[name] = (err, tol, f32_err, wide)
         for kernel, names in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkv", ("dk", "dv"))):
             rows[kernel].append(dict(
-                shape=[bh, sq, sk, d], causal=causal, dtype=str(dtype),
+                shape=[bh, sq, sk, d], causal=causal, dtype=str(dtype), ring_hop=ring_hop,
                 max_abs_err=max(errs[n][0] for n in names),
                 tol=min(errs[n][1] for n in names),
                 f32_plain_max_abs_err=max(errs[n][2] for n in names),
@@ -3942,6 +3990,422 @@ def train_fsdp_phase(torch, np, counters, train_out, train_lora, dp_out):
     return launches, out
 
 
+# -- sequence parallelism (``train_sp``) -------------------------------------
+
+
+def _card(torch):
+    """This process's card."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+class _ShiftMeter:
+    """``group`` with its ring shifts metered: each wait's bytes, the host
+    time it blocked (``perf_counter`` around it) and, on a card, the time the
+    current stream spent between the kernels before the wait and the work
+    after it (CUDA events around the wait: over NCCL the stream, not the
+    host, waits for the transfer; over gloo it idles while the host
+    blocks). Every other attribute is the group's, so a mesh bound with the
+    meter as its ``sp`` group runs the model's ring through it."""
+
+    def __init__(self, group):
+        self._group = group
+        self.shifts = []
+
+    def __getattr__(self, name):
+        return getattr(self._group, name)
+
+    def ring_shift(self, tensors):
+        return _MeteredShift(self, self._group.ring_shift(tensors))
+
+    def take(self):
+        """The shifts since the last call (after a synchronize): their
+        count, bytes, host-blocked ms and stream-wait ms."""
+        shifts, self.shifts = self.shifts, []
+        return dict(count=len(shifts), bytes=sum(n for n, _, _ in shifts),
+                    exposed_host_ms=sum(e for _, e, _ in shifts) * 1e3,
+                    stream_wait_ms=sum(a.elapsed_time(b) for _, _, (a, b) in shifts))
+
+
+class _MeteredShift:
+    """A posted shift of ``_ShiftMeter``, its wait metered. A class of its
+    own, not one made in each call: such a class sits in a reference cycle,
+    and would keep the shift's received tensors alive until the cyclic
+    collector ran (a whole step's receive buffers, in part 6)."""
+
+    def __init__(self, meter, pending):
+        self._meter, self._pending = meter, pending
+
+    def wait(self):
+        import torch
+
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        t0 = time.perf_counter()
+        out = self._pending.wait()
+        blocked = time.perf_counter() - t0
+        events[1].record()
+        self._meter.shifts.append((self._pending.nbytes, blocked, events))
+        return out
+
+
+def _sp_op_inputs(torch, device, b, h, hk, seq):
+    """q, do (b, h, seq, 128) and k, v (b, hk, seq, 128) bf16 from one seed."""
+    g = torch.Generator(device=device).manual_seed(SEED + 60 + seq + hk)
+    q, do = (torch.randn(b, h, seq, 128, generator=g, device=device).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(b, hk, seq, 128, generator=g, device=device).to(torch.bfloat16)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def _sp_tokens(torch, cfg, device):
+    """(b)'s global batches, (2, 4096) each, from one seed."""
+    g = torch.Generator(device=device).manual_seed(SEED + 70)
+    return [torch.randint(0, cfg.vocab_size, (SP["batch"], SP["seq"]), generator=g,
+                          device=device) for _ in range(SP["steps"])]
+
+
+def _sp_model_config(dtype=None):
+    """llama_lora's 7B config at seq 4096 cut to 4 layers (bf16 parameters,
+    LoRA rank 16, remat); ``dtype`` sets the activations' (default bf16)."""
+    from ray_tpu_torch.train.examples import llama_lora
+
+    cfg = dataclasses.replace(llama_lora.model_config(dict(TRAIN_CONFIG, seq=SP["seq"])),
+                              n_layers=SP["n_layers"])
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+class _FirstGradients:
+    """A ``reduce_grads`` hook for ``lora_train_step`` that keeps, on the
+    host, the first step's gradients as the rank computed them
+    (``local``) and as ``reduce`` returns them (``reduced``, the ones AdamW
+    applies); ``reduce=None`` applies them as they are."""
+
+    def __init__(self, reduce=None):
+        self._reduce, self.local, self.reduced = reduce, None, None
+
+    def __call__(self, grads):
+        first = self.local is None
+        if first:
+            self.local = {k: g.detach().cpu() for k, g in grads.items()}
+        out = grads if self._reduce is None else self._reduce(grads)
+        if first:
+            self.reduced = {k: g.detach().cpu() for k, g in out.items()}
+        return out
+
+
+def _sp_one_rank(torch, dtype=None):
+    """The in-process one-rank 4-layer model on the whole sequence: (b)'s 3
+    steps, its losses, its first step's gradients and its adapters (on the
+    host)."""
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.train.examples import llama_lora
+
+    device = _card(torch)
+    cfg = _sp_model_config(dtype)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    model, lora, optimizer = llama_lora.lora_model(cfg, params, lr=SP["lr"])
+    first = _FirstGradients()
+    losses = [float(llama_lora.lora_train_step(model, optimizer, t, first))
+              for t in _sp_tokens(torch, cfg, device)]
+    adapters = {k: p.detach().cpu() for k, p in lora.items()}
+    del model, lora, optimizer, params
+    torch.cuda.empty_cache()
+    return losses, first.reduced, adapters
+
+
+def _sp_op_reference(torch, b, h, hk, seq):
+    """(a)'s yardsticks on the whole sequence: the one-rank
+    ``flash_attention`` (K2-K4) o and gradients on the host, and each one's
+    largest distance from the f32 plain attention (autograd through
+    ``reference_attention`` in f32, a KV head's group of query heads at a
+    time)."""
+    from ray_tpu_torch.ops.flash_attention import flash_attention, reference_attention
+
+    device = _card(torch)
+    q, k, v, do = _sp_op_inputs(torch, device, b, h, hk, seq)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = flash_attention(*leaves, causal=True)
+    o.backward(do)
+    one = {"o": o.detach(), "dq": leaves[0].grad, "dk": leaves[1].grad, "dv": leaves[2].grad}
+    control = {name: 0.0 for name in one}
+    rep = h // hk
+    per = max(1, 4 // rep)  # KV heads a chunk: 4 query heads at a time
+    for j in range(0, hk, per):
+        qs, ks = slice(j * rep, (j + per) * rep), slice(j, j + per)
+        part = [t.float().requires_grad_(True) for t in (q[:, qs], k[:, ks], v[:, ks])]
+        of = reference_attention(*part, causal=True)
+        of.backward(do[:, qs].float())
+        for name, got, want in (("o", one["o"][:, qs], of.detach()),
+                                ("dq", one["dq"][:, qs], part[0].grad),
+                                ("dk", one["dk"][:, ks], part[1].grad),
+                                ("dv", one["dv"][:, ks], part[2].grad)):
+            control[name] = max(control[name], (got.float() - want).abs().max().item())
+        del part, of
+    out = {name: t.cpu() for name, t in one.items()}
+    del one, leaves, o, q, k, v, do
+    torch.cuda.empty_cache()
+    return out, control
+
+
+def train_sp_loop(config):
+    """One of two gloo ranks sharing the card: (a) ring and Ulysses
+    attention on its shard of each of ``SP_OPS``, timed, the first run's o
+    and gradients written beside the run; (b) the 4-layer 7B LoRA step with
+    the sequence split over the ranks (``gang_mesh(device, sp=2)`` bound to
+    the tensor group), 3 AdamW steps with the gradients summed over the
+    group (``train.collective.reduce_gradients``), its first step's local
+    and summed gradients and its adapters written beside the run. The K1-K4
+    counts of (a) and of (b), each set to 0 just before it and read just
+    after, are reported."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.parallel.ring_attention import ring_attention
+    from ray_tpu_torch.parallel.ulysses import ulysses_attention
+    from ray_tpu_torch.train import collective as tcol
+    from ray_tpu_torch.train.examples import llama_lora
+    from ray_tpu_torch.util import metrics
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = train.get_context()
+    r, n = ctx.world_rank, ctx.world_size
+    device = _card(torch)
+    run_dir = Path(ctx.get_storage_path())
+    meter = _ShiftMeter(tcol.tensor_group())
+    counters = _port_counters()
+
+    def op_bytes():
+        summary = metrics.collective_summary()
+        return {op: summary.get(op, {}).get("bytes", 0) for op in ("ring_shift", "all_to_all")}
+
+    _zero(counters)
+    ops = {}
+    for name, b, h, hk, seq in SP_OPS:
+        q, k, v, do = _sp_op_inputs(torch, device, b, h, hk, seq)
+        s = seq // n
+        q, k, v, do = (t[:, :, r * s:(r + 1) * s].contiguous() for t in (q, k, v, do))
+        for op, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+            runs = []
+            for rep in range(SP["op_reps"] + 1):
+                leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                tcol.barrier()
+                torch.cuda.synchronize()
+                meter.take()
+                bytes0 = op_bytes()
+                t0 = time.perf_counter()
+                o = fn(*leaves, group=meter)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                fwd_shifts = meter.take()
+                o.backward(do)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                bwd_shifts = meter.take()
+                moved = {k_: v_ - bytes0[k_] for k_, v_ in op_bytes().items()}
+                runs.append(dict(fwd_ms=(t1 - t0) * 1e3, bwd_ms=(t2 - t1) * 1e3,
+                                 fwd_shift=fwd_shifts, bwd_shift=bwd_shifts, bytes=moved))
+                if rep == 0:
+                    torch.save({"o": o.detach().cpu(), "dq": leaves[0].grad.cpu(),
+                                "dk": leaves[1].grad.cpu(), "dv": leaves[2].grad.cpu()},
+                               run_dir / f"sp_{name}_{op}_rank{r}.pt")
+                del o, leaves
+            ops[f"{name}_{op}"] = runs[1:]  # the first is a warm-up
+        del q, k, v, do
+    op_launches = _launches(counters)
+    torch.cuda.empty_cache()
+
+    cfg = _sp_model_config()
+    mesh = tcol.gang_mesh(device, sp=n).bind(r, {"sp": meter})
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    model, lora, optimizer = llama_lora.lora_model(cfg, params, lr=SP["lr"], mesh=mesh)
+    del params
+    tokens = _sp_tokens(torch, cfg, device)
+    first = _FirstGradients(tcol.reduce_gradients)
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    steps, losses = [], []
+    for t in tokens:
+        torch.cuda.synchronize()
+        before = _collective_ms(metrics.collective_summary())
+        bytes0 = op_bytes()["ring_shift"]
+        meter.take()
+        t0 = time.perf_counter()
+        loss = llama_lora.lora_train_step(model, optimizer, t, first)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = _collective_ms(metrics.collective_summary())
+        steps.append(dict(step_ms=ms, shifts=meter.take(),
+                          ring_bytes=op_bytes()["ring_shift"] - bytes0,
+                          collective_ms={op: after[op] - before.get(op, 0.0) for op in after}))
+        losses.append(float(loss))
+    launches = _launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    torch.save({k: p.detach().cpu() for k, p in lora.items()}, run_dir / f"sp_lora_rank{r}.pt")
+    torch.save({"local": first.local, "summed": first.reduced}, run_dir / f"sp_grad_rank{r}.pt")
+    train.report({"rank": r, "device": str(device), "ops": ops, "op_launches": op_launches,
+                  "steps": steps, "losses": losses, "launches": launches, "peak_bytes": peak})
+
+
+def train_sp_phase(torch, counters):
+    """Sequence parallelism over two gloo ranks sharing the card
+    (``train_sp_loop``): (a) ring and Ulysses attention against the one-rank
+    ``flash_attention`` on the whole sequence, within ``SP_OP_TIMES`` x its
+    own distance from its f32 plain version; (b) the 4-layer 7B LoRA step
+    with the sequence split over the ranks against the in-process one-rank
+    model on the whole sequence: the ranks bit-identical; the first step's
+    summed gradients, before AdamW, and the losses and adapters within
+    twice the one-rank run's distance from itself in f32 activations
+    (gradients leaf by leaf, and two planted faults, one rank's gradient
+    alone and the sum sp times over, shown to fail that bound); exact K1-K4
+    launches a step on each rank."""
+    import multiprocessing
+    import tempfile
+
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchConfig, TorchTrainer
+
+    device = _card(torch)
+    t_phase = time.perf_counter()
+    one_losses, one_grads, one = _sp_one_rank(torch)
+    f32_losses, f32_grads, f32 = _sp_one_rank(torch, torch.float32)
+    control_f32 = _state_diff(f32, one)[1]
+    control_loss = max(abs(a - b) for a, b in zip(f32_losses, one_losses))
+    control_grads = _grad_distance(one_grads, f32_grads)
+    del f32, f32_grads
+    references = {name: _sp_op_reference(torch, b, h, hk, seq) for name, b, h, hk, seq in SP_OPS}
+
+    _zero(counters)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as storage:
+        t0 = time.perf_counter()
+        result = TorchTrainer(train_sp_loop, train_loop_config={},
+                              run_config=RunConfig(name="sp", storage_path=storage),
+                              scaling_config=ScalingConfig(SP["ranks"], {"GPU": 0.5}),
+                              backend_config=TorchConfig(backend="gloo")).fit()
+        fit_s = time.perf_counter() - t0
+        if result.error is not None:
+            raise result.error
+        run_dir = Path(storage) / "sp"
+        shards = {key: [torch.load(run_dir / f"sp_{key}_rank{r}.pt") for r in range(SP["ranks"])]
+                  for key in (f"{name}_{op}" for name, *_ in SP_OPS for op in ("ring", "ulysses"))}
+        adapters = [torch.load(run_dir / f"sp_lora_rank{r}.pt") for r in range(SP["ranks"])]
+        grads = [torch.load(run_dir / f"sp_grad_rank{r}.pt") for r in range(SP["ranks"])]
+    parent = _launches(counters)
+    check(not any(parent.values()), f"the train_sp loop launched kernels in the parent: {parent}")
+    check(not multiprocessing.active_children(), "the worker group left a process")
+    reports = sorted(result.metrics_history, key=lambda m: m["rank"])
+    check([m["rank"] for m in reports] == [0, 1], f"train_sp reports {reports}")
+    check(all(m["device"] == str(device) for m in reports), "the sp ranks are not on one card")
+
+    out = {"ops": {}}
+    for name, *_ in SP_OPS:
+        ref, control = references[name]
+        for op in ("ring", "ulysses"):
+            key = f"{name}_{op}"
+            errs = {}
+            for t in ref:
+                got = torch.cat([s[t] for s in shards[key]], dim=2)
+                check(got.shape == ref[t].shape and got.dtype == ref[t].dtype,
+                      f"{key} {t}: {tuple(got.shape)} {got.dtype}")
+                errs[t] = (got.float() - ref[t].float()).abs().max().item()
+                check(0 < control[t] < float("inf"), f"{key}: one-rank {t} vs f32 {control[t]}")
+                check(errs[t] <= SP_OP_TIMES * control[t],
+                      f"{key} {t}: {errs[t]} from the one-rank flash_attention > "
+                      f"{SP_OP_TIMES} x its distance from f32, {control[t]}")
+            runs = [m["ops"][key] for m in reports]
+            out["ops"][key] = dict(
+                max_abs_err=errs, one_rank_vs_f32=control,
+                err_over_control={t: errs[t] / control[t] for t in errs},
+                bit_for_bit=not any(errs.values()),
+                fwd_ms=[[x["fwd_ms"] for x in rr] for rr in runs],
+                bwd_ms=[[x["bwd_ms"] for x in rr] for rr in runs],
+                bytes_per_rank=runs[0][0]["bytes"],
+                shift_fwd=[rr[-1]["fwd_shift"] for rr in runs],
+                shift_bwd=[rr[-1]["bwd_shift"] for rr in runs])
+    del references, shards
+
+    for k, a in adapters[0].items():
+        check(torch.equal(a, adapters[1][k]), f"the sp ranks' {k} differ")
+    check(reports[0]["losses"] == reports[1]["losses"], "the sp ranks report other losses")
+    for k, g in grads[0]["summed"].items():
+        check(torch.equal(g, grads[1]["summed"][k]), f"the sp ranks' summed {k} gradients differ")
+    # the first step's summed gradients, held before AdamW moves anything
+    # (Adam is nearly blind to a gradient's scale and lora_b starts at 0, so
+    # the adapters alone cannot show a wrong gradient): leaf by leaf within
+    # twice the one-rank run's distance from itself in f32 activations (the
+    # adapters' reasoning below). Two planted faults must fail that bound,
+    # or it could not tell a wrong gradient: rank 0's gradient alone (no sum
+    # over the group), and the sum sp times over (the scale of a loss
+    # all-reduced with its cotangent)
+    def grads_within(got):
+        dist = _grad_distance(got, one_grads)
+        return dist, all(dist[k] <= 2 * control_grads[k] for k in dist)
+
+    grad_dist, grads_ok = grads_within(grads[0]["summed"])
+    check(grads_ok, f"the sp pair's first summed gradients part from one rank by {grad_dist} "
+                    f"> 2 x {control_grads}")
+    planted = {"rank0_alone": grads[0]["local"],
+               "summed_times_sp": {k: g * SP["ranks"] for k, g in grads[0]["summed"].items()}}
+    planted_dist = {}
+    for fault, got in planted.items():
+        planted_dist[fault], fault_ok = grads_within(got)
+        check(not fault_ok, f"the gradient check passes the planted fault {fault}: "
+                            f"{planted_dist[fault]} within 2 x {control_grads}")
+    abs_err, rel_err = _state_diff(adapters[0], one)
+    loss_diff = max(abs(a - b) for a, b in zip(reports[0]["losses"], one_losses))
+    # the split regroups attention's sums (a merge and a bf16 sum of two
+    # blocks' gradients a hop) where f32 activations undo every bf16
+    # rounding of the 4 layers; 3 AdamW steps carry either alike, so the
+    # pair stays within twice the one-rank run's distance from itself in
+    # f32 activations (twice: room for the spread of a largest error)
+    check(rel_err <= 2 * control_f32,
+          f"the sp pair's adapters part from one rank by {rel_err} > 2 x {control_f32}")
+    check(loss_diff <= 2 * control_loss,
+          f"the sp pair's losses part from one rank by {loss_diff} > 2 x {control_loss}")
+    n_layers, steps = SP["n_layers"], SP["steps"]
+    # a layer's ring moves, a rank: its K/V shard twice forward (the remat
+    # recompute), the packet (q, dO, dQ and the f32 lse and delta) once and
+    # dQ home once backward
+    cfg = _sp_model_config()
+    rows_ = SP["batch"] * cfg.n_heads * (SP["seq"] // SP["ranks"])
+    shard = rows_ * cfg.head_dim * 2
+    ring_bytes = n_layers * (2 * 2 * shard + (3 * shard + 2 * 4 * rows_) + shard)
+    for m in reports:
+        for st in m["steps"]:
+            check(st["ring_bytes"] == ring_bytes,
+                  f"rank {m['rank']} shifted {st['ring_bytes']} B in a step, want {ring_bytes}")
+    launches = {name: 0 for name in counters}
+    for m in reports:
+        r = m["rank"]
+        want = {"rmsnorm_fwd": 4 * n_layers + 1, "flash_attention_fwd": 2 * n_layers * (r + 1),
+                "flash_bwd_dq": n_layers * (2 - r), "flash_bwd_dkv": n_layers * (2 - r)}
+        check(m["launches"] == {k: v * steps for k, v in want.items()},
+              f"rank {r} launches {m['launches']} in {steps} steps, want {want} a step")
+        for name in counters:
+            launches[name] += m["launches"][name]
+    out["ops"]["launches_per_rank"] = [m["op_launches"] for m in reports]
+    grad_ratio = {k: d / control_grads[k] for k, d in grad_dist.items() if control_grads[k]}
+    out["model"] = dict(
+        fit_s=fit_s, losses=reports[0]["losses"], losses_one_rank=one_losses,
+        losses_f32_activations=f32_losses, loss_diff=loss_diff, loss_bound=2 * control_loss,
+        adapter_rel_err=rel_err, adapter_abs_err=abs_err, adapter_bound=2 * control_f32,
+        first_grad_dist=grad_dist, first_grad_bound={k: 2 * c for k, c in control_grads.items()},
+        first_grad_over_control=max(grad_ratio.values()),
+        planted_over_control={f: min(d[k] / control_grads[k] for k in grad_ratio)
+                              for f, d in planted_dist.items()},
+        launches_per_rank=[m["launches"] for m in reports],
+        step_ms=[[s["step_ms"] for s in m["steps"]] for m in reports],
+        ring_bytes_per_step=[m["steps"][-1]["ring_bytes"] for m in reports],
+        shifts_per_step=[m["steps"][-1]["shifts"] for m in reports],
+        collective_ms_per_step=[m["steps"][-1]["collective_ms"] for m in reports],
+        collective_host_share=[[sum(s["collective_ms"].values()) / s["step_ms"]
+                                for s in m["steps"]] for m in reports],
+        peak_bytes=[m["peak_bytes"] for m in reports])
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("train_sp", json.dumps(out))
+    return launches, out
+
+
 def resnet_macs(cfg, size: int) -> int:
     """Multiply-adds of one image's ResNet forward: convolutions (the
     bottleneck's 1x1 conv1 at the block's input size, conv2 and the
@@ -4128,6 +4592,12 @@ def _resnet_steps(torch, device, batches, group=None, reduce=None, rows=slice(No
     state = {k: p.detach().cpu() for k, p in model.named_parameters()}
     state.update({k: v.cpu() for k, v in model.batch_stats().items()})
     return state, [x.item() for x in losses]
+
+
+def _grad_distance(got, want):
+    """Per gradient, the norm of ``got - want`` (in f64)."""
+    assert sorted(got) == sorted(want)
+    return {k: (got[k].double() - want[k].double()).norm().item() for k in want}
 
 
 def _state_diff(got, want):
@@ -5794,6 +6264,12 @@ def main() -> None:
     fsdp_launches, _ = train_fsdp_phase(torch, np, counters, train_out, train_lora, dp_out)
     del train_lora
     torch.cuda.empty_cache()
+    # sequence parallelism: the counts of this process are set to 0 just
+    # before the pair's fit() and must stay 0 (the one-rank yardsticks run
+    # before it); each rank's own counts, set to 0 just before its ops and
+    # again before its steps and read just after each, are added
+    sp_launches, _ = train_sp_phase(torch, counters)
+    torch.cuda.empty_cache()
     # the vision training paths: counts set to 0 inside each phase just
     # before its first step and read just after its last (before its parity
     # runs)
@@ -5825,7 +6301,7 @@ def main() -> None:
     paths = {"serve": serve_launches, "serve_cb": cb_launches, "serve_lora": lora_launches,
              "serve_disagg": disagg_launches, "serve_tp": tp_launches,
              "serve_tp_features": tpf_launches, "train": train_launches,
-             "train_dp": dp_launches, "train_fsdp": fsdp_launches,
+             "train_dp": dp_launches, "train_fsdp": fsdp_launches, "train_sp": sp_launches,
              "train_resnet": resnet_launches, "train_resnet_dp": resnet_dp_launches,
              "train_vit": vit_launches,
              "train_ppo": ppo_launches, "train_rl": rl_launches,

@@ -6,10 +6,14 @@ and Python objects, the reference's ``GcsStoreGroup``) and ``NcclGroup``
 (CUDA tensors, the reference's ``XlaGroup``). Every op records its bytes
 and wall latency into ``util.metrics.record_collective``. Both groups also
 give a model its collectives, ``allreduce_`` (SUM in place),
-``allgather_cat`` (concatenated along a dim) and ``reducescatter_sum`` (its
-transpose: the sum, this rank's block along a dim), with one contract and
+``allgather_cat`` (concatenated along a dim), ``reducescatter_sum`` (its
+transpose: the sum, this rank's block along a dim), ``all_to_all`` (split
+along one dim, the ranks' blocks concatenated along another) and
+``ring_shift`` (each rank's tensors to the next rank, the previous rank's
+back, posted at once: the ring attention's hop), with one contract and
 none of the abort plane's store reads (over NCCL, no wait either);
-collective/functional.py differentiates them.
+collective/functional.py differentiates the first three and the
+all-to-all.
 
 The abort plane: ``abort_collective_group`` writes the aborted epoch under
 ``colabort:<group>`` in the process group's store, and every op of a group
@@ -23,10 +27,11 @@ from __future__ import annotations
 import enum
 import time
 from abc import ABC, abstractmethod
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._internal.quantization import DEFAULT_BLOCK
 from ..exceptions import CollectiveAbortedError
@@ -78,6 +83,39 @@ def write_abort(store, group_name: str, epoch: int) -> bool:
         return False
     store.set(abort_key(group_name), str(epoch).encode())
     return True
+
+
+def ring_exchange(process_group, send: Sequence[torch.Tensor],
+                  recv: Sequence[torch.Tensor]) -> list:
+    """Post ``send`` to the next rank of ``process_group`` and ``recv``
+    from the previous one, in one ``batch_isend_irecv``; the works."""
+    world = dist.get_world_size(process_group)
+    rank = dist.get_rank(process_group)
+    nxt = dist.get_global_rank(process_group, (rank + 1) % world)
+    prev = dist.get_global_rank(process_group, (rank - 1) % world)
+    ops = [dist.P2POp(dist.isend, x, nxt, process_group) for x in send]
+    ops += [dist.P2POp(dist.irecv, y, prev, process_group) for y in recv]
+    return dist.batch_isend_irecv(ops)
+
+
+class RingShift:
+    """A posted :meth:`ring_shift`. ``wait()`` returns the previous rank's
+    tensors, each on the device of the operand it replaces, and records the
+    op (its latency from post to the end of the wait). Over gloo the wait
+    blocks the host; over NCCL it only orders the current stream after the
+    transfer."""
+
+    def __init__(self, group: "BaseGroup", received: List[torch.Tensor], works: list,
+                 devices: List[Optional[torch.device]], nbytes: int, start: float):
+        self._group, self._received, self._works = group, received, works
+        self._devices, self.nbytes, self._start = devices, nbytes, start
+
+    def wait(self) -> List[torch.Tensor]:
+        for w in self._works:
+            w.wait()
+        out = [r if d is None else r.to(d) for r, d in zip(self._received, self._devices)]
+        self._group._record_op("ring_shift", self.nbytes, self._start)
+        return out
 
 
 class BaseGroup(ABC):

@@ -39,7 +39,7 @@ from .._internal.quantization import (
     is_quantizable,
     quantize_np,
 )
-from .base import BaseGroup, ReduceOp, tensor_nbytes
+from .base import BaseGroup, ReduceOp, RingShift, ring_exchange, tensor_nbytes
 
 _REDUCERS = {
     ReduceOp.SUM: torch.Tensor.add_,
@@ -181,6 +181,47 @@ class GlooGroup(BaseGroup):
         out = total.chunk(self.world_size, dim=dim)[self.rank].to(tensor.device)
         self._record_op("reducescatter", tensor_nbytes(tensor), start)
         return out
+
+    def all_to_all(self, tensor: torch.Tensor, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """``tensor`` cut into world-size even blocks along ``split_dim``,
+        block j sent to rank j, and the blocks received from the ranks
+        concatenated along ``concat_dim`` in rank order (``lax.all_to_all``
+        with ``tiled=True``)."""
+        start = time.perf_counter()
+        if tensor.shape[split_dim] % self.world_size:
+            raise ValueError(f"all_to_all over {self.world_size} ranks needs a dim they "
+                             f"divide, got {tensor.shape[split_dim]}")
+        x, _ = _host(tensor)
+        parts = [p.contiguous() for p in x.chunk(self.world_size, dim=split_dim)]
+        # point to point: not every build's gloo has an all-to-all
+        out = [parts[j] if j == self.rank else torch.empty_like(p) for j, p in enumerate(parts)]
+        ops = []
+        for j in range(self.world_size):
+            if j != self.rank:
+                peer = self._global(j)
+                ops.append(dist.P2POp(dist.isend, parts[j], peer, self.process_group))
+                ops.append(dist.P2POp(dist.irecv, out[j], peer, self.process_group))
+        for work in dist.batch_isend_irecv(ops) if ops else ():
+            work.wait()
+        self._record_op("all_to_all", tensor_nbytes(tensor), start)
+        return torch.cat(out, dim=concat_dim).to(tensor.device)
+
+    def ring_shift(self, tensors) -> RingShift:
+        """Post the ring's hop: ``tensors`` go to rank + 1, and tensors of
+        their shapes and dtypes come from rank - 1, all at once (a blocking
+        send / recv ring would deadlock). CUDA operands are copied to the
+        host here and the received ones back to their devices at
+        ``wait()``. One rank receives its own tensors."""
+        start = time.perf_counter()
+        nbytes = sum(tensor_nbytes(t) for t in tensors)
+        if self.world_size == 1:
+            return RingShift(self, list(tensors), [], [None] * len(tensors), nbytes, start)
+        send = [_host(t)[0] for t in tensors]
+        recv = [torch.empty_like(x) for x in send]
+        works = ring_exchange(self.process_group, send, recv)
+        devices = [None if t.device.type == "cpu" else t.device for t in tensors]
+        return RingShift(self, recv, works, devices, nbytes, start)
 
     def reducescatter(self, tensor, op: ReduceOp = ReduceOp.SUM):
         """The allreduce, then this rank's ``np.array_split`` shard of the

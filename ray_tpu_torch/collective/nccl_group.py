@@ -40,7 +40,7 @@ from .._internal.quantization import (
     quantize_torch,
     quantized_wire_nbytes,
 )
-from .base import BaseGroup, ReduceOp, tensor_nbytes
+from .base import BaseGroup, ReduceOp, RingShift, ring_exchange, tensor_nbytes
 
 _DIST_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM, ReduceOp.MIN: dist.ReduceOp.MIN,
              ReduceOp.MAX: dist.ReduceOp.MAX}
@@ -243,6 +243,37 @@ class NcclGroup(BaseGroup):
         dist.reduce_scatter_tensor(out, x, group=self.process_group)
         self._record_op("reducescatter", tensor_nbytes(tensor), start)
         return out.movedim(0, dim)
+
+    def all_to_all(self, tensor: torch.Tensor, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """``tensor`` cut into world-size even blocks along ``split_dim``,
+        block j sent to rank j, and the blocks received from the ranks
+        concatenated along ``concat_dim`` in rank order (``lax.all_to_all``
+        with ``tiled=True``)."""
+        start = time.perf_counter()
+        if tensor.shape[split_dim] % self.world_size:
+            raise ValueError(f"all_to_all over {self.world_size} ranks needs a dim they "
+                             f"divide, got {tensor.shape[split_dim]}")
+        parts = [p.contiguous() for p in tensor.chunk(self.world_size, dim=split_dim)]
+        out = [torch.empty_like(p) for p in parts]
+        dist.all_to_all(out, parts, group=self.process_group)
+        self._record_op("all_to_all", tensor_nbytes(tensor), start)
+        return torch.cat(out, dim=concat_dim)
+
+    def ring_shift(self, tensors) -> RingShift:
+        """Post the ring's hop: ``tensors`` go to rank + 1, and tensors of
+        their shapes and dtypes come from rank - 1, in one NCCL group (a
+        blocking send / recv ring would deadlock). ``wait()`` orders the
+        current stream after it; the host does not wait. One rank receives
+        its own tensors."""
+        start = time.perf_counter()
+        send = [t.contiguous() for t in tensors]
+        nbytes = sum(tensor_nbytes(t) for t in send)
+        if self.world_size == 1:
+            return RingShift(self, send, [], [None] * len(send), nbytes, start)
+        recv = [torch.empty_like(x) for x in send]
+        works = ring_exchange(self.process_group, send, recv)
+        return RingShift(self, recv, works, [None] * len(send), nbytes, start)
 
     def reducescatter(self, tensor, op: ReduceOp = ReduceOp.SUM):
         if op is not ReduceOp.SUM:

@@ -162,10 +162,15 @@ class LLMConfig:
                 "set kv_cache_blocks"
             )
         _, sp = self.effective_parallelism()
+        if sp > 1:
+            raise NotImplementedError(
+                f"LLMConfig mesh / sequence_parallel_size = {sp} is refused on purpose (ROADMAP "
+                "kept item 32), not left for a later slice: the reference never runs ring "
+                "attention when it serves (its engine builds the decode-mode model, "
+                "ray_tpu/llm/engine.py:150), so an sp replica there only repeats tp's work "
+                "on sp times the devices; use tensor_parallel_size"
+            )
         later = {
-            "mesh / sequence_parallel_size": (
-                sp > 1, "the sequence-parallel slice (ROADMAP item A.6, ring attention)",
-            ),
             "num_replicas / autoscaling_config / autoscale_policy": (
                 self.num_replicas != 1
                 or self.autoscaling_config is not None

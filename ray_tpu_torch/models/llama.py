@@ -25,10 +25,26 @@ norm weights are cast to the activation dtype before the norm, RoPE tables
 are f32, and the logits come out in ``config.dtype``.
 
 ``Llama.forward(tokens)`` is the full-sequence forward (flash attention,
-the reference's ``decode=False``). ``Llama.forward(tokens, cache)`` is the
-reference's ``decode=True`` path: attention over a dense per-layer KV cache
-(a :class:`DecodeCache` of :class:`LayerCache` views) as plain f32 einsum,
-as in the reference.
+the reference's ``decode=False``).
+
+Sequence parallelism (``Llama(config, mesh)`` with a bound mesh whose only
+axis past 1 is ``sp``, ``mesh.bind(rank, {"sp": group})``): the
+parameters are replicated, and the full forward takes the GLOBAL (b, S)
+tokens, as the reference's model takes its global array, embeds this
+rank's contiguous S / sp of them, rotates them at their global positions
+(RoPE offset ``sp_rank * S / sp``) and runs attention as
+parallel/ring_attention.py's ring over the group; it returns this rank's
+(b, S / sp, vocab) logits. :func:`next_token_loss` pairs each shard's last
+position with the next shard's first token and sums the ranks' terms
+(``collective.functional.sum_of_ranks``): every rank returns the loss over
+the whole sequence, and its backward gives each rank's parameters their
+share of the gradient, which the training loop sums over the group. The
+decode-mode call never takes the ring, as in the reference, and runs the
+whole call on every rank. A mesh with sp = 1 runs plain flash.
+
+``Llama.forward(tokens, cache)`` is the reference's ``decode=True`` path:
+attention over a dense per-layer KV cache (a :class:`DecodeCache` of
+:class:`LayerCache` views) as plain f32 einsum, as in the reference.
 
 Training: with ``config.remat`` and autograd recording, each block of the
 full-sequence forward runs under ``torch.utils.checkpoint`` and is
@@ -62,9 +78,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._internal.device import DeviceLike, resolve_device
+from ..collective.functional import sum_of_ranks
 from ..ops.flash_attention import flash_attention
 from ..ops.rmsnorm import rmsnorm
 from ..ops.rope import apply_rope, rope_table
+from ..parallel.ring_attention import ring_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,6 +267,28 @@ def gather_adapters(bank, adapter_slots, dtype, device) -> Dict[str, tuple]:
     }
 
 
+def sequence_parallel(mesh):
+    """(group, rank, size) of ``mesh``'s ``sp`` axis: (None, 0, 1) without
+    a mesh or at sp = 1. ``sp`` beside another axis past 1 is refused (it
+    needs sub-groups of the ranks), and so is an unbound mesh."""
+    if mesh is None or mesh.shape["sp"] == 1:
+        return None, 0, 1
+    sp = mesh.shape["sp"]
+    others = {a: n for a, n in mesh.shape.items() if a != "sp" and n > 1}
+    if others:
+        raise NotImplementedError(
+            f"sequence parallelism (sp={sp}) beside other mesh axes {others} is not ported: "
+            "it needs sub-groups of the ranks (ROADMAP item A.12)")
+    group = mesh.group("sp")
+    if group is None or group.world_size != sp:
+        raise ValueError(f"a sequence-parallel mesh (sp={sp}) must be bound to its rank with "
+                         "its group of sp ranks: mesh.bind(rank, {'sp': group})")
+    if group.rank != mesh.coords()["sp"]:
+        raise ValueError(f"the sp group's rank {group.rank} is not the mesh's "
+                         f"{mesh.coords()['sp']}")
+    return group, group.rank, sp
+
+
 def _allreduce(group, x: torch.Tensor) -> torch.Tensor:
     """``x`` summed over the ranks of ``group`` (None: one rank)."""
     return x if group is None else group.allreduce_(x)
@@ -257,15 +297,14 @@ def _allreduce(group, x: torch.Tensor) -> torch.Tensor:
 class Attention(nn.Module):
     """With a tensor-parallel ``plan``: the rank's KV heads
     (``plan.kv_heads_per_rank``) and their whole GQA groups of query heads,
-    and the allreduce of wo's partial sums over ``group``."""
+    and the allreduce of wo's partial sums over ``group``. With a
+    sequence-parallel ``mesh`` (:func:`sequence_parallel`): the full
+    forward's x is the rank's shard of the sequence, and attention is the
+    ring over the mesh's ``sp`` group."""
 
     def __init__(self, config: LlamaConfig, mesh=None, plan=None, group=None):
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError(
-                "ring attention over a mesh comes with the port's sequence-"
-                "parallel slice"
-            )
+        self.sp_group, self.sp_rank, _ = sequence_parallel(mesh)
         self.config = config
         self.group = group
         cfg = config
@@ -295,6 +334,11 @@ class Attention(nn.Module):
         v = self.wv(x, adapters.get("wv")).reshape(b, s, hk, d).transpose(1, 2)
         if cache is not None:
             out = self._decode_attention(q, k, v, cos, sin, cache)
+        elif self.sp_group is not None:
+            offset = self.sp_rank * s  # the shard's first global position
+            q = apply_rope(q, cos, sin, offset=offset)
+            k = apply_rope(k, cos, sin, offset=offset)
+            out = ring_attention(q, k, v, group=self.sp_group)
         else:
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
@@ -372,12 +416,14 @@ class Llama(nn.Module):
 
     With a ``plan`` (parallel/plan.py ``PartitionPlan``) of tp > 1 the
     modules have rank ``rank``'s widths and ``group`` (a collective group of
-    the plan's tp ranks, one process each) carries the collectives; see the
-    module docstring."""
+    the plan's tp ranks, one process each) carries the collectives. With a
+    sequence-parallel ``mesh`` the full forward runs this rank's shard of
+    the sequence; see the module docstring."""
 
     def __init__(self, config: LlamaConfig, mesh=None, plan=None, rank: int = 0,
                  group=None):
         super().__init__()
+        self.sp_group, self.sp_rank, self.sp = sequence_parallel(mesh)
         tp = plan.tp if plan is not None else 1
         if tp > 1 and group is None:
             raise ValueError(f"a tensor-parallel Llama (tp={tp}) needs the collective "
@@ -420,12 +466,16 @@ class Llama(nn.Module):
         this is the decode-mode call, which updates the cache in place.
         With ``adapters`` (an adapter slot bank, see :func:`gather_adapters`)
         and ``adapter_slots`` (one slot per row on the host, -1 = base) each
-        row's adapter is added to its q/k/v/o projections."""
+        row's adapter is added to its q/k/v/o projections. Under a
+        sequence-parallel mesh the full forward takes the global tokens
+        (batch, S) and returns this rank's (batch, S / sp, vocab)."""
         cfg = self.config
         if self.fsdp is not None:
             if cache is not None or adapters is not None:
                 raise NotImplementedError("an FSDP model runs the full-sequence forward only")
             return self.fsdp.forward(self, tokens)
+        if self.sp_group is not None and cache is None:
+            tokens = self._sequence_shard(tokens)
         x = self._embed(tokens)
         cos, sin = self._rope_table(x.device)
         rows = None
@@ -444,6 +494,17 @@ class Llama(nn.Module):
         x = rmsnorm(x, self.final_norm.to(x.dtype), cfg.norm_eps)
         logits = x @ self.lm_head.to(x.dtype)
         return logits if self.group is None else self.group.allgather_cat(logits, dim=-1)
+
+    def _sequence_shard(self, tokens: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous S / sp of the global (batch, S) tokens."""
+        seq = tokens.shape[1]
+        if seq % self.sp:
+            raise ValueError(f"sequence length {seq} does not divide over sp={self.sp} ranks")
+        if seq > self.config.max_seq_len:
+            raise ValueError(f"sequence length {seq} exceeds max_seq_len "
+                             f"{self.config.max_seq_len}: RoPE has no position past it")
+        s = seq // self.sp
+        return tokens[:, self.sp_rank * s:(self.sp_rank + 1) * s]
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """The embedding lookup in ``config.dtype``; with tp > 1 the rank
@@ -536,14 +597,18 @@ def build_llama(config: LlamaConfig, params: Dict[str, torch.Tensor], mesh=None,
     return model
 
 
-def nll_from_logits(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Next-token NLL from full-sequence logits: pairs logits[:, :-1] with
-    tokens[:, 1:]; nll = logsumexp(logits) - logits[target], in f32."""
-    logits = logits[:, :-1]
-    targets = tokens[:, 1:]
+def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Each position's NLL of its target, logsumexp(logits) -
+    logits[target], in f32."""
     lse = torch.logsumexp(logits.float(), dim=-1)
     tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0].float()
-    return (lse - tgt).mean()
+    return lse - tgt
+
+
+def nll_from_logits(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token NLL from full-sequence logits: pairs logits[:, :-1] with
+    tokens[:, 1:], the mean of :func:`token_nll`."""
+    return token_nll(logits[:, :-1], tokens[:, 1:]).mean()
 
 
 def next_token_loss(
@@ -555,10 +620,24 @@ def next_token_loss(
     for ``config``, whose parameters that require grad receive gradients
     from ``loss.backward()``, or a flat state dict, which is run through
     :func:`build_llama` (every parameter frozen: a loss to read, not to
-    differentiate)."""
+    differentiate).
+
+    A sequence-parallel model (see the module docstring) returns, on every
+    rank, the loss over the global ``tokens``: the sum over the ranks of
+    each rank's NLL sum over its positions that have a next token (its last
+    one pairs with the next shard's first token) divided by batch x (S - 1).
+    Its backward runs each rank's own term only, so the parameters'
+    gradients summed over the ranks are the loss's."""
     model = model_or_params
     if not isinstance(model, Llama):
         model = build_llama(config, dict(model_or_params))
     elif model.config != config:
         raise ValueError("the model was built for another config")
-    return nll_from_logits(model(tokens), tokens)
+    if model.sp_group is None:
+        return nll_from_logits(model(tokens), tokens)
+    logits = model(tokens)
+    b, s, _ = logits.shape
+    first = model.sp_rank * s + 1
+    targets = tokens[:, first:first + s]  # the last rank's has s - 1
+    local = token_nll(logits[:, :targets.shape[1]], targets).sum() / (b * (tokens.shape[1] - 1))
+    return sum_of_ranks(local, model.sp_group)

@@ -160,8 +160,8 @@ class MoETransformer(nn.Module):
         if mesh is not None:
             raise NotImplementedError(
                 "a mesh (experts sharded over an expert-parallel axis, ring "
-                "attention) comes with the port's parallel plans and ring "
-                "attention, ROADMAP items A.5-A.6"
+                "attention) comes with the MoE model over a mesh, ROADMAP item "
+                "A.5.3"
             )
         self.config = config
         self.embed = _param(config.vocab_size, config.dim, dtype=config.param_dtype)

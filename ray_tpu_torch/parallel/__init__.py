@@ -13,10 +13,14 @@
   tensor-parallel serving path, each rank's parameter and KV head slices;
 - ``expert``: the MoE model's top-k gating with static capacity, the dense
   and the indexed dispatch/combine, and the all_to_all dispatch/combine over
-  an expert-parallel process group.
+  an expert-parallel process group;
+- ``ring_attention`` and ``ulysses``: causal attention over a sequence
+  split across a group's ranks, by K/V hops around a ring (the Llama's
+  full forward under an ``sp`` mesh) or by an all-to-all head/sequence
+  swap.
 
-Ring and Ulysses attention, the pipeline and ``constrain`` (with the ViT
-over a mesh) come with later slices of the port (ROADMAP items A.5-A.6).
+The pipeline and ``constrain`` (with the ViT and the MoE model over a mesh)
+come with later slices of the port (ROADMAP items A.5.3-A.5.4).
 """
 
 from .expert import (
@@ -38,6 +42,7 @@ from .plan import (
     match_partition_rules,
     validate_mesh_for_model,
 )
+from .ring_attention import ring_attention
 from .sharding import (
     DEFAULT_RULES,
     LLAMA_LOGICAL_AXES,
@@ -49,6 +54,7 @@ from .sharding import (
     process_local_batch,
     tree_shardings,
 )
+from .ulysses import ulysses_attention
 
 __all__ = [
     "AXIS_ORDER",
@@ -76,8 +82,10 @@ __all__ = [
     "moe_dispatch",
     "param_shardings",
     "process_local_batch",
+    "ring_attention",
     "route",
     "top_k_gating",
     "tree_shardings",
+    "ulysses_attention",
     "validate_mesh_for_model",
 ]

@@ -186,8 +186,10 @@ class PartitionPlan:
         )
         if sequence_parallel_size > 1:
             raise NotImplementedError(
-                "sequence parallelism (ring attention over the sp axis) is not "
-                "ported yet: it comes with ROADMAP item A.6"
+                "a serving plan with sequence_parallel_size > 1 is refused on purpose "
+                "(ROADMAP kept item 32): the reference's engine runs the decode-mode "
+                "model, which never takes the ring, so sp would only repeat tp's work; "
+                "training splits the sequence through Llama(config, mesh) instead"
             )
         mesh = make_mesh(
             tensor_parallel_size * max(1, sequence_parallel_size),

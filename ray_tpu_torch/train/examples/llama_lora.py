@@ -83,15 +83,18 @@ def model_config(config: dict) -> LlamaConfig:
 
 def lora_model(
     cfg: LlamaConfig, params: Dict[str, torch.Tensor], lr: float = 1e-4,
-    fsdp: Optional[FSDP] = None,
+    fsdp: Optional[FSDP] = None, mesh=None,
 ) -> Tuple[Llama, Dict[str, torch.nn.Parameter], torch.optim.AdamW]:
     """A Llama over ``params`` whose adapters train and whose base stays
     frozen, the adapters by name, and AdamW over the adapters alone. The
     adapters are leaf parameters in ``cfg.param_dtype``, as are their AdamW
     moments. The hyperparameters are optax.adamw's defaults (weight decay
     1e-4, not torch's 0.01). With ``fsdp``, ``params`` are this rank's
-    blocks (``fsdp.shard``) and the model gathers them."""
-    model = build_llama(cfg, params) if fsdp is None else fsdp.build_llama(cfg, params)
+    blocks (``fsdp.shard``) and the model gathers them; with a bound
+    sequence-parallel ``mesh`` the model splits each sequence over its
+    ``sp`` group (``Llama(config, mesh)``), and the gradients summed over
+    the group (``train.collective.reduce_gradients``) are the loss's."""
+    model = build_llama(cfg, params, mesh) if fsdp is None else fsdp.build_llama(cfg, params)
     _, lora = split_lora(dict(model.named_parameters()))
     if not lora:
         raise ValueError("the config has no adapters: set lora_rank > 0")

@@ -359,7 +359,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     card's machine lacks). The walk includes the parallel package, the MoE
     model, the observability plane (util), the KV tier with what it
     imports, every RLlib algorithm, DreamerV3 included, FSDP, the
-    differentiable collectives and the sharded checkpoint."""
+    differentiable collectives, the sharded checkpoint, and ring and
+    Ulysses attention."""
     code = (
         "import importlib, pkgutil, sys, ray_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__, 'ray_tpu_torch.')]\n"
@@ -378,7 +379,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "        'ray_tpu_torch.rllib.offline', 'ray_tpu_torch.rllib.multi_agent',\n"
         "        'ray_tpu_torch.rllib.multi_agent_env', 'ray_tpu_torch.rllib.dreamer',\n"
         "        'ray_tpu_torch.parallel.fsdp', 'ray_tpu_torch.collective.functional',\n"
-        "        'ray_tpu_torch.train.sharded_checkpoint'}\n"
+        "        'ray_tpu_torch.train.sharded_checkpoint', 'ray_tpu_torch.parallel.ring_attention',\n"
+        "        'ray_tpu_torch.parallel.ulysses'}\n"
         "print(len(mods), bad, sorted(need - set(mods)))\n"
         "sys.exit(1 if bad else 0)\n"
     )
