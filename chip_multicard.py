@@ -60,7 +60,16 @@ port's ``TorchTrainer`` (``TorchConfig(backend="nccl")``):
    recorded (``memory_at_peak``): what the step holds at its peak, by the
    code that allocated it.
 
-    python3 chip_multicard.py 3      # part 3 alone (no argument: all six;
+7. the ViT and the MoE over meshes across cards (``mesh_loop``):
+   Mixtral-8x7B at full width, 4 layers, b=2 x 4096, remat, bf16
+   parameters, at ep=2 x tp=2 over 4 cards (each rank 4 experts at half
+   their hidden units, 16 heads; the batch replicated), and ViT-B/16 at 224,
+   global batch 128, at dp=2 x tp=2; each against the same step on one card
+   (the model over a one-rank mesh): K1-K4 a step exact on every rank,
+   step ms, tokens or images a second and peak a rank, and one profiled
+   step on every rank (device busy share, NCCL kernels' ms).
+
+    python3 chip_multicard.py 3      # part 3 alone (no argument: all seven;
                                      # several, as in "4 5", run those)
 
 Prints the cards' names and power limits, one JSON line per part, and
@@ -84,6 +93,12 @@ QUANT_ROUNDS = 3
 # over 3 steps after a warm-up
 SP_RUNS = ((1, 2, 4096), (2, 2, 4096), (4, 2, 4096), (4, 1, 16384))
 SP_TIMED_STEPS = 3
+# part 7: (model, mesh axes) runs, each timed over 3 steps after a warm-up;
+# the one-card runs ({}) first
+MESH_RUNS = (("moe", {}), ("moe", {"ep": 2, "tp": 2}), ("vit", {}),
+             ("vit", {"dp": 2, "tp": 2}))
+MESH_MOE = {"n_layers": 4, "batch": 2, "seq": 4096, "lr": 1e-3}
+MESH_TIMED_STEPS = 3
 # memory_at_peak: the allocation sites it lists, the largest first
 PEAK_SITES = 12
 EPS = {"torch.bfloat16": 2.0 ** -8, "torch.float32": 2.0 ** -24}
@@ -258,7 +273,7 @@ def main() -> None:
     from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchConfig, TorchTrainer
 
     n = torch.cuda.device_count()
-    parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5", "6"}
+    parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5", "6", "7"}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print("cards:", smi.replace("\n", " | "))
@@ -288,6 +303,8 @@ def main() -> None:
         fsdp_part(C, fit, n, runs)
     if "6" in parts:
         sp_part(C, fit, n)
+    if "7" in parts:
+        mesh_part(C, fit, n)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": n}}))
 
@@ -540,6 +557,128 @@ def sp_part(C, fit, n: int) -> None:
             stream_wait_share=None if sp == 1 else [
                 x["stream_wait_ms"] / m["steps"][-1]["step_ms"] for x, m in zip(shifts, reports)])
     print("multicard sp", json.dumps(runs))
+
+
+def mesh_loop(config):
+    """Part 7's worker: the ViT or the MoE over ``gang_mesh(device,
+    **axes)`` (one rank: every axis 1), AdamW; K1-K4 launches of a warm-up
+    step, then timed steps."""
+    import dataclasses
+
+    import torch
+
+    import chip_smoke as C
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import moe as M
+    from ray_tpu_torch.models import vit as V
+    from ray_tpu_torch.parallel.fsdp import FSDP
+    from ray_tpu_torch.parallel.mesh import BATCH_AXES
+    from ray_tpu_torch.parallel.sharding import moe_logical_axes
+    from ray_tpu_torch.train import collective as tcol
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = train.get_context().world_rank
+    device = C._card(torch)
+    mesh = tcol.gang_mesh(device, fsdp=1, **config["axes"])
+    n, i = mesh.axes_size(BATCH_AXES), mesh.axes_index(BATCH_AXES)
+    if config["model"] == "vit":
+        cfg, params, images, labels = C._mesh_vit_inputs(torch, device)
+        model = V.build_vit(cfg, params, mesh)
+        rows = slice(i * images.shape[0] // n, (i + 1) * images.shape[0] // n)
+        images, labels = images[rows].contiguous(), labels[rows].contiguous()
+        optimizer = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
+        items = C.MESH["vit"]["batch"]
+
+        def loss_fn():
+            return V.classification_loss(cfg, mesh, model, images, labels)
+    else:
+        cfg = dataclasses.replace(C._mesh_moe_config(torch), n_layers=MESH_MOE["n_layers"])
+        layout = FSDP.for_model(mesh, M.param_shapes(cfg), moe_logical_axes)
+        g = torch.Generator(device=device).manual_seed(C.SEED + 12)
+        params = M.init_params(cfg, g, device, shard=layout.shard)
+        tokens = torch.randint(0, cfg.vocab_size, (MESH_MOE["batch"], MESH_MOE["seq"]),
+                               generator=g, device=device)
+        model = M.build_moe(cfg, params, trainable=True, mesh=mesh)
+        tokens = tokens[i * tokens.shape[0] // n:(i + 1) * tokens.shape[0] // n].contiguous()
+        optimizer = torch.optim.AdamW(model.parameters(), lr=MESH_MOE["lr"], weight_decay=1e-4,
+                                      fused=True)
+        items = MESH_MOE["batch"] * MESH_MOE["seq"]
+
+        def loss_fn():
+            return M.next_token_loss(cfg, mesh, model, tokens)
+    del params
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn()
+        loss.backward()
+        model.fsdp.sync_gradients(model.named_parameters())
+        optimizer.step()
+        return loss.detach()
+
+    counters = C._port_counters()
+    C._zero(counters)
+    step()
+    torch.cuda.synchronize()
+    launches = C._launches(counters)
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for _ in range(MESH_TIMED_STEPS):
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        rows.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    # one more step under the profiler on every rank (one attempt each: a
+    # retry on one rank would add collectives the others never join)
+    prof = C.device_profile(torch, step, groups={"nccl": ("nccl",)}, attempts=1)
+    profile = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_busy_share",
+                                    "kernel_launches", "groups_ms", "top_kernels_ms")}
+    train.report({"rank": r, "launches": launches, "step_ms": rows, "loss": float(loss),
+                  "profile": profile, "peak_bytes": peak, "items": items,
+                  "n_layers": cfg.n_layers, "param_bytes": sum(
+                      p.numel() * p.element_size() for p in model.parameters())})
+
+
+def mesh_part(C, fit, n: int) -> None:
+    """7: the MoE at ep=2 x tp=2 and the ViT at dp=2 x tp=2 across cards,
+    each beside its one-card step."""
+    import math
+
+    runs = {}
+    for model, axes in MESH_RUNS:
+        ranks = math.prod(axes.values())
+        if ranks > n:
+            continue
+        result, fit_s = fit(mesh_loop, ranks, {"model": model, "axes": axes})
+        reports = sorted((m for m in result.metrics_history if "step_ms" in m),
+                         key=lambda m: m["rank"])
+        C.check([m["rank"] for m in reports] == list(range(ranks)), f"{model} {axes}: {reports}")
+        C.check(all(math.isfinite(m["loss"]) and m["loss"] == reports[0]["loss"] for m in reports),
+                f"{model} {axes}: losses {[m['loss'] for m in reports]}")
+        layers = reports[0]["n_layers"]
+        want = ({"rmsnorm_fwd": 4 * layers + 1, "flash_attention_fwd": 2 * layers,
+                 "flash_bwd_dq": layers, "flash_bwd_dkv": layers} if model == "moe" else
+                {"rmsnorm_fwd": 0, "flash_attention_fwd": layers, "flash_bwd_dq": layers,
+                 "flash_bwd_dkv": layers})
+        for m in reports:
+            C.check(m["launches"] == want, f"{model} {axes} rank {m['rank']}: launches "
+                                           f"{m['launches']}, want {want}")
+        med = max(statistics.median(m["step_ms"]) for m in reports)
+        key = f"{model}_" + ("_".join(f"{a}{k}" for a, k in axes.items()) or "one_card")
+        runs[key] = dict(fit_s=fit_s, loss=reports[0]["loss"],
+                         step_ms=[m["step_ms"] for m in reports], step_ms_median=med,
+                         per_s=reports[0]["items"] / med * 1e3,
+                         unit="tokens" if model == "moe" else "images",
+                         peak_bytes=[m["peak_bytes"] for m in reports],
+                         param_bytes=[m["param_bytes"] for m in reports],
+                         profile=[m["profile"] for m in reports])
+    for model in ("moe", "vit"):
+        one = runs.get(f"{model}_one_card")
+        for key, run in runs.items():
+            if key.startswith(model) and one is not None and run is not one:
+                run["speedup_over_one_card"] = one["step_ms_median"] / run["step_ms_median"]
+    print("multicard mesh", json.dumps(runs))
 
 
 if __name__ == "__main__":

@@ -112,7 +112,7 @@ Phases, each of which exits non-zero on failure:
      NCCL refuses two ranks on one card): (a) LLMServer(tensor_parallel_size
      =2, devices=[0, 0], tp_backend="gloo") with phase 7's settings, rank
      1's slices sent through the group and checked by their sums; 8 greedy
-     requests of a shared 128-token prefix + 32 own tokens, 16 new each,
+     requests of a shared 128-token prefix + 32 own tokens, 8 new each,
      from 4 threads, then a stream, 8 timed pooled steps with 8 slots (the
      gloo collectives' share of them) and TTFT of a miss and a hit, all
      beside a tp=1 paged server on the same traffic: the exact prefix-hit
@@ -175,7 +175,7 @@ Phases, each of which exits non-zero on failure:
      in a spawned NCCL worker at fsdp=1 (every gather a one-rank op): its
      losses and full adapters within (b)'s bound of phase 12's, K1-K4
      129/64/32/32 a step, a step's gathers and reduce-scatters, step ms and
-     peak memory; (b) two gloo ranks sharing the card at 4 layers of 7B
+     peak memory; (b) two gloo ranks sharing the card at 2 layers of 7B
      width, every parameter replicated and then at fsdp=2: each rank's
      base bytes exactly half, adapters within 2n lr + n bf16 ulps of the
      replicated pair's, gather bytes, step ms and peak a rank; (c) the
@@ -273,6 +273,27 @@ Phases, each of which exits non-zero on failure:
      against an f64 host run). The kernel phases hold and time K1 at
      (8192, 4096) and K2-K4 at (64, 4096, 4096, d=128) causal, the MoE
      step's calls.
+  16b. the ViT and the MoE over multi-axis meshes (``train_mesh``): eight
+     gloo ranks sharing the card (``train_mesh_loop``, each rank's groups
+     from ``train.collective.gang_mesh``), against one-rank runs on the
+     whole global batch in this process, bf16 and f32 activations: (a)
+     ViT-B/16 at 224, global batch 128, AdamW, at the reference test's
+     dp=2 x fsdp=2 x tp=2, 3 steps; (b) Mixtral-8x7B at full width, 2 of
+     its 32 layers, b=2 x 4096, remat, bf16 parameters, at fsdp=2 x ep=2 x
+     tp=2, 2 steps. Every rank's K1-K4 launches a step exact (ViT 0/12/12/12,
+     MoE 9/4/2/2); its resident parameter bytes the rule table's share
+     exactly; the first step's gradients (after the ranks' sums, before
+     AdamW) and first loss within twice the one-rank run's distance from its
+     f32-activation run, leaf by leaf (every norm, the router, cls_token;
+     the MoE's aux loss's router gradients per layer too), and two planted
+     faults from the same run outside that bound (a tp-replicated leaf's
+     gradient summed over tp; each rank's local aux loss in place of its
+     share of the global one); each MoE layer's routing of the first step
+     against the one-rank run's (a differing choice only at a near-tie or
+     after an earlier layer's, counted; the ranks of a data shard alike).
+     Printed: step ms, peak and the collectives' host share a rank. The
+     kernel phases hold and time K2-K4 at the ranks' calls, (192, 197,
+     d=64) non-causal and (16, 4096, d=128) causal.
 Main paths: the launch counters are set to 0 just before phase 5 and read
 just after phase 6 (serving), set to 0 just before phase 7 and read just
 after phase 9 (continuous batching, ``serve_cb``, with ``serve_obs``), set to 0 just before
@@ -296,8 +317,9 @@ read after its timed iterations and profiled update (``train_ppo``), set
 to 0 at the start of phase 15b and read at its end (``train_rl``), set to 0
 at the start of phase 15c and read at its end (``train_dreamer``), and
 set to 0 at the start of phase 16 and read after its profiled step
-(``train_moe``). The last lines are a JSON line of the kernels and the
-result line.
+(``train_moe``), and for phase 16b's ranks, each set to 0 just before each
+of its steps and read just after (``train_mesh``). The last lines are a
+JSON line of the kernels and the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -393,8 +415,8 @@ DREAMER = {"learning_iters": 3, "timed_updates": 3, "upstream_batch": (16, 64)}
 # a parameter, 97 GB at 4 layers), batch 2 x seq 4096 with remat, AdamW at the
 # reference program's lr 1e-3 (optax's other defaults, weight decay 1e-4)
 MOE = {"n_layers": 4, "batch": 2, "seq": 4096, "lr": 1e-3, "timed_steps": 3}
-# card-vs-host parity: one layer at full width, b=1 x seq 256, f32
-MOE_PARITY_SEQ = 256
+# card-vs-host parity: one layer at full width, b=1 x seq 128, f32
+MOE_PARITY_SEQ = 128
 # a routing choice that differs between card and host must be a near-tie:
 # the gap between the two probabilities it chose between under this. Router
 # logits of a few units computed in f32 in two summation orders differ by
@@ -413,6 +435,38 @@ SP_OPS_LOCAL = tuple((n, b, h, hk, s // SP["ranks"]) for n, b, h, hk, s in SP_OP
 # (a)'s bound: ring and Ulysses within this many times the one-rank
 # flash_attention's own distance from its f32 plain version, tensor by tensor
 SP_OP_TIMES = 4
+# the models over multi-axis meshes (train_mesh): eight gloo ranks sharing
+# the card (NCCL refuses two ranks on one card). (a) ViT-B/16 at 224, global
+# batch 128, bf16 over f32, AdamW, on the reference test's dp=2 x fsdp=2 x
+# tp=2; (b) Mixtral-8x7B at full width cut to 2 of its 32 layers, b=2 x 4096,
+# remat, bf16 parameters, AdamW at lr 1e-3, on fsdp=2 x ep=2 x tp=2
+MESH = {"ranks": 8,
+        "vit": {"axes": {"dp": 2, "fsdp": 2, "tp": 2}, "batch": VIT_BATCH, "steps": 3,
+                "lr": 1e-4},
+        "moe": {"axes": {"fsdp": 2, "ep": 2, "tp": 2}, "n_layers": 2, "batch": 2,
+                "seq": 4096, "steps": 2, "lr": 1e-3}}
+# the flash calls a rank of train_mesh makes: (bh, sq, sk, d, causal,
+# batch) as the kernel phases take them (bf16): a rank's images or rows of
+# the global batch (its data shard) x its heads (tp's share)
+_VIT_ROWS = MESH["vit"]["batch"] // (MESH["vit"]["axes"]["dp"] * MESH["vit"]["axes"]["fsdp"])
+_MOE_ROWS = MESH["moe"]["batch"] // MESH["moe"]["axes"]["fsdp"]
+MESH_ATTENTION_CALLS = (
+    (_VIT_ROWS * 12 // MESH["vit"]["axes"]["tp"], VIT_SEQ, VIT_SEQ, 64, False, _VIT_ROWS),
+    (_MOE_ROWS * 32 // MESH["moe"]["axes"]["tp"], MESH["moe"]["seq"], MESH["moe"]["seq"], 128,
+     True, _MOE_ROWS),
+)
+# a routing choice of the mesh run that differs from the one-rank run's must
+# be a near-tie there (the gap between the two probabilities it chose
+# between, from f32 logits of bf16 activations, under this) or follow a
+# token that an earlier layer routed otherwise. The two runs' bf16
+# activations part by rounding steps of 2^-8 (the tensor-parallel partial
+# sums), which move router logits of about one unit by about 1e-3 and their
+# probabilities by less
+MESH_NEAR_TIE = 1e-2
+# the first step's gradients of the mesh run, leaf by leaf: their distance
+# from the one-rank f32-activation run's within this many times the one-rank
+# bf16 run's distance from them
+MESH_GRAD_TIMES = 2
 # rounding unit of each dtype (one ulp of a value in [1, 2))
 ULP = {"torch.bfloat16": 2.0 ** -7, "torch.float16": 2.0 ** -10, "torch.float32": 2.0 ** -23}
 
@@ -550,6 +604,10 @@ def flash_phase(torch, F):
         # and at Llama-3-8B's GQA call (batch 1 x 32 heads, its 8 KV heads
         # repeated, 4096 a rank)
         *((b_ * h_, s_, s_, 128, False, torch.bfloat16, b_) for _, b_, h_, _, s_ in SP_OPS_LOCAL),
+        # train_mesh's calls a rank: ViT-B/16 at dp=2 x fsdp=2 x tp=2 (its 32
+        # images x 6 heads) and Mixtral-8x7B at fsdp=2 x ep=2 x tp=2 (1 x 16
+        # heads, its 4 KV heads a rank repeated)
+        *((bh, sq, sk, d, c, torch.bfloat16, bb) for bh, sq, sk, d, c, bb in MESH_ATTENTION_CALLS),
         (12, VIT_SEQ, VIT_SEQ, 64, False, torch.bfloat16, None),
         (8, 100, 100, 64, False, torch.bfloat16, None),
         (8, 96, 96, 32, True, torch.bfloat16, None),  # tiny's head_dim
@@ -661,6 +719,8 @@ def flash_bwd_phase(torch, F):
         (VIT_BATCH * 12, VIT_SEQ, VIT_SEQ, 64, False, torch.bfloat16, VIT_BATCH),
         (MOE["batch"] * 32, MOE["seq"], MOE["seq"], 128, True, torch.bfloat16, MOE["batch"]),
         *hops,
+        # train_mesh's calls a rank, as in flash_phase
+        *((bh, sq, sk, d, c, torch.bfloat16, bb) for bh, sq, sk, d, c, bb in MESH_ATTENTION_CALLS),
         (12, VIT_SEQ, VIT_SEQ, 64, False, torch.bfloat16, None),
         (8, 100, 100, 64, False, torch.bfloat16, None),
         (8, 96, 96, 32, True, torch.bfloat16, None),
@@ -2307,9 +2367,9 @@ def serve_disagg_phase(torch, np, params):
 
 #: two gloo ranks sharing card 0, the serve_cb server's settings (8 slots, 256
 #: blocks of 32, max_seq_len 1024); (a) 8 greedy requests of a shared
-#: 128-token prefix and 32 own tokens, 16 new tokens each, from 4 threads;
+#: 128-token prefix and 32 own tokens, 8 new tokens each, from 4 threads;
 #: (b) parity at 2 layers of 7B width in f32 activations, 24 new tokens
-TP = {"ranks": 2, "requests": 8, "threads": 4, "prefix": 128, "own": 32, "new_tokens": 16,
+TP = {"ranks": 2, "requests": 8, "threads": 4, "prefix": 128, "own": 32, "new_tokens": 8,
       "timed_steps": 8, "parity_layers": 2, "parity_new": 24, "parity_blocks": 64}
 
 
@@ -2667,8 +2727,11 @@ def tp_partings(torch, ref, got):
 #: (d) serve_lora's traffic and pooled step through a tp=2 server with
 #: adapters; (e) serve_disagg's waves of 8 distinct 512-token prompts through
 #: _DisaggIngress across layouts, tp=2 -> tp=1 and tp=1 -> tp=2, raw and int8
+# (d)'s requests answer 8 new tokens (serve_lora's 32) and (e)'s waves send 2
+# prompts of 8 new tokens a direction and codec (serve_disagg: 8 of 32): cuts
+# that make room for train_mesh in the time limit
 TPF = {"timed_steps": 16, "directions": ("tp2_to_tp1", "tp1_to_tp2"),
-       "codecs": ("raw", "int8"), "timed_handoffs": 4}
+       "codecs": ("raw", "int8"), "timed_handoffs": 2, "prompts": 2, "new_tokens": 8}
 
 
 def _digest(t):
@@ -2783,7 +2846,7 @@ def tp_disagg_reference(torch, np, params):
 
     cfg = tp_config(torch).build_model_config()
     rng = np.random.default_rng(SEED + 18)
-    n, plen, new = DISAGG["prompts"], DISAGG["prompt_len"], DISAGG["new_tokens"]
+    n, plen, new = TPF["prompts"], DISAGG["prompt_len"], TPF["new_tokens"]
 
     def prompt():
         return rng.integers(0, cfg.vocab_size, plen).tolist()
@@ -2869,12 +2932,12 @@ def tp_lora(torch, np, params, ref, lora_out, devices=(0, 0), backend="gloo"):
     t0 = time.perf_counter()
     with ThreadPoolExecutor(CB["slots"]) as pool:
         answers = list(pool.map(lambda i: server({
-            "token_ids": prompts[i], "max_new_tokens": NEW_TOKENS, "temperature": 0.0,
+            "token_ids": prompts[i], "max_new_tokens": TPF["new_tokens"], "temperature": 0.0,
             "adapter_id": tenant(i)}), range(CB_REQUESTS)))
     wall = time.perf_counter() - t0
     for a in answers:
-        check(len(a["token_ids"]) == NEW_TOKENS and all(0 <= t < 32000 for t in a["token_ids"]),
-              f"bad tp=2 LoRA answer {a}")
+        check(len(a["token_ids"]) == TPF["new_tokens"]
+              and all(0 <= t < 32000 for t in a["token_ids"]), f"bad tp=2 LoRA answer {a}")
     after = server.kvcache_stats()
     hit = after["prefix_hit_tokens"] - before["prefix_hit_tokens"]
     computed = after["prefill_tokens_computed"] - before["prefill_tokens_computed"]
@@ -2916,8 +2979,8 @@ def tp_lora(torch, np, params, ref, lora_out, devices=(0, 0), backend="gloo"):
     _no_tp_left(torch)
     return dict(start_s=start_s, cold_attach_ms=attach_ms, of_which_load_ms=load_ms,
                 requests=CB_REQUESTS,
-                threads=CB["slots"], new_tokens=NEW_TOKENS, wall_s=wall,
-                tokens_per_s=CB_REQUESTS * NEW_TOKENS / wall,
+                threads=CB["slots"], new_tokens=TPF["new_tokens"], wall_s=wall,
+                tokens_per_s=CB_REQUESTS * TPF["new_tokens"] / wall,
                 tokens_per_s_tp1=lora_out["tokens_per_s"], prefix_hit_tokens=hit,
                 prefill_tokens_computed=computed,
                 step_ms_mixed=statistics.median(step_ms["mixed"]),
@@ -2949,8 +3012,8 @@ def _tp_launch_check(tag, counts0, counts1, extra_calls=0):
 def tp_disagg(torch, np, params, ref, codec):
     """(e) for one codec, on the path: a tp=2 and a tp=1 server on one
     tier, both on the KV tier (kv_tier=True: each serves prefill() and
-    decode_shipped()), behind _DisaggIngress both ways, 8 prompts from 8
-    threads a direction. Returns (the summary, rank 1's own kernel counts,
+    decode_shipped()), behind _DisaggIngress both ways, TPF["prompts"]
+    prompts from as many threads a direction. Returns (the summary, rank 1's own kernel counts,
     the raw tp2_to_tp1 shipment's K/V blocks of its first prompt)."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2959,7 +3022,7 @@ def tp_disagg(torch, np, params, ref, codec):
     from ray_tpu_torch.llm import LLMServer
     from ray_tpu_torch.llm.serving import _DisaggIngress
 
-    n, plen, new, bs = (DISAGG["prompts"], DISAGG["prompt_len"], DISAGG["new_tokens"],
+    n, plen, new, bs = (TPF["prompts"], DISAGG["prompt_len"], TPF["new_tokens"],
                         CB["block"])
     nblocks = plen // bs
     # the full-head K/V of a prompt: every shipment carries all 32 KV heads
@@ -3735,9 +3798,9 @@ def train_dp_phase(torch, np, counters, train_out, train_lora):
 
 # -- FSDP for the 7B LoRA loop (``train_fsdp``) -------------------------------
 
-#: (b): two gloo ranks sharing the card at fsdp=2, 7B width cut to 4 layers,
-#: 3 steps of a 2-row global batch
-FSDP_GLOO = {"n_layers": 4, "steps": 3, "ranks": 2}
+#: (b): two gloo ranks sharing the card at fsdp=2, 7B width cut to 2 layers
+#: and 2 steps of a 2-row global batch (so that train_mesh fits the time limit)
+FSDP_GLOO = {"n_layers": 2, "steps": 2, "ranks": 2}
 
 
 def train_fsdp_loop(config):
@@ -3858,7 +3921,7 @@ def train_fsdp_phase(torch, np, counters, train_out, train_lora, dp_out):
     and fsdp=1 runs the full loop, held to the ``train`` phase's in-process
     run (bit for bit, or within the spread of two in-process runs that
     ``train_dp`` measured); (b) two gloo ranks sharing the card at fsdp=2,
-    4 layers, against the replicated pair on the same data; (c) the pair's
+    2 layers, against the replicated pair on the same data; (c) the pair's
     sharded checkpoint restored whole in this process."""
     import multiprocessing
     import pickle
@@ -5881,7 +5944,7 @@ def moe_dense_vs_indexed(torch, moe, x):
 
 
 def moe_parity(torch, card="cuda"):
-    """Card vs host at one layer of full Mixtral-8x7B width, b=1 x seq 256,
+    """Card vs host at one layer of full Mixtral-8x7B width, b=1 x seq 128,
     f32, TF32 off. Routing first: each run's expert choices and kept flags
     (from the layer's own ``route`` on its MoE input) against an f64 host
     run's; a choice that differs must come from a near-tie (the first pass
@@ -6141,6 +6204,550 @@ def train_moe_phase(torch, counters):
     return launches, out
 
 
+# -- the models over multi-axis meshes (``train_mesh``) -----------------------
+
+
+def _mesh_vit_config():
+    from ray_tpu_torch.models import vit as V
+
+    return V.ViTConfig.base()
+
+
+def _mesh_vit_inputs(torch, device):
+    """ViT-B/16's parameters (the reference's initialisers, the zero-start
+    leaves given values) and the global batch, from one seed: each rank
+    draws the whole and keeps its part."""
+    from ray_tpu_torch.models import vit as V
+
+    cfg = _mesh_vit_config()
+    g = torch.Generator(device=device).manual_seed(SEED + 11)
+    params = V.init_params(cfg, g, device)
+    _vit_randomise(torch, params, g)
+    n = MESH["vit"]["batch"]
+    images = torch.randn(n, cfg.image_size, cfg.image_size, 3, generator=g, device=device)
+    labels = torch.randint(0, cfg.num_classes, (n,), generator=g, device=device)
+    return cfg, params, images, labels
+
+
+def _mesh_moe_config(torch, dtype=None):
+    """Mixtral-8x7B at full width, 2 layers, bf16 parameters, remat;
+    ``dtype`` sets the activations' (default bf16)."""
+    from ray_tpu_torch.models import moe as M
+
+    cfg = M.MoEConfig.mixtral_8x7b(n_layers=MESH["moe"]["n_layers"],
+                                   param_dtype=torch.bfloat16, max_seq_len=MESH["moe"]["seq"])
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def _mesh_moe_inputs(torch, cfg, device, shard=None):
+    """The MoE's parameters (each rank keeps its blocks through ``shard``)
+    and the global batch of tokens, from one seed."""
+    from ray_tpu_torch.models import moe as M
+
+    g = torch.Generator(device=device).manual_seed(SEED + 12)
+    params = M.init_params(cfg, g, device, shard=shard)
+    b, s = MESH["moe"]["batch"], MESH["moe"]["seq"]
+    return params, torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=device)
+
+
+class _MoERecorder:
+    """Each layer's MoE input and routing on a model's first forward: a
+    pre-hook on every block's ``moe`` and ``models.moe.route`` wrapped
+    while it is on (the remat recompute's calls come after and are not
+    kept)."""
+
+    def __init__(self, M, model):
+        self._M, self._route = M, M.route
+        self.inputs, self.routes = [], []
+        self._n = model.config.n_layers
+        self._hooks = [blk.moe.register_forward_pre_hook(self._pre) for blk in model.blocks()]
+        M.route = self._record
+
+    def _pre(self, mod, args):
+        if len(self.inputs) < self._n:
+            self.inputs.append(args[0].detach())
+
+    def _record(self, logits, *args, **kwargs):
+        out = self._route(logits, *args, **kwargs)
+        if len(self.routes) < self._n:
+            self.routes.append((out, logits.detach()))
+        return out
+
+    def close(self):
+        self._M.route = self._route
+        for hook in self._hooks:
+            hook.remove()
+
+
+def _aux_router_grads(torch, cfg, routers, inputs, group=None, n_data=1, local=False):
+    """Per layer: the gradient of its weighted aux loss alone with respect
+    to its whole router (d, E), f32 on the host, from the layer's MoE input
+    of the first step and its router (whole). Over a mesh (``group``: the
+    data group) the routing is the global batch's and the gradients are
+    summed over the group; ``local``: each rank's own aux loss (its tokens'
+    means) in place of its share of the global one, the planted fault."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.parallel.expert import expert_capacity, route
+
+    out = []
+    for router, x in zip(routers, inputs):
+        w = router.detach().float().requires_grad_(True)
+        tokens = x.reshape(-1, cfg.dim)
+        logits = tokens.float() @ w
+        capacity = expert_capacity(tokens.shape[0] * n_data, cfg.n_experts, cfg.capacity_factor,
+                                   cfg.experts_per_token)
+        r = route(logits, capacity, k=cfg.experts_per_token, group=group)
+        aux = r.aux_loss
+        if local:
+            probs = torch.softmax(logits.float(), dim=-1)
+            ft = (F.one_hot(r.expert, cfg.n_experts) * r.keep[..., None]).amax(dim=1).float()
+            aux = cfg.n_experts * torch.sum(ft.mean(dim=0) * probs.mean(dim=0))
+        (cfg.router_aux_weight * aux).backward()
+        g = w.grad
+        if group is not None:
+            group.allreduce_(g)
+        out.append(g.cpu())
+    return out
+
+
+def _mesh_step_stats(torch, metrics, counters, step):
+    """``step()`` between a barrier and synchronizes: its ms, its K1-K4
+    launches and the host ms of its collectives by op."""
+    from ray_tpu_torch.train import collective as tcol
+
+    tcol.barrier()
+    torch.cuda.synchronize()
+    _zero(counters)
+    before = _collective_ms(metrics.collective_summary())
+    t0 = time.perf_counter()
+    out = step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    after = _collective_ms(metrics.collective_summary())
+    coll = {op: after[op] - before.get(op, 0.0) for op in after}
+    return out, dict(step_ms=ms, launches=_launches(counters), collective_ms=coll,
+                     collective_host_share=sum(coll.values()) / ms)
+
+
+def train_mesh_loop(config):
+    """One of eight gloo ranks sharing the card: (a) ViT-B/16 over
+    ``gang_mesh(device, dp=2, fsdp=2, tp=2)``, (b) 2 layers of Mixtral-8x7B
+    over ``gang_mesh(device, fsdp=2, ep=2, tp=2)``, each with its first
+    step's gradient blocks (after ``sync_gradients``, before AdamW) written
+    beside the run, and for (b) each layer's routing of the rank's tokens
+    and the aux loss's router gradients (the global one and the planted
+    local one); every step's ms, K1-K4 launches (set to 0 just before it,
+    read just after) and collectives reported."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import moe as M
+    from ray_tpu_torch.models import vit as V
+    from ray_tpu_torch.parallel.fsdp import FSDP
+    from ray_tpu_torch.parallel.mesh import BATCH_AXES
+    from ray_tpu_torch.parallel.sharding import moe_logical_axes
+    from ray_tpu_torch.train import collective as tcol
+    from ray_tpu_torch.util import metrics
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)  # eight ranks share the host's cores
+    ctx = train.get_context()
+    r = ctx.world_rank
+    device = _card(torch)
+    run_dir = Path(ctx.get_storage_path())
+    counters = _port_counters()
+    report = {"rank": r, "device": str(device)}
+
+    # (a) ViT-B/16
+    mesh = tcol.gang_mesh(device, **MESH["vit"]["axes"])
+    cfg, params, images, labels = _mesh_vit_inputs(torch, device)
+    model = V.build_vit(cfg, params, mesh)
+    del params
+    n = mesh.axes_size(BATCH_AXES)
+    i = mesh.axes_index(BATCH_AXES)
+    rows = slice(i * images.shape[0] // n, (i + 1) * images.shape[0] // n)
+    images, labels = images[rows].contiguous(), labels[rows].contiguous()
+    optimizer = torch.optim.AdamW(model.parameters(), lr=MESH["vit"]["lr"], betas=(0.9, 0.999),
+                                  eps=1e-8, weight_decay=1e-4)
+    first = {}
+
+    def vit_step():
+        optimizer.zero_grad(set_to_none=True)
+        loss = V.classification_loss(cfg, mesh, model, images, labels)
+        loss.backward()
+        model.fsdp.sync_gradients(model.named_parameters())
+        if not first:
+            first.update({k: p.grad.cpu() for k, p in model.named_parameters()})
+        optimizer.step()
+        return loss.detach()
+
+    torch.cuda.reset_peak_memory_stats()
+    steps, losses = [], []
+    for _ in range(MESH["vit"]["steps"]):
+        loss, stats = _mesh_step_stats(torch, metrics, counters, vit_step)
+        steps.append(stats)
+        losses.append(tcol.gang_mean(loss, mesh))
+    torch.save(first, run_dir / f"mesh_vit_grad_rank{r}.pt")
+    report["vit"] = dict(coords=mesh.coords(), data_index=i, steps=steps, losses=losses,
+                         peak_bytes=torch.cuda.max_memory_allocated(),
+                         param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()))
+    del model, optimizer, images, labels, first
+    torch.cuda.empty_cache()
+
+    # (b) Mixtral-8x7B, 2 layers
+    mesh = tcol.gang_mesh(device, **MESH["moe"]["axes"])
+    cfg = _mesh_moe_config(torch)
+    layout = FSDP.for_model(mesh, M.param_shapes(cfg), moe_logical_axes)
+    params, tokens = _mesh_moe_inputs(torch, cfg, device, shard=layout.shard)
+    model = M.build_moe(cfg, params, trainable=True, mesh=mesh)
+    del params
+    n = mesh.axes_size(BATCH_AXES)
+    i = mesh.axes_index(BATCH_AXES)
+    tokens = tokens[i * tokens.shape[0] // n:(i + 1) * tokens.shape[0] // n].contiguous()
+    optimizer = torch.optim.AdamW(model.parameters(), lr=MESH["moe"]["lr"], betas=(0.9, 0.999),
+                                  eps=1e-8, weight_decay=1e-4, fused=True)
+    first, routers = {}, []
+    recorder = _MoERecorder(M, model)
+
+    def moe_step():
+        optimizer.zero_grad(set_to_none=True)
+        loss = M.next_token_loss(cfg, mesh, model, tokens)
+        loss.backward()
+        model.fsdp.sync_gradients(model.named_parameters())
+        if not first:
+            first.update({k: p.grad.cpu() for k, p in model.named_parameters()})
+            recorder.close()
+            # each layer's whole router as the first step read it (its
+            # blocks gathered over fsdp and ep), for the aux gradients below
+            for li, blk in enumerate(model.blocks()):
+                w = model.fsdp.full(f"layer_{li}.moe.router", blk.moe.router.detach())
+                ep = mesh.group("ep")
+                routers.append(w if ep is None else ep.allgather_cat(w, dim=1))
+        optimizer.step()
+        return loss.detach()
+
+    torch.cuda.reset_peak_memory_stats()
+    steps, losses = [], []
+    for _ in range(MESH["moe"]["steps"]):
+        loss, stats = _mesh_step_stats(torch, metrics, counters, moe_step)
+        steps.append(stats)
+        losses.append(tcol.gang_mean(loss, mesh))
+    peak = torch.cuda.max_memory_allocated()
+    torch.save(first, run_dir / f"mesh_moe_grad_rank{r}.pt")
+    del first
+    # the aux loss's router gradients on the first step's inputs and routers
+    data = mesh.group(BATCH_AXES)
+    aux = {kind: _aux_router_grads(torch, cfg, routers, recorder.inputs, data, n, local)
+           for kind, local in (("global", False), ("local", True))}
+    routes = [{"expert": rt.expert.cpu(), "slot": rt.slot.cpu(), "keep": rt.keep.cpu()}
+              for rt, _ in recorder.routes]
+    torch.save({"aux": aux, "routes": routes}, run_dir / f"mesh_moe_routes_rank{r}.pt")
+    report["moe"] = dict(coords=mesh.coords(), data_index=i, steps=steps, losses=losses,
+                         peak_bytes=peak,
+                         param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()))
+    train.report(report)
+
+
+def _card_distance(torch, got, want):
+    """||got - want|| in f32 on the card (the leaves are too large for an
+    f64 copy on the host)."""
+    device = _card(torch)
+    return (got.to(device).float() - want.to(device).float()).norm().item()
+
+
+def _mesh_vit_one_rank(torch):
+    """ViT-B/16 on the whole global batch on one rank, in bf16 and in f32
+    activations: the bf16 run's first loss and gradients (host) and, per
+    leaf, its distance from the f32 run's."""
+    from ray_tpu_torch.models import vit as V
+
+    device = _card(torch)
+    cfg, params, images, labels = _mesh_vit_inputs(torch, device)
+    runs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        model = V.build_vit(c, {k: v.clone() for k, v in params.items()})
+        loss = V.classification_loss(c, None, model, images, labels)
+        loss.backward()
+        runs[dtype] = (loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()})
+        del model, loss
+    loss, grads = runs[torch.bfloat16]
+    f32_loss, f32_grads = runs[torch.float32]
+    control = {k: _card_distance(torch, g, f32_grads[k]) for k, g in grads.items()}
+    del params, images, labels, runs
+    torch.cuda.empty_cache()
+    return dict(loss=loss, grads=grads, control=control, f32_loss=f32_loss, f32_grads=f32_grads)
+
+
+def _mesh_moe_one_rank(torch):
+    """The 2-layer MoE on the whole global batch on one rank, in bf16 and in
+    f32 activations: the bf16 run's first loss, gradients, routing (with
+    the gaps of its f32 probabilities) and aux router gradients (host), and
+    each one's distance from the f32 run's."""
+    from ray_tpu_torch.models import moe as M
+
+    device = _card(torch)
+    runs = {}
+    for dtype in (None, torch.float32):
+        cfg = _mesh_moe_config(torch, dtype)
+        params, tokens = _mesh_moe_inputs(torch, cfg, device)
+        model = M.build_moe(cfg, params, trainable=True)
+        del params
+        recorder = _MoERecorder(M, model)
+        loss = M.next_token_loss(cfg, model, tokens)
+        recorder.close()
+        loss.backward()
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        routers = [blk.moe.router.detach() for blk in model.blocks()]
+        model.zero_grad(set_to_none=True)
+        aux = _aux_router_grads(torch, cfg, routers, recorder.inputs)
+        routes = []
+        for rt, logits in recorder.routes:
+            p = torch.softmax(logits.float(), dim=-1).sort(dim=-1, descending=True).values
+            routes.append({"expert": rt.expert.cpu(), "slot": rt.slot.cpu(),
+                           "keep": rt.keep.cpu(), "gaps": (p[:, :-1] - p[:, 1:]).cpu()})
+        runs[dtype] = dict(loss=loss.item(), grads=grads, aux=aux, routes=routes)
+        del model, loss, recorder, routers, tokens
+        torch.cuda.empty_cache()
+    one, f32 = runs[None], runs[torch.float32]
+    one["control"] = {k: _card_distance(torch, g, f32["grads"][k]) for k, g in one["grads"].items()}
+    one["aux_control"] = [_card_distance(torch, a, b) for a, b in zip(one["aux"], f32["aux"])]
+    one.update(f32_loss=f32["loss"], f32_grads=f32["grads"], f32_aux=f32["aux"])
+    return one
+
+
+def _assemble(torch, name, shape, dtype, sharding, blocks):
+    """The whole of a leaf from every rank's block (``blocks[r]``), on the
+    card; the ranks that hold one block must hold it bit for bit."""
+    device = _card(torch)
+    full = torch.zeros(shape, dtype=dtype, device=device)
+    seen = {}
+    for r, block in enumerate(blocks):
+        index = sharding.index(shape, r)
+        key = tuple((s.start, s.stop) for s in index)
+        block = block.to(device)
+        if key in seen:
+            check(torch.equal(block, seen[key]), f"{name}: ranks holding one block differ")
+            continue
+        seen[key] = block
+        full[index] = block
+    return full
+
+
+def _mesh_grad_check(torch, tag, grads, f32, control, one, times, replicated_tp, tp,
+                     skip=()):
+    """Each leaf's distance from the f32-activation run within ``times`` x
+    the one-rank bf16 run's (``control``): the mesh run's bf16 error
+    against the error of the same model on one rank. (Held against each
+    other instead, the two bf16 runs part by about sqrt(2) of one run's
+    error, their roundings being independent, and the largest of some 150
+    such ratios reaches 2 by chance; those ratios are printed.) The planted
+    fault of a tp-replicated leaf's gradient summed over tp (``tp`` x it)
+    must break the bound. Returns the ratios."""
+    ratio, planted, to_one = {}, {}, {}
+    for k, g in grads:  # (name, gradient) pairs, each made as it is read
+        if k in skip:
+            continue
+        check(control[k] > 0, f"{tag} {k}: the one-rank run's distance from f32 is 0")
+        ratio[k] = _card_distance(torch, g, f32[k]) / control[k]
+        to_one[k] = _card_distance(torch, g, one[k]) / control[k]
+        if k in replicated_tp:
+            planted[k] = _card_distance(torch, g.float() * tp, f32[k]) / control[k]
+    worst = max(ratio, key=ratio.get)
+    check(ratio[worst] <= times,
+          f"{tag}: {worst}'s first gradient is {ratio[worst]:.3f} x the one-rank run's distance "
+          f"from f32 activations away from them, over {times}")
+    check(planted and max(planted.values()) > times,
+          f"{tag}: the planted fault (a tp-replicated leaf's gradient summed over tp) passes "
+          f"the gradient check: {planted}")
+    return dict(max_over_control=ratio[worst], worst_leaf=worst, over_control=ratio,
+                to_one_rank_over_control_max=max(to_one.values()),
+                to_one_rank_over_control=to_one,
+                planted_tp_sum_over_control=max(planted.values()))
+
+
+def _mesh_routing_check(torch, layer_routes, one_routes):
+    """Each layer's routing of the mesh run (``layer_routes[l][i]``: data
+    shard i's) against the one-rank run's of the same tokens: a choice may
+    differ only at a near-tie (MESH_NEAR_TIE) or at a token an earlier layer
+    routed otherwise; without a differing choice in the layer, slots and
+    kept flags are equal. Returns the counts."""
+    out, moved = [], None
+    for layer, (shards, want) in enumerate(zip(layer_routes, one_routes)):
+        got = {k: torch.cat([sh[k] for sh in shards]) for k in ("expert", "slot", "keep")}
+        choice = got["expert"] != want["expert"]
+        differs = choice.any(dim=1)
+        first = choice.float().argmax(dim=1)
+        gap = want["gaps"].gather(1, first[:, None])[:, 0]
+        allowed = gap < MESH_NEAR_TIE
+        if moved is not None:
+            allowed |= moved
+        check(bool(allowed[differs].all()),
+              f"mesh MoE layer {layer}: routing choices differ beyond a near-tie at "
+              f"{int((differs & ~allowed).sum())} tokens (gaps {gap[differs & ~allowed][:8].tolist()})")
+        if not bool(differs.any()):
+            check(torch.equal(got["slot"], want["slot"]) and torch.equal(got["keep"], want["keep"]),
+                  f"mesh MoE layer {layer}: every choice equal, but slots or kept flags differ")
+        slot_differs = (got["slot"] != want["slot"]).any(dim=1)
+        out.append(dict(tokens=int(differs.numel()), choice_differs=int(differs.sum()),
+                        near_ties=int((differs & (gap < MESH_NEAR_TIE)).sum()),
+                        after_earlier_layer=int((differs & ~(gap < MESH_NEAR_TIE)).sum()),
+                        slot_differs=int(slot_differs.sum()),
+                        dropped=(~got["keep"]).float().mean().item(),
+                        dropped_one_rank=(~want["keep"]).float().mean().item()))
+        moved = differs if moved is None else moved | differs
+    return out
+
+
+def train_mesh_phase(torch, counters):
+    """The ViT and the MoE over multi-axis meshes on eight gloo ranks
+    sharing the card (``train_mesh_loop``), against one-rank runs on the
+    whole global batch in this process: (a) ViT-B/16 at dp=2 x fsdp=2 x
+    tp=2, 3 steps; (b) 2 layers of Mixtral-8x7B at fsdp=2 x ep=2 x tp=2, 2
+    steps. Held: every rank's K1-K4 launches a step exact (ViT 0/12/12/12,
+    MoE 4L+1 / 2L / L / L); each rank's resident parameter bytes the rule
+    table's share exactly; the first step's gradients, leaf by leaf (the
+    MoE's aux router gradients too), within MESH_GRAD_TIMES x the one-rank
+    run's distance from its f32-activation run, and two planted faults from
+    the same run beyond it (a tp-replicated leaf's gradient summed over tp;
+    each rank's local aux loss in place of the global one); the MoE's
+    routing of each layer against the one-rank run's (near-ties counted);
+    finite losses. Printed: step ms, peak and the collectives' host share a
+    rank."""
+    import math
+    import multiprocessing
+    import tempfile
+
+    from ray_tpu_torch.models import moe as M
+    from ray_tpu_torch.models import vit as V
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.parallel.sharding import (
+        moe_logical_axes, param_shardings, vit_logical_axes)
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchConfig, TorchTrainer
+
+    t_phase = time.perf_counter()
+    vit_one = _mesh_vit_one_rank(torch)
+    moe_one = _mesh_moe_one_rank(torch)
+    one_rank_s = time.perf_counter() - t_phase
+    n = MESH["ranks"]
+
+    _zero(counters)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as storage:
+        t0 = time.perf_counter()
+        result = TorchTrainer(train_mesh_loop, train_loop_config={},
+                              run_config=RunConfig(name="mesh", storage_path=storage),
+                              scaling_config=ScalingConfig(n, {"GPU": 1.0 / n}),
+                              backend_config=TorchConfig(backend="gloo")).fit()
+        fit_s = time.perf_counter() - t0
+        if result.error is not None:
+            raise result.error
+        parent = _launches(counters)
+        check(not any(parent.values()), f"the train_mesh loop launched kernels in the parent: {parent}")
+        check(not multiprocessing.active_children(), "the worker group left a process")
+        reports = sorted(result.metrics_history, key=lambda m: m["rank"])
+        print("train_mesh_fit", json.dumps(dict(one_rank_s=one_rank_s, fit_s=fit_s, reports=reports)))
+        check([m["rank"] for m in reports] == list(range(n)), f"train_mesh reports {reports}")
+        run_dir = Path(storage) / "mesh"
+        t0 = time.perf_counter()
+        out = {}
+        launches = {name: 0 for name in counters}
+        for part, cfg, axes_fn, one, per_step in (
+                ("vit", _mesh_vit_config(), vit_logical_axes, vit_one,
+                 {"rmsnorm_fwd": 0, "flash_attention_fwd": _mesh_vit_config().n_layers,
+                  "flash_bwd_dq": _mesh_vit_config().n_layers,
+                  "flash_bwd_dkv": _mesh_vit_config().n_layers}),
+                ("moe", _mesh_moe_config(torch), moe_logical_axes, moe_one,
+                 {"rmsnorm_fwd": 4 * MESH["moe"]["n_layers"] + 1,
+                  "flash_attention_fwd": 2 * MESH["moe"]["n_layers"],
+                  "flash_bwd_dq": MESH["moe"]["n_layers"],
+                  "flash_bwd_dkv": MESH["moe"]["n_layers"]})):
+            mod = V if part == "vit" else M
+            spec = MESH[part]
+            mesh = make_mesh(devices=[0] * n, **spec["axes"])
+            shapes = mod.param_shapes(cfg)
+            shardings = param_shardings(mesh, shapes, None, axes_fn)
+            for m in reports:
+                rep = m[part]
+                for st in rep["steps"]:
+                    check(st["launches"] == per_step,
+                          f"{part} rank {m['rank']}: {st['launches']} a step, want {per_step}")
+                    for name in counters:
+                        launches[name] += st["launches"][name]
+                itemsize = torch.empty(0, dtype=cfg.param_dtype).element_size()
+                want_bytes = sum(math.prod(shardings[k].shard_shape(shapes[k])) * itemsize
+                                 for k in shapes)
+                check(rep["param_bytes"] == want_bytes,
+                      f"{part} rank {m['rank']}: {rep['param_bytes']} parameter bytes resident, "
+                      f"the rule table's share is {want_bytes}")
+                check(all(math.isfinite(x) for x in rep["losses"]), f"{part}: losses {rep['losses']}")
+                check(rep["losses"] == reports[0][part]["losses"], f"{part}: the ranks' losses differ")
+            files = [torch.load(run_dir / f"mesh_{part}_grad_rank{r}.pt", mmap=True)
+                     for r in range(n)]
+            grads = ((k, _assemble(torch, k, shapes[k], files[0][k].dtype, shardings[k],
+                                   [f[k] for f in files])) for k in shapes)
+            replicated_tp = {k for k, sh in shardings.items() if "tp" not in sh.split_axes()}
+            skip = {k for k in shapes if k.endswith("wk.bias")}  # its true gradient is 0
+            res = _mesh_grad_check(torch, f"mesh {part}", grads, one["f32_grads"], one["control"],
+                                   one["grads"], MESH_GRAD_TIMES, replicated_tp, mesh.shape["tp"],
+                                   skip)
+            del grads, files
+            # the first loss likewise: its distance from the f32-activation
+            # run's within twice the one-rank run's
+            loss_diff = abs(reports[0][part]["losses"][0] - one["f32_loss"])
+            loss_control = abs(one["loss"] - one["f32_loss"])
+            check(loss_diff <= MESH_GRAD_TIMES * loss_control,
+                  f"mesh {part}: first loss {reports[0][part]['losses'][0]} vs f32 activations' "
+                  f"{one['f32_loss']}: {loss_diff} > {MESH_GRAD_TIMES} x {loss_control}")
+            out[part] = dict(
+                axes=spec["axes"], grads=res, first_loss=reports[0][part]["losses"][0],
+                first_loss_one_rank=one["loss"], first_loss_diff_from_f32=loss_diff,
+                first_loss_one_rank_diff_from_f32=loss_control,
+                first_loss_f32_activations=one["f32_loss"],
+                losses=reports[0][part]["losses"],
+                step_ms=[[st["step_ms"] for st in m[part]["steps"]] for m in reports],
+                collective_host_share=[[st["collective_host_share"] for st in m[part]["steps"]]
+                                       for m in reports],
+                collective_ms_last_step=reports[0][part]["steps"][-1]["collective_ms"],
+                peak_bytes=[m[part]["peak_bytes"] for m in reports],
+                param_bytes=[m[part]["param_bytes"] for m in reports],
+                launches_per_step=per_step)
+            if part == "moe":
+                extra = [torch.load(run_dir / f"mesh_moe_routes_rank{r}.pt") for r in range(n)]
+                shards = {}
+                for m, e in zip(reports, extra):
+                    i = m["moe"]["data_index"]
+                    if i in shards:  # the ep and tp ranks of one data shard route alike
+                        for a, b in zip(shards[i]["routes"], e["routes"]):
+                            check(all(torch.equal(a[k], b[k]) for k in a),
+                                  "mesh MoE: the ranks of one data shard route otherwise")
+                    else:
+                        shards[i] = e
+                layer_routes = [[shards[i]["routes"][l] for i in sorted(shards)]
+                                for l in range(MESH["moe"]["n_layers"])]
+                out[part]["routing"] = _mesh_routing_check(torch, layer_routes, one["routes"])
+                aux_ratio, aux_planted = [], []
+                for l, (a, fault) in enumerate(zip(extra[0]["aux"]["global"],
+                                                   extra[0]["aux"]["local"])):
+                    control = one["aux_control"][l]
+                    check(control > 0, f"mesh MoE layer {l}: aux router control 0")
+                    aux_ratio.append(_card_distance(torch, a, one["f32_aux"][l]) / control)
+                    aux_planted.append(_card_distance(torch, fault, one["f32_aux"][l]) / control)
+                check(max(aux_ratio) <= MESH_GRAD_TIMES,
+                      f"mesh MoE: the aux loss's router gradients are {aux_ratio} x the one-rank "
+                      f"run's distance from f32, over {MESH_GRAD_TIMES}")
+                check(max(aux_planted) > MESH_GRAD_TIMES,
+                      f"mesh MoE: the planted local aux loss passes the gradient check: {aux_planted}")
+                out[part]["aux_router_grad_over_control"] = aux_ratio
+                out[part]["planted_local_aux_over_control"] = aux_planted
+                del extra, shards
+        compare_s = time.perf_counter() - t0
+    out.update(one_rank_s=one_rank_s, fit_s=fit_s, compare_s=compare_s,
+               phase_s=time.perf_counter() - t_phase)
+    print("train_mesh", json.dumps(out))
+    return launches, out
+
+
 def main() -> None:
     import torch
 
@@ -6155,6 +6762,16 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
+    # each phase's wall seconds, from the end of the one before (where the
+    # time limit goes)
+    wall = {"start": time.perf_counter()}
+    phase_s = {}
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = now - wall["start"]
+        wall["start"] = now
+
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -6166,19 +6783,26 @@ def main() -> None:
     from ray_tpu_torch._internal import kernels
 
     build_s = kernels.build()
+    lap("build")
     print(f"build: {kernels.sources()} in {build_s:.3f} s")
 
     rms_rows = rmsnorm_phase(torch, F)
+    lap("rmsnorm")
     flash_rows = flash_phase(torch, F)
+    lap("flash")
     bwd_rows = flash_bwd_phase(torch, F)
+    lap("flash_bwd")
     sass_phase()
+    lap("sass")
     grad_parity_phase(torch, np)
+    lap("grad_parity")
 
     counters = _port_counters()
     # the serving path: serving, then the full forward; counts set to 0
     # inside serve_phase just before its requests and read here, after both
     server, prompts, serve = serve_phase(torch, np)
     forward_phase(torch, server, prompts)
+    lap("serve")
     serve_launches = {name: fn.launches for name, fn in counters.items()}
     for name in ("rmsnorm_fwd", "flash_attention_fwd"):
         check(serve_launches[name] > 0, f"{name} was not launched on the serving path")
@@ -6195,6 +6819,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     cb_parity_phase(torch, np, server.engine._params)
     cb_spec_chunk_phase(torch, np, server.engine._params)
+    lap("serve_cb")
     cb_launches = {name: fn.launches for name, fn in counters.items()}
     check(cb_launches["rmsnorm_fwd"] > 0, "rmsnorm_fwd was not launched on the serve_cb path")
     for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -6205,6 +6830,7 @@ def main() -> None:
     for fn in counters.values():
         fn.launches = 0
     lora_out = serve_lora_phase(torch, np, server.engine._params, cb)
+    lap("serve_lora")
     lora_launches = {name: fn.launches for name, fn in counters.items()}
     check(lora_launches["rmsnorm_fwd"] > 0, "rmsnorm_fwd was not launched on the serve_lora path")
     for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -6216,6 +6842,7 @@ def main() -> None:
     for fn in counters.values():
         fn.launches = 0
     serve_disagg_phase(torch, np, server.engine._params)
+    lap("serve_disagg")
     disagg_launches = {name: fn.launches for name, fn in counters.items()}
     check(disagg_launches["rmsnorm_fwd"] > 0,
           "rmsnorm_fwd was not launched on the serve_disagg path")
@@ -6228,6 +6855,7 @@ def main() -> None:
     # serve_cb does
     torch.cuda.empty_cache()
     _, tp_launches = serve_tp_phase(torch, np, server.engine._params, counters)
+    lap("serve_tp")
     check(tp_launches["rmsnorm_fwd"] > 0, "rmsnorm_fwd was not launched on the serve_tp path")
     for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         check(tp_launches[name] == 0, f"{name} was launched on the serve_tp path")
@@ -6238,30 +6866,35 @@ def main() -> None:
     # it runs K1 only
     _, tpf_launches = serve_tp_features_phase(torch, np, server.engine._params, counters,
                                               lora_out)
+    lap("serve_tp_features")
     check(tpf_launches["rmsnorm_fwd"] > 0,
           "rmsnorm_fwd was not launched on the serve_tp_features path")
     for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         check(tpf_launches[name] == 0, f"{name} was launched on the serve_tp_features path")
     torch.cuda.empty_cache()
     profile_phase(torch, server, prompts[1])
+    lap("profile")
     del server  # the training phase's peak memory is its own
     torch.cuda.empty_cache()
 
     # the training path: counts set to 0 inside train_phase just before
     # fit() and read just after it
     train_launches, train_out, train_lora = train_phase(torch, counters)
+    lap("train")
     torch.cuda.empty_cache()
     # data-parallel training: the counts of this process are set to 0 just
     # before (b)'s fit() and read just after it (they must stay 0: the loop
     # runs in a spawned worker), and the worker's own counts, set to 0 just
     # before its loop and read just after it, are added
     dp_launches, dp_out = train_dp_phase(torch, np, counters, train_out, train_lora)
+    lap("train_dp")
     torch.cuda.empty_cache()
     # FSDP: the counts of this process are set to 0 just before (a)'s fit()
     # and must stay 0 (the loops run in spawned workers); each worker's own
     # counts, set to 0 just before its loop or steps and read just after,
     # are added ((a) and (b)'s FSDP pair; the replicated pair is its yardstick)
     fsdp_launches, _ = train_fsdp_phase(torch, np, counters, train_out, train_lora, dp_out)
+    lap("train_fsdp")
     del train_lora
     torch.cuda.empty_cache()
     # sequence parallelism: the counts of this process are set to 0 just
@@ -6269,35 +6902,50 @@ def main() -> None:
     # before it); each rank's own counts, set to 0 just before its ops and
     # again before its steps and read just after each, are added
     sp_launches, _ = train_sp_phase(torch, counters)
+    lap("train_sp")
     torch.cuda.empty_cache()
     # the vision training paths: counts set to 0 inside each phase just
     # before its first step and read just after its last (before its parity
     # runs)
     resnet_launches, resnet_out = train_resnet_phase(torch, counters)
+    lap("train_resnet")
     torch.cuda.empty_cache()
     # sync-BN data parallelism: the counts of this process are set to 0 just
     # before (a)'s fit(); the workers' own counts are added (0: ResNet runs
     # none of the port's kernels)
     resnet_dp_launches, _ = train_resnet_dp_phase(torch, counters, resnet_out)
+    lap("train_resnet_dp")
     torch.cuda.empty_cache()
     vit_launches, _ = train_vit_phase(torch, counters)
+    lap("train_vit")
     torch.cuda.empty_cache()
     # RLlib PPO: counts set to 0 at the start of the phase and read after
     # its timed iterations and profiled update (before its parity runs)
     ppo_launches, _ = train_ppo_phase(torch, np, counters)
+    lap("train_ppo")
     torch.cuda.empty_cache()
     # the rest of RLlib: counts set to 0 at the start of the phase and read
     # at its end (its parity runs included)
     rl_launches, _ = train_rl_phase(torch, np, counters)
+    lap("train_rl")
     torch.cuda.empty_cache()
     # DreamerV3: counts set to 0 at the start of the phase and read at its
     # end (its parity runs included)
     dreamer_launches, _ = train_dreamer_phase(torch, np, counters)
+    lap("train_dreamer")
     torch.cuda.empty_cache()
     # Mixtral-8x7B training: counts set to 0 at the start of the phase and
     # read after its profiled step (before its dense-vs-indexed and parity
     # runs)
     moe_launches, _ = train_moe_phase(torch, counters)
+    lap("train_moe")
+    torch.cuda.empty_cache()
+    # the models over multi-axis meshes: the counts of this process are set
+    # to 0 just before the ranks' fit() and must stay 0 (the one-rank
+    # yardsticks run before it); each rank's own counts, set to 0 just
+    # before each of its steps and read just after, are added
+    mesh_launches, _ = train_mesh_phase(torch, counters)
+    lap("train_mesh")
     paths = {"serve": serve_launches, "serve_cb": cb_launches, "serve_lora": lora_launches,
              "serve_disagg": disagg_launches, "serve_tp": tp_launches,
              "serve_tp_features": tpf_launches, "train": train_launches,
@@ -6305,7 +6953,8 @@ def main() -> None:
              "train_resnet": resnet_launches, "train_resnet_dp": resnet_dp_launches,
              "train_vit": vit_launches,
              "train_ppo": ppo_launches, "train_rl": rl_launches,
-             "train_dreamer": dreamer_launches, "train_moe": moe_launches}
+             "train_dreamer": dreamer_launches, "train_moe": moe_launches,
+             "train_mesh": mesh_launches}
     launches = {name: sum(p[name] for p in paths.values()) for name in counters}
 
     def entry(name, source, replaces, rows):
@@ -6320,6 +6969,7 @@ def main() -> None:
             "library_ms": main_row["library_ms"],
         }
 
+    print("phase_s", json.dumps(phase_s))
     print(json.dumps({"kernels": [
         entry("rmsnorm_fwd", "ray_tpu_torch/csrc/rmsnorm.cu",
               "ray_tpu/ops/rmsnorm.py:25", rms_rows),

@@ -12,6 +12,30 @@ transpose).
 They run on the groups' model ops (``allreduce_``, ``allgather_cat``,
 ``reducescatter_sum``, ``all_to_all``): no store read on the hot path and,
 over NCCL, no wait, so the host runs ahead of the card.
+
+Which op belongs where follows from what each rank's cotangent is, that
+is, from what the ranks compute downstream of the op:
+
+- :func:`all_reduce_sum`: each rank's downstream is its own (a sync-BN's
+  statistics feed the rank's own rows), so the cotangents are summed too.
+- :func:`all_gather_cat` (reduce-scatter backward): each rank's downstream
+  is its own partial sum (an FSDP weight gathered for the rank's batch
+  shard), so the rank's block gets the sum of the ranks' gradients.
+- Megatron's pair, for ranks that compute one value alike (tensor and
+  expert parallelism): :func:`copy_to_group` ("f": identity forward,
+  all-reduce backward) where a replicated tensor enters a region split
+  over the group (before a column-split product), so its gradient is the
+  sum of the ranks' partial ones; :func:`sum_of_ranks` ("g": all-reduce
+  forward, identity backward) where the region's partial sums leave it
+  (after a row-split product), since every rank then holds and
+  differentiates the same sum. The same ``sum_of_ranks`` makes a loss of
+  data shards global: each rank's backward is its own term's.
+- :func:`gather_from_group` (all-gather forward, slice backward): the
+  column-split outputs of a region gathered for a downstream every rank
+  computes alike (a ViT head's classes, vocab-split logits, a router's
+  experts). Each rank's cotangent is then the whole gradient, and its
+  block's is its slice; ``all_gather_cat`` there would sum the ranks'
+  equal cotangents, world-size times the gradient.
 """
 
 from __future__ import annotations
@@ -53,6 +77,29 @@ class _AllToAll(torch.autograd.Function):
         return ctx.group.all_to_all(grad.contiguous(), concat_dim, split_dim), None, None, None
 
 
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.allreduce_(grad.clone()), None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return group.allgather_cat(x.contiguous(), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = ctx.n
+        return grad.narrow(ctx.dim, ctx.group.rank * n, n).contiguous(), None, None
+
+
 class _SumOfRanks(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -92,3 +139,18 @@ def sum_of_ranks(x: torch.Tensor, group) -> torch.Tensor:
     all-reduce the cotangent too and, since every rank seeds one, make each
     gradient world-size times too large.)"""
     return _SumOfRanks.apply(x, group)
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's "f": ``x`` itself forward; the backward sums the
+    cotangent over the ranks of ``group``. For a tensor every rank holds
+    alike entering a region split over the group."""
+    return _CopyToGroup.apply(x, group)
+
+
+def gather_from_group(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order; the
+    backward hands each rank its own slice of its cotangent. For a
+    downstream every rank of ``group`` computes alike (see the module
+    docstring)."""
+    return _GatherFromGroup.apply(x, group, dim % x.dim())

@@ -172,14 +172,33 @@ class GlooGroup(BaseGroup):
 
     def reducescatter_sum(self, tensor: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """The ranks' ``tensor`` summed in rank order, and this rank's even
-        block of it along ``dim``: the transpose of :meth:`allgather_cat`."""
+        block of it along ``dim``: the transpose of :meth:`allgather_cat`.
+        Each rank receives only the ranks' blocks of its own block (point to
+        point) and adds them in rank order."""
         start = time.perf_counter()
         if tensor.shape[dim] % self.world_size:
             raise ValueError(f"reducescatter_sum over {self.world_size} ranks needs a dim "
                              f"they divide, got {tensor.shape[dim]}")
-        total = reduce_in_rank_order(self._gather_host(tensor), ReduceOp.SUM)
-        out = total.chunk(self.world_size, dim=dim)[self.rank].to(tensor.device)
+        x, _ = _host(tensor)
+        parts = [p.contiguous() for p in x.chunk(self.world_size, dim=dim)]
+        out = reduce_in_rank_order(self._exchange(parts), ReduceOp.SUM).to(tensor.device)
         self._record_op("reducescatter", tensor_nbytes(tensor), start)
+        return out
+
+    def _exchange(self, parts: List[torch.Tensor]) -> List[torch.Tensor]:
+        """``parts[j]`` sent to rank j; the blocks received from the ranks,
+        in rank order (this rank's own in its place), point to point: not
+        every build's gloo has an all-to-all."""
+        out = [parts[j] if j == self.rank else torch.empty_like(parts[self.rank])
+               for j in range(self.world_size)]
+        ops = []
+        for j in range(self.world_size):
+            if j != self.rank:
+                peer = self._global(j)
+                ops.append(dist.P2POp(dist.isend, parts[j], peer, self.process_group))
+                ops.append(dist.P2POp(dist.irecv, out[j], peer, self.process_group))
+        for work in dist.batch_isend_irecv(ops) if ops else ():
+            work.wait()
         return out
 
     def all_to_all(self, tensor: torch.Tensor, split_dim: int,
@@ -194,16 +213,7 @@ class GlooGroup(BaseGroup):
                              f"divide, got {tensor.shape[split_dim]}")
         x, _ = _host(tensor)
         parts = [p.contiguous() for p in x.chunk(self.world_size, dim=split_dim)]
-        # point to point: not every build's gloo has an all-to-all
-        out = [parts[j] if j == self.rank else torch.empty_like(p) for j, p in enumerate(parts)]
-        ops = []
-        for j in range(self.world_size):
-            if j != self.rank:
-                peer = self._global(j)
-                ops.append(dist.P2POp(dist.isend, parts[j], peer, self.process_group))
-                ops.append(dist.P2POp(dist.irecv, out[j], peer, self.process_group))
-        for work in dist.batch_isend_irecv(ops) if ops else ():
-            work.wait()
+        out = self._exchange(parts)
         self._record_op("all_to_all", tensor_nbytes(tensor), start)
         return torch.cat(out, dim=concat_dim).to(tensor.device)
 

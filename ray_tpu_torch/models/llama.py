@@ -78,7 +78,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._internal.device import DeviceLike, resolve_device
-from ..collective.functional import sum_of_ranks
+from ..collective.functional import copy_to_group, sum_of_ranks
 from ..ops.flash_attention import flash_attention
 from ..ops.rmsnorm import rmsnorm
 from ..ops.rope import apply_rope, rope_table
@@ -269,8 +269,8 @@ def gather_adapters(bank, adapter_slots, dtype, device) -> Dict[str, tuple]:
 
 def sequence_parallel(mesh):
     """(group, rank, size) of ``mesh``'s ``sp`` axis: (None, 0, 1) without
-    a mesh or at sp = 1. ``sp`` beside another axis past 1 is refused (it
-    needs sub-groups of the ranks), and so is an unbound mesh."""
+    a mesh or at sp = 1. ``sp`` beside another axis past 1 is refused
+    (ROADMAP item A.12), and so is an unbound mesh."""
     if mesh is None or mesh.shape["sp"] == 1:
         return None, 0, 1
     sp = mesh.shape["sp"]
@@ -278,7 +278,7 @@ def sequence_parallel(mesh):
     if others:
         raise NotImplementedError(
             f"sequence parallelism (sp={sp}) beside other mesh axes {others} is not ported: "
-            "it needs sub-groups of the ranks (ROADMAP item A.12)")
+            "the ring over each rank's sp sub-group (Mesh.form_groups) is ROADMAP item A.12")
     group = mesh.group("sp")
     if group is None or group.world_size != sp:
         raise ValueError(f"a sequence-parallel mesh (sp={sp}) must be bound to its rank with "
@@ -300,15 +300,28 @@ class Attention(nn.Module):
     and the allreduce of wo's partial sums over ``group``. With a
     sequence-parallel ``mesh`` (:func:`sequence_parallel`): the full
     forward's x is the rank's shard of the sequence, and attention is the
-    ring over the mesh's ``sp`` group."""
+    ring over the mesh's ``sp`` group.
 
-    def __init__(self, config: LlamaConfig, mesh=None, plan=None, group=None):
+    With ``tp_group`` (training under a mesh's ``tp`` axis, the MoE's
+    blocks): the rank's n_heads / tp query and n_kv_heads / tp KV heads, the
+    column blocks of wq/wk/wv and the row block of wo, as the reference's
+    rule table splits them, and Megatron's differentiable pair around them:
+    ``copy_to_group`` before the projections, ``sum_of_ranks`` after wo.
+    The serving plan's ``group`` keeps its in-place allreduce."""
+
+    def __init__(self, config: LlamaConfig, mesh=None, plan=None, group=None, tp_group=None):
         super().__init__()
         self.sp_group, self.sp_rank, _ = sequence_parallel(mesh)
         self.config = config
         self.group = group
+        self.tp_group = tp_group
         cfg = config
         hk = cfg.n_kv_heads if plan is None else plan.kv_heads_per_rank(cfg.n_kv_heads)
+        if tp_group is not None:
+            tp = tp_group.world_size
+            if cfg.n_kv_heads % tp:
+                raise ValueError(f"{cfg.n_kv_heads} KV heads do not split over tp={tp}")
+            hk = cfg.n_kv_heads // tp
         h, d = hk * (cfg.n_heads // cfg.n_kv_heads), cfg.head_dim
         self.n_heads, self.n_kv_heads = h, hk
 
@@ -329,6 +342,8 @@ class Attention(nn.Module):
         b, s, _ = x.shape
         h, hk, d = self.n_heads, self.n_kv_heads, cfg.head_dim
         adapters = adapters or {}
+        if self.tp_group is not None:
+            x = copy_to_group(x, self.tp_group)
         q = self.wq(x, adapters.get("wq")).reshape(b, s, h, d).transpose(1, 2)
         k = self.wk(x, adapters.get("wk")).reshape(b, s, hk, d).transpose(1, 2)
         v = self.wv(x, adapters.get("wv")).reshape(b, s, hk, d).transpose(1, 2)
@@ -344,6 +359,8 @@ class Attention(nn.Module):
             k = apply_rope(k, cos, sin)
             out = flash_attention(q, k, v, causal=True)
         out = out.transpose(1, 2).reshape(b, s, h * d)
+        if self.tp_group is not None:
+            return sum_of_ranks(self.wo(out, adapters.get("wo")), self.tp_group)
         return _allreduce(self.group, self.wo(out, adapters.get("wo")))
 
     def _decode_attention(self, q, k, v, cos, sin, cache: LayerCache):

@@ -22,6 +22,27 @@ CUDA kernels take head_dim 32, 64 or 128; ViT-B/16 and ViT-L/16 have 64,
 (``torch.utils.checkpoint``). Dropout draws its masks from an explicit
 ``torch.Generator``, before the checkpointed block, so the recompute reuses
 them as the reference's ``nn.remat`` reuses its key.
+
+Over a mesh (``ViT(config, mesh)``, bound with its sub-groups by
+``Mesh.form_groups`` or ``train.collective.gang_mesh``) each rank is one
+process holding its block of every parameter by the reference's rule table
+(``VIT_LOGICAL_AXES``: kernels' ``embed`` over ``fsdp``, their heads, MLP
+units and classes over ``tp``; biases and LayerNorms replicated) and its
+shard of the global batch (the data axes; replicated over ``tp``). Each
+parameter's ``fsdp`` dimension is gathered where it is read
+(parallel/fsdp.py), :func:`~ray_tpu_torch.parallel.sharding.constrain`
+stands where the reference calls it, and the blocks are Megatron's: f
+(``copy_to_group``) before wq/wk/wv and fc1, which hold the rank's columns
+and add the rank's slice of their replicated biases, g (``sum_of_ranks``)
+after wo and fc2, which hold the rank's rows and add their biases once; the
+head's classes are gathered over ``tp`` with their gradient sliced back
+(``gather_from_group``). :func:`classification_loss` returns the global
+batch's mean on every rank, each rank's backward its own share;
+``model.fsdp.sync_gradients`` completes the gradients. Dropout under a mesh
+needs generators seeded alike on the ranks of a ``tp`` group (their rows
+are one). ``sp > 1`` raises (ROADMAP item A.12: the 197 patches do not split
+evenly, and the reference leaves that to GSPMD's padding), as ``pp > 1``
+does (A.5.4).
 """
 
 from __future__ import annotations
@@ -36,11 +57,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._internal.device import DeviceLike, resolve_device
+from ..collective.functional import copy_to_group, gather_from_group, sum_of_ranks
 from ..ops.flash_attention import flash_attention
+from ..parallel.mesh import BATCH_AXES, check_model_mesh
 
 LN_EPS = 1e-6
-_NO_MESH = ("ViT over a mesh (sharded activations and weights) comes with the "
-            "port's tensor- and sequence-parallel slices")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,34 +145,72 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class EncoderBlock(nn.Module):
-    def __init__(self, config: ViTConfig):
+    """With ``tp_group``: the rank's n_heads / tp heads and mlp_dim / tp
+    MLP units (column blocks of wq/wk/wv/fc1 with whole biases, row blocks
+    of wo/fc2) between Megatron's f and g."""
+
+    def __init__(self, config: ViTConfig, tp_group=None):
         super().__init__()
         self.config = config
+        self.tp_group = tp_group
         cfg = config
+        tp = 1 if tp_group is None else tp_group.world_size
+        if cfg.n_heads % tp or cfg.mlp_dim % tp:
+            raise ValueError(f"{cfg.n_heads} heads and {cfg.mlp_dim} MLP units do not split "
+                             f"over tp={tp}")
         hd, dt, pdt = cfg.n_heads * cfg.head_dim, cfg.dtype, cfg.param_dtype
         self.ln1 = LayerNorm(cfg.dim, pdt, dt)
-        self.wq = Dense(cfg.dim, hd, pdt, dt)
-        self.wk = Dense(cfg.dim, hd, pdt, dt)
-        self.wv = Dense(cfg.dim, hd, pdt, dt)
-        self.wo = Dense(hd, cfg.dim, pdt, dt)
+        self.wq = Dense(cfg.dim, hd // tp, pdt, dt)
+        self.wk = Dense(cfg.dim, hd // tp, pdt, dt)
+        self.wv = Dense(cfg.dim, hd // tp, pdt, dt)
+        self.wo = Dense(hd // tp, cfg.dim, pdt, dt)
         self.ln2 = LayerNorm(cfg.dim, pdt, dt)
-        self.fc1 = Dense(cfg.dim, cfg.mlp_dim, pdt, dt)
-        self.fc2 = Dense(cfg.mlp_dim, cfg.dim, pdt, dt)
+        self.fc1 = Dense(cfg.dim, cfg.mlp_dim // tp, pdt, dt)
+        self.fc2 = Dense(cfg.mlp_dim // tp, cfg.dim, pdt, dt)
+        if tp > 1:  # the column blocks' biases stay whole (replicated)
+            for dense, width in ((self.wq, hd), (self.wk, hd), (self.wv, hd),
+                                 (self.fc1, cfg.mlp_dim)):
+                dense.bias = _param(width, dtype=pdt)
+
+    def _columns(self, dense: Dense, x: torch.Tensor) -> torch.Tensor:
+        """A column block: the rank's output columns, plus its slice of the
+        whole bias (through f, so each rank's bias gradient is whole)."""
+        tp = self.tp_group
+        if tp is None:
+            return dense(x)
+        n = dense.kernel.shape[1]
+        bias = copy_to_group(dense.bias, tp).narrow(0, tp.rank * n, n)
+        return x.to(dense.dtype) @ dense.kernel.to(dense.dtype) + bias.to(dense.dtype)
+
+    def _rows(self, dense: Dense, x: torch.Tensor) -> torch.Tensor:
+        """A row block: the ranks' partial products summed (g), then the
+        bias once."""
+        tp = self.tp_group
+        if tp is None:
+            return dense(x)
+        part = x.to(dense.dtype) @ dense.kernel.to(dense.dtype)
+        return sum_of_ranks(part, tp) + dense.bias.to(dense.dtype)
 
     def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``keep``: this block's dropout mask (b, s, dim), or None for
         none."""
         cfg = self.config
         b, s, _ = x.shape
-        h, d = cfg.n_heads, cfg.head_dim
+        d = cfg.head_dim
+        tp = self.tp_group
         y = self.ln1(x)
-        q = self.wq(y).reshape(b, s, h, d).transpose(1, 2)
-        k = self.wk(y).reshape(b, s, h, d).transpose(1, 2)
-        v = self.wv(y).reshape(b, s, h, d).transpose(1, 2)
+        if tp is not None:
+            y = copy_to_group(y, tp)
+        q = self._columns(self.wq, y).reshape(b, s, -1, d).transpose(1, 2)
+        k = self._columns(self.wk, y).reshape(b, s, -1, d).transpose(1, 2)
+        v = self._columns(self.wv, y).reshape(b, s, -1, d).transpose(1, 2)
         # bidirectional attention: every patch sees every patch
         attn = flash_attention(q, k, v, causal=False)
-        x = x + self.wo(attn.transpose(1, 2).reshape(b, s, h * d))
-        y = self.fc2(gelu(self.fc1(self.ln2(x))))
+        x = x + self._rows(self.wo, attn.transpose(1, 2).reshape(b, s, -1))
+        y = self.ln2(x)
+        if tp is not None:
+            y = copy_to_group(y, tp)
+        y = self._rows(self.fc2, gelu(self._columns(self.fc1, y)))
         if keep is not None:  # flax nn.Dropout: kept entries scaled by 1 / (1 - rate)
             y = torch.where(keep, y / (1.0 - cfg.dropout), 0.0)
         return x + y
@@ -159,14 +218,22 @@ class EncoderBlock(nn.Module):
 
 class ViT(nn.Module):
     """Parameters are created empty: fill them with :func:`init_params` or
-    load converted weights (:func:`build_vit`)."""
+    load converted weights (:func:`build_vit`). With a ``mesh`` they have
+    the shapes of this rank's blocks (see the module docstring)."""
 
     def __init__(self, config: ViTConfig, mesh=None):
         super().__init__()
+        tp_group = None
         if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+            check_model_mesh(mesh, "ViT over a mesh")
+            tp_group = mesh.group("tp")
+            if config.num_classes % mesh.shape["tp"]:
+                raise ValueError(f"{config.num_classes} classes do not split over "
+                                 f"tp={mesh.shape['tp']}")
         self.config = config
+        self.mesh = mesh
         cfg = config
+        tp = 1 if mesh is None else mesh.shape["tp"]
         p, pdt = cfg.patch_size, cfg.param_dtype
         self.patch_embed = nn.Module()
         self.patch_embed.kernel = _param(cfg.dim, 3, p, p, dtype=pdt)  # OIHW
@@ -174,9 +241,16 @@ class ViT(nn.Module):
         self.cls_token = _param(1, 1, cfg.dim, dtype=pdt)
         self.pos_embed = _param(1, cfg.num_patches + 1, cfg.dim, dtype=pdt)
         for i in range(cfg.n_layers):
-            self.add_module(f"layer_{i}", EncoderBlock(cfg))
+            self.add_module(f"layer_{i}", EncoderBlock(cfg, tp_group))
         self.ln_final = LayerNorm(cfg.dim, pdt, cfg.dtype)
-        self.head = _param(cfg.dim, cfg.num_classes, dtype=pdt)
+        self.head = _param(cfg.dim, cfg.num_classes // tp, dtype=pdt)
+        #: the rank's FSDP layout over the mesh (None without one)
+        self.fsdp = None
+        if mesh is not None:
+            from ..parallel.fsdp import FSDP
+            from ..parallel.sharding import vit_logical_axes
+
+            FSDP.for_model(mesh, param_shapes(config), vit_logical_axes).localize(self)
 
     def blocks(self) -> List[EncoderBlock]:
         return [getattr(self, f"layer_{i}") for i in range(self.config.n_layers)]
@@ -194,28 +268,43 @@ class ViT(nn.Module):
         dropout rng)."""
         cfg = self.config
         b, dt = images.shape[0], cfg.dtype
+        w = self._weight
         # patchify as one strided conv, NHWC in -> (b, dim, gh, gw)
-        x = F.conv2d(images.to(dt).permute(0, 3, 1, 2), self.patch_embed.kernel.to(dt),
+        x = F.conv2d(images.to(dt).permute(0, 3, 1, 2), w("patch_embed.kernel").to(dt),
                      stride=cfg.patch_size)
         x = x + self.patch_embed.bias.to(dt)[:, None, None]
         x = x.flatten(2).transpose(1, 2)  # (b, patches, dim), row-major patches
-        cls = self.cls_token.to(dt).expand(b, 1, cfg.dim)
-        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
+        cls = w("cls_token").to(dt).expand(b, 1, cfg.dim)
+        x = torch.cat([cls, x], dim=1) + w("pos_embed").to(dt)
+        if self.mesh is not None:
+            from ..parallel.sharding import constrain
+
+            # the reference's hint: batch over the data axes, patches over sp
+            x = constrain(x, self.mesh, "batch", "seq", None)
         drop = not deterministic and cfg.dropout > 0
         if drop and generator is None:
             raise ValueError("dropout with deterministic=False needs a torch.Generator")
         remat = cfg.remat and torch.is_grad_enabled()
-        for block in self.blocks():
+        for i, block in enumerate(self.blocks()):
             keep = None
             if drop:
                 # drawn outside the checkpoint: the recompute reuses it
                 keep = torch.rand(x.shape, generator=generator, device=x.device) >= cfg.dropout
-            if remat:
-                x = checkpoint(block, x, keep, use_reentrant=False)
-            else:
-                x = block(x, keep)
+            run, args = (block, (x, keep)) if self.fsdp is None else (
+                self.fsdp.call_block, (block, f"layer_{i}.", x, keep))
+            x = checkpoint(run, *args, use_reentrant=False) if remat else run(*args)
         cls_out = self.ln_final(x)[:, 0]  # classification token
-        return (cls_out @ self.head.to(cls_out.dtype)).float()
+        tp = None if self.mesh is None else self.mesh.group("tp")
+        if tp is None:
+            return (cls_out @ w("head").to(cls_out.dtype)).float()
+        logits = copy_to_group(cls_out, tp) @ w("head").to(cls_out.dtype)
+        return gather_from_group(logits, tp, dim=-1).float()
+
+    def _weight(self, name: str) -> torch.Tensor:
+        """The parameter ``name`` as the forward reads it: over a mesh, the
+        rank's block gathered over ``fsdp``."""
+        p = self.get_parameter(name)
+        return p if self.fsdp is None else self.fsdp.gather(name, p)
 
 
 def _xavier_uniform_(t: torch.Tensor, fan_in: int, fan_out: int, generator) -> None:
@@ -268,9 +357,12 @@ def param_shapes(config: ViTConfig) -> Dict[str, torch.Size]:
 
 def build_vit(config: ViTConfig, params: Dict[str, torch.Tensor], mesh=None) -> ViT:
     """A :class:`ViT` whose parameters ARE the given tensors (no copy), as
-    trainable leaves."""
+    trainable leaves. With a ``mesh``, each of ``params`` is this rank's
+    block, or the whole tensor, whose block is then taken (a copy)."""
     with torch.device("meta"):
         model = ViT(config, mesh)
+    if mesh is not None:
+        params = model.fsdp.blocks_of(params, param_shapes(config))
     model.load_state_dict(params, strict=True, assign=True)
     for p in model.parameters():
         p.requires_grad_(True)
@@ -286,16 +378,23 @@ def classification_loss(
 ) -> torch.Tensor:
     """Softmax cross-entropy via the logsumexp form, deterministic (no
     dropout), as the reference's. ``model_or_params`` is a :class:`ViT`
-    built for ``config`` or a flat state dict (run through
-    :func:`build_vit`); ``mesh`` must be None until the parallel slices."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    built for ``config`` (over ``mesh``) or a flat state dict (run through
+    :func:`build_vit` with ``mesh``). Over a mesh, ``images`` and ``labels``
+    are this rank's rows of the global batch, and every rank returns the
+    global batch's mean (its backward the rank's own share: see the module
+    docstring)."""
     model = model_or_params
     if not isinstance(model, ViT):
-        model = build_vit(config, dict(model_or_params))
+        model = build_vit(config, dict(model_or_params), mesh)
     elif model.config != config:
         raise ValueError("the model was built for another config")
+    elif model.mesh is not mesh:
+        raise ValueError("the model was built over another mesh")
     logits = model(images)
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, labels[:, None].long())[:, 0]
-    return (lse - tgt).mean()
+    if mesh is None:
+        return (lse - tgt).mean()
+    loss = (lse - tgt).sum() / (logits.shape[0] * mesh.axes_size(BATCH_AXES))
+    data = mesh.group(BATCH_AXES)
+    return loss if data is None else sum_of_ranks(loss.reshape(1), data)[0]

@@ -2,25 +2,26 @@
 ``ray_tpu.parallel``.
 
 - ``mesh``: the rank grid (one device per rank, a process per rank) with
-  the reference's axes, and each axis's collective group once bound;
+  the reference's axes, and each axis's collective group once bound
+  (``Mesh.form_groups``: the gang's sub-groups);
 - ``sharding``: ``PartitionSpec``, the logical-axis rule table, the Llama
-  parameters' logical axes, ``NamedSharding`` (a rank's block of a global
-  tensor), ``param_shardings`` / ``tree_shardings`` and
-  ``process_local_batch``;
-- ``fsdp``: :class:`FSDP`, one rank's blocks of a Llama's parameters over
-  the ``fsdp`` axis, gathered block by block in its forward;
+  ViT's and the MoE's parameters' logical axes, ``NamedSharding`` (a
+  rank's block of a global tensor), ``param_shardings`` /
+  ``tree_shardings``, ``constrain`` and ``process_local_batch``;
+- ``fsdp``: :class:`FSDP`, one rank's blocks of a model's parameters,
+  gathered over the ``fsdp`` axis block by block in its forward;
 - ``plan``: :class:`PartitionPlan`, the name-matched rule table of the
   tensor-parallel serving path, each rank's parameter and KV head slices;
-- ``expert``: the MoE model's top-k gating with static capacity, the dense
-  and the indexed dispatch/combine, and the all_to_all dispatch/combine over
-  an expert-parallel process group;
+- ``expert``: the MoE model's top-k gating with static capacity (over a
+  mesh, the global batch's), the dense and the indexed dispatch/combine,
+  and the all_to_all dispatch/combine over an expert-parallel process
+  group;
 - ``ring_attention`` and ``ulysses``: causal attention over a sequence
   split across a group's ranks, by K/V hops around a ring (the Llama's
   full forward under an ``sp`` mesh) or by an all-to-all head/sequence
   swap.
 
-The pipeline and ``constrain`` (with the ViT and the MoE model over a mesh)
-come with later slices of the port (ROADMAP items A.5.3-A.5.4).
+The pipeline comes with a later slice of the port (ROADMAP item A.5.4).
 """
 
 from .expert import (
@@ -34,7 +35,16 @@ from .expert import (
     top_k_gating,
 )
 from .fsdp import FSDP
-from .mesh import AXIS_ORDER, BATCH_AXES, Mesh, MeshSpec, local_batch_size, make_mesh
+from .mesh import (
+    AXIS_ORDER,
+    BATCH_AXES,
+    EXPERT_AXES,
+    Mesh,
+    MeshSpec,
+    check_model_mesh,
+    local_batch_size,
+    make_mesh,
+)
 from .plan import (
     DEFAULT_LLM_RULES,
     KV_SPEC,
@@ -46,7 +56,10 @@ from .ring_attention import ring_attention
 from .sharding import (
     DEFAULT_RULES,
     LLAMA_LOGICAL_AXES,
+    MOE_LOGICAL_AXES,
+    VIT_LOGICAL_AXES,
     NamedSharding,
+    constrain,
     P,
     PartitionSpec,
     logical_to_spec,
@@ -59,11 +72,13 @@ from .ulysses import ulysses_attention
 __all__ = [
     "AXIS_ORDER",
     "BATCH_AXES",
+    "EXPERT_AXES",
     "DEFAULT_LLM_RULES",
     "DEFAULT_RULES",
     "FSDP",
     "KV_SPEC",
     "LLAMA_LOGICAL_AXES",
+    "MOE_LOGICAL_AXES",
     "Mesh",
     "MeshSpec",
     "NamedSharding",
@@ -71,6 +86,9 @@ __all__ = [
     "PartitionPlan",
     "PartitionSpec",
     "Routing",
+    "VIT_LOGICAL_AXES",
+    "check_model_mesh",
+    "constrain",
     "expert_capacity",
     "local_batch_size",
     "logical_to_spec",

@@ -30,16 +30,19 @@ equal wherever the GEMM also rounded each product.
 ``moe_dispatch`` / ``moe_combine`` are the reference's explicit all_to_all
 path over an expert-parallel process group: each rank holds E / n experts,
 and one ``all_to_all_single`` carries every rank's slabs for them (the
-reference's ``lax.all_to_all`` inside ``shard_map``). The model itself
-(``MoETransformer(mesh=)``) shards its experts with the port's parallel
-plans, ROADMAP item A.5.
+reference's ``lax.all_to_all`` inside ``shard_map``). The model over a
+mesh (``MoETransformer(config, mesh)``) takes the reference's GSPMD path
+instead: :func:`route` over the data axes' group gives every rank the
+global batch's routing for its tokens, and an ``ep`` rank runs its own
+experts on its tokens' slots (``moe_apply_indexed(experts=)``), its partial
+sum completed over ``ep`` and ``tp`` by the model (models/moe.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -69,7 +72,7 @@ class Routing:
     capacity: int
 
 
-def route(router_logits: torch.Tensor, capacity: int, k: int = 2) -> Routing:
+def route(router_logits: torch.Tensor, capacity: int, k: int = 2, group=None) -> Routing:
     """The reference's gating loop, in its order: tokens in flattened
     order; each pass takes every token's best remaining expert (the first
     index on ties, as ``jnp.argmax``), gives it the next free slot of that
@@ -77,13 +80,25 @@ def route(router_logits: torch.Tensor, capacity: int, k: int = 2) -> Routing:
     masks that expert for the next pass even where the token was dropped;
     gates are renormalised over the kept choices by ``max(sum, 1e-9)``;
     ``frac_tokens`` counts the tokens dispatched to each expert after
-    capacity."""
+    capacity.
+
+    With ``group`` (the data axes' group of a mesh) the logits are this
+    rank's shard of the global batch's tokens, which lie in the group's
+    rank order, and the routing is the global batch's, as the reference's
+    GSPMD program computes it: ``capacity`` is the global batch's; a
+    token's slot counts the earlier tokens of every rank, from one
+    all-gather of each rank's per-pass, per-expert counts (a pass's
+    choices do not depend on the earlier passes' drops, so all passes'
+    counts go at once); and the aux loss is the global one, ``E *
+    sum(frac_tokens * frac_probs)`` over the global batch's means: every
+    rank returns it, through ``sum_of_ranks`` of the rank's own term (its
+    tokens' probabilities against the global ``frac_tokens``), so each
+    rank's backward is its own tokens' share."""
     t, e = router_logits.shape
     probs = torch.softmax(router_logits.float(), dim=-1)
     masked = probs
-    filled = torch.zeros(e, dtype=torch.long, device=probs.device)
     expert_ids = torch.arange(e, device=probs.device)[:, None]
-    experts, slots, keeps, gates = [], [], [], []
+    passes = []
     for _ in range(k):
         idx = masked.argmax(dim=-1)
         gate = masked.gather(-1, idx[:, None])[:, 0]
@@ -91,23 +106,46 @@ def route(router_logits: torch.Tensor, capacity: int, k: int = 2) -> Routing:
         # along the inner axis (over the outer one, a (t, 8) scan took
         # 1.4 ms a call on the H100)
         chosen = idx[None, :] == expert_ids
-        # each token's slot: the earlier tokens of this pass that chose the
-        # same expert, after the slots that earlier passes kept
-        slot = chosen.cumsum(dim=1).gather(0, idx[None, :])[0] - 1 + filled[idx]
-        keep = slot < capacity
-        filled = filled + (chosen & keep).sum(dim=1)
         masked = masked.masked_fill(chosen.t(), 0.0)
-        experts.append(idx)
+        passes.append((idx, gate, chosen))
+    # each pass's choices of each expert, here and (over a group) everywhere
+    totals = torch.stack([chosen.sum(dim=1) for _, _, chosen in passes])  # (k, e)
+    offsets, n = None, 1
+    if group is not None:
+        every = group.allgather_cat(totals[None], dim=0)  # (ranks, k, e)
+        n = every.shape[0]
+        offsets = every[:group.rank].sum(dim=0)
+        totals = every.sum(dim=0)
+    filled = torch.zeros(e, dtype=torch.long, device=probs.device)
+    slots, keeps, gates = [], [], []
+    for i, (idx, gate, chosen) in enumerate(passes):
+        # each token's slot: the earlier tokens of this pass that chose the
+        # same expert (on earlier ranks too), after the slots that earlier
+        # passes kept
+        slot = chosen.cumsum(dim=1).gather(0, idx[None, :])[0] - 1 + filled[idx]
+        if offsets is not None:
+            slot = slot + offsets[i][idx]
+        keep = slot < capacity
+        filled = filled + torch.minimum((capacity - filled).clamp_min(0), totals[i])
         slots.append(slot)
         keeps.append(keep)
         gates.append(gate * keep)
     keep = torch.stack(keeps, dim=1)
     kept_gate = torch.stack(gates, dim=1)
     weight = kept_gate / kept_gate.sum(dim=-1, keepdim=True).clamp_min(1e-9)
-    expert = torch.stack(experts, dim=1)
-    # a token counts once for each expert it was dispatched to
-    frac_tokens = (F.one_hot(expert, e) * keep[..., None]).amax(dim=1).float().mean(dim=0)
-    aux_loss = e * torch.sum(frac_tokens * probs.mean(dim=0))
+    expert = torch.stack([idx for idx, _, _ in passes], dim=1)
+    if group is None:
+        # a token counts once for each expert it was dispatched to
+        frac_tokens = (F.one_hot(expert, e) * keep[..., None]).amax(dim=1).float().mean(dim=0)
+        aux_loss = e * torch.sum(frac_tokens * probs.mean(dim=0))
+    else:
+        from ..collective.functional import sum_of_ranks
+
+        # the passes choose distinct experts for a token, so the kept count
+        # is the number of tokens dispatched to each expert
+        frac_tokens = filled.float() / (t * n)
+        share = e * torch.sum(frac_tokens * (probs.sum(dim=0) / (t * n)))
+        aux_loss = sum_of_ranks(share.reshape(1), group)[0]
     return Routing(expert, torch.stack(slots, dim=1), keep, weight, aux_loss, e, capacity)
 
 
@@ -145,6 +183,9 @@ def moe_apply_indexed(
     x: torch.Tensor,  # (tokens, dim)
     routing: Routing,
     expert_fn: Callable[[torch.Tensor], torch.Tensor],  # (E, C, d) -> (E, C, d_out)
+    experts: Optional[Tuple[int, int]] = None,
+    weight: Optional[torch.Tensor] = None,
+    dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """:func:`moe_apply_gspmd` from the routing instead of the dense
     tensors: the kept (token, choice) rows are copied into their slots of
@@ -152,18 +193,33 @@ def moe_apply_indexed(
     slabs; each token's outputs are gathered back from its slots, weighted
     in f32 and summed over its k choices. Fixed shapes, no host sync: the
     dropped choices write to a spare row past the slabs and gather with
-    weight 0."""
+    weight 0.
+
+    ``experts = (e0, e1)`` runs experts [e0, e1) alone (an expert-parallel
+    rank's): the slabs are theirs, (e1 - e0, C, d), the other experts'
+    choices weigh 0, and the result is this rank's partial sum. ``weight``
+    (t, k) stands for ``routing.weight`` (the gates as the caller passes
+    them into the experts' region); ``dtype`` is the result's (default
+    ``x.dtype``; a partial sum stays f32 until the ranks' are added)."""
     t, d = x.shape
-    e, c = routing.n_experts, routing.capacity
-    flat = routing.expert * c + routing.slot
-    dest = torch.where(routing.keep, flat, e * c)  # (t, k)
+    c = routing.capacity
+    e0, e1 = (0, routing.n_experts) if experts is None else experts
+    e = e1 - e0
+    local = routing.keep
+    if experts is not None:
+        local = local & (routing.expert >= e0) & (routing.expert < e1)
+    flat = (routing.expert - e0) * c + routing.slot
+    dest = torch.where(local, flat, e * c)  # (t, k)
     slabs = x.new_zeros(e * c + 1, d).index_put((dest,), x[:, None, :])[: e * c]
     y = expert_fn(slabs.view(e, c, d))
     # index_select: its backward adds each row's gradient into its one slot
     # (index_add); advanced indexing's backward sorts the indices first
-    y = y.reshape(e * c, -1).index_select(0, torch.where(routing.keep, flat, 0).reshape(-1))
-    out = (y.float() * routing.weight.reshape(-1, 1)).view(t, dest.shape[1], -1).sum(dim=1)
-    return out.to(x.dtype)
+    y = y.reshape(e * c, -1).index_select(0, torch.where(local, flat, 0).reshape(-1))
+    w = routing.weight if weight is None else weight
+    if experts is not None:
+        w = torch.where(local, w, 0.0)
+    out = (y.float() * w.reshape(-1, 1)).view(t, dest.shape[1], -1).sum(dim=1)
+    return out.to(x.dtype if dtype is None else dtype)
 
 
 # -- the explicit all_to_all path --------------------------------------------

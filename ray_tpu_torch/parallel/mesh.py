@@ -18,6 +18,16 @@ the collective group of each axis once the ranks have formed one
 Rank r's coordinates are its row-major position in the grid of
 :data:`AXIS_ORDER`, so the ranks of one ``tp`` group are neighbours, as the
 reference puts tp on the innermost (fastest) device dimension.
+
+:meth:`Mesh.form_groups` forms the gang's sub-groups: one process group for
+each line of ranks along each axis past 1 (the ranks that differ in that
+coordinate alone), and one for each combination of :data:`GROUP_COMBOS`
+with two axes or more past 1: the data axes together (:data:`BATCH_AXES`:
+the batch's shards, over which a loss and MoE routing counts are summed),
+``dcn`` and ``dp`` (an FSDP block's gradient), ``ep`` and ``tp`` (the
+experts' partial sums). A
+group's rank is the rank's coordinate along its axes, row-major, so the
+data group's rank is the index of the rank's batch shard.
 """
 
 from __future__ import annotations
@@ -33,6 +43,14 @@ AXIS_ORDER = ("dcn", "pp", "dp", "fsdp", "ep", "sp", "tp")
 
 # the axes that split the batch
 BATCH_AXES = ("dcn", "dp", "fsdp")
+
+# the axes an expert's work is split over (its experts, its hidden units)
+EXPERT_AXES = ("ep", "tp")
+
+# the axis combinations that get a group of their own beside the single axes:
+# the data axes (a loss's sum, MoE routing counts), the data axes but fsdp
+# (an FSDP block's gradient, summed over fsdp by its gather), the experts'
+GROUP_COMBOS = (BATCH_AXES, ("dcn", "dp"), EXPERT_AXES)
 
 #: a rank's device: a card index, or "cpu"
 RankDevice = Union[int, str]
@@ -154,10 +172,106 @@ class Mesh:
     def device(self, rank: Optional[int] = None) -> torch.device:
         return torch_device(self.devices[self.rank if rank is None else rank])
 
-    def group(self, axis: str):
-        """This rank's collective group along ``axis``, or None (a trivial
-        axis, or an unbound mesh)."""
-        return self.groups.get(axis)
+    def group(self, axis):
+        """This rank's collective group along ``axis`` (an axis name, or a
+        tuple of names for the ranks that differ along those axes alone),
+        or None (axes of size 1, or an unbound mesh)."""
+        if isinstance(axis, str):
+            return self.groups.get(axis)
+        live = tuple(a for a in AXIS_ORDER if a in axis and self.shape[a] > 1)
+        if len(live) == 1:
+            return self.groups.get(live[0])
+        return self.groups.get(live) if live else None
+
+    def axes_size(self, axes: Sequence[str]) -> int:
+        """The product of the sizes of ``axes``."""
+        return math.prod(self.shape[a] for a in axes)
+
+    def axes_index(self, axes: Sequence[str], rank: Optional[int] = None) -> int:
+        """Rank ``rank``'s row-major index over ``axes`` (in
+        :data:`AXIS_ORDER`): its rank in the group of those axes."""
+        c, i = self.coords(rank), 0
+        for a in AXIS_ORDER:
+            if a in axes:
+                i = i * self.shape[a] + c[a]
+        return i
+
+    def lines(self, axes: Sequence[str]) -> List[List[int]]:
+        """Every group of ranks that differ along ``axes`` alone, each in
+        rank order (its members' :meth:`axes_index` order), the groups in
+        the order of the coordinates they share."""
+        out: Dict[tuple, List[int]] = {}
+        for r in range(self.size):
+            c = self.coords(r)
+            out.setdefault(tuple(c[a] for a in AXIS_ORDER if a not in axes), []).append(r)
+        return [out[k] for k in sorted(out)]
+
+    def form_groups(self, backend: str = "gloo", world_ranks: Optional[Sequence[int]] = None,
+                    whole=None, name: str = "mesh") -> Optional["Mesh"]:
+        """This mesh bound to this process's rank with its sub-groups: one
+        :class:`~ray_tpu_torch.collective.GlooGroup` or ``NcclGroup``
+        (``backend``) for each axis past 1, and one for each combination of
+        :data:`GROUP_COMBOS` with two axes or more past 1 (a combination
+        with one is that axis's group). Each group's rank is
+        :meth:`axes_index` over its axes.
+
+        Every process of the default process group calls it, with the same
+        mesh and arguments and in the same order as its other calls that
+        form groups: ``torch.distributed.new_group`` is collective over the
+        whole default group, for the groups a process is not in too (NCCL
+        hangs otherwise). ``world_ranks[r]`` is mesh rank r's rank in the
+        default group (default: the identity); a process outside them
+        forms nothing of its own and gets None. ``whole``, a group of this
+        backend over all the mesh's ranks in mesh order, stands for a group
+        whose line is the whole mesh instead of a new one."""
+        import torch.distributed as dist
+
+        from ..collective import GlooGroup, NcclGroup
+
+        cls = {"gloo": GlooGroup, "nccl": NcclGroup}[backend]
+        world = list(range(self.size)) if world_ranks is None else [int(r) for r in world_ranks]
+        if len(world) != self.size:
+            raise ValueError(f"{len(world)} world ranks for a mesh of {self.size}")
+        me = dist.get_rank()
+        groups: Dict[Any, Any] = {}
+        keys = [(a,) for a in AXIS_ORDER if self.shape[a] > 1]
+        for combo in GROUP_COMBOS:
+            live = tuple(a for a in combo if self.shape[a] > 1)
+            if len(live) > 1:
+                keys.append(live)
+        for axes in keys:
+            key = axes[0] if len(axes) == 1 else axes
+            for line in self.lines(axes):
+                if whole is not None and len(line) == self.size:
+                    if me in world:
+                        groups[key] = whole
+                    continue
+                members = [world[r] for r in line]
+                pg = dist.new_group(ranks=members, backend=backend)
+                if me in members:
+                    label = ",".join(axes)
+                    groups[key] = cls(len(members), members.index(me),
+                                      f"{name}:{label}:{line[0]}", process_group=pg)
+        if me not in world:
+            return None
+        return self.bind(world.index(me), groups)
+
+    def require_groups(self, axes: Sequence[Any], what: str) -> None:
+        """Raise ValueError unless this mesh is bound with a group for each
+        entry of ``axes`` (an axis name or a tuple of them) whose size is
+        past 1, of that size and with this rank's :meth:`axes_index` as its
+        rank. ``what`` names the caller in the message."""
+        for axes_ in axes:
+            names = (axes_,) if isinstance(axes_, str) else tuple(axes_)
+            n = self.axes_size(names)
+            if n == 1:
+                continue
+            group = self.group(axes_)
+            if group is None or group.world_size != n or group.rank != self.axes_index(names):
+                raise ValueError(
+                    f"{what} needs the mesh bound to its rank with a group of its {n} ranks "
+                    f"along {names} (Mesh.form_groups, or train.collective.gang_mesh); got "
+                    f"{group!r}")
 
     def bind(self, rank: int, groups: Optional[Dict[str, Any]] = None) -> "Mesh":
         """The same grid as seen by ``rank``, with its groups."""
@@ -185,6 +299,20 @@ def make_mesh(
     if num_devices is not None:
         devs = devs[:num_devices]
     return spec.build(devs)
+
+
+def check_model_mesh(mesh: Mesh, what: str) -> None:
+    """Refuse the axes the models over a mesh (the ViT, the MoE) do not
+    take, ``sp`` and ``pp``, and a mesh not bound with the groups of its
+    other axes."""
+    if mesh.shape["sp"] > 1:
+        raise NotImplementedError(
+            f"{what} with sp={mesh.shape['sp']}: sequence parallelism beside other mesh axes "
+            "is ROADMAP item A.12")
+    if mesh.shape["pp"] > 1:
+        raise NotImplementedError(
+            f"{what} with pp={mesh.shape['pp']}: the pipeline is ROADMAP item A.5.4")
+    mesh.require_groups(("dcn", "dp", "fsdp", "ep", "tp") + GROUP_COMBOS, what)
 
 
 def mesh_axis_size(mesh: Mesh, axis: str) -> int:

@@ -22,9 +22,11 @@ where GSPMD would insert one.
 - :func:`process_local_batch`: a rank's local batch is its shard of the
   global batch; the global batch must divide over the mesh's data axes.
 
-``constrain`` (``with_sharding_constraint``) has one caller in the
-reference, the ViT over a mesh (``ray_tpu/models/vit.py:163``), and comes
-with it (ROADMAP A.5.3).
+- :data:`VIT_LOGICAL_AXES` and :data:`MOE_LOGICAL_AXES`: the annotations
+  of the reference's ViT and MoE modules, for the models over a mesh.
+- :func:`constrain` (``with_sharding_constraint`` by logical axes) on a
+  rank's block of an activation; its one caller in the reference is the
+  ViT over a mesh (``ray_tpu/models/vit.py:163``).
 """
 
 from __future__ import annotations
@@ -101,13 +103,59 @@ LLAMA_LOGICAL_AXES: List[Tuple[str, Tuple[str, ...]]] = [
 ]
 
 
-def llama_logical_axes(name: str) -> Optional[Tuple[str, ...]]:
-    """The logical axes of the Llama parameter at dotted path ``name``, or
-    None (replicated)."""
-    for pattern, axes in LLAMA_LOGICAL_AXES:
+# The ViT's (ray_tpu/models/vit.py): the patch conv's kernel
+# (``:128-139``, flax HWIO (None, None, None, "embed"); the port stores it
+# OIHW), ``cls_token`` (``:141-147``), ``pos_embed`` (``:152-158``), the
+# dense kernels (``:67-76`` through ``_dense``: ``:90-104``) and ``head``
+# (``:175-181``). Biases and LayerNorm parameters carry no annotation and
+# are replicated, as the reference's ``P()``.
+VIT_LOGICAL_AXES: List[Tuple[str, Tuple[str, ...]]] = [
+    (r"^patch_embed\.kernel$", ("embed", None, None, None)),
+    (r"^cls_token$", (None, None, "embed")),
+    (r"^pos_embed$", (None, "seq", "embed")),
+    (r"\.(wq|wk|wv)\.kernel$", ("embed", "heads")),
+    (r"\.wo\.kernel$", ("heads", "embed")),
+    (r"\.fc1\.kernel$", ("embed", "mlp")),
+    (r"\.fc2\.kernel$", ("mlp", "embed")),
+    (r"^head$", ("embed", "vocab")),
+]
+
+# The MoE's (ray_tpu/models/moe.py): the router and the experts
+# (``:96-133``), the norms, ``embed`` and ``lm_head`` (``:155-213``), and
+# the Llama attention's projections as LLAMA_LOGICAL_AXES gives them.
+MOE_LOGICAL_AXES: List[Tuple[str, Tuple[str, ...]]] = [
+    (r"(^|\.)embed$", ("vocab", "embed")),
+    (r"(^|\.)lm_head$", ("embed", "vocab")),
+    (r"(^|\.)(attn_norm|ffn_norm|final_norm)$", ("embed",)),
+    (r"attn\.(wq|wk|wv)\.base\.kernel$", ("embed", "heads")),
+    (r"attn\.wo\.base\.kernel$", ("heads", "embed")),
+    (r"moe\.router$", ("embed", "expert")),
+    (r"moe\.(w_gate|w_up)$", ("expert", "embed", "mlp")),
+    (r"moe\.w_down$", ("expert", "mlp", "embed")),
+]
+
+
+def _first_match(table, name: str) -> Optional[Tuple[str, ...]]:
+    for pattern, axes in table:
         if re.search(pattern, name):
             return axes
     return None
+
+
+def llama_logical_axes(name: str) -> Optional[Tuple[str, ...]]:
+    """The logical axes of the Llama parameter at dotted path ``name``, or
+    None (replicated)."""
+    return _first_match(LLAMA_LOGICAL_AXES, name)
+
+
+def vit_logical_axes(name: str) -> Optional[Tuple[str, ...]]:
+    """The logical axes of the ViT parameter ``name``, or None."""
+    return _first_match(VIT_LOGICAL_AXES, name)
+
+
+def moe_logical_axes(name: str) -> Optional[Tuple[str, ...]]:
+    """The logical axes of the MoE parameter ``name``, or None."""
+    return _first_match(MOE_LOGICAL_AXES, name)
 
 
 def _axis_names(axes) -> Tuple[str, ...]:
@@ -212,6 +260,60 @@ def param_shardings(mesh, params: Mapping[str, Any], rules=None,
             axes = lookup(name)
             out[key] = NamedSharding(mesh, logical_to_spec(axes, rules) if axes else P())
     return out
+
+
+def constrain(x: torch.Tensor, mesh, *logical_axes: Optional[str], rules=None) -> torch.Tensor:
+    """``with_sharding_constraint`` by logical axis names, on a rank's block.
+
+    The reference constrains one global array; a rank here holds its block
+    of it, laid out as the port lays out activations: split along the
+    first dimension over the mesh's data axes (:data:`~.mesh.BATCH_AXES`,
+    the rank's batch shard) and replicated along every other axis. Each
+    dimension of ``logical_axes`` (mapped through ``rules``) does to that
+    block, counting only mesh axes past 1:
+
+    - no axis: the dimension is left as it is;
+    - data axes, on the first dimension, exactly the mesh's data axes past
+      1 in order: the identity (the block is that shard already);
+    - axes that are not data axes, on a dimension other than the first:
+      the rank's slice of the dimension (the block is replicated along
+      them; several axes split it major to minor, as in JAX); its
+      backward puts the cotangent in that slice and zeros around it;
+    - anything else raises ValueError: a batch block split otherwise than
+      the spec (it would need a gather or another split), data axes off
+      the first dimension, or data and other axes on one dimension.
+
+    A dimension the axes do not divide raises ValueError too."""
+    from .mesh import BATCH_AXES
+
+    spec = logical_to_spec(logical_axes, rules)
+    if len(spec) > x.dim():
+        raise ValueError(f"constrain: {len(spec)} logical axes for a {x.dim()}-D tensor")
+    data = tuple(a for a in BATCH_AXES if mesh.shape[a] > 1)
+    coords = mesh.coords()
+    for dim in range(x.dim()):
+        names = tuple(a for a in _axis_names(spec[dim] if dim < len(spec) else None)
+                      if mesh.shape[a] > 1)
+        batchy = tuple(a for a in names if a in BATCH_AXES)
+        if dim == 0:
+            if names != data:
+                raise ValueError(
+                    f"constrain: the block's first dimension is its batch shard over {data}; "
+                    f"the spec {spec} splits it over {names}")
+            continue
+        if batchy:
+            raise ValueError(f"constrain: data axes {batchy} on dimension {dim} of {spec}; "
+                             "a rank's block is split over them along its first dimension")
+        n, i = 1, 0
+        for a in names:
+            n, i = n * mesh.shape[a], i * mesh.shape[a] + coords[a]
+        if n > 1:
+            if x.shape[dim] % n:
+                raise ValueError(f"constrain: dimension {dim} of size {x.shape[dim]} does not "
+                                 f"divide over {names} ({n} ranks)")
+            size = x.shape[dim] // n
+            x = x.narrow(dim, i * size, size)
+    return x
 
 
 def process_local_batch(mesh, local, batch_axes=("dcn", "dp", "fsdp")) -> torch.Tensor:

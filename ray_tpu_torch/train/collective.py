@@ -8,10 +8,11 @@ gang over the run's tensor group (NCCL on the card) through the bucketized
 context's knobs.
 
 For the example loops: :func:`tensor_group` and :func:`gang_mesh` (the
-run's ranks as a :class:`~ray_tpu_torch.parallel.Mesh`), :func:`gang_mean`
-(the loss a gang reports: the mean of the ranks' values, the reference's
-loss over the global batch) and :class:`DataParallelMean` (the gradient
-hook between ``backward()`` and the optimizer).
+run's ranks as a :class:`~ray_tpu_torch.parallel.Mesh`, bound with a
+sub-group for each of its axes), :func:`gang_mean` (the loss a gang
+reports: the mean of the ranks' values, the reference's loss over the
+global batch) and :class:`DataParallelMean` (the gradient hook between
+``backward()`` and the optimizer).
 """
 
 from __future__ import annotations
@@ -88,21 +89,41 @@ def tensor_group():
 
 def gang_mesh(device, **axes):
     """The run's ranks as a mesh of ``axes`` (``make_mesh``'s keywords),
-    bound to this rank, each rank on its own device (gathered over the
-    control group)."""
+    bound to this rank with its sub-groups (``Mesh.form_groups``, of the
+    tensor group's backend: a group for each axis past 1, for the data axes
+    together and for ``ep`` and ``tp`` together; a group whose ranks are
+    the whole gang is the run's tensor group itself), each rank on its own
+    device (gathered over the control group). Every rank calls it, in the
+    same order as its other calls that form groups."""
     from ..parallel.mesh import make_mesh
 
     ctx = get_context()
     devices = allgather(str(device)) if ctx.collective_group else [str(device)]
-    return make_mesh(len(devices), devices=devices, **axes).bind(ctx.world_rank)
+    mesh = make_mesh(len(devices), devices=devices, **axes)
+    group = tensor_group()
+    if group is None:
+        return mesh.bind(ctx.world_rank)
+    return mesh.form_groups(group.backend, whole=group,
+                            name=f"{ctx.collective_tensor_group}:mesh")
 
 
-def gang_mean(value: torch.Tensor) -> float:
+def gang_mean(value: torch.Tensor, mesh=None) -> float:
     """The mean over the ranks of a scalar tensor (each rank's loss over its
     own equal batch: the loss over the global batch, as the reference
     reports under ``jax.distributed``): one all-reduce over the tensor
-    group past one rank, every rank the same value."""
+    group past one rank, every rank the same value. With a ``mesh`` whose
+    data axes have a group, the mean is over that group: each data shard's
+    value once (the ranks of a tensor- or expert-parallel group hold one
+    value)."""
     ctx = get_context()
+    if mesh is not None:
+        from ..parallel.mesh import BATCH_AXES
+
+        data = mesh.group(BATCH_AXES)
+        if data is None:
+            return float(value)
+        total = data.allreduce_(value.detach().reshape(1).float().clone())
+        return float(total) / data.world_size
     if ctx.world_size == 1 or not ctx.collective_tensor_group:
         return float(value)
     total = tensor_group().allreduce(value.detach().reshape(1).float())

@@ -164,8 +164,9 @@ def mesh_axes(config: dict, world_size: int) -> Dict[str, int]:
             "runs tensor-parallel through LLMServer(tensor_parallel_size=))")
     if dp > 1 and fsdp > 1:
         raise NotImplementedError(
-            f"dp={dp} x fsdp={fsdp}: FSDP within data-parallel replicas needs sub-groups "
-            f"of the gang, which are not ported; use fsdp={world_size} or dp={world_size}")
+            f"dp={dp} x fsdp={fsdp}: the LoRA loop's FSDP within data-parallel replicas, "
+            "over the gang's sub-groups (Mesh.form_groups), is ROADMAP item 11; use "
+            f"fsdp={world_size} or dp={world_size}")
     return {"dp": dp, "fsdp": fsdp, "tp": tp}
 
 

@@ -407,5 +407,12 @@ def test_moe_params_from_jax_rejects_bad_trees(reference):
 
 
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="A.5"):
-        tmoe.MoETransformer(tmoe.MoEConfig.tiny(), mesh=object())
+    """The meshes the MoE over a mesh still refuses (tests/test_torch_moe_mesh.py
+    holds the ones it takes): ``sp > 1``, ROADMAP item A.12, and ``pp > 1``,
+    A.5.4, before any group is looked at."""
+    from ray_tpu_torch.parallel.mesh import make_mesh
+
+    for axes, item in (({"sp": 2, "fsdp": 1}, "item A.12"), ({"pp": 2, "fsdp": 1}, "A.5.4")):
+        with pytest.raises(NotImplementedError, match=item):
+            tmoe.MoETransformer(tmoe.MoEConfig.tiny(), mesh=make_mesh(
+                devices=["cpu"] * 2, **axes).bind(0))

@@ -213,13 +213,20 @@ def test_gelu_and_layernorm_are_flax_s(dtype):
 
 
 def test_mesh_is_not_ported():
+    """The meshes the ViT over a mesh still refuses (tests/test_torch_vit_mesh.py
+    holds the ones it takes): ``sp > 1``, ROADMAP item A.12, and ``pp > 1``,
+    A.5.4, at the model and at the loss."""
+    from ray_tpu_torch.parallel.mesh import make_mesh
+
     cfg = tvit.ViTConfig.tiny()
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tvit.ViT(cfg, mesh=object())
     params = tvit.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tvit.classification_loss(cfg, object(), params, torch.zeros(1, 32, 32, 3),
-                                 torch.zeros(1, dtype=torch.long))
+    for axes, item in (({"sp": 2, "fsdp": 1}, "item A.12"), ({"pp": 2, "fsdp": 1}, "A.5.4")):
+        mesh = make_mesh(devices=["cpu"] * 2, **axes).bind(0)
+        with pytest.raises(NotImplementedError, match=item):
+            tvit.ViT(cfg, mesh=mesh)
+        with pytest.raises(NotImplementedError, match=item):
+            tvit.classification_loss(cfg, mesh, params, torch.zeros(1, 32, 32, 3),
+                                     torch.zeros(1, dtype=torch.long))
 
 
 def test_init_params_follow_the_reference_initialisers():
