@@ -69,7 +69,19 @@ port's ``TorchTrainer`` (``TorchConfig(backend="nccl")``):
    step ms, tokens or images a second and peak a rank, and one profiled
    step on every rank (device busy share, NCCL kernels' ms).
 
-    python3 chip_multicard.py 3      # part 3 alone (no argument: all seven;
+8. the Llama over the reference's training mesh across cards
+   (``tp_loop``): the llama_lora loop itself (``train_loop_per_worker``,
+   what ``make_trainer`` runs) at full Llama-2-7B width and all 32 layers,
+   seq 2048, batch 2 a data shard, 3 steps (the first a warm-up), at
+   ``tp=2 x fsdp=2``, ``tp=4`` and ``dp=2 x fsdp=2`` over 4 cards, beside
+   the same loop on one card and at ``fsdp=4``; then the 7B model at
+   ``sp=2 x tp=2`` (``Llama(config, gang_mesh(device, sp=2, tp=2))``
+   through the loop's ``lora_model``, ``lora_train_step`` and
+   ``mesh_gradients``, b=2 x 4096). Each rank's K1-K4 launches a step
+   exact, step ms, tokens a second (the global batch's) and peak a rank;
+   losses finite and equal across the ranks.
+
+    python3 chip_multicard.py 3      # part 3 alone (no argument: all eight;
                                      # several, as in "4 5", run those)
 
 Prints the cards' names and power limits, one JSON line per part, and
@@ -99,6 +111,13 @@ MESH_RUNS = (("moe", {}), ("moe", {"ep": 2, "tp": 2}), ("vit", {}),
              ("vit", {"dp": 2, "tp": 2}))
 MESH_MOE = {"n_layers": 4, "batch": 2, "seq": 4096, "lr": 1e-3}
 MESH_TIMED_STEPS = 3
+# part 8: (name, loop config) runs of the 7B LoRA loop at 32 layers, each
+# 3 steps, the first a warm-up; the one-card and fsdp=4 runs first
+TP_LOOP = {"model": "7b", "seq": 2048, "batch_per_worker": 2, "lora_rank": 16, "epochs": 1,
+           "steps_per_epoch": 3}
+TP_RUNS = (("one_card", {}), ("fsdp4", {"fsdp": 4}), ("tp2_fsdp2", {"tp": 2, "fsdp": 2}),
+           ("tp4", {"tp": 4, "fsdp": 1}), ("dp2_fsdp2", {"dp": 2, "fsdp": 2}),
+           ("sp2_tp2", {"sp": 2, "tp": 2, "batch": 2, "seq": 4096}))
 # memory_at_peak: the allocation sites it lists, the largest first
 PEAK_SITES = 12
 EPS = {"torch.bfloat16": 2.0 ** -8, "torch.float32": 2.0 ** -24}
@@ -273,7 +292,7 @@ def main() -> None:
     from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchConfig, TorchTrainer
 
     n = torch.cuda.device_count()
-    parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5", "6", "7"}
+    parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5", "6", "7", "8"}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print("cards:", smi.replace("\n", " | "))
@@ -305,6 +324,8 @@ def main() -> None:
         sp_part(C, fit, n)
     if "7" in parts:
         mesh_part(C, fit, n)
+    if "8" in parts:
+        tp_train_part(C, fit, n)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": n}}))
 
@@ -679,6 +700,115 @@ def mesh_part(C, fit, n: int) -> None:
             if key.startswith(model) and one is not None and run is not one:
                 run["speedup_over_one_card"] = one["step_ms_median"] / run["step_ms_median"]
     print("multicard mesh", json.dumps(runs))
+
+
+def tp_loop(config):
+    """Part 8's worker: the llama_lora loop with each of its steps timed
+    (``lora_train_step`` wrapped: synchronized around it, K1-K4 counts set
+    to 0 before it and read after it); with ``sp`` in the config, the 7B
+    model over ``gang_mesh(device, sp=, tp=)`` stepped through the loop's
+    own functions instead (the loop takes no ``sp``, as the reference's)."""
+    import torch
+
+    import chip_smoke as C
+    from ray_tpu_torch import train
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.train import collective as tcol
+    from ray_tpu_torch.train.examples import llama_lora
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = train.get_context()
+    device = C._card(torch)
+    counters = C._port_counters()
+    step = llama_lora.lora_train_step
+    rows = []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        C._zero(counters)
+        t0 = time.perf_counter()
+        out = step(*args, **kwargs)
+        torch.cuda.synchronize()
+        rows.append(dict(step_ms=(time.perf_counter() - t0) * 1e3, launches=C._launches(counters)))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    if "sp" in config:
+        from ray_tpu_torch.models.llama import init_params
+        from ray_tpu_torch.parallel.fsdp import FSDP
+
+        cfg = llama_lora.model_config(config)
+        mesh = tcol.gang_mesh(device, sp=config["sp"], tp=config["tp"], fsdp=1)
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device,
+                             shard=FSDP.for_llama(cfg, mesh).shard)
+        model, _, optimizer = llama_lora.lora_model(cfg, params, mesh=mesh)
+        del params
+        g = torch.Generator(device=device).manual_seed(C.SEED + 81)
+        tokens = torch.randint(0, cfg.vocab_size, (config["batch"], config["seq"]), generator=g,
+                               device=device)
+        reduce = llama_lora.mesh_gradients(model)
+        for _ in range(config["steps_per_epoch"]):
+            losses.append(float(timed(model, optimizer, tokens, reduce)))
+        coords, layers = mesh.coords(), cfg.n_layers
+    else:
+        llama_lora.lora_train_step = timed
+        try:
+            llama_lora.train_loop_per_worker(config)
+        finally:
+            llama_lora.lora_train_step = step
+        axes = llama_lora.mesh_axes(config, ctx.world_size)
+        coords = make_mesh(devices=[0] * ctx.world_size, **axes).coords(ctx.world_rank)
+        layers = llama_lora.model_config(config).n_layers
+    train.report({"rank": ctx.world_rank, "steps": rows, "step_losses": losses,
+                  "peak_bytes": torch.cuda.max_memory_allocated(), "coords": coords,
+                  "n_layers": layers})
+
+
+def tp_train_part(C, fit, n: int) -> None:
+    """8: the 7B LoRA loop over the reference's mesh layouts on 4 cards,
+    beside one card and fsdp=4."""
+    import math
+
+    runs = {}
+    for name, axes in TP_RUNS:
+        ranks = math.prod(v for k, v in axes.items() if k in ("dp", "fsdp", "tp", "sp")) or 1
+        if ranks > n:
+            continue
+        config = {**TP_LOOP, **axes}
+        result, fit_s = fit(tp_loop, ranks, config)
+        reports = sorted((m for m in result.metrics_history if "steps" in m),
+                         key=lambda m: m["rank"])
+        C.check([m["rank"] for m in reports] == list(range(ranks)), f"{name}: {reports}")
+        if "sp" in axes:
+            losses = [m["step_losses"] for m in reports]
+        else:  # the loop's own reports: the global batch's loss, each epoch
+            losses = [[m["loss"] for m in result.metrics_history
+                       if "loss" in m and m.get("rank") == r] for r in range(ranks)]
+        C.check(all(math.isfinite(x) for x in losses[0]) and all(l == losses[0] for l in losses),
+                f"{name}: losses {losses}")
+        sp, tp = axes.get("sp", 1), axes.get("tp", 1)
+        for m in reports:
+            layers, s = m["n_layers"], m["coords"]["sp"]
+            want = {"rmsnorm_fwd": 4 * layers + 1, "flash_attention_fwd": 2 * layers * (s + 1),
+                    "flash_bwd_dq": layers * (sp - s), "flash_bwd_dkv": layers * (sp - s)}
+            for st in m["steps"]:
+                C.check(st["launches"] == want, f"{name} rank {m['rank']}: launches "
+                                                f"{st['launches']}, want {want}")
+        med = max(statistics.median(st["step_ms"] for st in m["steps"][1:]) for m in reports)
+        shards = ranks // (sp * tp)
+        tokens = config["batch_per_worker" if "sp" not in axes else "batch"] * shards * config["seq"]
+        runs[name] = dict(axes=axes, ranks=ranks, fit_s=fit_s, losses=losses[0],
+                          step_ms=[[st["step_ms"] for st in m["steps"]] for m in reports],
+                          step_ms_median=med, tokens_per_step=tokens,
+                          tokens_per_s=tokens / med * 1e3,
+                          peak_bytes=[m["peak_bytes"] for m in reports])
+    one = runs.get("one_card")
+    for run in runs.values():
+        if one is not None:
+            run["tokens_per_s_over_one_card"] = run["tokens_per_s"] / one["tokens_per_s"]
+            run["peak_over_one_card"] = max(run["peak_bytes"]) / max(one["peak_bytes"])
+    print("multicard tp", json.dumps(runs))
 
 
 if __name__ == "__main__":

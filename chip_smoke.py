@@ -294,6 +294,26 @@ Phases, each of which exits non-zero on failure:
      Printed: step ms, peak and the collectives' host share a rank. The
      kernel phases hold and time K2-K4 at the ranks' calls, (192, 197,
      d=64) non-causal and (16, 4096, d=128) causal.
+  16c. the Llama over the reference's training mesh (``train_tp``): four
+     gloo ranks sharing the card for each part, the two parts at once on
+     ``train_mesh``'s eight ranks after its own (``_tp_round``, each through
+     the LoRA loop's ``lora_model``, ``lora_train_step`` and
+     ``mesh_gradients``),
+     against one-rank runs on the whole global batch in this process, bf16
+     and f32 activations: 2 layers of Llama-2-7B at full width, bf16
+     parameters, LoRA rank 16, remat, (a) at tp=2 x fsdp=2, seq 2048,
+     batch 2, (b) at sp=2 x tp=2, b=1 x 4096, 2 AdamW steps each. Every
+     rank's K1-K4 launches a step exact (9 / 4(s+1) / 2(sp-s) / 2(sp-s) at
+     sp coordinate s); its resident parameter bytes the rule table's share
+     exactly; the ranks' losses equal, the first the mean of the positions'
+     NLLs; those NLLs and the first step's LoRA gradients, leaf by leaf,
+     within twice the one-rank run's distance from its f32-activation run;
+     the first loss of the ranks' blocks in f32 activations the one-rank
+     f32 run's within 1e-6 of itself; and planted faults outside it (the MLP's tp sum dropped; each rank's
+     gradient before the sp sum; a tp-replicated factor summed over tp).
+     Printed: step ms, peak and the collectives' host share a rank. The
+     kernel phases hold and time K2-K4 at the ranks' calls, (16, 2048,
+     d=128) causal and non-causal (the ring's hop).
 Main paths: the launch counters are set to 0 just before phase 5 and read
 just after phase 6 (serving), set to 0 just before phase 7 and read just
 after phase 9 (continuous batching, ``serve_cb``, with ``serve_obs``), set to 0 just before
@@ -317,8 +337,9 @@ read after its timed iterations and profiled update (``train_ppo``), set
 to 0 at the start of phase 15b and read at its end (``train_rl``), set to 0
 at the start of phase 15c and read at its end (``train_dreamer``), and
 set to 0 at the start of phase 16 and read after its profiled step
-(``train_moe``), and for phase 16b's ranks, each set to 0 just before each
-of its steps and read just after (``train_mesh``). The last lines are a
+(``train_moe``), and for phase 16b's and 16c's ranks, each set to 0 just
+before each of its steps and read just after (``train_mesh``,
+``train_tp``). The last lines are a
 JSON line of the kernels and the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -438,8 +459,9 @@ SP_OP_TIMES = 4
 # the models over multi-axis meshes (train_mesh): eight gloo ranks sharing
 # the card (NCCL refuses two ranks on one card). (a) ViT-B/16 at 224, global
 # batch 128, bf16 over f32, AdamW, on the reference test's dp=2 x fsdp=2 x
-# tp=2; (b) Mixtral-8x7B at full width cut to 2 of its 32 layers, b=2 x 4096,
-# remat, bf16 parameters, AdamW at lr 1e-3, on fsdp=2 x ep=2 x tp=2
+# tp=2, 3 steps; (b) Mixtral-8x7B at full width cut to 2 of its 32 layers,
+# b=2 x 4096, remat, bf16 parameters, AdamW at lr 1e-3, on fsdp=2 x ep=2 x
+# tp=2, 2 steps; then (c) train_tp's round in the same gang
 MESH = {"ranks": 8,
         "vit": {"axes": {"dp": 2, "fsdp": 2, "tp": 2}, "batch": VIT_BATCH, "steps": 3,
                 "lr": 1e-4},
@@ -455,6 +477,20 @@ MESH_ATTENTION_CALLS = (
     (_MOE_ROWS * 32 // MESH["moe"]["axes"]["tp"], MESH["moe"]["seq"], MESH["moe"]["seq"], 128,
      True, _MOE_ROWS),
 )
+# the Llama over the reference's training mesh (train_tp): four gloo ranks
+# sharing the card, each running the LoRA loop's own model, step and update
+# (llama_lora.lora_model, lora_train_step, mesh_gradients) on Llama-2-7B at
+# full width cut to 2 of its 32 layers: bf16 parameters, LoRA rank 16 (each
+# lora_b drawn with std 0.1, so every factor has a gradient), remat, AdamW at
+# lr 1e-4. (a) tp=2 x fsdp=2 at the loop's seq 2048, global batch 2 (a row a
+# data shard); (b) sp=2 x tp=2 at b=1 x 4096, Llama-2's published context
+TP_TRAIN = {"ranks": 4, "n_layers": 2, "lr": 1e-4, "lora_b_std": 0.1,
+            "a": {"axes": {"tp": 2, "fsdp": 2}, "batch": 2, "seq": 2048, "steps": 2},
+            "b": {"axes": {"sp": 2, "tp": 2, "fsdp": 1}, "batch": 1, "seq": 4096, "steps": 2}}
+# the flash calls a rank of train_tp makes, as MESH_ATTENTION_CALLS: a row x
+# 16 heads (tp's half) at 2048, causal ((a), and (b)'s diagonal block), and
+# (b)'s ring hop over the other sp rank's block, non-causal
+TP_ATTENTION_CALLS = ((16, 2048, 2048, 128, True, 1), (16, 2048, 2048, 128, False, 1))
 # a routing choice of the mesh run that differs from the one-rank run's must
 # be a near-tie there (the gap between the two probabilities it chose
 # between, from f32 logits of bf16 activations, under this) or follow a
@@ -467,6 +503,11 @@ MESH_NEAR_TIE = 1e-2
 # from the one-rank f32-activation run's within this many times the one-rank
 # bf16 run's distance from them
 MESH_GRAD_TIMES = 2
+# train_tp's first loss in f32 activations, the mesh's against one rank's,
+# relative: two f32 sums of the same terms in other orders (the tp partial
+# sums, the ring's merge, the loss's sum over the ranks) part by about 1e-7;
+# a bf16 run parts from f32 by about 4e-5 of the loss
+TP_F32_LOSS_REL = 1e-6
 # rounding unit of each dtype (one ulp of a value in [1, 2))
 ULP = {"torch.bfloat16": 2.0 ** -7, "torch.float16": 2.0 ** -10, "torch.float32": 2.0 ** -23}
 
@@ -608,6 +649,9 @@ def flash_phase(torch, F):
         # images x 6 heads) and Mixtral-8x7B at fsdp=2 x ep=2 x tp=2 (1 x 16
         # heads, its 4 KV heads a rank repeated)
         *((bh, sq, sk, d, c, torch.bfloat16, bb) for bh, sq, sk, d, c, bb in MESH_ATTENTION_CALLS),
+        # train_tp's calls a rank: Llama-2-7B at tp=2 (1 x 16 heads, 2048),
+        # causal and as (b)'s ring hop
+        *((bh, sq, sk, d, c, torch.bfloat16, bb) for bh, sq, sk, d, c, bb in TP_ATTENTION_CALLS),
         (12, VIT_SEQ, VIT_SEQ, 64, False, torch.bfloat16, None),
         (8, 100, 100, 64, False, torch.bfloat16, None),
         (8, 96, 96, 32, True, torch.bfloat16, None),  # tiny's head_dim
@@ -721,6 +765,8 @@ def flash_bwd_phase(torch, F):
         *hops,
         # train_mesh's calls a rank, as in flash_phase
         *((bh, sq, sk, d, c, torch.bfloat16, bb) for bh, sq, sk, d, c, bb in MESH_ATTENTION_CALLS),
+        # train_tp's calls a rank, as in flash_phase
+        *((bh, sq, sk, d, c, torch.bfloat16, bb) for bh, sq, sk, d, c, bb in TP_ATTENTION_CALLS),
         (12, VIT_SEQ, VIT_SEQ, 64, False, torch.bfloat16, None),
         (8, 100, 100, 64, False, torch.bfloat16, None),
         (8, 96, 96, 32, True, torch.bfloat16, None),
@@ -3798,8 +3844,9 @@ def train_dp_phase(torch, np, counters, train_out, train_lora):
 
 # -- FSDP for the 7B LoRA loop (``train_fsdp``) -------------------------------
 
-#: (b): two gloo ranks sharing the card at fsdp=2, 7B width cut to 2 layers
-#: and 2 steps of a 2-row global batch (so that train_mesh fits the time limit)
+#: (b): two gloo ranks sharing the card, replicated and then at fsdp=2 in
+#: one gang, 7B width cut to 2 layers and 2 steps of a 2-row global batch (so
+#: that train_mesh and train_tp fit the time limit)
 FSDP_GLOO = {"n_layers": 2, "steps": 2, "ranks": 2}
 
 
@@ -3836,9 +3883,9 @@ def train_fsdp_loop(config):
     fsdp = FSDP.for_llama(cfg, mesh.bind(ctx.world_rank, {"fsdp": tcol.tensor_group()}))
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device,
                          shard=fsdp.shard)
-    model, _, optimizer = llama_lora.lora_model(cfg, params, fsdp=fsdp)
+    model, _, optimizer = llama_lora.lora_model(cfg, params, mesh=fsdp.mesh)
     del params
-    reduce = llama_lora.data_parallel_mean(ctx.world_size, fsdp.sharded)
+    reduce = llama_lora.mesh_gradients(model)
     tokens = llama_lora.step_tokens(cfg, config["batch_per_worker"], 0, 0, ctx.world_rank, device)
 
     def step():
@@ -3859,11 +3906,11 @@ def train_fsdp_loop(config):
 
 
 def train_fsdp_gloo_loop(config):
-    """(b)'s worker: one of two ranks sharing the card over gloo, 3 steps of
-    the 7B loop's step cut to 4 layers on row r of each global batch, with
-    FSDP at fsdp=2 (``config["fsdp"]``) or every parameter replicated (as
-    ``train_dp`` (c)'s pair); the full adapters after the steps, and under
-    FSDP a sharded checkpoint of the rank's adapter blocks."""
+    """(b)'s worker: one of two ranks sharing the card over gloo, 2 steps of
+    the 7B loop's step cut to 2 layers on row r of each global batch, with
+    every parameter replicated (as ``train_dp`` (c)'s pair), then with FSDP
+    at fsdp=2; after each, the full adapters and a report, and under FSDP a
+    sharded checkpoint of the rank's adapter blocks (``config["ckpt"]``)."""
     import torch
 
     from ray_tpu_torch import train
@@ -3880,40 +3927,46 @@ def train_fsdp_gloo_loop(config):
     device = torch.device("cuda", torch.cuda.current_device())
     cfg = dataclasses.replace(llama_lora.model_config(TRAIN_CONFIG),
                               n_layers=FSDP_GLOO["n_layers"])
-    fsdp = None
-    if config["fsdp"]:
-        mesh = tcol.gang_mesh(device, fsdp=ctx.world_size)
-        fsdp = FSDP.for_llama(cfg, mesh.bind(r, {"fsdp": tcol.tensor_group()}))
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device,
-                         shard=None if fsdp is None else fsdp.shard)
-    model, lora, optimizer = llama_lora.lora_model(cfg, params, fsdp=fsdp)
-    del params
-    base, _ = split_lora(dict(model.named_parameters()))
-    reduce = llama_lora.data_parallel_mean(ctx.world_size, () if fsdp is None else fsdp.sharded)
     counters = _port_counters()
-    _zero(counters)
-    torch.cuda.reset_peak_memory_stats()
-    rows, losses = [], []
-    for tokens in _dp_gloo_tokens(torch, cfg, device, FSDP_GLOO["steps"]):
-        torch.cuda.synchronize()
-        before = metrics.collective_summary().get("allgather", {}).get("bytes", 0)
-        t0 = time.perf_counter()
-        loss = llama_lora.lora_train_step(model, optimizer, tokens[r:r + 1], reduce)
-        torch.cuda.synchronize()
-        rows.append(dict(step_ms=(time.perf_counter() - t0) * 1e3,
-                         gather_bytes=metrics.collective_summary().get("allgather", {}).get(
-                             "bytes", 0) - before))
-        losses.append(tcol.gang_mean(loss))
-    launches = _launches(counters)
-    peak = torch.cuda.max_memory_allocated()
-    full = lora if fsdp is None else fsdp.full_state(lora)
-    if fsdp is not None:
-        train.save_sharded(config["ckpt"], {"lora": dict(lora)},
-                           {"lora": {n: fsdp.shardings[n] for n in lora}})
-    train.report({"rank": r, "device": str(device), "fsdp": fsdp is not None,
-                  "base_bytes": sum(p.numel() * p.element_size() for p in base.values()),
-                  "adapters": _host_adapters(full), "steps": rows, "losses": losses,
-                  "launches": launches, "peak_bytes": peak})
+    for sharded in (False, True):
+        fsdp = None
+        if sharded:
+            mesh = tcol.gang_mesh(device, fsdp=ctx.world_size)
+            fsdp = FSDP.for_llama(cfg, mesh.bind(r, {"fsdp": tcol.tensor_group()}))
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device,
+                             shard=None if fsdp is None else fsdp.shard)
+        model, lora, optimizer = llama_lora.lora_model(
+            cfg, params, mesh=None if fsdp is None else fsdp.mesh)
+        del params
+        base, _ = split_lora(dict(model.named_parameters()))
+        reduce = (llama_lora.data_parallel_mean(ctx.world_size) if fsdp is None
+                  else llama_lora.mesh_gradients(model))
+        _zero(counters)
+        torch.cuda.reset_peak_memory_stats()
+        rows, losses = [], []
+        for tokens in _dp_gloo_tokens(torch, cfg, device, FSDP_GLOO["steps"]):
+            torch.cuda.synchronize()
+            before = metrics.collective_summary().get("allgather", {}).get("bytes", 0)
+            t0 = time.perf_counter()
+            loss = llama_lora.lora_train_step(model, optimizer, tokens[r:r + 1], reduce)
+            torch.cuda.synchronize()
+            rows.append(dict(step_ms=(time.perf_counter() - t0) * 1e3,
+                             gather_bytes=metrics.collective_summary().get("allgather", {}).get(
+                                 "bytes", 0) - before))
+            # the FSDP model's loss is the global batch's already
+            losses.append(tcol.gang_mean(loss) if fsdp is None else float(loss))
+        launches = _launches(counters)
+        peak = torch.cuda.max_memory_allocated()
+        full = lora if fsdp is None else fsdp.full_state(lora)
+        if fsdp is not None:
+            train.save_sharded(config["ckpt"], {"lora": dict(lora)},
+                               {"lora": {n: fsdp.shardings[n] for n in lora}})
+        train.report({"rank": r, "device": str(device), "fsdp": sharded,
+                      "base_bytes": sum(p.numel() * p.element_size() for p in base.values()),
+                      "adapters": _host_adapters(full), "steps": rows, "losses": losses,
+                      "launches": launches, "peak_bytes": peak})
+        del model, lora, optimizer, base, full
+        torch.cuda.empty_cache()
 
 
 def train_fsdp_phase(torch, np, counters, train_out, train_lora, dp_out):
@@ -3987,24 +4040,26 @@ def train_fsdp_phase(torch, np, counters, train_out, train_lora, dp_out):
     del fsdp_lora
     torch.cuda.empty_cache()
 
-    # (b) two gloo ranks on the card: the replicated pair, then FSDP at fsdp=2
+    # (b) two gloo ranks on the card, one gang: the replicated pair, then
+    # FSDP at fsdp=2
     pairs = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fsdp_") as storage:
         ckpt = str(Path(storage) / "fsdp-ckpt")
+        t0 = time.perf_counter()
+        result = fit(train_fsdp_gloo_loop, storage, "fsdp-gloo", {"ckpt": ckpt},
+                     scaling_config=ScalingConfig(FSDP_GLOO["ranks"], {"GPU": 0.5}),
+                     backend_config=TorchConfig(backend="gloo"), overlap=True)
+        pair_fit_s = time.perf_counter() - t0
         for sharded in (False, True):
-            t0 = time.perf_counter()
-            result = fit(train_fsdp_gloo_loop, storage, f"fsdp-gloo-{int(sharded)}",
-                         {"fsdp": sharded, "ckpt": ckpt},
-                         scaling_config=ScalingConfig(FSDP_GLOO["ranks"], {"GPU": 0.5}),
-                         backend_config=TorchConfig(backend="gloo"), overlap=True)
-            reports = sorted(result.metrics_history, key=lambda m: m["rank"])
+            reports = sorted((m for m in result.metrics_history if m["fsdp"] == sharded),
+                             key=lambda m: m["rank"])
             check([m["rank"] for m in reports] == [0, 1], f"gloo reports {reports}")
-            check(all(m["fsdp"] == sharded and m["device"] == str(device) for m in reports),
+            check(all(m["device"] == str(device) for m in reports),
                   "the gloo ranks are not on one card")
             for k, a in reports[0]["adapters"].items():
                 check(np.array_equal(a, reports[1]["adapters"][k]), f"the gloo ranks' {k} differ")
             check(reports[0]["losses"] == reports[1]["losses"], "the ranks report other losses")
-            pairs[sharded] = dict(reports=reports, fit_s=time.perf_counter() - t0)
+            pairs[sharded] = dict(reports=reports)
         # (c) the pair's blocks, restored whole here
         restored = restore_sharded(ckpt)["lora"]
     rep, fs = pairs[False]["reports"], pairs[True]["reports"]
@@ -4037,7 +4092,7 @@ def train_fsdp_phase(torch, np, counters, train_out, train_lora, dp_out):
         check(np.array_equal(t.float().numpy(), fs[0]["adapters"][k]),
               f"the restored {k} is not the pair's")
     out["gloo_shared_card"] = dict(
-        fit_s={str(k): v["fit_s"] for k, v in pairs.items()},
+        fit_s=pair_fit_s,
         base_bytes_replicated=rep[0]["base_bytes"], base_bytes_fsdp=[m["base_bytes"] for m in fs],
         equal_share=float(np.mean(np.concatenate(equal))),
         max_abs_diff=max(float(np.abs(fs[0]["adapters"][k] - a).max())
@@ -4149,11 +4204,11 @@ class _FirstGradients:
 
     def __call__(self, grads):
         first = self.local is None
-        if first:
-            self.local = {k: g.detach().cpu() for k, g in grads.items()}
+        if first:  # copies: a hook may sum the gradients in place
+            self.local = {k: g.detach().to("cpu", copy=True) for k, g in grads.items()}
         out = grads if self._reduce is None else self._reduce(grads)
         if first:
-            self.reduced = {k: g.detach().cpu() for k, g in out.items()}
+            self.reduced = {k: g.detach().to("cpu", copy=True) for k, g in out.items()}
         return out
 
 
@@ -6338,7 +6393,8 @@ def train_mesh_loop(config):
     beside the run, and for (b) each layer's routing of the rank's tokens
     and the aux loss's router gradients (the global one and the planted
     local one); every step's ms, K1-K4 launches (set to 0 just before it,
-    read just after) and collectives reported."""
+    read just after) and collectives reported; then (c) ``train_tp``'s
+    round (:func:`_tp_round`)."""
     import torch
 
     from ray_tpu_torch import train
@@ -6421,9 +6477,7 @@ def train_mesh_loop(config):
             # each layer's whole router as the first step read it (its
             # blocks gathered over fsdp and ep), for the aux gradients below
             for li, blk in enumerate(model.blocks()):
-                w = model.fsdp.full(f"layer_{li}.moe.router", blk.moe.router.detach())
-                ep = mesh.group("ep")
-                routers.append(w if ep is None else ep.allgather_cat(w, dim=1))
+                routers.append(model.fsdp.full(f"layer_{li}.moe.router", blk.moe.router.detach()))
         optimizer.step()
         return loss.detach()
 
@@ -6446,6 +6500,10 @@ def train_mesh_loop(config):
     report["moe"] = dict(coords=mesh.coords(), data_index=i, steps=steps, losses=losses,
                          peak_bytes=peak,
                          param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()))
+    del model, optimizer, tokens, recorder, aux, routes, routers, moe_step
+    torch.cuda.empty_cache()
+    # (c) train_tp's round, in this gang (its phase reads it)
+    report["tp"] = _tp_round(torch, r, counters, run_dir)
     train.report(report)
 
 
@@ -6517,9 +6575,10 @@ def _mesh_moe_one_rank(torch):
     return one
 
 
-def _assemble(torch, name, shape, dtype, sharding, blocks):
+def _assemble(torch, name, shape, dtype, sharding, blocks, same=True):
     """The whole of a leaf from every rank's block (``blocks[r]``), on the
-    card; the ranks that hold one block must hold it bit for bit."""
+    card; the ranks that hold one block must hold it bit for bit (with
+    ``same``; else the first one's is taken)."""
     device = _card(torch)
     full = torch.zeros(shape, dtype=dtype, device=device)
     seen = {}
@@ -6528,7 +6587,8 @@ def _assemble(torch, name, shape, dtype, sharding, blocks):
         key = tuple((s.start, s.stop) for s in index)
         block = block.to(device)
         if key in seen:
-            check(torch.equal(block, seen[key]), f"{name}: ranks holding one block differ")
+            check(not same or torch.equal(block, seen[key]),
+                  f"{name}: ranks holding one block differ")
             continue
         seen[key] = block
         full[index] = block
@@ -6605,7 +6665,8 @@ def train_mesh_phase(torch, counters):
     sharing the card (``train_mesh_loop``), against one-rank runs on the
     whole global batch in this process: (a) ViT-B/16 at dp=2 x fsdp=2 x
     tp=2, 3 steps; (b) 2 layers of Mixtral-8x7B at fsdp=2 x ep=2 x tp=2, 2
-    steps. Held: every rank's K1-K4 launches a step exact (ViT 0/12/12/12,
+    steps; the same ranks then run ``train_tp``'s round, returned for its
+    phase. Held: every rank's K1-K4 launches a step exact (ViT 0/12/12/12,
     MoE 4L+1 / 2L / L / L); each rank's resident parameter bytes the rule
     table's share exactly; the first step's gradients, leaf by leaf (the
     MoE's aux router gradients too), within MESH_GRAD_TIMES x the one-rank
@@ -6646,9 +6707,14 @@ def train_mesh_phase(torch, counters):
         check(not any(parent.values()), f"the train_mesh loop launched kernels in the parent: {parent}")
         check(not multiprocessing.active_children(), "the worker group left a process")
         reports = sorted(result.metrics_history, key=lambda m: m["rank"])
-        print("train_mesh_fit", json.dumps(dict(one_rank_s=one_rank_s, fit_s=fit_s, reports=reports)))
+        print("train_mesh_fit", json.dumps(dict(one_rank_s=one_rank_s, fit_s=fit_s,
+                                                reports=[{k: v for k, v in m.items() if k != "tp"}
+                                                         for m in reports])))
         check([m["rank"] for m in reports] == list(range(n)), f"train_mesh reports {reports}")
         run_dir = Path(storage) / "mesh"
+        tp_gang = _tp_gang(torch, result, run_dir, fit_s)
+        for m in reports:
+            del m["tp"]  # train_tp's, read by its phase
         t0 = time.perf_counter()
         out = {}
         launches = {name: 0 for name in counters}
@@ -6745,6 +6811,358 @@ def train_mesh_phase(torch, counters):
     out.update(one_rank_s=one_rank_s, fit_s=fit_s, compare_s=compare_s,
                phase_s=time.perf_counter() - t_phase)
     print("train_mesh", json.dumps(out))
+    return launches, out, tp_gang
+
+
+# -- the Llama over the reference's training mesh (``train_tp``) ------------
+
+
+def _tp_model_config(torch, part, dtype=None):
+    """The LoRA loop's "7b" config at (a)'s or (b)'s sequence, cut to
+    TP_TRAIN["n_layers"]; ``dtype`` sets the activations' (default bf16)."""
+    from ray_tpu_torch.train.examples import llama_lora
+
+    cfg = dataclasses.replace(llama_lora.model_config({**TRAIN_CONFIG, "seq": TP_TRAIN[part]["seq"]}),
+                              n_layers=TP_TRAIN["n_layers"])
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def _tp_inputs(torch, cfg, part, device, shard=None):
+    """The parameters (each ``lora_b`` drawn too) and every step's global
+    batch, from one seed: each rank draws the whole and keeps its blocks
+    through ``shard``."""
+    from ray_tpu_torch.models.llama import init_params
+
+    g = torch.Generator(device=device).manual_seed(SEED + 13)
+
+    def keep(name, t):
+        if name.endswith("lora_b"):
+            t.normal_(0.0, TP_TRAIN["lora_b_std"], generator=g)
+        return t if shard is None else shard(name, t)
+
+    params = init_params(cfg, g, device=device, shard=keep)
+    spec = TP_TRAIN[part]
+    tokens = torch.randint(0, cfg.vocab_size, (spec["steps"], spec["batch"], spec["seq"]),
+                           generator=g, device=device)
+    return params, tokens
+
+
+def _tp_token_nll(torch, L, model, tokens):
+    """Each of the rank's positions' NLL of its next token under the
+    first step's weights (f32, host): (rows, S / sp), one fewer on the last
+    sequence shard, as ``next_token_loss`` pairs them."""
+    with torch.no_grad():
+        logits = model(tokens)
+    s = logits.shape[1]
+    first = model.sp_rank * s + 1
+    targets = tokens[:, first:first + s]
+    return L.token_nll(logits[:, :targets.shape[1]], targets).cpu()
+
+
+def _tp_f32_loss(torch, L, model, part, mesh, tokens):
+    """The first loss of the mesh model's blocks in f32 activations: a
+    model of the part's f32 config over the same tensors (no copy), forward
+    only."""
+    cfg = _tp_model_config(torch, part, torch.float32)
+    f32 = L.build_llama(cfg, {k: p.detach() for k, p in model.named_parameters()}, mesh)
+    with torch.no_grad():
+        return L.next_token_loss(cfg, f32, tokens).item()
+
+
+def _tp_mlp_fault(torch, L, model, cfg, tokens):
+    """The planted fault: the first step's LoRA gradients, synced, with the
+    MLP's tp sum dropped (each rank's w_down partial sums taken for the
+    sum), on the host; no update."""
+    import torch.nn.functional as F
+
+    forward = L.MLP.forward
+
+    def no_sum(self, x):
+        x = L.copy_to_group(x, self.tp_group)
+        return self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
+
+    L.MLP.forward = no_sum
+    try:
+        L.next_token_loss(cfg, model, tokens).backward()
+        model.fsdp.sync_gradients(model.named_parameters())
+        out = {k: p.grad.cpu() for k, p in model.named_parameters() if p.grad is not None}
+    finally:
+        L.MLP.forward = forward
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def _tp_round(torch, rank, counters, run_dir):
+    """This rank's part of ``train_tp`` in a gang of eight gloo ranks
+    sharing the card: ranks 0-3 run (a), the 2-layer 7B LoRA model over
+    tp=2 x fsdp=2, and ranks 4-7 (b), over sp=2 x tp=2, at once (every rank
+    forms both meshes' groups, in one order), each through the loop's
+    ``lora_model``, ``lora_train_step`` and ``mesh_gradients``; the first
+    step's LoRA gradient blocks (the rank's own and synced), the
+    positions' NLLs and for (a) the MLP fault's gradients written to
+    ``run_dir``; every step's ms, K1-K4 launches (set to 0 just before it,
+    read just after) and collectives. Returns the rank's report."""
+    from ray_tpu_torch.models import llama as L
+    from ray_tpu_torch.parallel.fsdp import FSDP
+    from ray_tpu_torch.parallel.mesh import BATCH_AXES, make_mesh
+    from ray_tpu_torch.train.examples import llama_lora
+    from ray_tpu_torch.util import metrics
+
+    device = _card(torch)
+    meshes = {}
+    for i, part in enumerate(("a", "b")):
+        ranks = list(range(i * TP_TRAIN["ranks"], (i + 1) * TP_TRAIN["ranks"]))
+        meshes[part] = make_mesh(devices=[str(device)] * len(ranks),
+                                 **TP_TRAIN[part]["axes"]).form_groups(
+            "gloo", world_ranks=ranks, name=f"tp_{part}")
+    part = "a" if rank < TP_TRAIN["ranks"] else "b"
+    mesh, spec = meshes[part], TP_TRAIN[part]
+    cfg = _tp_model_config(torch, part)
+    params, tokens = _tp_inputs(torch, cfg, part, device, shard=FSDP.for_llama(cfg, mesh).shard)
+    model, lora, optimizer = llama_lora.lora_model(cfg, params, lr=TP_TRAIN["lr"], mesh=mesh)
+    del params
+    n, i = mesh.axes_size(BATCH_AXES), mesh.axes_index(BATCH_AXES)
+    tokens = tokens[:, i * spec["batch"] // n:(i + 1) * spec["batch"] // n].contiguous()
+    nll = _tp_token_nll(torch, L, model, tokens[0])
+    f32_loss = _tp_f32_loss(torch, L, model, part, mesh, tokens[0])
+    fault = _tp_mlp_fault(torch, L, model, cfg, tokens[0]) if part == "a" else None
+    first = _FirstGradients(llama_lora.mesh_gradients(model))
+    torch.cuda.reset_peak_memory_stats()
+    steps, losses = [], []
+    for t in tokens:  # (a) and (b) take as many steps: the steps' barriers pair up
+        loss, stats = _mesh_step_stats(
+            torch, metrics, counters,
+            lambda t=t: llama_lora.lora_train_step(model, optimizer, t, first))
+        steps.append(stats)
+        losses.append(float(loss))  # the global batch's on every rank
+    peak = torch.cuda.max_memory_allocated()
+    torch.save({"synced": first.reduced, "local": first.local, "mlp_fault": fault, "nll": nll},
+               Path(run_dir) / f"tp_{part}_grad_rank{mesh.rank}.pt")
+    return dict(part=part, mesh_rank=mesh.rank, coords=mesh.coords(), data_index=i,
+                steps=steps, losses=losses, f32_loss=f32_loss, peak_bytes=peak,
+                param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()))
+
+
+def train_tp_loop(config):
+    """``train_tp`` alone: one of eight gloo ranks sharing the card, running
+    its :func:`_tp_round` (``train_mesh_loop`` runs the same round after its
+    own, in its gang)."""
+    import torch
+
+    from ray_tpu_torch import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)  # eight ranks share the host's cores
+    ctx = train.get_context()
+    train.report({"rank": ctx.world_rank, "device": str(_card(torch)),
+                  "tp": _tp_round(torch, ctx.world_rank, _port_counters(),
+                                  ctx.get_storage_path())})
+
+
+def _tp_gang(torch, result, run_dir, fit_s):
+    """What ``train_tp_phase`` reads of a gang that ran :func:`_tp_round`:
+    each part's four reports in mesh-rank order and their files."""
+    by_part = {"a": {}, "b": {}}
+    for m in result.metrics_history:
+        if "tp" in m:
+            by_part[m["tp"]["part"]][m["tp"]["mesh_rank"]] = m["tp"]
+    n = TP_TRAIN["ranks"]
+    check(all(sorted(v) == list(range(n)) for v in by_part.values()),
+          f"train_tp reports {by_part}")
+    return dict(fit_s=fit_s, reports={p: [v[r] for r in range(n)] for p, v in by_part.items()},
+                files={p: [torch.load(Path(run_dir) / f"tp_{p}_grad_rank{r}.pt")
+                           for r in range(n)] for p in by_part})
+
+
+def _tp_one_rank(torch, part):
+    """(a)'s or (b)'s 2-layer model on the whole first global batch on one
+    rank, in bf16 and in f32 activations: the bf16 run's first loss and
+    LoRA gradients (host) and, per leaf, its distance from the f32 run's."""
+    from ray_tpu_torch.models import llama as L
+    from ray_tpu_torch.train.examples import llama_lora
+
+    device = _card(torch)
+    runs = {}
+    for dtype in (None, torch.float32):
+        cfg = _tp_model_config(torch, part, dtype)
+        params, tokens = _tp_inputs(torch, cfg, part, device)
+        model, lora, _ = llama_lora.lora_model(cfg, params, lr=TP_TRAIN["lr"])
+        del params
+        nll = _tp_token_nll(torch, L, model, tokens[0])
+        loss = L.next_token_loss(cfg, model, tokens[0])
+        loss.backward()
+        runs[dtype] = (loss.item(), {k: p.grad.cpu() for k, p in lora.items()}, nll)
+        del model, lora, loss, tokens
+        torch.cuda.empty_cache()
+    (loss, grads, nll), (f32_loss, f32_grads, f32_nll) = runs[None], runs[torch.float32]
+    control = {k: _card_distance(torch, g, f32_grads[k]) for k, g in grads.items()}
+    return dict(loss=loss, grads=grads, control=control, f32_loss=f32_loss, f32_grads=f32_grads,
+                nll=nll, f32_nll=f32_nll, nll_control=(nll - f32_nll).norm().item())
+
+
+def train_tp_phase(torch, counters, gang=None):
+    """The Llama over the reference's training mesh, each part on four
+    gloo ranks sharing the card (:func:`_tp_round`, in ``train_mesh``'s
+    gang when ``gang`` holds its reports, else in a gang of its own),
+    against one-rank runs on the whole global batch in this process: (a)
+    tp=2 x fsdp=2, seq 2048, batch 2; (b) sp=2 x tp=2, b=1 x 4096; 2 AdamW
+    steps each. Held: every rank's K1-K4 launches a step exact (4L+1 /
+    2L(s+1) / L(sp-s) / L(sp-s) at sp coordinate s); each rank's resident
+    parameter bytes the rule table's share exactly; the ranks' losses
+    equal and finite, the first one the mean of the positions' NLLs; those
+    NLLs and the first step's LoRA gradients, leaf by leaf, within
+    MESH_GRAD_TIMES x the one-rank run's distance from its f32-activation
+    run; the first loss of the ranks' blocks in f32 activations the
+    one-rank f32 run's within TP_F32_LOSS_REL of itself; and three planted
+    faults beyond it: the MLP's tp sum dropped
+    ((a)), the sp sum of the gradients dropped ((b): each rank's own
+    term), a tp-replicated factor's gradient summed over tp (both).
+    Printed: step ms, peak and the collectives' host share a rank."""
+    import math
+    import multiprocessing
+    import tempfile
+
+    from ray_tpu_torch.models.llama import param_shapes
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.parallel.sharding import param_shardings
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchConfig, TorchTrainer
+
+    t_phase = time.perf_counter()
+    n = TP_TRAIN["ranks"]
+    if gang is None:
+        _zero(counters)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as storage:
+            t0 = time.perf_counter()
+            result = TorchTrainer(train_tp_loop, train_loop_config={},
+                                  run_config=RunConfig(name="tp", storage_path=storage),
+                                  scaling_config=ScalingConfig(2 * n, {"GPU": 0.5 / n}),
+                                  backend_config=TorchConfig(backend="gloo")).fit()
+            if result.error is not None:
+                raise result.error
+            parent = _launches(counters)
+            check(not any(parent.values()),
+                  f"the train_tp loop launched kernels in the parent: {parent}")
+            check(not multiprocessing.active_children(), "the worker group left a process")
+            gang = _tp_gang(torch, result, Path(storage) / "tp", time.perf_counter() - t0)
+    print("train_tp_fit", json.dumps(dict(fit_s=gang["fit_s"], reports=gang["reports"])))
+    # the yardsticks after the ranks' fit: this process's counts were read
+    # just after it
+    t0 = time.perf_counter()
+    one = {part: _tp_one_rank(torch, part) for part in ("a", "b")}
+    one_rank_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = {}
+    launches = {name: 0 for name in counters}
+    for part in ("a", "b"):
+        spec = TP_TRAIN[part]
+        cfg = _tp_model_config(torch, part)
+        layers = cfg.n_layers
+        mesh = make_mesh(devices=[0] * n, **spec["axes"])
+        sp = mesh.shape["sp"]
+        shapes = param_shapes(cfg)
+        shardings = param_shardings(mesh, shapes)
+        itemsize = torch.empty(0, dtype=cfg.param_dtype).element_size()
+        want_bytes = sum(math.prod(shardings[k].shard_shape(shapes[k])) * itemsize
+                         for k in shapes)
+        per_rank = []
+        reports = gang["reports"][part]
+        for r, rep in enumerate(reports):
+            s = rep["coords"]["sp"]
+            per_step = {"rmsnorm_fwd": 4 * layers + 1,
+                        "flash_attention_fwd": 2 * layers * (s + 1),
+                        "flash_bwd_dq": layers * (sp - s), "flash_bwd_dkv": layers * (sp - s)}
+            per_rank.append(per_step)
+            for st in rep["steps"]:
+                check(st["launches"] == per_step,
+                      f"tp {part} rank {r}: {st['launches']} a step, want {per_step}")
+                for name in counters:
+                    launches[name] += st["launches"][name]
+            check(rep["param_bytes"] == want_bytes,
+                  f"tp {part} rank {r}: {rep['param_bytes']} parameter bytes "
+                  f"resident, the rule table's share is {want_bytes}")
+            check(all(math.isfinite(x) for x in rep["losses"]), f"tp {part}: {rep['losses']}")
+            check(rep["losses"] == reports[0]["losses"],
+                  f"tp {part}: the ranks' losses differ")
+        files = gang["files"][part]
+        names = sorted(files[0]["synced"])
+        grads = ((k, _assemble(torch, k, shapes[k], files[0]["synced"][k].dtype,
+                               shardings[k], [f["synced"][k] for f in files]))
+                 for k in names)
+        replicated_tp = {k for k in names if "tp" not in shardings[k].split_axes()}
+        res = _mesh_grad_check(torch, f"tp {part}", grads, one[part]["f32_grads"],
+                               one[part]["control"], one[part]["grads"], MESH_GRAD_TIMES,
+                               replicated_tp, mesh.shape["tp"])
+        # the part's own planted fault, from its files: beyond the bound
+        key, what = (("mlp_fault", "the MLP's tp sum dropped") if part == "a" else
+                     ("local", "the sp sum of the gradients dropped"))
+        planted = max(
+            _card_distance(torch, _assemble(torch, k, shapes[k], files[0][key][k].dtype,
+                                            shardings[k], [f[key][k] for f in files],
+                                            same=False), one[part]["f32_grads"][k])
+            / one[part]["control"][k] for k in names)
+        check(planted > MESH_GRAD_TIMES,
+              f"tp {part}: the planted fault ({what}) passes the gradient check: {planted}")
+        # the first loss: every position's NLL (the ranks' positions
+        # assembled; the ranks of a tp group hold one, bit for bit)
+        # within MESH_GRAD_TIMES x the one-rank run's distance from f32
+        # (a scalar alone is one draw of the rounding: two bf16 runs'
+        # losses part from f32 by ratios of 3 and more by chance), and
+        # the loss every rank returned the mean of them (its sums over
+        # the ranks and its count)
+        b, seq = spec["batch"], spec["seq"]
+        nll = torch.full((b, seq - 1), float("nan"))
+        for rep, f in zip(reports, files):
+            i, c = rep["data_index"], rep["coords"]["sp"]
+            rows = slice(i * b // mesh.axes_size(("dcn", "dp", "fsdp")),
+                         (i + 1) * b // mesh.axes_size(("dcn", "dp", "fsdp")))
+            cols = slice(c * seq // sp, c * seq // sp + f["nll"].shape[1])
+            held = nll[rows, cols]
+            check(held.isnan().all() or torch.equal(held, f["nll"]),
+                  f"tp {part}: the ranks of one tp group have other NLLs")
+            nll[rows, cols] = f["nll"]
+        check(not nll.isnan().any(), f"tp {part}: positions without an NLL")
+        nll_ratio = (nll - one[part]["f32_nll"]).norm().item() / one[part]["nll_control"]
+        check(nll_ratio <= MESH_GRAD_TIMES,
+              f"tp {part}: the first step's NLLs are {nll_ratio:.3f} x the one-rank run's "
+              f"distance from f32 activations away from them, over {MESH_GRAD_TIMES}")
+        first_loss = reports[0]["losses"][0]
+        mean = nll.double().mean().item()
+        check(abs(first_loss - mean) <= 1e-5 * abs(mean),
+              f"tp {part}: first loss {first_loss}, its positions' mean NLL {mean}")
+        loss_diff = abs(first_loss - one[part]["f32_loss"])
+        loss_control = abs(one[part]["loss"] - one[part]["f32_loss"])
+        # the second witness of the first loss: the mesh's blocks in f32
+        # activations against the one-rank f32 run, where rounding leaves
+        # no room for a shift (a bf16 run's scalar is one draw of it)
+        f32_losses = {rep["f32_loss"] for rep in reports}
+        check(len(f32_losses) == 1, f"tp {part}: the ranks' f32 losses differ: {f32_losses}")
+        f32_rel = abs(reports[0]["f32_loss"] - one[part]["f32_loss"]) / abs(one[part]["f32_loss"])
+        check(f32_rel <= TP_F32_LOSS_REL,
+              f"tp {part}: the f32 first loss {reports[0]['f32_loss']} is {f32_rel:.3g} of "
+              f"itself from the one-rank f32 run's {one[part]['f32_loss']}, over "
+              f"{TP_F32_LOSS_REL}")
+        out[part] = dict(
+            axes=spec["axes"], grads=res, planted_fault=what, planted_over_control=planted,
+            nll_over_control=nll_ratio, first_loss_minus_nll_mean=first_loss - mean,
+            first_loss=first_loss, first_loss_one_rank=one[part]["loss"],
+            first_loss_diff_from_f32=loss_diff,
+            first_loss_one_rank_diff_from_f32=loss_control,
+            first_loss_f32_activations=one[part]["f32_loss"],
+            mesh_first_loss_f32_activations=reports[0]["f32_loss"],
+            f32_first_loss_rel_diff=f32_rel,
+            losses=reports[0]["losses"],
+            step_ms=[[st["step_ms"] for st in rep["steps"]] for rep in reports],
+            collective_host_share=[[st["collective_host_share"] for st in rep["steps"]]
+                                   for rep in reports],
+            collective_ms_last_step=reports[0]["steps"][-1]["collective_ms"],
+            peak_bytes=[rep["peak_bytes"] for rep in reports],
+            param_bytes=[rep["param_bytes"] for rep in reports],
+            param_bytes_whole=sum(math.prod(shapes[k]) * itemsize for k in shapes),
+            launches_per_step=per_rank)
+    compare_s = time.perf_counter() - t0
+    out.update(one_rank_s=one_rank_s, fit_s=gang["fit_s"], compare_s=compare_s,
+               phase_s=time.perf_counter() - t_phase)
+    print("train_tp", json.dumps(out))
     return launches, out
 
 
@@ -6944,8 +7362,15 @@ def main() -> None:
     # to 0 just before the ranks' fit() and must stay 0 (the one-rank
     # yardsticks run before it); each rank's own counts, set to 0 just
     # before each of its steps and read just after, are added
-    mesh_launches, _ = train_mesh_phase(torch, counters)
+    mesh_launches, _, tp_gang = train_mesh_phase(torch, counters)
     lap("train_mesh")
+    torch.cuda.empty_cache()
+    # the Llama over the reference's training mesh, whose round the
+    # train_mesh ranks ran after their own (this process's counts stayed 0
+    # through that fit); each rank's own counts, set to 0 just before each
+    # of its steps and read just after, are added
+    tp_train_launches, _ = train_tp_phase(torch, counters, tp_gang)
+    lap("train_tp")
     paths = {"serve": serve_launches, "serve_cb": cb_launches, "serve_lora": lora_launches,
              "serve_disagg": disagg_launches, "serve_tp": tp_launches,
              "serve_tp_features": tpf_launches, "train": train_launches,
@@ -6954,7 +7379,7 @@ def main() -> None:
              "train_vit": vit_launches,
              "train_ppo": ppo_launches, "train_rl": rl_launches,
              "train_dreamer": dreamer_launches, "train_moe": moe_launches,
-             "train_mesh": mesh_launches}
+             "train_mesh": mesh_launches, "train_tp": tp_train_launches}
     launches = {name: sum(p[name] for p in paths.values()) for name in counters}
 
     def entry(name, source, replaces, rows):

@@ -27,20 +27,47 @@ are f32, and the logits come out in ``config.dtype``.
 ``Llama.forward(tokens)`` is the full-sequence forward (flash attention,
 the reference's ``decode=False``).
 
-Sequence parallelism (``Llama(config, mesh)`` with a bound mesh whose only
-axis past 1 is ``sp``, ``mesh.bind(rank, {"sp": group})``): the
-parameters are replicated, and the full forward takes the GLOBAL (b, S)
-tokens, as the reference's model takes its global array, embeds this
-rank's contiguous S / sp of them, rotates them at their global positions
-(RoPE offset ``sp_rank * S / sp``) and runs attention as
-parallel/ring_attention.py's ring over the group; it returns this rank's
-(b, S / sp, vocab) logits. :func:`next_token_loss` pairs each shard's last
-position with the next shard's first token and sums the ranks' terms
-(``collective.functional.sum_of_ranks``): every rank returns the loss over
-the whole sequence, and its backward gives each rank's parameters their
-share of the gradient, which the training loop sums over the group. The
-decode-mode call never takes the ring, as in the reference, and runs the
-whole call on every rank. A mesh with sp = 1 runs plain flash.
+Over a mesh (``Llama(config, mesh)``, the mesh bound with its sub-groups
+by ``Mesh.form_groups`` or ``train.collective.gang_mesh``; ``dcn``, ``dp``,
+``fsdp``, ``tp`` and ``sp``, as the reference's Llama takes them, ``pp``
+refused) each rank is one process holding its block of every parameter by
+the reference's rule table (``LLAMA_LOGICAL_AXES``: the heads, the MLP's
+hidden units and the vocabulary over ``tp``, ``embed`` over ``fsdp``), its
+rows of the global batch (the data axes ``dcn``, ``dp``, ``fsdp``, as
+``process_local_batch`` gives them; replicated over ``tp`` and ``sp``) and,
+under ``sp``, its contiguous S / sp of each sequence. The full forward
+takes the rank's rows at their whole length, gathers each parameter's
+``fsdp`` dimension where it is read (parallel/fsdp.py; again in the remat
+recompute) and computes what the reference's GSPMD program computes:
+
+- the embedding: the rank's vocabulary rows, a masked lookup summed over
+  ``tp`` (``sum_of_ranks``);
+- attention: the rank's n_heads / tp query and n_kv_heads / tp KV heads
+  (Megatron's f before the projections, g after wo), rotated at their
+  global positions (RoPE offset ``sp_rank * S / sp``), through K2 or, under
+  ``sp``, the ring over the rank's ``sp`` sub-group
+  (parallel/ring_attention.py);
+- the MLP: intermediate / tp hidden units between f and g;
+- the adapters: a column-split projection's ``x @ lora_a`` (replicated
+  over ``tp``) enters the region through its own f, and a row-split wo's
+  ``x_r @ lora_a_r`` leaves it through its own g before ``lora_b``
+  (replicated over ``tp``). Summing the LoRA term with the base term under
+  wo's one g gives the same forward, but then each ``tp`` rank's gradient
+  of ``lora_b`` is only its heads' share (and a column-split ``lora_a``'s
+  likewise): with the pair around the rank-r products every parameter's
+  gradient is whole on its ``tp`` ranks;
+- the head: the rank's vocabulary columns, the logits gathered over ``tp``
+  (``gather_from_group``), under remat.
+
+It returns the rank's (rows, S / sp, vocab) logits. :func:`next_token_loss`
+pairs each sequence shard's last position with the next shard's first token
+and sums the ranks' NLL terms over the data axes and ``sp``
+(``sum_of_ranks``): every rank returns the global batch's loss, and its
+backward gives each rank's parameters their share of the gradient, which
+``model.fsdp.sync_gradients`` completes. The decode-mode call never takes
+the ring, as in the reference: at a mesh whose only axis past 1 is ``sp``
+(every parameter whole) it runs the whole call on every rank; past that
+it raises.
 
 ``Llama.forward(tokens, cache)`` is the reference's ``decode=True`` path:
 attention over a dense per-layer KV cache (a :class:`DecodeCache` of
@@ -49,9 +76,8 @@ attention over a dense per-layer KV cache (a :class:`DecodeCache` of
 Training: with ``config.remat`` and autograd recording, each block of the
 full-sequence forward runs under ``torch.utils.checkpoint`` and is
 recomputed in the backward, the reference's save-nothing ``nn.remat``.
-A model built by parallel/fsdp.py ``FSDP.build_llama`` holds one rank's
-blocks of its parameters and runs that module's forward, which gathers
-them (``Llama.fsdp``; None otherwise).
+A model over a mesh holds its rank's FSDP layout as ``Llama.fsdp`` (None
+otherwise).
 ``config.scan_layers`` (the reference's layers stacked under ``lax.scan``)
 builds the same unstacked model: PyTorch has no scan, the loop over blocks
 with per-block checkpointing takes its place, and models/convert.py
@@ -78,10 +104,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._internal.device import DeviceLike, resolve_device
-from ..collective.functional import copy_to_group, sum_of_ranks
+from ..collective.functional import copy_to_group, gather_from_group, sum_of_ranks
 from ..ops.flash_attention import flash_attention
 from ..ops.rmsnorm import rmsnorm
 from ..ops.rope import apply_rope, rope_table
+from ..parallel.mesh import LOSS_AXES, check_model_mesh
 from ..parallel.ring_attention import ring_attention
 
 
@@ -243,6 +270,29 @@ class LoRADense(nn.Module):
         return y
 
 
+    def column_split(self, x_in, x, group):
+        """The projection split over ``group`` by columns (the rank's
+        output columns): the base reads ``x_in``, the replicated ``x``
+        entered into the region (``copy_to_group``), and the adapter's
+        ``x @ lora_a``, replicated too, enters it through its own f."""
+        y = self.base(x_in)
+        if self.rank > 0:
+            u = copy_to_group(x @ self.lora_a.to(x.dtype), group)
+            y = y + u @ self.lora_b.to(x.dtype) * self.scale
+        return y
+
+    def row_split(self, x, group):
+        """The projection split over ``group`` by rows: ``x`` is the rank's
+        slice of the input, and the base's partial sums and the adapter's
+        ``x @ lora_a`` leave the region through a g each (the sum over the
+        ranks), so ``lora_b`` reads the whole rank-r product."""
+        y = sum_of_ranks(self.base(x), group)
+        if self.rank > 0:
+            u = sum_of_ranks(x @ self.lora_a.to(x.dtype), group)
+            y = y + u @ self.lora_b.to(x.dtype) * self.scale
+        return y
+
+
 PROJECTIONS = ("wq", "wk", "wv", "wo")  # the LoRADense layers of Attention
 
 
@@ -269,24 +319,34 @@ def gather_adapters(bank, adapter_slots, dtype, device) -> Dict[str, tuple]:
 
 def sequence_parallel(mesh):
     """(group, rank, size) of ``mesh``'s ``sp`` axis: (None, 0, 1) without
-    a mesh or at sp = 1. ``sp`` beside another axis past 1 is refused
-    (ROADMAP item A.12), and so is an unbound mesh."""
+    a mesh or at sp = 1. An ``sp`` axis past 1 needs the mesh bound with
+    its rank's ``sp`` sub-group (the ring runs over it, whatever other axes
+    the mesh has); an unbound mesh is refused."""
     if mesh is None or mesh.shape["sp"] == 1:
         return None, 0, 1
     sp = mesh.shape["sp"]
-    others = {a: n for a, n in mesh.shape.items() if a != "sp" and n > 1}
-    if others:
-        raise NotImplementedError(
-            f"sequence parallelism (sp={sp}) beside other mesh axes {others} is not ported: "
-            "the ring over each rank's sp sub-group (Mesh.form_groups) is ROADMAP item A.12")
     group = mesh.group("sp")
     if group is None or group.world_size != sp:
         raise ValueError(f"a sequence-parallel mesh (sp={sp}) must be bound to its rank with "
-                         "its group of sp ranks: mesh.bind(rank, {'sp': group})")
+                         "its group of sp ranks: mesh.bind(rank, {'sp': group}), or "
+                         "Mesh.form_groups")
     if group.rank != mesh.coords()["sp"]:
         raise ValueError(f"the sp group's rank {group.rank} is not the mesh's "
                          f"{mesh.coords()['sp']}")
     return group, group.rank, sp
+
+
+def vocab_rows_lookup(embed: torch.Tensor, tokens: torch.Tensor, rank: int,
+                      dtype) -> torch.Tensor:
+    """Rank ``rank``'s term of an embedding split by vocabulary rows:
+    ``embed`` is its block of rows, the tokens in it are looked up (in
+    ``dtype``) and every other token gets zeros, so the sum over the ranks
+    is the whole lookup."""
+    rows = embed.shape[0]
+    local = tokens - rank * rows
+    mine = (local >= 0) & (local < rows)
+    x = embed[local.clamp(0, rows - 1)].to(dtype)
+    return x.masked_fill(~mine[..., None], 0)
 
 
 def _allreduce(group, x: torch.Tensor) -> torch.Tensor:
@@ -302,12 +362,14 @@ class Attention(nn.Module):
     forward's x is the rank's shard of the sequence, and attention is the
     ring over the mesh's ``sp`` group.
 
-    With ``tp_group`` (training under a mesh's ``tp`` axis, the MoE's
-    blocks): the rank's n_heads / tp query and n_kv_heads / tp KV heads, the
-    column blocks of wq/wk/wv and the row block of wo, as the reference's
-    rule table splits them, and Megatron's differentiable pair around them:
-    ``copy_to_group`` before the projections, ``sum_of_ranks`` after wo.
-    The serving plan's ``group`` keeps its in-place allreduce."""
+    With ``tp_group`` (training under a mesh's ``tp`` axis: the Llama's and
+    the MoE's blocks): the rank's n_heads / tp query and n_kv_heads / tp KV
+    heads, the column blocks of wq/wk/wv and the row block of wo, as the
+    reference's rule table splits them, and Megatron's differentiable pair
+    around them: ``copy_to_group`` before the projections, ``sum_of_ranks``
+    after wo (and a pair around the adapters' rank-r products,
+    :meth:`LoRADense.column_split` / :meth:`LoRADense.row_split`). The
+    serving plan's ``group`` keeps its in-place allreduce."""
 
     def __init__(self, config: LlamaConfig, mesh=None, plan=None, group=None, tp_group=None):
         super().__init__()
@@ -342,11 +404,16 @@ class Attention(nn.Module):
         b, s, _ = x.shape
         h, hk, d = self.n_heads, self.n_kv_heads, cfg.head_dim
         adapters = adapters or {}
-        if self.tp_group is not None:
-            x = copy_to_group(x, self.tp_group)
-        q = self.wq(x, adapters.get("wq")).reshape(b, s, h, d).transpose(1, 2)
-        k = self.wk(x, adapters.get("wk")).reshape(b, s, hk, d).transpose(1, 2)
-        v = self.wv(x, adapters.get("wv")).reshape(b, s, hk, d).transpose(1, 2)
+        tp = self.tp_group
+        if tp is not None:
+            x_in = copy_to_group(x, tp)
+            q, k, v = (proj.column_split(x_in, x, tp) for proj in (self.wq, self.wk, self.wv))
+        else:
+            q, k, v = (proj(x, adapters.get(name))
+                       for name, proj in (("wq", self.wq), ("wk", self.wk), ("wv", self.wv)))
+        q = q.reshape(b, s, h, d).transpose(1, 2)
+        k = k.reshape(b, s, hk, d).transpose(1, 2)
+        v = v.reshape(b, s, hk, d).transpose(1, 2)
         if cache is not None:
             out = self._decode_attention(q, k, v, cos, sin, cache)
         elif self.sp_group is not None:
@@ -359,8 +426,8 @@ class Attention(nn.Module):
             k = apply_rope(k, cos, sin)
             out = flash_attention(q, k, v, causal=True)
         out = out.transpose(1, 2).reshape(b, s, h * d)
-        if self.tp_group is not None:
-            return sum_of_ranks(self.wo(out, adapters.get("wo")), self.tp_group)
+        if tp is not None:
+            return self.wo.row_split(out, tp)
         return _allreduce(self.group, self.wo(out, adapters.get("wo")))
 
     def _decode_attention(self, q, k, v, cos, sin, cache: LayerCache):
@@ -394,19 +461,30 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """With ``tp`` > 1: intermediate/tp of the hidden units, and the
-    allreduce of w_down's partial sums over ``group``."""
+    """With ``tp`` > 1: intermediate/tp of the hidden units, and the sum of
+    w_down's partial sums over the ranks: the serving plan's in-place
+    allreduce over ``group``, or, in training over a mesh (``tp_group``),
+    Megatron's pair, ``copy_to_group`` before w_gate/w_up and
+    ``sum_of_ranks`` after w_down."""
 
-    def __init__(self, config: LlamaConfig, tp: int = 1, group=None):
+    def __init__(self, config: LlamaConfig, tp: int = 1, group=None, tp_group=None):
         super().__init__()
         cfg = config
         self.group = group
+        self.tp_group = tp_group
+        if tp_group is not None:
+            tp = tp_group.world_size
+            if cfg.intermediate % tp:
+                raise ValueError(f"{cfg.intermediate} hidden units do not split over tp={tp}")
         inter = cfg.intermediate // tp
         self.w_gate = Dense(cfg.dim, inter, cfg.param_dtype, cfg.dtype)
         self.w_up = Dense(cfg.dim, inter, cfg.param_dtype, cfg.dtype)
         self.w_down = Dense(inter, cfg.dim, cfg.param_dtype, cfg.dtype)
 
     def forward(self, x):
+        if self.tp_group is not None:
+            x = copy_to_group(x, self.tp_group)
+            return sum_of_ranks(self.w_down(F.silu(self.w_gate(x)) * self.w_up(x)), self.tp_group)
         return _allreduce(self.group, self.w_down(F.silu(self.w_gate(x)) * self.w_up(x)))
 
 
@@ -414,10 +492,11 @@ class Block(nn.Module):
     def __init__(self, config: LlamaConfig, mesh=None, plan=None, group=None):
         super().__init__()
         self.config = config
+        tp_group = None if mesh is None else mesh.group("tp")
         self.attn_norm = _param(config.dim, dtype=config.param_dtype)
-        self.attn = Attention(config, mesh, plan, group)
+        self.attn = Attention(config, mesh, plan, group, tp_group)
         self.mlp_norm = _param(config.dim, dtype=config.param_dtype)
-        self.mlp = MLP(config, plan.tp if plan is not None else 1, group)
+        self.mlp = MLP(config, plan.tp if plan is not None else 1, group, tp_group)
 
     def forward(self, x, cos, sin, cache: Optional[LayerCache] = None, adapters=None):
         eps = self.config.norm_eps
@@ -434,15 +513,20 @@ class Llama(nn.Module):
     With a ``plan`` (parallel/plan.py ``PartitionPlan``) of tp > 1 the
     modules have rank ``rank``'s widths and ``group`` (a collective group of
     the plan's tp ranks, one process each) carries the collectives. With a
-    sequence-parallel ``mesh`` the full forward runs this rank's shard of
-    the sequence; see the module docstring."""
+    ``mesh`` (and no plan) the parameters have the shapes of this rank's
+    blocks and the full forward runs the rank's part of the mesh's program;
+    see the module docstring."""
 
     def __init__(self, config: LlamaConfig, mesh=None, plan=None, rank: int = 0,
                  group=None):
         super().__init__()
+        if mesh is not None and plan is not None:
+            raise ValueError("a Llama takes a serving plan or a training mesh, not both")
+        if mesh is not None:
+            check_model_mesh(mesh, "Llama over a mesh", sequence=True)
         self.sp_group, self.sp_rank, self.sp = sequence_parallel(mesh)
-        tp = plan.tp if plan is not None else 1
-        if tp > 1 and group is None:
+        tp = plan.tp if plan is not None else 1 if mesh is None else mesh.shape["tp"]
+        if plan is not None and tp > 1 and group is None:
             raise ValueError(f"a tensor-parallel Llama (tp={tp}) needs the collective "
                              "group of its ranks")
         if config.vocab_size % tp:
@@ -451,16 +535,22 @@ class Llama(nn.Module):
                 f"{tp}: embed and lm_head split the vocabulary evenly or not at all"
             )
         self.config = config
+        self.mesh = mesh
         self.rank = rank
-        self.group = group if tp > 1 else None
+        self.group = group if plan is not None and tp > 1 else None
         self.embed = _param(config.vocab_size // tp, config.dim, dtype=config.param_dtype)
         for i in range(config.n_layers):
             self.add_module(f"layer_{i}", Block(config, mesh, plan, self.group))
         self.final_norm = _param(config.dim, dtype=config.param_dtype)
         self.lm_head = _param(config.dim, config.vocab_size // tp, dtype=config.param_dtype)
         self._rope = None
-        #: a parallel.fsdp.FSDP layout whose forward this model runs, or None
+        #: the rank's parallel.fsdp.FSDP layout over the mesh (None without one)
         self.fsdp = None
+        if mesh is not None:
+            from ..parallel.fsdp import FSDP
+            from ..parallel.sharding import llama_logical_axes
+
+            FSDP.for_model(mesh, param_shapes(config), llama_logical_axes).localize(self)
 
     def blocks(self) -> List[Block]:
         return [getattr(self, f"layer_{i}") for i in range(self.config.n_layers)]
@@ -483,17 +573,19 @@ class Llama(nn.Module):
         this is the decode-mode call, which updates the cache in place.
         With ``adapters`` (an adapter slot bank, see :func:`gather_adapters`)
         and ``adapter_slots`` (one slot per row on the host, -1 = base) each
-        row's adapter is added to its q/k/v/o projections. Under a
-        sequence-parallel mesh the full forward takes the global tokens
-        (batch, S) and returns this rank's (batch, S / sp, vocab)."""
+        row's adapter is added to its q/k/v/o projections. Over a mesh the
+        full forward takes the rank's rows (rows, S) and returns their
+        (rows, S / sp, vocab) logits."""
         cfg = self.config
-        if self.fsdp is not None:
-            if cache is not None or adapters is not None:
-                raise NotImplementedError("an FSDP model runs the full-sequence forward only")
-            return self.fsdp.forward(self, tokens)
-        if self.sp_group is not None and cache is None:
-            tokens = self._sequence_shard(tokens)
-        x = self._embed(tokens)
+        if self.mesh is not None:
+            if cache is None and adapters is None:
+                return self._mesh_forward(tokens)
+            split = {a: n for a, n in self.mesh.shape.items() if a != "sp" and n > 1}
+            if adapters is not None or split:
+                raise NotImplementedError(
+                    f"a Llama over a mesh split over {split} runs the full-sequence forward "
+                    "only (the decode-mode call runs where every parameter is whole: sp alone)")
+        x = self.embed[tokens].to(cfg.dtype) if self.group is None else self._embed(tokens)
         cos, sin = self._rope_table(x.device)
         rows = None
         if adapters is not None and adapter_slots is not None:
@@ -513,7 +605,7 @@ class Llama(nn.Module):
         return logits if self.group is None else self.group.allgather_cat(logits, dim=-1)
 
     def _sequence_shard(self, tokens: torch.Tensor) -> torch.Tensor:
-        """This rank's contiguous S / sp of the global (batch, S) tokens."""
+        """This rank's contiguous S / sp of its (rows, S) tokens."""
         seq = tokens.shape[1]
         if seq % self.sp:
             raise ValueError(f"sequence length {seq} does not divide over sp={self.sp} ranks")
@@ -524,16 +616,51 @@ class Llama(nn.Module):
         return tokens[:, self.sp_rank * s:(self.sp_rank + 1) * s]
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        """The embedding lookup in ``config.dtype``; with tp > 1 the rank
-        looks up the tokens of its vocab rows, zeros elsewhere, and the
-        allreduce adds the one non-zero term of each token."""
-        if self.group is None:
-            return self.embed[tokens].to(self.config.dtype)
-        rows = self.embed.shape[0]
-        local = tokens - self.rank * rows
-        mine = (local >= 0) & (local < rows)
-        x = self.embed[local.clamp(0, rows - 1)].to(self.config.dtype)
-        return self.group.allreduce_(x.masked_fill(~mine[..., None], 0))
+        """The serving plan's embedding lookup in ``config.dtype``: the
+        rank's term (:func:`vocab_rows_lookup`), and the allreduce adds the
+        one non-zero term of each token."""
+        x = vocab_rows_lookup(self.embed, tokens, self.rank, self.config.dtype)
+        return self.group.allreduce_(x)
+
+    # -- over a mesh ---------------------------------------------------------
+
+    def _gathered(self, name: str) -> torch.Tensor:
+        return self.fsdp.gather(name, self.get_parameter(name))
+
+    def _mesh_embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The rank's term of the lookup (its vocabulary rows, gathered
+        over ``fsdp``) summed over ``tp`` with ``sum_of_ranks`` (one rank's
+        term is non-zero: exact)."""
+        embed = self._gathered("embed")
+        tp = self.mesh.group("tp")
+        if tp is None:
+            return embed[tokens].to(self.config.dtype)
+        return sum_of_ranks(vocab_rows_lookup(embed, tokens, tp.rank, self.config.dtype), tp)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        tp = self.mesh.group("tp")
+        if tp is None:
+            return x @ self._gathered("lm_head").to(x.dtype)
+        logits = copy_to_group(x, tp) @ self._gathered("lm_head").to(x.dtype)
+        return gather_from_group(logits, tp, dim=-1)
+
+    def _mesh_forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        if self.sp_group is not None:
+            tokens = self._sequence_shard(tokens)
+        x = self._mesh_embed(tokens)
+        cos, sin = self._rope_table(x.device)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for i, block in enumerate(self.blocks()):
+            if remat:
+                x = checkpoint(self.fsdp.call_block, block, f"layer_{i}.", x, cos, sin,
+                               use_reentrant=False)
+            else:
+                x = self.fsdp.call_block(block, f"layer_{i}.", x, cos, sin)
+        x = rmsnorm(x, self._gathered("final_norm").to(x.dtype), cfg.norm_eps)
+        if remat:  # the head's gathered columns are gathered again in the backward
+            return checkpoint(self._head, x, use_reentrant=False)
+        return self._head(x)
 
 
 def _lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> None:
@@ -602,12 +729,16 @@ def build_llama(config: LlamaConfig, params: Dict[str, torch.Tensor], mesh=None,
     """A :class:`Llama` whose parameters ARE the given tensors (no copy), so
     several modules can share one set of weights. With a bound ``plan``
     (``PartitionPlan.bind``) the params are its rank's slices and the model
-    runs that rank's part of the tensor-parallel forward."""
+    runs that rank's part of the tensor-parallel forward. With a bound
+    ``mesh`` each of ``params`` is this rank's block, or the whole tensor,
+    whose block is then taken (a copy where it is split)."""
     with torch.device("meta"):
         if plan is None:
             model = Llama(config, mesh)
         else:
             model = Llama(config, mesh, plan, plan.rank, plan.group)
+    if mesh is not None:
+        params = model.fsdp.blocks_of(params, param_shapes(config))
     model.load_state_dict(params, strict=True, assign=True)
     for p in model.parameters():
         p.requires_grad_(False)
@@ -639,22 +770,27 @@ def next_token_loss(
     :func:`build_llama` (every parameter frozen: a loss to read, not to
     differentiate).
 
-    A sequence-parallel model (see the module docstring) returns, on every
-    rank, the loss over the global ``tokens``: the sum over the ranks of
-    each rank's NLL sum over its positions that have a next token (its last
-    one pairs with the next shard's first token) divided by batch x (S - 1).
-    Its backward runs each rank's own term only, so the parameters'
-    gradients summed over the ranks are the loss's."""
+    Over a mesh (see the module docstring) ``tokens`` are the rank's rows of
+    the global batch, and every rank returns the loss over the global batch
+    and whole sequences: the sum over the ranks (the data axes and ``sp``)
+    of each rank's NLL sum over its positions that have a next token (a
+    sequence shard's last one pairs with the next shard's first token)
+    divided by the global batch x (S - 1). Its backward runs each rank's own
+    term only, so the parameters' gradients summed over those ranks
+    (``model.fsdp.sync_gradients``) are the loss's. Where the data axes and
+    ``sp`` are all 1 this is the plain mean."""
     model = model_or_params
     if not isinstance(model, Llama):
         model = build_llama(config, dict(model_or_params))
     elif model.config != config:
         raise ValueError("the model was built for another config")
-    if model.sp_group is None:
-        return nll_from_logits(model(tokens), tokens)
     logits = model(tokens)
+    group = None if model.mesh is None else model.mesh.group(LOSS_AXES)
+    if group is None:
+        return nll_from_logits(logits, tokens)
     b, s, _ = logits.shape
     first = model.sp_rank * s + 1
-    targets = tokens[:, first:first + s]  # the last rank's has s - 1
-    local = token_nll(logits[:, :targets.shape[1]], targets).sum() / (b * (tokens.shape[1] - 1))
-    return sum_of_ranks(local, model.sp_group)
+    targets = tokens[:, first:first + s]  # the last sequence shard's has s - 1
+    rows = b * model.mesh.axes_size(LOSS_AXES[:-1])
+    local = token_nll(logits[:, :targets.shape[1]], targets).sum() / (rows * (tokens.shape[1] - 1))
+    return sum_of_ranks(local, group)

@@ -54,8 +54,8 @@ as the reference's GSPMD program:
   global count), its backward each rank's own share; the gradients are
   completed by ``model.fsdp.sync_gradients``.
 
-``sp > 1`` and ``pp > 1`` raise: sequence parallelism beside other axes is
-ROADMAP item A.12, the pipeline A.5.4.
+``sp > 1`` and ``pp > 1`` raise: the MoE's sequence parallelism is ROADMAP
+item A.12, the pipeline A.5.4.
 """
 
 from __future__ import annotations
@@ -74,7 +74,15 @@ from ..ops.rmsnorm import rmsnorm
 from ..ops.rope import rope_table
 from ..parallel.expert import Routing, expert_capacity, moe_apply_indexed, route
 from ..parallel.mesh import BATCH_AXES, EXPERT_AXES, check_model_mesh
-from .llama import Attention, LlamaConfig, _lecun_normal_, _param, nll_from_logits, token_nll
+from .llama import (
+    Attention,
+    LlamaConfig,
+    _lecun_normal_,
+    _param,
+    nll_from_logits,
+    token_nll,
+    vocab_rows_lookup,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,11 +305,7 @@ class MoETransformer(nn.Module):
         if tp is None:
             x = embed[tokens].to(cfg.dtype)
         else:
-            rows = embed.shape[0]
-            local = tokens - tp.rank * rows
-            mine = (local >= 0) & (local < rows)
-            x = embed[local.clamp(0, rows - 1)].to(cfg.dtype).masked_fill(~mine[..., None], 0)
-            x = sum_of_ranks(x, tp)
+            x = sum_of_ranks(vocab_rows_lookup(embed, tokens, tp.rank, cfg.dtype), tp)
         if self._rope is None or self._rope[0].device != x.device:
             self._rope = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, x.device)
         cos, sin = self._rope

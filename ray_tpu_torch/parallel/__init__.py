@@ -38,6 +38,7 @@ from .fsdp import FSDP
 from .mesh import (
     AXIS_ORDER,
     BATCH_AXES,
+    LOSS_AXES,
     EXPERT_AXES,
     Mesh,
     MeshSpec,
@@ -72,6 +73,7 @@ from .ulysses import ulysses_attention
 __all__ = [
     "AXIS_ORDER",
     "BATCH_AXES",
+    "LOSS_AXES",
     "EXPERT_AXES",
     "DEFAULT_LLM_RULES",
     "DEFAULT_RULES",

@@ -1,51 +1,44 @@
 """Fully-sharded data parallelism: what GSPMD does under the reference's
-``param_shardings`` on a mesh with an ``fsdp`` axis, for the Llama of
-models/llama.py and for any model's rule table (the ViT and the MoE over a
-mesh).
+``param_shardings`` on a mesh with an ``fsdp`` axis, for any model's rule
+table (the Llama, the ViT and the MoE over a mesh).
 
 It has no reference file. The reference lays every parameter out by the
 logical-axis rule table (``embed`` -> ``fsdp``), and XLA gathers a weight
 where the program reads it and reduce-scatters its gradient. Here each rank
-is a process that stores only its block of every parameter whose spec
-names the ``fsdp`` axis (:class:`~.sharding.NamedSharding` of
-:func:`~.sharding.param_shardings`): the frozen base and the adapter
-matrices with an ``embed`` axis. The rest (the adapters' ``lora_rank`` x
-``heads`` factors) is replicated.
-
-:meth:`FSDP.forward` is the model's full-sequence forward with the weights
-gathered over the mesh's ``fsdp`` group just before they are read:
-
-- ``embed`` before the lookup, freed after it;
-- each block's weights at the block's start, freed at its end. Under
-  ``config.remat`` the block runs under ``torch.utils.checkpoint``, so its
-  gathered weights are not kept for the backward: the recompute gathers
-  them again;
-- ``final_norm`` before the final norm, and ``lm_head`` inside a
-  checkpoint of the head's product (gathered again in the backward).
-
-The frozen base is gathered under ``no_grad`` (no backward). An adapter
-block goes through ``collective.functional.all_gather_cat``, whose backward
-reduce-scatters its gradient: the rank receives the sum over the ranks of
-its block's gradient (:attr:`FSDP.sharded` names them; divide by the world
-size once, and do not reduce them again). A replicated adapter's gradient
-is the rank's own, for ``train.collective.reduce_gradients``. A model built
-without FSDP (every serving path) is untouched.
-
-Over a mesh of several axes (:meth:`FSDP.for_model`) a rank holds its block
-of every parameter under the whole spec, split over ``fsdp``, ``tp`` and
-``ep`` alike, and only the ``fsdp`` dimension is gathered, over the mesh's
+is a process that stores only its block of every parameter under its whole
+spec (:class:`~.sharding.NamedSharding` of
+:func:`~.sharding.param_shardings`), split over ``fsdp``, ``tp`` and ``ep``
+alike, and only the ``fsdp`` dimension is gathered, over the mesh's
 ``fsdp`` sub-group: the gathered tensor is the rank's tensor- or
 expert-parallel block, which the model's Megatron pair
 (collective/functional.py) computes with. :meth:`FSDP.localize` gives a
-model built at those widths its blocks' shapes, :meth:`FSDP.gather` is
-what its forward reads a parameter through, and
+model built at those widths its blocks' shapes, and :meth:`FSDP.gather` /
+:meth:`FSDP.call_block` are what its forward reads parameters through:
+
+- ``embed`` before the lookup, freed after it;
+- each block's weights at the block's start, freed at its end. Under
+  ``config.remat`` the model runs the block under
+  ``torch.utils.checkpoint``, so its gathered weights are not kept for the
+  backward: the recompute gathers them again;
+- ``final_norm`` before the final norm, and ``lm_head`` inside a
+  checkpoint of the head's product (gathered again in the backward).
+
+A frozen block is gathered under ``no_grad`` (no backward). A trained one
+goes through ``collective.functional.all_gather_cat``, whose backward
+reduce-scatters its gradient: the rank receives the sum over the ``fsdp``
+ranks of its block's gradient.
+
 :meth:`FSDP.sync_gradients` completes the gradients of a loss that is
 global on every rank with each rank's backward its own share (the models'
-``sum_of_ranks`` over the data group): a block split over ``fsdp`` was
-summed over ``fsdp`` by its gather's reduce-scatter and is summed over the
-other data axes (``dcn``, ``dp``), every other parameter over all the data
-axes. A parameter replicated over ``tp`` or ``ep`` is not reduced over
-them: the Megatron pair gives it the same whole gradient on those ranks.
+``sum_of_ranks`` over the data axes and, for the Llama, ``sp``): a block
+split over ``fsdp`` was summed over ``fsdp`` by its gather's
+reduce-scatter and is summed over the other data axes (``dcn``, ``dp``)
+and ``sp``, every other parameter over all the data axes and ``sp``. A
+parameter replicated over ``tp`` or ``ep`` is not reduced over them: the
+Megatron pair gives it the same whole gradient on those ranks.
+:meth:`FSDP.full` gathers a parameter whole over every axis that splits
+it (a checkpoint's adapters). A model built without a mesh (every serving
+path) is untouched.
 """
 
 from __future__ import annotations
@@ -55,11 +48,9 @@ from typing import Dict, Mapping
 import torch
 from torch import nn
 from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
 
 from ..collective.functional import all_gather_cat
-from ..ops.rmsnorm import rmsnorm
-from .mesh import BATCH_AXES
+from .mesh import LOSS_AXES
 from .sharding import NamedSharding, _axis_names, param_shardings
 
 AXIS = "fsdp"
@@ -187,15 +178,16 @@ class FSDP:
         """Complete, in place, the gradients of ``params`` ((name,
         parameter) pairs, e.g. ``model.named_parameters()``) of a loss that
         every rank holds whole and whose backward on each rank is its own
-        data shard's term (see the module docstring): a block split over
-        ``fsdp`` is summed over the other data axes, every other parameter
-        over all the data axes; nothing is summed over ``tp`` or ``ep``.
+        data and sequence shard's term (see the module docstring): a block
+        split over ``fsdp`` is summed over the other data axes and ``sp``,
+        every other parameter over all the data axes and ``sp``; nothing is
+        summed over ``tp`` or ``ep``.
         The gradients bound for one group are summed in flat buckets of up
         to SYNC_BUCKET_BYTES (one op each, in the order given: the sums are
         elementwise, so a bucket changes no bit)."""
-        rest_axes = tuple(a for a in BATCH_AXES if a != AXIS)
-        self.mesh.require_groups((rest_axes, BATCH_AXES), "FSDP.sync_gradients")
-        rest, everything = self.mesh.group(rest_axes), self.mesh.group(BATCH_AXES)
+        rest_axes = tuple(a for a in LOSS_AXES if a != AXIS)
+        self.mesh.require_groups((rest_axes, LOSS_AXES), "FSDP.sync_gradients")
+        rest, everything = self.mesh.group(rest_axes), self.mesh.group(LOSS_AXES)
         pending: Dict[tuple, list] = {}
         for name, p in params:
             group = rest if name in self.dims else everything
@@ -223,37 +215,19 @@ class FSDP:
 
     @torch.no_grad()
     def full(self, name: str, local: torch.Tensor) -> torch.Tensor:
-        """The whole of a parameter from this rank's block (every rank
-        calls it: a gather over the group)."""
-        if name not in self.dims:
-            return local
-        return self.group.allgather_cat(local, dim=self.dims[name])
+        """The whole of a parameter from this rank's block: every dimension
+        its spec splits gathered over the group of its axes (every rank of
+        the mesh calls it). ``local`` itself where nothing splits it."""
+        for d, axes in enumerate(self.shardings[name].spec):
+            live = tuple(a for a in _axis_names(axes) if self.mesh.shape[a] > 1)
+            if live:
+                group = self.mesh.group(live[0] if len(live) == 1 else live)
+                local = group.allgather_cat(local, dim=d)
+        return local
 
     def full_state(self, named: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """:meth:`full` of every tensor of ``named``, in order."""
         return {name: self.full(name, t.detach()) for name, t in named.items()}
-
-    def build_llama(self, config, params: Mapping[str, torch.Tensor]):
-        """A Llama whose parameters ARE this rank's blocks ``params`` (every
-        one frozen, as ``build_llama`` leaves them) and whose forward is
-        :meth:`forward`."""
-        from ..models.llama import Llama, param_shapes
-
-        shapes = param_shapes(config)
-        if sorted(params) != sorted(shapes):
-            raise KeyError(f"params do not name the model's parameters: missing "
-                           f"{sorted(set(shapes) - set(params))}, unknown "
-                           f"{sorted(set(params) - set(shapes))}")
-        for name, t in params.items():
-            want = self.shardings[name].shard_shape(shapes[name])
-            if t.shape != want:
-                raise ValueError(f"{name}: this rank's block is {tuple(want)}, got {tuple(t.shape)}")
-        with torch.device("meta"):
-            model = Llama(config)
-        for name, t in params.items():
-            _set_param(model, name, nn.Parameter(t, requires_grad=False))
-        model.fsdp = self
-        return model
 
     # -- the forward ---------------------------------------------------------
 
@@ -266,33 +240,11 @@ class FSDP:
             return local
         if local.requires_grad:
             return all_gather_cat(local, self.group, self.dims[name])
-        return self.full(name, local)
+        with torch.no_grad():
+            return self.group.allgather_cat(local, dim=self.dims[name])
 
     def call_block(self, block: nn.Module, prefix: str, *args):
         """``block(*args)`` with each of its parameters gathered (``prefix``:
         the block's dotted name and a dot)."""
         weights = {n: self.gather(prefix + n, p) for n, p in block.named_parameters()}
         return functional_call(block, weights, args)
-
-    def _head(self, model, x):
-        return x @ self.gather("lm_head", model.lm_head).to(x.dtype)
-
-    def forward(self, model, tokens: torch.Tensor) -> torch.Tensor:
-        """The full-sequence forward of ``model`` (built by
-        :meth:`build_llama`): logits (batch, seq, vocab) in
-        ``config.dtype``, as ``Llama.forward`` computes them."""
-        cfg = model.config
-        x = self.gather("embed", model.embed)[tokens].to(cfg.dtype)
-        cos, sin = model._rope_table(x.device)
-        remat = cfg.remat and torch.is_grad_enabled()
-        for i, block in enumerate(model.blocks()):
-            if remat:
-                x = checkpoint(self.call_block, block, f"layer_{i}.", x, cos, sin,
-                               use_reentrant=False)
-            else:
-                x = self.call_block(block, f"layer_{i}.", x, cos, sin)
-        x = rmsnorm(x, self.gather("final_norm", model.final_norm).to(x.dtype), cfg.norm_eps)
-        if remat:
-            return checkpoint(self._head, model, x, use_reentrant=False)
-        return self._head(model, x)
-

@@ -23,9 +23,12 @@ reference puts tp on the innermost (fastest) device dimension.
 each line of ranks along each axis past 1 (the ranks that differ in that
 coordinate alone), and one for each combination of :data:`GROUP_COMBOS`
 with two axes or more past 1: the data axes together (:data:`BATCH_AXES`:
-the batch's shards, over which a loss and MoE routing counts are summed),
-``dcn`` and ``dp`` (an FSDP block's gradient), ``ep`` and ``tp`` (the
-experts' partial sums). A
+the batch's shards, over which MoE routing counts are summed), ``dcn`` and
+``dp`` (an FSDP block's gradient), ``ep`` and ``tp`` (the experts' partial
+sums), and the data axes with ``sp`` (:data:`LOSS_AXES`: the shards of the
+batch and of the sequence, over which the Llama's loss and its gradients
+are summed) and without ``fsdp``. A combination whose axes past 1 are
+another's (``sp`` = 1) shares that one's group. A
 group's rank is the rank's coordinate along its axes, row-major, so the
 data group's rank is the index of the rank's batch shard.
 """
@@ -47,10 +50,15 @@ BATCH_AXES = ("dcn", "dp", "fsdp")
 # the axes an expert's work is split over (its experts, its hidden units)
 EXPERT_AXES = ("ep", "tp")
 
+# the axes a loss's terms are split over: the batch's shards and the
+# sequence's (sp = 1: the data axes alone)
+LOSS_AXES = BATCH_AXES + ("sp",)
+
 # the axis combinations that get a group of their own beside the single axes:
 # the data axes (a loss's sum, MoE routing counts), the data axes but fsdp
-# (an FSDP block's gradient, summed over fsdp by its gather), the experts'
-GROUP_COMBOS = (BATCH_AXES, ("dcn", "dp"), EXPERT_AXES)
+# (an FSDP block's gradient, summed over fsdp by its gather), the experts',
+# and both data combinations with sp (a sequence-parallel loss and gradient)
+GROUP_COMBOS = (BATCH_AXES, ("dcn", "dp"), EXPERT_AXES, LOSS_AXES, ("dcn", "dp", "sp"))
 
 #: a rank's device: a card index, or "cpu"
 RankDevice = Union[int, str]
@@ -237,7 +245,7 @@ class Mesh:
         keys = [(a,) for a in AXIS_ORDER if self.shape[a] > 1]
         for combo in GROUP_COMBOS:
             live = tuple(a for a in combo if self.shape[a] > 1)
-            if len(live) > 1:
+            if len(live) > 1 and live not in keys:
                 keys.append(live)
         for axes in keys:
             key = axes[0] if len(axes) == 1 else axes
@@ -301,18 +309,18 @@ def make_mesh(
     return spec.build(devs)
 
 
-def check_model_mesh(mesh: Mesh, what: str) -> None:
-    """Refuse the axes the models over a mesh (the ViT, the MoE) do not
-    take, ``sp`` and ``pp``, and a mesh not bound with the groups of its
-    other axes."""
-    if mesh.shape["sp"] > 1:
+def check_model_mesh(mesh: Mesh, what: str, sequence: bool = False) -> None:
+    """Refuse the axes a model over a mesh does not take, ``pp`` and, unless
+    ``sequence`` (the Llama), ``sp`` (the ViT and the MoE), and a mesh not
+    bound with the groups of its other axes."""
+    if mesh.shape["sp"] > 1 and not sequence:
         raise NotImplementedError(
-            f"{what} with sp={mesh.shape['sp']}: sequence parallelism beside other mesh axes "
-            "is ROADMAP item A.12")
+            f"{what} with sp={mesh.shape['sp']}: sequence parallelism of this model is "
+            "ROADMAP item A.12")
     if mesh.shape["pp"] > 1:
         raise NotImplementedError(
             f"{what} with pp={mesh.shape['pp']}: the pipeline is ROADMAP item A.5.4")
-    mesh.require_groups(("dcn", "dp", "fsdp", "ep", "tp") + GROUP_COMBOS, what)
+    mesh.require_groups(("dcn", "dp", "fsdp", "ep", "sp", "tp") + GROUP_COMBOS, what)
 
 
 def mesh_axis_size(mesh: Mesh, axis: str) -> int:

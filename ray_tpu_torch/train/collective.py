@@ -11,13 +11,14 @@ For the example loops: :func:`tensor_group` and :func:`gang_mesh` (the
 run's ranks as a :class:`~ray_tpu_torch.parallel.Mesh`, bound with a
 sub-group for each of its axes), :func:`gang_mean` (the loss a gang
 reports: the mean of the ranks' values, the reference's loss over the
-global batch) and :class:`DataParallelMean` (the gradient hook between
-``backward()`` and the optimizer).
+global batch) and the gradient hooks between ``backward()`` and the
+optimizer: :class:`DataParallelMean` for replicated parameters and
+:class:`MeshGradients` for a model over a mesh.
 """
 
 from __future__ import annotations
 
-from typing import Any, Collection, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 
@@ -90,9 +91,10 @@ def tensor_group():
 def gang_mesh(device, **axes):
     """The run's ranks as a mesh of ``axes`` (``make_mesh``'s keywords),
     bound to this rank with its sub-groups (``Mesh.form_groups``, of the
-    tensor group's backend: a group for each axis past 1, for the data axes
-    together and for ``ep`` and ``tp`` together; a group whose ranks are
-    the whole gang is the run's tensor group itself), each rank on its own
+    tensor group's backend: a group for each axis past 1 and for each
+    combination of ``GROUP_COMBOS``, such as the data axes together, with
+    ``sp`` and without ``fsdp``, and ``ep`` with ``tp``; a group whose ranks
+    are the whole gang is the run's tensor group itself), each rank on its own
     device (gathered over the control group). Every rank calls it, in the
     same order as its other calls that form groups."""
     from ..parallel.mesh import make_mesh
@@ -150,32 +152,93 @@ class DataParallelMean:
     """A gang's gradient hook: the sum over the ranks through
     :func:`reduce_gradients`, divided by ``world_size``. With every rank's
     batch of one size, that is the gradient of the mean loss over the
-    global batch, the reference's. None at ``stale_grad=1``'s first step.
+    global batch, the reference's. None at ``stale_grad=1``'s first step."""
 
-    ``sharded`` names gradients that arrive already summed (an FSDP slice,
-    whose gather's backward reduce-scatters it): they skip
-    :func:`reduce_gradients` and are only divided, once; at ``stale_grad=1``
-    they wait a step with the rest."""
-
-    def __init__(self, world_size: int, sharded: Collection[str] = ()):
+    def __init__(self, world_size: int):
         self.world_size = world_size
-        self.sharded = frozenset(sharded)
-        self._held: Dict[str, torch.Tensor] = {}
 
     def __call__(self, grads: Mapping[str, torch.Tensor]) -> Optional[Dict[str, torch.Tensor]]:
-        own = {n: g for n, g in grads.items() if n in self.sharded}
-        summed = reduce_gradients({n: g for n, g in grads.items() if n not in own})
-        if gradient_scheduler().stale_grad:
-            own, self._held = self._held, own
-        return self._mean(summed, own)
+        return self._mean(reduce_gradients(grads))
 
     def flush(self) -> Optional[Dict[str, torch.Tensor]]:
         """At ``stale_grad=1``: the last step's gradients, which the
-        scheduler (and this hook) still hold."""
-        own, self._held = self._held, {}
-        return self._mean(gradient_scheduler().flush(), own)
+        scheduler still holds."""
+        return self._mean(gradient_scheduler().flush())
 
-    def _mean(self, summed, own):
+    def _mean(self, summed):
         if summed is None:
             return None
-        return {name: g.div_(self.world_size) for name, g in {**summed, **own}.items()}
+        return {name: g.div_(self.world_size) for name, g in summed.items()}
+
+
+class MeshGradients:
+    """The gradient hook of a model over a mesh (the Llama, the ViT, the
+    MoE), whose loss is global on every rank and whose backward on each rank
+    is its own term (nothing to divide). It completes the gradients as
+    ``model.fsdp.sync_gradients`` does, with the run's knobs:
+
+    - a block split over ``fsdp``, summed over ``fsdp`` by its gather's
+      reduce-scatter, is summed over the other loss axes (the data axes but
+      ``fsdp``, and ``sp``) by ``model.fsdp.sync_gradients``, at full width
+      as the reduce-scatter is;
+    - every other gradient is summed over the loss axes
+      (:data:`~ray_tpu_torch.parallel.mesh.LOSS_AXES`) through a
+      :class:`~ray_tpu_torch.collective.GradientReduceScheduler`: where
+      those axes are the whole gang (``tp`` = ``ep`` = 1), the run's own
+      (:func:`gradient_scheduler`: ``quantized``, ``overlap``,
+      ``bucket_bytes``, ``stale_grad``), as the replicated path's; else one
+      over the mesh's group of those axes with the same ``overlap``,
+      ``bucket_bytes`` and ``stale_grad``, and ``quantized`` raises (that
+      group is not the run's quantized one).
+
+    At ``stale_grad=1`` it returns the previous step's gradients (None on
+    the first step: skip the update), and :meth:`flush` the last step's."""
+
+    def __init__(self, model: torch.nn.Module):
+        from ..collective.bucketizer import DEFAULT_BUCKET_BYTES
+        from ..collective.scheduler import GradientReduceScheduler
+        from ..parallel.mesh import LOSS_AXES
+
+        ctx = get_context()
+        self.model, self.stale_grad = model, ctx.collective_stale_grad
+        self.sharded = model.fsdp.sharded
+        mesh = model.fsdp.mesh
+        self._held: Dict[str, torch.Tensor] = {}
+        self._late: Optional[Dict[str, torch.Tensor]] = None
+        if ctx.collective_tensor_group and mesh.axes_size(LOSS_AXES) == ctx.world_size:
+            self.scheduler = gradient_scheduler()
+            return
+        if ctx.collective_quantized:
+            raise NotImplementedError(
+                f"quantized gradient sums on {mesh}: its loss axes {LOSS_AXES} are not the "
+                "whole gang, and their group does not quantize; quantized takes a layout "
+                "without tp or ep")
+        group = mesh.group(LOSS_AXES)
+        self.scheduler = None if group is None else GradientReduceScheduler(
+            group, bucket_bytes=ctx.collective_bucket_bytes or DEFAULT_BUCKET_BYTES,
+            overlap=ctx.collective_overlap, stale_grad=self.stale_grad)
+
+    def __call__(self, grads: Mapping[str, torch.Tensor]) -> Optional[Dict[str, torch.Tensor]]:
+        self.model.fsdp.sync_gradients(
+            (n, p) for n, p in self.model.named_parameters() if n in self.sharded)
+        own = {n: g for n, g in grads.items() if n in self.sharded}
+        rest = {n: g for n, g in grads.items() if n not in self.sharded}
+        if self.scheduler is not None:
+            summed = self.scheduler.step(rest)
+        elif self.stale_grad:
+            summed, self._late = self._late, rest
+        else:
+            summed = rest
+        if self.stale_grad:
+            own, self._held = self._held, own
+        return None if summed is None else {**summed, **own}
+
+    def flush(self) -> Optional[Dict[str, torch.Tensor]]:
+        """At ``stale_grad=1``: the last step's gradients, which this hook
+        (and its scheduler) still hold."""
+        own, self._held = self._held, {}
+        if self.scheduler is not None:
+            summed = self.scheduler.flush()
+        else:
+            summed, self._late = self._late, None
+        return None if summed is None else {**summed, **own}

@@ -9,31 +9,43 @@ through the flash-attention backward kernels, and AdamW on the adapters
 only. The base weights are frozen: no gradients, no optimizer state.
 
 In a gang (more than one worker, or a ``backend_config``) the loop builds
-the reference's mesh over the ranks: ``fsdp`` (default: the world size) x
-``tp`` (default 1; tp > 1 raises: tensor-parallel training is ROADMAP item
-11), and, beyond the reference's keys, ``dp`` (default 1), the ranks that
-replicate every parameter. Each rank draws its own rows
-(``process_local_batch``).
+the reference's mesh over the ranks (``train.collective.gang_mesh``):
+``fsdp`` (default: the ranks ``dp`` and ``tp`` leave, the reference's
+``fsdp = n_dev``) x ``tp`` (default 1) and, beyond the reference's keys,
+``dp`` (default 1), the ranks that replicate every parameter.
 
-- By default (the reference's mesh) every rank stores only its block of
-  each parameter the rule table sends to ``fsdp`` (the frozen base and
-  the adapter matrices with an ``embed`` axis; parallel/fsdp.py), gathered
-  block by block in the forward and again in the recompute; the gathered
-  adapter blocks' gradients arrive reduce-scattered. At one rank the
-  gathers are one-rank ops.
-- With ``dp`` given and fsdp = 1 (``dp`` = the world size), every
-  parameter is replicated.
+- By default, and whenever ``fsdp`` or ``tp`` is past 1, the model is the
+  Llama over that mesh (``Llama(config, mesh)``, models/llama.py): every
+  rank stores only its block of each parameter by the rule table (split
+  over ``fsdp`` and ``tp``), gathers the ``fsdp`` blocks where they are
+  read and again in the recompute, and runs its heads, hidden units and
+  vocabulary columns between Megatron's collectives. Each step's loss is
+  the global batch's on every rank, ``train.collective.MeshGradients``
+  completes the gradients (nothing is divided: the loss is already the
+  mean), and AdamW updates the rank's blocks. At one rank the gathers are
+  one-rank ops.
+- With ``dp`` given and fsdp = tp = 1 (``dp`` = the world size), every
+  parameter is replicated: each rank's loss is its own rows' mean, the
+  gradients are summed across the gang by
+  ``train.collective.reduce_gradients`` and divided by the world size once
+  (``DataParallelMean``), and every rank reports the mean of the ranks'
+  losses.
 
-Either way the replicated adapters' gradients are summed across the gang
-by ``train.collective.reduce_gradients``, every gradient is divided by the
-world size once (the reference's loss is the mean over the global batch,
-and XLA reduces the gradient in the graph), and AdamW updates the rank's
-own tensors (elementwise: the replicated run's update, up to the order of
-the gradient sums). Every rank reports the mean of the ranks' last-step
-losses, the loss over the global batch. At ``stale_grad=1`` the first step
-skips the update and the last step's gradients are applied after the
-loop's last step. The epoch's ``lora.pkl`` holds the full adapters,
-gathered to rank 0.
+Each data shard draws its own rows (``step_tokens`` seeded by the shard's
+index over the data axes, ``mesh.axes_index(BATCH_AXES)``: the world rank
+where every rank is a shard), so the ranks of one ``tp`` group feed the
+same rows, and every rank reports the loss over the global batch. The
+trainer's knobs shape the gradient sums on either path: the sums over the
+whole gang (the replicated path's, and the mesh's at tp = 1) go through the
+run's ``GradientReduceScheduler`` (``quantized``, ``overlap``,
+``bucket_bytes``); at tp > 1 the sums over the data axes go through one of
+that group's with ``overlap`` and ``bucket_bytes``, and ``quantized``
+raises. At ``stale_grad=1`` the first step skips the update and the last
+step's gradients are applied after the loop's last step. The epoch's
+``lora.pkl`` holds the full adapters, gathered over ``fsdp`` and ``tp`` to
+every rank and written by rank 0. The reference's loop reads no ``sp``, so
+this one takes none: ``sp`` is reached through ``Llama(config, mesh)`` and
+:func:`lora_model`'s ``mesh``.
 
 ``train_loop_config`` keys: model ("tiny" | "7b"), epochs, steps_per_epoch,
 batch_per_worker, seq, lora_rank, lr, device (None means cuda), fsdp, tp,
@@ -52,6 +64,7 @@ import torch
 from ..._internal.device import resolve_device
 from ...models.llama import Llama, LlamaConfig, build_llama, init_params, next_token_loss
 from ...parallel.fsdp import FSDP
+from ...parallel.mesh import BATCH_AXES
 from ...parallel.sharding import process_local_batch
 from .. import collective as train_collective
 from .. import session
@@ -77,24 +90,22 @@ def model_config(config: dict) -> LlamaConfig:
             lora_rank=config.get("lora_rank", 16),
         )
     return LlamaConfig.tiny(
-        max_seq_len=config.get("seq", 128), lora_rank=config.get("lora_rank", 4), remat=True,
+        max_seq_len=config.get("seq", 128), lora_rank=config.get("lora_rank", 4), remat=True
     )
 
 
 def lora_model(
-    cfg: LlamaConfig, params: Dict[str, torch.Tensor], lr: float = 1e-4,
-    fsdp: Optional[FSDP] = None, mesh=None,
+    cfg: LlamaConfig, params: Dict[str, torch.Tensor], lr: float = 1e-4, mesh=None,
 ) -> Tuple[Llama, Dict[str, torch.nn.Parameter], torch.optim.AdamW]:
     """A Llama over ``params`` whose adapters train and whose base stays
     frozen, the adapters by name, and AdamW over the adapters alone. The
     adapters are leaf parameters in ``cfg.param_dtype``, as are their AdamW
     moments. The hyperparameters are optax.adamw's defaults (weight decay
-    1e-4, not torch's 0.01). With ``fsdp``, ``params`` are this rank's
-    blocks (``fsdp.shard``) and the model gathers them; with a bound
-    sequence-parallel ``mesh`` the model splits each sequence over its
-    ``sp`` group (``Llama(config, mesh)``), and the gradients summed over
-    the group (``train.collective.reduce_gradients``) are the loss's."""
-    model = build_llama(cfg, params, mesh) if fsdp is None else fsdp.build_llama(cfg, params)
+    1e-4, not torch's 0.01). With a bound ``mesh`` the model is the Llama
+    over it (``Llama(config, mesh)``): ``params`` are this rank's blocks
+    (``FSDP.shard`` of its layout) or whole tensors, whose blocks are taken,
+    and the gradients completed by :func:`mesh_gradients` are the loss's."""
+    model = build_llama(cfg, params, mesh)
     _, lora = split_lora(dict(model.named_parameters()))
     if not lora:
         raise ValueError("the config has no adapters: set lora_rank > 0")
@@ -123,18 +134,24 @@ def lora_train_step(
     return loss.detach()
 
 
-def data_parallel_mean(world_size: int, sharded=()) -> train_collective.DataParallelMean:
+def data_parallel_mean(world_size: int) -> train_collective.DataParallelMean:
     """The gang's gradient hook (``train.collective.DataParallelMean``):
     the sum over the ranks through ``train.collective.reduce_gradients``,
-    divided by ``world_size``; ``sharded`` names FSDP blocks, whose
-    gradients arrive summed. With every rank's batch of one size, that is
+    divided by ``world_size``. With every rank's batch of one size, that is
     the gradient of the mean loss over the global batch, the reference's.
     None at ``stale_grad=1``'s first step."""
-    return train_collective.DataParallelMean(world_size, sharded)
+    return train_collective.DataParallelMean(world_size)
 
 
-def flush_stale_update(model: Llama, optimizer: torch.optim.Optimizer,
-                       reduce_grads: train_collective.DataParallelMean):
+def mesh_gradients(model: Llama) -> train_collective.MeshGradients:
+    """The gradient hook of a model over a mesh
+    (``train.collective.MeshGradients``): the sums over the mesh's loss axes
+    that ``model.fsdp.sync_gradients`` makes, with the run's knobs, and at
+    ``stale_grad=1`` the previous step's."""
+    return train_collective.MeshGradients(model)
+
+
+def flush_stale_update(model: Llama, optimizer: torch.optim.Optimizer, reduce_grads):
     """At ``stale_grad=1``: apply the last step's reduced gradients, which
     the hook still holds."""
     if train_collective.set_gradients(model, reduce_grads.flush()):
@@ -145,7 +162,8 @@ def step_tokens(
     cfg: LlamaConfig, batch: int, epoch: int, step: int, rank: int, device: torch.device
 ) -> torch.Tensor:
     """Random tokens (batch, max_seq_len), seeded epoch*10_000 + step*100 +
-    rank as the reference seeds its PRNG key (other bits than JAX's)."""
+    rank as the reference seeds its PRNG key (other bits than JAX's). The
+    loop passes the rank's data shard as ``rank``."""
     gen = torch.Generator(device=device).manual_seed(epoch * 10_000 + step * 100 + rank)
     return torch.randint(
         0, cfg.vocab_size, (batch, cfg.max_seq_len), generator=gen, device=device
@@ -155,18 +173,11 @@ def step_tokens(
 def mesh_axes(config: dict, world_size: int) -> Dict[str, int]:
     """The loop's mesh over ``world_size`` ranks: ``fsdp`` (default: the
     ranks ``dp`` and ``tp`` leave, the reference's ``fsdp = n_dev``), ``tp``
-    and ``dp`` (default 1). Layouts the port cannot train raise."""
+    and ``dp`` (default 1)."""
     dp, tp = config.get("dp", 1), config.get("tp", 1)
     fsdp = config.get("fsdp", world_size // (dp * tp))
-    if tp > 1:
-        raise NotImplementedError(
-            f"tensor-parallel training (tp={tp}) is not ported: ROADMAP item 11 (serving "
-            "runs tensor-parallel through LLMServer(tensor_parallel_size=))")
-    if dp > 1 and fsdp > 1:
-        raise NotImplementedError(
-            f"dp={dp} x fsdp={fsdp}: the LoRA loop's FSDP within data-parallel replicas, "
-            "over the gang's sub-groups (Mesh.form_groups), is ROADMAP item 11; use "
-            f"fsdp={world_size} or dp={world_size}")
+    if dp * fsdp * tp != world_size:
+        raise ValueError(f"dp={dp} x fsdp={fsdp} x tp={tp} is not the {world_size} ranks")
     return {"dp": dp, "fsdp": fsdp, "tp": tp}
 
 
@@ -175,27 +186,36 @@ def train_loop_per_worker(config: dict):
     rank, world = ctx.get_world_rank(), ctx.get_world_size()
     device = resolve_device(config.get("device"))
     cfg = model_config(config)
-    group = train_collective.tensor_group()
     axes = mesh_axes(config, world)
+    # every parameter replicated: one worker in the caller's process, or
+    # ``dp`` given with fsdp = tp = 1 (at one rank the layouts are one, and
+    # the key picks this path)
+    replicated = (not ctx.collective_tensor_group
+                  or (axes["fsdp"] == axes["tp"] == 1 and "dp" in config))
+    group = train_collective.tensor_group()
     mesh = train_collective.gang_mesh(device, **axes)
-    fsdp = None
-    # FSDP unless ``dp`` is given with fsdp = 1 (at one rank the two layouts
-    # are one, and the key picks the replicated path)
-    if group is not None and (axes["fsdp"] > 1 or "dp" not in config):
-        fsdp = FSDP.for_llama(cfg, mesh.bind(rank, {"fsdp": group}))
+    if not replicated:
+        if axes["fsdp"] == world:
+            # the line is the whole gang: its group is the tensor group, at
+            # one rank too (every gather a one-rank op)
+            mesh = mesh.bind(mesh.rank, {**mesh.groups, "fsdp": group})
     gen = torch.Generator(device=device).manual_seed(0)
-    params = init_params(cfg, gen, device=device, shard=None if fsdp is None else fsdp.shard)
-    model, lora, optimizer = lora_model(cfg, params, lr=config.get("lr", 1e-4), fsdp=fsdp)
+    shard = None if replicated else FSDP.for_llama(cfg, mesh).shard
+    params = init_params(cfg, gen, device=device, shard=shard)
+    model, lora, optimizer = lora_model(cfg, params, lr=config.get("lr", 1e-4),
+                                        mesh=None if replicated else mesh)
     del params
-    reduce_grads = None
-    if group is not None:
-        reduce_grads = data_parallel_mean(world, () if fsdp is None else fsdp.sharded)
+    if replicated:
+        reduce_grads = None if group is None else data_parallel_mean(world)
+    else:
+        reduce_grads = mesh_gradients(model)
     # per-process batch: the global batch must divide over the mesh's data
     # axes, so each rank's rounds to its share of them (one, a rank being a
     # process with one device)
-    local_shards = max((axes["dp"] * axes["fsdp"]) // world, 1)
+    local_shards = max(mesh.axes_size(BATCH_AXES) // world, 1)
     batch = max(config.get("batch_per_worker", 2), local_shards)
     batch -= batch % local_shards
+    data_shard = mesh.axes_index(BATCH_AXES)
     steps = config.get("steps_per_epoch", 4)
     epochs = config.get("epochs", 2)
     # one checkpoint directory for the whole run, overwritten each epoch;
@@ -203,22 +223,21 @@ def train_loop_per_worker(config: dict):
     with tempfile.TemporaryDirectory(prefix="lora_ckpt_") as ckpt_dir:
         for epoch in range(epochs):
             for step in range(steps):
-                tokens = process_local_batch(mesh, step_tokens(cfg, batch, epoch, step, rank,
-                                                               device))
+                tokens = process_local_batch(
+                    mesh, step_tokens(cfg, batch, epoch, step, data_shard, device))
                 loss = lora_train_step(model, optimizer, tokens, reduce_grads)
             if reduce_grads is not None and ctx.collective_stale_grad and epoch == epochs - 1:
                 flush_stale_update(model, optimizer, reduce_grads)
-            full = lora if fsdp is None else fsdp.full_state(lora)
+            full = lora if replicated else model.fsdp.full_state(lora)
             checkpoint = None
             if rank == 0:
                 state = {name: p.detach().cpu() for name, p in full.items()}
                 with open(os.path.join(ckpt_dir, "lora.pkl"), "wb") as f:
                     pickle.dump({"lora": state, "epoch": epoch}, f)
                 checkpoint = Checkpoint.from_directory(ckpt_dir)
-            session.report(
-                {"epoch": epoch, "loss": train_collective.gang_mean(loss), "rank": rank},
-                checkpoint=checkpoint,
-            )
+            reported = train_collective.gang_mean(loss) if replicated else float(loss)
+            session.report({"epoch": epoch, "loss": reported, "rank": rank},
+                           checkpoint=checkpoint)
 
 
 def make_trainer(num_workers: int = 1, train_config: Optional[dict] = None,

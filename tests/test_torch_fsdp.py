@@ -21,7 +21,12 @@ every parameter the rule table sends to ``fsdp`` (parallel/fsdp.py):
 - the blocks' sharded checkpoint restored at fsdp=1 and fsdp=4;
 - the loop's own ``make_trainer(num_workers=2)``: every rank reports the
   reference's loss over the concatenated batch (the fault it repairs: each
-  rank reported its own), and ``tp > 1`` raises.
+  rank reported its own); the loop's mesh takes ``tp`` and ``dp x fsdp``
+  (trained in tests/test_torch_llama_mesh.py), and what still raises.
+
+The FSDP model is the Llama over the fsdp mesh (``lora_model(mesh=)``):
+its loss is the global batch's on every rank, and the steps complete the
+gradients with ``llama_lora.mesh_gradients``.
 
 The workers import this module by name, so it imports neither ``jax`` nor
 ``ray_tpu`` at its top.
@@ -40,6 +45,7 @@ import pytest
 import torch
 
 from ray_tpu_torch import train
+from ray_tpu_torch.collective.base import BaseGroup, ReduceOp
 from ray_tpu_torch.parallel import sharding as tsh
 from ray_tpu_torch.parallel.mesh import make_mesh
 from ray_tpu_torch.train import collective as tcol
@@ -110,16 +116,16 @@ def _fsdp_loop(config):
     fsdp = FSDP.for_llama(tcfg, mesh.bind(r, {"fsdp": tcol.tensor_group()}))
     blocks = fsdp.shard_params(params_from_jax(config["params"], tcfg, device="cpu"))
     train.report({"rank": r, "blocks": {k: v.numpy().copy() for k, v in blocks.items()}})
-    model, lora, optimizer = llama_lora.lora_model(tcfg, blocks, lr=_LR, fsdp=fsdp)
+    model, lora, optimizer = llama_lora.lora_model(tcfg, blocks, lr=_LR, mesh=fsdp.mesh)
     base, _ = split_lora(dict(model.named_parameters()))
-    reduce = llama_lora.data_parallel_mean(world, fsdp.sharded)
+    reduce = llama_lora.mesh_gradients(model)
     b = config["batch"]
     for step, tokens in enumerate(config["tokens"]):
         loss = llama_lora.lora_train_step(model, optimizer,
                                           torch.from_numpy(tokens[r * b:(r + 1) * b]).long(),
                                           reduce)
         full = fsdp.full_state(lora)
-        train.report({"rank": r, "step": step, "loss": tcol.gang_mean(loss),
+        train.report({"rank": r, "step": step, "loss": float(loss),
                       "adapters": {k: v.numpy().copy() for k, v in full.items()},
                       "own": {k: p.detach().numpy().copy() for k, p in lora.items()}})
     train.save_sharded(config["ckpt"], {"lora": dict(lora)},
@@ -362,22 +368,112 @@ def test_sharded_checkpoint_restores_onto_other_meshes(fsdp_runs):
 
 
 def test_tensor_parallel_training_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        llama_lora.mesh_axes({"tp": 2}, 2)
-    with pytest.raises(NotImplementedError, match="sub-groups"):
-        llama_lora.mesh_axes({"dp": 2, "fsdp": 2}, 4)
+    """The loop's mesh takes ``tp`` and ``dp`` x ``fsdp`` now (trained in
+    tests/test_torch_llama_mesh.py); what still raises: a layout that is not
+    the world's ranks and ``pp`` at the model (and the quantized knob where
+    the loss axes are not the whole gang:
+    ``test_mesh_gradients_take_the_runs_knobs``)."""
+    from ray_tpu_torch.models.llama import Llama
+
+    assert llama_lora.mesh_axes({"tp": 2}, 2) == {"dp": 1, "fsdp": 1, "tp": 2}
+    assert llama_lora.mesh_axes({"dp": 2, "fsdp": 2}, 4) == {"dp": 2, "fsdp": 2, "tp": 1}
+    assert llama_lora.mesh_axes({"tp": 2, "fsdp": 2}, 4) == {"dp": 1, "fsdp": 2, "tp": 2}
     assert llama_lora.mesh_axes({}, 4) == {"dp": 1, "fsdp": 4, "tp": 1}
     assert llama_lora.mesh_axes({"dp": 4}, 4) == {"dp": 4, "fsdp": 1, "tp": 1}
+    with pytest.raises(ValueError, match="is not the 4 ranks"):
+        llama_lora.mesh_axes({"tp": 2, "fsdp": 4}, 4)
+    with pytest.raises(NotImplementedError, match="A.5.4"):
+        Llama(_tiny_config(), make_mesh(devices=["cpu"] * 2, pp=2, fsdp=1).bind(0))
+
+
+class _TimesGroup(BaseGroup):
+    """A one-rank tensor group whose sum multiplies by 3 (a stand-in for
+    the run's group: what went through it shows)."""
+
+    backend = "fake"
+
+    def __init__(self, name):
+        super().__init__(1, 0, name)
+        self.calls = 0
+
+    def allreduce(self, tensor, op=ReduceOp.SUM):
+        self.calls += 1
+        return tensor * 3.0
+
+    def allgather(self, tensor):
+        return [tensor]
+
+    def reducescatter(self, tensor, op=ReduceOp.SUM):
+        return tensor * 3.0
+
+    def broadcast(self, tensor, src_rank=0):
+        return tensor
+
+    def send(self, tensor, dst_rank):
+        raise NotImplementedError
+
+    def recv(self, src_rank):
+        raise NotImplementedError
+
+    def barrier(self):
+        pass
+
+
+def test_mesh_gradients_take_the_runs_knobs(tmp_path):
+    """The mesh's gradient hook (``llama_lora.mesh_gradients``) where the
+    loss axes are the whole gang (every tp = 1 layout, here one rank) sums
+    through the run's own scheduler, with the trainer's knobs: overlap,
+    256-byte buckets and stale_grad=1 (the first step skips its update, the
+    next applies the first's sums, ``flush`` the last's), quantized too.
+    Where the loss axes are not the whole gang (here a world of two around
+    a one-rank mesh), the quantized knob raises: that group does not
+    quantize."""
+    from ray_tpu_torch import collective
+    from ray_tpu_torch.models.llama import init_params, next_token_loss
     from ray_tpu_torch.train import session
 
+    tcfg = _tiny_config()
+    mesh = make_mesh(devices=["cpu"], fsdp=1).bind(0)
+    model, _, _ = llama_lora.lora_model(
+        tcfg, init_params(tcfg, torch.Generator().manual_seed(0), device="cpu"), mesh=mesh)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 16)))
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        next_token_loss(tcfg, model, tokens).backward()
+        return tcol.gradients(model)
+
+    name = "mesh-knobs"
+    group = collective._groups[name] = _TimesGroup(name)
+    context = dict(world_rank=0, local_rank=0, node_rank=0, local_world_size=1,
+                   experiment_name="knobs", run_dir=str(tmp_path),
+                   collective_tensor_group=name, collective_quantized=True)
     session.set_context(session.TrainContext(
-        world_rank=0, local_rank=0, node_rank=0, world_size=2, local_world_size=2,
-        experiment_name="tp", run_dir=str(tmp_path)))
+        world_size=1, collective_overlap=True, collective_bucket_bytes=256,
+        collective_stale_grad=1, **context))
     try:
-        with pytest.raises(NotImplementedError, match="tensor-parallel training"):
-            llama_lora.train_loop_per_worker({"model": "tiny", "device": "cpu", "tp": 2})
+        hook = llama_lora.mesh_gradients(model)
+        assert hook.scheduler is tcol.gradient_scheduler()
+        assert hook.scheduler.overlap and hook.scheduler.bucket_bytes == 256
+        first = grads()
+        want = {k: 3.0 * g for k, g in first.items()}
+        assert hook(first) is None  # in flight
+        second = grads()
+        got = hook(second)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+        want = {k: 3.0 * g for k, g in second.items()}
+        got = hook.flush()
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+        assert group.calls > 2  # several buckets a step
+        session.set_context(session.TrainContext(world_size=2, **context))
+        with pytest.raises(NotImplementedError, match="quantized gradient sums"):
+            llama_lora.mesh_gradients(model)
     finally:
         session.set_context(None)
+        collective.destroy_collective_group(name)
 
 
 def test_process_local_batch_and_tree_shardings():

@@ -238,19 +238,35 @@ def _random_params(tcfg, seed=42):
     return params
 
 
-@pytest.mark.parametrize("axes", [{"sp": 1}, {"sp": 1, "fsdp": 2}], ids=["one_rank", "fsdp2"])
-def test_sp1_mesh_is_mesh_none_bit_for_bit(axes):
-    """A mesh whose sp axis is 1 runs plain flash: the logits, the loss and
-    every LoRA gradient equal ``mesh=None``'s exactly."""
+class _OneRank:
+    """A one-rank fsdp group in process: every gather and reduce-scatter is
+    the identity (a copy), as a one-rank gloo or NCCL group's."""
+
+    world_size, rank = 1, 0
+
+    def allgather_cat(self, x, dim=0):
+        return x.clone()
+
+    def reducescatter_sum(self, x, dim=0):
+        return x.clone()
+
+
+@pytest.mark.parametrize("groups", [{}, {"fsdp": _OneRank()}], ids=["one_rank", "fsdp_gathers"])
+def test_sp1_mesh_is_mesh_none_bit_for_bit(groups):
+    """A one-rank mesh (sp = 1) runs plain flash: the logits, the loss and
+    every LoRA gradient equal ``mesh=None``'s exactly, with its parameters
+    read directly or through the FSDP gathers of a bound one-rank ``fsdp``
+    group (the LoRA loop's layout at one rank). An ``fsdp`` axis past 1
+    splits the parameters now (tests/test_torch_llama_mesh.py)."""
     tcfg = _tiny_config()
     params = _random_params(tcfg)
-    n = axes.get("fsdp", 1)
-    mesh = make_mesh(devices=["cpu"] * n, **axes).bind(0)
+    mesh = make_mesh(devices=["cpu"], sp=1, fsdp=1).bind(0, groups)
     tokens = torch.from_numpy(np.random.default_rng(43).integers(0, 256, (2, 24))).long()
     outs = []
     for m in (None, mesh):
         model, lora, _ = llama_lora.lora_model(tcfg, params, mesh=m)
         assert model.sp_group is None
+        assert m is None or len(model.fsdp.sharded) == (2 * (2 + 7 + 4) + 3 if groups else 0)
         with torch.no_grad():
             logits = model(tokens)
         loss = next_token_loss(tcfg, model, tokens)
@@ -286,20 +302,37 @@ def test_decode_mode_never_takes_the_ring():
 
 
 def test_sequence_parallel_refusals():
-    """sp beside another non-trivial axis (sub-groups of the gang: ROADMAP
-    item A.12), an unbound sp mesh, a sequence the ranks do not divide or
-    longer than ``max_seq_len`` (RoPE would clamp the offset), and serving
-    with sp > 1 (kept item 32: the reference never runs the ring when it
-    serves)."""
+    """sp beside other axes builds now (the ring over each rank's sp
+    sub-group; trained in tests/test_torch_llama_mesh.py), given the groups
+    of every axis; still refused: a mesh missing a group, an unbound sp
+    mesh, a sequence the ranks do not divide or longer than
+    ``max_seq_len`` (RoPE would clamp the offset), the ViT's and the MoE's
+    sp > 1 (ROADMAP item A.12), ``pp`` (A.5.4), and serving with sp > 1
+    (kept item 32: the reference never runs the ring when it serves)."""
     from ray_tpu_torch.llm import LLMConfig
     from ray_tpu_torch.models.llama import Llama
+    from ray_tpu_torch.models.moe import MoEConfig, MoETransformer
+    from ray_tpu_torch.models.vit import ViT, ViTConfig
     from ray_tpu_torch.parallel.plan import PartitionPlan
 
     tcfg = LlamaConfig.tiny(dtype=torch.float32, max_seq_len=32)
     for axes in ({"sp": 2, "tp": 2}, {"sp": 2, "fsdp": 2}, {"sp": 2, "dp": 2}):
-        mesh = make_mesh(devices=["cpu"] * 4, **axes).bind(0, {"sp": _SpGroup(2, 0)})
+        mesh = make_mesh(devices=["cpu"] * 4, **axes)
+        other = next(a for a in axes if a != "sp")
+        groups = {"sp": _SpGroup(2, 0), other: _SpGroup(2, 0),
+                  ("dp", "sp") if other == "dp" else ("fsdp", "sp"): _SpGroup(4, 0)}
+        with pytest.raises(ValueError, match="form_groups"):
+            Llama(tcfg, mesh.bind(0, {"sp": _SpGroup(2, 0)}))
+        with torch.device("meta"):
+            model = Llama(tcfg, mesh.bind(0, groups))
+        assert model.sp == 2 and model.fsdp is not None
+        assert model.lm_head.shape[1] == tcfg.vocab_size // axes.get("tp", 1)
         with pytest.raises(NotImplementedError, match="item A.12"):
-            Llama(tcfg, mesh)
+            ViT(ViTConfig.tiny(), mesh.bind(0, groups))
+        with pytest.raises(NotImplementedError, match="item A.12"):
+            MoETransformer(MoEConfig.tiny(), mesh.bind(0, groups))
+    with pytest.raises(NotImplementedError, match="A.5.4"):
+        Llama(tcfg, make_mesh(devices=["cpu"] * 4, sp=2, pp=2, fsdp=1).bind(0))
     with pytest.raises(ValueError, match="bound"):
         Llama(tcfg, make_mesh(devices=["cpu"] * 2, sp=2))
     model = build_llama(tcfg, _random_params(tcfg),
