@@ -81,7 +81,21 @@ port's ``TorchTrainer`` (``TorchConfig(backend="nccl")``):
    exact, step ms, tokens a second (the global batch's) and peak a rank;
    losses finite and equal across the ranks.
 
-    python3 chip_multicard.py 3      # part 3 alone (no argument: all eight;
+9. the rest of the port's queue across cards: (a) GPipe at pp=4 over NCCL
+   (``pipe_loop``: ``parallel.pipeline_apply``, 8 full-width Llama-2-7B
+   decoder blocks a stage in bf16, 8 microbatches of 1 x 2048 hidden
+   states, forward and backward of a weighted mean) against one card
+   holding all 32 blocks at the same microbatches (each through the 32 in
+   turn): step ms and the wall over one card's, the output's and the
+   gradients' relative distance from the one-card run's, K1-K4 a step exact,
+   peak a rank; (b) ``HierarchicalGroup`` at 2 slices of 2 cards (NCCL
+   inside a slice, gloo between the leaders; ``hier_loop``) against the flat
+   NCCL allreduce at 33,554,432 B: equal on integer values, within f32
+   rounding on random ones, ms of each; (c) the MoE of part 7 at sp=2 x
+   ep=2 (4 layers, the ring over sp) beside part 7's one-card step (part 7
+   runs it with part 9).
+
+    python3 chip_multicard.py 3      # part 3 alone (no argument: all nine;
                                      # several, as in "4 5", run those)
 
 Prints the cards' names and power limits, one JSON line per part, and
@@ -109,6 +123,12 @@ SP_TIMED_STEPS = 3
 # the one-card runs ({}) first
 MESH_RUNS = (("moe", {}), ("moe", {"ep": 2, "tp": 2}), ("vit", {}),
              ("vit", {"dp": 2, "tp": 2}))
+# part 9 (c): the MoE under sequence parallelism, beside part 7's one card
+MESH_SP_RUNS = (("moe", {}), ("moe", {"sp": 2, "ep": 2}))
+# part 9 (a): the pipeline's stages (32 blocks over 4 cards, 8 a stage) and
+# its timed steps after a warm-up; (b): the allreduce's timed repeats
+PIPE_CARDS = {"stages": 4, "layers": 32, "timed_steps": 2}
+HIER_REPS = 10
 MESH_MOE = {"n_layers": 4, "batch": 2, "seq": 4096, "lr": 1e-3}
 MESH_TIMED_STEPS = 3
 # part 8: (name, loop config) runs of the 7B LoRA loop at 32 layers, each
@@ -292,7 +312,7 @@ def main() -> None:
     from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchConfig, TorchTrainer
 
     n = torch.cuda.device_count()
-    parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5", "6", "7", "8"}
+    parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5", "6", "7", "8", "9"}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print("cards:", smi.replace("\n", " | "))
@@ -322,10 +342,13 @@ def main() -> None:
         fsdp_part(C, fit, n, runs)
     if "6" in parts:
         sp_part(C, fit, n)
-    if "7" in parts:
-        mesh_part(C, fit, n)
+    if "7" in parts or "9" in parts:
+        mesh_part(C, fit, n, parts)
     if "8" in parts:
         tp_train_part(C, fit, n)
+    if "9" in parts:
+        pipe_part(C, fit, n)
+        hier_part(C, fit, n)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": n}}))
 
@@ -581,9 +604,9 @@ def sp_part(C, fit, n: int) -> None:
 
 
 def mesh_loop(config):
-    """Part 7's worker: the ViT or the MoE over ``gang_mesh(device,
-    **axes)`` (one rank: every axis 1), AdamW; K1-K4 launches of a warm-up
-    step, then timed steps."""
+    """Part 7's and 9 (c)'s worker: the ViT or the MoE over
+    ``gang_mesh(device, **axes)`` (one rank: every axis 1), AdamW; K1-K4
+    launches of a warm-up step, then timed steps."""
     import dataclasses
 
     import torch
@@ -657,17 +680,21 @@ def mesh_loop(config):
                                     "kernel_launches", "groups_ms", "top_kernels_ms")}
     train.report({"rank": r, "launches": launches, "step_ms": rows, "loss": float(loss),
                   "profile": profile, "peak_bytes": peak, "items": items,
+                  "coords": mesh.coords(),
                   "n_layers": cfg.n_layers, "param_bytes": sum(
                       p.numel() * p.element_size() for p in model.parameters())})
 
 
-def mesh_part(C, fit, n: int) -> None:
+def mesh_part(C, fit, n: int, parts=("7",)) -> None:
     """7: the MoE at ep=2 x tp=2 and the ViT at dp=2 x tp=2 across cards,
-    each beside its one-card step."""
+    each beside its one-card step; 9 (c): the MoE at sp=2 x ep=2."""
     import math
 
     runs = {}
-    for model, axes in MESH_RUNS:
+    todo = list(MESH_RUNS) if "7" in parts else []
+    if "9" in parts:
+        todo += [run for run in MESH_SP_RUNS if run not in todo]
+    for model, axes in todo:
         ranks = math.prod(axes.values())
         if ranks > n:
             continue
@@ -677,12 +704,14 @@ def mesh_part(C, fit, n: int) -> None:
         C.check([m["rank"] for m in reports] == list(range(ranks)), f"{model} {axes}: {reports}")
         C.check(all(math.isfinite(m["loss"]) and m["loss"] == reports[0]["loss"] for m in reports),
                 f"{model} {axes}: losses {[m['loss'] for m in reports]}")
-        layers = reports[0]["n_layers"]
-        want = ({"rmsnorm_fwd": 4 * layers + 1, "flash_attention_fwd": 2 * layers,
-                 "flash_bwd_dq": layers, "flash_bwd_dkv": layers} if model == "moe" else
-                {"rmsnorm_fwd": 0, "flash_attention_fwd": layers, "flash_bwd_dq": layers,
-                 "flash_bwd_dkv": layers})
-        for m in reports:
+        layers, sp = reports[0]["n_layers"], axes.get("sp", 1)
+        for m in reports:  # the ring's share at sp coordinate s
+            s = m["coords"]["sp"]
+            want = ({"rmsnorm_fwd": 4 * layers + 1, "flash_attention_fwd": 2 * layers * (s + 1),
+                     "flash_bwd_dq": layers * (sp - s), "flash_bwd_dkv": layers * (sp - s)}
+                    if model == "moe" else
+                    {"rmsnorm_fwd": 0, "flash_attention_fwd": layers, "flash_bwd_dq": layers,
+                     "flash_bwd_dkv": layers})
             C.check(m["launches"] == want, f"{model} {axes} rank {m['rank']}: launches "
                                            f"{m['launches']}, want {want}")
         med = max(statistics.median(m["step_ms"]) for m in reports)
@@ -809,6 +838,205 @@ def tp_train_part(C, fit, n: int) -> None:
             run["tokens_per_s_over_one_card"] = run["tokens_per_s"] / one["tokens_per_s"]
             run["peak_over_one_card"] = max(run["peak_bytes"]) / max(one["peak_bytes"])
     print("multicard tp", json.dumps(runs))
+
+
+def pipe_loop(config):
+    """Part 9 (a)'s worker: one stage of ``pipeline_apply`` over the run's
+    NCCL group (``config["stages"]`` ranks, each 32 / stages blocks), or
+    with one worker all 32 blocks applied in turn to each microbatch; the
+    forward and backward of the weighted mean, a warm-up step and timed
+    steps (K1-K4 set to 0 just before each, read just after); the output
+    (last stage) and a few gradients written to the run's directory."""
+    from pathlib import Path
+
+    import torch
+    from torch.func import functional_call
+
+    import chip_smoke as C
+    from ray_tpu_torch import train
+    from ray_tpu_torch.parallel import pipeline_apply
+    from ray_tpu_torch.train import collective as tcol
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = train.get_context()
+    device = C._card(torch)
+    stages, total = ctx.world_size, PIPE_CARDS["layers"]
+    per = total // stages
+    s = ctx.world_rank
+    model, xs, weights = C._pipe_model(torch, device, range(s * per, (s + 1) * per), n=total)
+    params = dict(model.named_parameters())
+    xs.requires_grad_(True)
+    group = tcol.tensor_group() if stages > 1 else None
+    counters = C._port_counters()
+
+    def step():
+        if group is not None:
+            out = pipeline_apply(lambda p, x: functional_call(model, p, (x,)), params, xs,
+                                 group=group)
+            loss = C._pipe_loss(torch, out, weights)
+            loss.backward()
+            return out.detach(), loss.detach()
+        outs, loss = [], 0.0
+        for m in range(C.PIPE["micro"]):
+            y = model(xs[m])
+            part = (y.float() * weights[m].float()).sum() / (y.numel() * C.PIPE["micro"])
+            part.backward()
+            outs.append(y.detach())
+            loss = loss + part.detach()
+        return torch.stack(outs), loss
+
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for i in range(1 + PIPE_CARDS["timed_steps"]):
+        for p in params.values():
+            p.grad = None
+        xs.grad = None
+        torch.cuda.synchronize()
+        if group is not None:
+            group.barrier()
+        C._zero(counters)
+        t0 = time.perf_counter()
+        out, loss = step()
+        torch.cuda.synchronize()
+        rows.append(dict(step_ms=(time.perf_counter() - t0) * 1e3,
+                         launches=C._launches(counters), loss=float(loss)))
+    keep = [k for k in params if k.endswith(("attn.wq.base.kernel", "mlp.w_down.kernel"))]
+    torch.save({"out": out.cpu() if s == stages - 1 else None,
+                "grads": {k: params[k].grad.cpu() for k in keep}},
+               Path(ctx.get_storage_path()) / f"pipe_{stages}_{s}.pt")
+    train.report({"rank": s, "steps": rows, "peak_bytes": torch.cuda.max_memory_allocated(),
+                  "blocks": per})
+
+
+def pipe_part(C, fit, n: int) -> None:
+    """9 (a): the pipeline at pp=4 across cards beside one card holding all
+    32 blocks."""
+    import math
+
+    import torch
+
+    stages = PIPE_CARDS["stages"]
+    if stages > n:
+        return
+    runs, files = {}, {}
+    for ranks in (1, stages):
+        with tempfile.TemporaryDirectory(prefix="chip_multicard_pipe_") as storage:
+            t0 = time.perf_counter()
+            result = _fit_in(C, pipe_loop, ranks, storage)
+            fit_s = time.perf_counter() - t0
+            reports = sorted((m for m in result.metrics_history if "steps" in m),
+                             key=lambda m: m["rank"])
+            C.check([m["rank"] for m in reports] == list(range(ranks)), f"pipe {ranks}: {reports}")
+            per = PIPE_CARDS["layers"] // ranks
+            micro = C.PIPE["micro"]
+            want = {"rmsnorm_fwd": 2 * per * micro, "flash_attention_fwd": per * micro,
+                    "flash_bwd_dq": per * micro, "flash_bwd_dkv": per * micro}
+            for m in reports:
+                for st in m["steps"]:
+                    C.check(st["launches"] == want, f"pipe {ranks} rank {m['rank']}: launches "
+                                                    f"{st['launches']}, want {want}")
+                    C.check(math.isfinite(st["loss"]), f"pipe {ranks}: loss {st['loss']}")
+            med = max(statistics.median(st["step_ms"] for st in m["steps"][1:]) for m in reports)
+            runs[ranks] = dict(fit_s=fit_s, step_ms=[[st["step_ms"] for st in m["steps"]]
+                                                     for m in reports],
+                               step_ms_median=med, loss=reports[-1]["steps"][0]["loss"],
+                               peak_bytes=[m["peak_bytes"] for m in reports])
+            files[ranks] = [torch.load(Path(storage) / "multicard" / f"pipe_{ranks}_{r}.pt")
+                            for r in range(ranks)]
+    one, pipe = files[1][0], files[stages]
+    grads = {k: g for f in pipe for k, g in f["grads"].items()}
+    dist_of = {}
+    for name, got, want in (("out", pipe[-1]["out"], one["out"]),
+                            *((k, g, one["grads"][k]) for k, g in grads.items())):
+        dist_of[name] = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    # the same blocks on the same microbatches: the two runs part by the
+    # order of the microbatches' gradient sums at most, 8 bf16 additions
+    # (each rounding at 2^-9 of the sum) in another order
+    C.check(max(dist_of.values()) <= 8 * 2.0 ** -9, f"pipe against one card: {dist_of}")
+    out = dict(stages=stages, blocks=PIPE_CARDS["layers"], micro=C.PIPE["micro"],
+               one_card=runs[1], pipeline=runs[stages],
+               wall_over_one_card=runs[stages]["step_ms_median"] / runs[1]["step_ms_median"],
+               out_rel_distance=dist_of["out"], out_bit_identical=bool(
+                   torch.equal(pipe[-1]["out"], one["out"])),
+               grad_rel_distance_max=max(v for k, v in dist_of.items() if k != "out"))
+    print("multicard pipe", json.dumps(out))
+
+
+def _fit_in(C, loop, workers, storage, config=None):
+    """``loop`` on ``workers`` NCCL ranks, its run directory under
+    ``storage`` (kept for the caller to read)."""
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchConfig, TorchTrainer
+
+    result = TorchTrainer(loop, train_loop_config=dict(config or {}),
+                          scaling_config=ScalingConfig(num_workers=workers),
+                          backend_config=TorchConfig(backend="nccl"),
+                          run_config=RunConfig(name="multicard", storage_path=storage)).fit()
+    if result.error is not None:
+        raise result.error
+    return result
+
+
+def hier_loop(config):
+    """Part 9 (b)'s worker: ``init_collective_group(backend="hier",
+    slice_size=2, intra_backend="nccl")`` beside the run's flat NCCL group:
+    the allreduce of 33,554,432 B on integer values (equal) and random ones
+    (within five f32 roundings of the magnitudes' sum: up to three in NCCL's
+    order, two in the slices'), each timed over
+    HIER_REPS (host clock; each op ends synchronized)."""
+    import torch
+
+    import chip_smoke as C
+    from ray_tpu_torch import collective as col
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train import collective as tcol
+
+    ctx = train.get_context()
+    device = C._card(torch)
+    flat = tcol.tensor_group()
+    hier = col.init_collective_group(ctx.world_size, ctx.world_rank, backend="hier",
+                                     group_name="hier", slice_size=2, intra_backend="nccl")
+    n = C.HIER["bytes"] // 4
+    g = torch.Generator(device=device).manual_seed(C.SEED + 30 + ctx.world_rank)
+    ints = torch.randint(-1000, 1000, (n,), generator=g, device=device).float()
+    rand = torch.randn(n, generator=g, device=device)
+    exact = torch.equal(hier.allreduce(ints), flat.allreduce(ints))
+    got, want = hier.allreduce(rand), flat.allreduce(rand)
+    mag = flat.allreduce(rand.abs())
+    err = ((got - want).abs() / (5 * 2.0 ** -24 * mag)).max().item()
+    times = {}
+    for name, group in (("hier", hier), ("flat", flat), ("hier_again", hier),
+                        ("flat_again", flat)):
+        rows = []
+        for _ in range(HIER_REPS):
+            flat.barrier()
+            t0 = time.perf_counter()
+            group.allreduce(rand)
+            torch.cuda.synchronize()
+            rows.append((time.perf_counter() - t0) * 1e3)
+        times[name] = rows
+    col.destroy_collective_group("hier")
+    train.report({"rank": ctx.world_rank, "int_exact": exact, "rand_err_over_bound": err,
+                  "ms": times})
+
+
+def hier_part(C, fit, n: int) -> None:
+    """9 (b): the hierarchical group at 2 slices of 2 cards against the flat
+    NCCL allreduce."""
+    if n < 4:
+        return
+    result, fit_s = fit(hier_loop, 4)
+    reports = sorted((m for m in result.metrics_history if "ms" in m), key=lambda m: m["rank"])
+    C.check(len(reports) == 4, f"hier: {reports}")
+    for m in reports:
+        C.check(m["int_exact"] and m["rand_err_over_bound"] <= 1,
+                f"hier rank {m['rank']}: against the flat sum {m}")
+    med = {name: max(statistics.median(m["ms"][name]) for m in reports)
+           for name in reports[0]["ms"]}
+    print("multicard hier", json.dumps(dict(
+        bytes=C.HIER["bytes"], slices=2, fit_s=fit_s, median_ms=med,
+        hier_over_flat=(med["hier"] + med["hier_again"]) / (med["flat"] + med["flat_again"]),
+        rand_err_over_bound=max(m["rand_err_over_bound"] for m in reports),
+        ms=[m["ms"] for m in reports])))
 
 
 if __name__ == "__main__":

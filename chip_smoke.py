@@ -25,17 +25,18 @@ Phases, each of which exits non-zero on failure:
      (all four kernels) against the host CPU (their plain versions) in f32,
      then the card with bf16 activations against the same CPU gradients,
      within twice the error of a control run with bf16 activations on the CPU;
-  5. the serving path: LLMServer at full Llama-2-7B width (random bf16
-     weights from seed 0) answers 4 greedy requests of 128 prompt tokens and
-     32 new tokens, then streams one of them again;
+  5. the serving path: LLMServer at full Llama-2-7B width, cut to 4 of its
+     32 layers (SERVE_LAYERS; random bf16 weights from seed 0), answers 4
+     greedy requests of 128 prompt tokens and 32 new tokens, then streams
+     one of them again;
   6. the full forward: Llama's full-sequence forward (flash attention) on the
      same 4 prompts against the cache path's prefill, in bf16 and again with
      f32 activations;
   7. continuous batching over the paged prefix KV cache (LLMServer with
      kv_cache_blocks, on phase 5's weights): 16 greedy requests sharing a
      256-token prefix from 8 threads, with the exact prefix-hit and
-     computed-token counts, no lease pin left, and K1 launched 65 times per
-     model call the engine counts; the pooled decode step with 8 slots
+     computed-token counts, no lease pin left, and K1 launched 9 (2L + 1) times
+     per model call the engine counts; the pooled decode step with 8 slots
      active (time, and its device busy share under torch.profiler); TTFT
      of a 512-token miss and of a hit sharing 480 tokens. The metrics
      registry (ray_tpu_torch.util) must hold the manager's own counts
@@ -75,7 +76,7 @@ Phases, each of which exits non-zero on failure:
      on every wq/wk/wv/wo from numpy seeds, prewarmed into 8 slots; phase
      7's 16 requests, request i naming tenant i % 5 (0: the base model),
      with the exact salted prefix accounting (one miss per key space) and K1
-     launched 65 times per model call; in one pooled step with mixed slots
+     launched 9 times per model call; in one pooled step with mixed slots
      the base rows' logits equal those of the same step with every slot at
      -1, and the adapter rows' logits differ from them; adapter rows against
      one model per tenant with the same A and B as static LoRA weights; a
@@ -103,7 +104,7 @@ Phases, each of which exits non-zero on failure:
      pulled), then one sharing 480 tokens of another (15 pulled, 32
      computed), tokens equal the warm server's. The tier counters,
      kvtier_summary and the KV_SHIPPED events equal the counts the traffic
-     implies; K1 launches 65 times per model call and K2 never (admission
+     implies; K1 launches 9 times per model call and K2 never (admission
      prefill is decode-mode, as in the reference). Each step of a handoff
      is timed on its own (extract, encode, fetch, decode, adopt, build_row;
      median over 8) beside the waves' walls and mean engine TTFTs;
@@ -117,7 +118,7 @@ Phases, each of which exits non-zero on failure:
      gloo collectives' share of them) and TTFT of a miss and a hit, all
      beside a tp=1 paged server on the same traffic: the exact prefix-hit
      and computed counts, 16 KV heads and half the pool bytes a rank, K1
-     65 times per model call on each rank (rank 1's counts read back), K2-K4
+     9 times per model call on each rank (rank 1's counts read back), K2-K4
      never, the per-sample agreement check never fired, and where each
      request's tokens part from tp=1's; (b) the first 2 layers with f32
      activations, a dense and a paged tp=2 server against tp=1 on the card
@@ -143,7 +144,7 @@ Phases, each of which exits non-zero on failure:
      (the gather over the ranks included), encode, fetch and adopt (the
      scatter included) timed, and the tp=2 side's raw K/V of a prompt held
      to an f32-activation tp=1 prefill within 4x a bf16 tp=1 prefill's own
-     error; K1 65 times a model call on each rank, K2-K4 never, the
+     error; K1 9 times a model call on each rank, K2-K4 never, the
      agreement check never fired, no child or process group left;
   11. the device busy share of one served request, under torch.profiler;
   12. the training path: TorchTrainer.fit() of the llama_lora loop at full
@@ -293,7 +294,32 @@ Phases, each of which exits non-zero on failure:
      after an earlier layer's, counted; the ranks of a data shard alike).
      Printed: step ms, peak and the collectives' host share a rank. The
      kernel phases hold and time K2-K4 at the ranks' calls, (192, 197,
-     d=64) non-causal and (16, 4096, d=128) causal.
+     d=64) non-causal and (16, 4096, d=128) causal. Then, on the same
+     ranks: (c) the ViT at dp=2 x sp=2 x tp=2 (197 tokens, 99 / 98 a sp
+     rank, K/V gathered over sp) and (d) the 2 Mixtral layers at sp=2 x
+     ep=2 x tp=2 (the ring over sp, routing over the data axes and sp;
+     stepped with plain SGD, as AdamW's state for a quarter of the experts
+     a rank does not fit eight ranks beside this process), held
+     as (a) and (b) (K1-K4 under sp 9 / 4(s+1) / 2(2-s) / 2(2-s) at sp
+     coordinate s; ``pos_embed``'s padded rows in the resident bytes) with
+     planted faults of their own: the ViT's loss counted once per sp rank;
+     the MoE's first step with per-rank routing offsets (held by its
+     gradients or, where they cannot see it, by its routing against the
+     global one on the same logits) and with RoPE at local positions; (e)
+     GPipe (``parallel.pipeline_apply``) on ranks 0-3, a stage of 2
+     full-width Llama-2-7B blocks each, 8 microbatches of 1 x 2048, forward
+     and backward, 2 steps, against one rank applying the 8 blocks in turn:
+     K1-K4 32/16/16/16 a step a stage, zeros off the last stage, the
+     output, every stage's gradients and the microbatches' gradient within
+     twice the one-rank run's distance from f32 activations, the wall a
+     step beside the one-rank run's; (f) the hierarchical group on ranks
+     4-7 (2 slices of 2, ``HierarchicalGroup.form``) at 33,554,432 B: equal
+     to the flat gloo group's sum on integer values, within f32 rounding on
+     random ones, through ``GradientReduceScheduler`` too, the reference
+     tests' allgather / broadcast / reducescatter, ms beside the flat
+     group's. The kernel phases hold and time K2-K4 at (c)-(e)'s calls:
+     (384, 99 and 98, 197, d=64) non-causal, (32, 2048, d=128) causal and
+     non-causal.
   16c. the Llama over the reference's training mesh (``train_tp``): four
      gloo ranks sharing the card for each part, the two parts at once on
      ``train_mesh``'s eight ranks after its own (``_tp_round``, each through
@@ -349,6 +375,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -363,9 +390,13 @@ BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 SEED = 0
+# every bf16 Llama-2-7B server of the serving phases (5-11): full width, cut
+# to 4 of its 32 layers to fit the time limit (a model call launches K1
+# 2L + 1 = 9 times)
+SERVE_LAYERS = 4
 N_REQUESTS, PROMPT_LEN, NEW_TOKENS = 4, 128, 32
-# continuous batching: 8 slots over 256 blocks of 32 tokens (4.3 GB of bf16
-# K/V at 7B width, as much as the dense slot pool at max_seq_len 1024)
+# continuous batching: 8 slots over 256 blocks of 32 tokens (as much K/V as
+# the dense slot pool at max_seq_len 1024)
 CB = {"slots": 8, "blocks": 256, "block": 32, "max_seq_len": 1024}
 CB_REQUESTS, CB_PREFIX, CB_OWN = 16, 256, 64
 CB_LONG = 896  # the chunked phase's long prompt
@@ -376,7 +407,8 @@ LORA = {"max_live": 8, "rank": 16, "alpha": 16.0, "tenants": 4, "lora_b_std": 0.
 # disaggregated prefill/decode and the KV tier (serve_disagg): servers of the
 # serve_cb config (8 slots, 256 blocks of 32 tokens, max_seq_len 1024) over
 # one in-process tier backend; waves of 8 distinct 512-token prompts (16
-# blocks: 268,435,456 bytes of bf16 K/V) with 32 new greedy tokens each
+# blocks: 33,554,432 bytes of bf16 K/V at SERVE_LAYERS) with 32 new greedy
+# tokens each
 DISAGG = {"prompts": 8, "prompt_len": 512, "new_tokens": 32, "partial_shared": 480,
           "roles": {"prefill": 1, "decode": 1}}
 # the training path: llama_lora's "7b" loop, 2 epochs of 2 steps
@@ -461,12 +493,30 @@ SP_OP_TIMES = 4
 # batch 128, bf16 over f32, AdamW, on the reference test's dp=2 x fsdp=2 x
 # tp=2, 3 steps; (b) Mixtral-8x7B at full width cut to 2 of its 32 layers,
 # b=2 x 4096, remat, bf16 parameters, AdamW at lr 1e-3, on fsdp=2 x ep=2 x
-# tp=2, 2 steps; then (c) train_tp's round in the same gang
+# tp=2, 2 steps; (c) ViT-B/16 as (a) at dp=2 x sp=2 x tp=2 (197 tokens split
+# 99 / 98), 3 steps; (d) the 2 Mixtral layers as (b) at sp=2 x ep=2 x tp=2 (a
+# data shard holds both rows, so each sp rank's 2 x 2048 tokens interleave
+# in the global order), 2 steps with plain SGD (a quarter of the experts a
+# rank: AdamW's state, 3.5 GB a rank, left the eight ranks and this process
+# more than the card holds); then (e) GPipe on ranks 0-3 (PIPE) and (f)
+# the hierarchical group on ranks 4-7 (HIER); then train_tp's round
 MESH = {"ranks": 8,
         "vit": {"axes": {"dp": 2, "fsdp": 2, "tp": 2}, "batch": VIT_BATCH, "steps": 3,
                 "lr": 1e-4},
         "moe": {"axes": {"fsdp": 2, "ep": 2, "tp": 2}, "n_layers": 2, "batch": 2,
-                "seq": 4096, "steps": 2, "lr": 1e-3}}
+                "seq": 4096, "steps": 2, "lr": 1e-3},
+        "vit_sp": {"axes": {"dp": 2, "sp": 2, "tp": 2, "fsdp": 1}, "batch": VIT_BATCH,
+                   "steps": 3, "lr": 1e-4},
+        "moe_sp": {"axes": {"sp": 2, "ep": 2, "tp": 2, "fsdp": 1}, "n_layers": 2, "batch": 2,
+                   "seq": 4096, "steps": 2, "lr": 1e-3, "sgd": True}}
+# (e) the pipeline: pp=4 gloo ranks sharing the card, each stage 2 decoder
+# blocks of Llama-2-7B at full width in bf16, 8 microbatches of 1 x 2048
+# hidden states, forward and backward through pipeline_apply, 2 steps;
+# against one rank applying the 8 blocks in turn to each microbatch
+PIPE = {"stages": 4, "layers_per_stage": 2, "micro": 8, "rows": 1, "seq": 2048, "steps": 2}
+# (f) the hierarchical group: 4 gloo ranks in 2 slices of 2 at the 7B LoRA
+# loop's gradient size (f32), against the flat gloo group
+HIER = {"ranks": 4, "slice_size": 2, "bytes": 33_554_432, "reps": 3}
 # the flash calls a rank of train_mesh makes: (bh, sq, sk, d, causal,
 # batch) as the kernel phases take them (bf16): a rank's images or rows of
 # the global batch (its data shard) x its heads (tp's share)
@@ -476,6 +526,19 @@ MESH_ATTENTION_CALLS = (
     (_VIT_ROWS * 12 // MESH["vit"]["axes"]["tp"], VIT_SEQ, VIT_SEQ, 64, False, _VIT_ROWS),
     (_MOE_ROWS * 32 // MESH["moe"]["axes"]["tp"], MESH["moe"]["seq"], MESH["moe"]["seq"], 128,
      True, _MOE_ROWS),
+)
+# the flash calls of train_mesh's (c)-(e), as MESH_ATTENTION_CALLS: a ViT sp
+# rank's 64 images x 6 heads, its 99 or 98 queries over all 197 keys,
+# non-causal; the pipeline stage's call (1 row x 32 heads at 2048, causal),
+# which is also an MoE sp rank's diagonal block (2 rows x 16 heads); the MoE
+# sp rank's ring hop (2 rows x 16 heads, non-causal)
+_VIT_SP_ROWS = MESH["vit_sp"]["batch"] // MESH["vit_sp"]["axes"]["dp"]
+_VIT_SP_Q = -(-VIT_SEQ // MESH["vit_sp"]["axes"]["sp"])
+SP_MODEL_ATTENTION_CALLS = (
+    (_VIT_SP_ROWS * 6, _VIT_SP_Q, VIT_SEQ, 64, False, _VIT_SP_ROWS),
+    (_VIT_SP_ROWS * 6, VIT_SEQ - _VIT_SP_Q, VIT_SEQ, 64, False, _VIT_SP_ROWS),
+    (32, PIPE["seq"], PIPE["seq"], 128, True, 1),
+    (32, MESH["moe_sp"]["seq"] // 2, MESH["moe_sp"]["seq"] // 2, 128, False, 2),
 )
 # the Llama over the reference's training mesh (train_tp): four gloo ranks
 # sharing the card, each running the LoRA loop's own model, step and update
@@ -587,6 +650,8 @@ def rmsnorm_phase(torch, F):
         ((CB["slots"], 4096), torch.float32),
         # a Mixtral-8x7B training step's rows (train_moe): batch 2 x seq 4096
         ((MOE["batch"] * MOE["seq"], 4096), torch.bfloat16),
+        # a pipeline stage's microbatch (train_mesh (e)): 1 x 2048
+        ((PIPE["rows"] * PIPE["seq"], 4096), torch.bfloat16),
         ((300, 1024), torch.float16),
         ((7, 128), torch.float32),
     ]
@@ -652,6 +717,10 @@ def flash_phase(torch, F):
         # train_tp's calls a rank: Llama-2-7B at tp=2 (1 x 16 heads, 2048),
         # causal and as (b)'s ring hop
         *((bh, sq, sk, d, c, torch.bfloat16, bb) for bh, sq, sk, d, c, bb in TP_ATTENTION_CALLS),
+        # train_mesh (c)-(e)'s calls a rank: the ViT's and the MoE's under sp
+        # and the pipeline stage's
+        *((bh, sq, sk, d, c, torch.bfloat16, bb)
+          for bh, sq, sk, d, c, bb in SP_MODEL_ATTENTION_CALLS),
         (12, VIT_SEQ, VIT_SEQ, 64, False, torch.bfloat16, None),
         (8, 100, 100, 64, False, torch.bfloat16, None),
         (8, 96, 96, 32, True, torch.bfloat16, None),  # tiny's head_dim
@@ -767,6 +836,10 @@ def flash_bwd_phase(torch, F):
         *((bh, sq, sk, d, c, torch.bfloat16, bb) for bh, sq, sk, d, c, bb in MESH_ATTENTION_CALLS),
         # train_tp's calls a rank, as in flash_phase
         *((bh, sq, sk, d, c, torch.bfloat16, bb) for bh, sq, sk, d, c, bb in TP_ATTENTION_CALLS),
+        # train_mesh (c)-(e)'s calls a rank: the ViT's and the MoE's under sp
+        # and the pipeline stage's
+        *((bh, sq, sk, d, c, torch.bfloat16, bb)
+          for bh, sq, sk, d, c, bb in SP_MODEL_ATTENTION_CALLS),
         (12, VIT_SEQ, VIT_SEQ, 64, False, torch.bfloat16, None),
         (8, 100, 100, 64, False, torch.bfloat16, None),
         (8, 96, 96, 32, True, torch.bfloat16, None),
@@ -1018,23 +1091,29 @@ def grad_parity_phase(torch, np):
     return res
 
 
+def serve_model_kwargs(torch):
+    """The model of every bf16 serving phase: Llama-2-7B at full width, bf16
+    parameters, SERVE_LAYERS of its layers."""
+    return {"param_dtype": torch.bfloat16, "n_layers": SERVE_LAYERS}
+
+
 def serve_phase(torch, np):
     from ray_tpu_torch.llm import LLMConfig, LLMServer
 
     t0 = time.perf_counter()
     server = LLMServer(LLMConfig(
         model_id="llama2-7b", max_seq_len=1024, max_batch_size=N_REQUESTS,
-        model_kwargs={"param_dtype": torch.bfloat16},
+        model_kwargs=serve_model_kwargs(torch),
     ))
     torch.cuda.synchronize()
     cfg = server.engine._cfg
     check(
         (cfg.n_layers, cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.intermediate, cfg.vocab_size)
-        == (32, 4096, 32, 32, 11008, 32000),
-        f"not Llama-2-7B width: {cfg}",
+        == (SERVE_LAYERS, 4096, 32, 32, 11008, 32000),
+        f"not Llama-2-7B width at {SERVE_LAYERS} layers: {cfg}",
     )
     n_params = sum(t.numel() for t in server.engine._params.values())
-    print(f"serve: built Llama-2-7B ({n_params} params, bf16) in "
+    print(f"serve: built Llama-2-7B at {SERVE_LAYERS} layers ({n_params} params, bf16) in "
           f"{time.perf_counter() - t0:.3f} s")
 
     rng = np.random.default_rng(SEED)
@@ -1178,7 +1257,7 @@ def cb_serve_phase(torch, np, dense_server, dense_serve):
     server = LLMServer(LLMConfig(
         model_id="llama2-7b", max_seq_len=CB["max_seq_len"], max_batch_size=CB["slots"],
         kv_cache_blocks=CB["blocks"], kv_block_size=CB["block"],
-        model_kwargs={"param_dtype": torch.bfloat16},
+        model_kwargs=serve_model_kwargs(torch),
     ), params=dense_server.engine._params)
     engine, cfg = server.engine, server.engine._cfg
     check(engine._params is dense_server.engine._params, "the paged server copied the weights")
@@ -1421,8 +1500,10 @@ def serve_obs_phase(torch, np, server, cb_out):
     allocated, (_, total) = torch.cuda.memory_allocated(), torch.cuda.mem_get_info()
     kind = torch.cuda.get_device_name(0)
     check(set(rows) == {"cuda:0"}, f"device memory rows {rows}")
-    check(rows["cuda:0"]["used"] == allocated >= 13.5e9,
-          f"used {rows['cuda:0']['used']}, memory_allocated {allocated}")
+    weight_bytes = sum(t.numel() * t.element_size() for t in server.engine._params.values())
+    check(rows["cuda:0"]["used"] == allocated >= weight_bytes,
+          f"used {rows['cuda:0']['used']}, memory_allocated {allocated}, "
+          f"the served weights alone {weight_bytes}")
     check(rows["cuda:0"]["limit"] == total, f"limit {rows['cuda:0']['limit']}, total {total}")
     check(("", "cuda:0", kind) in metrics._ensure_device_metrics()["used"]._values,
           f"no gauge tagged {kind}")
@@ -1542,7 +1623,7 @@ def cb_spec_chunk_phase(torch, np, params):
     from ray_tpu_torch.models.llama import LlamaConfig
     from ray_tpu_torch.util import metrics
 
-    cfg = LlamaConfig.llama2_7b(max_seq_len=CB["max_seq_len"], param_dtype=torch.bfloat16)
+    cfg = LlamaConfig.llama2_7b(max_seq_len=CB["max_seq_len"], **serve_model_kwargs(torch))
     rng = np.random.default_rng(SEED + 7)
     llm = metrics._ensure_llm_metrics()
 
@@ -1697,7 +1778,7 @@ def serve_lora_phase(torch, np, params, cb_out):
     server = LLMServer(LLMConfig(
         model_id="llama2-7b", max_seq_len=CB["max_seq_len"], max_batch_size=CB["slots"],
         kv_cache_blocks=CB["blocks"], kv_block_size=CB["block"],
-        model_kwargs={"param_dtype": torch.bfloat16}, adapters=adapters,
+        model_kwargs=serve_model_kwargs(torch), adapters=adapters,
     ), params=params)
     engine, cfg, store = server.engine, server.engine._cfg, server.adapter_store
     check(engine._params is params, "the LoRA server copied the weights")
@@ -1906,7 +1987,7 @@ def serve_lora_phase(torch, np, params, cb_out):
     # base, its adapters attached cold from a callable source
     pred = LLMPredictor(LLMConfig(
         model_id="llama2-7b", max_seq_len=CB["max_seq_len"], max_batch_size=CB["slots"],
-        max_new_tokens=16, kv_cache_blocks=1, model_kwargs={"param_dtype": torch.bfloat16},
+        max_new_tokens=16, kv_cache_blocks=1, model_kwargs=serve_model_kwargs(torch),
         adapters=dataclasses.replace(adapters, source=trees.__getitem__),
     ), params=params)
     batch = {"token_ids": [tokens(PROMPT_LEN) for _ in range(CB["slots"])],
@@ -1967,7 +2048,7 @@ def lora_parity_phase(torch, np, params, trees):
                if not k.startswith("layer_") or k.split(".")[0] in ("layer_0", "layer_1")}
     store = AdapterStore(cfg, max_live=LORA["max_live"], rank=LORA["rank"], alpha=LORA["alpha"])
     for t, tree in trees.items():
-        store.prewarm(t, tree)  # the 32-layer trees: the store reads layers 0 and 1
+        store.prewarm(t, tree)  # the serving trees: the store reads layers 0 and 1
     t1, t2, t3, t4 = trees
     rng = np.random.default_rng(SEED + 9)
     shared = rng.integers(0, cfg.vocab_size, 96).tolist()
@@ -2079,7 +2160,7 @@ def serve_disagg_phase(torch, np, params):
         return LLMConfig(model_id="llama2-7b", max_seq_len=CB["max_seq_len"],
                          max_batch_size=CB["slots"], kv_cache_blocks=CB["blocks"],
                          kv_block_size=bs, max_new_tokens=new,
-                         model_kwargs={"param_dtype": torch.bfloat16}, **kw)
+                         model_kwargs=serve_model_kwargs(torch), **kw)
 
     def make(cfg, **kw):
         s = LLMServer(cfg, params=params, **kw)
@@ -2372,7 +2453,8 @@ def serve_disagg_phase(torch, np, params):
     calls = calls_retired[0]
     k1 = rmsnorm_fwd.launches - k1_0
     check(k1 == (2 * model_cfg.n_layers + 1) * calls,
-          f"K1 launched {k1} times in {calls} model calls, want 65 each")
+          f"K1 launched {k1} times in {calls} model calls, want "
+          f"{2 * model_cfg.n_layers + 1} each")
     check(flash_attention_fwd.launches == k2_0,
           "K2 was launched on the serve_disagg path (admission prefill is decode-mode)")
     tier = _delta(metrics.kvtier_counters(), tier_0)
@@ -2492,7 +2574,7 @@ def tp_config(torch, **kw):
 
     return LLMConfig(model_id="llama2-7b", max_seq_len=CB["max_seq_len"],
                      max_batch_size=CB["slots"], kv_cache_blocks=CB["blocks"],
-                     kv_block_size=CB["block"], model_kwargs={"param_dtype": torch.bfloat16},
+                     kv_block_size=CB["block"], model_kwargs=serve_model_kwargs(torch),
                      **kw)
 
 
@@ -2610,7 +2692,7 @@ def serve_tp_phase(torch, np, params, counters):
     check(stats["kv_pool_bytes_per_device"] * 2 == stats["kv_pool_bytes_total"],
           f"pool bytes {stats['kv_pool_bytes_per_device']} of {stats['kv_pool_bytes_total']}")
     check(stats["mesh"] == "tp=2" and stats["num_devices"] == 2, f"mesh {stats['mesh']}")
-    per_call = 2 * 32 + 1
+    per_call = 2 * SERVE_LAYERS + 1
     launches = []
     for rank, (c0, c1) in enumerate(zip(counts0, counts1)):
         d = {k: c1[k] - c0[k] for k in c0}
@@ -3037,10 +3119,10 @@ def tp_lora(torch, np, params, ref, lora_out, devices=(0, 0), backend="gloo"):
 
 
 def _tp_launch_check(tag, counts0, counts1, extra_calls=0):
-    """K1 65 times a model call on each rank and K2-K4 never, between two
+    """K1 2L + 1 times a model call on each rank and K2-K4 never, between two
     ``tp_counts`` readings; rank 0's process also ran ``extra_calls`` model
     calls of a tp=1 server. Returns each rank's deltas."""
-    per_call, launches = 2 * 32 + 1, []
+    per_call, launches = 2 * SERVE_LAYERS + 1, []
     for rank, (c0, c1) in enumerate(zip(counts0, counts1)):
         d = {k: c1[k] - c0[k] for k in c0}
         calls = d["forward_calls"] + (extra_calls if rank == 0 else 0)
@@ -3072,7 +3154,7 @@ def tp_disagg(torch, np, params, ref, codec):
                         CB["block"])
     nblocks = plen // bs
     # the full-head K/V of a prompt: every shipment carries all 32 KV heads
-    logical = nblocks * 2 * 32 * 32 * bs * 128 * 2
+    logical = nblocks * 2 * SERVE_LAYERS * 32 * bs * 128 * 2
     backend = LocalTierBackend()
     kw = dict(kv_tier=True, kv_ship_codec=codec, max_new_tokens=new)
     t0 = time.perf_counter()
@@ -6334,13 +6416,15 @@ class _MoERecorder:
             hook.remove()
 
 
-def _aux_router_grads(torch, cfg, routers, inputs, group=None, n_data=1, local=False):
+def _aux_router_grads(torch, cfg, routers, inputs, group=None, n_data=1, local=False,
+                      seq_shards=1):
     """Per layer: the gradient of its weighted aux loss alone with respect
     to its whole router (d, E), f32 on the host, from the layer's MoE input
     of the first step and its router (whole). Over a mesh (``group``: the
-    data group) the routing is the global batch's and the gradients are
-    summed over the group; ``local``: each rank's own aux loss (its tokens'
-    means) in place of its share of the global one, the planted fault."""
+    loss axes' group of ``n_data`` ranks, ``seq_shards`` of them along sp)
+    the routing is the global batch's and the gradients are summed over the
+    group; ``local``: each rank's own aux loss (its tokens' means) in place
+    of its share of the global one, the planted fault."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.parallel.expert import expert_capacity, route
@@ -6352,7 +6436,8 @@ def _aux_router_grads(torch, cfg, routers, inputs, group=None, n_data=1, local=F
         logits = tokens.float() @ w
         capacity = expert_capacity(tokens.shape[0] * n_data, cfg.n_experts, cfg.capacity_factor,
                                    cfg.experts_per_token)
-        r = route(logits, capacity, k=cfg.experts_per_token, group=group)
+        r = route(logits, capacity, k=cfg.experts_per_token, group=group,
+                  seq_shards=seq_shards, rows=x.shape[0])
         aux = r.aux_loss
         if local:
             probs = torch.softmax(logits.float(), dim=-1)
@@ -6385,38 +6470,17 @@ def _mesh_step_stats(torch, metrics, counters, step):
                      collective_host_share=sum(coll.values()) / ms)
 
 
-def train_mesh_loop(config):
-    """One of eight gloo ranks sharing the card: (a) ViT-B/16 over
-    ``gang_mesh(device, dp=2, fsdp=2, tp=2)``, (b) 2 layers of Mixtral-8x7B
-    over ``gang_mesh(device, fsdp=2, ep=2, tp=2)``, each with its first
+def _mesh_vit_round(torch, part, rank, device, counters, run_dir):
+    """One rank's ViT-B/16 over ``MESH[part]``'s mesh: its steps, the first
     step's gradient blocks (after ``sync_gradients``, before AdamW) written
-    beside the run, and for (b) each layer's routing of the rank's tokens
-    and the aux loss's router gradients (the global one and the planted
-    local one); every step's ms, K1-K4 launches (set to 0 just before it,
-    read just after) and collectives reported; then (c) ``train_tp``'s
-    round (:func:`_tp_round`)."""
-    import torch
-
-    from ray_tpu_torch import train
-    from ray_tpu_torch.models import moe as M
+    beside the run. Returns the rank's report."""
     from ray_tpu_torch.models import vit as V
-    from ray_tpu_torch.parallel.fsdp import FSDP
     from ray_tpu_torch.parallel.mesh import BATCH_AXES
-    from ray_tpu_torch.parallel.sharding import moe_logical_axes
     from ray_tpu_torch.train import collective as tcol
     from ray_tpu_torch.util import metrics
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_num_threads(1)  # eight ranks share the host's cores
-    ctx = train.get_context()
-    r = ctx.world_rank
-    device = _card(torch)
-    run_dir = Path(ctx.get_storage_path())
-    counters = _port_counters()
-    report = {"rank": r, "device": str(device)}
-
-    # (a) ViT-B/16
-    mesh = tcol.gang_mesh(device, **MESH["vit"]["axes"])
+    spec = MESH[part]
+    mesh = tcol.gang_mesh(device, **spec["axes"])
     cfg, params, images, labels = _mesh_vit_inputs(torch, device)
     model = V.build_vit(cfg, params, mesh)
     del params
@@ -6424,7 +6488,7 @@ def train_mesh_loop(config):
     i = mesh.axes_index(BATCH_AXES)
     rows = slice(i * images.shape[0] // n, (i + 1) * images.shape[0] // n)
     images, labels = images[rows].contiguous(), labels[rows].contiguous()
-    optimizer = torch.optim.AdamW(model.parameters(), lr=MESH["vit"]["lr"], betas=(0.9, 0.999),
+    optimizer = torch.optim.AdamW(model.parameters(), lr=spec["lr"], betas=(0.9, 0.999),
                                   eps=1e-8, weight_decay=1e-4)
     first = {}
 
@@ -6440,19 +6504,67 @@ def train_mesh_loop(config):
 
     torch.cuda.reset_peak_memory_stats()
     steps, losses = [], []
-    for _ in range(MESH["vit"]["steps"]):
+    for _ in range(spec["steps"]):
         loss, stats = _mesh_step_stats(torch, metrics, counters, vit_step)
         steps.append(stats)
         losses.append(tcol.gang_mean(loss, mesh))
-    torch.save(first, run_dir / f"mesh_vit_grad_rank{r}.pt")
-    report["vit"] = dict(coords=mesh.coords(), data_index=i, steps=steps, losses=losses,
-                         peak_bytes=torch.cuda.max_memory_allocated(),
-                         param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()))
+    torch.save(first, run_dir / f"mesh_{part}_grad_rank{rank}.pt")
+    report = dict(coords=mesh.coords(), data_index=i, steps=steps, losses=losses,
+                  peak_bytes=torch.cuda.max_memory_allocated(), positions=list(model.positions),
+                  param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()))
     del model, optimizer, images, labels, first
     torch.cuda.empty_cache()
+    return report
 
-    # (b) Mixtral-8x7B, 2 layers
-    mesh = tcol.gang_mesh(device, **MESH["moe"]["axes"])
+
+def _moe_fault_step(torch, M, cfg, mesh, model, tokens, fault):
+    """A planted fault's first step under sp, on the first step's weights:
+    its loss and synced gradients of every leaf but the experts' (those are
+    neither summed nor kept: their sum over sp is most of a step's gloo
+    bytes, and the sums are elementwise, so leaving them out changes no bit
+    of the others). ``fault``: "rope", every block's attention rotating at offset 0
+    (sp rank 1 at its local positions); "routing", each layer's routing
+    offsets taken per rank (``route`` with ``seq_shards=1``, as it stood
+    before sequence parallelism)."""
+    attns = [blk.attn for blk in model.blocks()]
+    route = M.route
+    if fault == "rope":
+        for a in attns:
+            a.sp_rank = 0
+    else:
+        M.route = lambda *args, **kw: route(*args, **{**kw, "seq_shards": 1})
+    try:
+        loss = M.next_token_loss(cfg, mesh, model, tokens)
+        loss.backward()
+        kept = [(k, p) for k, p in model.named_parameters()
+                if not k.endswith(("w_gate", "w_up", "w_down"))]
+        model.fsdp.sync_gradients(kept)
+        grads = {k: p.grad.cpu() for k, p in kept}
+    finally:
+        for a in attns:
+            a.sp_rank = mesh.coords()["sp"]
+        M.route = route
+        model.zero_grad(set_to_none=True)
+    return {"loss": loss.item(), "grads": grads}
+
+
+def _mesh_moe_round(torch, part, rank, device, counters, run_dir):
+    """One rank's 2 Mixtral layers over ``MESH[part]``'s mesh: its steps,
+    the first step's gradient blocks, each layer's routing of the rank's
+    tokens, the aux loss's router gradients (the global one and the planted
+    local one) and, under sp, the planted faults' first steps
+    (:func:`_moe_fault_step`, before the first real step) and the routing
+    fault's routing, written beside the run. Returns the rank's report."""
+    from ray_tpu_torch.models import moe as M
+    from ray_tpu_torch.parallel.expert import route
+    from ray_tpu_torch.parallel.fsdp import FSDP
+    from ray_tpu_torch.parallel.mesh import BATCH_AXES, LOSS_AXES
+    from ray_tpu_torch.parallel.sharding import moe_logical_axes
+    from ray_tpu_torch.train import collective as tcol
+    from ray_tpu_torch.util import metrics
+
+    spec = MESH[part]
+    mesh = tcol.gang_mesh(device, **spec["axes"])
     cfg = _mesh_moe_config(torch)
     layout = FSDP.for_model(mesh, M.param_shapes(cfg), moe_logical_axes)
     params, tokens = _mesh_moe_inputs(torch, cfg, device, shard=layout.shard)
@@ -6461,8 +6573,14 @@ def train_mesh_loop(config):
     n = mesh.axes_size(BATCH_AXES)
     i = mesh.axes_index(BATCH_AXES)
     tokens = tokens[i * tokens.shape[0] // n:(i + 1) * tokens.shape[0] // n].contiguous()
-    optimizer = torch.optim.AdamW(model.parameters(), lr=MESH["moe"]["lr"], betas=(0.9, 0.999),
-                                  eps=1e-8, weight_decay=1e-4, fused=True)
+    if spec.get("sgd"):
+        optimizer = torch.optim.SGD(model.parameters(), lr=spec["lr"])
+    else:
+        optimizer = torch.optim.AdamW(model.parameters(), lr=spec["lr"], betas=(0.9, 0.999),
+                                      eps=1e-8, weight_decay=1e-4, fused=True)
+    sp = mesh.shape["sp"]
+    faults = {f: _moe_fault_step(torch, M, cfg, mesh, model, tokens, f)
+              for f in (("rope", "routing") if sp > 1 else ())}
     first, routers = {}, []
     recorder = _MoERecorder(M, model)
 
@@ -6483,26 +6601,237 @@ def train_mesh_loop(config):
 
     torch.cuda.reset_peak_memory_stats()
     steps, losses = [], []
-    for _ in range(MESH["moe"]["steps"]):
+    for _ in range(spec["steps"]):
         loss, stats = _mesh_step_stats(torch, metrics, counters, moe_step)
         steps.append(stats)
         losses.append(tcol.gang_mean(loss, mesh))
     peak = torch.cuda.max_memory_allocated()
-    torch.save(first, run_dir / f"mesh_moe_grad_rank{r}.pt")
+    torch.save(first, run_dir / f"mesh_{part}_grad_rank{rank}.pt")
     del first
     # the aux loss's router gradients on the first step's inputs and routers
-    data = mesh.group(BATCH_AXES)
-    aux = {kind: _aux_router_grads(torch, cfg, routers, recorder.inputs, data, n, local)
+    group, n_loss = mesh.group(LOSS_AXES), mesh.axes_size(LOSS_AXES)
+    aux = {kind: _aux_router_grads(torch, cfg, routers, recorder.inputs, group, n_loss, local, sp)
            for kind, local in (("global", False), ("local", True))}
     routes = [{"expert": rt.expert.cpu(), "slot": rt.slot.cpu(), "keep": rt.keep.cpu()}
               for rt, _ in recorder.routes]
-    torch.save({"aux": aux, "routes": routes}, run_dir / f"mesh_moe_routes_rank{r}.pt")
-    report["moe"] = dict(coords=mesh.coords(), data_index=i, steps=steps, losses=losses,
-                         peak_bytes=peak,
-                         param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()))
-    del model, optimizer, tokens, recorder, aux, routes, routers, moe_step
+    extra = {"aux": aux, "routes": routes, "faults": faults}
+    if faults:
+        # the routing fault's own routing: each layer routed again from the
+        # same router logits with the per-rank offsets
+        extra["per_rank_routes"] = []
+        for rt, logits in recorder.routes:
+            bad = route(logits, rt.capacity, k=cfg.experts_per_token, group=group)
+            extra["per_rank_routes"].append({"expert": bad.expert.cpu(), "slot": bad.slot.cpu(),
+                                             "keep": bad.keep.cpu()})
+    torch.save(extra, run_dir / f"mesh_{part}_routes_rank{rank}.pt")
+    report = dict(coords=mesh.coords(), data_index=i, steps=steps, losses=losses,
+                  peak_bytes=peak, fault_losses={f: v["loss"] for f, v in faults.items()},
+                  param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()))
+    del model, optimizer, tokens, recorder, aux, routes, routers, moe_step, extra, faults
     torch.cuda.empty_cache()
-    # (c) train_tp's round, in this gang (its phase reads it)
+    return report
+
+
+def _pipe_model(torch, device, layers, dtype=None, n=None):
+    """Llama-2-7B's decoder blocks ``layers`` (of ``n``, default PIPE's
+    stages x layers a stage; bf16 parameters drawn from one seed: every
+    rank draws every tensor and keeps its layers'), as one module whose
+    forward applies them in turn; the microbatches of hidden states and the
+    loss's weights (bf16, one seed); ``dtype`` sets the activations'
+    (default bf16)."""
+    from torch import nn
+
+    from ray_tpu_torch.models import llama as L
+
+    n = PIPE["stages"] * PIPE["layers_per_stage"] if n is None else n
+    cfg = L.LlamaConfig.llama2_7b(n_layers=n, param_dtype=torch.bfloat16,
+                                  max_seq_len=PIPE["seq"])
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    keep = tuple(f"layer_{i}." for i in layers)
+    g = torch.Generator(device=device).manual_seed(SEED + 13)
+    params = L.init_params(cfg, g, device,
+                           shard=lambda name, t: t if name.startswith(keep) else t.new_empty(0))
+    shape = (PIPE["micro"], PIPE["rows"], PIPE["seq"], cfg.dim)
+    xs = torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+    weights = torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+    cos, sin = L.rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, device)
+
+    class Stage(nn.Module):
+        def forward(self, x):
+            x = x.to(cfg.dtype)
+            for i in layers:
+                x = getattr(self, f"layer_{i}")(x, cos, sin)
+            return x
+
+    with torch.device("meta"):
+        stage = Stage()
+        for i in layers:
+            stage.add_module(f"layer_{i}", L.Block(cfg))
+    stage.load_state_dict({k: v for k, v in params.items() if k.startswith(keep)}, strict=True,
+                          assign=True)
+    del params
+    for p in stage.parameters():
+        p.requires_grad_(True)
+    return stage, xs, weights
+
+
+def _pipe_loss(torch, out, weights):
+    """The pipeline's loss: the weighted mean of its output, in f32."""
+    return (out.float() * weights.float()).sum() / out.numel()
+
+
+def _pipe_round(torch, mesh, counters, run_dir):
+    """One of PIPE's stages on gang ranks 0-3: ``pipeline_apply`` of its 2
+    blocks over the ``pp`` group, forward and backward of the weighted-mean
+    loss, PIPE["steps"] steps (K1-K4 set to 0 just before each, read just
+    after), the first step's gradients (and the output on the last stage,
+    the microbatches' gradient on the first) written beside the run.
+    Returns the rank's report."""
+    from torch.func import functional_call
+
+    from ray_tpu_torch.parallel import pipeline_apply
+
+    device = _card(torch)
+    group = mesh.group("pp")
+    s = group.rank
+    per = PIPE["layers_per_stage"]
+    stage, xs, weights = _pipe_model(torch, device, range(s * per, (s + 1) * per))
+    params = dict(stage.named_parameters())
+    xs.requires_grad_(True)
+    steps, first = [], None
+    for _ in range(PIPE["steps"]):
+        for p in params.values():
+            p.grad = None
+        xs.grad = None
+        torch.cuda.synchronize()
+        group.barrier()
+        _zero(counters)
+        t0 = time.perf_counter()
+        out = pipeline_apply(lambda p, x: functional_call(stage, p, (x,)), params, xs,
+                             group=group)
+        loss = _pipe_loss(torch, out, weights)
+        loss.backward()
+        torch.cuda.synchronize()
+        steps.append(dict(step_ms=(time.perf_counter() - t0) * 1e3, launches=_launches(counters),
+                          loss=loss.item()))
+        if first is None:
+            first = {"grads": {k: p.grad.cpu() for k, p in params.items()},
+                     "out": out.detach().cpu() if s == group.world_size - 1 else None,
+                     "out_nonzero": bool(out.detach().any()),
+                     "dxs": xs.grad.cpu() if s == 0 else None,
+                     "dxs_nonzero": bool(xs.grad.any())}
+    torch.save(first, run_dir / f"pipe_stage{s}.pt")
+    report = dict(stage=s, steps=steps, out_nonzero=first["out_nonzero"],
+                  dxs_nonzero=first["dxs_nonzero"], peak_bytes=torch.cuda.max_memory_allocated())
+    del stage, params, xs, weights, out, loss, first
+    torch.cuda.empty_cache()
+    return report
+
+
+def _hier_round(torch, hier, flat):
+    """HIER's round on one of gang ranks 4-7: ``hier`` (2 slices of 2) and
+    ``flat`` (the same ranks' gloo group): the allreduce of the 7B loop's
+    gradient size on integer values and on random ones, the same reduce
+    through ``GradientReduceScheduler``, both against the flat sum; the
+    reference tests' allgather, broadcast from rank 3 and reducescatter;
+    ms of the hierarchical and the flat allreduce beside each other."""
+    import numpy as np
+
+    from ray_tpu_torch.collective import GradientReduceScheduler
+
+    device = _card(torch)
+    r = hier.rank
+    n = HIER["bytes"] // 4
+    g = torch.Generator(device=device).manual_seed(SEED + 20 + r)
+    ints = torch.randint(-1000, 1000, (n,), generator=g, device=device).float()
+    rand = torch.randn(n, generator=g, device=device)
+    out = {}
+    out["int_exact"] = torch.equal(hier.allreduce(ints), flat.allreduce(ints))
+    got, want = hier.allreduce(rand), flat.allreduce(rand)
+    # four f32 terms summed in two orders: the flat sum is within 3
+    # roundings of the magnitudes' sum from the exact one, the slices' sum
+    # of sums within 2, so they part by 5 at most
+    mag = flat.allreduce(rand.abs())
+    out["rand_err_over_bound"] = ((got - want).abs() / (5 * 2.0 ** -24 * mag)).max().item()
+    sched = GradientReduceScheduler(hier, overlap=True)
+    reduced = sched.reduce({"g": ints, "h": rand}).wait()
+    out["scheduled_int_exact"] = torch.equal(reduced["g"], flat.allreduce(ints))
+    out["scheduled_rand_err_over_bound"] = (
+        (reduced["h"] - want).abs() / (5 * 2.0 ** -24 * mag)).max().item()
+    out["allgather"] = list(hier.allgather(r * 11))
+    out["broadcast"] = hier.broadcast(100 + r, src_rank=3)
+    rows = torch.arange(30, dtype=torch.float32, device=device).view(10, 3) * (r + 1)
+    shard = hier.reducescatter(rows)
+    out["reducescatter_ok"] = torch.equal(
+        shard.cpu(), torch.from_numpy(np.array_split(
+            (torch.arange(30, dtype=torch.float32).view(10, 3) * 10).numpy(), 4, axis=0)[r]))
+    for name, group in (("hier", hier), ("flat", flat)):
+        times = []
+        for _ in range(HIER["reps"]):
+            flat.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            group.allreduce(rand)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"{name}_ms"] = times
+    return out
+
+
+def train_mesh_loop(config):
+    """One of eight gloo ranks sharing the card: (a) ViT-B/16 over
+    ``gang_mesh(device, dp=2, fsdp=2, tp=2)``, (b) 2 layers of Mixtral-8x7B
+    over ``gang_mesh(device, fsdp=2, ep=2, tp=2)``, (c) the ViT at dp=2 x
+    sp=2 x tp=2, (d) the MoE at sp=2 x ep=2 x tp=2, each with its first
+    step's gradient blocks (after ``sync_gradients``, before AdamW) written
+    beside the run, and for the MoE each layer's routing of the rank's
+    tokens and the aux loss's router gradients (the global one and the
+    planted local one; under sp the planted routing and RoPE faults); every
+    step's ms, K1-K4 launches (set to 0 just before it, read just after) and
+    collectives reported; then (e) the pipeline on ranks 0-3
+    (:func:`_pipe_round`) and (f) the hierarchical group on ranks 4-7
+    (:func:`_hier_round`), one after the other; then ``train_tp``'s round
+    (:func:`_tp_round`)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.collective import GlooGroup, HierarchicalGroup
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.train import collective as tcol
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)  # eight ranks share the host's cores
+    ctx = train.get_context()
+    r = ctx.world_rank
+    device = _card(torch)
+    run_dir = Path(ctx.get_storage_path())
+    counters = _port_counters()
+    report = {"rank": r, "device": str(device)}
+    for part in ("vit", "moe", "vit_sp", "moe_sp"):
+        gc.collect()  # the last round's leftovers leave the card first
+        torch.cuda.empty_cache()
+        rnd = _mesh_vit_round if part.startswith("vit") else _mesh_moe_round
+        report[part] = rnd(torch, part, r, device, counters, run_dir)
+    # (e) and (f): every rank forms both rounds' groups, in one order
+    pipe = make_mesh(devices=[str(device)] * PIPE["stages"], pp=PIPE["stages"],
+                     fsdp=1).form_groups("gloo", world_ranks=range(PIPE["stages"]), name="pipe")
+    members = list(range(MESH["ranks"] - HIER["ranks"], MESH["ranks"]))
+    hier = HierarchicalGroup.form(members, "hier", slice_size=HIER["slice_size"])
+    flat_pg = dist.new_group(ranks=members, backend="gloo")
+    if pipe is not None:
+        report["pipe"] = _pipe_round(torch, pipe, counters, run_dir)
+    tcol.barrier()
+    if hier is not None:
+        flat = GlooGroup(len(members), members.index(r), "hier_flat", process_group=flat_pg)
+        report["hier"] = _hier_round(torch, hier, flat)
+        hier.destroy()
+    tcol.barrier()
+    torch.cuda.empty_cache()
+    # then train_tp's round, in this gang (its phase reads it)
     report["tp"] = _tp_round(torch, r, counters, run_dir)
     train.report(report)
 
@@ -6596,7 +6925,7 @@ def _assemble(torch, name, shape, dtype, sharding, blocks, same=True):
 
 
 def _mesh_grad_check(torch, tag, grads, f32, control, one, times, replicated_tp, tp,
-                     skip=()):
+                     skip=(), faults=None):
     """Each leaf's distance from the f32-activation run within ``times`` x
     the one-rank bf16 run's (``control``): the mesh run's bf16 error
     against the error of the same model on one rank. (Held against each
@@ -6604,8 +6933,12 @@ def _mesh_grad_check(torch, tag, grads, f32, control, one, times, replicated_tp,
     error, their roundings being independent, and the largest of some 150
     such ratios reaches 2 by chance; those ratios are printed.) The planted
     fault of a tp-replicated leaf's gradient summed over tp (``tp`` x it)
-    must break the bound. Returns the ratios."""
+    must break the bound, as must each of ``faults`` (name -> the leaf's
+    gradient under the fault, from its name and gradient) on some leaf.
+    Returns the ratios."""
     ratio, planted, to_one = {}, {}, {}
+    faults = faults or {}
+    extra = {name: {} for name in faults}
     for k, g in grads:  # (name, gradient) pairs, each made as it is read
         if k in skip:
             continue
@@ -6614,7 +6947,12 @@ def _mesh_grad_check(torch, tag, grads, f32, control, one, times, replicated_tp,
         to_one[k] = _card_distance(torch, g, one[k]) / control[k]
         if k in replicated_tp:
             planted[k] = _card_distance(torch, g.float() * tp, f32[k]) / control[k]
+        for name, fault in faults.items():
+            extra[name][k] = _card_distance(torch, fault(k, g), f32[k]) / control[k]
     worst = max(ratio, key=ratio.get)
+    for name, got in extra.items():
+        check(max(got.values()) > times,
+              f"{tag}: the planted fault {name} passes the gradient check: {got}")
     check(ratio[worst] <= times,
           f"{tag}: {worst}'s first gradient is {ratio[worst]:.3f} x the one-rank run's distance "
           f"from f32 activations away from them, over {times}")
@@ -6624,7 +6962,9 @@ def _mesh_grad_check(torch, tag, grads, f32, control, one, times, replicated_tp,
     return dict(max_over_control=ratio[worst], worst_leaf=worst, over_control=ratio,
                 to_one_rank_over_control_max=max(to_one.values()),
                 to_one_rank_over_control=to_one,
-                planted_tp_sum_over_control=max(planted.values()))
+                planted_tp_sum_over_control=max(planted.values()),
+                **{f"planted_{name}_over_control": max(got.values())
+                   for name, got in extra.items()})
 
 
 def _mesh_routing_check(torch, layer_routes, one_routes):
@@ -6660,22 +7000,167 @@ def _mesh_routing_check(torch, layer_routes, one_routes):
     return out
 
 
+def _pipe_one_rank(torch):
+    """The pipeline's 8 blocks on one rank, each microbatch through all of
+    them in turn, forward and backward of the same loss, in bf16 and in f32
+    activations: the bf16 run's output, gradients and microbatch gradient
+    (host), each one's distance from the f32 run's, and the bf16 run's step
+    ms (two runs, the first for the values)."""
+    device = _card(torch)
+    n = PIPE["stages"] * PIPE["layers_per_stage"]
+    runs = {}
+    for dtype in (None, torch.float32):
+        model, xs, weights = _pipe_model(torch, device, range(n), dtype)
+        xs.requires_grad_(True)
+        times, first = [], None
+        for _ in range(2 if dtype is None else 1):
+            model.zero_grad(set_to_none=True)
+            xs.grad = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs, loss = [], 0.0
+            for m in range(PIPE["micro"]):
+                y = model(xs[m])
+                part = (y.float() * weights[m].float()).sum() / (y.numel() * PIPE["micro"])
+                part.backward()
+                outs.append(y.detach())
+                loss = loss + part.detach()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if first is None:
+                first = dict(out=torch.stack(outs).cpu(), loss=float(loss), dxs=xs.grad.cpu(),
+                             grads={k: p.grad.cpu() for k, p in model.named_parameters()})
+        runs[dtype] = dict(first, step_ms=times)
+        del model, xs, weights, outs, y
+        torch.cuda.empty_cache()
+    one, f32 = runs[None], runs[torch.float32]
+    one["control"] = {k: _card_distance(torch, g, f32["grads"][k]) for k, g in one["grads"].items()}
+    for name in ("out", "dxs"):
+        one[f"{name}_control"] = _card_distance(torch, one[name], f32[name])
+    one.update(f32_grads=f32["grads"], f32_out=f32["out"], f32_dxs=f32["dxs"],
+               f32_loss=f32["loss"])
+    return one
+
+
+def _pipe_check(torch, reports, run_dir, one):
+    """The pipeline round against the one-rank runs: K1-K4 a step a stage
+    exact (each of its 2 blocks: 2 K1 and a K2 a microbatch forward, a K3 and
+    a K4 backward); zeros off the last stage; the output, every stage's
+    gradients leaf by leaf and the microbatches' gradient within
+    MESH_GRAD_TIMES x the one-rank bf16 run's distance from its
+    f32-activation run; the wall a step beside the one-rank run's."""
+    import math
+
+    per_step = {"rmsnorm_fwd": 4 * PIPE["micro"], "flash_attention_fwd": 2 * PIPE["micro"],
+                "flash_bwd_dq": 2 * PIPE["micro"], "flash_bwd_dkv": 2 * PIPE["micro"]}
+    launches = {name: 0 for name in per_step}
+    stages = sorted((m["pipe"] for m in reports if "pipe" in m), key=lambda p: p["stage"])
+    check([p["stage"] for p in stages] == list(range(PIPE["stages"])), f"pipe stages {stages}")
+    last = PIPE["stages"] - 1
+    for p in stages:
+        for st in p["steps"]:
+            check(st["launches"] == per_step,
+                  f"pipe stage {p['stage']}: {st['launches']} a step, want {per_step}")
+            for name in per_step:
+                launches[name] += st["launches"][name]
+        check(p["out_nonzero"] == (p["stage"] == last),
+              f"pipe stage {p['stage']}: output non-zero {p['out_nonzero']}")
+        check(p["dxs_nonzero"] == (p["stage"] == 0),
+              f"pipe stage {p['stage']}: microbatch gradient non-zero {p['dxs_nonzero']}")
+        check(all(math.isfinite(st["loss"]) for st in p["steps"]), f"pipe losses {p['steps']}")
+    files = [torch.load(run_dir / f"pipe_stage{s}.pt") for s in range(PIPE["stages"])]
+    ratio = {}
+    for name, got, want, control in (
+            ("out", files[last]["out"], one["f32_out"], one["out_control"]),
+            ("dxs", files[0]["dxs"], one["f32_dxs"], one["dxs_control"]),
+            *((k, g, one["f32_grads"][k], one["control"][k])
+              for f in files for k, g in f["grads"].items())):
+        check(control > 0, f"pipe {name}: the one-rank run's distance from f32 is 0")
+        ratio[name] = _card_distance(torch, got, want) / control
+    worst = max(ratio, key=ratio.get)
+    check(ratio[worst] <= MESH_GRAD_TIMES,
+          f"pipe: {worst} is {ratio[worst]:.3f} x the one-rank run's distance from f32 "
+          f"activations away from them, over {MESH_GRAD_TIMES}")
+    check(len(ratio) == 2 + len(one["grads"]), "pipe: a stage's gradients are missing")
+    step_ms = [[st["step_ms"] for st in p["steps"]] for p in stages]
+    return launches, dict(
+        launches_per_step=per_step, max_over_control=ratio[worst], worst=worst,
+        out_over_control=ratio["out"], dxs_over_control=ratio["dxs"], step_ms=step_ms,
+        one_rank_step_ms=one["step_ms"],
+        wall_over_one_rank=max(ms[-1] for ms in step_ms) / one["step_ms"][-1],
+        losses=[st["loss"] for st in stages[last]["steps"]], loss_one_rank=one["loss"],
+        loss_f32_activations=one["f32_loss"], peak_bytes=[p["peak_bytes"] for p in stages])
+
+
+def _hier_check(reports):
+    """The hierarchical round on its four ranks: the flat sum exactly on
+    integer values and within five f32 roundings of the magnitudes' sum on
+    random ones (three for the flat order, two for the slices'), directly and through the scheduler; the reference tests'
+    allgather, broadcast and reducescatter. Returns the ms beside the
+    flat group's."""
+    hier = [m["hier"] for m in reports if "hier" in m]
+    check(len(hier) == HIER["ranks"], f"hier: {len(hier)} reports")
+    for h in hier:
+        check(h["int_exact"] and h["scheduled_int_exact"],
+              f"hier: the integer-valued sums differ from the flat group's: {h}")
+        check(h["rand_err_over_bound"] <= 1 and h["scheduled_rand_err_over_bound"] <= 1,
+              f"hier: random sums beyond f32 rounding of the flat group's: {h}")
+        check(h["allgather"] == [0, 11, 22, 33] and h["broadcast"] == 103
+              and h["reducescatter_ok"], f"hier: the reference tests' values: {h}")
+    return dict(hier_ms=[h["hier_ms"] for h in hier], flat_ms=[h["flat_ms"] for h in hier],
+                rand_err_over_bound=max(h["rand_err_over_bound"] for h in hier),
+                bytes=HIER["bytes"], slices=HIER["ranks"] // HIER["slice_size"])
+
+
+def _sp_routes(torch, extras, reports, key, layers):
+    """Each layer's routing of the whole global batch, in the (b, s) order,
+    from the ranks' routes under sp (``extras[r][key]``): a rank's rows at
+    its sequence shard's positions; the ranks of one shard route alike."""
+    spec = MESH["moe_sp"]
+    b, s = spec["batch"], spec["seq"]
+    local = s // spec["axes"]["sp"]
+    out = []
+    for layer in range(layers):
+        full, seen = {}, {}
+        for m, e in zip(reports, extras):
+            q = m["moe_sp"]["coords"]["sp"]
+            got = e[key][layer]
+            if q in seen:
+                check(all(torch.equal(got[k], seen[q][k]) for k in got),
+                      "mesh MoE sp: the ranks of one sequence shard route otherwise")
+                continue
+            seen[q] = got
+            idx = (torch.arange(b)[:, None] * s + q * local + torch.arange(local)[None]).reshape(-1)
+            for k, v in got.items():
+                full.setdefault(k, torch.zeros((b * s, *v.shape[1:]), dtype=v.dtype))[idx] = v
+        out.append([full])
+    return out
+
+
 def train_mesh_phase(torch, counters):
-    """The ViT and the MoE over multi-axis meshes on eight gloo ranks
-    sharing the card (``train_mesh_loop``), against one-rank runs on the
-    whole global batch in this process: (a) ViT-B/16 at dp=2 x fsdp=2 x
-    tp=2, 3 steps; (b) 2 layers of Mixtral-8x7B at fsdp=2 x ep=2 x tp=2, 2
-    steps; the same ranks then run ``train_tp``'s round, returned for its
-    phase. Held: every rank's K1-K4 launches a step exact (ViT 0/12/12/12,
-    MoE 4L+1 / 2L / L / L); each rank's resident parameter bytes the rule
-    table's share exactly; the first step's gradients, leaf by leaf (the
-    MoE's aux router gradients too), within MESH_GRAD_TIMES x the one-rank
-    run's distance from its f32-activation run, and two planted faults from
-    the same run beyond it (a tp-replicated leaf's gradient summed over tp;
-    each rank's local aux loss in place of the global one); the MoE's
-    routing of each layer against the one-rank run's (near-ties counted);
-    finite losses. Printed: step ms, peak and the collectives' host share a
-    rank."""
+    """The ViT and the MoE over multi-axis meshes, the pipeline and the
+    hierarchical group on eight gloo ranks sharing the card
+    (``train_mesh_loop``), against one-rank runs in this process: (a)
+    ViT-B/16 at dp=2 x fsdp=2 x tp=2 and (c) at dp=2 x sp=2 x tp=2, 3 steps
+    each; (b) 2 layers of Mixtral-8x7B at fsdp=2 x ep=2 x tp=2 and (d) at
+    sp=2 x ep=2 x tp=2, 2 steps each; (e) the pipeline on ranks 0-3 and (f)
+    the hierarchical group on ranks 4-7; the same ranks then run
+    ``train_tp``'s round, returned for its phase. Held: every rank's K1-K4
+    launches a step exact (ViT 0/12/12/12, MoE 4L+1 / 2L / L / L, under sp
+    4L+1 / 2L(s+1) / L(2-s) / L(2-s) at sp coordinate s); each rank's
+    resident parameter bytes the rule table's share exactly (``pos_embed``'s
+    padded rows under sp); the first step's gradients, leaf by leaf (the
+    MoE's aux router gradients too), and the first loss within
+    MESH_GRAD_TIMES x the one-rank run's distance from its f32-activation
+    run, and planted faults from the same run beyond it (a tp-replicated
+    leaf's gradient summed over tp; each rank's local aux loss in place of
+    the global one; under sp the ViT's loss counted once per sp rank, every
+    gradient twice over, and the MoE's first step with per-rank routing
+    offsets and with RoPE at local positions); the MoE's routing of each
+    layer against the one-rank run's (near-ties counted, dropped shares
+    printed); finite losses; (e) and (f) as :func:`_pipe_check` and
+    :func:`_hier_check`. Printed: step ms, peak and the collectives' host
+    share a rank."""
     import math
     import multiprocessing
     import tempfile
@@ -6687,19 +7172,40 @@ def train_mesh_phase(torch, counters):
         moe_logical_axes, param_shardings, vit_logical_axes)
     from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchConfig, TorchTrainer
 
+    import gc
+
+    # what earlier phases left for the cyclic collector (a model a closure
+    # holds) leaves the card before eight ranks share it
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("train_mesh_parent_bytes", json.dumps(dict(
+        allocated=torch.cuda.memory_allocated(), reserved=torch.cuda.memory_reserved())))
     t_phase = time.perf_counter()
     vit_one = _mesh_vit_one_rank(torch)
     moe_one = _mesh_moe_one_rank(torch)
+    pipe_one = _pipe_one_rank(torch)
     one_rank_s = time.perf_counter() - t_phase
     n = MESH["ranks"]
 
     _zero(counters)
+    torch.cuda.empty_cache()
+    # eight ranks' models fill most of the card ((d) holds a quarter of the
+    # experts a rank, with AdamW's state): the ranks' allocators grow their
+    # segments in place rather than keep a cached block per size
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as storage:
         t0 = time.perf_counter()
-        result = TorchTrainer(train_mesh_loop, train_loop_config={},
-                              run_config=RunConfig(name="mesh", storage_path=storage),
-                              scaling_config=ScalingConfig(n, {"GPU": 1.0 / n}),
-                              backend_config=TorchConfig(backend="gloo")).fit()
+        try:
+            result = TorchTrainer(train_mesh_loop, train_loop_config={},
+                                  run_config=RunConfig(name="mesh", storage_path=storage),
+                                  scaling_config=ScalingConfig(n, {"GPU": 1.0 / n}),
+                                  backend_config=TorchConfig(backend="gloo")).fit()
+        finally:
+            if alloc is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
         fit_s = time.perf_counter() - t0
         if result.error is not None:
             raise result.error
@@ -6718,31 +7224,40 @@ def train_mesh_phase(torch, counters):
         t0 = time.perf_counter()
         out = {}
         launches = {name: 0 for name in counters}
+        vit_layers, moe_layers = _mesh_vit_config().n_layers, MESH["moe"]["n_layers"]
+
+        def vit_per_step(part, coords):
+            return {"rmsnorm_fwd": 0, "flash_attention_fwd": vit_layers,
+                    "flash_bwd_dq": vit_layers, "flash_bwd_dkv": vit_layers}
+
+        def moe_per_step(part, coords):  # the ring's share at sp coordinate s
+            s, sp = coords["sp"], MESH[part]["axes"].get("sp", 1)
+            return {"rmsnorm_fwd": 4 * moe_layers + 1,
+                    "flash_attention_fwd": 2 * moe_layers * (s + 1),
+                    "flash_bwd_dq": moe_layers * (sp - s),
+                    "flash_bwd_dkv": moe_layers * (sp - s)}
+
         for part, cfg, axes_fn, one, per_step in (
-                ("vit", _mesh_vit_config(), vit_logical_axes, vit_one,
-                 {"rmsnorm_fwd": 0, "flash_attention_fwd": _mesh_vit_config().n_layers,
-                  "flash_bwd_dq": _mesh_vit_config().n_layers,
-                  "flash_bwd_dkv": _mesh_vit_config().n_layers}),
-                ("moe", _mesh_moe_config(torch), moe_logical_axes, moe_one,
-                 {"rmsnorm_fwd": 4 * MESH["moe"]["n_layers"] + 1,
-                  "flash_attention_fwd": 2 * MESH["moe"]["n_layers"],
-                  "flash_bwd_dq": MESH["moe"]["n_layers"],
-                  "flash_bwd_dkv": MESH["moe"]["n_layers"]})):
-            mod = V if part == "vit" else M
+                ("vit", _mesh_vit_config(), vit_logical_axes, vit_one, vit_per_step),
+                ("moe", _mesh_moe_config(torch), moe_logical_axes, moe_one, moe_per_step),
+                ("vit_sp", _mesh_vit_config(), vit_logical_axes, vit_one, vit_per_step),
+                ("moe_sp", _mesh_moe_config(torch), moe_logical_axes, moe_one, moe_per_step)):
+            mod = V if part.startswith("vit") else M
             spec = MESH[part]
             mesh = make_mesh(devices=[0] * n, **spec["axes"])
             shapes = mod.param_shapes(cfg)
             shardings = param_shardings(mesh, shapes, None, axes_fn)
             for m in reports:
                 rep = m[part]
+                want_steps = per_step(part, rep["coords"])
                 for st in rep["steps"]:
-                    check(st["launches"] == per_step,
-                          f"{part} rank {m['rank']}: {st['launches']} a step, want {per_step}")
+                    check(st["launches"] == want_steps,
+                          f"{part} rank {m['rank']}: {st['launches']} a step, want {want_steps}")
                     for name in counters:
                         launches[name] += st["launches"][name]
                 itemsize = torch.empty(0, dtype=cfg.param_dtype).element_size()
-                want_bytes = sum(math.prod(shardings[k].shard_shape(shapes[k])) * itemsize
-                                 for k in shapes)
+                want_bytes = sum(math.prod(shardings[k].shard_shape(shapes[k], m["rank"]))
+                                 * itemsize for k in shapes)
                 check(rep["param_bytes"] == want_bytes,
                       f"{part} rank {m['rank']}: {rep['param_bytes']} parameter bytes resident, "
                       f"the rule table's share is {want_bytes}")
@@ -6754,19 +7269,23 @@ def train_mesh_phase(torch, counters):
                                    [f[k] for f in files])) for k in shapes)
             replicated_tp = {k for k, sh in shardings.items() if "tp" not in sh.split_axes()}
             skip = {k for k in shapes if k.endswith("wk.bias")}  # its true gradient is 0
+            # the ViT under sp: its loss counted once per sp rank doubles
+            # every gradient
+            faults = {"loss_per_sp_rank": lambda k, g: g.float() * 2} if part == "vit_sp" else {}
             res = _mesh_grad_check(torch, f"mesh {part}", grads, one["f32_grads"], one["control"],
                                    one["grads"], MESH_GRAD_TIMES, replicated_tp, mesh.shape["tp"],
-                                   skip)
+                                   skip, faults)
             del grads, files
             # the first loss likewise: its distance from the f32-activation
             # run's within twice the one-rank run's
-            loss_diff = abs(reports[0][part]["losses"][0] - one["f32_loss"])
+            first_loss = reports[0][part]["losses"][0]
+            loss_diff = abs(first_loss - one["f32_loss"])
             loss_control = abs(one["loss"] - one["f32_loss"])
             check(loss_diff <= MESH_GRAD_TIMES * loss_control,
-                  f"mesh {part}: first loss {reports[0][part]['losses'][0]} vs f32 activations' "
+                  f"mesh {part}: first loss {first_loss} vs f32 activations' "
                   f"{one['f32_loss']}: {loss_diff} > {MESH_GRAD_TIMES} x {loss_control}")
             out[part] = dict(
-                axes=spec["axes"], grads=res, first_loss=reports[0][part]["losses"][0],
+                axes=spec["axes"], grads=res, first_loss=first_loss,
                 first_loss_one_rank=one["loss"], first_loss_diff_from_f32=loss_diff,
                 first_loss_one_rank_diff_from_f32=loss_control,
                 first_loss_f32_activations=one["f32_loss"],
@@ -6776,42 +7295,96 @@ def train_mesh_phase(torch, counters):
                                        for m in reports],
                 collective_ms_last_step=reports[0][part]["steps"][-1]["collective_ms"],
                 peak_bytes=[m[part]["peak_bytes"] for m in reports],
-                param_bytes=[m[part]["param_bytes"] for m in reports],
-                launches_per_step=per_step)
-            if part == "moe":
-                extra = [torch.load(run_dir / f"mesh_moe_routes_rank{r}.pt") for r in range(n)]
-                shards = {}
-                for m, e in zip(reports, extra):
-                    i = m["moe"]["data_index"]
-                    if i in shards:  # the ep and tp ranks of one data shard route alike
-                        for a, b in zip(shards[i]["routes"], e["routes"]):
-                            check(all(torch.equal(a[k], b[k]) for k in a),
-                                  "mesh MoE: the ranks of one data shard route otherwise")
-                    else:
-                        shards[i] = e
-                layer_routes = [[shards[i]["routes"][l] for i in sorted(shards)]
-                                for l in range(MESH["moe"]["n_layers"])]
-                out[part]["routing"] = _mesh_routing_check(torch, layer_routes, one["routes"])
-                aux_ratio, aux_planted = [], []
-                for l, (a, fault) in enumerate(zip(extra[0]["aux"]["global"],
-                                                   extra[0]["aux"]["local"])):
-                    control = one["aux_control"][l]
-                    check(control > 0, f"mesh MoE layer {l}: aux router control 0")
-                    aux_ratio.append(_card_distance(torch, a, one["f32_aux"][l]) / control)
-                    aux_planted.append(_card_distance(torch, fault, one["f32_aux"][l]) / control)
-                check(max(aux_ratio) <= MESH_GRAD_TIMES,
-                      f"mesh MoE: the aux loss's router gradients are {aux_ratio} x the one-rank "
-                      f"run's distance from f32, over {MESH_GRAD_TIMES}")
-                check(max(aux_planted) > MESH_GRAD_TIMES,
-                      f"mesh MoE: the planted local aux loss passes the gradient check: {aux_planted}")
-                out[part]["aux_router_grad_over_control"] = aux_ratio
-                out[part]["planted_local_aux_over_control"] = aux_planted
-                del extra, shards
+                param_bytes=[m[part]["param_bytes"] for m in reports])
+            if part == "vit_sp":
+                out[part]["positions"] = sorted({tuple(m[part]["positions"]) for m in reports})
+                out[part]["first_loss_per_sp_rank_over_control"] = (
+                    abs(2 * first_loss - one["f32_loss"]) / loss_control)
+            if part.startswith("moe"):
+                out[part].update(_mesh_moe_checks(torch, part, reports, run_dir, one, shapes,
+                                                  shardings))
+        pipe_launches, out["pipe"] = _pipe_check(torch, reports, run_dir, pipe_one)
+        for name in counters:
+            launches[name] += pipe_launches[name]
+        out["hier"] = _hier_check(reports)
         compare_s = time.perf_counter() - t0
     out.update(one_rank_s=one_rank_s, fit_s=fit_s, compare_s=compare_s,
                phase_s=time.perf_counter() - t_phase)
     print("train_mesh", json.dumps(out))
     return launches, out, tp_gang
+
+
+def _mesh_moe_checks(torch, part, reports, run_dir, one, shapes, shardings):
+    """The MoE's routing of each layer against the one-rank run's, its aux
+    router gradients (and the planted local aux loss), and under sp the
+    planted faults' first steps (per-rank routing offsets, RoPE at local
+    positions), each of whose gradients must leave the bound on some leaf.
+    Returns what it printed."""
+    n = MESH["ranks"]
+    layers = MESH[part]["n_layers"]
+    extra = [torch.load(run_dir / f"mesh_{part}_routes_rank{r}.pt") for r in range(n)]
+    out = {}
+    if part == "moe_sp":
+        layer_routes = _sp_routes(torch, extra, reports, "routes", layers)
+    else:
+        shards = {}
+        for m, e in zip(reports, extra):
+            i = m[part]["data_index"]
+            if i in shards:  # the ep and tp ranks of one data shard route alike
+                for a, b in zip(shards[i]["routes"], e["routes"]):
+                    check(all(torch.equal(a[k], b[k]) for k in a),
+                          "mesh MoE: the ranks of one data shard route otherwise")
+            else:
+                shards[i] = e
+        layer_routes = [[shards[i]["routes"][l] for i in sorted(shards)] for l in range(layers)]
+    out["routing"] = _mesh_routing_check(torch, layer_routes, one["routes"])
+    aux_ratio, aux_planted = [], []
+    for l, (a, fault) in enumerate(zip(extra[0]["aux"]["global"], extra[0]["aux"]["local"])):
+        control = one["aux_control"][l]
+        check(control > 0, f"mesh {part} layer {l}: aux router control 0")
+        aux_ratio.append(_card_distance(torch, a, one["f32_aux"][l]) / control)
+        aux_planted.append(_card_distance(torch, fault, one["f32_aux"][l]) / control)
+    check(max(aux_ratio) <= MESH_GRAD_TIMES,
+          f"mesh {part}: the aux loss's router gradients are {aux_ratio} x the one-rank "
+          f"run's distance from f32, over {MESH_GRAD_TIMES}")
+    check(max(aux_planted) > MESH_GRAD_TIMES,
+          f"mesh {part}: the planted local aux loss passes the gradient check: {aux_planted}")
+    out["aux_router_grad_over_control"] = aux_ratio
+    out["planted_local_aux_over_control"] = aux_planted
+    if part == "moe_sp":
+        # the routing fault's own routing against the mesh run's: its slots
+        # move; its kept flags move only where tokens drop
+        bad = _sp_routes(torch, extra, reports, "per_rank_routes", layers)
+        out["routing_fault"] = [
+            dict(slot_differs=int((b_[0]["slot"] != g[0]["slot"]).any(dim=1).sum()),
+                 keep_differs=int((b_[0]["keep"] != g[0]["keep"]).any(dim=1).sum()),
+                 dropped=(~g[0]["keep"]).float().mean().item())
+            for b_, g in zip(bad, layer_routes)]
+        for fault in ("rope", "routing"):
+            ratio = {}
+            for k in extra[0]["faults"][fault]["grads"]:
+                g = _assemble(torch, k, shapes[k], extra[0]["faults"][fault]["grads"][k].dtype,
+                              shardings[k], [e["faults"][fault]["grads"][k] for e in extra])
+                if one["control"].get(k, 0) > 0:
+                    ratio[k] = _card_distance(torch, g, one["f32_grads"][k]) / one["control"][k]
+            worst = max(ratio, key=ratio.get)
+            out[f"planted_{fault}_over_control"] = ratio[worst]
+            out[f"planted_{fault}_worst_leaf"] = worst
+            out[f"planted_{fault}_loss"] = reports[0][part]["fault_losses"][fault]
+            caught = ratio[worst] > MESH_GRAD_TIMES
+            if fault == "routing":
+                # its gradients move only through the tokens whose kept flag
+                # it moves (slot numbers alone change no product), so it is
+                # held by its routing too: on the same router logits it must
+                # part from the global routing the mesh run took
+                out["routing_fault_caught_by"] = [
+                    by for by, hit in (("gradients", caught), ("routing", any(
+                        r["slot_differs"] for r in out["routing_fault"]))) if hit]
+                caught = bool(out["routing_fault_caught_by"])
+            check(caught, f"mesh {part}: the planted {fault} fault passes the checks "
+                          f"({ratio[worst]:.3f} at {worst})")
+    del extra
+    return out
 
 
 # -- the Llama over the reference's training mesh (``train_tp``) ------------
@@ -7189,6 +7762,7 @@ def main() -> None:
         now = time.perf_counter()
         phase_s[name] = now - wall["start"]
         wall["start"] = now
+        print(f"lap {name} {phase_s[name]:.1f} s", flush=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -2,14 +2,18 @@
 
 Groups are registered per process under a name, over the default
 ``torch.distributed`` process group (``init_process_group`` first), and
-the module-level ops call the named group. Two backends:
+the module-level ops call the named group. Three backends:
 
 - ``"nccl"``: :class:`NcclGroup`, CUDA tensors (the reference's ``"xla"``);
 - ``"gloo"``: :class:`GlooGroup`, host tensors and Python objects (the
-  reference's ``"gcs"`` / ``"cpu"``).
+  reference's ``"gcs"`` / ``"cpu"``);
+- ``"hier"``: :class:`HierarchicalGroup` (``slice_size=`` required,
+  ``intra_backend="gloo"`` or ``"nccl"``): a reduce inside each slice,
+  then between the slices' leaders over gloo, then a broadcast inside each
+  slice.
 
-The reference's ``"hier"`` backend, and ``create_collective_group`` over
-actors, are not ported: the port has no actors yet (ROADMAP).
+``create_collective_group`` over actors is not ported: the port has no
+actors yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -23,12 +27,18 @@ from ..util import events as _events
 from .base import BaseGroup, ReduceOp, write_abort
 from .bucketizer import DEFAULT_BUCKET_BYTES, BucketSpec, GradientBucketizer
 from .gloo_group import GlooGroup
+from .hierarchical import HierarchicalGroup
 from .nccl_group import NcclGroup
 from .scheduler import AsyncHandle, GradientReduceScheduler, PendingReduce
 
 _groups: Dict[str, BaseGroup] = {}
 
-_BACKENDS = {"nccl": NcclGroup, "gloo": GlooGroup}
+_BACKENDS = {
+    "nccl": NcclGroup,
+    "gloo": GlooGroup,
+    # two-tier intra-slice / inter-slice composition (requires slice_size=)
+    "hier": HierarchicalGroup,
+}
 
 
 def _default_store():
@@ -44,9 +54,10 @@ def init_collective_group(world_size: int, rank: int, backend: str = "nccl",
                           group_name: str = "default", **kwargs) -> BaseGroup:
     """Make and register this rank's member of a group over all the
     default process group's ranks. Every rank calls it, in the same order
-    as its other groups (each makes a new process group). ``kwargs``
-    (``epoch``, ``quantized``, ``quant_block``) must be alike on every
-    member."""
+    as its other groups (each makes a new process group; a ``"hier"``
+    group makes one for each slice, one for the leaders and a flat one).
+    ``kwargs`` (``epoch``, ``quantized``, ``quant_block``; ``slice_size``
+    and ``intra_backend`` for ``"hier"``) must be alike on every member."""
     store = _default_store()
     if group_name in _groups:
         raise ValueError(f"collective group {group_name!r} already exists")
@@ -129,7 +140,7 @@ def barrier(group_name: str = "default"):
 
 
 __all__ = [
-    "BaseGroup", "ReduceOp", "GlooGroup", "NcclGroup",
+    "BaseGroup", "ReduceOp", "GlooGroup", "NcclGroup", "HierarchicalGroup",
     "AsyncHandle", "PendingReduce", "GradientReduceScheduler",
     "GradientBucketizer", "BucketSpec", "DEFAULT_BUCKET_BYTES",
     "CollectiveAbortedError",

@@ -124,10 +124,13 @@ class BaseGroup(ABC):
 
     def __init__(self, world_size: int, rank: int, group_name: str,
                  epoch: int = 0, quantized: bool = False,
-                 quant_block: int = 0, store=None):
+                 quant_block: int = 0, store=None, parent_group: Optional[str] = None):
         self.world_size = world_size
         self.rank = rank
         self.group_name = group_name
+        #: the logical group this one is a phase of (a hierarchical group's
+        #: sub-group): an abort written against it aborts this one too
+        self.parent_group = parent_group
         # bumped each time the gang re-forms; an abort targets every epoch
         # up to its own
         self.epoch = epoch
@@ -144,14 +147,18 @@ class BaseGroup(ABC):
 
     def check_abort(self):
         """Raise :class:`CollectiveAbortedError` if this group's epoch was
-        aborted. One store read; every op calls it before it starts."""
+        aborted, under its own name or its parent's. One store read (two
+        with a parent); every op calls it before it starts."""
         if self.store is None:
             return
-        if read_abort_epoch(self.store, self.group_name) >= self.epoch:
-            from ..util import metrics
+        for name in (self.group_name, self.parent_group):
+            if name is not None and read_abort_epoch(self.store, name) >= self.epoch:
+                from ..util import metrics
 
-            metrics.record_collective_abort(self.group_name)
-            raise CollectiveAbortedError(self.group_name, self.epoch, "group aborted")
+                metrics.record_collective_abort(self.group_name)
+                raise CollectiveAbortedError(self.group_name, self.epoch,
+                                             "group aborted" if name == self.group_name
+                                             else f"parent group {name!r} aborted")
 
     def _record_op(self, op: str, nbytes: int, start: float,
                    wire_nbytes: Optional[int] = None):

@@ -124,9 +124,10 @@ class NcclGroup(BaseGroup):
 
     def __init__(self, world_size: int, rank: int, group_name: str, *,
                  process_group=None, epoch: int = 0, quantized: bool = False,
-                 quant_block: int = 0, store=None):
+                 quant_block: int = 0, store=None, parent_group: Optional[str] = None):
         super().__init__(world_size, rank, group_name, epoch=epoch,
-                         quantized=quantized, quant_block=quant_block, store=store)
+                         quantized=quantized, quant_block=quant_block, store=store,
+                         parent_group=parent_group)
         self.process_group = (
             process_group if process_group is not None else dist.new_group(backend="nccl")
         )

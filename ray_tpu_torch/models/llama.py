@@ -523,7 +523,7 @@ class Llama(nn.Module):
         if mesh is not None and plan is not None:
             raise ValueError("a Llama takes a serving plan or a training mesh, not both")
         if mesh is not None:
-            check_model_mesh(mesh, "Llama over a mesh", sequence=True)
+            check_model_mesh(mesh, "Llama over a mesh")
         self.sp_group, self.sp_rank, self.sp = sequence_parallel(mesh)
         tp = plan.tp if plan is not None else 1 if mesh is None else mesh.shape["tp"]
         if plan is not None and tp > 1 and group is None:

@@ -32,30 +32,38 @@ sub-groups by ``Mesh.form_groups`` or ``train.collective.gang_mesh``) each
 rank is one process holding its block of every parameter by the
 reference's rule table (``MOE_LOGICAL_AXES``: the experts over ``ep``, the
 experts' hidden units, the heads and the vocabulary over ``tp``, ``embed``
-over ``fsdp``) and its shard of the global batch (the data axes ``dcn``,
-``dp``, ``fsdp``; the batch is replicated over ``ep`` and ``tp``). The
-forward gathers each block's ``fsdp`` dimension where the block starts
-(parallel/fsdp.py; again in the remat recompute) and runs the same numbers
-as the reference's GSPMD program:
+over ``fsdp``), its shard of the global batch (the data axes ``dcn``,
+``dp``, ``fsdp``; the batch is replicated over ``ep``, ``tp`` and ``sp``)
+and, under ``sp``, its contiguous S / sp of each sequence, as the Llama's
+(``Llama._sequence_shard``). The forward gathers each block's ``fsdp``
+dimension where the block starts (parallel/fsdp.py; again in the remat
+recompute) and runs the same numbers as the reference's GSPMD program:
 
 - the embedding: the rank's vocabulary rows, a masked lookup summed over
   ``tp`` (``sum_of_ranks``), as serving's;
-- attention: the rank's heads (``Attention(tp_group=)``: Megatron's f
-  before the projections, g after wo), through K2-K4;
+- attention: the Llama's ``Attention`` built with the mesh, as the
+  reference's ``MoEBlock`` builds the Llama's (``ray_tpu/models/moe.py:160``):
+  the rank's heads (Megatron's f before the projections, g after wo),
+  through K2-K4, and under ``sp`` RoPE at the tokens' global positions and
+  the ring over the rank's ``sp`` sub-group (parallel/ring_attention.py);
 - the experts: the router's weight gathered over ``ep`` (its gradient
-  sliced back), the routing over the data group (parallel/expert.py
-  ``route(group=)``: the global batch's capacity, slots and aux loss), the
-  rank's E / ep experts at intermediate / tp on its tokens' slots, between
-  f and g over ``ep`` and ``tp`` together;
+  sliced back), the routing over the loss axes' group (the data axes and
+  ``sp``; parallel/expert.py ``route(group=)``: the global batch's
+  capacity, slots in the global ``(b, s)`` order and aux loss), the rank's
+  E / ep experts at intermediate / tp on its tokens' slots, between f and
+  g over ``ep`` and ``tp`` together (the ranks of one ``ep`` x ``tp``
+  group share a data shard and an ``sp`` coordinate, so their tokens are
+  one);
 - the head: the rank's vocabulary columns, the logits gathered over ``tp``
   (``gather_from_group``);
 - :func:`next_token_loss`: the global batch's loss on every rank
-  (``sum_of_ranks`` over the data group of each rank's NLL sum over the
-  global count), its backward each rank's own share; the gradients are
-  completed by ``model.fsdp.sync_gradients``.
+  (``sum_of_ranks`` over the loss axes' group of each rank's NLL sum over
+  the global count; a sequence shard's last position pairs with the next
+  shard's first token), its backward each rank's own share; the gradients
+  are completed by ``model.fsdp.sync_gradients``.
 
-``sp > 1`` and ``pp > 1`` raise: the MoE's sequence parallelism is ROADMAP
-item A.12, the pipeline A.5.4.
+``pp > 1`` raises: no model of the reference pipelines (ROADMAP kept item
+33); a sequence that ``sp`` does not divide raises.
 """
 
 from __future__ import annotations
@@ -73,13 +81,14 @@ from ..collective.functional import copy_to_group, gather_from_group, sum_of_ran
 from ..ops.rmsnorm import rmsnorm
 from ..ops.rope import rope_table
 from ..parallel.expert import Routing, expert_capacity, moe_apply_indexed, route
-from ..parallel.mesh import BATCH_AXES, EXPERT_AXES, check_model_mesh
+from ..parallel.mesh import EXPERT_AXES, LOSS_AXES, check_model_mesh
 from .llama import (
     Attention,
     LlamaConfig,
     _lecun_normal_,
     _param,
     nll_from_logits,
+    sequence_parallel,
     token_nll,
     vocab_rows_lookup,
 )
@@ -183,23 +192,24 @@ class MoEFFN(nn.Module):
         out = moe_apply_indexed(tokens, routing, self.experts)
         return out.reshape(b, s, d), self.config.router_aux_weight * routing.aux_loss
 
-    def mesh_route(self, tokens: torch.Tensor) -> Routing:
-        """The routing of this rank's (t, d) tokens within the global
-        batch: the router's expert columns gathered over ``ep``, f32
-        logits, the capacity of the global batch, slots and aux over the
-        data group."""
+    def mesh_route(self, tokens: torch.Tensor, rows: int = 1) -> Routing:
+        """The routing of this rank's (t, d) tokens (``rows`` rows of its
+        sequence shard) within the global batch: the router's expert
+        columns gathered over ``ep``, f32 logits, the capacity of the
+        global batch, slots and aux over the loss axes' group."""
         cfg, mesh = self.config, self.mesh
         router = self.router
         if mesh.group("ep") is not None:
             router = gather_from_group(router, mesh.group("ep"), dim=1)
         logits = tokens.float() @ router.float()
-        capacity = expert_capacity(tokens.shape[0] * mesh.axes_size(BATCH_AXES),
+        capacity = expert_capacity(tokens.shape[0] * mesh.axes_size(LOSS_AXES),
                                    cfg.n_experts, cfg.capacity_factor, cfg.experts_per_token)
-        return route(logits, capacity, k=cfg.experts_per_token, group=mesh.group(BATCH_AXES))
+        return route(logits, capacity, k=cfg.experts_per_token, group=mesh.group(LOSS_AXES),
+                     seq_shards=mesh.shape["sp"], rows=rows)
 
     def _mesh_forward(self, tokens, shape):
         cfg, mesh = self.config, self.mesh
-        routing = self.mesh_route(tokens)
+        routing = self.mesh_route(tokens, rows=shape[0])
         group = mesh.group(EXPERT_AXES)
         e = self.w_gate.shape[0]
         e0 = mesh.coords()["ep"] * e
@@ -220,7 +230,7 @@ class MoEBlock(nn.Module):
         self.config = config
         self.attn_norm = _param(config.dim, dtype=config.param_dtype)
         tp_group = None if mesh is None else mesh.group("tp")
-        self.attn = Attention(config.attention_config(), tp_group=tp_group)
+        self.attn = Attention(config.attention_config(), mesh=mesh, tp_group=tp_group)
         self.ffn_norm = _param(config.dim, dtype=config.param_dtype)
         self.moe = MoEFFN(config, mesh)
 
@@ -244,6 +254,7 @@ class MoETransformer(nn.Module):
             tp = mesh.shape["tp"]
             if config.vocab_size % tp:
                 raise ValueError(f"vocab_size {config.vocab_size} does not split over tp={tp}")
+        self.sp_group, self.sp_rank, self.sp = sequence_parallel(mesh)
         self.config = config
         self.mesh = mesh
         self.embed = _param(config.vocab_size // tp, config.dim, dtype=config.param_dtype)
@@ -297,10 +308,24 @@ class MoETransformer(nn.Module):
         logits = copy_to_group(x, tp) @ self._gathered("lm_head").to(x.dtype)
         return gather_from_group(logits, tp, dim=-1)
 
+    def _sequence_shard(self, tokens: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous S / sp of its (rows, S) tokens."""
+        seq = tokens.shape[1]
+        if seq % self.sp:
+            raise ValueError(f"sequence length {seq} does not divide over sp={self.sp} ranks")
+        if seq > self.config.max_seq_len:
+            raise ValueError(f"sequence length {seq} exceeds max_seq_len "
+                             f"{self.config.max_seq_len}: RoPE has no position past it")
+        s = seq // self.sp
+        return tokens[:, self.sp_rank * s:(self.sp_rank + 1) * s]
+
     def _mesh_forward(self, tokens):
-        """This rank's rows of the global batch -> their (rows, seq, vocab)
-        logits and the per-layer aux losses of the global batch."""
+        """This rank's rows of the global batch -> the (rows, seq / sp,
+        vocab) logits of its sequence shard and the per-layer aux losses of
+        the global batch."""
         cfg, tp = self.config, self.mesh.group("tp")
+        if self.sp_group is not None:
+            tokens = self._sequence_shard(tokens)
         embed = self._gathered("embed")
         if tp is None:
             x = embed[tokens].to(cfg.dtype)
@@ -414,12 +439,16 @@ def next_token_loss(config: MoEConfig, *args) -> torch.Tensor:
     if model.mesh is None:
         loss = nll_from_logits(logits, tokens)
     else:
-        data = model.mesh.group(BATCH_AXES)
-        b, s = tokens.shape
-        loss = token_nll(logits[:, :-1], tokens[:, 1:]).sum() / (
-            b * model.mesh.axes_size(BATCH_AXES) * (s - 1))
-        if data is not None:
-            loss = sum_of_ranks(loss.reshape(1), data)[0]
+        mesh = model.mesh
+        b, s, _ = logits.shape
+        first = model.sp_rank * s + 1
+        targets = tokens[:, first:first + s]  # the last sequence shard's has s - 1
+        rows = b * mesh.axes_size(LOSS_AXES[:-1])
+        loss = token_nll(logits[:, :targets.shape[1]], targets).sum() / (
+            rows * (tokens.shape[1] - 1))
+        group = mesh.group(LOSS_AXES)
+        if group is not None:
+            loss = sum_of_ranks(loss.reshape(1), group)[0]
     for a in aux:
         loss = loss + a
     return loss

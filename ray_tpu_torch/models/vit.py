@@ -27,22 +27,49 @@ Over a mesh (``ViT(config, mesh)``, bound with its sub-groups by
 ``Mesh.form_groups`` or ``train.collective.gang_mesh``) each rank is one
 process holding its block of every parameter by the reference's rule table
 (``VIT_LOGICAL_AXES``: kernels' ``embed`` over ``fsdp``, their heads, MLP
-units and classes over ``tp``; biases and LayerNorms replicated) and its
-shard of the global batch (the data axes; replicated over ``tp``). Each
-parameter's ``fsdp`` dimension is gathered where it is read
-(parallel/fsdp.py), :func:`~ray_tpu_torch.parallel.sharding.constrain`
-stands where the reference calls it, and the blocks are Megatron's: f
-(``copy_to_group``) before wq/wk/wv and fc1, which hold the rank's columns
-and add the rank's slice of their replicated biases, g (``sum_of_ranks``)
-after wo and fc2, which hold the rank's rows and add their biases once; the
-head's classes are gathered over ``tp`` with their gradient sliced back
+units and classes over ``tp``, ``pos_embed``'s positions over ``sp``;
+biases and LayerNorms replicated) and its shard of the global batch (the
+data axes; replicated over ``tp`` and ``sp``). Each parameter's ``fsdp``
+dimension is gathered where it is read (parallel/fsdp.py),
+:func:`~ray_tpu_torch.parallel.sharding.constrain` stands where the
+reference calls it, and the blocks are Megatron's: f (``copy_to_group``)
+before wq/wk/wv and fc1, which hold the rank's columns and add the rank's
+slice of their replicated biases, g (``sum_of_ranks``) after wo and fc2,
+which hold the rank's rows and add their biases once; the head's classes
+are gathered over ``tp`` with their gradient sliced back
 (``gather_from_group``). :func:`classification_loss` returns the global
 batch's mean on every rank, each rank's backward its own share;
 ``model.fsdp.sync_gradients`` completes the gradients. Dropout under a mesh
-needs generators seeded alike on the ranks of a ``tp`` group (their rows
-are one). ``sp > 1`` raises (ROADMAP item A.12: the 197 patches do not split
-evenly, and the reference leaves that to GSPMD's padding), as ``pp > 1``
-does (A.5.4).
+needs generators seeded alike on the ranks of a ``tp`` or ``sp`` group
+(their rows are one; each ``sp`` rank draws the whole sequence's mask and
+keeps its rows, so the masks are those of ``sp`` = 1). ``pp > 1`` raises:
+no model of the reference pipelines (ROADMAP kept item 33).
+
+Under ``sp`` the rank holds a contiguous block of the n = patches + 1
+positions: rows ``[r * c, min(n, (r + 1) * c))`` with ``c = ceil(n /
+sp)`` (99 and 98 of ViT-B/16's 197 at ``sp`` = 2), GSPMD's padded layout
+of ``pos_embed``, whose rows the rank holds for exactly those positions
+(parallel/sharding.py ``padded_split``), so ``pos_embed`` is never
+gathered over ``sp``. The ``cls`` token is position 0, on ``sp`` rank 0;
+the patch convolution runs on the image rows of the rank's patches only.
+Attention is bidirectional over the whole sequence: each layer gathers K
+and V (one tensor) over the ``sp`` sub-group, each rank's block padded to
+``c`` rows so every rank ships an equal buffer, cuts the pad rows off, and
+runs one non-causal K2 call of the rank's queries over all n keys (sq =
+99 or 98, sk = 197); the gather's backward reduce-scatters dK and dV
+(``all_gather_cat``), and K3 / K4 run once a layer. K2 has no key mask, so
+no pad row may reach it (a zero key scores 0, not -inf). This form, and not
+a ring of non-causal hops, because the sequence is short: one collective a
+layer forward and one backward where a ring takes ``sp`` - 1 hops each
+way and ``sp`` kernel calls with log-sum-exp merges; the gathered K/V of a
+layer are 2 x 197 x 768 values an image. (GSPMD's own choice for the
+reference's program, all-to-alls around an odd length it pads, is not
+copied.) The head reads the ``cls`` row, which every ``sp`` rank of a
+data shard receives from rank 0 (``all_reduce_sum`` of rank 0's row and
+the others' zeros: its backward sums the ranks' cotangents onto rank 0's
+row), so every ``sp`` rank returns the same logits; the loss counts a data
+shard once, on ``sp`` rank 0 (the others' terms weigh 0), so the loss is
+the mean over the global batch's images, not once per ``sp`` rank.
 """
 
 from __future__ import annotations
@@ -57,9 +84,16 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._internal.device import DeviceLike, resolve_device
-from ..collective.functional import copy_to_group, gather_from_group, sum_of_ranks
+from ..collective.functional import (
+    all_gather_cat,
+    all_reduce_sum,
+    copy_to_group,
+    gather_from_group,
+    sum_of_ranks,
+)
 from ..ops.flash_attention import flash_attention
-from ..parallel.mesh import BATCH_AXES, check_model_mesh
+from ..parallel.mesh import BATCH_AXES, LOSS_AXES, check_model_mesh
+from ..parallel.sharding import padded_split
 
 LN_EPS = 1e-6
 
@@ -144,15 +178,32 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def gather_sequence(t: torch.Tensor, group, dim: int, size: int) -> torch.Tensor:
+    """The ranks' blocks of a sequence of ``size`` positions (``dim`` of
+    ``t``), split over ``group`` in the padded layout, concatenated in rank
+    order with the pad cut off: each block padded with zero rows to the
+    ceil length so every rank ships an equal buffer. Its backward
+    reduce-scatters the cotangent (``all_gather_cat``): the rank's block
+    gets the sum of the ranks' gradients of its rows."""
+    c = -(-size // group.world_size)
+    if t.shape[dim] != c:
+        pad = [0, 0] * (t.dim() - 1 - dim) + [0, c - t.shape[dim]]
+        t = F.pad(t, pad)
+    return all_gather_cat(t, group, dim).narrow(dim, 0, size)
+
+
 class EncoderBlock(nn.Module):
     """With ``tp_group``: the rank's n_heads / tp heads and mlp_dim / tp
     MLP units (column blocks of wq/wk/wv/fc1 with whole biases, row blocks
-    of wo/fc2) between Megatron's f and g."""
+    of wo/fc2) between Megatron's f and g. With ``sp_group``: x is the
+    rank's block of the sequence, and K and V are gathered over the group
+    (:func:`gather_sequence`) before attention."""
 
-    def __init__(self, config: ViTConfig, tp_group=None):
+    def __init__(self, config: ViTConfig, tp_group=None, sp_group=None):
         super().__init__()
         self.config = config
         self.tp_group = tp_group
+        self.sp_group = sp_group
         cfg = config
         tp = 1 if tp_group is None else tp_group.world_size
         if cfg.n_heads % tp or cfg.mlp_dim % tp:
@@ -204,6 +255,9 @@ class EncoderBlock(nn.Module):
         q = self._columns(self.wq, y).reshape(b, s, -1, d).transpose(1, 2)
         k = self._columns(self.wk, y).reshape(b, s, -1, d).transpose(1, 2)
         v = self._columns(self.wv, y).reshape(b, s, -1, d).transpose(1, 2)
+        if self.sp_group is not None:  # every rank's keys, the pad rows cut off
+            kv = gather_sequence(torch.stack([k, v]), self.sp_group, 3, cfg.num_patches + 1)
+            k, v = kv[0], kv[1]
         # bidirectional attention: every patch sees every patch
         attn = flash_attention(q, k, v, causal=False)
         x = x + self._rows(self.wo, attn.transpose(1, 2).reshape(b, s, -1))
@@ -223,15 +277,23 @@ class ViT(nn.Module):
 
     def __init__(self, config: ViTConfig, mesh=None):
         super().__init__()
-        tp_group = None
+        tp_group = sp_group = None
+        n = config.num_patches + 1
+        #: this rank's positions of the sequence: (first, count)
+        self.positions = (0, n)
         if mesh is not None:
             check_model_mesh(mesh, "ViT over a mesh")
-            tp_group = mesh.group("tp")
+            tp_group, sp_group = mesh.group("tp"), mesh.group("sp")
             if config.num_classes % mesh.shape["tp"]:
                 raise ValueError(f"{config.num_classes} classes do not split over "
                                  f"tp={mesh.shape['tp']}")
+            sp = mesh.shape["sp"]
+            self.positions = padded_split(n, sp, mesh.coords()["sp"])
+            if padded_split(n, sp, sp - 1)[1] == 0:
+                raise ValueError(f"{n} positions leave an sp rank of {sp} without any")
         self.config = config
         self.mesh = mesh
+        self.sp_group = sp_group
         cfg = config
         tp = 1 if mesh is None else mesh.shape["tp"]
         p, pdt = cfg.patch_size, cfg.param_dtype
@@ -239,9 +301,9 @@ class ViT(nn.Module):
         self.patch_embed.kernel = _param(cfg.dim, 3, p, p, dtype=pdt)  # OIHW
         self.patch_embed.bias = _param(cfg.dim, dtype=pdt)
         self.cls_token = _param(1, 1, cfg.dim, dtype=pdt)
-        self.pos_embed = _param(1, cfg.num_patches + 1, cfg.dim, dtype=pdt)
+        self.pos_embed = _param(1, self.positions[1], cfg.dim, dtype=pdt)
         for i in range(cfg.n_layers):
-            self.add_module(f"layer_{i}", EncoderBlock(cfg, tp_group))
+            self.add_module(f"layer_{i}", EncoderBlock(cfg, tp_group, sp_group))
         self.ln_final = LayerNorm(cfg.dim, pdt, cfg.dtype)
         self.head = _param(cfg.dim, cfg.num_classes // tp, dtype=pdt)
         #: the rank's FSDP layout over the mesh (None without one)
@@ -269,17 +331,31 @@ class ViT(nn.Module):
         cfg = self.config
         b, dt = images.shape[0], cfg.dtype
         w = self._weight
+        first, count = self.positions
+        # the rank's patches (all of them without sp): positions
+        # [first, first + count) less the cls token at position 0
+        p0, p1 = max(first - 1, 0), first + count - 1
+        gw = cfg.image_size // cfg.patch_size
+        if self.sp_group is not None:  # the image rows of those patches alone
+            r0 = p0 // gw
+            images = images[:, r0 * cfg.patch_size:((p1 - 1) // gw + 1) * cfg.patch_size]
+            p0, p1 = p0 - r0 * gw, p1 - r0 * gw
         # patchify as one strided conv, NHWC in -> (b, dim, gh, gw)
         x = F.conv2d(images.to(dt).permute(0, 3, 1, 2), w("patch_embed.kernel").to(dt),
                      stride=cfg.patch_size)
         x = x + self.patch_embed.bias.to(dt)[:, None, None]
         x = x.flatten(2).transpose(1, 2)  # (b, patches, dim), row-major patches
-        cls = w("cls_token").to(dt).expand(b, 1, cfg.dim)
-        x = torch.cat([cls, x], dim=1) + w("pos_embed").to(dt)
-        if self.mesh is not None:
+        if self.sp_group is not None:
+            x = x[:, p0:p1]
+        if first == 0:
+            cls = w("cls_token").to(dt).expand(b, 1, cfg.dim)
+            x = torch.cat([cls, x], dim=1)
+        x = x + w("pos_embed").to(dt)
+        if self.mesh is not None and self.sp_group is None:
             from ..parallel.sharding import constrain
 
-            # the reference's hint: batch over the data axes, patches over sp
+            # the reference's hint: batch over the data axes, patches over
+            # sp (under sp the rank computed its block of the patches)
             x = constrain(x, self.mesh, "batch", "seq", None)
         drop = not deterministic and cfg.dropout > 0
         if drop and generator is None:
@@ -288,12 +364,20 @@ class ViT(nn.Module):
         for i, block in enumerate(self.blocks()):
             keep = None
             if drop:
-                # drawn outside the checkpoint: the recompute reuses it
-                keep = torch.rand(x.shape, generator=generator, device=x.device) >= cfg.dropout
+                # drawn outside the checkpoint: the recompute reuses it;
+                # the whole sequence's, then the rank's rows
+                keep = torch.rand((b, cfg.num_patches + 1, cfg.dim), generator=generator,
+                                  device=x.device)[:, first:first + count] >= cfg.dropout
             run, args = (block, (x, keep)) if self.fsdp is None else (
                 self.fsdp.call_block, (block, f"layer_{i}.", x, keep))
             x = checkpoint(run, *args, use_reentrant=False) if remat else run(*args)
-        cls_out = self.ln_final(x)[:, 0]  # classification token
+        if self.sp_group is None:
+            cls_out = self.ln_final(x)[:, 0]  # classification token
+        else:
+            # the cls row is sp rank 0's; the others add zeros (kept in the
+            # graph, so every rank runs the sum's backward)
+            cls_out = all_reduce_sum(self.ln_final(x[:, :1])[:, 0] * float(first == 0),
+                                     self.sp_group)
         tp = None if self.mesh is None else self.mesh.group("tp")
         if tp is None:
             return (cls_out @ w("head").to(cls_out.dtype)).float()
@@ -395,6 +479,9 @@ def classification_loss(
     tgt = torch.gather(logits, -1, labels[:, None].long())[:, 0]
     if mesh is None:
         return (lse - tgt).mean()
-    loss = (lse - tgt).sum() / (logits.shape[0] * mesh.axes_size(BATCH_AXES))
-    data = mesh.group(BATCH_AXES)
-    return loss if data is None else sum_of_ranks(loss.reshape(1), data)[0]
+    # a data shard's images count once: on sp rank 0 (its other sp ranks
+    # hold the same logits, their terms weigh 0)
+    weight = float(mesh.coords()["sp"] == 0)
+    loss = (lse - tgt).sum() * weight / (logits.shape[0] * mesh.axes_size(BATCH_AXES))
+    group = mesh.group(LOSS_AXES)
+    return loss if group is None else sum_of_ranks(loss.reshape(1), group)[0]

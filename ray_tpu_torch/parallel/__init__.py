@@ -17,11 +17,12 @@
   and the all_to_all dispatch/combine over an expert-parallel process
   group;
 - ``ring_attention`` and ``ulysses``: causal attention over a sequence
-  split across a group's ranks, by K/V hops around a ring (the Llama's
-  full forward under an ``sp`` mesh) or by an all-to-all head/sequence
-  swap.
-
-The pipeline comes with a later slice of the port (ROADMAP item A.5.4).
+  split across a group's ranks, by K/V hops around a ring (the Llama's and
+  the MoE's full forward under an ``sp`` mesh) or by an all-to-all
+  head/sequence swap;
+- ``pipeline``: ``pipeline_apply``, GPipe over a ``pp`` group (each rank
+  one stage, one hop a tick), with ``stage_index`` and
+  ``select_stage_params``.
 """
 
 from .expert import (
@@ -46,6 +47,7 @@ from .mesh import (
     local_batch_size,
     make_mesh,
 )
+from .pipeline import pipeline_apply, select_stage_params, stage_index
 from .plan import (
     DEFAULT_LLM_RULES,
     KV_SPEC,
@@ -101,9 +103,12 @@ __all__ = [
     "moe_combine",
     "moe_dispatch",
     "param_shardings",
+    "pipeline_apply",
     "process_local_batch",
     "ring_attention",
     "route",
+    "select_stage_params",
+    "stage_index",
     "top_k_gating",
     "tree_shardings",
     "ulysses_attention",

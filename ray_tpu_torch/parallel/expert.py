@@ -72,7 +72,8 @@ class Routing:
     capacity: int
 
 
-def route(router_logits: torch.Tensor, capacity: int, k: int = 2, group=None) -> Routing:
+def route(router_logits: torch.Tensor, capacity: int, k: int = 2, group=None,
+          seq_shards: int = 1, rows: int = 1) -> Routing:
     """The reference's gating loop, in its order: tokens in flattened
     order; each pass takes every token's best remaining expert (the first
     index on ties, as ``jnp.argmax``), gives it the next free slot of that
@@ -82,18 +83,27 @@ def route(router_logits: torch.Tensor, capacity: int, k: int = 2, group=None) ->
     ``frac_tokens`` counts the tokens dispatched to each expert after
     capacity.
 
-    With ``group`` (the data axes' group of a mesh) the logits are this
-    rank's shard of the global batch's tokens, which lie in the group's
-    rank order, and the routing is the global batch's, as the reference's
-    GSPMD program computes it: ``capacity`` is the global batch's; a
-    token's slot counts the earlier tokens of every rank, from one
-    all-gather of each rank's per-pass, per-expert counts (a pass's
-    choices do not depend on the earlier passes' drops, so all passes'
-    counts go at once); and the aux loss is the global one, ``E *
+    With ``group`` (the data axes' group of a mesh, with ``sp``: the loss
+    axes' group) the logits are this rank's tokens of the global batch,
+    and the routing is the global batch's, as the reference's GSPMD
+    program computes it: ``capacity`` is the global batch's; a token's slot
+    counts the earlier tokens of the global ``(b, s)`` order on every rank,
+    from one all-gather of each rank's per-pass, per-expert counts (a
+    pass's choices do not depend on the earlier passes' drops, so all
+    passes' counts go at once); and the aux loss is the global one, ``E *
     sum(frac_tokens * frac_probs)`` over the global batch's means: every
     rank returns it, through ``sum_of_ranks`` of the rank's own term (its
     tokens' probabilities against the global ``frac_tokens``), so each
-    rank's backward is its own tokens' share."""
+    rank's backward is its own tokens' share.
+
+    The group's rank is ``shard * seq_shards + s``: a data shard, and the
+    sequence shard ``s`` minor (``seq_shards`` = 1 without sequence
+    parallelism, where a rank's tokens are one block of the global order).
+    The rank holds ``rows`` rows of its data shard and in each row a
+    contiguous slice of positions, so a token in row i comes after the
+    earlier data shards' tokens, after every sequence shard's tokens of the
+    shard's rows before i, and after sequence shards ``< s`` in row i: the
+    counts are gathered per row (per rank where ``rows`` = 1)."""
     t, e = router_logits.shape
     probs = torch.softmax(router_logits.float(), dim=-1)
     masked = probs
@@ -112,19 +122,17 @@ def route(router_logits: torch.Tensor, capacity: int, k: int = 2, group=None) ->
     totals = torch.stack([chosen.sum(dim=1) for _, _, chosen in passes])  # (k, e)
     offsets, n = None, 1
     if group is not None:
-        every = group.allgather_cat(totals[None], dim=0)  # (ranks, k, e)
-        n = every.shape[0]
-        offsets = every[:group.rank].sum(dim=0)
-        totals = every.sum(dim=0)
+        offsets, totals = _global_counts(passes, group, seq_shards, rows)
+        n = group.world_size
     filled = torch.zeros(e, dtype=torch.long, device=probs.device)
     slots, keeps, gates = [], [], []
     for i, (idx, gate, chosen) in enumerate(passes):
         # each token's slot: the earlier tokens of this pass that chose the
-        # same expert (on earlier ranks too), after the slots that earlier
+        # same expert (on other ranks too), after the slots that earlier
         # passes kept
         slot = chosen.cumsum(dim=1).gather(0, idx[None, :])[0] - 1 + filled[idx]
         if offsets is not None:
-            slot = slot + offsets[i][idx]
+            slot = slot + offsets[i]
         keep = slot < capacity
         filled = filled + torch.minimum((capacity - filled).clamp_min(0), totals[i])
         slots.append(slot)
@@ -147,6 +155,28 @@ def route(router_logits: torch.Tensor, capacity: int, k: int = 2, group=None) ->
         share = e * torch.sum(frac_tokens * (probs.sum(dim=0) / (t * n)))
         aux_loss = sum_of_ranks(share.reshape(1), group)[0]
     return Routing(expert, torch.stack(slots, dim=1), keep, weight, aux_loss, e, capacity)
+
+
+def _global_counts(passes, group, seq_shards: int, rows: int):
+    """(each pass's (t,) count of the tokens of other ranks that come before
+    each of this rank's tokens and chose its expert, the global (k, e)
+    totals), from one all-gather over ``group`` of each pass's choices of
+    each expert in each of the rank's rows (see :func:`route`)."""
+    e, t = passes[0][2].shape
+    if t % rows:
+        raise ValueError(f"{t} tokens are not {rows} rows of one length")
+    counts = torch.stack([chosen.view(e, rows, t // rows).sum(dim=2) for _, _, chosen in passes])
+    every = group.allgather_cat(counts[None], dim=0)
+    every = every.view(-1, seq_shards, *counts.shape)  # (shards, seq shards, k, e, rows)
+    shard, me = divmod(group.rank, seq_shards)
+    mine = every[shard]
+    others = mine.sum(dim=0) - mine[me]  # the other sequence shards' tokens of each row
+    before = (every[:shard].sum(dim=(0, 1, 4))[..., None]  # the earlier data shards
+              + others.cumsum(dim=-1) - others  # every shard's rows before the row
+              + mine[:me].sum(dim=0))  # the earlier sequence shards in the row
+    row = torch.arange(t, device=counts.device) // (t // rows)
+    return ([before[i][idx, row] for i, (idx, _, _) in enumerate(passes)],
+            every.sum(dim=(0, 1, 4)))
 
 
 def top_k_gating(router_logits: torch.Tensor, capacity: int, k: int = 2):

@@ -30,15 +30,16 @@ ranks of its block's gradient.
 
 :meth:`FSDP.sync_gradients` completes the gradients of a loss that is
 global on every rank with each rank's backward its own share (the models'
-``sum_of_ranks`` over the data axes and, for the Llama, ``sp``): a block
-split over ``fsdp`` was summed over ``fsdp`` by its gather's
-reduce-scatter and is summed over the other data axes (``dcn``, ``dp``)
-and ``sp``, every other parameter over all the data axes and ``sp``. A
-parameter replicated over ``tp`` or ``ep`` is not reduced over them: the
+``sum_of_ranks`` over the data axes and ``sp``): a parameter's gradient
+is summed over the loss axes (:data:`~.mesh.LOSS_AXES`) that do not split
+it. A block split over ``fsdp`` was summed over ``fsdp`` by its gather's
+reduce-scatter; a block split over ``sp`` (the ViT's ``pos_embed``, whose
+rows are the rank's positions) has its whole gradient on its rank already.
+A parameter replicated over ``tp`` or ``ep`` is not reduced over them: the
 Megatron pair gives it the same whole gradient on those ranks.
 :meth:`FSDP.full` gathers a parameter whole over every axis that splits
-it (a checkpoint's adapters). A model built without a mesh (every serving
-path) is untouched.
+it (a checkpoint's adapters), a padded ``sp`` block included. A model
+built without a mesh (every serving path) is untouched.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ from torch.func import functional_call
 
 from ..collective.functional import all_gather_cat
 from .mesh import LOSS_AXES
-from .sharding import NamedSharding, _axis_names, param_shardings
+from .sharding import PADDED_AXES, NamedSharding, _axis_names, param_shardings
 
 AXIS = "fsdp"
 
@@ -174,25 +175,38 @@ class FSDP:
         model.fsdp = self
         return model
 
+    def _sum_axes(self, name: str) -> tuple:
+        """The loss axes the gradient of ``name`` is summed over: those that
+        do not split it (``fsdp`` where it is gathered over it, ``sp``
+        where its spec splits a dimension over it)."""
+        split = {AXIS} if name in self.dims else set()
+        for axes in self.shardings[name].spec:
+            split.update(a for a in _axis_names(axes)
+                         if a in PADDED_AXES and self.mesh.shape[a] > 1)
+        return tuple(a for a in LOSS_AXES if a not in split)
+
     def sync_gradients(self, params) -> None:
         """Complete, in place, the gradients of ``params`` ((name,
         parameter) pairs, e.g. ``model.named_parameters()``) of a loss that
         every rank holds whole and whose backward on each rank is its own
-        data and sequence shard's term (see the module docstring): a block
-        split over ``fsdp`` is summed over the other data axes and ``sp``,
-        every other parameter over all the data axes and ``sp``; nothing is
-        summed over ``tp`` or ``ep``.
+        data and sequence shard's term (see the module docstring): each is
+        summed over the loss axes that do not split it; nothing is summed
+        over ``tp`` or ``ep``. A trained parameter that took no part in
+        this rank's backward (the ViT's ``cls_token`` off ``sp`` rank 0)
+        gets a zero gradient first, so every rank sums the same tensors.
         The gradients bound for one group are summed in flat buckets of up
         to SYNC_BUCKET_BYTES (one op each, in the order given: the sums are
         elementwise, so a bucket changes no bit)."""
-        rest_axes = tuple(a for a in LOSS_AXES if a != AXIS)
-        self.mesh.require_groups((rest_axes, LOSS_AXES), "FSDP.sync_gradients")
-        rest, everything = self.mesh.group(rest_axes), self.mesh.group(LOSS_AXES)
+        params = [(name, p) for name, p in params if p.requires_grad]
+        axes = {name: self._sum_axes(name) for name, _ in params}
+        self.mesh.require_groups(sorted(set(axes.values())), "FSDP.sync_gradients")
         pending: Dict[tuple, list] = {}
         for name, p in params:
-            group = rest if name in self.dims else everything
-            if p.grad is None or group is None:
+            group = self.mesh.group(axes[name])
+            if group is None:
                 continue
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
             key = (id(group), p.grad.dtype, p.grad.device)
             bucket = pending.setdefault(key, [group, [], 0])
             bucket[1].append(p.grad)
@@ -217,12 +231,21 @@ class FSDP:
     def full(self, name: str, local: torch.Tensor) -> torch.Tensor:
         """The whole of a parameter from this rank's block: every dimension
         its spec splits gathered over the group of its axes (every rank of
-        the mesh calls it). ``local`` itself where nothing splits it."""
-        for d, axes in enumerate(self.shardings[name].spec):
+        the mesh calls it); a padded dimension's blocks are padded to one
+        length for the gather and the pad cut after it. ``local`` itself
+        where nothing splits it."""
+        sharding = self.shardings[name]
+        for d, axes in enumerate(sharding.spec):
             live = tuple(a for a in _axis_names(axes) if self.mesh.shape[a] > 1)
-            if live:
-                group = self.mesh.group(live[0] if len(live) == 1 else live)
-                local = group.allgather_cat(local, dim=d)
+            if not live:
+                continue
+            group = self.mesh.group(live[0] if len(live) == 1 else live)
+            size = local.shape[d] * group.world_size if sharding.shape is None else sharding.shape[d]
+            c = -(-size // group.world_size)
+            if local.shape[d] != c:
+                pad = local.new_zeros(*local.shape[:d], c - local.shape[d], *local.shape[d + 1:])
+                local = torch.cat([local, pad], dim=d)
+            local = group.allgather_cat(local, dim=d).narrow(d, 0, size)
         return local
 
     def full_state(self, named: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

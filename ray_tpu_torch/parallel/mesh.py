@@ -309,17 +309,20 @@ def make_mesh(
     return spec.build(devs)
 
 
-def check_model_mesh(mesh: Mesh, what: str, sequence: bool = False) -> None:
-    """Refuse the axes a model over a mesh does not take, ``pp`` and, unless
-    ``sequence`` (the Llama), ``sp`` (the ViT and the MoE), and a mesh not
-    bound with the groups of its other axes."""
-    if mesh.shape["sp"] > 1 and not sequence:
-        raise NotImplementedError(
-            f"{what} with sp={mesh.shape['sp']}: sequence parallelism of this model is "
-            "ROADMAP item A.12")
+def check_model_mesh(mesh: Mesh, what: str) -> None:
+    """Refuse the axis a model over a mesh does not take, ``pp``, and a
+    mesh not bound with the groups of its other axes.
+
+    No model of the reference pipelines: its rule table has no entry for
+    ``pp``, so a reference model over a mesh with ``pp`` past 1 repeats the
+    same work on every ``pp`` rank (ROADMAP kept item 33). The pipeline
+    itself is :func:`~ray_tpu_torch.parallel.pipeline.pipeline_apply`,
+    which a caller drives over a ``pp`` group with its own stages."""
     if mesh.shape["pp"] > 1:
         raise NotImplementedError(
-            f"{what} with pp={mesh.shape['pp']}: the pipeline is ROADMAP item A.5.4")
+            f"{what} with pp={mesh.shape['pp']}: no model of the reference pipelines (its "
+            "rule table has no entry for pp, so every pp rank would repeat the same work; "
+            "ROADMAP kept item 33); parallel.pipeline_apply runs GPipe over a pp group")
     mesh.require_groups(("dcn", "dp", "fsdp", "ep", "sp", "tp") + GROUP_COMBOS, what)
 
 

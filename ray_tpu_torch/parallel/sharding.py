@@ -27,13 +27,22 @@ where GSPMD would insert one.
 - :func:`constrain` (``with_sharding_constraint`` by logical axes) on a
   rank's block of an activation; its one caller in the reference is the
   ViT over a mesh (``ray_tpu/models/vit.py:163``).
+
+A dimension split over ``sp`` alone that ``sp`` does not divide (the ViT's
+197 positions of ``pos_embed``) takes GSPMD's padded layout
+(:func:`padded_split`): rank r holds rows ``[r * c, min(n, (r + 1) * c))``
+with ``c = ceil(n / sp)``, the last rank the shorter block. The
+reference's ``device_put`` refuses such a placement, though its jitted
+program runs on unplaced parameters by padding; the port's ViT under
+``sp`` keeps exactly those rows, the positions of the rank's tokens. Every
+other dimension must divide, as ``device_put`` requires.
 """
 
 from __future__ import annotations
 
 import math
 import re
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
@@ -164,20 +173,40 @@ def _axis_names(axes) -> Tuple[str, ...]:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
+#: the axes whose uneven split takes the padded layout (see the module
+#: docstring): a dimension split over these alone
+PADDED_AXES = ("sp",)
+
+
+def padded_split(size: int, n: int, i: int) -> Tuple[int, int]:
+    """(offset, length) of block ``i`` of ``n`` of a dimension of ``size``
+    in GSPMD's padded layout: blocks of ``ceil(size / n)``, the last ones
+    shorter (or empty)."""
+    c = -(-size // n)
+    offset = min(i * c, size)
+    return offset, min(size, offset + c) - offset
+
+
 def block_index(shape: Sequence[int], spec: PartitionSpec, coords: Mapping[str, int],
                 sizes: Mapping[str, int]) -> List[Tuple[int, int]]:
     """(offset, length) along each dimension of the block of a ``shape``
     tensor that mesh coordinates ``coords`` (axis -> index, axis sizes in
     ``sizes``) hold under ``spec``. Several axes on one dimension split it
-    major to minor, as in JAX. A dimension its axes do not divide raises
-    ValueError, as the reference's ``device_put`` does."""
+    major to minor, as in JAX. A dimension split over :data:`PADDED_AXES`
+    alone that they do not divide takes :func:`padded_split`; any other
+    dimension its axes do not divide raises ValueError, as the reference's
+    ``device_put`` does."""
     if len(spec) > len(shape):
         raise ValueError(f"the sharding {spec} has more entries than the shape {tuple(shape)}")
     out = []
     for dim, size in enumerate(shape):
         n, i = 1, 0
-        for a in _axis_names(spec[dim] if dim < len(spec) else None):
+        names = _axis_names(spec[dim] if dim < len(spec) else None)
+        for a in names:
             n, i = n * sizes[a], i * sizes[a] + coords[a]
+        if size % n and names and set(names) <= set(PADDED_AXES):
+            out.append(padded_split(size, n, i))
+            continue
         if size % n:
             raise ValueError(
                 f"the sharding {spec} implies that the global size of its dimension "
@@ -191,10 +220,14 @@ def block_index(shape: Sequence[int], spec: PartitionSpec, coords: Mapping[str, 
 @dataclass(frozen=True)
 class NamedSharding:
     """A :class:`PartitionSpec` over a :class:`~.mesh.Mesh`: which block of
-    a global tensor each rank holds (the mesh's own rank by default)."""
+    a global tensor each rank holds (the mesh's own rank by default).
+    ``shape``, where known (:func:`param_shardings` records it), is the
+    global tensor's: a rank's block of a padded dimension does not tell
+    it."""
 
     mesh: Any
     spec: PartitionSpec
+    shape: Optional[Tuple[int, ...]] = field(default=None, compare=False)
 
     def index(self, shape: Sequence[int], rank: Optional[int] = None) -> Tuple[slice, ...]:
         """The block of rank ``rank``, one ``slice(start, stop)`` a
@@ -208,8 +241,10 @@ class NamedSharding:
         blocks = block_index(shape, self.spec, self.mesh.coords(rank), self.mesh.shape)
         return [(d, o, n) for d, ((o, n), size) in enumerate(zip(blocks, shape)) if n != size]
 
-    def shard_shape(self, shape: Sequence[int]) -> torch.Size:
-        return torch.Size(n for _, n in block_index(shape, self.spec, self.mesh.coords(0),
+    def shard_shape(self, shape: Sequence[int], rank: Optional[int] = 0) -> torch.Size:
+        """The shape of rank ``rank``'s block (default rank 0: under a
+        padded split, the longest)."""
+        return torch.Size(n for _, n in block_index(shape, self.spec, self.mesh.coords(rank),
                                                     self.mesh.shape))
 
     def shard(self, t: torch.Tensor, rank: Optional[int] = None) -> torch.Tensor:
@@ -244,9 +279,10 @@ LogicalAxes = Union[Mapping[str, Optional[Tuple[str, ...]]],
 def param_shardings(mesh, params: Mapping[str, Any], rules=None,
                     logical_axes: Optional[LogicalAxes] = None, prefix: str = ""):
     """The :class:`NamedSharding` of every parameter of ``params`` (a
-    mapping, nested or flat with dotted names; the result has its
-    structure). A parameter's logical axes come from ``logical_axes`` (a
-    mapping or a function of the dotted path; default
+    mapping, nested or flat with dotted names, of whole tensors or of their
+    shapes; the result has its structure, each sharding holding its
+    tensor's shape). A parameter's logical axes come from ``logical_axes``
+    (a mapping or a function of the dotted path; default
     :func:`llama_logical_axes`); one without axes is replicated (``P()``)."""
     lookup = llama_logical_axes if logical_axes is None else logical_axes
     if isinstance(lookup, Mapping):
@@ -258,7 +294,8 @@ def param_shardings(mesh, params: Mapping[str, Any], rules=None,
             out[key] = param_shardings(mesh, val, rules, lookup, f"{name}.")
         else:
             axes = lookup(name)
-            out[key] = NamedSharding(mesh, logical_to_spec(axes, rules) if axes else P())
+            shape = tuple(getattr(val, "shape", val))
+            out[key] = NamedSharding(mesh, logical_to_spec(axes, rules) if axes else P(), shape)
     return out
 
 

@@ -66,6 +66,10 @@ def _spec_json(spec) -> List[Any]:
 
 
 def _global_shape(local: torch.Tensor, sharding: NamedSharding) -> List[int]:
+    """The sharding's recorded shape, else the block's scaled by its axes
+    (a padded dimension needs the recorded one)."""
+    if sharding.shape is not None:
+        return list(sharding.shape)
     shape = list(local.shape)
     for dim, axes in enumerate(sharding.spec):
         names = () if axes is None else ((axes,) if isinstance(axes, str) else axes)

@@ -408,11 +408,13 @@ def test_moe_params_from_jax_rejects_bad_trees(reference):
 
 def test_mesh_is_refused():
     """The meshes the MoE over a mesh still refuses (tests/test_torch_moe_mesh.py
-    holds the ones it takes): ``sp > 1``, ROADMAP item A.12, and ``pp > 1``,
-    A.5.4, before any group is looked at."""
+    and tests/test_torch_sp_models.py hold the ones it takes): ``pp > 1``
+    (no model of the reference pipelines, ROADMAP kept item 33), before any
+    group is looked at; ``sp > 1`` on a mesh not bound with its groups."""
     from ray_tpu_torch.parallel.mesh import make_mesh
 
-    for axes, item in (({"sp": 2, "fsdp": 1}, "item A.12"), ({"pp": 2, "fsdp": 1}, "A.5.4")):
-        with pytest.raises(NotImplementedError, match=item):
+    for axes, error, match in (({"pp": 2, "fsdp": 1}, NotImplementedError, "item 33"),
+                               ({"sp": 2, "fsdp": 1}, ValueError, "form_groups")):
+        with pytest.raises(error, match=match):
             tmoe.MoETransformer(tmoe.MoEConfig.tiny(), mesh=make_mesh(
                 devices=["cpu"] * 2, **axes).bind(0))

@@ -343,16 +343,28 @@ def test_blocks_are_the_rule_tables_share(moe_run):
 
 
 def test_sequence_and_pipeline_axes_raise():
-    """``sp > 1`` (ROADMAP item A.12) and ``pp > 1`` (A.5.4) raise, at the
-    model and at the loss; a mesh without its groups raises."""
+    """What still raises: ``pp > 1`` (no model of the reference pipelines,
+    ROADMAP kept item 33), beside ``sp`` too, at the model and at the loss;
+    a mesh without its groups (``sp``, trained in
+    tests/test_torch_sp_models.py, and ``ep`` alike); a sequence that
+    ``sp`` does not divide, before any collective."""
     cfg = _tiny()
     tokens = torch.zeros(1, 8, dtype=torch.long)
-    for axes, item in (({"sp": 2, "fsdp": 1}, "A.12"), ({"pp": 2, "fsdp": 1}, "A.5.4"),
-                       ({"sp": 2, "ep": 2, "fsdp": 1}, "A.12")):
+    for axes in ({"pp": 2, "fsdp": 1}, {"pp": 2, "sp": 2, "ep": 2, "fsdp": 1}):
         mesh = make_mesh(devices=["cpu"] * int(np.prod(list(axes.values()))), **axes).bind(0)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(NotImplementedError, match="item 33"):
             tmoe.MoETransformer(cfg, mesh)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(NotImplementedError, match="item 33"):
             tmoe.next_token_loss(cfg, mesh, {}, tokens)
-    with pytest.raises(ValueError, match="form_groups"):
-        tmoe.MoETransformer(cfg, make_mesh(devices=["cpu"] * 2, ep=2, fsdp=1).bind(0))
+    for axes in ({"ep": 2, "fsdp": 1}, {"sp": 2, "fsdp": 1}, {"sp": 2, "ep": 2, "fsdp": 1}):
+        mesh = make_mesh(devices=["cpu"] * int(np.prod(list(axes.values()))), **axes).bind(0)
+        with pytest.raises(ValueError, match="form_groups"):
+            tmoe.MoETransformer(cfg, mesh)
+
+    class _Stand:  # the sp group of a path that reaches no collective
+        world_size, rank = 2, 0
+
+    mesh = make_mesh(devices=["cpu"] * 2, sp=2, fsdp=1).bind(0, {"sp": _Stand()})
+    model = tmoe.build_moe(cfg, tmoe.init_params(cfg, device="cpu"), mesh=mesh)
+    with torch.no_grad(), pytest.raises(ValueError, match="divide over sp=2"):
+        model(torch.zeros(1, 15, dtype=torch.long))

@@ -306,9 +306,11 @@ def test_sequence_parallel_refusals():
     sub-group; trained in tests/test_torch_llama_mesh.py), given the groups
     of every axis; still refused: a mesh missing a group, an unbound sp
     mesh, a sequence the ranks do not divide or longer than
-    ``max_seq_len`` (RoPE would clamp the offset), the ViT's and the MoE's
-    sp > 1 (ROADMAP item A.12), ``pp`` (A.5.4), and serving with sp > 1
-    (kept item 32: the reference never runs the ring when it serves)."""
+    ``max_seq_len`` (RoPE would clamp the offset), ``pp`` (no model of the
+    reference pipelines, kept item 33), and serving with sp > 1 (kept item
+    32: the reference never runs the ring when it serves). The ViT and the
+    MoE build beside other axes too now (trained in
+    tests/test_torch_sp_models.py)."""
     from ray_tpu_torch.llm import LLMConfig
     from ray_tpu_torch.models.llama import Llama
     from ray_tpu_torch.models.moe import MoEConfig, MoETransformer
@@ -327,12 +329,14 @@ def test_sequence_parallel_refusals():
             model = Llama(tcfg, mesh.bind(0, groups))
         assert model.sp == 2 and model.fsdp is not None
         assert model.lm_head.shape[1] == tcfg.vocab_size // axes.get("tp", 1)
-        with pytest.raises(NotImplementedError, match="item A.12"):
-            ViT(ViTConfig.tiny(), mesh.bind(0, groups))
-        with pytest.raises(NotImplementedError, match="item A.12"):
-            MoETransformer(MoEConfig.tiny(), mesh.bind(0, groups))
-    with pytest.raises(NotImplementedError, match="A.5.4"):
-        Llama(tcfg, make_mesh(devices=["cpu"] * 4, sp=2, pp=2, fsdp=1).bind(0))
+        with torch.device("meta"):
+            vit = ViT(ViTConfig.tiny(), mesh.bind(0, groups))
+            moe = MoETransformer(MoEConfig.tiny(), mesh.bind(0, groups))
+        assert vit.positions == (0, 9) and vit.pos_embed.shape[1] == 9  # of 17
+        assert moe.sp == 2
+    for cls, cfg in ((Llama, tcfg), (ViT, ViTConfig.tiny()), (MoETransformer, MoEConfig.tiny())):
+        with pytest.raises(NotImplementedError, match="item 33"):
+            cls(cfg, make_mesh(devices=["cpu"] * 4, sp=2, pp=2, fsdp=1).bind(0))
     with pytest.raises(ValueError, match="bound"):
         Llama(tcfg, make_mesh(devices=["cpu"] * 2, sp=2))
     model = build_llama(tcfg, _random_params(tcfg),

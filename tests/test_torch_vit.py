@@ -214,17 +214,19 @@ def test_gelu_and_layernorm_are_flax_s(dtype):
 
 def test_mesh_is_not_ported():
     """The meshes the ViT over a mesh still refuses (tests/test_torch_vit_mesh.py
-    holds the ones it takes): ``sp > 1``, ROADMAP item A.12, and ``pp > 1``,
-    A.5.4, at the model and at the loss."""
+    and tests/test_torch_sp_models.py hold the ones it takes): ``pp > 1``
+    (no model of the reference pipelines, ROADMAP kept item 33), at the model
+    and at the loss; ``sp > 1`` on a mesh not bound with its groups."""
     from ray_tpu_torch.parallel.mesh import make_mesh
 
     cfg = tvit.ViTConfig.tiny()
     params = tvit.init_params(cfg, device="cpu")
-    for axes, item in (({"sp": 2, "fsdp": 1}, "item A.12"), ({"pp": 2, "fsdp": 1}, "A.5.4")):
+    for axes, error, match in (({"pp": 2, "fsdp": 1}, NotImplementedError, "item 33"),
+                               ({"sp": 2, "fsdp": 1}, ValueError, "form_groups")):
         mesh = make_mesh(devices=["cpu"] * 2, **axes).bind(0)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(error, match=match):
             tvit.ViT(cfg, mesh=mesh)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(error, match=match):
             tvit.classification_loss(cfg, mesh, params, torch.zeros(1, 32, 32, 3),
                                      torch.zeros(1, dtype=torch.long))
 

@@ -273,18 +273,31 @@ def test_blocks_are_the_rule_tables_share(vit_run):
 
 
 def test_sequence_and_pipeline_axes_raise():
-    """``sp > 1`` (ROADMAP item A.12: 197 patches do not split evenly, the
-    reference leaves it to GSPMD's padding) and ``pp > 1`` (A.5.4) raise, at
-    the model and at the loss; a mesh without its groups raises."""
+    """What still raises: ``pp > 1`` (no model of the reference pipelines,
+    ROADMAP kept item 33), beside ``sp`` too, at the model and at the loss;
+    a mesh without its groups, ``sp`` (trained in
+    tests/test_torch_sp_models.py) and ``tp`` alike; an ``sp`` that leaves
+    a rank no position."""
     cfg = _tiny()
     params = tvit.init_params(cfg, device="cpu")
     images, labels = torch.zeros(1, 32, 32, 3), torch.zeros(1, dtype=torch.long)
-    for axes, item in (({"sp": 2, "fsdp": 1}, "A.12"), ({"pp": 2, "fsdp": 1}, "A.5.4"),
-                       ({"sp": 2, "tp": 2, "fsdp": 1}, "A.12")):
+    for axes in ({"pp": 2, "fsdp": 1}, {"pp": 2, "sp": 2, "fsdp": 1}):
         mesh = make_mesh(devices=["cpu"] * int(np.prod(list(axes.values()))), **axes).bind(0)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(NotImplementedError, match="item 33"):
             tvit.ViT(cfg, mesh)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(NotImplementedError, match="item 33"):
             tvit.classification_loss(cfg, mesh, params, images, labels)
-    with pytest.raises(ValueError, match="form_groups"):
-        tvit.ViT(cfg, make_mesh(devices=["cpu"] * 2, tp=2, fsdp=1).bind(0))
+    for axes in ({"tp": 2, "fsdp": 1}, {"sp": 2, "fsdp": 1}, {"sp": 2, "tp": 2, "fsdp": 1}):
+        mesh = make_mesh(devices=["cpu"] * int(np.prod(list(axes.values()))), **axes).bind(0)
+        with pytest.raises(ValueError, match="form_groups"):
+            tvit.ViT(cfg, mesh)
+    tiny = tvit.ViTConfig.tiny(image_size=8)  # one patch and the cls token: 2 positions
+    with pytest.raises(ValueError, match="without any"):
+        tvit.ViT(tiny, make_mesh(devices=["cpu"] * 4, sp=4, fsdp=1).bind(0, {"sp": _Stand(4)}))
+
+
+class _Stand:
+    """A stand-in group for paths that reach no collective."""
+
+    def __init__(self, world_size, rank=0):
+        self.world_size, self.rank = world_size, rank
