@@ -95,7 +95,19 @@ port's ``TorchTrainer`` (``TorchConfig(backend="nccl")``):
    ep=2 (4 layers, the ring over sp) beside part 7's one-card step (part 7
    runs it with part 9).
 
-    python3 chip_multicard.py 3      # part 3 alone (no argument: all nine;
+10. the runtime core across the cards (``runtime_part``):
+   ``ray_tpu_torch.init()`` finds n GPUs; n ``num_gpus=1`` actors
+   (``CardActor``) each report their lease's ids and
+   ``torch.cuda.current_device()``, all different, and allocate 1 GiB, which
+   grows ``torch.cuda.memory_allocated`` on their own card only (and, where
+   ``nvidia-smi`` shows this container's process ids, each actor's process
+   sits on its own card alone); then a tensor one actor keeps on its card
+   (``tensor_transport="device"``) is resolved by an actor on another card:
+   fetched through the hosts, landed on the getter's card, equal to the
+   source bit for bit. ``ray_tpu`` drops its leases' device ids, so all n
+   would run on card 0.
+
+    python3 chip_multicard.py 3      # part 3 alone (no argument: all ten;
                                      # several, as in "4 5", run those)
 
 Prints the cards' names and power limits, one JSON line per part, and
@@ -312,7 +324,7 @@ def main() -> None:
     from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchConfig, TorchTrainer
 
     n = torch.cuda.device_count()
-    parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5", "6", "7", "8", "9"}
+    parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5", "6", "7", "8", "9", "10"}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print("cards:", smi.replace("\n", " | "))
@@ -349,6 +361,8 @@ def main() -> None:
     if "9" in parts:
         pipe_part(C, fit, n)
         hier_part(C, fit, n)
+    if "10" in parts:
+        runtime_part(torch, C, n)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": n}}))
 
@@ -1037,6 +1051,147 @@ def hier_part(C, fit, n: int) -> None:
         hier_over_flat=(med["hier"] + med["hier_again"]) / (med["flat"] + med["flat_again"]),
         rand_err_over_bound=max(m["rand_err_over_bound"] for m in reports),
         ms=[m["ms"] for m in reports])))
+
+
+# -- part 10: the runtime core across the cards --------------------------------------------
+
+#: part 10: the bytes each actor allocates on its card, the shape of the
+#: tensor one actor keeps on its card for another to fetch
+RUNTIME_ALLOC_BYTES = 1 << 30
+RUNTIME_SHARED_SHAPE = (4096, 4096)
+
+
+def _card_memory(torch):
+    torch.cuda.synchronize()
+    return [torch.cuda.memory_allocated(i) for i in range(torch.cuda.device_count())]
+
+
+def _digest(t):
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(t.contiguous().cpu().view(-1).view(torch.uint8).numpy()
+                          .tobytes()).hexdigest()
+
+
+def _device_method(fn):
+    """``@ray_tpu_torch.method(tensor_transport="device")``, as
+    ``chip_smoke._device_method``: set at the class's definition, since the
+    actor's worker imports this module by name."""
+    fn.__ray_tpu_method_options__ = {"tensor_transport": "device"}
+    return fn
+
+
+class CardActor:
+    """Part 10's actor: a num_gpus=1 lease's worker, bound to its card."""
+
+    def probe(self):
+        import os
+
+        import torch
+
+        import ray_tpu_torch
+
+        return {"gpu_ids": ray_tpu_torch.get_gpu_ids(), "device": torch.cuda.current_device(),
+                "pid": os.getpid()}
+
+    def allocate(self, nbytes):
+        """memory_allocated on every card, before and after this actor
+        allocates ``nbytes`` on its current card."""
+        import torch
+
+        before = _card_memory(torch)
+        self.block = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+        return before, _card_memory(torch)
+
+    def make_shared(self, seed):
+        import torch
+
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        self.shared = torch.randn(RUNTIME_SHARED_SHAPE, generator=gen, device="cuda")
+        return _digest(self.shared)
+
+    @_device_method
+    def keep(self):
+        return {"shared": self.shared}
+
+    @_device_method
+    def resolved(self, tree):
+        """The digest and card of a tensor resolved into this actor."""
+        t = tree["shared"]
+        return _digest(t), t.device.index
+
+    def __init__(self):
+        self.block = self.shared = None
+
+
+def _apps_by_card():
+    """{pid: [card index, ...]} from nvidia-smi's compute processes (empty
+    where the container does not show them)."""
+    uuids = subprocess.run(["nvidia-smi", "--query-gpu=index,uuid", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60).stdout
+    index = {u.strip(): int(i) for i, u in (line.split(",") for line in uuids.splitlines() if line)}
+    apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,gpu_uuid",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout
+    out = {}
+    for line in apps.splitlines():
+        if "," in line:
+            pid, uuid = (x.strip() for x in line.split(","))
+            out.setdefault(int(pid), []).append(index.get(uuid))
+    return out
+
+
+def runtime_part(torch, C, n: int) -> None:
+    import chip_multicard as M  # the workers import the actor class by this name
+    import ray_tpu_torch as rt
+
+    t0 = time.perf_counter()
+    rt.init()
+    out = {"init_s": time.perf_counter() - t0}
+    try:
+        gpus = rt.cluster_resources().get("GPU")
+        C.check(gpus == float(n), f"the runtime found {gpus} GPUs on {n} cards")
+        t0 = time.perf_counter()
+        actors = [rt.remote(num_gpus=1)(M.CardActor).remote() for _ in range(n)]
+        probes = rt.get([a.probe.remote() for a in actors], timeout=600)
+        out["actors_start_s"] = time.perf_counter() - t0
+        cards = [p["device"] for p in probes]
+        C.check(sorted(cards) == list(range(n)), f"the actors' cards are {cards}, not 0..{n - 1}")
+        C.check(all(p["gpu_ids"] == [p["device"]] for p in probes),
+                f"an actor's current card is not its lease's: {probes}")
+        allocs = rt.get([a.allocate.remote(RUNTIME_ALLOC_BYTES) for a in actors], timeout=600)
+        for p, (before, after) in zip(probes, allocs):
+            grown = [i for i in range(n) if after[i] > before[i]]
+            C.check(grown == [p["device"]] and after[p["device"]] - before[p["device"]]
+                    >= RUNTIME_ALLOC_BYTES,
+                    f"actor on card {p['device']} grew memory on cards {grown}")
+        apps = _apps_by_card()
+        seen = {p["pid"]: apps.get(p["pid"]) for p in probes}
+        visible = any(v is not None for v in seen.values())
+        out["smi_cards_by_actor"] = ({str(k): v for k, v in seen.items()} if visible else
+                                     f"not visible: nvidia-smi lists pids {sorted(apps)}")
+        for p in probes:
+            if visible:  # nvidia-smi shows this container's process ids
+                C.check(seen[p["pid"]] == [p["device"]],
+                        f"nvidia-smi puts actor {p['pid']} on cards {seen[p['pid']]}")
+        # a tensor kept on one card, resolved by an actor on another
+        src, dst = (actors[cards.index(0)], actors[cards.index(n - 1)])
+        digest = rt.get(src.make_shared.remote(C.SEED), timeout=120)
+        ref = rt.get(src.keep.remote(), timeout=120)
+        t0 = time.perf_counter()
+        got_digest, got_card = rt.get(dst.resolved.remote(ref), timeout=120)
+        out["cross_card_fetch_ms"] = (time.perf_counter() - t0) * 1e3
+        C.check(got_card == n - 1, f"the fetched tensor landed on card {got_card}, not {n - 1}")
+        C.check(got_digest == digest, "the tensor fetched across cards differs from its source")
+        out.update(cards=cards, alloc_bytes=RUNTIME_ALLOC_BYTES,
+                   shared_bytes=4 * RUNTIME_SHARED_SHAPE[0] * RUNTIME_SHARED_SHAPE[1])
+        for a in actors:
+            rt.kill(a)
+    finally:
+        rt.shutdown()
+    print("multicard runtime", json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -32,6 +32,27 @@ Phases, each of which exits non-zero on failure:
   6. the full forward: Llama's full-sequence forward (flash attention) on the
      same 4 prompts against the cache path's prefill, in bf16 and again with
      f32 activations;
+  6b. the runtime core on the card (``runtime_serve``): (a)
+     ``ray_tpu_torch.init()`` finds the card as the node's GPU resource (1)
+     and builds the native object store (the python fallback fails the
+     phase); (b) a ``num_gpus=1`` task runs on cuda:0 through its lease
+     (``get_gpu_ids() == [0]``, ``torch.cuda.current_device() == 0``) and
+     returns a CUDA tensor drawn from a seed, which arrives as a CPU tensor
+     equal bit for bit to this process's own, the first lease's wall (the
+     worker's start, its torch import, the CUDA context) printed on a
+     ``lap`` line; (c) a ``num_gpus=1`` actor (``RuntimeServer``) builds
+     phase 5's LLMServer from the same seed in its worker and answers phase
+     5's 4 prompts with 8 new greedy tokens, passed as ObjectRefs: tokens
+     equal to this process's server's, K1 and K2 launches (read through an
+     actor method) equal to this process's for the same requests and
+     forward, K1 2L + 1 a model call; (d) device objects: the actor's full
+     forward of the 4 prompts keeps its logits on its card
+     (``tensor_transport="device"``), a next call in the actor resolves
+     them zero-copy (same ``data_ptr``), this process's ``device_get``
+     lands on its card equal to them by SHA-256, ``free_device_object``
+     gives their bytes back (the worker's ``memory_allocated`` drops);
+     after ``shutdown()`` no worker is left and no kernel library was
+     rebuilt (the workers load the build phase's);
   7. continuous batching over the paged prefix KV cache (LLMServer with
      kv_cache_blocks, on phase 5's weights): 16 greedy requests sharing a
      256-token prefix from 8 threads, with the exact prefix-hit and
@@ -189,7 +210,7 @@ Phases, each of which exits non-zero on failure:
      f32 plain attention, fwd and bwd ms a rank, the shifts' bytes and
      waits; (b) 4 layers of the 7B LoRA step at b=2 x 4096 with the
      sequence split over the ranks (ring attention in every layer, the
-     gradients summed over them), 3 AdamW steps: the ranks bit-identical,
+     gradients summed over them), 2 AdamW steps: the ranks bit-identical,
      losses and adapters within twice the in-process one-rank run's
      distance from itself in f32 activations, ring bytes exactly
      1,077,936,128 a step and rank, K1-K4 17 / 8(r+1) / 4(2-r) / 4(2-r) a
@@ -220,7 +241,7 @@ Phases, each of which exits non-zero on failure:
      parameters and Adam moments on the card, the runners' policies on the
      host, a save/restore round trip bit for bit; (b) upstream RLlib PPO's
      batch (2 x 32 x 64 = 4,096 rows, minibatch 128, 30 epochs: 960
-     minibatch updates), one warm and 2 timed iterations split into
+     minibatch updates), one warm and 1 timed iteration split into
      sampling, GAE and learner ms, env steps/s, peak memory, and one learner
      update under torch.profiler (launches per minibatch update, busy
      share); (c) one update of 512 rows card vs host in f32 against an f64
@@ -279,8 +300,8 @@ Phases, each of which exits non-zero on failure:
      from ``train.collective.gang_mesh``), against one-rank runs on the
      whole global batch in this process, bf16 and f32 activations: (a)
      ViT-B/16 at 224, global batch 128, AdamW, at the reference test's
-     dp=2 x fsdp=2 x tp=2, 3 steps; (b) Mixtral-8x7B at full width, 2 of
-     its 32 layers, b=2 x 4096, remat, bf16 parameters, at fsdp=2 x ep=2 x
+     dp=2 x fsdp=2 x tp=2, 2 steps; (b) Mixtral-8x7B at full width, 2 of
+     its 32 layers, b=2 x 2048, remat, bf16 parameters, at fsdp=2 x ep=2 x
      tp=2, 2 steps. Every rank's K1-K4 launches a step exact (ViT 0/12/12/12,
      MoE 9/4/2/2); its resident parameter bytes the rule table's share
      exactly; the first step's gradients (after the ranks' sums, before
@@ -294,7 +315,7 @@ Phases, each of which exits non-zero on failure:
      after an earlier layer's, counted; the ranks of a data shard alike).
      Printed: step ms, peak and the collectives' host share a rank. The
      kernel phases hold and time K2-K4 at the ranks' calls, (192, 197,
-     d=64) non-causal and (16, 4096, d=128) causal. Then, on the same
+     d=64) non-causal and (16, 2048, d=128) causal. Then, on the same
      ranks: (c) the ViT at dp=2 x sp=2 x tp=2 (197 tokens, 99 / 98 a sp
      rank, K/V gathered over sp) and (d) the 2 Mixtral layers at sp=2 x
      ep=2 x tp=2 (the ring over sp, routing over the data axes and sp;
@@ -319,7 +340,7 @@ Phases, each of which exits non-zero on failure:
      tests' allgather / broadcast / reducescatter, ms beside the flat
      group's. The kernel phases hold and time K2-K4 at (c)-(e)'s calls:
      (384, 99 and 98, 197, d=64) non-causal, (32, 2048, d=128) causal and
-     non-causal.
+     (32, 1024, d=128) non-causal.
   16c. the Llama over the reference's training mesh (``train_tp``): four
      gloo ranks sharing the card for each part, the two parts at once on
      ``train_mesh``'s eight ranks after its own (``_tp_round``, each through
@@ -341,7 +362,9 @@ Phases, each of which exits non-zero on failure:
      kernel phases hold and time K2-K4 at the ranks' calls, (16, 2048,
      d=128) causal and non-causal (the ring's hop).
 Main paths: the launch counters are set to 0 just before phase 5 and read
-just after phase 6 (serving), set to 0 just before phase 7 and read just
+just after phase 6 (serving), the actor worker's set to 0 just before phase
+6b (c)'s requests and read just after (d)'s forward (``runtime_serve``; this
+process's stay 0 meanwhile), set to 0 just before phase 7 and read just
 after phase 9 (continuous batching, ``serve_cb``, with ``serve_obs``), set to 0 just before
 phase 10 and read just after it (``serve_lora``), set to 0 just before phase
 10b and read just after it (``serve_disagg``), set to 0 inside phase 10c
@@ -429,7 +452,7 @@ VISION_STEPS = 5  # timed warm steps of each vision loop
 # x 32 envs x 64 steps (4,096 rows)
 PPO_DEFAULT_ENVS = 4
 PPO_UPSTREAM = {"envs": 32, "num_epochs": 30, "minibatch_size": 128}
-PPO_TIMED_ITERS = 2
+PPO_TIMED_ITERS = 1
 PPO_PROFILE_EPOCHS = 3  # of (b)'s 30, in the profiled update: 96 minibatch updates
 # a PPO minibatch update's kernels by kind (the first group with a part in a
 # kernel's symbol takes it)
@@ -444,15 +467,15 @@ PPO_PARITY_HEADS = {"discrete": (4, 2, True), "gaussian": (3, 1, False)}
 # runners are train_ppo (a)'s (2 x 4 envs x 64 steps; the DQNConfig default
 # is 2 x 2 x 32) and it runs until 4 iterations have learned; SAC runs
 # through its warm-up (learning_starts 1000) and 4 learning iterations;
-# IMPALA and APPO 4 iterations of 4 batches; the offline algorithms 2
-# iterations (one epoch each) over synthetic 100,000-transition datasets at
+# IMPALA and APPO 4 iterations of 4 batches; the offline algorithms 1
+# iteration (one epoch) over synthetic 100,000-transition datasets at
 # batch 256 (390 updates an epoch); multi-agent PPO 3 iterations of the
 # reference test's cooperative toy at its settings (1 runner x 128 steps,
 # lr 5e-3, 6 epochs, minibatch 64, no entropy bonus)
 RL = {"dqn_runners": {"num_env_runners": 2, "num_envs_per_env_runner": 4,
                       "rollout_fragment_length": 64},
       "dqn_learning_iters": 4, "sac_learning_iters": 4, "impala_iters": 4,
-      "offline_rows": 100_000, "offline_iters": 2, "multi_agent_iters": 3,
+      "offline_rows": 100_000, "offline_iters": 1, "multi_agent_iters": 3,
       "multi_agent_training": {"lr": 5e-3, "num_epochs": 6, "minibatch_size": 64,
                                "entropy_coeff": 0.0},
       "profiled_offline_steps": 8, "parity_rows": 256}
@@ -468,8 +491,8 @@ DREAMER = {"learning_iters": 3, "timed_updates": 3, "upstream_batch": (16, 64)}
 # a parameter, 97 GB at 4 layers), batch 2 x seq 4096 with remat, AdamW at the
 # reference program's lr 1e-3 (optax's other defaults, weight decay 1e-4)
 MOE = {"n_layers": 4, "batch": 2, "seq": 4096, "lr": 1e-3, "timed_steps": 3}
-# card-vs-host parity: one layer at full width, b=1 x seq 128, f32
-MOE_PARITY_SEQ = 128
+# card-vs-host parity: one layer at full width, b=1 x seq 64, f32
+MOE_PARITY_SEQ = 64
 # a routing choice that differs between card and host must be a near-tie:
 # the gap between the two probabilities it chose between under this. Router
 # logits of a few units computed in f32 in two summation orders differ by
@@ -480,8 +503,8 @@ MOE_NEAR_TIE = 1e-5
 # batch, query heads, KV heads, global seq), Llama-2-7B's at its published
 # context and Llama-3-8B's GQA at 8192; (b) the 7B LoRA step (rank 16 on
 # wq/wk/wv/wo, remat, bf16, lr 1e-4) cut to 4 layers, b=2 x 4096 (Llama-2's
-# published context) split over the ranks, 3 AdamW steps
-SP = {"ranks": 2, "n_layers": 4, "batch": 2, "seq": 4096, "steps": 3, "lr": 1e-4,
+# published context) split over the ranks, 2 AdamW steps
+SP = {"ranks": 2, "n_layers": 4, "batch": 2, "seq": 4096, "steps": 2, "lr": 1e-4,
       "op_reps": 3}
 SP_OPS = (("llama2_7b", 2, 32, 32, 4096), ("llama3_8b_gqa", 1, 32, 8, 8192))
 SP_OPS_LOCAL = tuple((n, b, h, hk, s // SP["ranks"]) for n, b, h, hk, s in SP_OPS)
@@ -491,24 +514,25 @@ SP_OP_TIMES = 4
 # the models over multi-axis meshes (train_mesh): eight gloo ranks sharing
 # the card (NCCL refuses two ranks on one card). (a) ViT-B/16 at 224, global
 # batch 128, bf16 over f32, AdamW, on the reference test's dp=2 x fsdp=2 x
-# tp=2, 3 steps; (b) Mixtral-8x7B at full width cut to 2 of its 32 layers,
-# b=2 x 4096, remat, bf16 parameters, AdamW at lr 1e-3, on fsdp=2 x ep=2 x
-# tp=2, 2 steps; (c) ViT-B/16 as (a) at dp=2 x sp=2 x tp=2 (197 tokens split
-# 99 / 98), 3 steps; (d) the 2 Mixtral layers as (b) at sp=2 x ep=2 x tp=2 (a
-# data shard holds both rows, so each sp rank's 2 x 2048 tokens interleave
-# in the global order), 2 steps with plain SGD (a quarter of the experts a
+# tp=2, 2 steps; (b) Mixtral-8x7B at full width cut to 2 of its 32 layers,
+# b=2 x 2048 (the experts' f32 partial sums go through host gloo), remat,
+# bf16 parameters, AdamW at lr 1e-3, on fsdp=2 x ep=2 x tp=2, 2 steps; (c)
+# ViT-B/16 as (a) at dp=2 x sp=2 x tp=2 (197 tokens split 99 / 98), 2
+# steps; (d) the 2 Mixtral layers as (b) at sp=2 x ep=2 x tp=2 (a data
+# shard holds both rows, so each sp rank's 2 x 1024 tokens interleave in
+# the global order), 2 steps with plain SGD (a quarter of the experts a
 # rank: AdamW's state, 3.5 GB a rank, left the eight ranks and this process
 # more than the card holds); then (e) GPipe on ranks 0-3 (PIPE) and (f)
 # the hierarchical group on ranks 4-7 (HIER); then train_tp's round
 MESH = {"ranks": 8,
-        "vit": {"axes": {"dp": 2, "fsdp": 2, "tp": 2}, "batch": VIT_BATCH, "steps": 3,
+        "vit": {"axes": {"dp": 2, "fsdp": 2, "tp": 2}, "batch": VIT_BATCH, "steps": 2,
                 "lr": 1e-4},
         "moe": {"axes": {"fsdp": 2, "ep": 2, "tp": 2}, "n_layers": 2, "batch": 2,
-                "seq": 4096, "steps": 2, "lr": 1e-3},
+                "seq": 2048, "steps": 2, "lr": 1e-3},
         "vit_sp": {"axes": {"dp": 2, "sp": 2, "tp": 2, "fsdp": 1}, "batch": VIT_BATCH,
-                   "steps": 3, "lr": 1e-4},
+                   "steps": 2, "lr": 1e-4},
         "moe_sp": {"axes": {"sp": 2, "ep": 2, "tp": 2, "fsdp": 1}, "n_layers": 2, "batch": 2,
-                   "seq": 4096, "steps": 2, "lr": 1e-3, "sgd": True}}
+                   "seq": 2048, "steps": 2, "lr": 1e-3, "sgd": True}}
 # (e) the pipeline: pp=4 gloo ranks sharing the card, each stage 2 decoder
 # blocks of Llama-2-7B at full width in bf16, 8 microbatches of 1 x 2048
 # hidden states, forward and backward through pipeline_apply, 2 steps;
@@ -529,9 +553,9 @@ MESH_ATTENTION_CALLS = (
 )
 # the flash calls of train_mesh's (c)-(e), as MESH_ATTENTION_CALLS: a ViT sp
 # rank's 64 images x 6 heads, its 99 or 98 queries over all 197 keys,
-# non-causal; the pipeline stage's call (1 row x 32 heads at 2048, causal),
-# which is also an MoE sp rank's diagonal block (2 rows x 16 heads); the MoE
-# sp rank's ring hop (2 rows x 16 heads, non-causal)
+# non-causal; the pipeline stage's call (1 row x 32 heads at 2048, causal);
+# the MoE sp rank's ring hop (2 rows x 16 heads at 1024, non-causal), whose
+# diagonal block is the same call, causal
 _VIT_SP_ROWS = MESH["vit_sp"]["batch"] // MESH["vit_sp"]["axes"]["dp"]
 _VIT_SP_Q = -(-VIT_SEQ // MESH["vit_sp"]["axes"]["sp"])
 SP_MODEL_ATTENTION_CALLS = (
@@ -1214,6 +1238,260 @@ def forward_phase(torch, server, prompts):
                f32_max_abs_err=err32, forward_ms=forward_ms, prefill_ms=prefill_ms)
     print("forward", json.dumps(fwd))
     return fwd
+
+
+# -- the runtime core on the card (runtime_serve) ---------------------------------------
+
+#: the runtime phase: its requests' new tokens (the prompts are serve_phase's),
+#: and the seeded tensor a GPU task returns
+RUNTIME = {"new_tokens": 8, "tensor_shape": (1024, 1024)}
+
+
+def _device_method(fn):
+    """``@ray_tpu_torch.method(tensor_transport="device")``: the option the
+    port's actors read from a method, set here so that this module's top
+    imports nothing of the package (the runtime's workers import it)."""
+    fn.__ray_tpu_method_options__ = {"tensor_transport": "device"}
+    return fn
+
+
+def runtime_seeded_tensor():
+    """A CUDA tensor drawn from SEED on the current card: the GPU task's and
+    this process's own."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return torch.randn(RUNTIME["tensor_shape"], generator=gen, device="cuda")
+
+
+def runtime_task():
+    """The runtime phase's num_gpus=1 task: its lease's ids, its current
+    card, and a seeded CUDA tensor (which crosses the object plane as a CPU
+    tensor)."""
+    import torch
+
+    import ray_tpu_torch
+
+    return {"gpu_ids": ray_tpu_torch.get_gpu_ids(), "device": torch.cuda.current_device(),
+            "accelerators": ray_tpu_torch.get_runtime_context().get_accelerator_ids(),
+            "tensor": runtime_seeded_tensor(), "pid": os.getpid()}
+
+
+class RuntimeServer:
+    """The runtime phase's actor: serve_phase's LLMServer (the same config,
+    the same seeded weights), built in a worker that the port's raylet
+    spawned and bound to the card of its num_gpus=1 lease."""
+
+    def __init__(self, warm_request):
+        import torch
+
+        from ray_tpu_torch.llm import LLMConfig, LLMServer
+
+        t0 = time.perf_counter()
+        self.server = LLMServer(LLMConfig(
+            model_id="llama2-7b", max_seq_len=1024, max_batch_size=N_REQUESTS,
+            model_kwargs=serve_model_kwargs(torch),
+        ))
+        self.server(warm_request)  # warm-up (cuBLAS, allocator), as serve_phase's
+        torch.cuda.synchronize()
+        self.build_s = time.perf_counter() - t0
+
+    def info(self):
+        import torch
+
+        import ray_tpu_torch
+
+        param = next(iter(self.server.engine._params.values()))
+        return {"gpu_ids": ray_tpu_torch.get_gpu_ids(), "device": torch.cuda.current_device(),
+                "param_device": str(param.device), "build_s": self.build_s, "pid": os.getpid()}
+
+    def zero_counts(self):
+        for fn in _port_counters().values():
+            fn.launches = 0
+
+    def counts(self):
+        return {name: fn.launches for name, fn in _port_counters().items()}
+
+    def generate(self, request):
+        return self.server(request)
+
+    @_device_method
+    def prefill_logits(self, prompts):
+        """The full-sequence forward of the prompts (flash attention, K2):
+        its logits stay on this actor's card."""
+        import torch
+
+        from ray_tpu_torch.models.llama import build_llama
+
+        engine = self.server.engine
+        with torch.inference_mode():
+            logits = build_llama(engine._cfg, engine._params)(
+                torch.tensor(prompts, device=engine._device))
+        return {"logits": logits}
+
+    @_device_method
+    def local_logits(self, tree, ref_id):
+        """A local hit: whether the resolved argument is the stored tensor
+        itself, and its digest."""
+        from ray_tpu_torch.experimental import device_objects
+
+        stored = device_objects._store[ref_id]["logits"]
+        return tree["logits"].data_ptr() == stored.data_ptr(), _digest(stored)
+
+    def memory_allocated(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+
+def _alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def runtime_serve_phase(torch, server, prompts, counters):
+    """The runtime core on the card: (a) ``init()`` finds the card as the
+    node's GPU resource and the native object store; (b) a num_gpus=1 task
+    runs on cuda:0 through its lease and its seeded CUDA tensor comes back
+    bit for bit; (c) a num_gpus=1 actor builds serve_phase's LLMServer and
+    answers the same 4 greedy requests (as ObjectRefs) token for token, with
+    the in-process server's K1/K2 launches; (d) device objects: the actor's
+    full-forward logits stay on its card, a local hit is zero-copy, the
+    device_get here is bit for bit, free gives the memory back. Returns
+    (the worker's launches over (c) and (d), the phase's numbers)."""
+    import chip_smoke as C  # the workers import the remote programs by this name
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._internal import accelerators, kernels
+    from ray_tpu_torch.experimental import device_get, free_device_object
+    from ray_tpu_torch.models.llama import build_llama
+    from ray_tpu_torch.runtime.object_store import native_store
+
+    out = {}
+    def kernel_libs():
+        return {n: kernels.lib_path(n).stat().st_mtime_ns for n in kernels.sources()}
+
+    libs = kernel_libs()  # built by the script's build phase
+    request = {"max_new_tokens": RUNTIME["new_tokens"], "temperature": 0.0}
+    t0 = time.perf_counter()
+    rt.init()
+    out["init_s"] = time.perf_counter() - t0
+    pids = []
+    try:
+        # (a) the card is the node's GPU resource; the native store served
+        resources = rt.cluster_resources()
+        out.update(gpu=resources.get("GPU"), gpu_source=accelerators.last_gpu_source,
+                   store=native_store.store_kind)
+        print(f"runtime_serve (a): GPU {out['gpu']} (from {out['gpu_source']}), "
+              f"{native_store.store_kind} object store, init {out['init_s']:.3f} s")
+        check(out["gpu"] == 1.0, f"cluster_resources() has GPU {out['gpu']}, not 1: {resources}")
+        check(native_store.store_kind == "native",
+              f"the native object store did not build: {native_store.store_kind}")
+
+        # (b) a num_gpus=1 task on cuda:0; its first lease pays the worker's
+        # start, the torch import and the CUDA context
+        task = rt.remote(num_gpus=1)(C.runtime_task)
+        t0 = time.perf_counter()
+        got = rt.get(task.remote(), timeout=300)
+        out["first_gpu_lease_s"] = time.perf_counter() - t0
+        print(f"lap runtime_serve first_gpu_lease {out['first_gpu_lease_s']:.1f} s")
+        t0 = time.perf_counter()
+        again = rt.get(task.remote(), timeout=300)
+        out["warm_gpu_task_s"] = time.perf_counter() - t0
+        pids += [got["pid"], again["pid"]]
+        for g in (got, again):
+            check(g["gpu_ids"] == [0] and g["device"] == 0
+                  and g["accelerators"] == {"GPU": ["0"]},
+                  f"the GPU task ran off its lease's card: {g['gpu_ids']} {g['device']}")
+            check(g["tensor"].device.type == "cpu"
+                  and torch.equal(g["tensor"], runtime_seeded_tensor().cpu()),
+                  "the task's seeded CUDA tensor differs from this process's")
+
+        # (c) the LLMServer actor against the in-process server, on the same
+        # requests: tokens and K1/K2 launches equal; the in-process run's
+        # launches are its own (not the path's)
+        tokens = torch.tensor(prompts, device="cuda")
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        local = [server(dict(request, token_ids=p)) for p in prompts]
+        torch.cuda.synchronize()
+        out["in_process_wall_s"] = time.perf_counter() - t0
+        engine = server.engine
+        with torch.inference_mode():
+            local_logits = build_llama(engine._cfg, engine._params)(tokens)
+        torch.cuda.synchronize()
+        local_counts = {name: fn.launches for name, fn in counters.items()}
+
+        t0 = time.perf_counter()
+        actor = rt.remote(num_gpus=1)(C.RuntimeServer).remote(
+            dict(request, token_ids=prompts[0], max_new_tokens=2))
+        info = rt.get(actor.info.remote(), timeout=600)
+        out["actor_start_s"] = time.perf_counter() - t0
+        out["actor_build_s"] = info["build_s"]
+        pids.append(info["pid"])
+        check(info["gpu_ids"] == [0] and info["device"] == 0 and info["param_device"] == "cuda:0",
+              f"the actor is not on its lease's card: {info}")
+        refs = [rt.put(dict(request, token_ids=p)) for p in prompts]
+        for fn in counters.values():
+            fn.launches = 0
+        rt.get(actor.zero_counts.remote(), timeout=60)
+        t0 = time.perf_counter()
+        answers = rt.get([actor.generate.remote(r) for r in refs], timeout=600)
+        out["actor_wall_s"] = time.perf_counter() - t0
+        for i, (a, b) in enumerate(zip(answers, local)):
+            check(a["token_ids"] == b["token_ids"] and len(a["token_ids"]) == RUNTIME["new_tokens"],
+                  f"request {i}: the actor's tokens {a['token_ids']} differ from the "
+                  f"in-process server's {b['token_ids']}")
+
+        # (d) device objects: the full forward's logits stay on the actor's card
+        ref = rt.get(actor.prefill_logits.remote(prompts), timeout=600)
+        launches = rt.get(actor.counts.remote(), timeout=60)
+        own_counts = {name: fn.launches for name, fn in counters.items()}
+        check(all(v == 0 for v in own_counts.values()),
+              f"the actor's path launched kernels in this process: {own_counts}")
+        same_ptr, digest = rt.get(actor.local_logits.remote(ref, ref.id), timeout=60)
+        check(same_ptr is True, "a local hit is not the stored logits tensor")
+        t0 = time.perf_counter()
+        fetched = device_get(ref)["logits"]
+        out["device_get_ms"] = (time.perf_counter() - t0) * 1e3
+        check(fetched.device == torch.device("cuda", 0), f"device_get landed on {fetched.device}")
+        check(_digest(fetched) == digest, "device_get here differs from the actor's logits")
+        err = (fetched.float() - local_logits.float()).abs().max().item()
+        out["logits_max_abs_err_vs_in_process"] = err
+        out["logits_bitwise_equal_in_process"] = bool(torch.equal(fetched, local_logits))
+        tol = 0.05 * local_logits.float().abs().max().item()  # forward_phase's tolerance
+        check(err <= tol, f"the actor's logits differ from the in-process ones by {err} > {tol}")
+        before = rt.get(actor.memory_allocated.remote(), timeout=60)
+        check(free_device_object(ref), "free_device_object found nothing to free")
+        after = rt.get(actor.memory_allocated.remote(), timeout=60)
+        out["freed_bytes"] = before - after
+        check(before - after >= fetched.numel() * fetched.element_size(),
+              f"free gave back {before - after} B, less than the logits' "
+              f"{fetched.numel() * fetched.element_size()} B")
+        del fetched
+
+        for name in ("rmsnorm_fwd", "flash_attention_fwd"):
+            check(launches[name] == local_counts[name] and launches[name] > 0,
+                  f"the actor launched {name} {launches[name]} times, the in-process server "
+                  f"{local_counts[name]}")
+        model_calls = launches["rmsnorm_fwd"] // (2 * SERVE_LAYERS + 1)
+        check(launches["rmsnorm_fwd"] == model_calls * (2 * SERVE_LAYERS + 1),
+              f"K1 {launches['rmsnorm_fwd']} is not 2L + 1 a model call")
+        check(launches["flash_attention_fwd"] == SERVE_LAYERS,
+              f"K2 {launches['flash_attention_fwd']}: one full forward launches L")
+        out.update(launches=launches, model_calls=model_calls)
+        print("runtime_serve", json.dumps(out))
+        rt.kill(actor)
+        del actor
+    finally:
+        rt.shutdown()
+    check(not any(_alive(p) for p in set(pids)), f"a worker outlived shutdown(): {pids}")
+    check(kernel_libs() == libs, "a worker rebuilt a kernel library")
+    return out["launches"], out
 
 
 # the TTFT histogram's tags (cache, mesh, tier) of a miss and of a local hit
@@ -5246,7 +5524,7 @@ def train_ppo_phase(torch, np, counters):
     repo's defaults for 3 iterations, the learner on the card and the
     runners' policies on the host, and a save/restore round trip; (b)
     upstream RLlib PPO's documented batch (4,096 rows, minibatch 128, 30
-    epochs), one warm and 2 timed iterations and a profile of one learner
+    epochs), one warm and 1 timed iteration and a profile of one learner
     update; (c) card-vs-host parity of one update. K1-K4 must be launched 0
     times."""
     import math
@@ -6081,7 +6359,7 @@ def moe_dense_vs_indexed(torch, moe, x):
 
 
 def moe_parity(torch, card="cuda"):
-    """Card vs host at one layer of full Mixtral-8x7B width, b=1 x seq 128,
+    """Card vs host at one layer of full Mixtral-8x7B width, b=1 x seq 64,
     f32, TF32 off. Routing first: each run's expert choices and kept flags
     (from the layer's own ``route`` on its MoE input) against an f64 host
     run's; a choice that differs must come from a near-tie (the first pass
@@ -7141,9 +7419,9 @@ def train_mesh_phase(torch, counters):
     """The ViT and the MoE over multi-axis meshes, the pipeline and the
     hierarchical group on eight gloo ranks sharing the card
     (``train_mesh_loop``), against one-rank runs in this process: (a)
-    ViT-B/16 at dp=2 x fsdp=2 x tp=2 and (c) at dp=2 x sp=2 x tp=2, 3 steps
-    each; (b) 2 layers of Mixtral-8x7B at fsdp=2 x ep=2 x tp=2 and (d) at
-    sp=2 x ep=2 x tp=2, 2 steps each; (e) the pipeline on ranks 0-3 and (f)
+    ViT-B/16 at dp=2 x fsdp=2 x tp=2 and (c) at dp=2 x sp=2 x tp=2, 2 steps
+    each; (b) 2 layers of Mixtral-8x7B (b=2 x 2048) at fsdp=2 x ep=2 x tp=2
+    and (d) at sp=2 x ep=2 x tp=2, 2 steps each; (e) the pipeline on ranks 0-3 and (f)
     the hierarchical group on ranks 4-7; the same ranks then run
     ``train_tp``'s round, returned for its phase. Held: every rank's K1-K4
     launches a step exact (ViT 0/12/12/12, MoE 4L+1 / 2L / L / L, under sp
@@ -7801,6 +8079,18 @@ def main() -> None:
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         check(serve_launches[name] == 0, f"{name} was launched on the serving path")
 
+    # the runtime core: an LLMServer actor on the card's GPU lease serves the
+    # same requests in a worker process; the worker's counts are set to 0
+    # just before its requests and read just after its device-object
+    # prefill (this process's stay 0 meanwhile)
+    runtime_launches, _ = runtime_serve_phase(torch, server, prompts, counters)
+    lap("runtime_serve")
+    for name in ("rmsnorm_fwd", "flash_attention_fwd"):
+        check(runtime_launches[name] > 0, f"{name} was not launched on the runtime_serve path")
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        check(runtime_launches[name] == 0, f"{name} was launched on the runtime_serve path")
+    torch.cuda.empty_cache()
+
     # the continuous-batching path: counts set to 0 here, read after its
     # three phases; it runs K1 only (decode-mode attention throughout)
     for fn in counters.values():
@@ -7945,7 +8235,8 @@ def main() -> None:
     # of its steps and read just after, are added
     tp_train_launches, _ = train_tp_phase(torch, counters, tp_gang)
     lap("train_tp")
-    paths = {"serve": serve_launches, "serve_cb": cb_launches, "serve_lora": lora_launches,
+    paths = {"serve": serve_launches, "runtime_serve": runtime_launches,
+             "serve_cb": cb_launches, "serve_lora": lora_launches,
              "serve_disagg": disagg_launches, "serve_tp": tp_launches,
              "serve_tp_features": tpf_launches, "train": train_launches,
              "train_dp": dp_launches, "train_fsdp": fsdp_launches, "train_sp": sp_launches,

@@ -9,10 +9,10 @@
 - :mod:`.events`: the flight recorder, a bounded ring of named events.
 
 The reference pushes each process's metrics, spans and events to its GCS
-from background threads. The port has no runtime yet, so nothing is pushed
-and no thread is started: :func:`.metrics.local_payload` returns the payload
-the metrics pusher would send, and the readers (summaries, Prometheus text)
-run on it. Metric names, tags, histogram boundaries, span names and
+from background threads. The port's runtime does not push them yet (ROADMAP
+A item 21), so nothing is pushed and no thread is started:
+:func:`.metrics.local_payload` returns the payload the metrics pusher would
+send, and the readers (summaries, Prometheus text) run on it. Metric names, tags, histogram boundaries, span names and
 attributes, and event names and fields are the reference's, so that one
 dashboard reads both packages.
 """

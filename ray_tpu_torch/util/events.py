@@ -10,8 +10,8 @@ declared here, exactly once, the reference's names all, so that the two
 packages share one vocabulary.
 
 The reference streams the ring's suffix to its GCS event store from a
-background thread. The port has no runtime to push to, so no thread is
-started, and :func:`flush_events` / :func:`dump_events` return without
+background thread. The port's runtime does not push it yet (ROADMAP A item
+21), so no thread is started, and :func:`flush_events` / :func:`dump_events` return without
 pushing, as the reference does in a process without a core worker.
 """
 

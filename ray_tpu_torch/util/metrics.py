@@ -19,8 +19,8 @@ recorder's drop counter, and device memory, read from the CUDA caching
 allocator.
 
 The reference pushes every process's registry to its GCS from a background
-thread and renders the cluster's payloads. The port has no runtime yet:
-:func:`local_payload` returns the payload the pusher builds, from this
+thread and renders the cluster's payloads. The port's runtime does not push
+it yet (ROADMAP A item 21): :func:`local_payload` returns the payload the pusher builds, from this
 process's registry, and the summaries and :func:`render_prometheus` run on
 it. No thread is started. The other families of the reference (rpc,
 weights, train and serve fault tolerance, partitions, ingress, watchdog,

@@ -18,8 +18,9 @@ it.
 
 The reference streams spans to its GCS span store from a background
 thread, and ``timeline()`` / ``task_execution_span`` read and write the
-runtime's task events. The port has no runtime yet: nothing is pushed and
-no thread is started; those two wait for it.
+runtime's task events. The port's runtime does not push spans yet (ROADMAP
+A item 21): nothing is pushed and no thread is started; those two wait for
+it.
 """
 
 from __future__ import annotations

@@ -359,8 +359,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     card's machine lacks). The walk includes the parallel package, the MoE
     model, the observability plane (util), the KV tier with what it
     imports, every RLlib algorithm, DreamerV3 included, FSDP, the
-    differentiable collectives, the sharded checkpoint, and ring and
-    Ulysses attention."""
+    differentiable collectives, the sharded checkpoint, ring and Ulysses
+    attention, and the runtime core (its GCS, raylet, core worker, RPC
+    plane and device objects)."""
     code = (
         "import importlib, pkgutil, sys, ray_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__, 'ray_tpu_torch.')]\n"
@@ -380,7 +381,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "        'ray_tpu_torch.rllib.multi_agent_env', 'ray_tpu_torch.rllib.dreamer',\n"
         "        'ray_tpu_torch.parallel.fsdp', 'ray_tpu_torch.collective.functional',\n"
         "        'ray_tpu_torch.train.sharded_checkpoint', 'ray_tpu_torch.parallel.ring_attention',\n"
-        "        'ray_tpu_torch.parallel.ulysses'}\n"
+        "        'ray_tpu_torch.parallel.ulysses', 'ray_tpu_torch.api',\n"
+        "        'ray_tpu_torch.runtime.worker.core_worker', 'ray_tpu_torch.runtime.raylet.raylet',\n"
+        "        'ray_tpu_torch.runtime.gcs.server', 'ray_tpu_torch._internal.rpc',\n"
+        "        'ray_tpu_torch.experimental.device_objects'}\n"
         "print(len(mods), bad, sorted(need - set(mods)))\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -399,8 +403,10 @@ def test_port_sources_name_neither_jax_nor_ray_tpu():
     """No import of jax, flax, optax, ray_tpu, ml_dtypes or cloudpickle
     anywhere, lazy ones included (the card's machine has neither of the
     last two), and of gymnasium nowhere but in rllib/env.py's lazy
-    ``make_env`` of a string id. The scan covers every module, DreamerV3's
-    and the converters' included."""
+    ``make_env`` of a string id. The scan covers every module, DreamerV3's,
+    the converters' and the runtime core's included (the reference's RPC
+    plane, object plane and GCS records use cloudpickle; the port's use
+    none)."""
     import ast
 
     offenders, scanned = [], set()
@@ -422,7 +428,10 @@ def test_port_sources_name_neither_jax_nor_ray_tpu():
             offenders += [f"{path.name}: {n}" for n in names if n.split(".")[0] in banned]
     assert offenders == []
     assert {"rllib/dreamer.py", "rllib/sac.py", "models/convert.py", "parallel/fsdp.py",
-            "collective/functional.py", "train/sharded_checkpoint.py"} <= scanned
+            "collective/functional.py", "train/sharded_checkpoint.py", "_internal/rpc.py",
+            "_internal/serialization.py", "runtime/worker/core_worker.py",
+            "runtime/gcs/actor_manager.py", "runtime/gcs/placement_groups.py",
+            "runtime/gcs/server.py", "experimental/device_objects.py"} <= scanned
 
 
 def test_no_card_means_error_not_cpu(monkeypatch):
