@@ -106,8 +106,16 @@ port's ``TorchTrainer`` (``TorchConfig(backend="nccl")``):
    fetched through the hosts, landed on the getter's card, equal to the
    source bit for bit. ``ray_tpu`` drops its leases' device ids, so all n
    would run on card 0.
+11. the serve control plane across the cards (``serve_part``):
+   ``serve.run(build_llm_deployment(...))`` of n replicas of
+   ``chip_smoke``'s serve_cb server (Llama-2-7B width, ``SERVE_LAYERS``
+   layers, seed-0 bf16 weights drawn in each replica), each leasing
+   {"CPU": 1, "GPU": 1}: every replica's lease names a card of its own
+   and its weights sit on it (the replicas' mesh cards); then one request
+   sent to each replica's actor answers with the tokens of a one-card
+   in-process server on card 0 (the same seed, the same request).
 
-    python3 chip_multicard.py 3      # part 3 alone (no argument: all ten;
+    python3 chip_multicard.py 3      # part 3 alone (no argument: all eleven;
                                      # several, as in "4 5", run those)
 
 Prints the cards' names and power limits, one JSON line per part, and
@@ -117,6 +125,7 @@ cards or on any failed check. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -324,7 +333,7 @@ def main() -> None:
     from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchConfig, TorchTrainer
 
     n = torch.cuda.device_count()
-    parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5", "6", "7", "8", "9", "10"}
+    parts = set(sys.argv[1:]) or {str(i) for i in range(1, 12)}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print("cards:", smi.replace("\n", " | "))
@@ -363,6 +372,8 @@ def main() -> None:
         hier_part(C, fit, n)
     if "10" in parts:
         runtime_part(torch, C, n)
+    if "11" in parts:
+        serve_part(torch, np, C, n)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": n}}))
 
@@ -1192,6 +1203,61 @@ def runtime_part(torch, C, n: int) -> None:
     finally:
         rt.shutdown()
     print("multicard runtime", json.dumps(out))
+
+
+def serve_part(torch, np, C, n: int) -> None:
+    """Part 11: n replicas of one deployment on n cards, one each."""
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.testing  # noqa: F401 - rt.testing
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import LLMConfig, LLMServer, build_llm_deployment
+
+    cfg = LLMConfig(
+        model_id="llama2-7b", max_seq_len=C.CB["max_seq_len"], max_batch_size=C.CB["slots"],
+        kv_cache_blocks=C.CB["blocks"], kv_block_size=C.CB["block"],
+        model_kwargs=C.serve_model_kwargs(torch), num_replicas=n,
+        resources_per_replica={"CPU": 1.0, "GPU": 1.0},
+    )
+    rng = np.random.default_rng(C.SEED + 31)
+    prompts = [rng.integers(0, 32000, C.CB_PREFIX + C.CB_OWN).tolist() for _ in range(n)]
+    request = {"max_new_tokens": C.NEW_TOKENS, "temperature": 0.0}
+    local = LLMServer(dataclasses.replace(cfg, num_replicas=1))  # card 0, seed 0
+    want = [local(dict(request, token_ids=p))["token_ids"] for p in prompts]
+    del local
+    torch.cuda.empty_cache()
+    out = {}
+    rt.init()
+    try:
+        t0 = time.perf_counter()
+        serve.run(build_llm_deployment(cfg, name="llm"), name="llm", _proxy=False)
+        rows = C._wait_running(rt, "llm", n)
+        out["run_to_running_s"] = time.perf_counter() - t0
+        cards = sorted(r["mesh"]["gpu_ids"][0] for r in rows)
+        for r in rows:
+            C.check(r["mesh"]["gpu_ids"] == [int(r["mesh"]["devices"][0].split(":")[1])],
+                    f"a replica's weights are off its lease's card: {r['mesh']}")
+        C.check(cards == list(range(n)), f"the replicas' cards are {cards}, not 0..{n - 1}")
+        controller = rt.get_actor("SERVE_CONTROLLER")
+        table = rt.get(controller.get_routing_table.remote("llm"), timeout=60)
+        replicas = [replica for _rid, replica, _q in table["llm"]["replicas"]]
+        t0 = time.perf_counter()
+        got = rt.get([replica.handle_request.remote("__call__", (dict(request, token_ids=p),),
+                                                    {}, {})
+                      for replica, p in zip(replicas, prompts)], timeout=600)
+        out["one_request_each_s"] = time.perf_counter() - t0
+        partings = [C._first_parting(g["token_ids"], w) for g, w in zip(got, want)]
+        C.check(all(j is None for j in partings),
+                f"a replica's tokens differ from one card's: first partings {partings}")
+        out.update(cards=cards, replicas=[{k: r[k] for k in ("replica_id", "pid", "warmup_s")}
+                                          | {"devices": r["mesh"]["devices"],
+                                             "allocated_bytes": r["mesh"]["per_device_hbm_bytes"]}
+                                          for r in rows])
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+    print("multicard serve", json.dumps(out))
 
 
 if __name__ == "__main__":

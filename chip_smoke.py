@@ -51,8 +51,7 @@ Phases, each of which exits non-zero on failure:
      them zero-copy (same ``data_ptr``), this process's ``device_get``
      lands on its card equal to them by SHA-256, ``free_device_object``
      gives their bytes back (the worker's ``memory_allocated`` drops);
-     after ``shutdown()`` no worker is left and no kernel library was
-     rebuilt (the workers load the build phase's);
+     the cluster stays up, the actor alive, for phase 9b;
   7. continuous batching over the paged prefix KV cache (LLMServer with
      kv_cache_blocks, on phase 5's weights): 16 greedy requests sharing a
      256-token prefix from 8 threads, with the exact prefix-hit and
@@ -92,6 +91,29 @@ Phases, each of which exits non-zero on failure:
      lifetime ratio, the ITL observations of the timed steps are the tokens
      they landed and over the engine's life sum(cnt); the chunked runs print
      the ITL histogram's p50 and p99 beside their largest step gap;
+  9b. the serve control plane (``serve_deploy``) on 6b's cluster, its
+     actor killed first: ``serve.run(build_llm_deployment(LLMConfig(...,
+     num_replicas=2, resources_per_replica={"CPU": 1, "GPU": 0.5},
+     prefix_affinity_tokens=16)))`` of phase 7's server config, seed-0 bf16
+     weights drawn in each replica: (a) both replicas RUNNING, each bound to
+     card 0 by its lease (``get_gpu_ids() == [0]``, weights on cuda:0, read
+     through the replicas' mesh cards), the lap from ``serve.run`` printed;
+     (b) each replica warmed as phase 7's server, then phase 7's 16
+     requests from 8 threads through the handle with prefix affinity:
+     phase 7's tokens (a parting only at a near-tie of the in-process
+     server's top-2 logits, printed), prefix hits exactly 256 x (16 - the
+     replicas used) over the replicas' KV stats (which case is printed),
+     K1 9 a model call in each replica (its ``kernel_launches``), K2-K4
+     none, tokens/s beside phase 7's; a serial wave of 4 requests on a new
+     prefix on one replica, 3 x 256 hits; (c) a request through the stdlib
+     HTTP proxy (urllib), the same request alone through the handle, and a
+     streamed one give phase 7's tokens as (b)'s do (whether the proxy's
+     equal the handle's exactly is printed), the stream's first item before
+     its end, TTFT printed; (d) a replica killed: the next
+     requests answered, the deployment back to 2 RUNNING replicas on card
+     0's halves, the seconds printed; then ``shutdown()``: no worker left
+     (6b's, the controller, the proxy, the replicas), no kernel library
+     rebuilt (the workers load the build phase's);
   10. multi-tenant LoRA serving (LLMServer with kv_cache_blocks and
      adapters, on phase 5's weights; ``serve_lora``): 4 adapters of rank 16
      on every wq/wk/wv/wo from numpy seeds, prewarmed into 8 slots; phase
@@ -184,26 +206,32 @@ Phases, each of which exits non-zero on failure:
      allreduce's overlap split; moe_dispatch / moe_combine over the group
      equal the local ones; (b) phase 12's fit() again in process (the
      bound: two in-process runs), then TorchTrainer of the llama_lora loop
-     with a spawned NCCL worker (TorchConfig(backend="nccl"), overlap on):
+     with a spawned NCCL worker (TorchConfig(backend="nccl"), overlap on;
+     the worker then runs 12c (a)'s loop, ``train_nccl_loop``):
      its losses and 256 adapters within that bound, K1-K4 129/64/32/32 a
      step counted in the worker, 8 buckets of 4 MiB and 8 allreduce ops a
      step (33.5 MB), the NCCL kernels a profiled step launches, step ms,
      overlap split and peak memory; (c) two gloo ranks sharing the card
      (ScalingConfig(2, {"GPU": 0.5})) at 2 layers of 7B width, batch 1
-     each: adapters equal across ranks after every step and within a
-     stated bound of one rank at batch 2; the gloo allreduce timed alone;
-     (d) NCCL for two ranks on one card refused before any spawn;
+     each (the replicated pass of 12c (b)'s gang, checked there): adapters
+     equal across ranks after every step and within a stated bound of one
+     rank at batch 2; the gloo allreduce timed alone; (d) NCCL for two
+     ranks on one card refused before any spawn;
   12c. FSDP (``train_fsdp``): (a) the llama_lora loop at its default mesh
-     in a spawned NCCL worker at fsdp=1 (every gather a one-rank op): its
+     in a spawned NCCL worker at fsdp=1 (every gather a one-rank op; 12b
+     (b)'s worker, after its own loop): its
      losses and full adapters within (b)'s bound of phase 12's, K1-K4
      129/64/32/32 a step, a step's gathers and reduce-scatters, step ms and
      peak memory; (b) two gloo ranks sharing the card at 2 layers of 7B
      width, every parameter replicated and then at fsdp=2: each rank's
      base bytes exactly half, adapters within 2n lr + n bf16 ulps of the
      replicated pair's, gather bytes, step ms and peak a rank; (c) the
-     pair's sharded checkpoint restored whole here, bit for bit;
+     pair's sharded checkpoint restored whole here, bit for bit. (b)'s
+     gang (``train_pair_loop``) also runs 12b (c), 12d and 13b (b): one
+     gang's start, not four (each costs 15-25 s), with 12d's and 13b's
+     in-process yardsticks computed here before its fit;
   12d. sequence parallelism (``train_sp``): two gloo ranks sharing the card
-     (``train_sp_loop``). (a) ring and Ulysses attention at Llama-2-7B's
+     (``train_sp_loop``, in 12c (b)'s gang). (a) ring and Ulysses attention at Llama-2-7B's
      attention width (b=2, 32 heads, S=4096, 2,048 a rank) and Llama-3-8B's
      GQA one (b=1, 32/8 heads, S=8192), bf16, causal: o and the q/k/v
      gradients within 4x the one-rank flash_attention's own distance from
@@ -226,7 +254,8 @@ Phases, each of which exits non-zero on failure:
      model whose parameters and running statistics equal the in-process
      run's (bit for bit, or within two in-process runs' spread), exactly
      106 sync-BN allreduces and 102,228,128 B of gradient a step, 5 timed
-     steps; (b) two gloo ranks sharing the card at b=128 each, 3 steps:
+     steps; (b) two gloo ranks sharing the card at b=128 each, 3 steps
+     (in 12c (b)'s gang, the in-process yardsticks before its fit):
      bit-identical to each other, within twice the b=256 run's distance
      from itself in f32 activations, step ms and the collectives' share;
   14. ViT-B/16 training (``train_vit``): batch 128 at 224, AdamW, exactly
@@ -300,10 +329,10 @@ Phases, each of which exits non-zero on failure:
      from ``train.collective.gang_mesh``), against one-rank runs on the
      whole global batch in this process, bf16 and f32 activations: (a)
      ViT-B/16 at 224, global batch 128, AdamW, at the reference test's
-     dp=2 x fsdp=2 x tp=2, 2 steps; (b) Mixtral-8x7B at full width, 2 of
+     dp=2 x fsdp=2 x tp=2, 2 steps; (b) Mixtral-8x7B at full width, 1 of
      its 32 layers, b=2 x 2048, remat, bf16 parameters, at fsdp=2 x ep=2 x
      tp=2, 2 steps. Every rank's K1-K4 launches a step exact (ViT 0/12/12/12,
-     MoE 9/4/2/2); its resident parameter bytes the rule table's share
+     MoE 5/2/1/1); its resident parameter bytes the rule table's share
      exactly; the first step's gradients (after the ranks' sums, before
      AdamW) and first loss within twice the one-rank run's distance from its
      f32-activation run, leaf by leaf (every norm, the router, cls_token;
@@ -317,11 +346,11 @@ Phases, each of which exits non-zero on failure:
      kernel phases hold and time K2-K4 at the ranks' calls, (192, 197,
      d=64) non-causal and (16, 2048, d=128) causal. Then, on the same
      ranks: (c) the ViT at dp=2 x sp=2 x tp=2 (197 tokens, 99 / 98 a sp
-     rank, K/V gathered over sp) and (d) the 2 Mixtral layers at sp=2 x
+     rank, K/V gathered over sp) and (d) the Mixtral layer at sp=2 x
      ep=2 x tp=2 (the ring over sp, routing over the data axes and sp;
      stepped with plain SGD, as AdamW's state for a quarter of the experts
      a rank does not fit eight ranks beside this process), held
-     as (a) and (b) (K1-K4 under sp 9 / 4(s+1) / 2(2-s) / 2(2-s) at sp
+     as (a) and (b) (K1-K4 under sp 5 / 2(s+1) / (2-s) / (2-s) at sp
      coordinate s; ``pos_embed``'s padded rows in the resident bytes) with
      planted faults of their own: the ViT's loss counted once per sp rank;
      the MoE's first step with per-rank routing offsets (held by its
@@ -365,7 +394,9 @@ Main paths: the launch counters are set to 0 just before phase 5 and read
 just after phase 6 (serving), the actor worker's set to 0 just before phase
 6b (c)'s requests and read just after (d)'s forward (``runtime_serve``; this
 process's stay 0 meanwhile), set to 0 just before phase 7 and read just
-after phase 9 (continuous batching, ``serve_cb``, with ``serve_obs``), set to 0 just before
+after phase 9 (continuous batching, ``serve_cb``, with ``serve_obs``), the replicas' own
+set to 0 just before phase 9b (b)'s traffic and read just after (c) (``serve_deploy``;
+this process's stay 0 meanwhile), set to 0 just before
 phase 10 and read just after it (``serve_lora``), set to 0 just before phase
 10b and read just after it (``serve_disagg``), set to 0 inside phase 10c
 just before its first tp=2 server and read just after its last one closes
@@ -375,10 +406,11 @@ phase 10d (``serve_tp_features``), and set to 0 just before
 phase 12's fit() and read just after it (training), set to 0 just before
 phase 12b (b)'s fit() and read just after it, with the spawned worker's own
 counts, set to 0 before its loop and read after it, added (``train_dp``),
-likewise for phase 12c (a)'s worker, with (b)'s FSDP ranks' counts of
-their steps added (``train_fsdp``), for phase 12d's two ranks, each set to
+likewise for phase 12c (a)'s loop in that worker, after it, with (b)'s
+FSDP ranks' counts of their steps added (``train_fsdp``), for phase 12d's
+two ranks (in 12c (b)'s gang), each set to
 0 before its ops and again before its steps and read after each
-(``train_sp``), and for phase 13b's workers
+(``train_sp``), and for phase 13b's workers (its pair in 12c (b)'s gang)
 (``train_resnet_dp``), and set to 0 at the
 start of phases 13 and 14 and read after their timed and profiled steps
 (``train_resnet``, ``train_vit``), and set to 0 at the start of phase 15 and
@@ -514,11 +546,11 @@ SP_OP_TIMES = 4
 # the models over multi-axis meshes (train_mesh): eight gloo ranks sharing
 # the card (NCCL refuses two ranks on one card). (a) ViT-B/16 at 224, global
 # batch 128, bf16 over f32, AdamW, on the reference test's dp=2 x fsdp=2 x
-# tp=2, 2 steps; (b) Mixtral-8x7B at full width cut to 2 of its 32 layers,
+# tp=2, 2 steps; (b) Mixtral-8x7B at full width cut to 1 of its 32 layers,
 # b=2 x 2048 (the experts' f32 partial sums go through host gloo), remat,
 # bf16 parameters, AdamW at lr 1e-3, on fsdp=2 x ep=2 x tp=2, 2 steps; (c)
 # ViT-B/16 as (a) at dp=2 x sp=2 x tp=2 (197 tokens split 99 / 98), 2
-# steps; (d) the 2 Mixtral layers as (b) at sp=2 x ep=2 x tp=2 (a data
+# steps; (d) the Mixtral layer as (b) at sp=2 x ep=2 x tp=2 (a data
 # shard holds both rows, so each sp rank's 2 x 1024 tokens interleave in
 # the global order), 2 steps with plain SGD (a quarter of the experts a
 # rank: AdamW's state, 3.5 GB a rank, left the eight ranks and this process
@@ -527,11 +559,11 @@ SP_OP_TIMES = 4
 MESH = {"ranks": 8,
         "vit": {"axes": {"dp": 2, "fsdp": 2, "tp": 2}, "batch": VIT_BATCH, "steps": 2,
                 "lr": 1e-4},
-        "moe": {"axes": {"fsdp": 2, "ep": 2, "tp": 2}, "n_layers": 2, "batch": 2,
+        "moe": {"axes": {"fsdp": 2, "ep": 2, "tp": 2}, "n_layers": 1, "batch": 2,
                 "seq": 2048, "steps": 2, "lr": 1e-3},
         "vit_sp": {"axes": {"dp": 2, "sp": 2, "tp": 2, "fsdp": 1}, "batch": VIT_BATCH,
                    "steps": 2, "lr": 1e-4},
-        "moe_sp": {"axes": {"sp": 2, "ep": 2, "tp": 2, "fsdp": 1}, "n_layers": 2, "batch": 2,
+        "moe_sp": {"axes": {"sp": 2, "ep": 2, "tp": 2, "fsdp": 1}, "n_layers": 1, "batch": 2,
                    "seq": 2048, "steps": 2, "lr": 1e-3, "sgd": True}}
 # (e) the pipeline: pp=4 gloo ranks sharing the card, each stage 2 decoder
 # blocks of Llama-2-7B at full width in bf16, 8 microbatches of 1 x 2048
@@ -1361,20 +1393,19 @@ def runtime_serve_phase(torch, server, prompts, counters):
     answers the same 4 greedy requests (as ObjectRefs) token for token, with
     the in-process server's K1/K2 launches; (d) device objects: the actor's
     full-forward logits stay on its card, a local hit is zero-copy, the
-    device_get here is bit for bit, free gives the memory back. Returns
-    (the worker's launches over (c) and (d), the phase's numbers)."""
+    device_get here is bit for bit, free gives the memory back. The cluster
+    stays up, the actor alive, for ``serve_deploy``, which shuts it down
+    (on a failure here it is shut down at once). Returns (the worker's
+    launches over (c) and (d), the phase's numbers, the cluster's record)."""
     import chip_smoke as C  # the workers import the remote programs by this name
     import ray_tpu_torch as rt
-    from ray_tpu_torch._internal import accelerators, kernels
+    from ray_tpu_torch._internal import accelerators
     from ray_tpu_torch.experimental import device_get, free_device_object
     from ray_tpu_torch.models.llama import build_llama
     from ray_tpu_torch.runtime.object_store import native_store
 
     out = {}
-    def kernel_libs():
-        return {n: kernels.lib_path(n).stat().st_mtime_ns for n in kernels.sources()}
-
-    libs = kernel_libs()  # built by the script's build phase
+    libs = runtime_kernel_libs()  # built by the script's build phase
     request = {"max_new_tokens": RUNTIME["new_tokens"], "temperature": 0.0}
     t0 = time.perf_counter()
     rt.init()
@@ -1485,13 +1516,300 @@ def runtime_serve_phase(torch, server, prompts, counters):
               f"K2 {launches['flash_attention_fwd']}: one full forward launches L")
         out.update(launches=launches, model_calls=model_calls)
         print("runtime_serve", json.dumps(out))
-        rt.kill(actor)
-        del actor
-    finally:
+    except BaseException:
         rt.shutdown()
-    check(not any(_alive(p) for p in set(pids)), f"a worker outlived shutdown(): {pids}")
-    check(kernel_libs() == libs, "a worker rebuilt a kernel library")
-    return out["launches"], out
+        raise
+    return out["launches"], out, {"actor": actor, "pids": pids, "libs": libs}
+
+
+def runtime_kernel_libs():
+    """The build phase's kernel libraries, by modification time: a worker
+    that rebuilt one would change it."""
+    from ray_tpu_torch._internal import kernels
+
+    return {n: kernels.lib_path(n).stat().st_mtime_ns for n in kernels.sources()}
+
+
+# -- the serve control plane on the card (serve_deploy) -----------------------------------
+
+#: two replicas of the serve_cb server's config (8 slots, 256 blocks of 32,
+#: max_seq_len 1024) packed on card 0's halves, routed with 16 tokens of
+#: prefix affinity; the serial wave's requests; the near-tie bound on the
+#: in-process server's top-2 logit gap where a replica's greedy token parts
+#: from it (bf16 ulps of the top logit: the replicas' batches differ from
+#: the in-process run's, and a GEMM's sums with them)
+SERVE_DEPLOY = {"replicas": 2, "gpu_share": 0.5, "affinity_tokens": 16, "serial": 4,
+                "near_tie_ulps": 4}
+
+
+def _replica_calls(rt, app, deployment, method, *args):
+    """``method(*args)`` on every RUNNING replica of a deployment, through
+    each replica's own actor (a handle routes to one of them), by replica
+    id."""
+    controller = rt.get_actor("SERVE_CONTROLLER")
+    table = rt.get(controller.get_routing_table.remote(app), timeout=30)
+    return {rid: rt.get(replica.handle_request.remote(method, args, {}, {}), timeout=300)
+            for rid, replica, _q in table[deployment]["replicas"]}
+
+
+def _wait_running(rt, app, n, timeout_s=300.0):
+    """The inventory rows once ``n`` replicas are RUNNING with their mesh
+    cards polled (their pid and devices known)."""
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        rows = [r for r in rt.testing.list_serve_replicas(app)
+                if r["state"] == "RUNNING" and r["pid"] and r.get("mesh")]
+        if len(rows) == n:
+            return rows
+        time.sleep(0.1)
+    fail(f"serve_deploy: {app} did not reach {n} RUNNING replicas in {timeout_s} s: "
+         f"{rt.testing.list_serve_replicas(app)}")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_deploy_phase(torch, np, cluster, cb_traffic, cb_out, server, counters):
+    """The serve control plane on the card, on runtime_serve's cluster:
+    ``serve.run(build_llm_deployment(...))`` of two replicas of the serve_cb
+    server's config, each leasing {"CPU": 1, "GPU": 0.5}. (a) both reach
+    RUNNING bound to card 0 through their leases; (b) serve_cb's 16
+    requests (a shared 256-token prefix and 64 tokens of their own, 32 new
+    greedy tokens) from 8 threads through the handle with prefix affinity:
+    serve_cb's tokens (or a printed near-tie), prefix hits exactly 256 x
+    (16 - the replicas used) over the replicas' KV stats, K1 9 a model
+    call in each replica and K2-K4 none; then a serial wave of 4 requests on
+    a new prefix lands on one replica and hits 3 x 256; (c) one request
+    through the HTTP proxy, the same one alone through the handle and a
+    streamed one give serve_cb's tokens as (b)'s do, the stream's first
+    item before its end; (d) a replica killed, the next
+    requests are answered and the controller brings the deployment back to
+    2 RUNNING replicas on card 0. Then the cluster shuts down and no worker
+    (runtime_serve's, the controller, the proxy, the replicas) is left.
+    This process's counts stay 0; the replicas' own counts are set to 0
+    just before (b) and read just after (c). Returns (the path's launches,
+    the phase's numbers)."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.testing  # noqa: F401 - rt.testing
+    from ray_tpu_torch import _worker_api, serve
+    from ray_tpu_torch.llm import LLMConfig, build_llm_deployment
+    from ray_tpu_torch.models.llama import build_llama
+
+    out, app = {}, "llm"
+    pool_procs = _worker_api.get_node().raylet.worker_pool._spawned_procs
+    try:
+        # runtime_serve's actor holds the whole card: its lease goes first
+        rt.kill(cluster["actor"])
+        del cluster["actor"]
+        deadline = time.time() + 60
+        while rt.available_resources().get("GPU") != 1.0 and time.time() < deadline:
+            time.sleep(0.1)
+        check(rt.available_resources().get("GPU") == 1.0,
+              f"runtime_serve's actor kept its card: {rt.available_resources()}")
+        for fn in counters.values():
+            fn.launches = 0
+        cfg = LLMConfig(
+            model_id="llama2-7b", max_seq_len=CB["max_seq_len"], max_batch_size=CB["slots"],
+            kv_cache_blocks=CB["blocks"], kv_block_size=CB["block"],
+            model_kwargs=serve_model_kwargs(torch), num_replicas=SERVE_DEPLOY["replicas"],
+            resources_per_replica={"CPU": 1.0, "GPU": SERVE_DEPLOY["gpu_share"]},
+            prefix_affinity_tokens=SERVE_DEPLOY["affinity_tokens"],
+        )
+        port = _free_port()
+        t0 = time.perf_counter()
+        serve.start(http_port=port)
+        handle = serve.run(build_llm_deployment(cfg, name=app), name=app, route_prefix="/llm")
+        rows = _wait_running(rt, app, SERVE_DEPLOY["replicas"])
+        out["run_to_running_s"] = time.perf_counter() - t0
+        print(f"lap serve_deploy run_to_running {out['run_to_running_s']:.1f} s")
+
+        # (a) two replicas on card 0's halves, each bound to it by its lease
+        out["replicas"] = [dict(replica_id=r["replica_id"], pid=r["pid"],
+                                warmup_s=r["warmup_s"], devices=r["mesh"]["devices"],
+                                gpu_ids=r["mesh"]["gpu_ids"],
+                                allocated_bytes=r["mesh"]["per_device_hbm_bytes"][0],
+                                kv_pool_bytes=r["mesh"]["kv_pool_bytes_per_device"])
+                           for r in rows]
+        for r in out["replicas"]:
+            check(r["gpu_ids"] == [0] and r["devices"] == ["cuda:0"],
+                  f"serve_deploy (a): a replica is not bound to card 0 by its lease: {r}")
+        check(len({r["pid"] for r in out["replicas"]}) == 2, "the replicas share a process")
+        check(rt.available_resources().get("GPU", 0.0) == 0.0,
+              f"two halves leased, but the node has GPU left: {rt.available_resources()}")
+        print("serve_deploy (a)", json.dumps(out["replicas"]))
+
+        # (b) serve_cb's traffic through the handle, from 8 threads
+        prompts, want = cb_traffic["prompts"], cb_traffic["tokens"]
+        affine = handle.options(prefix_affinity_tokens=SERVE_DEPLOY["affinity_tokens"])
+
+        def ask(prompt, h=affine):
+            return h.remote({"token_ids": prompt, "max_new_tokens": NEW_TOKENS,
+                             "temperature": 0.0}).result(timeout_s=600)
+
+        # each replica warmed as serve_cb's server was (cuBLAS, the allocator,
+        # its KV pool's first commit), on a prefix of its own
+        vocab = cfg.build_model_config().vocab_size
+        rng = np.random.default_rng(SEED + 23)
+        warm = {"token_ids": rng.integers(0, vocab, CB_PREFIX + CB_OWN).tolist(),
+                "max_new_tokens": 2}
+        _replica_calls(rt, app, app, "__call__", warm)
+        _replica_calls(rt, app, app, "kernel_launches", True)
+        stats0 = _replica_calls(rt, app, app, "kvcache_stats")
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(CB["slots"]) as pool:
+            answers = list(pool.map(ask, prompts))
+        wall = time.perf_counter() - t0
+        stats1 = _replica_calls(rt, app, app, "kvcache_stats")
+        requests = {rid: stats1[rid]["requests"] - stats0[rid]["requests"] for rid in stats1}
+        hits = sum(stats1[rid]["prefix_hit_tokens"] - stats0[rid]["prefix_hit_tokens"]
+                   for rid in stats1)
+        computed = sum(stats1[rid]["prefill_tokens_computed"]
+                       - stats0[rid]["prefill_tokens_computed"] for rid in stats1)
+        used = sum(1 for n in requests.values() if n)
+        check(sum(requests.values()) == CB_REQUESTS, f"requests by replica {requests}")
+        check(hits == CB_PREFIX * (CB_REQUESTS - used),
+              f"prefix hits {hits}, want {CB_PREFIX} x (16 - {used} replicas used)")
+        check(computed == used * CB_PREFIX + CB_REQUESTS * CB_OWN,
+              f"prefill tokens computed {computed} over {used} replica(s)")
+        case = ("affinity kept all 16 on one replica" if used == 1 else
+                "the handle spilled to the other replica (its queue ran 2 past)")
+        print(f"serve_deploy (b): {case}: {requests}; prefix hits {hits} of "
+              f"{CB_REQUESTS * (CB_PREFIX + CB_OWN)} prompt tokens")
+        tokens = [a["token_ids"] for a in answers]
+        compared = [("wave", p, t, w) for p, t, w in zip(prompts, tokens, want)]
+
+        # the serial wave, queues empty: one replica, its prefix computed once
+        time.sleep(2.5)  # the routers' tables refresh each second, the controller's polls 4x
+        prefix = rng.integers(0, vocab, CB_PREFIX).tolist()
+        serial = [prefix + rng.integers(0, vocab, CB_OWN).tolist()
+                  for _ in range(SERVE_DEPLOY["serial"])]
+        stats2 = _replica_calls(rt, app, app, "kvcache_stats")
+        for p in serial:
+            ask(p)
+        stats3 = _replica_calls(rt, app, app, "kvcache_stats")
+        serial_requests = {rid: stats3[rid]["requests"] - stats2[rid]["requests"]
+                           for rid in stats3}
+        serial_hits = sum(stats3[rid]["prefix_hit_tokens"] - stats2[rid]["prefix_hit_tokens"]
+                          for rid in stats3)
+        check(sorted(serial_requests.values()) == [0, SERVE_DEPLOY["serial"]],
+              f"the serial wave spread over the replicas: {serial_requests}")
+        check(serial_hits == (SERVE_DEPLOY["serial"] - 1) * CB_PREFIX,
+              f"the serial wave hit {serial_hits} tokens")
+
+        # (c) the HTTP proxy and a stream, beside the same requests sent alone
+        # through the handle; all against serve_cb's tokens (a replica that
+        # holds the prefix prefills 64 tokens, one that does not all 320:
+        # their sums differ, so their greedy tokens may part at a near-tie)
+        single = [ask(p, handle)["token_ids"] for p in prompts[:2]]
+        body = json.dumps({"token_ids": prompts[0], "max_new_tokens": NEW_TOKENS}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/llm", data=body,
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            http = json.loads(resp.read())["result"]
+        out["http_s"] = time.perf_counter() - t0
+        out["http_equals_handle"] = http["token_ids"] == single[0]
+        compared += [("http", prompts[0], http["token_ids"], want[0]),
+                     ("single", prompts[0], single[0], want[0]),
+                     ("single", prompts[1], single[1], want[1])]
+        streamer = handle.options(stream=True, method_name="stream")
+        t0 = time.perf_counter()
+        items = streamer.remote({"token_ids": prompts[1], "max_new_tokens": NEW_TOKENS})
+        first = next(items)
+        ttft_s = time.perf_counter() - t0
+        rest = list(items)
+        stream_s = time.perf_counter() - t0
+        streamed = [first["token_id"]] + [item["token_id"] for item in rest[:-1]]
+        check(first.get("index") == 0 and len(rest) == NEW_TOKENS
+              and rest[-1].get("finished") and rest[-1]["token_ids"] == streamed,
+              f"bad stream: first {first}, {len(rest)} more, last {rest[-1] if rest else None}")
+        compared.append(("stream", prompts[1], streamed, want[1]))
+        check(ttft_s < stream_s, "the stream's first item came with its end")
+        launches = _replica_calls(rt, app, app, "kernel_launches")
+        per_call = 2 * SERVE_LAYERS + 1
+        for rid, c in launches.items():
+            check(c["rmsnorm_fwd"] == per_call * c["forward_calls"],
+                  f"replica {rid}: K1 {c['rmsnorm_fwd']} in {c['forward_calls']} model calls, "
+                  f"want {per_call} each")
+            for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                check(c[name] == 0, f"replica {rid} launched {name} on the serve_deploy path")
+        own = {name: fn.launches for name, fn in counters.items()}
+        check(all(v == 0 for v in own.values()),
+              f"the deployment's path launched kernels in this process: {own}")
+        path = {name: sum(c[name] for c in launches.values()) for name in counters}
+
+        # (d) failover: a replica killed; the next requests answered, the
+        # deployment back to two RUNNING replicas on card 0
+        t0 = time.perf_counter()
+        victim, victim_pid = rt.testing.kill_serve_replica(app)
+        check(victim is not None, "no replica to kill")
+        after_kill = [ask(p, handle)["token_ids"] for p in prompts[:4]]
+        out["answered_after_kill_s"] = time.perf_counter() - t0
+        compared += [("after_kill", p, t, w) for p, t, w in zip(prompts, after_kill, want)]
+        deadline = time.time() + 300
+        while time.time() < deadline:
+            rows = _wait_running(rt, app, SERVE_DEPLOY["replicas"],
+                                 timeout_s=max(1.0, deadline - time.time()))
+            if victim not in {r["replica_id"] for r in rows}:
+                break
+            time.sleep(0.1)
+        out["replacement_s"] = time.perf_counter() - t0
+        check(victim not in {r["replica_id"] for r in rows}, "the killed replica was not replaced")
+        for r in rows:
+            check(r["mesh"]["gpu_ids"] == [0] and r["mesh"]["devices"] == ["cuda:0"],
+                  f"serve_deploy (d): the replacement is not on card 0: {r}")
+        print(f"lap serve_deploy replacement {out['replacement_s']:.1f} s")
+        pids = set(cluster["pids"]) | set(pool_procs)
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+    check(not any(_alive(p) for p in pids), f"a worker outlived shutdown(): {sorted(pids)}")
+    check(runtime_kernel_libs() == cluster["libs"], "a worker rebuilt a kernel library")
+
+    # off the path: where a replica's greedy token parted from serve_cb's,
+    # the in-process server's top-2 logit gap there must be a near-tie
+    engine = server.engine
+    ties = []
+    for label, p, got_toks, want_toks in compared:
+        j = _first_parting(got_toks, want_toks)
+        if j is None:
+            check(len(got_toks) == len(want_toks) == NEW_TOKENS, f"{label}: {got_toks}")
+            continue
+        with torch.inference_mode():
+            logits = build_llama(engine._cfg, engine._params)(
+                torch.tensor([p + want_toks[:j]], device="cuda"))[0, -1].float()
+        top2 = logits.topk(2).values
+        gap, bound = (top2[0] - top2[1]).item(), (
+            SERVE_DEPLOY["near_tie_ulps"] * ULP["torch.bfloat16"] * top2[0].abs().item())
+        print(f"serve_deploy ({label}): a replica parts from serve_cb at step {j}: top-2 "
+              f"gap {gap} (near-tie bound {bound})")
+        check(gap <= bound, f"a replica parts from serve_cb at step {j} where the top-2 gap "
+                            f"{gap} is over {bound}")
+        ties.append(dict(requests=label, step=j, top2_gap=gap, bound=bound))
+    out.update(
+        requests=CB_REQUESTS, threads=CB["slots"], replicas_used=used, routing=case,
+        requests_by_replica=requests, prefix_hit_tokens=hits, prefill_tokens_computed=computed,
+        serial_requests_by_replica=serial_requests, serial_prefix_hit_tokens=serial_hits,
+        wall_s=wall, tokens_per_s=CB_REQUESTS * NEW_TOKENS / wall,
+        serve_cb_tokens_per_s=cb_out["tokens_per_s"], near_ties=ties,
+        stream_ttft_s=ttft_s, stream_s=stream_s, launches_by_replica=launches,
+        killed=victim, killed_pid=victim_pid,
+    )
+    print(f"serve_deploy (b): {out['tokens_per_s']:.1f} tokens/s through two replicas, "
+          f"serve_cb in process {cb_out['tokens_per_s']:.1f}; (c) stream TTFT "
+          f"{ttft_s * 1e3:.1f} ms of {stream_s * 1e3:.1f} ms")
+    print("serve_deploy", json.dumps(out))
+    return path, out
 
 
 # the TTFT histogram's tags (cache, mesh, tier) of a miss and of a local hit
@@ -1649,7 +1967,7 @@ def cb_serve_phase(torch, np, dense_server, dense_serve):
         kvcache=server.kvcache_stats(), registry=registry, engine_ttft=engine_ttft,
     )
     print("serve_cb", json.dumps(out))
-    return server, out
+    return server, out, {"prompts": prompts, "tokens": [a["token_ids"] for a in answers]}
 
 
 def serve_obs_phase(torch, np, server, cb_out):
@@ -3767,9 +4085,15 @@ def _timed_steps(torch, step, n):
 
 
 def _rel_err(got, want):
-    """Largest |got - want| over the largest |want|, in f64 on the host."""
+    """Largest |got - want| over the largest |want|, in f64 on the host,
+    with one temporary of got's size (a leaf of the MoE parity's layer
+    holds 470M elements)."""
+    import torch
+
     want = want.detach().double().cpu()
-    return ((got.detach().double().cpu() - want).abs().max() / want.abs().max()).item()
+    diff = got.detach().to("cpu", torch.float64, copy=True)
+    diff = (diff.sub_(want) if diff.shape == want.shape else diff - want).abs_()
+    return (diff.max() / torch.maximum(want.max(), -want.min())).item()
 
 
 def _rel_l2(got, want):
@@ -3875,6 +4199,17 @@ def train_dp_loop(config):
     )})
 
 
+def train_nccl_loop(config):
+    """One spawned NCCL worker for two phases (a gang's start costs 15-25
+    s): ``train_dp_loop`` (train_dp (b)), then ``train_fsdp_loop``
+    (train_fsdp (a)), each with its own counts, reports and checkpoints."""
+    import torch
+
+    train_dp_loop(config)
+    torch.cuda.empty_cache()
+    train_fsdp_loop(config)
+
+
 def _dp_gloo_model(torch, device):
     """(c)'s model: llama_lora's 7B config cut to 2 layers, the same seed."""
     from ray_tpu_torch.models.llama import init_params
@@ -3897,31 +4232,18 @@ def _host_adapters(lora):
     return {k: p.detach().float().cpu().numpy() for k, p in lora.items()}
 
 
-def train_dp_gloo_loop(config):
-    """(c)'s worker: two ranks on one card, llama_lora's step at batch 1
-    each through the gloo tensor group; the adapters after each step."""
-    import torch
-
+def _dp_allreduce_report(torch, ctx, lora, device):
+    """train_dp (c)'s end, in the pair's replicated pass before any other
+    collective of the rank: the gradient allreduces' record over the steps,
+    then the op alone (in the steps its clock also holds the wait for the
+    other rank's backward on the shared card, a rendezvous, and for this
+    rank's queued backward, the copy to the host)."""
     from ray_tpu_torch import train
     from ray_tpu_torch.collective import get_group
     from ray_tpu_torch.train import collective as tcol
-    from ray_tpu_torch.train.examples import llama_lora
     from ray_tpu_torch.util import metrics
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    ctx = train.get_context()
-    device = torch.device("cuda", torch.cuda.current_device())
-    cfg, model, lora, optimizer = _dp_gloo_model(torch, device)
-    reduce = llama_lora.data_parallel_mean(ctx.world_size)
-    r, b = ctx.world_rank, DP_GLOO["batch"]
-    for step, tokens in enumerate(_dp_gloo_tokens(torch, cfg, device)):
-        loss = llama_lora.lora_train_step(model, optimizer, tokens[r * b:(r + 1) * b], reduce)
-        train.report({"step": step, "rank": r, "loss": float(loss), "device": str(device),
-                      "adapters": _host_adapters(lora)})
     summary = metrics.collective_summary()["allreduce"]
-    # the op alone: in the steps its clock also holds the wait for the other
-    # rank's backward on the shared card (a rendezvous) and for this rank's
-    # queued backward (the copy to the host)
     group = get_group(ctx.collective_tensor_group)
     grads = torch.randn(sum(p.numel() for p in lora.values()), device=device).to(torch.bfloat16)
     alone = []
@@ -3932,7 +4254,8 @@ def train_dp_gloo_loop(config):
         group.allreduce(grads)
         torch.cuda.synchronize()
         alone.append((time.perf_counter() - t0) * 1e3)
-    train.report({"rank": r, "allreduce": summary, "allreduce_alone_ms": alone[1:],
+    train.report({"rank": ctx.world_rank, "dp_allreduce": summary,
+                  "allreduce_alone_ms": alone[1:],
                   "grad_bytes": grads.numel() * grads.element_size()})
 
 
@@ -4036,8 +4359,12 @@ def _dp_nccl_one_rank(torch):
 def train_dp_phase(torch, np, counters, train_out, train_lora):
     """Data-parallel training: (a) NcclGroup at world size 1; (b) the 7B
     LoRA loop through TorchTrainer with a spawned NCCL worker, held to the
-    ``train`` phase's in-process fit(); (c) two ranks sharing the card over
-    gloo at 2 layers; (d) NCCL for two ranks on one card is refused."""
+    ``train`` phase's in-process fit() (the worker then runs train_fsdp
+    (a)'s loop, ``train_nccl_loop``, whose results go back for that phase);
+    (c) two ranks sharing the card over gloo at 2 layers, run and checked in
+    train_fsdp's pair gang; (d) NCCL for two ranks on one card is refused.
+    Returns (the path's launches, the phase's numbers, train_fsdp (a)'s
+    worker results)."""
     import multiprocessing
     import pickle
     import tempfile
@@ -4072,18 +4399,36 @@ def train_dp_phase(torch, np, counters, train_out, train_lora):
     del again_lora
     torch.cuda.empty_cache()
 
-    # (b) the worker-group path: one NCCL worker, spawned
+    # (b) the worker-group path: one NCCL worker, spawned; it runs
+    # train_fsdp (a)'s loop after this one (train_nccl_loop)
     _zero(counters)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as storage:
         t0 = time.perf_counter()
-        result, dp_lora = fit(train_dp_loop, storage, scaling_config=ScalingConfig(num_workers=1),
-                              backend_config=TorchConfig(backend="nccl"), overlap=True)
+        result = TorchTrainer(train_nccl_loop, train_loop_config=dict(TRAIN_CONFIG),
+                              run_config=RunConfig(name="llama-lora", storage_path=storage),
+                              scaling_config=ScalingConfig(num_workers=1),
+                              backend_config=TorchConfig(backend="nccl"), overlap=True).fit()
         fit_s = time.perf_counter() - t0
+        if result.error is not None:
+            raise result.error
+        # each loop's checkpoints in report order: the dp loop's epochs, then
+        # the FSDP loop's
+        with open(Path(storage) / "llama-lora" / "checkpoint_manifest.json") as f:
+            ckpts = [c["path"] for c in json.load(f)["checkpoints"]]
+        check(len(ckpts) == 2 * TRAIN_CONFIG["epochs"], f"the worker's checkpoints {ckpts}")
+        adapters = []
+        for path in (ckpts[TRAIN_CONFIG["epochs"] - 1], ckpts[-1]):
+            with open(Path(path) / "lora.pkl", "rb") as f:
+                adapters.append(pickle.load(f)["lora"])
+        dp_lora, fsdp_lora = adapters
     parent = _launches(counters)
-    check(not any(parent.values()), f"the train_dp loop launched kernels in the parent: {parent}")
+    check(not any(parent.values()), f"the NCCL worker's loops launched kernels in the parent: "
+                                    f"{parent}")
     check(not multiprocessing.active_children(), "the worker group left a process")
-    stats = next(m["dp_stats"] for m in result.metrics_history if "dp_stats" in m)
-    losses = [m["loss"] for m in result.metrics_history if "loss" in m]
+    split = next(i for i, m in enumerate(result.metrics_history) if "dp_stats" in m) + 1
+    history, fsdp_history = result.metrics_history[:split], result.metrics_history[split:]
+    stats = history[-1]["dp_stats"]
+    losses = [m["loss"] for m in history if "loss" in m]
     check(len(losses) == TRAIN_CONFIG["epochs"], f"worker losses {losses}")
     loss_diff = max(abs(a - b) for a, b in zip(losses, train_losses))
     lora_diff = max_diff(dp_lora, train_lora)
@@ -4117,7 +4462,7 @@ def train_dp_phase(torch, np, counters, train_out, train_lora):
         check(prof["port_kernels"][name]["launches"] == per_step,
               f"{name}: {prof['port_kernels'][name]['launches']} launches in the worker's profile")
     out["nccl_worker"] = dict(
-        fit_s=fit_s, worker_fit_s=stats["fit_s"], losses=losses, bound_loss=bound_loss,
+        gang_fit_s=fit_s, worker_fit_s=stats["fit_s"], losses=losses, bound_loss=bound_loss,
         loss_diff=loss_diff, bound_adapter=bound_lora, adapter_diff=lora_diff,
         launches=stats["launches"], launches_per_step=want, buckets=stats["buckets"],
         allreduce=ar, overlap=stats["overlap"], step_ms=stats["step_ms"],
@@ -4131,18 +4476,34 @@ def train_dp_phase(torch, np, counters, train_out, train_lora):
     del dp_lora
     torch.cuda.empty_cache()
 
-    # (c) two ranks sharing the card over gloo, against one rank at batch 2
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as storage:
-        result = TorchTrainer(
-            train_dp_gloo_loop, run_config=RunConfig(name="dp-gloo", storage_path=storage),
-            scaling_config=ScalingConfig(num_workers=2, resources_per_worker={"GPU": 0.5}),
-            backend_config=TorchConfig(backend="gloo"), overlap=True).fit()
-    if result.error is not None:
-        raise result.error
+    # (d) NCCL for two ranks on one card is the port's refusal, before any spawn
+    try:
+        TorchTrainer(train_dp_loop, scaling_config=ScalingConfig(2, {"GPU": 0.5}),
+                     backend_config=TorchConfig(backend="nccl")).fit()
+        fail("NCCL with two ranks on one card was not refused")
+    except ValueError as e:
+        check('backend="gloo"' in str(e), f"refusal without its advice: {e}")
+        out["refusal"] = str(e)
+    check(not multiprocessing.active_children(), "the refusal spawned a process")
+    print("train_dp", json.dumps(out))
+    fsdp_worker = dict(gang_fit_s=fit_s, lora=fsdp_lora, losses=[
+        m["loss"] for m in fsdp_history if "loss" in m],
+        stats=next(m["fsdp_stats"] for m in fsdp_history if "fsdp_stats" in m))
+    return launches, out, fsdp_worker
+
+
+def _dp_pair_checks(torch, np, history):
+    """train_dp (c): two ranks sharing the card over gloo (the replicated
+    pass of ``train_pair_loop``), at batch 1 each, against one rank at batch
+    2 in this process: each step's adapters equal on the two ranks and
+    within the bound of the other's, the gradient allreduce's record, and
+    the op timed alone."""
+    from ray_tpu_torch.train.examples import llama_lora
+
     steps = {}
-    for m in result.metrics_history:
-        if "step" in m:
-            steps.setdefault(m["step"], {})[m["rank"]] = m
+    for m in history:
+        if "dp_step" in m:
+            steps.setdefault(m["dp_step"], {})[m["rank"]] = m
     check(sorted(steps) == list(range(DP_GLOO["steps"])), f"gloo steps {sorted(steps)}")
     device = torch.device("cuda", torch.cuda.current_device())
     cfg, model, lora, optimizer = _dp_gloo_model(torch, device)
@@ -4175,31 +4536,21 @@ def train_dp_phase(torch, np, counters, train_out, train_lora):
                          equal_share=float(np.mean(np.concatenate(
                              [(r0["adapters"][k] == a).ravel() for k, a in adapters.items()])))))
     del model, optimizer, lora
-    ends = [m for m in result.metrics_history if "allreduce" in m]
-    check(len(ends) == 2 and all(m["allreduce"]["count"] == DP_GLOO["steps"] for m in ends),
+    ends = [m for m in history if "dp_allreduce" in m]
+    check(len(ends) == 2 and all(m["dp_allreduce"]["count"] == DP_GLOO["steps"] for m in ends),
           f"gloo allreduce records {ends}")
     # 2 layers x 4 projections x (4096 x 16 + 16 x 4096) bf16: one 2 MiB bucket a step
     grad_bytes = DP_GLOO["n_layers"] * 4 * 2 * 4096 * 16 * 2
     check(all(m["grad_bytes"] == grad_bytes
-              and m["allreduce"]["bytes"] == grad_bytes * DP_GLOO["steps"] for m in ends),
-          f"gloo gradient bytes {[m['allreduce'] for m in ends]}, want {grad_bytes} a step")
-    out["gloo_shared_card"] = dict(
+              and m["dp_allreduce"]["bytes"] == grad_bytes * DP_GLOO["steps"] for m in ends),
+          f"gloo gradient bytes {[m['dp_allreduce'] for m in ends]}, want {grad_bytes} a step")
+    out = dict(
         steps=rows, grad_bytes=grad_bytes,
-        allreduce_in_step_mean_ms=[m["allreduce"]["mean_ms"] for m in ends],
+        allreduce_in_step_mean_ms=[m["dp_allreduce"]["mean_ms"] for m in ends],
         allreduce_alone_ms=[m["allreduce_alone_ms"] for m in ends],
         allreduce_alone_median_ms=[statistics.median(m["allreduce_alone_ms"]) for m in ends])
-
-    # (d) NCCL for two ranks on one card is the port's refusal, before any spawn
-    try:
-        TorchTrainer(train_dp_loop, scaling_config=ScalingConfig(2, {"GPU": 0.5}),
-                     backend_config=TorchConfig(backend="nccl")).fit()
-        fail("NCCL with two ranks on one card was not refused")
-    except ValueError as e:
-        check('backend="gloo"' in str(e), f"refusal without its advice: {e}")
-        out["refusal"] = str(e)
-    check(not multiprocessing.active_children(), "the refusal spawned a process")
-    print("train_dp", json.dumps(out))
-    return launches, out
+    print("train_dp (c)", json.dumps(out))
+    return out
 
 
 # -- FSDP for the 7B LoRA loop (``train_fsdp``) -------------------------------
@@ -4268,9 +4619,11 @@ def train_fsdp_loop(config):
 def train_fsdp_gloo_loop(config):
     """(b)'s worker: one of two ranks sharing the card over gloo, 2 steps of
     the 7B loop's step cut to 2 layers on row r of each global batch, with
-    every parameter replicated (as ``train_dp`` (c)'s pair), then with FSDP
-    at fsdp=2; after each, the full adapters and a report, and under FSDP a
-    sharded checkpoint of the rank's adapter blocks (``config["ckpt"]``)."""
+    every parameter replicated (``train_dp`` (c)'s pair: each step's loss
+    and adapters reported, then the gradient allreduce's record and the op
+    alone), then with FSDP at fsdp=2; after each, the full adapters and a
+    report, and under FSDP a sharded checkpoint of the rank's adapter blocks
+    (``config["ckpt"]``)."""
     import torch
 
     from ray_tpu_torch import train
@@ -4304,7 +4657,7 @@ def train_fsdp_gloo_loop(config):
         _zero(counters)
         torch.cuda.reset_peak_memory_stats()
         rows, losses = [], []
-        for tokens in _dp_gloo_tokens(torch, cfg, device, FSDP_GLOO["steps"]):
+        for step, tokens in enumerate(_dp_gloo_tokens(torch, cfg, device, FSDP_GLOO["steps"])):
             torch.cuda.synchronize()
             before = metrics.collective_summary().get("allgather", {}).get("bytes", 0)
             t0 = time.perf_counter()
@@ -4313,8 +4666,16 @@ def train_fsdp_gloo_loop(config):
             rows.append(dict(step_ms=(time.perf_counter() - t0) * 1e3,
                              gather_bytes=metrics.collective_summary().get("allgather", {}).get(
                                  "bytes", 0) - before))
-            # the FSDP model's loss is the global batch's already
-            losses.append(tcol.gang_mean(loss) if fsdp is None else float(loss))
+            # the FSDP model's loss is the global batch's already; the
+            # replicated pair's is each rank's, meaned after the steps, and
+            # its steps are train_dp (c)'s: each rank's loss and adapters
+            losses.append(float(loss) if fsdp is not None else loss)
+            if fsdp is None:
+                train.report({"dp_step": step, "rank": r, "loss": float(loss),
+                              "device": str(device), "adapters": _host_adapters(lora)})
+        if fsdp is None:
+            _dp_allreduce_report(torch, ctx, lora, device)
+            losses = [tcol.gang_mean(loss) for loss in losses]
         launches = _launches(counters)
         peak = torch.cuda.max_memory_allocated()
         full = lora if fsdp is None else fsdp.full_state(lora)
@@ -4329,15 +4690,30 @@ def train_fsdp_gloo_loop(config):
         torch.cuda.empty_cache()
 
 
-def train_fsdp_phase(torch, np, counters, train_out, train_lora, dp_out):
+def train_pair_loop(config):
+    """One gang of two gloo ranks sharing the card for the pairs of four
+    phases (a gang's start costs 15-25 s): ``train_fsdp_gloo_loop``
+    (train_fsdp (b), its replicated pass train_dp (c)), then
+    ``train_sp_loop`` (train_sp), then ``train_resnet_dp_gloo_loop``
+    (train_resnet_dp (b))."""
+    import torch
+
+    train_fsdp_gloo_loop(config)
+    torch.cuda.empty_cache()
+    train_sp_loop(config)
+    torch.cuda.empty_cache()
+    train_resnet_dp_gloo_loop(config)
+
+
+def train_fsdp_phase(torch, np, counters, train_out, train_lora, dp_out, worker):
     """FSDP of the 7B LoRA loop: (a) a spawned NCCL worker at world size 1
-    and fsdp=1 runs the full loop, held to the ``train`` phase's in-process
+    and fsdp=1 runs the full loop (train_dp (b)'s worker, after its own
+    loop; ``worker`` its results), held to the ``train`` phase's in-process
     run (bit for bit, or within the spread of two in-process runs that
     ``train_dp`` measured); (b) two gloo ranks sharing the card at fsdp=2,
     2 layers, against the replicated pair on the same data; (c) the pair's
     sharded checkpoint restored whole in this process."""
     import multiprocessing
-    import pickle
     import tempfile
 
     from ray_tpu_torch.train import (
@@ -4356,21 +4732,8 @@ def train_fsdp_phase(torch, np, counters, train_out, train_lora, dp_out):
         return result
 
     device = torch.device("cuda", torch.cuda.current_device())
-    _zero(counters)
     out = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_fsdp_") as storage:
-        t0 = time.perf_counter()
-        result = fit(train_fsdp_loop, storage, "llama-lora-fsdp", dict(TRAIN_CONFIG),
-                     scaling_config=ScalingConfig(num_workers=1),
-                     backend_config=TorchConfig(backend="nccl"), overlap=True)
-        fit_s = time.perf_counter() - t0
-        with open(Path(result.checkpoint.path) / "lora.pkl", "rb") as f:
-            fsdp_lora = pickle.load(f)["lora"]
-    parent = _launches(counters)
-    check(not any(parent.values()), f"the train_fsdp loop launched kernels in the parent: {parent}")
-    check(not multiprocessing.active_children(), "the worker group left a process")
-    stats = next(m["fsdp_stats"] for m in result.metrics_history if "fsdp_stats" in m)
-    losses = [m["loss"] for m in result.metrics_history if "loss" in m]
+    stats, losses, fsdp_lora = worker["stats"], worker["losses"], worker["lora"]
     bound_loss = dp_out["nccl_worker"]["bound_loss"]
     bound_lora = dp_out["nccl_worker"]["bound_adapter"]
     check(sorted(fsdp_lora) == sorted(train_lora), "the FSDP checkpoint holds other adapters")
@@ -4387,9 +4750,10 @@ def train_fsdp_phase(torch, np, counters, train_out, train_lora, dp_out):
         check(stats["launches"][name] == per_step * TRAIN_STEPS,
               f"{name}: {stats['launches'][name]} launches in the FSDP worker's {TRAIN_STEPS} "
               f"steps, want {per_step} each")
-    launches = {name: parent[name] + stats["launches"][name] for name in counters}
+    launches = {name: stats["launches"][name] for name in counters}
     out["nccl_worker"] = dict(
-        fit_s=fit_s, worker_fit_s=stats["fit_s"], losses=losses, loss_diff=loss_diff,
+        gang_fit_s=worker["gang_fit_s"], worker_fit_s=stats["fit_s"], losses=losses,
+        loss_diff=loss_diff,
         bound_loss=bound_loss, adapter_diff=lora_diff, bound_adapter=bound_lora,
         bit_for_bit=loss_diff == 0 and lora_diff == 0, launches=stats["launches"],
         launches_per_step=want, sharded_params=stats["sharded"], per_step=stats["per_step"],
@@ -4400,18 +4764,34 @@ def train_fsdp_phase(torch, np, counters, train_out, train_lora, dp_out):
     del fsdp_lora
     torch.cuda.empty_cache()
 
-    # (b) two gloo ranks on the card, one gang: the replicated pair, then
-    # FSDP at fsdp=2
+    # (b) two gloo ranks on the card, one gang (train_pair_loop): the
+    # replicated pair (train_dp (c)), then FSDP at fsdp=2, then train_sp's
+    # pair and train_resnet_dp's, whose in-process yardsticks run here
+    # first; this process's counts are set to 0 just before the gang's fit()
+    # and must stay 0
+    sp = {"yardsticks": _sp_yardsticks(torch)}
+    resnet = {"yardsticks": _resnet_yardsticks(torch)}
+    _zero(counters)
     pairs = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fsdp_") as storage:
         ckpt = str(Path(storage) / "fsdp-ckpt")
         t0 = time.perf_counter()
-        result = fit(train_fsdp_gloo_loop, storage, "fsdp-gloo", {"ckpt": ckpt},
+        result = fit(train_pair_loop, storage, "pair", {"ckpt": ckpt},
                      scaling_config=ScalingConfig(FSDP_GLOO["ranks"], {"GPU": 0.5}),
                      backend_config=TorchConfig(backend="gloo"), overlap=True)
         pair_fit_s = time.perf_counter() - t0
+        sp.update(_sp_pair_outputs(torch, Path(storage) / "pair"), fit_s=pair_fit_s,
+                  reports=[m for m in result.metrics_history if "ops" in m])
+        resnet.update(fit_s=pair_fit_s,
+                      ranks=[torch.load(Path(storage) / "pair" / f"resnet_gloo_rank{r}.pt")
+                             for r in range(RESNET_GLOO["ranks"])],
+                      reports=[m for m in result.metrics_history if "resnet_gloo" in m])
+        parent = _launches(counters)
+        check(not any(parent.values()), f"the pair gang launched kernels in the parent: {parent}")
+        check(not multiprocessing.active_children(), "the pair gang left a process")
+        out["dp_pair"] = _dp_pair_checks(torch, np, result.metrics_history)
         for sharded in (False, True):
-            reports = sorted((m for m in result.metrics_history if m["fsdp"] == sharded),
+            reports = sorted((m for m in result.metrics_history if m.get("fsdp") is sharded),
                              key=lambda m: m["rank"])
             check([m["rank"] for m in reports] == [0, 1], f"gloo reports {reports}")
             check(all(m["device"] == str(device) for m in reports),
@@ -4465,7 +4845,7 @@ def train_fsdp_phase(torch, np, counters, train_out, train_lora, dp_out):
         losses_fsdp=fs[0]["losses"], losses_replicated=rep[0]["losses"],
         restored_bit_for_bit=True)
     print("train_fsdp", json.dumps(out))
-    return launches, out
+    return launches, out, {"sp": sp, "resnet": resnet}
 
 
 # -- sequence parallelism (``train_sp``) -------------------------------------
@@ -4726,25 +5106,10 @@ def train_sp_loop(config):
                   "steps": steps, "losses": losses, "launches": launches, "peak_bytes": peak})
 
 
-def train_sp_phase(torch, counters):
-    """Sequence parallelism over two gloo ranks sharing the card
-    (``train_sp_loop``): (a) ring and Ulysses attention against the one-rank
-    ``flash_attention`` on the whole sequence, within ``SP_OP_TIMES`` x its
-    own distance from its f32 plain version; (b) the 4-layer 7B LoRA step
-    with the sequence split over the ranks against the in-process one-rank
-    model on the whole sequence: the ranks bit-identical; the first step's
-    summed gradients, before AdamW, and the losses and adapters within
-    twice the one-rank run's distance from itself in f32 activations
-    (gradients leaf by leaf, and two planted faults, one rank's gradient
-    alone and the sum sp times over, shown to fail that bound); exact K1-K4
-    launches a step on each rank."""
-    import multiprocessing
-    import tempfile
-
-    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchConfig, TorchTrainer
-
-    device = _card(torch)
-    t_phase = time.perf_counter()
+def _sp_yardsticks(torch):
+    """train_sp's one-rank runs in this process: the 4-layer model at
+    b=2 x 4096 in bf16 and f32 activations, and each ``SP_OPS`` call's
+    one-rank flash_attention with its distance from f32."""
     one_losses, one_grads, one = _sp_one_rank(torch)
     f32_losses, f32_grads, f32 = _sp_one_rank(torch, torch.float32)
     control_f32 = _state_diff(f32, one)[1]
@@ -4752,26 +5117,44 @@ def train_sp_phase(torch, counters):
     control_grads = _grad_distance(one_grads, f32_grads)
     del f32, f32_grads
     references = {name: _sp_op_reference(torch, b, h, hk, seq) for name, b, h, hk, seq in SP_OPS}
+    return dict(one_losses=one_losses, one_grads=one_grads, one=one, f32_losses=f32_losses,
+                control_f32=control_f32, control_loss=control_loss,
+                control_grads=control_grads, references=references)
 
-    _zero(counters)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as storage:
-        t0 = time.perf_counter()
-        result = TorchTrainer(train_sp_loop, train_loop_config={},
-                              run_config=RunConfig(name="sp", storage_path=storage),
-                              scaling_config=ScalingConfig(SP["ranks"], {"GPU": 0.5}),
-                              backend_config=TorchConfig(backend="gloo")).fit()
-        fit_s = time.perf_counter() - t0
-        if result.error is not None:
-            raise result.error
-        run_dir = Path(storage) / "sp"
-        shards = {key: [torch.load(run_dir / f"sp_{key}_rank{r}.pt") for r in range(SP["ranks"])]
-                  for key in (f"{name}_{op}" for name, *_ in SP_OPS for op in ("ring", "ulysses"))}
-        adapters = [torch.load(run_dir / f"sp_lora_rank{r}.pt") for r in range(SP["ranks"])]
-        grads = [torch.load(run_dir / f"sp_grad_rank{r}.pt") for r in range(SP["ranks"])]
-    parent = _launches(counters)
-    check(not any(parent.values()), f"the train_sp loop launched kernels in the parent: {parent}")
-    check(not multiprocessing.active_children(), "the worker group left a process")
-    reports = sorted(result.metrics_history, key=lambda m: m["rank"])
+
+def _sp_pair_outputs(torch, run_dir):
+    """The sp ranks' saved ops outputs, adapters and first gradients."""
+    return dict(
+        shards={key: [torch.load(run_dir / f"sp_{key}_rank{r}.pt") for r in range(SP["ranks"])]
+                for key in (f"{name}_{op}" for name, *_ in SP_OPS for op in ("ring", "ulysses"))},
+        adapters=[torch.load(run_dir / f"sp_lora_rank{r}.pt") for r in range(SP["ranks"])],
+        grads=[torch.load(run_dir / f"sp_grad_rank{r}.pt") for r in range(SP["ranks"])])
+
+
+def train_sp_phase(torch, counters, pair):
+    """Sequence parallelism over two gloo ranks sharing the card
+    (``train_sp_loop``, in train_fsdp's pair gang, ``pair`` its outputs,
+    with the one-rank yardsticks that ran before the gang's fit): (a) ring
+    and Ulysses attention against the one-rank ``flash_attention`` on the
+    whole sequence, within ``SP_OP_TIMES`` x its own distance from its f32
+    plain version; (b) the 4-layer 7B LoRA step with the sequence split
+    over the ranks against the in-process one-rank model on the whole
+    sequence: the ranks bit-identical; the first step's summed gradients,
+    before AdamW, and the losses and adapters within twice the one-rank
+    run's distance from itself in f32 activations (gradients leaf by leaf,
+    and two planted faults, one rank's gradient alone and the sum sp times
+    over, shown to fail that bound); exact K1-K4 launches a step on each
+    rank."""
+    device = _card(torch)
+    t_phase = time.perf_counter()
+    pair = pair["sp"]
+    y = pair["yardsticks"]
+    one_losses, one_grads, one = y["one_losses"], y["one_grads"], y["one"]
+    f32_losses, control_f32 = y["f32_losses"], y["control_f32"]
+    control_loss, control_grads = y["control_loss"], y["control_grads"]
+    references, shards = y["references"], pair["shards"]
+    adapters, grads, fit_s = pair["adapters"], pair["grads"], pair["fit_s"]
+    reports = sorted(pair["reports"], key=lambda m: m["rank"])
     check([m["rank"] for m in reports] == [0, 1], f"train_sp reports {reports}")
     check(all(m["device"] == str(device) for m in reports), "the sp ranks are not on one card")
 
@@ -5193,33 +5576,46 @@ def train_resnet_dp_gloo_loop(config):
     state = {k: p.detach().cpu() for k, p in model.named_parameters()}
     state.update({k: v.cpu() for k, v in model.batch_stats().items()})
     torch.save(state, Path(ctx.get_storage_path()) / f"resnet_gloo_rank{r}.pt")
-    train.report({"rank": r, "device": str(device), "steps": rows, "losses": losses,
-                  "launches": _launches(counters), "peak_bytes": torch.cuda.max_memory_allocated()})
+    train.report({"resnet_gloo": True, "rank": r, "device": str(device), "steps": rows,
+                  "losses": losses, "launches": _launches(counters),
+                  "peak_bytes": torch.cuda.max_memory_allocated()})
 
 
-def train_resnet_dp_phase(torch, counters, resnet_out):
+def _resnet_yardsticks(torch):
+    """train_resnet_dp's in-process runs (3 steps at b=256): the run, again
+    (the bound of (a)), and for (b) the halves of each batch swapped and the
+    whole run in f32 activations (every output's bf16 rounding undone)."""
+    device = torch.device("cuda", torch.cuda.current_device())
+    batches = _resnet_batches(torch, device)
+    one, one_losses = _resnet_steps(torch, device, batches)
+    again, _ = _resnet_steps(torch, device, batches)
+    bound = _state_diff(again, one)[0]
+    swapped = [(torch.cat([i[128:], i[:128]]), torch.cat([l[128:], l[:128]])) for i, l in batches]
+    control_swap = _state_diff(_resnet_steps(torch, device, swapped)[0], one)[1]
+    control_f32 = _state_diff(_resnet_steps(torch, device, batches, dtype=torch.float32)[0],
+                              one)[1]
+    del batches, swapped, again
+    torch.cuda.empty_cache()
+    return dict(one=one, one_losses=one_losses, bound=bound, control_swap=control_swap,
+                control_f32=control_f32)
+
+
+def train_resnet_dp_phase(torch, counters, resnet_out, pair):
     """Sync-BN data parallelism of ResNet-50: (a) a spawned NCCL worker at
     world size 1 (b=256) against the in-process run, bit for bit or within
     the spread of two in-process runs; (b) two gloo ranks sharing the card
-    at b=128 each against one rank at b=256."""
+    at b=128 each (in train_fsdp's pair gang; ``pair`` its outputs, with the
+    in-process yardsticks that ran before that gang's fit) against one rank
+    at b=256."""
     import multiprocessing
     import tempfile
 
     from ray_tpu_torch.train import DataParallelTrainer, RunConfig, ScalingConfig, TorchConfig
 
     device = torch.device("cuda", torch.cuda.current_device())
-    batches = _resnet_batches(torch, device)
-    one, one_losses = _resnet_steps(torch, device, batches)
-    again, _ = _resnet_steps(torch, device, batches)
-    bound = _state_diff(again, one)[0]
-    # (b)'s yardsticks: the halves of each batch swapped, and the whole run
-    # in f32 activations (every output's bf16 rounding undone)
-    swapped = [(torch.cat([i[128:], i[:128]]), torch.cat([l[128:], l[:128]])) for i, l in batches]
-    control_swap = _state_diff(_resnet_steps(torch, device, swapped)[0], one)[1]
-    control_f32 = _state_diff(_resnet_steps(torch, device, batches, dtype=torch.float32)[0],
-                              one)[1]
-    del batches, swapped
-    torch.cuda.empty_cache()
+    y = pair["yardsticks"]
+    one, one_losses, bound = y["one"], y["one_losses"], y["bound"]
+    control_swap, control_f32 = y["control_swap"], y["control_f32"]
 
     def fit(loop, storage, name, **kw):
         result = DataParallelTrainer(
@@ -5264,15 +5660,8 @@ def train_resnet_dp_phase(torch, counters, resnet_out):
         peak_bytes=stats["peak_bytes"], step_peak_bytes=stats["step_peak_bytes"])
     launches = dict(stats["launches"])
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_resnet_dp_") as storage:
-        t0 = time.perf_counter()
-        result, run_dir = fit(train_resnet_dp_gloo_loop, storage, "resnet-dp-gloo",
-                              scaling_config=ScalingConfig(RESNET_GLOO["ranks"], {"GPU": 0.5}),
-                              backend_config=TorchConfig(backend="gloo"), overlap=True)
-        fit_s = time.perf_counter() - t0
-        ranks = [torch.load(run_dir / f"resnet_gloo_rank{r}.pt")
-                 for r in range(RESNET_GLOO["ranks"])]
-    reports = sorted(result.metrics_history, key=lambda m: m["rank"])
+    fit_s, ranks = pair["fit_s"], pair["ranks"]
+    reports = sorted(pair["reports"], key=lambda m: m["rank"])
     check([m["rank"] for m in reports] == [0, 1], f"gloo reports {reports}")
     check(all(m["device"] == str(device) for m in reports), "the gloo ranks are not on one card")
     for k, v in ranks[0].items():
@@ -5292,7 +5681,7 @@ def train_resnet_dp_phase(torch, counters, resnet_out):
             launches[name] += n
     steps = reports[0]["steps"]
     out["gloo_shared_card"] = dict(
-        fit_s=fit_s, rel_err=rel_err, abs_err=abs_err, bound=2 * control_f32,
+        pair_gang_fit_s=fit_s, rel_err=rel_err, abs_err=abs_err, bound=2 * control_f32,
         f32_activations=control_f32,
         control_swapped_halves=control_swap, losses=reports[0]["losses"],
         losses_one_rank=one_losses, step_ms=[[s["step_ms"] for s in m["steps"]] for m in reports],
@@ -6388,19 +6777,27 @@ def moe_parity(torch, card="cuda"):
         params = {k: v.to(dev, dtype, copy=True) for k, v in base.items()}
         return c, M.build_moe(c, params, trainable=True)
 
-    # pass 1: each run's routing, from the layer's own route() on its input
-    routing, gaps = {}, None
+    class Routed(Exception):
+        """Raised by pass 1's hook: nothing after the layer's routing is read."""
+
+    # pass 1: each run's routing, from the layer's own route() on its input;
+    # each run's model is built once and kept for pass 2
+    routing, gaps, models = {}, None, {}
     for run in runs:
-        c, model = build(run)
+        models[run] = model = build(run)[1]
         seen = []
 
         def record(mod, args):
             h = args[0].reshape(-1, cfg.dim)
             seen.append((mod.route(h), h.float() @ mod.router.float()))
+            raise Routed
 
         hook = model.layer_0.moe.register_forward_pre_hook(record)
         with torch.no_grad():
-            model(tokens.to(runs[run][0]))
+            try:
+                model(tokens.to(runs[run][0]))
+            except Routed:
+                pass
         hook.remove()
         r, logits = seen[0]
         routing[run] = (r.expert.cpu(), r.keep.cpu())
@@ -6408,6 +6805,7 @@ def moe_parity(torch, card="cuda"):
             p = torch.softmax(logits.cpu(), dim=-1).sort(dim=-1, descending=True).values
             gaps = p[:, :-1] - p[:, 1:]  # (t, E - 1): pass j chose between p[j] and p[j + 1]
         del model, seen
+    del base
     same = torch.ones(MOE_PARITY_SEQ, dtype=torch.bool)
     flips = {}
     for run in ("host", "card"):
@@ -6432,7 +6830,7 @@ def moe_parity(torch, card="cuda"):
     # pass 2: the loss of the positions routed alike and its gradients
     results, truth = {}, None
     for run in runs:
-        c, model = build(run)
+        model = models.pop(run)
         dev = runs[run][0]
         logits, aux = model(tokens.to(dev))
         lse = torch.logsumexp(logits[0, :-1].float(), dim=-1)
@@ -6452,7 +6850,8 @@ def moe_parity(torch, card="cuda"):
                                 logits_rel_err=_rel_err(logits.detach()[0, same], truth[1]),
                                 grads_rel_err=errs)
         del model, logits, aux, loss, grads
-    check(all(truth[2][n].abs().max() > 0 for n in truth[2]), "moe parity: a zero gradient")
+    check(all(bool((g.max() > 0) | (g.min() < 0)) for g in truth[2].values()),
+          "moe parity: a zero gradient")
     host, cardr = results["host"], results["card"]
     out = dict(seq=MOE_PARITY_SEQ, positions_alike=int(same.sum()), all_alike=all_same,
                near_tie_bound=MOE_NEAR_TIE, flips=flips, loss_f64=truth[0],
@@ -6645,8 +7044,8 @@ def _mesh_vit_inputs(torch, device):
 
 
 def _mesh_moe_config(torch, dtype=None):
-    """Mixtral-8x7B at full width, 2 layers, bf16 parameters, remat;
-    ``dtype`` sets the activations' (default bf16)."""
+    """Mixtral-8x7B at full width, ``MESH["moe"]["n_layers"]`` layers, bf16
+    parameters, remat; ``dtype`` sets the activations' (default bf16)."""
     from ray_tpu_torch.models import moe as M
 
     cfg = M.MoEConfig.mixtral_8x7b(n_layers=MESH["moe"]["n_layers"],
@@ -6827,7 +7226,7 @@ def _moe_fault_step(torch, M, cfg, mesh, model, tokens, fault):
 
 
 def _mesh_moe_round(torch, part, rank, device, counters, run_dir):
-    """One rank's 2 Mixtral layers over ``MESH[part]``'s mesh: its steps,
+    """One rank's Mixtral layers over ``MESH[part]``'s mesh: its steps,
     the first step's gradient blocks, each layer's routing of the rank's
     tokens, the aux loss's router gradients (the global one and the planted
     local one) and, under sp, the planted faults' first steps
@@ -7420,7 +7819,7 @@ def train_mesh_phase(torch, counters):
     hierarchical group on eight gloo ranks sharing the card
     (``train_mesh_loop``), against one-rank runs in this process: (a)
     ViT-B/16 at dp=2 x fsdp=2 x tp=2 and (c) at dp=2 x sp=2 x tp=2, 2 steps
-    each; (b) 2 layers of Mixtral-8x7B (b=2 x 2048) at fsdp=2 x ep=2 x tp=2
+    each; (b) 1 layer of Mixtral-8x7B (b=2 x 2048) at fsdp=2 x ep=2 x tp=2
     and (d) at sp=2 x ep=2 x tp=2, 2 steps each; (e) the pipeline on ranks 0-3 and (f)
     the hierarchical group on ranks 4-7; the same ranks then run
     ``train_tp``'s round, returned for its phase. Held: every rank's K1-K4
@@ -8082,8 +8481,9 @@ def main() -> None:
     # the runtime core: an LLMServer actor on the card's GPU lease serves the
     # same requests in a worker process; the worker's counts are set to 0
     # just before its requests and read just after its device-object
-    # prefill (this process's stay 0 meanwhile)
-    runtime_launches, _ = runtime_serve_phase(torch, server, prompts, counters)
+    # prefill (this process's stay 0 meanwhile). Its cluster stays up for
+    # serve_deploy
+    runtime_launches, _, cluster = runtime_serve_phase(torch, server, prompts, counters)
     lap("runtime_serve")
     for name in ("rmsnorm_fwd", "flash_attention_fwd"):
         check(runtime_launches[name] > 0, f"{name} was not launched on the runtime_serve path")
@@ -8095,7 +8495,7 @@ def main() -> None:
     # three phases; it runs K1 only (decode-mode attention throughout)
     for fn in counters.values():
         fn.launches = 0
-    cb_server, cb = cb_serve_phase(torch, np, server, serve)
+    cb_server, cb, cb_traffic = cb_serve_phase(torch, np, server, serve)
     serve_obs_phase(torch, np, cb_server, cb)
     del cb_server
     torch.cuda.empty_cache()
@@ -8106,6 +8506,20 @@ def main() -> None:
     check(cb_launches["rmsnorm_fwd"] > 0, "rmsnorm_fwd was not launched on the serve_cb path")
     for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         check(cb_launches[name] == 0, f"{name} was launched on the serve_cb path")
+
+    # the serve control plane on runtime_serve's cluster: two replicas on
+    # card 0's halves answer serve_cb's traffic; this process's counts stay
+    # 0, the replicas' own are set to 0 just before the traffic and read
+    # just after the HTTP and streamed requests; it runs K1 only
+    deploy_launches, _ = serve_deploy_phase(torch, np, cluster, cb_traffic, cb, server,
+                                            counters)
+    del cluster
+    lap("serve_deploy")
+    check(deploy_launches["rmsnorm_fwd"] > 0,
+          "rmsnorm_fwd was not launched on the serve_deploy path")
+    for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(deploy_launches[name] == 0, f"{name} was launched on the serve_deploy path")
+    torch.cuda.empty_cache()
 
     # the multi-tenant LoRA path: counts set to 0 here, read after its phase;
     # it runs K1 only, as serve_cb does
@@ -8168,14 +8582,17 @@ def main() -> None:
     # before (b)'s fit() and read just after it (they must stay 0: the loop
     # runs in a spawned worker), and the worker's own counts, set to 0 just
     # before its loop and read just after it, are added
-    dp_launches, dp_out = train_dp_phase(torch, np, counters, train_out, train_lora)
+    dp_launches, dp_out, fsdp_worker = train_dp_phase(torch, np, counters, train_out,
+                                                      train_lora)
     lap("train_dp")
     torch.cuda.empty_cache()
     # FSDP: the counts of this process are set to 0 just before (a)'s fit()
     # and must stay 0 (the loops run in spawned workers); each worker's own
     # counts, set to 0 just before its loop or steps and read just after,
     # are added ((a) and (b)'s FSDP pair; the replicated pair is its yardstick)
-    fsdp_launches, _ = train_fsdp_phase(torch, np, counters, train_out, train_lora, dp_out)
+    fsdp_launches, _, pair = train_fsdp_phase(torch, np, counters, train_out, train_lora,
+                                              dp_out, fsdp_worker)
+    del fsdp_worker
     lap("train_fsdp")
     del train_lora
     torch.cuda.empty_cache()
@@ -8183,7 +8600,8 @@ def main() -> None:
     # before the pair's fit() and must stay 0 (the one-rank yardsticks run
     # before it); each rank's own counts, set to 0 just before its ops and
     # again before its steps and read just after each, are added
-    sp_launches, _ = train_sp_phase(torch, counters)
+    sp_launches, _ = train_sp_phase(torch, counters, pair)
+    del pair["sp"]
     lap("train_sp")
     torch.cuda.empty_cache()
     # the vision training paths: counts set to 0 inside each phase just
@@ -8195,7 +8613,8 @@ def main() -> None:
     # sync-BN data parallelism: the counts of this process are set to 0 just
     # before (a)'s fit(); the workers' own counts are added (0: ResNet runs
     # none of the port's kernels)
-    resnet_dp_launches, _ = train_resnet_dp_phase(torch, counters, resnet_out)
+    resnet_dp_launches, _ = train_resnet_dp_phase(torch, counters, resnet_out, pair["resnet"])
+    del pair
     lap("train_resnet_dp")
     torch.cuda.empty_cache()
     vit_launches, _ = train_vit_phase(torch, counters)
@@ -8236,7 +8655,8 @@ def main() -> None:
     tp_train_launches, _ = train_tp_phase(torch, counters, tp_gang)
     lap("train_tp")
     paths = {"serve": serve_launches, "runtime_serve": runtime_launches,
-             "serve_cb": cb_launches, "serve_lora": lora_launches,
+             "serve_cb": cb_launches, "serve_deploy": deploy_launches,
+             "serve_lora": lora_launches,
              "serve_disagg": disagg_launches, "serve_tp": tp_launches,
              "serve_tp_features": tpf_launches, "train": train_launches,
              "train_dp": dp_launches, "train_fsdp": fsdp_launches, "train_sp": sp_launches,

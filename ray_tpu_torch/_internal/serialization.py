@@ -19,8 +19,8 @@ the port needs none: it pickles with the standard library, through
 - **Callables travel by reference.** A function or a class is pickled as
   its module and qualified name, and the receiving worker imports it. A
   name bound at module level to a ``@remote`` wrapper of the object (the
-  decorated function or actor class itself) resolves to the object the
-  wrapper holds. A callable defined in ``__main__``, inside a function, or
+  decorated function or actor class itself), or to a
+  ``@serve.deployment`` of it, resolves to the object the wrapper holds. A callable defined in ``__main__``, inside a function, or
   as a lambda cannot be imported by a worker, so it is refused with a
   ``ValueError`` that names it (the reference pickles such callables by
   value).
@@ -57,10 +57,11 @@ _OOB_THRESHOLD = 1 * 1024
 
 
 def _unwrap(obj: Any) -> Any:
-    """The function or class a ``@remote`` wrapper holds (``obj`` itself for
-    anything else)."""
-    if isinstance(getattr(type(obj), "__remote_wrapped__", None), property):
-        return obj.__remote_wrapped__
+    """The function or class a ``@remote`` wrapper or a
+    ``@serve.deployment`` holds (``obj`` itself for anything else)."""
+    for attr in ("__remote_wrapped__", "__deployment_target__"):
+        if isinstance(getattr(type(obj), attr, None), property):
+            return getattr(obj, attr)
     return obj
 
 

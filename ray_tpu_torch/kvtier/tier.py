@@ -277,15 +277,16 @@ class KVTierClient:
 
 class GcsTierBackend:
     """The cluster backend: GCS registry calls and object-store chunks. It
-    needs the port's runtime (GCS, raylets, the object plane), which comes
-    with the runtime slice; until then use :class:`LocalTierBackend`."""
+    is ROADMAP A item 15 (the runtime slice brought the GCS and the object
+    store it runs on); until then use :class:`LocalTierBackend`."""
 
     def __init__(self):
         raise NotImplementedError(
             "GcsTierBackend is not ported yet: the cluster KV tier's backend "
-            "comes with the runtime slice of the PyTorch port (GCS, object "
-            "store); pass tier_backend=kvtier.LocalTierBackend() to share a "
-            "tier between servers in one process"
+            "is ROADMAP A item 15, over what the runtime slice of the PyTorch "
+            "port brought (GCS, object store); pass "
+            "tier_backend=kvtier.LocalTierBackend() to share a tier between "
+            "servers in one process"
         )
 
 

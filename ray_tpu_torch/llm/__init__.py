@@ -1,4 +1,5 @@
-"""LLM serving on the card: config, engines, server and batch predictor."""
+"""LLM serving on the card: config, engines, server, the serve deployment
+and the batch predictor."""
 
 from .batch import LLMPredictor
 from .config import AdapterConfig, LLMConfig
@@ -8,7 +9,7 @@ from .engine import (
     GenerationResult,
     LLMEngine,
 )
-from .serving import LLMServer
+from .serving import LLMServer, build_llm_deployment, publish_llm_weights
 
 __all__ = [
     "AdapterConfig",
@@ -19,4 +20,6 @@ __all__ = [
     "LLMEngine",
     "LLMPredictor",
     "LLMServer",
+    "build_llm_deployment",
+    "publish_llm_weights",
 ]

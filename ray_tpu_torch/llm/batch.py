@@ -20,8 +20,9 @@ from .config import LLMConfig, require_servable
 from .engine import GenerationRequest, LLMEngine
 
 _WEIGHT_PLANE = (
-    "LLMPredictor {} needs the weight plane, which comes with the port's "
-    "weight plane slice; pass params= (a port state dict) instead"
+    "LLMPredictor weights_name needs the weight plane, which is ROADMAP A "
+    "item 16 of the PyTorch port (the weight plane slice); pass params= or "
+    "params_blob= instead"
 )
 
 
@@ -30,10 +31,12 @@ class LLMPredictor:
     ``"generated"``.
 
     Weights: ``params`` (the port's state dict, on ``device``, shared, not
-    copied), else random from ``init_params`` under seed 0, as the
-    reference draws them under ``PRNGKey(0)``. The reference's
-    ``params_blob`` and ``weights_name`` ride the weight plane, which is not
-    ported yet: they raise.
+    copied), else ``params_blob`` (that dict through
+    ``serialization.dumps``, read back with ``loads`` as the reference reads
+    its blob, and moved to ``device``), else random from ``init_params``
+    under seed 0, as the reference draws them under ``PRNGKey(0)``.
+    ``weights_name`` rides the weight plane (ROADMAP A item 16): it
+    raises.
 
     An optional per-row ``"adapter_id"`` column multiplexes LoRA tenants
     through the one engine: rows of a batch may name different adapters
@@ -54,13 +57,17 @@ class LLMPredictor:
                  weights_name: Optional[str] = None,
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  device: DeviceLike = None):
-        if params_blob is not None:
-            raise NotImplementedError(_WEIGHT_PLANE.format("params_blob"))
         if weights_name is not None:
-            raise NotImplementedError(_WEIGHT_PLANE.format("weights_name"))
+            raise NotImplementedError(_WEIGHT_PLANE)
+        if params_blob is not None and params is not None:
+            raise ValueError("pass params= or params_blob=, not both")
         self._config = llm_config or LLMConfig()
         model_config = require_servable(self._config.build_model_config())
         self._device = resolve_device(device)
+        if params_blob is not None:
+            from .serving import load_params_blob
+
+            params = load_params_blob(params_blob, self._device)
         if params is None:
             params = init_params(model_config, device=self._device)
         self._adapter_store: Optional[AdapterStore] = None

@@ -10,10 +10,19 @@ field of the reference's config is a field here, with its default and its
 checks, so that a config written for ray_tpu reads the same. A tensor-
 parallel mesh (``tensor_parallel_size`` or ``mesh={"tp": n}``) is served by
 ``LLMServer`` (llm/tp_ranks.py), with adapters, the KV tier and roles as at
-tp = 1. The fields of features that later slices of the port bring
-(sequence-parallel meshes, the serve control plane's replicas and
-autoscaling, the weight plane's quantized publishes) are accepted, and
-asking for any of them raises.
+tp = 1. ``num_replicas``, ``autoscaling_config``, ``autoscale_policy``,
+``prefix_affinity_tokens`` and ``resources_per_replica`` shape the serve
+deployment that ``llm.build_llm_deployment`` builds. A sequence-parallel
+mesh is refused on purpose (ROADMAP kept item 32), and the weight plane's
+quantized publishes wait for their slice (ROADMAP A item 16): asking for
+either raises.
+
+``resources_per_replica`` defaults to ``{"CPU": 1.0, "GPU": 1.0}``: a
+replica that serves on the card asks for the card, and its ``GPU`` share
+(a fraction packs several replicas on one card) reaches the lease, which
+binds the replica to its card. The reference's default is ``{"TPU": 0.0,
+"CPU": 1.0}``, and its controller drops the dict's keys on the way to the
+lease (ROADMAP kept item 38).
 
 ``model_family="moe"`` builds a :class:`~ray_tpu_torch.models.moe.MoEConfig`
 by the reference's grammar. Nothing serves it: the reference has no MoE
@@ -96,12 +105,13 @@ class LLMConfig:
     # dict form, gives the server an adapter slot bank and serves batches
     # whose rows name different adapters. Requires kv_cache_blocks.
     adapters: Optional[AdapterConfig] = None
-    # read by the reference's serve router (prefix-affinity routing over
-    # the leading tokens; 0 disables); the port has no router yet
+    # prefix-affinity routing over the leading tokens (0 disables): the
+    # role graph's ingress routes prefills with it; callers of a fused
+    # deployment pass it as handle.options(prefix_affinity_tokens=...)
     prefix_affinity_tokens: int = 16
     # disaggregated prefill/decode: {"prefill": n, "decode": m} replica
-    # counts (the deployment graph waits for the serve control plane; an
-    # LLMServer(role=) plays one role). Requires kv_cache_blocks.
+    # counts (build_llm_deployment builds the pools; an LLMServer(role=)
+    # plays one role). Requires kv_cache_blocks.
     roles: Optional[Dict[str, int]] = None
     # the cluster KV tier: share computed prefixes across servers, and the
     # codec of KV shipments ("raw" | "int8"). Requires kv_cache_blocks.
@@ -112,13 +122,17 @@ class LLMConfig:
     tensor_parallel_size: int = 1
     sequence_parallel_size: int = 1
     mesh: Optional[Dict[str, int]] = None
-    # later slices of the port
+    # the serve deployment: a static replica count, the queue autoscaler's
+    # AutoscalingConfig dict, or the SLO autoscaler's AutoscalePolicy dict
+    # (which wins); each replica's resources ("CPU" -> num_cpus, "GPU" ->
+    # num_gpus, any other key a custom resource)
     num_replicas: int = 1
     autoscaling_config: Optional[Dict[str, Any]] = None
     autoscale_policy: Optional[Dict[str, Any]] = None
     resources_per_replica: Dict[str, float] = field(
-        default_factory=lambda: {"TPU": 0.0, "CPU": 1.0}
+        default_factory=lambda: {"CPU": 1.0, "GPU": 1.0}
     )
+    # the weight plane's int8 publishes (a later slice)
     quantized: bool = False
 
     def __post_init__(self):
@@ -170,21 +184,11 @@ class LLMConfig:
                 "ray_tpu/llm/engine.py:150), so an sp replica there only repeats tp's work "
                 "on sp times the devices; use tensor_parallel_size"
             )
-        later = {
-            "num_replicas / autoscaling_config / autoscale_policy": (
-                self.num_replicas != 1
-                or self.autoscaling_config is not None
-                or self.autoscale_policy is not None,
-                "the serve control plane slice",
-            ),
-            "quantized": (self.quantized, "the weight plane slice"),
-        }
-        for name, (asked, slice_name) in later.items():
-            if asked:
-                raise NotImplementedError(
-                    f"LLMConfig {name} is not ported yet: it comes with "
-                    f"{slice_name} of the PyTorch port"
-                )
+        if self.quantized:
+            raise NotImplementedError(
+                "LLMConfig quantized is not ported yet: it comes with the weight "
+                "plane slice of the PyTorch port (ROADMAP A item 16)"
+            )
         if self.model_family not in ("llama", "moe"):
             raise ValueError(f"unknown model family {self.model_family!r}")
         if self.draft_model is not None and self.spec_tokens <= 0:

@@ -1,5 +1,4 @@
-"""LLM serving: the port of ray_tpu/llm/serving.py's replica and
-disaggregated ingress.
+"""LLM serving: the port of ray_tpu/llm/serving.py.
 
 :class:`LLMServer` is the counterpart of the reference's replica callable
 ``_LLMReplica``: it builds the model and an engine and answers token-level
@@ -10,6 +9,16 @@ the dense :class:`~ray_tpu_torch.llm.engine.LLMEngine`; with it set, a
 admission), with the config's chunked prefill, speculative draft and
 multi-tenant adapters (an :class:`~ray_tpu_torch.lora.AdapterStore`).
 
+:func:`build_llm_deployment` wraps it in a serve application
+(``ray_tpu_torch.serve``): ``num_replicas`` replicas of :class:`_LLMReplica`,
+or the queue autoscaler's ``autoscaling_config``, or the SLO autoscaler's
+``autoscale_policy``, each replica reserving ``resources_per_replica`` and
+serving on the card its lease names (a ``GPU`` share below 1 packs several
+replicas on one card). A request names its adapter by an explicit
+``adapter_id`` field or by serve's multiplexed model id
+(``handle.options(multiplexed_model_id=...)``), and the server has the
+serve replica's hooks (``warmup``, ``mesh_info``, ``reconfigure``).
+
 With ``LLMConfig.kv_tier`` or a ``role``, the server holds a
 :class:`~ray_tpu_torch.kvtier.KVTierClient` over ``tier_backend``. A fused
 server on the tier (no role) exports the prefixes it computes and pulls
@@ -17,10 +26,12 @@ warm ones from its peers. ``role="prefill"`` serves :meth:`LLMServer.prefill`
 (run the admission prefill, ship the K/V) and ``role="decode"``
 :meth:`LLMServer.decode_shipped` (adopt the shipment, decode with zero
 prefill tokens); :class:`_DisaggIngress` routes a request through one of
-each. The cluster's tier backend (``kvtier.GcsTierBackend``), the
-deployment graph that builds role pools (``build_llm_deployment``) and
-prefix-affinity routing wait for the runtime and the serve control plane;
-in process, servers share a ``kvtier.LocalTierBackend``.
+each: over serve handles in a deployment's role graph
+(``<name>-prefill`` and ``<name>-decode`` pools, the prefills routed with
+prefix affinity), or over two servers in process. The cluster's tier
+backend (``kvtier.GcsTierBackend``) is ROADMAP A item 15, so a role graph
+needs an injected ``tier_backend``: in local mode servers share a
+``kvtier.LocalTierBackend``.
 
 With ``LLMConfig.tensor_parallel_size`` (or ``mesh={"tp": n}``) above 1 the
 server is rank 0 of a tensor-parallel replica (llm/tp_ranks.py): its weights,
@@ -35,9 +46,8 @@ every slot), the tier client and the role; a shipment carries every KV
 head, so a tp=2 side and a tp=1 side of a disaggregated pair interoperate.
 A process holds one tensor-parallel server at a time, so an in-process
 disaggregated pair puts a tp > 1 side beside a tp=1 side. The weight plane
-and tokenizers come with later slices of the port; so a request names its
-adapter by an explicit ``adapter_id`` only (the reference also reads
-serve's multiplexed model id).
+(``weights_name``, hot reloads) is ROADMAP A item 16, and tokenizers need a
+download: both raise.
 
 Request/response shape:
   {"token_ids": [...], "max_new_tokens": 32, "temperature": 0.0,
@@ -59,8 +69,14 @@ from ..kvcache import KVCacheManager
 from ..kvtier import GcsTierBackend, KVShipment, KVTierClient
 from ..lora import AdapterLease, AdapterStore
 from ..models.llama import init_params, param_shapes
+from ..serve.multiplex import get_multiplexed_model_id
 from .config import LLMConfig, require_servable
 from .engine import ContinuousBatchingEngine, GenerationRequest, LLMEngine
+
+_WEIGHT_PLANE = (
+    "{} needs the weight plane, which is ROADMAP A item 16 of the PyTorch "
+    "port (the weight plane slice); pass params= or params_blob= instead"
+)
 
 #: the seeds of a server's random weights and of its speculative draft's, at
 #: every tensor-parallel size (llm/tp_ranks.py draws its slices under them)
@@ -260,14 +276,88 @@ class LLMServer:
             return None
         return self._adapter_store.stats()
 
+    # -- the serve replica's hooks -------------------------------------------
+
+    def warmup(self) -> Dict[str, Any]:
+        """The serve replica's warmup hook (run before the replica reports
+        healthy). The reference's asserts that the weight plane resolved;
+        the port's servers never take weights from it (ROADMAP A item 16)."""
+        return {"weights_name": None, "weights_version": None,
+                "weights_resolve_s": 0.0}
+
+    def reload_weights(self, version: Optional[int] = None) -> Dict[str, Any]:
+        raise NotImplementedError(_WEIGHT_PLANE.format("reload_weights"))
+
+    def reconfigure(self, user_config) -> None:
+        """The serve reconfigure hook. The reference's hot-reloads a
+        ``{"weights_version": v}`` from the weight plane and ignores the
+        rest; a server without the weight plane (every server of the port,
+        ROADMAP A item 16) ignores it all, as the reference's without a
+        ``weights_name`` does."""
+
+    def mesh_info(self) -> Dict[str, Any]:
+        """The replica's mesh card, polled into the serve controller's
+        replica inventory: mesh shape, device count, the card's allocated
+        bytes per device (``torch.cuda.memory_allocated``, where the
+        reference reads HBM in use; None on the CPU) and the per-device KV
+        block-pool footprint."""
+        if self._ranks is None:
+            devices = [self._device]
+            info: Dict[str, Any] = {"mesh": {}, "tag": "tp=1", "num_devices": 1}
+        else:
+            plan = self._ranks.plan
+            devices = [plan.device(r) for r in range(plan.num_devices)]
+            info = {"mesh": plan.mesh_shape(), "tag": plan.describe(),
+                    "num_devices": plan.num_devices}
+        info["devices"] = [str(d) for d in devices]
+        info["per_device_hbm_bytes"] = [
+            int(torch.cuda.memory_allocated(d)) if d.type == "cuda" else None
+            for d in devices
+        ]
+        from .. import _worker_api, get_gpu_ids
+
+        if _worker_api.is_initialized():
+            info["gpu_ids"] = get_gpu_ids()  # the lease's cards, in a replica
+        if self._kv_cache is not None:
+            info["kv_pool_bytes_per_device"] = self._kv_cache.pool_accounting()[
+                "kv_pool_bytes_per_device"]
+        return info
+
+    def kernel_launches(self, reset: bool = False) -> Dict[str, int]:
+        """The launches of each of the port's hand-written kernels in this
+        process (their wrappers count each launch; a replica's process
+        holds one server) and this server's model calls (rank 0's under
+        tensor parallelism). ``reset`` sets them all to 0 first."""
+        from ..ops.flash_attention import flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq
+        from ..ops.rmsnorm import rmsnorm_fwd
+
+        wrappers = {"rmsnorm_fwd": rmsnorm_fwd, "flash_attention_fwd": flash_attention_fwd,
+                    "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
+        if reset:
+            for fn in wrappers.values():
+                fn.launches = 0
+            self._engine.forward_calls = 0
+        out = {name: fn.launches for name, fn in wrappers.items()}
+        out["forward_calls"] = self._engine.forward_calls
+        return out
+
+    def _requested_adapter_id(self, request: Dict[str, Any]) -> Optional[str]:
+        """The tenant of a request: an explicit ``adapter_id`` field wins,
+        else serve's multiplexed model id, which the serve replica binds to
+        the request's thread before user code runs."""
+        aid = request.get("adapter_id")
+        if aid is None:
+            aid = get_multiplexed_model_id() or None
+        return aid
+
     def _resolve_adapter(self, request: Dict[str, Any]) -> Optional[AdapterLease]:
-        """Resolve the request's ``adapter_id`` to a slot lease BEFORE engine
+        """Resolve the request's adapter id to a slot lease BEFORE engine
         admission, on the caller's thread: a cold attach runs here, never on
         the thread that steps the pool, so in-flight decodes keep stepping.
         When every slot is pinned the request backpressures: ``acquire`` is
         polled until ``acquire_timeout_s``, then BackPressureError (which is
         retryable) is raised."""
-        aid = request.get("adapter_id")
+        aid = self._requested_adapter_id(request)
         if aid is None:
             return None
         if self._adapter_store is None:
@@ -330,7 +420,7 @@ class LLMServer:
         serve it now (no tier, an adapter request, pool backpressure): the
         ingress then has the decode server compute it, so the request
         still completes."""
-        if self._kv_tier is None or request.get("adapter_id") is not None:
+        if self._kv_tier is None or self._requested_adapter_id(request) is not None:
             return None
         shipment = self._engine.prefill_only(self._parse_request(request))
         return shipment.to_blob() if shipment is not None else None
@@ -391,28 +481,202 @@ class LLMServer:
                 }
 
 
+def load_params_blob(params_blob: bytes, device: DeviceLike) -> Dict[str, torch.Tensor]:
+    """The port's parameter dict from its ``serialization.dumps`` bytes (the
+    tensors cross as raw bytes, ROADMAP kept item 36), moved to ``device``.
+    The reference only ``loads`` its blob too: no weight plane is involved."""
+    from .._internal import serialization
+
+    params = serialization.loads(params_blob)
+    if not isinstance(params, dict) or not all(
+            isinstance(v, torch.Tensor) for v in params.values()):
+        raise ValueError("params_blob must hold the port's parameter dict "
+                         "(name -> tensor), through serialization.dumps")
+    dev = torch.device(device) if device is not None else None
+    return {k: v.to(dev) for k, v in params.items()} if dev is not None else params
+
+
+class _LLMReplica(LLMServer):
+    """The replica callable of :func:`build_llm_deployment`, with the
+    reference replica's arguments (``llm_config, params_blob,
+    tokenizer_name, weights_name, role, tier_backend``) and ``device``.
+
+    ``device=None`` serves on the card of this replica's lease (the card
+    the worker is bound to, ROADMAP kept item 34): a lease that names no
+    card raises, and nothing falls back to card 0 or to the CPU.
+    ``device="cpu"`` serves on the CPU. At ``tensor_parallel_size = n``
+    the ranks go on the lease's first n cards over NCCL, or, with
+    ``device="cpu"``, on n CPU ranks over gloo. ``tokenizer_name`` and
+    ``weights_name`` raise: tokenizers need a download and the weight plane
+    is ROADMAP A item 16."""
+
+    def __init__(self, llm_config: LLMConfig, params_blob: Optional[bytes] = None,
+                 tokenizer_name: Optional[str] = None,
+                 weights_name: Optional[str] = None,
+                 role: Optional[str] = None, tier_backend=None,
+                 device: DeviceLike = None):
+        if tokenizer_name is not None:
+            raise NotImplementedError(
+                "tokenizer_name needs AutoTokenizer.from_pretrained, which is a "
+                "download; send token_ids"
+            )
+        if weights_name is not None:
+            raise NotImplementedError(_WEIGHT_PLANE.format("weights_name"))
+        tp, _ = llm_config.effective_parallelism()
+        dev, devices, backend = _replica_placement(device, tp)
+        params = None
+        if params_blob is not None:
+            params = load_params_blob(params_blob, dev if dev is not None else devices[0])
+        super().__init__(llm_config, params=params, device=dev, role=role,
+                         tier_backend=tier_backend, devices=devices, tp_backend=backend)
+
+    def shutdown(self) -> None:
+        """The serve replica's shutdown hook: stop the tensor-parallel
+        ranks before the replica's process is killed."""
+        self.close()
+
+
+def _replica_placement(device: DeviceLike, tp: int):
+    """(device, devices, tp_backend) for a replica at tensor-parallel size
+    ``tp``: from ``device`` when given, else from the lease's cards."""
+    if device is not None:
+        dev = torch.device(device)
+        if tp == 1:
+            return dev, None, "nccl"
+        if dev.type != "cpu":
+            raise ValueError("a tensor-parallel replica places its ranks on its "
+                             "lease's cards: pass device=None (or 'cpu')")
+        return None, ["cpu"] * tp, "gloo"
+    from .. import get_gpu_ids
+    from .._internal.accelerators import cuda_index
+
+    ids = get_gpu_ids()
+    if len(ids) < 1 or (tp > 1 and len(ids) < tp):
+        raise RuntimeError(
+            f"this replica's lease names {len(ids)} card(s) for tensor-parallel "
+            f"size {tp}: set LLMConfig.resources_per_replica's 'GPU' (a share "
+            "below 1 packs replicas on one card; tp > 1 takes tp whole cards), or "
+            "pass device='cpu'"
+        )
+    cards = [torch.device("cuda", cuda_index(i)) for i in ids]
+    if tp == 1:
+        return cards[0], None, "nccl"
+    return None, [str(c) for c in cards[:tp]], "nccl"
+
+
 class _DisaggIngress:
-    """Disaggregated serving ingress over a prefill server and a decode
-    server (objects with :meth:`LLMServer.prefill` and
-    :meth:`LLMServer.decode_shipped`): the prefill side runs the prompt and
+    """Disaggregated serving ingress: the prefill side runs the prompt and
     ships its K/V, then the decode side adopts the shipment and decodes. A
     prefill side that returns no blob (it could not serve the request now)
     degrades to ``decode_shipped(request, None)``, a computed admission on
-    the decode side. Unlike the reference's ingress, which holds serve
-    handles and turns any exception of the prefill call into that
-    fallback, an exception here propagates: in process there is no
-    transport to fail, so it is a fault of the code. Prefix-affinity
-    routing over pools of servers waits for the serve control plane."""
+    the decode side.
 
-    def __init__(self, prefill_server, decode_server):
-        self._prefill = prefill_server
-        self._decode = decode_server
+    In a deployment (:func:`build_llm_deployment`'s role graph) the two
+    sides are serve handles of the ``<name>-prefill`` and ``<name>-decode``
+    pools, and the prefills are routed with ``prefix_affinity_tokens``, so
+    shared prefixes keep landing on the prefill replica whose radix holds
+    them, as the reference's ingress routes them. In process the sides may
+    also be two servers (objects with :meth:`LLMServer.prefill` and
+    :meth:`LLMServer.decode_shipped`). Unlike the reference's ingress,
+    which turns any exception of the prefill call into the fallback, an
+    exception propagates (ROADMAP kept item 13): the handles' own failover
+    absorbs a dead replica, and what still escapes is a fault."""
+
+    def __init__(self, prefill, decode, prefix_affinity_tokens: int = 0):
+        if hasattr(prefill, "options"):  # serve handles
+            pre = prefill.options(method_name="prefill")
+            if prefix_affinity_tokens:
+                pre = pre.options(prefix_affinity_tokens=prefix_affinity_tokens)
+            dec = decode.options(method_name="decode_shipped")
+            self._prefill = lambda request: pre.remote(request).result()
+            self._decode = lambda request, blob: dec.remote(request, blob).result()
+        else:
+            self._prefill = prefill.prefill
+            self._decode = decode.decode_shipped
 
     def __call__(self, request: Dict[str, Any]) -> Dict[str, Any]:
-        return self._decode.decode_shipped(request, self._prefill.prefill(request))
+        return self._decode(request, self._prefill(request))
 
     def stream(self, request: Dict[str, Any]):
         """Streaming through the disaggregated path: the handoff happens up
         front, then the decode side's result is yielded (as the
         reference's ingress does)."""
         yield self(request)
+
+
+def _actor_options(resources: Dict[str, float]) -> Dict[str, Any]:
+    """``resources_per_replica`` as actor options: ``CPU`` -> ``num_cpus``,
+    ``GPU`` -> ``num_gpus``, every other key a custom resource. The
+    reference passes the dict itself as ``ray_actor_options``, whose keys
+    its ``build_resources`` never reads, so its replicas lease one CPU and
+    nothing else (ROADMAP kept item 38)."""
+    res = dict(resources)
+    opts: Dict[str, Any] = {}
+    if "CPU" in res:
+        opts["num_cpus"] = float(res.pop("CPU"))
+    if "GPU" in res:
+        opts["num_gpus"] = float(res.pop("GPU"))
+    if res:
+        opts["resources"] = res
+    return opts
+
+
+def build_llm_deployment(llm_config: LLMConfig, *,
+                         params_blob: Optional[bytes] = None,
+                         name: Optional[str] = None,
+                         tier_backend=None,
+                         device: DeviceLike = None):
+    """A bound serve application for this LLM (the reference's
+    ``build_llm_deployment``).
+
+    Fused: one deployment of :class:`_LLMReplica` named ``name`` (default
+    the model id), with ``autoscale_policy`` (the SLO autoscaler), else
+    ``autoscaling_config`` (the queue autoscaler), else ``num_replicas``.
+    With ``llm_config.roles`` it is three deployments: ``<name>-prefill``
+    and ``<name>-decode`` pools and a :class:`_DisaggIngress` root that
+    routes the handoff. Every replica reserves ``resources_per_replica``
+    and builds its weights from ``params_blob`` (the port's parameter dict
+    through ``serialization.dumps``) or from seed 0. ``device`` is each
+    replica's (None: the card of its lease). A role graph, or
+    ``kv_tier``, needs ``tier_backend``: the cluster's, ``GcsTierBackend``,
+    is ROADMAP A item 15."""
+    from .. import serve
+
+    if (llm_config.roles is not None or llm_config.kv_tier) and tier_backend is None:
+        raise NotImplementedError(
+            "roles / kv_tier over a cluster need kvtier.GcsTierBackend, which is "
+            "ROADMAP A item 15 of the PyTorch port; pass tier_backend= (a shared "
+            "kvtier.LocalTierBackend in local mode)"
+        )
+    base_name = name or llm_config.model_id
+    actor_options = _actor_options(llm_config.resources_per_replica)
+
+    def replica(role, **options):
+        return serve.deployment(_LLMReplica, ray_actor_options=dict(actor_options),
+                                **options).bind(
+            llm_config, params_blob, None, None, role, tier_backend, device)
+
+    if llm_config.roles is not None:
+        prefill = replica("prefill", name=f"{base_name}-prefill",
+                          num_replicas=llm_config.roles["prefill"])
+        decode = replica("decode", name=f"{base_name}-decode",
+                         num_replicas=llm_config.roles["decode"])
+        ingress = serve.deployment(_DisaggIngress, name=base_name, num_replicas=1)
+        return ingress.bind(prefill, decode, llm_config.prefix_affinity_tokens)
+    options: Dict[str, Any] = {"name": base_name}
+    if llm_config.autoscale_policy:
+        options["autoscale_policy"] = dict(llm_config.autoscale_policy) if isinstance(
+            llm_config.autoscale_policy, dict) else llm_config.autoscale_policy
+    elif llm_config.autoscaling_config:
+        options["autoscaling_config"] = dict(llm_config.autoscaling_config)
+    else:
+        options["num_replicas"] = llm_config.num_replicas
+    return replica(None, **options)
+
+
+def publish_llm_weights(llm_config: LLMConfig, params, *,
+                        weights_name: Optional[str] = None,
+                        meta: Optional[dict] = None):
+    """The reference publishes one weight-plane version for a deployment's
+    replicas; the weight plane is ROADMAP A item 16."""
+    raise NotImplementedError(_WEIGHT_PLANE.format("publish_llm_weights"))

@@ -57,6 +57,9 @@ def build_resources(options: Dict[str, Any]) -> Dict[str, float]:
     num_gpus = options.get("num_gpus")
     if num_gpus:
         resources["GPU"] = float(num_gpus)
+    from .runtime.raylet.resources import check_instance_demand
+
+    check_instance_demand(resources)
     return resources
 
 

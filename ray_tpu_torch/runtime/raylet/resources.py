@@ -7,7 +7,13 @@ selectors, and placement-group bundle sub-pools.
 
 ``GPU`` is a countable resource whose *instances* are the card ids of the
 host; an allocation returns concrete ids, which the lease carries to the
-worker, and the worker binds ``torch.cuda`` to its card.
+worker, and the worker binds ``torch.cuda`` to its card. A whole demand
+takes whole free cards, lowest ids first; a demand below 1 takes its share
+of one card, the lowest-numbered that has that much left, and its lease
+names that card (so replicas at ``num_gpus=0.5`` pack two to a card, each
+bound to it); a non-integer demand above 1 is refused with a ValueError,
+as Ray refuses it (ROADMAP kept item 39). The reference hands out ids only
+for whole amounts, so a fractional lease there names no card.
 
 A copy of ``ray_tpu/runtime/raylet/resources.py`` (host code: the port
 imports nothing of ``ray_tpu``). Only ``GPU`` is an instance resource here:
@@ -47,6 +53,16 @@ def unschedulable_devices(demand: Dict[str, float],
             and not any(t.get(k, 0.0) > 0 for t in node_totals)}
 
 
+def check_instance_demand(demand: Dict[str, float]) -> None:
+    """A device demand is a share of one card (below 1) or whole cards."""
+    for k, v in demand.items():
+        if k in INSTANCE_RESOURCES and v > 1 and not float(v).is_integer():
+            raise ValueError(
+                f"{k} demand {v} is above 1 and not whole: a demand takes a "
+                "share of one card (below 1) or whole cards"
+            )
+
+
 @dataclass
 class Allocation:
     resources: Dict[str, int]  # fixed-point amounts
@@ -55,14 +71,15 @@ class Allocation:
 
 
 class ResourcePool:
-    """One pool of vector resources with instance tracking."""
+    """One pool of vector resources with instance tracking: each card's
+    remaining share, in fixed point."""
 
     def __init__(self, totals: Dict[str, float]):
         self.total: Dict[str, int] = {k: _fp(v) for k, v in totals.items()}
         self.available: Dict[str, int] = dict(self.total)
-        # instance resources: free chip indices
-        self._free_instances: Dict[str, List[int]] = {
-            k: list(range(int(v)))
+        # instance resources: card id -> its free share (_SCALE = whole)
+        self._instances: Dict[str, Dict[int, int]] = {
+            k: {i: _SCALE for i in range(int(v))}
             for k, v in totals.items()
             if k in INSTANCE_RESOURCES and float(v).is_integer()
         }
@@ -70,8 +87,31 @@ class ResourcePool:
     def feasible(self, demand: Dict[str, float]) -> bool:
         return all(self.total.get(k, 0) >= _fp(v) for k, v in demand.items())
 
+    def _place(self, k: str, amount: int) -> Optional[List[int]]:
+        """The cards an instance demand of ``amount`` takes, or None where
+        none fit: whole free cards for a whole demand, else the
+        lowest-numbered card with that share left."""
+        cards = self._instances[k]
+        if amount % _SCALE == 0:
+            n = amount // _SCALE
+            free = [i for i in sorted(cards) if cards[i] == _SCALE]
+            return free[:n] if len(free) >= n else None
+        if amount > _SCALE:
+            raise ValueError(
+                f"{k} demand {_unfp(amount)} is above 1 and not whole: a demand "
+                "takes a share of one card (below 1) or whole cards"
+            )
+        for i in sorted(cards):
+            if cards[i] >= amount:
+                return [i]
+        return None
+
     def can_allocate(self, demand: Dict[str, float]) -> bool:
-        return all(self.available.get(k, 0) >= _fp(v) for k, v in demand.items())
+        check_instance_demand(demand)
+        if not all(self.available.get(k, 0) >= _fp(v) for k, v in demand.items()):
+            return False
+        return all(self._place(k, _fp(v)) is not None
+                   for k, v in demand.items() if k in self._instances and _fp(v) > 0)
 
     def allocate(self, demand: Dict[str, float]) -> Optional[Allocation]:
         if not self.can_allocate(demand):
@@ -80,11 +120,12 @@ class ResourcePool:
         alloc = Allocation(resources=fp_demand)
         for k, amount in fp_demand.items():
             self.available[k] -= amount
-            free = self._free_instances.get(k)
-            if free is not None and amount % _SCALE == 0:
-                n = amount // _SCALE
-                alloc.instance_ids[k] = free[:n]
-                del free[:n]
+            if k in self._instances and amount > 0:
+                ids = self._place(k, amount)
+                share = min(amount, _SCALE)
+                for i in ids:
+                    self._instances[k][i] -= share
+                alloc.instance_ids[k] = ids
         return alloc
 
     def release(self, alloc: Allocation):
@@ -93,10 +134,13 @@ class ResourcePool:
                 self.available.get(k, 0) + amount, self.total.get(k, amount)
             )
         for k, ids in alloc.instance_ids.items():
-            free = self._free_instances.get(k)
-            if free is not None:
-                free.extend(ids)
-                free.sort()
+            cards = self._instances.get(k)
+            if cards is None:
+                continue
+            share = min(alloc.resources.get(k, 0), _SCALE)
+            for i in ids:
+                if i in cards:
+                    cards[i] = min(cards[i] + share, _SCALE)
 
     def available_float(self) -> Dict[str, float]:
         return {k: _unfp(v) for k, v in self.available.items()}
@@ -162,9 +206,11 @@ class LocalResourceManager:
         if reservation is None:
             return False
         sub = ResourcePool(resources)
-        # bundle sub-pool inherits the chip instances reserved from the main pool
+        # the bundle's sub-pool holds the cards (or the share of one card)
+        # reserved from the main pool
         for k, ids in reservation.instance_ids.items():
-            sub._free_instances[k] = list(ids)
+            share = min(reservation.resources.get(k, 0), _SCALE)
+            sub._instances[k] = {i: share for i in ids}
         self._bundles[key] = (reservation, sub)
         return True
 

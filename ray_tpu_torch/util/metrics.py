@@ -15,16 +15,18 @@ evictions, live slots), the step breakdown (``StepBreakdown``, the
 collective and overlap clocks it reads (recorded by every op of
 ``ray_tpu_torch.collective``, with ``collective_summary`` and
 ``collective_overlap_summary``, and the abort counter), the flight
-recorder's drop counter, and device memory, read from the CUDA caching
-allocator.
+recorder's drop counter, device memory, read from the CUDA caching
+allocator, and the serve control plane's (retries, sheds, DOA rejections
+and drains; TTFT and replica warmup by deployment; the proxies' requests,
+inflight and latency; the SLO autoscaler's decisions).
 
 The reference pushes every process's registry to its GCS from a background
 thread and renders the cluster's payloads. The port's runtime does not push
 it yet (ROADMAP A item 21): :func:`local_payload` returns the payload the pusher builds, from this
 process's registry, and the summaries and :func:`render_prometheus` run on
-it. No thread is started. The other families of the reference (rpc,
-weights, train and serve fault tolerance, partitions, ingress, watchdog,
-autoscale) wait for their planes.
+it. No thread is started, so :func:`fetch_metric_payloads` finds no port
+payload in the GCS KV. The other families of the reference (rpc, weights,
+train fault tolerance, partitions, watchdog) wait for their planes.
 """
 
 from __future__ import annotations
@@ -1264,3 +1266,210 @@ def _sample(name: str, label_pairs, value) -> str:
     )
     label_str = f"{{{labels}}}" if labels else ""
     return f"{name}{label_str} {value}"
+
+
+# -- the serve control plane ---------------------------------------------------
+# The reference's serve fault-tolerance, serve latency, ingress and
+# autoscale families, with its names, tags and boundaries: handle-side
+# retries (counted in the calling process), replica-side sheds, DOA
+# rejections and drains, per-deployment TTFT and replica warmup, the
+# proxies' pre-bound request handles, and the SLO autoscaler's decisions.
+
+_SERVE_DRAIN_BOUNDARIES_S = [
+    0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30, 60,
+]
+_SERVE_TTFT_BOUNDARIES_S = [
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5,
+    10, 30,
+]
+_SERVE_WARMUP_BOUNDARIES_S = [
+    0.01, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30, 60, 120,
+]
+_INGRESS_LATENCY_BOUNDARIES_MS = [
+    0.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 5000,
+]
+_AUTOSCALE_DECISION_BOUNDARIES_S = [
+    0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30, 60, 120, 300,
+]
+
+
+def _ensure_serve_ft_metrics() -> dict:
+    return _family("serve_ft", lambda: {
+        "retry": Counter(
+            "serve_retry_total",
+            "Handle-side failover resubmissions (replica death, drain "
+            "race, transport failure, or retried backpressure)",
+            tag_keys=("deployment", "reason", "replica"),
+        ),
+        "shed": Counter(
+            "serve_shed_total",
+            "Requests shed by replica admission control (queue cap "
+            "reached -> BackPressureError)",
+            tag_keys=("deployment",),
+        ),
+        "doa": Counter(
+            "serve_doa_total",
+            "Dead-on-arrival rejections (request deadline already passed "
+            "at admission)",
+            tag_keys=("deployment",),
+        ),
+        "drain": Histogram(
+            "serve_drain_seconds",
+            "Graceful replica drain duration (stop-routing to last "
+            "in-flight request finished)",
+            boundaries=_SERVE_DRAIN_BOUNDARIES_S,
+            tag_keys=("deployment",),
+        ),
+    })
+
+
+def record_serve_retry(deployment: str, reason: str, replica: str = ""):
+    """``replica`` is the replica the retry was resubmitted to."""
+    _ensure_serve_ft_metrics()["retry"].inc(
+        1.0, {"deployment": deployment, "reason": reason, "replica": replica}
+    )
+
+
+def record_serve_shed(deployment: str):
+    _ensure_serve_ft_metrics()["shed"].inc(1.0, {"deployment": deployment})
+
+
+def record_serve_doa(deployment: str):
+    _ensure_serve_ft_metrics()["doa"].inc(1.0, {"deployment": deployment})
+
+
+def record_serve_drain(deployment: str, seconds: float):
+    _ensure_serve_ft_metrics()["drain"].observe(seconds, {"deployment": deployment})
+
+
+def serve_ft_counters() -> Dict[str, float]:
+    """Process-local totals across all tag values: retries count in the
+    calling process, sheds, DOA and drains in the replica's."""
+    m = _ensure_serve_ft_metrics()
+    out = {label: _total(m[key])
+           for label, key in (("retries", "retry"), ("sheds", "shed"), ("doa", "doa"))}
+    drain = m["drain"]
+    with drain._lock:
+        out["drains"] = float(sum(sum(c) for c in drain._counts.values()))
+    return out
+
+
+def _ensure_serve_latency_metrics() -> dict:
+    return _family("serve_latency", lambda: {
+        "ttft": Histogram(
+            "serve_ttft_seconds",
+            "Replica-side time to first output: admission (queue wait "
+            "included) to first stream item or unary completion",
+            boundaries=_SERVE_TTFT_BOUNDARIES_S,
+            tag_keys=("deployment",),
+        ),
+        "warmup": Histogram(
+            "serve_replica_warmup_seconds",
+            "Replica cold-start: constructor entry to ready-to-serve "
+            "(user init + weight resolution + warmup hook)",
+            boundaries=_SERVE_WARMUP_BOUNDARIES_S,
+            tag_keys=("deployment",),
+        ),
+    })
+
+
+def record_serve_ttft(deployment: str, seconds: float,
+                      trace_id: Optional[str] = None):
+    """``trace_id`` (a traced request's) becomes the bucket's exemplar."""
+    _ensure_serve_latency_metrics()["ttft"].observe(
+        seconds, {"deployment": deployment}, exemplar=trace_id
+    )
+
+
+def record_serve_replica_warmup(deployment: str, seconds: float):
+    _ensure_serve_latency_metrics()["warmup"].observe(
+        seconds, {"deployment": deployment}
+    )
+
+
+def _ensure_ingress_metrics() -> dict:
+    return _family("ingress", lambda: {
+        "requests": Counter(
+            "proxy_requests_total",
+            "Requests completed by an ingress proxy, by outcome "
+            "(ok/error/shed/timeout/drain)",
+            tag_keys=("proxy_id", "outcome"),
+        ),
+        "inflight": Gauge(
+            "proxy_inflight",
+            "Requests currently being served by this proxy",
+            tag_keys=("proxy_id",),
+        ),
+        "latency": Histogram(
+            "proxy_request_latency_ms",
+            "End-to-end proxy latency: request read to response write",
+            boundaries=_INGRESS_LATENCY_BOUNDARIES_MS,
+            tag_keys=("proxy_id",),
+        ),
+    })
+
+
+def ingress_handles(proxy_id: str) -> dict:
+    """Pre-bound per-proxy metric handles for the proxy's request loop:
+    {ok, error, shed, timeout, drain} counters plus {inflight, latency}."""
+    m = _ensure_ingress_metrics()
+    req = m["requests"]
+    out = {outcome: req.bind(proxy_id=proxy_id, outcome=outcome)
+           for outcome in ("ok", "error", "shed", "timeout", "drain")}
+    out["inflight"] = m["inflight"].bind(proxy_id=proxy_id)
+    out["latency"] = m["latency"].bind(proxy_id=proxy_id)
+    return out
+
+
+def _ensure_autoscale_metrics() -> dict:
+    return _family("autoscale", lambda: {
+        "up": Counter(
+            "autoscale_scale_up_total",
+            "SLO-autoscaler scale-up decisions applied",
+            tag_keys=("deployment",),
+        ),
+        "down": Counter(
+            "autoscale_scale_down_total",
+            "SLO-autoscaler scale-down decisions applied",
+            tag_keys=("deployment",),
+        ),
+        "decision": Histogram(
+            "autoscale_decision_seconds",
+            "Pressure-onset (or idle-onset) to applied decision wall time",
+            boundaries=_AUTOSCALE_DECISION_BOUNDARIES_S,
+            tag_keys=("deployment", "direction"),
+        ),
+    })
+
+
+def record_autoscale_decision(deployment: str, direction: str, breach_age_s: float):
+    m = _ensure_autoscale_metrics()
+    m["up" if direction == "up" else "down"].inc(1.0, {"deployment": deployment})
+    m["decision"].observe(
+        max(breach_age_s, 0.0), {"deployment": deployment, "direction": direction}
+    )
+
+
+def autoscale_counters() -> Dict[str, float]:
+    """Process-local totals across deployments."""
+    m = _ensure_autoscale_metrics()
+    return {"scale_ups": _total(m["up"]), "scale_downs": _total(m["down"])}
+
+
+def fetch_metric_payloads(gcs_call) -> List[dict]:
+    """Every pushed payload under the GCS KV's ``metrics:`` prefix, read
+    through ``gcs_call(method, *args)`` and normalized as the reference's
+    are. The port's processes push none yet (ROADMAP A item 21), so this
+    returns what others have put there: on the port's own cluster, []."""
+    from ..runtime.gcs import keys as gcs_keys
+
+    payloads: List[dict] = []
+    for key in gcs_call("kv_keys", gcs_keys.METRICS.scan):
+        raw = gcs_call("kv_get", key)
+        if raw is None:
+            continue
+        doc = json.loads(raw)
+        if isinstance(doc, list):  # a legacy untagged push
+            doc = {"worker_id": key.split(":", 1)[-1], "node_id": "", "metrics": doc}
+        payloads.append(doc)
+    return payloads

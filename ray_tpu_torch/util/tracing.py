@@ -85,6 +85,17 @@ def _root_trace() -> str:
     return _root_trace_id
 
 
+def inject_context() -> Optional[Dict[str, str]]:
+    """The context a request carries to another process (a serve handle
+    stamps it into the request's metadata); None when tracing is off."""
+    if not is_tracing_enabled():
+        return None
+    ctx = current_context()
+    if ctx is None:
+        return {"trace_id": _root_trace(), "span_id": ""}
+    return dict(ctx)
+
+
 @contextmanager
 def trace_span(name: str, category: str = "app", **attrs):
     """Record one span around the block, linked to the enclosing span or

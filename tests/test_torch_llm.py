@@ -192,10 +192,11 @@ _LATER_SLICES = {
     "roles": (dict(roles={"prefill": 1, "decode": 1}), ValueError),
     "kv_tier": (dict(kv_tier=True), ValueError),
     "model_family": (dict(model_family="moe"), "moe"),
-    # the serve control plane and the weight plane
-    "num_replicas": (dict(num_replicas=2), NotImplementedError),
-    "autoscaling_config": (dict(autoscaling_config={"min_replicas": 1}), NotImplementedError),
-    "autoscale_policy": (dict(autoscale_policy={"min_replicas": 1}), NotImplementedError),
+    # the serve control plane (ported: the deployment's fields construct,
+    # "serve"), and the weight plane
+    "num_replicas": (dict(num_replicas=2), "serve"),
+    "autoscaling_config": (dict(autoscaling_config={"min_replicas": 1}), "serve"),
+    "autoscale_policy": (dict(autoscale_policy={"min_replicas": 1}), "serve"),
     "quantized": (dict(quantized=True), NotImplementedError),
 }
 
@@ -222,6 +223,10 @@ def test_later_slice_features_raise(case):
         cfg, ref = LLMConfig(**kwargs), JaxLLMConfig(**kwargs)
         assert (cfg.kv_tier, cfg.kv_cache_blocks, cfg.kv_ship_codec) == (
             ref.kv_tier, ref.kv_cache_blocks, ref.kv_ship_codec) == (True, 16, "raw")
+    elif raises == "serve":
+        cfg, ref = LLMConfig(**kwargs), JaxLLMConfig(**kwargs)
+        assert (cfg.num_replicas, cfg.autoscaling_config, cfg.autoscale_policy) == (
+            ref.num_replicas, ref.autoscaling_config, ref.autoscale_policy)
     elif raises == "moe":
         for model_id in ("moe-tiny", "mixtral-8x7b"):
             got = LLMConfig(model_id=model_id, **kwargs).build_model_config()
@@ -289,10 +294,15 @@ def test_config_checks_like_reference(kwargs, error):
 def test_every_reference_config_field_is_a_port_field():
     """A config written for ray_tpu reads the same: every field of the
     reference's LLMConfig and LlamaConfig is accepted, with its default
-    (dtypes are torch's in the port)."""
+    (dtypes are torch's in the port), but resources_per_replica's: a port
+    replica serves on the card, so it asks for one (kept item 38)."""
     ref_defaults, port_defaults = JaxLLMConfig(), LLMConfig()
     for name in (f.name for f in dataclasses.fields(JaxLLMConfig)):
         assert hasattr(port_defaults, name), name
+        if name == "resources_per_replica":
+            assert port_defaults.resources_per_replica == {"CPU": 1.0, "GPU": 1.0}
+            assert ref_defaults.resources_per_replica == {"TPU": 0.0, "CPU": 1.0}
+            continue
         assert getattr(port_defaults, name) == getattr(ref_defaults, name), name
     ref_model, port_model = JaxLlamaConfig(), LlamaConfig()
     for name in (f.name for f in dataclasses.fields(JaxLlamaConfig)):
@@ -368,7 +378,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'ray_tpu', 'gymnasium',\n"
-        "                                    'ml_dtypes', 'cloudpickle'))\n"
+        "                                    'ml_dtypes', 'cloudpickle', 'aiohttp', 'grpc',\n"
+        "                                    'fastapi', 'starlette'))\n"
         "need = {'ray_tpu_torch.parallel.expert', 'ray_tpu_torch.models.moe',\n"
         "        'ray_tpu_torch.util.metrics', 'ray_tpu_torch.util.tracing',\n"
         "        'ray_tpu_torch.util.events', 'ray_tpu_torch.kvtier.tier',\n"
@@ -400,13 +411,14 @@ def test_port_imports_neither_jax_nor_ray_tpu():
 
 
 def test_port_sources_name_neither_jax_nor_ray_tpu():
-    """No import of jax, flax, optax, ray_tpu, ml_dtypes or cloudpickle
-    anywhere, lazy ones included (the card's machine has neither of the
-    last two), and of gymnasium nowhere but in rllib/env.py's lazy
-    ``make_env`` of a string id. The scan covers every module, DreamerV3's,
-    the converters' and the runtime core's included (the reference's RPC
-    plane, object plane and GCS records use cloudpickle; the port's use
-    none)."""
+    """No import of jax, flax, optax, ray_tpu, ml_dtypes, cloudpickle,
+    aiohttp, grpc, fastapi or starlette anywhere, lazy ones included (the
+    card's machine has none of the last six), and of gymnasium nowhere but
+    in rllib/env.py's lazy ``make_env`` of a string id. The scan covers
+    every module, DreamerV3's, the converters', the runtime core's and the
+    serve control plane's included (the reference's RPC plane, object plane
+    and GCS records use cloudpickle, its HTTP proxy aiohttp and its gRPC
+    proxy grpc; the port's use none)."""
     import ast
 
     offenders, scanned = [], set()
@@ -416,7 +428,8 @@ def test_port_sources_name_neither_jax_nor_ray_tpu():
             continue
         rel = path.relative_to(pkg).as_posix()
         scanned.add(rel)
-        banned = ("jax", "flax", "optax", "ray_tpu", "ml_dtypes", "cloudpickle")
+        banned = ("jax", "flax", "optax", "ray_tpu", "ml_dtypes", "cloudpickle",
+                  "aiohttp", "grpc", "fastapi", "starlette")
         if rel != "rllib/env.py":
             banned += ("gymnasium",)
         for node in ast.walk(ast.parse(path.read_text())):
@@ -431,7 +444,8 @@ def test_port_sources_name_neither_jax_nor_ray_tpu():
             "collective/functional.py", "train/sharded_checkpoint.py", "_internal/rpc.py",
             "_internal/serialization.py", "runtime/worker/core_worker.py",
             "runtime/gcs/actor_manager.py", "runtime/gcs/placement_groups.py",
-            "runtime/gcs/server.py", "experimental/device_objects.py"} <= scanned
+            "runtime/gcs/server.py", "experimental/device_objects.py", "serve/proxy.py",
+            "serve/api.py", "serve/controller.py", "serve/replica.py"} <= scanned
 
 
 def test_no_card_means_error_not_cpu(monkeypatch):

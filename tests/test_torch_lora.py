@@ -439,9 +439,10 @@ def test_predictor_per_row_adapters_match_reference(models):
         with pytest.raises(RuntimeError, match="max_live"):
             p(too_many)
     assert _stats(pred.adapter_store) == _stats(ref._adapter_store)
-    for name in ("params_blob", "weights_name"):
-        with pytest.raises(NotImplementedError, match="weight plane"):
-            LLMPredictor(tcfg, device="cpu", **{name: b"x"})
+    # params_blob is read as the reference reads it (tests/
+    # test_torch_llm_deployment.py); weights_name rides the weight plane
+    with pytest.raises(NotImplementedError, match="weight plane"):
+        LLMPredictor(tcfg, device="cpu", weights_name="x")
 
 
 # ---------------------------------------------------------------------------
