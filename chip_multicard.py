@@ -114,8 +114,16 @@ port's ``TorchTrainer`` (``TorchConfig(backend="nccl")``):
    and its weights sit on it (the replicas' mesh cards); then one request
    sent to each replica's actor answers with the tokens of a one-card
    in-process server on card 0 (the same seed, the same request).
+12. the weight plane across the cards (``weights_part``): the driver
+   publishes seed-0 weights of part 11's model (drawn on card 0) once, and
+   n ``{"GPU": 1}`` replicas of a deployment with ``weights_name``, one a
+   card, resolve that version: each replica's parameter digest is the
+   driver's, each pulled every chunk once, and the node's store holds each
+   chunk once (the replicas read it from the one arena; the node served no
+   chunk to a peer); one request to each replica gives the in-process
+   server's tokens.
 
-    python3 chip_multicard.py 3      # part 3 alone (no argument: all eleven;
+    python3 chip_multicard.py 3      # part 3 alone (no argument: all twelve;
                                      # several, as in "4 5", run those)
 
 Prints the cards' names and power limits, one JSON line per part, and
@@ -333,7 +341,7 @@ def main() -> None:
     from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchConfig, TorchTrainer
 
     n = torch.cuda.device_count()
-    parts = set(sys.argv[1:]) or {str(i) for i in range(1, 12)}
+    parts = set(sys.argv[1:]) or {str(i) for i in range(1, 13)}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print("cards:", smi.replace("\n", " | "))
@@ -374,6 +382,8 @@ def main() -> None:
         runtime_part(torch, C, n)
     if "11" in parts:
         serve_part(torch, np, C, n)
+    if "12" in parts:
+        weights_part(torch, np, C, n)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": n}}))
 
@@ -651,7 +661,7 @@ def mesh_loop(config):
     mesh = tcol.gang_mesh(device, fsdp=1, **config["axes"])
     n, i = mesh.axes_size(BATCH_AXES), mesh.axes_index(BATCH_AXES)
     if config["model"] == "vit":
-        cfg, params, images, labels = C._mesh_vit_inputs(torch, device)
+        cfg, params, images, labels = C._mesh_vit_inputs(torch, device, n_layers=12)
         model = V.build_vit(cfg, params, mesh)
         rows = slice(i * images.shape[0] // n, (i + 1) * images.shape[0] // n)
         images, labels = images[rows].contiguous(), labels[rows].contiguous()
@@ -1258,6 +1268,82 @@ def serve_part(torch, np, C, n: int) -> None:
         finally:
             rt.shutdown()
     print("multicard serve", json.dumps(out))
+
+
+def weights_part(torch, np, C, n: int) -> None:
+    """Part 12: one published version resolved by n replicas on n cards."""
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.testing  # noqa: F401 - rt.testing
+    from ray_tpu_torch import _worker_api, serve, weights
+    from ray_tpu_torch.llm import LLMConfig, LLMServer, build_llm_deployment
+    from ray_tpu_torch.llm.serving import params_digest, publish_llm_weights
+
+    name = C.SERVE_WEIGHTS["name"]
+    cfg = LLMConfig(
+        model_id="llama2-7b", max_seq_len=C.CB["max_seq_len"], max_batch_size=C.CB["slots"],
+        kv_cache_blocks=C.CB["blocks"], kv_block_size=C.CB["block"],
+        model_kwargs=C.serve_model_kwargs(torch), num_replicas=n,
+        resources_per_replica={"CPU": 1.0, "GPU": 1.0},
+    )
+    local = LLMServer(dataclasses.replace(cfg, num_replicas=1))  # card 0, seed 0
+    params = local.engine._params
+    digest = params_digest(params)
+    rng = np.random.default_rng(C.SEED + 37)
+    prompts = [rng.integers(0, 32000, C.CB_PREFIX + C.CB_OWN).tolist() for _ in range(n)]
+    request = {"max_new_tokens": C.NEW_TOKENS, "temperature": 0.0}
+    want = [local(dict(request, token_ids=p))["token_ids"] for p in prompts]
+    out = {"shm": C._shm_room(C.SERVE_WEIGHTS["store_bytes"])}
+    rt.init(object_store_memory=C.SERVE_WEIGHTS["store_bytes"])
+    try:
+        node = _worker_api.get_node()
+        stats0 = node.loop_thread.run(node.raylet.handle_transfer_stats())
+        t0 = time.perf_counter()
+        publish_llm_weights(cfg, params, weights_name=name)
+        out["publish_s"] = time.perf_counter() - t0
+        del local, params
+        torch.cuda.empty_cache()
+        row = {r["name"]: r for r in weights.list_models()}[name]
+        chunk_ids = list(weights._publishers[name]._held_ids[1])
+        t0 = time.perf_counter()
+        serve.run(build_llm_deployment(cfg, name="llm", weights_name=name), name="llm",
+                  _proxy=False)
+        rows = C._wait_running(rt, "llm", n)
+        out["run_to_running_s"] = time.perf_counter() - t0
+        cards = sorted(r["mesh"]["gpu_ids"][0] for r in rows)
+        C.check(cards == list(range(n)), f"the replicas' cards are {cards}, not 0..{n - 1}")
+        infos = C._replica_calls(rt, "llm", "llm", "weights_info", True)
+        for rid, i in infos.items():
+            C.check(i["version"] == 1 and i["digest"] == digest,
+                    f"replica {rid} serves v{i['version']} with other parameters than the "
+                    "driver's")
+            C.check(i["chunk_pulls"] == row["num_chunks"],
+                    f"replica {rid} pulled {i['chunk_pulls']} chunks of {row['num_chunks']}")
+        stats1 = node.loop_thread.run(node.raylet.handle_transfer_stats())
+        store = node.raylet.store
+        held = sum(store.contains(o) for o in chunk_ids)
+        served = sum(stats1["fetch_serves"].get(o.hex(), 0) for o in chunk_ids)
+        pulls = stats1["native_pulls"] - stats0["native_pulls"]
+        C.check(held == len(chunk_ids) == row["num_chunks"] and served == 0 and pulls == 0,
+                f"the node holds {held} of {len(chunk_ids)} chunks, served {served}, pulled "
+                f"{pulls}: each chunk is not stored once")
+        controller = rt.get_actor("SERVE_CONTROLLER")
+        table = rt.get(controller.get_routing_table.remote("llm"), timeout=60)
+        replicas = [replica for _rid, replica, _q in table["llm"]["replicas"]]
+        got = rt.get([replica.handle_request.remote("__call__", (dict(request, token_ids=p),),
+                                                    {}, {})
+                      for replica, p in zip(replicas, prompts)], timeout=600)
+        partings = [C._first_parting(g["token_ids"], w) for g, w in zip(got, want)]
+        C.check(all(j is None for j in partings),
+                f"a replica's tokens differ from one card's: first partings {partings}")
+        out.update(cards=cards, chunks=row["num_chunks"], logical_bytes=row["total_bytes"],
+                   wire_bytes=row["wire_bytes"],
+                   resolve_s={rid: i["resolve_s"] for rid, i in infos.items()})
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+    print("multicard weights", json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -434,7 +434,9 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -544,7 +546,8 @@ SP_OPS_LOCAL = tuple((n, b, h, hk, s // SP["ranks"]) for n, b, h, hk, s in SP_OP
 # flash_attention's own distance from its f32 plain version, tensor by tensor
 SP_OP_TIMES = 4
 # the models over multi-axis meshes (train_mesh): eight gloo ranks sharing
-# the card (NCCL refuses two ranks on one card). (a) ViT-B/16 at 224, global
+# the card (NCCL refuses two ranks on one card). (a) ViT-B/16 at 224 at full
+# width cut to 6 of its 12 layers (its gloo sums carry every parameter), global
 # batch 128, bf16 over f32, AdamW, on the reference test's dp=2 x fsdp=2 x
 # tp=2, 2 steps; (b) Mixtral-8x7B at full width cut to 1 of its 32 layers,
 # b=2 x 2048 (the experts' f32 partial sums go through host gloo), remat,
@@ -556,7 +559,7 @@ SP_OP_TIMES = 4
 # rank: AdamW's state, 3.5 GB a rank, left the eight ranks and this process
 # more than the card holds); then (e) GPipe on ranks 0-3 (PIPE) and (f)
 # the hierarchical group on ranks 4-7 (HIER); then train_tp's round
-MESH = {"ranks": 8,
+MESH = {"ranks": 8, "vit_layers": 6,
         "vit": {"axes": {"dp": 2, "fsdp": 2, "tp": 2}, "batch": VIT_BATCH, "steps": 2,
                 "lr": 1e-4},
         "moe": {"axes": {"fsdp": 2, "ep": 2, "tp": 2}, "n_layers": 1, "batch": 2,
@@ -1385,6 +1388,18 @@ def _alive(pid):
     return True
 
 
+def _shm_room(need):
+    """(size, free bytes) of /dev/shm, where the native store maps its arena;
+    fails unless ``need`` bytes are free. A tmpfs smaller than the arena
+    does not fail at mmap: the first write past it kills the raylet."""
+    st = os.statvfs("/dev/shm")
+    size, free = st.f_blocks * st.f_frsize, st.f_bavail * st.f_frsize
+    check(free >= need, f"/dev/shm has {free} B free of {size} B; the object store's arena "
+                        f"needs {need} B (serve_weights holds two raw bf16 versions of the "
+                        "model and an int8 one at once)")
+    return {"size": size, "free": free}
+
+
 def runtime_serve_phase(torch, server, prompts, counters):
     """The runtime core on the card: (a) ``init()`` finds the card as the
     node's GPU resource and the native object store; (b) a num_gpus=1 task
@@ -1394,8 +1409,9 @@ def runtime_serve_phase(torch, server, prompts, counters):
     the in-process server's K1/K2 launches; (d) device objects: the actor's
     full-forward logits stay on its card, a local hit is zero-copy, the
     device_get here is bit for bit, free gives the memory back. The cluster
-    stays up, the actor alive, for ``serve_deploy``, which shuts it down
-    (on a failure here it is shut down at once). Returns (the worker's
+    (its object store sized for ``serve_weights``, /dev/shm checked first)
+    stays up, the actor alive, for ``serve_deploy`` and ``serve_weights``,
+    which shuts it down (on a failure it is shut down at once). Returns (the worker's
     launches over (c) and (d), the phase's numbers, the cluster's record)."""
     import chip_smoke as C  # the workers import the remote programs by this name
     import ray_tpu_torch as rt
@@ -1407,8 +1423,9 @@ def runtime_serve_phase(torch, server, prompts, counters):
     out = {}
     libs = runtime_kernel_libs()  # built by the script's build phase
     request = {"max_new_tokens": RUNTIME["new_tokens"], "temperature": 0.0}
+    out["shm"] = _shm_room(SERVE_WEIGHTS["store_bytes"])
     t0 = time.perf_counter()
-    rt.init()
+    rt.init(object_store_memory=SERVE_WEIGHTS["store_bytes"])
     out["init_s"] = time.perf_counter() - t0
     pids = []
     try:
@@ -1540,16 +1557,25 @@ def runtime_kernel_libs():
 #: the in-process run's, and a GEMM's sums with them)
 SERVE_DEPLOY = {"replicas": 2, "gpu_share": 0.5, "affinity_tokens": 16, "serial": 4,
                 "near_tie_ulps": 4}
+# the weight plane and the cluster KV tier (serve_weights), on runtime_serve's
+# cluster: a role graph of serve_cb's config (one prefill, one decode replica
+# on card 0's halves) that resolves its weights by name. The object store's
+# arena holds two raw bf16 versions (2 x 2.14 GB at SERVE_LAYERS) and an int8
+# one (1.08 GB) at the peak, the KV shipments beside them
+SERVE_WEIGHTS = {"name": "llm/llama2-7b", "requests": 4, "gpu_share": 0.5,
+                 "roles": {"prefill": 1, "decode": 1}, "store_bytes": 7 << 30,
+                 "v2_seed": 1}
 
 
 def _replica_calls(rt, app, deployment, method, *args):
-    """``method(*args)`` on every RUNNING replica of a deployment, through
-    each replica's own actor (a handle routes to one of them), by replica
-    id."""
+    """``method(*args)`` on every RUNNING replica of a deployment at once,
+    through each replica's own actor (a handle routes to one of them), by
+    replica id."""
     controller = rt.get_actor("SERVE_CONTROLLER")
     table = rt.get(controller.get_routing_table.remote(app), timeout=30)
-    return {rid: rt.get(replica.handle_request.remote(method, args, {}, {}), timeout=300)
+    refs = {rid: replica.handle_request.remote(method, args, {}, {})
             for rid, replica, _q in table[deployment]["replicas"]}
+    return {rid: rt.get(ref, timeout=300) for rid, ref in refs.items()}
 
 
 def _wait_running(rt, app, n, timeout_s=300.0):
@@ -1574,39 +1600,17 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def serve_deploy_phase(torch, np, cluster, cb_traffic, cb_out, server, counters):
-    """The serve control plane on the card, on runtime_serve's cluster:
-    ``serve.run(build_llm_deployment(...))`` of two replicas of the serve_cb
-    server's config, each leasing {"CPU": 1, "GPU": 0.5}. (a) both reach
-    RUNNING bound to card 0 through their leases; (b) serve_cb's 16
-    requests (a shared 256-token prefix and 64 tokens of their own, 32 new
-    greedy tokens) from 8 threads through the handle with prefix affinity:
-    serve_cb's tokens (or a printed near-tie), prefix hits exactly 256 x
-    (16 - the replicas used) over the replicas' KV stats, K1 9 a model
-    call in each replica and K2-K4 none; then a serial wave of 4 requests on
-    a new prefix lands on one replica and hits 3 x 256; (c) one request
-    through the HTTP proxy, the same one alone through the handle and a
-    streamed one give serve_cb's tokens as (b)'s do, the stream's first
-    item before its end; (d) a replica killed, the next
-    requests are answered and the controller brings the deployment back to
-    2 RUNNING replicas on card 0. Then the cluster shuts down and no worker
-    (runtime_serve's, the controller, the proxy, the replicas) is left.
-    This process's counts stay 0; the replicas' own counts are set to 0
-    just before (b) and read just after (c). Returns (the path's launches,
-    the phase's numbers)."""
-    import urllib.request
-    from concurrent.futures import ThreadPoolExecutor
-
+def serve_deploy_start(torch, cluster):
+    """serve_deploy's start, on runtime_serve's cluster: its actor killed
+    (it holds the whole card), ``serve.start`` with the proxy on a free
+    port, and ``serve.run(build_llm_deployment(...))`` of two replicas of the
+    serve_cb server's config at {"CPU": 1, "GPU": 0.5}, without waiting: the
+    replicas start while serve_cb runs here."""
     import ray_tpu_torch as rt
-    import ray_tpu_torch.testing  # noqa: F401 - rt.testing
-    from ray_tpu_torch import _worker_api, serve
+    from ray_tpu_torch import serve
     from ray_tpu_torch.llm import LLMConfig, build_llm_deployment
-    from ray_tpu_torch.models.llama import build_llama
 
-    out, app = {}, "llm"
-    pool_procs = _worker_api.get_node().raylet.worker_pool._spawned_procs
     try:
-        # runtime_serve's actor holds the whole card: its lease goes first
         rt.kill(cluster["actor"])
         del cluster["actor"]
         deadline = time.time() + 60
@@ -1614,8 +1618,6 @@ def serve_deploy_phase(torch, np, cluster, cb_traffic, cb_out, server, counters)
             time.sleep(0.1)
         check(rt.available_resources().get("GPU") == 1.0,
               f"runtime_serve's actor kept its card: {rt.available_resources()}")
-        for fn in counters.values():
-            fn.launches = 0
         cfg = LLMConfig(
             model_id="llama2-7b", max_seq_len=CB["max_seq_len"], max_batch_size=CB["slots"],
             kv_cache_blocks=CB["blocks"], kv_block_size=CB["block"],
@@ -1626,9 +1628,55 @@ def serve_deploy_phase(torch, np, cluster, cb_traffic, cb_out, server, counters)
         port = _free_port()
         t0 = time.perf_counter()
         serve.start(http_port=port)
-        handle = serve.run(build_llm_deployment(cfg, name=app), name=app, route_prefix="/llm")
+        handle = serve.run(build_llm_deployment(cfg, name="llm"), name="llm",
+                           route_prefix="/llm", _blocking=False)
+        cluster["deploy_started"] = dict(handle=handle, port=port, cfg=cfg, t_run=t0)
+    except BaseException:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+        raise
+
+
+def serve_deploy_phase(torch, np, cluster, cb_traffic, cb_out, server, counters):
+    """The serve control plane on the card, on runtime_serve's cluster:
+    ``serve.run(build_llm_deployment(...))`` of two replicas of the serve_cb
+    server's config, each leasing {"CPU": 1, "GPU": 0.5}, started by
+    :func:`serve_deploy_start` before serve_cb. (a) both reach
+    RUNNING bound to card 0 through their leases; (b) serve_cb's 16
+    requests (a shared 256-token prefix and 64 tokens of their own, 32 new
+    greedy tokens) from 8 threads through the handle with prefix affinity:
+    serve_cb's tokens (or a printed near-tie), prefix hits exactly 256 x
+    (16 - the replicas used) over the replicas' KV stats, K1 9 a model
+    call in each replica and K2-K4 none; then a serial wave of 4 requests on
+    a new prefix lands on one replica and hits 3 x 256; (c) one request
+    through the HTTP proxy, the same one alone through the handle and a
+    streamed one give serve_cb's tokens as (b)'s do, the stream's first
+    item before its end; (d) a replica killed and the next requests
+    answered; :func:`serve_deploy_finish` then sees the controller bring the
+    deployment back to 2 RUNNING replicas on card 0 (its replacement starts
+    while serve_weights publishes) and deletes the app, so that its replicas
+    free the card; the cluster stays up for ``serve_weights`` (on a failure
+    it is shut down at once). This process's counts stay 0;
+    the replicas' own counts are set to 0 just before (b) and read just
+    after (c). Returns (the path's launches, the phase's numbers)."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.testing  # noqa: F401 - rt.testing
+    from ray_tpu_torch import _worker_api, serve
+
+    out, app = {}, "llm"
+    pool_procs = _worker_api.get_node().raylet.worker_pool._spawned_procs
+    started = cluster.pop("deploy_started")
+    handle, port, cfg = started["handle"], started["port"], started["cfg"]
+    try:
+        for fn in counters.values():
+            fn.launches = 0
         rows = _wait_running(rt, app, SERVE_DEPLOY["replicas"])
-        out["run_to_running_s"] = time.perf_counter() - t0
+        out["run_to_running_s"] = time.perf_counter() - started["t_run"]
         print(f"lap serve_deploy run_to_running {out['run_to_running_s']:.1f} s")
 
         # (a) two replicas on card 0's halves, each bound to it by its lease
@@ -1754,48 +1802,18 @@ def serve_deploy_phase(torch, np, cluster, cb_traffic, cb_out, server, counters)
         after_kill = [ask(p, handle)["token_ids"] for p in prompts[:4]]
         out["answered_after_kill_s"] = time.perf_counter() - t0
         compared += [("after_kill", p, t, w) for p, t, w in zip(prompts, after_kill, want)]
-        deadline = time.time() + 300
-        while time.time() < deadline:
-            rows = _wait_running(rt, app, SERVE_DEPLOY["replicas"],
-                                 timeout_s=max(1.0, deadline - time.time()))
-            if victim not in {r["replica_id"] for r in rows}:
-                break
-            time.sleep(0.1)
-        out["replacement_s"] = time.perf_counter() - t0
-        check(victim not in {r["replica_id"] for r in rows}, "the killed replica was not replaced")
-        for r in rows:
-            check(r["mesh"]["gpu_ids"] == [0] and r["mesh"]["devices"] == ["cuda:0"],
-                  f"serve_deploy (d): the replacement is not on card 0: {r}")
-        print(f"lap serve_deploy replacement {out['replacement_s']:.1f} s")
-        pids = set(cluster["pids"]) | set(pool_procs)
-    finally:
+        cluster["deploy_replacement"] = dict(app=app, victim=victim, t_kill=t0,
+                                             pool_procs=pool_procs)
+    except BaseException:
         try:
             serve.shutdown()
         finally:
             rt.shutdown()
-    check(not any(_alive(p) for p in pids), f"a worker outlived shutdown(): {sorted(pids)}")
-    check(runtime_kernel_libs() == cluster["libs"], "a worker rebuilt a kernel library")
+        raise
 
     # off the path: where a replica's greedy token parted from serve_cb's,
     # the in-process server's top-2 logit gap there must be a near-tie
-    engine = server.engine
-    ties = []
-    for label, p, got_toks, want_toks in compared:
-        j = _first_parting(got_toks, want_toks)
-        if j is None:
-            check(len(got_toks) == len(want_toks) == NEW_TOKENS, f"{label}: {got_toks}")
-            continue
-        with torch.inference_mode():
-            logits = build_llama(engine._cfg, engine._params)(
-                torch.tensor([p + want_toks[:j]], device="cuda"))[0, -1].float()
-        top2 = logits.topk(2).values
-        gap, bound = (top2[0] - top2[1]).item(), (
-            SERVE_DEPLOY["near_tie_ulps"] * ULP["torch.bfloat16"] * top2[0].abs().item())
-        print(f"serve_deploy ({label}): a replica parts from serve_cb at step {j}: top-2 "
-              f"gap {gap} (near-tie bound {bound})")
-        check(gap <= bound, f"a replica parts from serve_cb at step {j} where the top-2 gap "
-                            f"{gap} is over {bound}")
-        ties.append(dict(requests=label, step=j, top2_gap=gap, bound=bound))
+    ties = _near_ties(torch, server.engine, compared, "serve_deploy", "serve_cb")
     out.update(
         requests=CB_REQUESTS, threads=CB["slots"], replicas_used=used, routing=case,
         requests_by_replica=requests, prefix_hit_tokens=hits, prefill_tokens_computed=computed,
@@ -1810,6 +1828,468 @@ def serve_deploy_phase(torch, np, cluster, cb_traffic, cb_out, server, counters)
           f"{ttft_s * 1e3:.1f} ms of {stream_s * 1e3:.1f} ms")
     print("serve_deploy", json.dumps(out))
     return path, out
+
+
+def _one(by_replica):
+    """The value of a deployment's one replica from ``_replica_calls``."""
+    check(len(by_replica) == 1, f"want one replica, got {sorted(by_replica)}")
+    return next(iter(by_replica.values()))
+
+
+def _exited(pid):
+    """True once ``pid`` has exited: gone, or a zombie its parent (a
+    worker pool of this process) has not reaped yet."""
+    if not _alive(pid):
+        return True
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except OSError:
+        return True
+
+
+def _weights_config(torch, **kw):
+    """serve_weights' role graph: serve_cb's config, a prefill and a decode
+    replica at {"CPU": 1, "GPU": 0.5}."""
+    from ray_tpu_torch.llm import LLMConfig
+
+    return LLMConfig(model_id="llama2-7b", max_seq_len=CB["max_seq_len"],
+                     max_batch_size=CB["slots"], kv_cache_blocks=CB["blocks"],
+                     kv_block_size=CB["block"], model_kwargs=serve_model_kwargs(torch), **kw)
+
+
+def serve_weights_start(torch, cluster, server):
+    """serve_weights (a), on runtime_serve's cluster while serve_deploy's
+    killed replica is replaced: the driver publishes the serve phase's
+    seed-0 weights (on the card) as v1 through ``publish_llm_weights``, then
+    draws v2 (seed 1) on the card, decodes its own int8 chunks of v2 (v3's
+    weights) and digests all three. Returns the phase's state for
+    :func:`serve_weights_deploy`."""
+    from ray_tpu_torch import _worker_api, weights
+    from ray_tpu_torch.llm.serving import params_digest, publish_llm_weights
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.weights import assemble_pytree, chunk_pytree
+
+    name, app = SERVE_WEIGHTS["name"], "llmw"
+    cfg = _weights_config(torch, roles=dict(SERVE_WEIGHTS["roles"]),
+                          resources_per_replica={"CPU": 1.0,
+                                                 "GPU": SERVE_WEIGHTS["gpu_share"]})
+    sw = {"app": app, "name": name, "cfg": cfg, "out": {}, "cluster": cluster,
+          "pool_procs": _worker_api.get_node().raylet.worker_pool._spawned_procs}
+    out = sw["out"]
+    try:
+        params = server.engine._params
+        t0 = time.perf_counter()
+        publish_llm_weights(cfg, params, weights_name=name)
+        out["publish_s"] = {1: time.perf_counter() - t0}
+        r = {x["name"]: x for x in weights.list_models()}[name]
+        shm = os.statvfs("/dev/shm")
+        out["v1"] = dict(chunks=r["num_chunks"], logical_bytes=r["total_bytes"],
+                         wire_bytes=r["wire_bytes"], codec=r["codec"],
+                         shm_size=shm.f_blocks * shm.f_frsize,
+                         shm_free=shm.f_bavail * shm.f_frsize)
+        check(r["head"] == 1 and r["codec"] == "raw", f"serve_weights (a): registry row {r}")
+        print(f"serve_weights (a): v1 {r['num_chunks']} chunks, {r['total_bytes']} logical / "
+              f"{r['wire_bytes']} wire B in {out['publish_s'][1]:.3f} s; /dev/shm "
+              f"{out['v1']['shm_size']} B, {out['v1']['shm_free']} B free")
+        # the driver's side of (d) and (e)
+        card = _card(torch)
+        gen = torch.Generator(device=card).manual_seed(SERVE_WEIGHTS["v2_seed"])
+        sw["v2"] = init_params(server.engine._cfg, gen, device=card)
+        blob, chunks, _ = chunk_pytree(sw["v2"], 1 << 30, codec="int8")
+        sw["v3"] = assemble_pytree(blob, chunks, card)  # the card's decode of v3's chunks
+        del blob, chunks
+        sw["digest"] = {1: params_digest(params), 2: params_digest(sw["v2"]),
+                        3: params_digest(sw["v3"])}
+    except BaseException:
+        _serve_weights_down(sw)
+        raise
+    return sw
+
+
+def serve_weights_deploy(torch, sw):
+    """serve_weights (b)'s start, once serve_deploy's app is gone:
+    ``build_llm_deployment(roles={"prefill": 1, "decode": 1},
+    weights_name=...)`` (no ``tier_backend``: each replica builds
+    ``GcsTierBackend()``), deployed without waiting: its replicas start and
+    resolve v1 while the in-process phases after this one run."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import build_llm_deployment
+
+    try:
+        deadline = time.time() + 60
+        while rt.available_resources().get("GPU") != 1.0 and time.time() < deadline:
+            time.sleep(0.1)
+        check(rt.available_resources().get("GPU") == 1.0,
+              f"serve_deploy's replicas kept the card: {rt.available_resources()}")
+        sw["t_run"] = time.perf_counter()
+        sw["handle"] = serve.run(
+            build_llm_deployment(sw["cfg"], name=sw["app"], weights_name=sw["name"]),
+            name=sw["app"], route_prefix=None, _blocking=False)
+    except BaseException:
+        _serve_weights_down(sw)
+        raise
+
+
+def _serve_weights_down(sw):
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    try:
+        serve.shutdown()
+    finally:
+        rt.shutdown()
+
+
+def serve_weights_phase(torch, np, sw, cb_traffic, server, counters):
+    """The weight plane and the cluster KV tier on the card, (b)-(f) of
+    serve_weights (see :func:`serve_weights_start`). (b) Both replicas
+    RUNNING at version 1, bound to card 0, their parameters' digests the
+    driver's. (c) serve_cb's first 4 prompts through the ingress: the tokens
+    of an in-process fused server of the same config on the same weights
+    (or a printed near-tie), one peer pull a handoff and no recompute on the
+    decode side, which computes no prefill token, K1 9 a model call in each
+    replica and K2-K4 none. (d) v2 published, ``reload_weights()`` on both
+    replicas: version 2 at staleness 0, digests equal, the in-process
+    server swapped to v2 through ``swap_params`` gives their tokens; v1
+    tombstoned and its chunks unpinned once both readers moved. (e) v2's
+    weights published int8 as v3, ``reconfigure({"weights_version":
+    None})``: codec int8, each digest that of the driver's own decode of the
+    same chunks on the card, whose tokens the in-process server gives. (f) a
+    prefill's shipment exported, the prefill replica killed: its decode is a
+    counted recompute (the holder is dead) with the same tokens; the
+    controller's replacement is checked by :func:`serve_weights_finish`.
+    This process's counts stay 0 (the in-process server runs outside the
+    counted windows); the replicas' own, set to 0 before each wave and read
+    after it, are the path's. Returns the path's launches."""
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.testing  # noqa: F401 - rt.testing
+    from ray_tpu_torch import _worker_api, weights
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.llm.serving import publish_llm_weights
+
+    out, app, name, cfg, handle = sw["out"], sw["app"], sw["name"], sw["cfg"], sw["handle"]
+    pre, dec = f"{app}-prefill", f"{app}-decode"
+    node = _worker_api.get_node()
+    prompts = cb_traffic["prompts"][:SERVE_WEIGHTS["requests"]]
+    path = {n: 0 for n in counters}
+
+    def request(p):
+        return {"token_ids": p, "max_new_tokens": NEW_TOKENS, "temperature": 0.0}
+
+    def row():
+        return {r["name"]: r for r in weights.list_models()}[name]
+
+    def on_both(method, *args):
+        """``method(*args)`` on the prefill and the decode replica at once:
+        (their replies by deployment, the seconds until both replied)."""
+        table = rt.get(rt.get_actor("SERVE_CONTROLLER").get_routing_table.remote(app),
+                       timeout=30)
+        t0 = time.perf_counter()
+        refs = {}
+        for d in (pre, dec):
+            (_rid, replica, _q), = table[d]["replicas"]
+            refs[d] = replica.handle_request.remote(method, args, {}, {})
+        got = {d: rt.get(ref, timeout=300) for d, ref in refs.items()}
+        return got, time.perf_counter() - t0
+
+    def check_version(version, codec):
+        info, _ = on_both("weights_info", True)
+        for d, i in info.items():
+            check(i["version"] == version and i["staleness"] == 0 and i["codec"] == codec,
+                  f"serve_weights: {d} serves {i}, want v{version} {codec} at staleness 0")
+            check(i["digest"] == sw["digest"][version],
+                  f"serve_weights: {d}'s v{version} parameters differ from the driver's")
+        return info
+
+    def wave(label, version):
+        """The prompts through the ingress against the in-process server's
+        tokens at ``version`` (computed while the replicas started)."""
+        want = wants[version]
+        for fn in counters.values():
+            fn.launches = 0
+        on_both("kernel_launches", True)
+        tier0 = on_both("kvtier_stats")[0]
+        cache0 = _one(_replica_calls(rt, app, dec, "kvcache_stats"))
+        t0 = time.perf_counter()
+        got = [handle.remote(request(p)).result(timeout_s=600)["token_ids"] for p in prompts]
+        wall = time.perf_counter() - t0
+        launches = on_both("kernel_launches")[0]
+        tier1 = on_both("kvtier_stats")[0]
+        cache1 = _one(_replica_calls(rt, app, dec, "kvcache_stats"))
+        own = {n: fn.launches for n, fn in counters.items()}
+        check(all(v == 0 for v in own.values()),
+              f"serve_weights ({label}): the path launched kernels in this process: {own}")
+        counts = {k: tier1[dec]["counters"][k] - tier0[dec]["counters"][k]
+                  for k in tier1[dec]["counters"]}
+        n = len(prompts)
+        check(counts["peer_pull"] == n and counts["recompute"] == 0,
+              f"serve_weights ({label}): decode-side tier counters {counts}, want {n} peer "
+              "pulls and no recompute")
+        computed = cache1["prefill_tokens_computed"] - cache0["prefill_tokens_computed"]
+        check(computed == 0, f"serve_weights ({label}): the decode side computed {computed} "
+                             "prefill tokens")
+        per_call = 2 * SERVE_LAYERS + 1
+        for d, c in launches.items():
+            check(c["forward_calls"] > 0 and c["rmsnorm_fwd"] == per_call * c["forward_calls"],
+                  f"serve_weights ({label}): {d}: K1 {c['rmsnorm_fwd']} in "
+                  f"{c['forward_calls']} model calls, want {per_call} each")
+            for k in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                check(c[k] == 0, f"serve_weights ({label}): {d} launched {k}")
+            for k in path:
+                path[k] += c[k]
+        ties = _near_ties(torch, engines[version], [(label, p, g, w) for p, g, w in
+                                                    zip(prompts, got, want)],
+                          "serve_weights", "the in-process server")
+        reg = tier1[dec]["registry"]
+        res = dict(wall_s=wall, tokens_equal=sum(g == w for g, w in zip(got, want)),
+                   near_ties=ties, tier=counts, decode_prefill_computed=computed,
+                   registry_entries=reg["entries"], registry_wire_bytes=reg["pinned_wire_bytes"],
+                   registry_logical_bytes=reg["pinned_logical_bytes"], launches=launches)
+        print(f"serve_weights ({label}): {res['tokens_equal']}/{n} equal in {wall:.3f} s; "
+              f"decode tier {counts}; registry {reg['entries']} entries, "
+              f"{reg['pinned_logical_bytes']} logical / {reg['pinned_wire_bytes']} wire B")
+        return res
+
+    def part(name_, t0):
+        out.setdefault("part_s", {})[name_] = time.perf_counter() - t0
+        print(f"lap serve_weights ({name_}) {out['part_s'][name_]:.1f} s", flush=True)
+        return time.perf_counter()
+
+    try:
+        # while the replicas start: the in-process server's tokens at each
+        # version, taking v2 and v3 through swap_params as the replicas will
+        t0 = time.perf_counter()
+        local = LLMServer(_weights_config(torch), params=server.engine._params,
+                          device=_card(torch))  # shares v1
+        wants, engines = {}, {}
+        for version, params in ((1, None), (2, sw["v2"]), (3, sw["v3"])):
+            if params is not None:
+                local.engine.swap_params(params)
+            engines[version] = types.SimpleNamespace(_cfg=local.engine._cfg,
+                                                     _params=local.engine._params)
+            wants[version] = [local(request(p))["token_ids"] for p in prompts]
+        dead_want = local(request(prompts[0]))["token_ids"]  # (f)'s, after v3's wave
+        del local
+        torch.cuda.synchronize()
+        sw.pop("v3")
+        t0 = part("in_process", t0)
+
+        # (b) the role graph resolved v1 before it reported RUNNING
+        rows = _wait_running(rt, app, 2)
+        out["run_to_running_s"] = time.perf_counter() - sw["t_run"]
+        for rr in rows:
+            check(rr["mesh"]["gpu_ids"] == [0] and rr["mesh"]["devices"] == ["cuda:0"],
+                  f"serve_weights (b): a replica is not on card 0: {rr}")
+        info = check_version(1, "raw")
+        out["resolve_s"] = {d: i["resolve_s"] for d, i in info.items()}
+        out["v1_pull"] = {d: (i["chunk_pulls"], i["wire_bytes_pulled"]) for d, i in info.items()}
+        print(f"serve_weights (b): RUNNING {out['run_to_running_s']:.1f} s after serve.run; "
+              f"resolve_s {out['resolve_s']}; digests equal the driver's")
+        t0 = part("b", t0)
+
+        # (c) the prompts through the ingress, while v2 is published here on a
+        # thread of its own ((d)'s first step: the replicas hold v1 until
+        # they reload)
+        published = {}
+
+        def publish_v2():
+            t = time.perf_counter()
+            try:
+                publish_llm_weights(cfg, sw["v2"], weights_name=name)
+            except BaseException as e:  # noqa: BLE001 - raised on this thread below
+                published["error"] = e
+            published["s"] = time.perf_counter() - t
+
+        publisher = threading.Thread(target=publish_v2, name="publish-v2")
+        publisher.start()
+        out["waves"] = {"v1": wave("v1", 1)}
+        t0 = part("c", t0)
+
+        # (d) v2 hot-reloaded
+        publisher.join()
+        if "error" in published:
+            raise published["error"]
+        out["publish_s"][2] = published["s"]
+        pub = weights._publishers[name]
+        v1_ids = list(pub._held_ids[1])
+        reloads, out["reload_s"] = on_both("reload_weights")
+        for d, got in reloads.items():
+            check(got == {"version": 2, "staleness": 0},
+                  f"serve_weights (d): {d} reloaded to {got}")
+        check_version(2, "raw")
+        r = row()
+        check(r["versions"] == [2] and r["tombstoned"] >= 1,
+              f"serve_weights (d): v1 not tombstoned: {r}")
+        pub.collect()
+        check(1 not in pub._held, "serve_weights (d): the publisher still holds v1")
+        store = node.raylet.store
+        deadline = time.time() + 30
+        while time.time() < deadline and any(o in store._weight_pins for o in v1_ids):
+            time.sleep(0.05)
+        pinned = sum(o in store._weight_pins for o in v1_ids)
+        check(pinned == 0, f"serve_weights (d): {pinned} of v1's {len(v1_ids)} chunks are "
+                           "still pinned")
+        out["v1_chunks_left_in_store"] = sum(store.contains(o) for o in v1_ids)
+        print(f"serve_weights (d): both reloaded in {out['reload_s']:.3f} s; v1 tombstoned, "
+              f"its {len(v1_ids)} chunks unpinned ({out['v1_chunks_left_in_store']} still in "
+              "the store)")
+        out["waves"]["v2"] = wave("v2", 2)
+        t0 = part("d", t0)
+
+        # (e) v3: v2's weights int8, reloaded through reconfigure
+        t = time.perf_counter()
+        publish_llm_weights(dataclasses.replace(cfg, quantized=True), sw.pop("v2"),
+                            weights_name=name)
+        out["publish_s"][3] = time.perf_counter() - t
+        r = row()
+        out["v3"] = dict(chunks=r["num_chunks"], logical_bytes=r["total_bytes"],
+                         wire_bytes=r["wire_bytes"], codec=r["codec"],
+                         wire_over_logical=r["wire_bytes"] / r["total_bytes"])
+        _, out["reconfigure_s"] = on_both("reconfigure", {"weights_version": None})
+        check_version(3, "int8")
+        torch.cuda.empty_cache()
+        print(f"serve_weights (e): v3 int8 {r['num_chunks']} chunks, wire/logical "
+              f"{out['v3']['wire_over_logical']:.4f}; reconfigure {out['reconfigure_s']:.3f} s")
+        out["waves"]["v3"] = wave("v3", 3)
+        t0 = part("e", t0)
+
+        # (f) the prefill holder dies after an export
+        p, want = prompts[0], dead_want
+        blob = _one(_replica_calls(rt, app, pre, "prefill", request(p)))
+        check(blob is not None, "serve_weights (f): the prefill replica shipped nothing")
+        victim, vpid = rt.testing.kill_serve_replica(app, deployment=pre)
+        sw["t_kill"] = time.perf_counter()
+        check(victim is not None, "serve_weights (f): no prefill replica to kill")
+        deadline = time.time() + 60
+        while time.time() < deadline and not _exited(vpid):
+            time.sleep(0.02)
+        check(_exited(vpid), f"serve_weights (f): the killed replica {vpid} is still running")
+        tier0 = _one(_replica_calls(rt, app, dec, "kvtier_stats"))["counters"]
+        t = time.perf_counter()
+        got = _one(_replica_calls(rt, app, dec, "decode_shipped", request(p), blob))
+        out["dead_holder_decode_s"] = time.perf_counter() - t
+        tier1 = _one(_replica_calls(rt, app, dec, "kvtier_stats"))["counters"]
+        counts = {k: tier1[k] - tier0[k] for k in ("peer_pull", "recompute")}
+        check(counts == {"peer_pull": 0.0, "recompute": 1.0},
+              f"serve_weights (f): the dead holder's shipment gave tier counters {counts}")
+        out["dead_holder_ties"] = _near_ties(torch, engines[3],
+                                             [("dead_holder", p, got["token_ids"], want)],
+                                             "serve_weights", "the in-process server")
+        sw.update(victim=victim, engine=engines[3], prompt=p, want=want)
+        print(f"serve_weights (f): the dead holder's shipment recomputed in "
+              f"{out['dead_holder_decode_s']:.3f} s")
+        part("f", t0)
+    except BaseException:
+        _serve_weights_down(sw)
+        raise
+    out["launches"] = path
+    return path
+
+
+def serve_weights_finish(torch, sw):
+    """serve_weights (f)'s end: the controller has brought the prefill role
+    back (its replacement started while the phases in between ran) at head
+    version 3, and the role graph answers again through it; then the
+    cluster shuts down and no worker (runtime_serve's, the controller, the
+    proxy, every replica) is left, and no kernel library was rebuilt.
+    Returns the phase's numbers."""
+    import ray_tpu_torch as rt
+
+    out, app = sw["out"], sw["app"]
+    pre = f"{app}-prefill"
+    try:
+        deadline = time.time() + 300
+        while time.time() < deadline:
+            rows = _wait_running(rt, app, 2, timeout_s=max(1.0, deadline - time.time()))
+            if sw["victim"] not in {rr["replica_id"] for rr in rows}:
+                break
+            time.sleep(0.1)
+        out["replacement_s"] = time.perf_counter() - sw["t_kill"]
+        check(sw["victim"] not in {rr["replica_id"] for rr in rows},
+              "serve_weights (f): the killed prefill replica was not replaced")
+        back = _one(_replica_calls(rt, app, pre, "weights_info"))
+        check(back["version"] == 3 and back["codec"] == "int8",
+              f"serve_weights (f): the replacement serves {back}, not head v3")
+        again = sw["handle"].remote(
+            {"token_ids": sw["prompt"], "max_new_tokens": NEW_TOKENS, "temperature": 0.0}
+        ).result(timeout_s=600)["token_ids"]
+        out["after_replacement_ties"] = _near_ties(
+            torch, sw["engine"], [("after_replacement", sw["prompt"], again, sw["want"])],
+            "serve_weights", "the in-process server")
+        print(f"serve_weights (f): the prefill back at v3 {out['replacement_s']:.1f} s after "
+              "the kill")
+        cluster = sw["cluster"]
+        pids = sorted(set(cluster["pids"]) | set(sw["pool_procs"]))
+    finally:
+        sw.pop("engine", None)
+        _serve_weights_down(sw)
+    check(not any(_alive(pid) for pid in pids), f"a worker outlived shutdown(): {pids}")
+    check(runtime_kernel_libs() == cluster["libs"], "a worker rebuilt a kernel library")
+    torch.cuda.empty_cache()
+    print("serve_weights", json.dumps(out, default=str))
+    return out
+
+
+def serve_deploy_finish(torch, cluster):
+    """serve_deploy (d)'s end: the killed replica replaced, the deployment
+    back to 2 RUNNING replicas on card 0; then its app is deleted. Returns
+    the replacement's seconds from the kill."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    pending = cluster.pop("deploy_replacement")
+    app, victim = pending["app"], pending["victim"]
+    try:
+        deadline = time.time() + 300
+        while time.time() < deadline:
+            rows = _wait_running(rt, app, SERVE_DEPLOY["replicas"],
+                                 timeout_s=max(1.0, deadline - time.time()))
+            if victim not in {r["replica_id"] for r in rows}:
+                break
+            time.sleep(0.1)
+        replacement_s = time.perf_counter() - pending["t_kill"]
+        check(victim not in {r["replica_id"] for r in rows}, "the killed replica was not replaced")
+        for r in rows:
+            check(r["mesh"]["gpu_ids"] == [0] and r["mesh"]["devices"] == ["cuda:0"],
+                  f"serve_deploy (d): the replacement is not on card 0: {r}")
+        print(f"serve_deploy (d): the replacement RUNNING {replacement_s:.1f} s after the kill")
+        cluster["pids"] = sorted(set(cluster["pids"]) | set(pending["pool_procs"]))
+        serve.delete(app)
+    except BaseException:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+        raise
+    return replacement_s
+
+
+def _near_ties(torch, engine, compared, phase, reference):
+    """Each (label, prompt, tokens, reference tokens) of ``compared``: equal,
+    or parting where ``engine``'s own top-2 logit gap is a near-tie (within
+    SERVE_DEPLOY's ulps of bf16 at the top logit). Returns the partings."""
+    from ray_tpu_torch.models.llama import build_llama
+
+    ties = []
+    for label, p, got_toks, want_toks in compared:
+        j = _first_parting(got_toks, want_toks)
+        if j is None:
+            check(len(got_toks) == len(want_toks) == NEW_TOKENS, f"{label}: {got_toks}")
+            continue
+        with torch.inference_mode():
+            logits = build_llama(engine._cfg, engine._params)(
+                torch.tensor([p + want_toks[:j]], device=_card(torch)))[0, -1].float()
+        top2 = logits.topk(2).values
+        gap, bound = (top2[0] - top2[1]).item(), (
+            SERVE_DEPLOY["near_tie_ulps"] * ULP["torch.bfloat16"] * top2[0].abs().item())
+        print(f"{phase} ({label}): a replica parts from {reference} at step {j}: top-2 "
+              f"gap {gap} (near-tie bound {bound})")
+        check(gap <= bound, f"{phase}: a replica parts from {reference} at step {j} where the "
+                            f"top-2 gap {gap} is over {bound}")
+        ties.append(dict(requests=label, step=j, top2_gap=gap, bound=bound))
+    return ties
 
 
 # the TTFT histogram's tags (cache, mesh, tier) of a miss and of a local hit
@@ -7021,19 +7501,21 @@ def train_moe_phase(torch, counters):
 # -- the models over multi-axis meshes (``train_mesh``) -----------------------
 
 
-def _mesh_vit_config():
+def _mesh_vit_config(n_layers=None):
+    """ViT-B/16 at ``n_layers`` (train_mesh's ``MESH["vit_layers"]`` by
+    default)."""
     from ray_tpu_torch.models import vit as V
 
-    return V.ViTConfig.base()
+    return V.ViTConfig.base(n_layers=n_layers or MESH["vit_layers"])
 
 
-def _mesh_vit_inputs(torch, device):
+def _mesh_vit_inputs(torch, device, n_layers=None):
     """ViT-B/16's parameters (the reference's initialisers, the zero-start
-    leaves given values) and the global batch, from one seed: each rank
-    draws the whole and keeps its part."""
+    leaves given values) at ``n_layers`` and the global batch, from one seed:
+    each rank draws the whole and keeps its part."""
     from ray_tpu_torch.models import vit as V
 
-    cfg = _mesh_vit_config()
+    cfg = _mesh_vit_config(n_layers)
     g = torch.Generator(device=device).manual_seed(SEED + 11)
     params = V.init_params(cfg, g, device)
     _vit_randomise(torch, params, g)
@@ -8491,6 +8973,10 @@ def main() -> None:
         check(runtime_launches[name] == 0, f"{name} was launched on the runtime_serve path")
     torch.cuda.empty_cache()
 
+    # serve_deploy's replicas start on runtime_serve's cluster while the
+    # continuous-batching path runs here
+    serve_deploy_start(torch, cluster)
+    lap("serve_deploy_start")
     # the continuous-batching path: counts set to 0 here, read after its
     # three phases; it runs K1 only (decode-mode attention throughout)
     for fn in counters.values():
@@ -8513,13 +8999,25 @@ def main() -> None:
     # just after the HTTP and streamed requests; it runs K1 only
     deploy_launches, _ = serve_deploy_phase(torch, np, cluster, cb_traffic, cb, server,
                                             counters)
-    del cluster
     lap("serve_deploy")
     check(deploy_launches["rmsnorm_fwd"] > 0,
           "rmsnorm_fwd was not launched on the serve_deploy path")
     for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         check(deploy_launches[name] == 0, f"{name} was launched on the serve_deploy path")
     torch.cuda.empty_cache()
+
+    # the weight plane and the cluster KV tier on the same cluster: v1
+    # published (and the driver's v2 and v3 made) while serve_deploy's killed
+    # replica is replaced; then serve_deploy's app goes and a role graph is
+    # deployed, its replicas starting (and resolving v1 by name) while
+    # serve_lora and serve_disagg run here
+    weights_state = serve_weights_start(torch, cluster, server)
+    lap("serve_weights_start")
+    serve_deploy_finish(torch, cluster)
+    lap("serve_deploy_finish")
+    serve_weights_deploy(torch, weights_state)
+    del cluster
+    lap("serve_weights_deploy")
 
     # the multi-tenant LoRA path: counts set to 0 here, read after its phase;
     # it runs K1 only, as serve_cb does
@@ -8544,6 +9042,18 @@ def main() -> None:
           "rmsnorm_fwd was not launched on the serve_disagg path")
     for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         check(disagg_launches[name] == 0, f"{name} was launched on the serve_disagg path")
+    # serve_weights (b)-(f): the role graph hot-reloaded twice, its prefill
+    # holder killed; this process's counts stay 0, the replicas' own are set
+    # to 0 just before each wave and read just after it; it runs K1 only.
+    # The prefill's replacement starts while serve_tp runs
+    torch.cuda.empty_cache()
+    weights_launches = serve_weights_phase(torch, np, weights_state, cb_traffic, server,
+                                           counters)
+    lap("serve_weights")
+    check(weights_launches["rmsnorm_fwd"] > 0,
+          "rmsnorm_fwd was not launched on the serve_weights path")
+    for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(weights_launches[name] == 0, f"{name} was launched on the serve_weights path")
     # tensor-parallel serving: counts of this process (rank 0) set to 0 inside
     # the phase just before its first tp=2 server and read just after its
     # last one closes (the tp=1 comparisons run outside), with the spawned
@@ -8552,6 +9062,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     _, tp_launches = serve_tp_phase(torch, np, server.engine._params, counters)
     lap("serve_tp")
+    # serve_weights' end: the prefill role back at v3, the cluster shut down
+    serve_weights_finish(torch, weights_state)
+    del weights_state
+    lap("serve_weights_finish")
     check(tp_launches["rmsnorm_fwd"] > 0, "rmsnorm_fwd was not launched on the serve_tp path")
     for name in ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         check(tp_launches[name] == 0, f"{name} was launched on the serve_tp path")
@@ -8656,6 +9170,7 @@ def main() -> None:
     lap("train_tp")
     paths = {"serve": serve_launches, "runtime_serve": runtime_launches,
              "serve_cb": cb_launches, "serve_deploy": deploy_launches,
+             "serve_weights": weights_launches,
              "serve_lora": lora_launches,
              "serve_disagg": disagg_launches, "serve_tp": tp_launches,
              "serve_tp_features": tpf_launches, "train": train_launches,

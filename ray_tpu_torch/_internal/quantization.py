@@ -1,7 +1,6 @@
 """Int8 per-block symmetric quantization codec: the port of
 ray_tpu/_internal/quantization.py, the wire format of the KV tier's
-shipments (and, with later slices, the weight plane's chunks and the
-quantized collectives).
+shipments, the weight plane's int8 chunks and the quantized collectives.
 
 Format: a float tensor is flattened, zero-padded to a multiple of ``block``
 elements and reshaped to ``(n_blocks, block)``. Each block carries one f32

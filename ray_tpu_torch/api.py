@@ -16,6 +16,7 @@ from __future__ import annotations
 import atexit
 import inspect
 import logging
+import sys
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 from . import _worker_api
@@ -207,6 +208,12 @@ def shutdown():
             loop_thread.stop()
         except Exception:
             pass
+    # the weight plane's cached publishers and subscribers hold refs and pins
+    # of the dying cluster: the next init() starts without them (a process
+    # that never imported the plane has none, and does not import torch here)
+    weights = sys.modules.get(__package__ + ".weights")
+    if weights is not None:
+        weights._reset_for_shutdown()
     # injected RPC chaos is process-global; it must not outlive the cluster
     # that configured it (later init()s in the same process would inherit it)
     from ._internal.rpc import set_rpc_chaos

@@ -393,6 +393,16 @@ class KVCacheManager:
             blocks = src[:, 0].index_select(2, pos).unflatten(2, (len(bids), bs))
             pool[:, dst] = blocks.transpose(1, 2).to(pool.dtype)
 
+    def drop_cached(self) -> int:
+        """Forget every cached prefix (the K/V of weights that were swapped
+        out): the radix index is emptied, its blocks freed unless a lease
+        holds them. Returns the number of blocks dropped from the index."""
+        dropped = self._index.clear()
+        if dropped:
+            _metrics.record_kvcache_eviction(dropped, mesh=self._mesh_tag)
+        self._update_gauges()
+        return dropped
+
     def _copy_block(self, src: int, dst: int) -> None:
         for pool in (self._pool_k, self._pool_v):
             pool[:, dst].copy_(pool[:, src])

@@ -138,6 +138,23 @@ class PrefixIndex:
                 out.append(node)
         return out
 
+    def clear(self) -> int:
+        """Drop every node, each releasing the index's reference on its block
+        (a block a lease still holds stays with the lease; the others return
+        to the free list), counted as evictions. Returns the number dropped."""
+        dropped = 0
+        stack = list(self.root.children.values())
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            node.children, node.parent = {}, None
+            self._alloc.release(node.block_id)
+            dropped += 1
+        self.root.children = {}
+        self._num_nodes = 0
+        self._evictions += dropped
+        return dropped
+
     def evict_lru(self, num_blocks: int = 1) -> int:
         """Evict up to ``num_blocks`` least-recently-used unreferenced
         leaves, releasing their blocks to the free list. Returns the number

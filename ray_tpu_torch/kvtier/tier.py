@@ -26,8 +26,8 @@ Backends: :class:`LocalTierBackend`, the reference's clusterless backend:
 the registry's real logic (``runtime/gcs/kvtier_registry.py``) in process
 over an inline chunk store, with a ``kill_holder`` switch that simulates a
 killed peer, so two engines in one process are two replicas in every way
-but the byte transport. :class:`GcsTierBackend`, the cluster's, waits for
-the port's runtime.
+but the byte transport. :class:`GcsTierBackend`, the cluster's: the GCS's
+registry and chunks in the object store, pulled from the holder's node.
 """
 
 from __future__ import annotations
@@ -252,7 +252,11 @@ class KVTierClient:
     def fetch_shipment(self, shipment: KVShipment) -> Optional[Any]:
         """Directed handoff (ingress prefill->decode): fetch a known
         shipment's payload from its holder, decoded onto ``device``. None
-        == recompute (a dead holder)."""
+        == recompute: a dead holder, or a shipment of another model key
+        (K/V of other weights, as a hot reload leaves mid-rollout)."""
+        if shipment.model != self.model:
+            _metrics.record_kvtier("recompute")
+            return None
         try:
             payload = self.backend.fetch_payload(
                 shipment, self.backend.holder_of(shipment), self.device
@@ -276,18 +280,146 @@ class KVTierClient:
 
 
 class GcsTierBackend:
-    """The cluster backend: GCS registry calls and object-store chunks. It
-    is ROADMAP A item 15 (the runtime slice brought the GCS and the object
-    store it runs on); until then use :class:`LocalTierBackend`."""
+    """The cluster backend: GCS registry calls, and chunks in the object
+    store through the shared transfer layer (``_internal/transfer.py``).
+    It runs in a process of an initialized runtime (a replica, a driver):
+    built anywhere else it raises, where the reference's fails at its first
+    call.
+
+    Its calls block on the core worker's event loop, so they are made from
+    a thread that is not that loop (a replica's request thread is one).
+    ``fetch_payload`` first probes the process that exported the chunks
+    (their owner), then pulls with ``require_source=True``: a dead owner, a
+    holder node that fails its reachability probe or no longer holds a
+    chunk raises :class:`DeadHolderError`, which the client counts as a
+    recompute. The reference probes the holder's node alone, and reads a
+    copy of a dead owner's chunks that an earlier pull left in the
+    reader's store."""
 
     def __init__(self):
-        raise NotImplementedError(
-            "GcsTierBackend is not ported yet: the cluster KV tier's backend "
-            "is ROADMAP A item 15, over what the runtime slice of the PyTorch "
-            "port brought (GCS, object store); pass "
-            "tier_backend=kvtier.LocalTierBackend() to share a tier between "
-            "servers in one process"
+        from .. import _worker_api
+
+        if not _worker_api.is_initialized():
+            raise RuntimeError(
+                "GcsTierBackend needs the runtime: call ray_tpu_torch.init() "
+                "first (or pass tier_backend=kvtier.LocalTierBackend() to share a "
+                "tier between servers in one process)"
+            )
+
+    @staticmethod
+    def _worker():
+        from .. import _worker_api
+
+        return _worker_api.get_core_worker()
+
+    def _call(self, method: str, *args):
+        from .. import _worker_api
+
+        worker = self._worker()
+        return _worker_api.run_on_worker_loop(
+            worker.client_pool.get(*worker.gcs_address).call(method, *args)
         )
+
+    def export(self, shipment: KVShipment, chunk_values: List[list],
+               holder_id: str) -> Tuple[KVShipment, Any]:
+        from .. import _worker_api
+        from .._internal import transfer
+        from ..object_ref import ObjectRef
+
+        worker = self._worker()
+        stored = _worker_api.run_on_worker_loop(
+            transfer.put_chunks(worker, chunk_values, pin=True))
+        infos, refs, oids = [], [], []
+        for value, (oid, size) in zip(chunk_values, stored):
+            refs.append(ObjectRef(oid, worker.address))
+            oids.append(oid)
+            infos.append(ChunkInfo(
+                object_id=oid,
+                owner_address=tuple(worker.address),
+                size=size,
+                num_leaves=len(value),
+                codec=shipment.codec,
+                logical_size=chunk_logical_bytes(value),
+            ))
+        shipment.chunks = infos
+        return shipment, (refs, oids)
+
+    def register(self, shipment: KVShipment, holder_id: str) -> dict:
+        worker = self._worker()
+        return self._call(
+            "kvtier_register", shipment.model, shipment.fingerprints(),
+            holder_id, tuple(worker.raylet_address), shipment.to_blob(),
+            {
+                "nblocks": shipment.nblocks,
+                "wire_bytes": shipment.wire_bytes,
+                "logical_bytes": shipment.logical_bytes,
+            },
+        )
+
+    def resolve(self, model: str, fps: List[str]) -> Optional[dict]:
+        return self._call("kvtier_resolve", model, fps)
+
+    def lease(self, entry_id: int, lease_id: str) -> bool:
+        return bool(self._call("kvtier_lease", entry_id, lease_id))
+
+    def release_lease(self, entry_id: int, lease_id: str) -> None:
+        self._call("kvtier_release", entry_id, lease_id)
+
+    def evict(self, entry_ids: List[int], holder_id: str) -> None:
+        self._call("kvtier_evict", list(entry_ids), holder_id)
+
+    def collect(self, holder_id: str) -> dict:
+        return self._call("kvtier_collect", holder_id)
+
+    def fetch_payload(self, shipment: KVShipment, holder,
+                      device: DeviceLike = None) -> Any:
+        """The shipment's payload from ``holder`` (its raylet's address),
+        decoded onto ``device``; DeadHolderError when the holder is gone."""
+        import asyncio
+
+        from .. import _worker_api
+        from .._internal import transfer
+
+        worker = self._worker()
+
+        async def _fetch():
+            # the exporting process owns the chunks: once it is gone its
+            # registry entries are stale and its chunks lost, even where a
+            # pulled copy survives in a store. A call, not a connect probe: a
+            # cached connection to a dead process still looks connected
+            owners = {tuple(c.owner_address): c.object_id for c in shipment.chunks}
+            for owner, oid in owners.items():
+                try:
+                    await worker.client_pool.get(*owner).call(
+                        "get_object_locations", oid, timeout=transfer.HOLDER_PROBE_S)
+                except Exception as e:  # noqa: BLE001 - any failure: the owner is gone
+                    raise DeadHolderError(f"the holder process {owner} is gone: {e}") from e
+            return list(await asyncio.gather(*[
+                transfer.fetch_chunk(worker, chunk, tuple(holder),
+                                     probe_source=True, require_source=True)
+                for chunk in shipment.chunks
+            ]))
+
+        values = _worker_api.run_on_worker_loop(_fetch())
+        return decode_payload(shipment.treedef_blob, values, device)
+
+    def holder_of(self, shipment: KVShipment):
+        """The exporting worker's address (the chunks' owner): its node
+        serves the pull."""
+        return tuple(shipment.chunks[0].owner_address) if shipment.chunks else None
+
+    def drop(self, handle) -> None:
+        from .. import _worker_api
+        from .._internal import transfer
+
+        refs, oids = handle
+        worker = _worker_api.maybe_get_core_worker()
+        if worker is not None:
+            _worker_api.run_on_worker_loop(transfer.unpin_chunks(worker, oids))
+        refs.clear()  # dropping the refs is the free
+
+    def stats(self) -> dict:
+        return self._call("kvtier_stats")
 
 
 class _LocalGcsShim:

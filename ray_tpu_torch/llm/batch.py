@@ -19,13 +19,6 @@ from ..models.llama import init_params
 from .config import LLMConfig, require_servable
 from .engine import GenerationRequest, LLMEngine
 
-_WEIGHT_PLANE = (
-    "LLMPredictor weights_name needs the weight plane, which is ROADMAP A "
-    "item 16 of the PyTorch port (the weight plane slice); pass params= or "
-    "params_blob= instead"
-)
-
-
 class LLMPredictor:
     """Batch callable: ``{"token_ids": [[...], ...]}`` -> adds
     ``"generated"``.
@@ -33,10 +26,10 @@ class LLMPredictor:
     Weights: ``params`` (the port's state dict, on ``device``, shared, not
     copied), else ``params_blob`` (that dict through
     ``serialization.dumps``, read back with ``loads`` as the reference reads
-    its blob, and moved to ``device``), else random from ``init_params``
-    under seed 0, as the reference draws them under ``PRNGKey(0)``.
-    ``weights_name`` rides the weight plane (ROADMAP A item 16): it
-    raises.
+    its blob, and moved to ``device``), else the weight plane's head
+    version of ``weights_name`` (fetched through ``weights.fetch`` onto
+    ``device``), else random from ``init_params`` under seed 0, as the
+    reference draws them under ``PRNGKey(0)``.
 
     An optional per-row ``"adapter_id"`` column multiplexes LoRA tenants
     through the one engine: rows of a batch may name different adapters
@@ -57,10 +50,8 @@ class LLMPredictor:
                  weights_name: Optional[str] = None,
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  device: DeviceLike = None):
-        if weights_name is not None:
-            raise NotImplementedError(_WEIGHT_PLANE)
-        if params_blob is not None and params is not None:
-            raise ValueError("pass params= or params_blob=, not both")
+        if sum(x is not None for x in (params, params_blob, weights_name)) > 1:
+            raise ValueError("pass one of params=, params_blob= and weights_name= (not both)")
         self._config = llm_config or LLMConfig()
         model_config = require_servable(self._config.build_model_config())
         self._device = resolve_device(device)
@@ -68,6 +59,10 @@ class LLMPredictor:
             from .serving import load_params_blob
 
             params = load_params_blob(params_blob, self._device)
+        elif weights_name is not None:
+            from .. import weights
+
+            _, params = weights.fetch(weights_name, device=self._device, timeout=60.0)
         if params is None:
             params = init_params(model_config, device=self._device)
         self._adapter_store: Optional[AdapterStore] = None

@@ -13,9 +13,9 @@ parallel mesh (``tensor_parallel_size`` or ``mesh={"tp": n}``) is served by
 tp = 1. ``num_replicas``, ``autoscaling_config``, ``autoscale_policy``,
 ``prefix_affinity_tokens`` and ``resources_per_replica`` shape the serve
 deployment that ``llm.build_llm_deployment`` builds. A sequence-parallel
-mesh is refused on purpose (ROADMAP kept item 32), and the weight plane's
-quantized publishes wait for their slice (ROADMAP A item 16): asking for
-either raises.
+mesh is refused on purpose (ROADMAP kept item 32): asking for it raises.
+``quantized`` selects the int8 chunk codec of the weight-plane versions
+that ``llm.publish_llm_weights`` publishes for the deployment.
 
 ``resources_per_replica`` defaults to ``{"CPU": 1.0, "GPU": 1.0}``: a
 replica that serves on the card asks for the card, and its ``GPU`` share
@@ -46,10 +46,9 @@ class AdapterConfig:
     :class:`~ray_tpu_torch.lora.AdapterStore` of ``max_live`` slots on the
     card at rank ``slot_rank``; requests name an adapter by an explicit
     ``adapter_id`` field. A cold adapter refills from ``source``: a
-    callable ``source(adapter_id) -> adapter tree``, or None to serve only
-    prewarmed adapters. ``"weights:<prefix>"`` passes this check, as in the
-    reference, but refilling from it raises until the weight plane is
-    ported."""
+    callable ``source(adapter_id) -> adapter tree``, ``"weights:<prefix>"``
+    (the weight plane's ``<prefix>/<adapter_id>``, published by
+    ``lora.publish_adapter``), or None to serve only prewarmed adapters."""
 
     max_live: int = 8  # resident adapter slots per server
     slot_rank: int = 8  # the bank-wide LoRA rank (fixed: slots are paged)
@@ -132,7 +131,9 @@ class LLMConfig:
     resources_per_replica: Dict[str, float] = field(
         default_factory=lambda: {"CPU": 1.0, "GPU": 1.0}
     )
-    # the weight plane's int8 publishes (a later slice)
+    # the int8 chunk codec for the weight-plane versions publish_llm_weights
+    # publishes for this deployment: every hop and each replica's pull move
+    # about 2x (bf16) / 4x (f32) fewer bytes; replicas decode on their card
     quantized: bool = False
 
     def __post_init__(self):
@@ -183,11 +184,6 @@ class LLMConfig:
                 "attention when it serves (its engine builds the decode-mode model, "
                 "ray_tpu/llm/engine.py:150), so an sp replica there only repeats tp's work "
                 "on sp times the devices; use tensor_parallel_size"
-            )
-        if self.quantized:
-            raise NotImplementedError(
-                "LLMConfig quantized is not ported yet: it comes with the weight "
-                "plane slice of the PyTorch port (ROADMAP A item 16)"
             )
         if self.model_family not in ("llama", "moe"):
             raise ValueError(f"unknown model family {self.model_family!r}")

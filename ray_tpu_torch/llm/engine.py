@@ -232,6 +232,29 @@ class _DecodeModelBase:
         # holds every sampled array to rank 0's
         self._lockstep = None
 
+    def swap_params(self, params: Dict[str, torch.Tensor]) -> None:
+        """Hot weight reload: the model is rebuilt over ``params`` (the
+        port's state dict on the engine's device, shared, not copied), so
+        the next model call reads only the new weights. The engine then
+        holds no reference to the old tensors, so the old copy is freed
+        once its other holders (a weight subscriber's previous version)
+        let go: a reload does not keep two models on the card. A call
+        already running finishes on the model it started with. A draft
+        keeps its own weights, as the reference's does. Under tensor
+        parallelism each rank would need its new slices: it raises (ROADMAP
+        A item 23)."""
+        if self._lockstep is not None or (self._plan is not None and self._plan.num_devices > 1):
+            raise NotImplementedError(
+                "swap_params at tensor-parallel size > 1 is ROADMAP A item 23 "
+                "(tensor-parallel hot reload): each rank needs its new slices "
+                "over the rank group"
+            )
+        wrong = {str(t.device) for t in params.values() if t.device != self._device}
+        if wrong:
+            raise ValueError(f"params on {sorted(wrong)}, engine on {self._device}")
+        model = build_llama(self._cfg, params, plan=self._plan)
+        self._params, self._model = params, model
+
     @torch.inference_mode()
     def _forward(self, tokens: torch.Tensor, cache: DecodeCache,
                  slots: Optional[Sequence[int]] = None) -> torch.Tensor:
@@ -607,6 +630,15 @@ class ContinuousBatchingEngine(_DecodeModelBase):
         self._prefilling: Dict[int, dict] = {}
         # prefill tokens computed by the most recent step()
         self.last_step_prefill_tokens = 0
+
+    def swap_params(self, params: Dict[str, torch.Tensor]) -> None:
+        """:meth:`_DecodeModelBase.swap_params` between steps, and the
+        cached prefixes dropped: their K/V are projections of the old
+        weights, and a later request must not hit them. (The reference keeps
+        its prefix index across a swap.)"""
+        with self._lock:
+            super().swap_params(params)
+            self._kv.drop_cached()
 
     # -- public API ----------------------------------------------------------
 

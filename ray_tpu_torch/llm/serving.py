@@ -28,10 +28,19 @@ warm ones from its peers. ``role="prefill"`` serves :meth:`LLMServer.prefill`
 prefill tokens); :class:`_DisaggIngress` routes a request through one of
 each: over serve handles in a deployment's role graph
 (``<name>-prefill`` and ``<name>-decode`` pools, the prefills routed with
-prefix affinity), or over two servers in process. The cluster's tier
-backend (``kvtier.GcsTierBackend``) is ROADMAP A item 15, so a role graph
-needs an injected ``tier_backend``: in local mode servers share a
-``kvtier.LocalTierBackend``.
+prefix affinity), or over two servers in process. Without a
+``tier_backend`` each server builds the cluster's
+(``kvtier.GcsTierBackend``: the GCS's registry, shipments through the
+object store); servers in one process may share a
+``kvtier.LocalTierBackend`` instead.
+
+With ``weights_name`` the server takes its weights from the weight plane
+(``ray_tpu_torch.weights``): it resolves the named model's head version
+onto its device before it is built (a serve replica, before it reports
+RUNNING), and :meth:`LLMServer.reload_weights` (or ``reconfigure({"weights_version":
+v})``) swaps a newer version into the engine in place.
+:func:`publish_llm_weights` publishes a version, with the int8 codec where
+``LLMConfig.quantized``.
 
 With ``LLMConfig.tensor_parallel_size`` (or ``mesh={"tp": n}``) above 1 the
 server is rank 0 of a tensor-parallel replica (llm/tp_ranks.py): its weights,
@@ -45,9 +54,10 @@ does: rank 0 holds the adapter store (each rank's bank holds its slices of
 every slot), the tier client and the role; a shipment carries every KV
 head, so a tp=2 side and a tp=1 side of a disaggregated pair interoperate.
 A process holds one tensor-parallel server at a time, so an in-process
-disaggregated pair puts a tp > 1 side beside a tp=1 side. The weight plane
-(``weights_name``, hot reloads) is ROADMAP A item 16, and tokenizers need a
-download: both raise.
+disaggregated pair puts a tp > 1 side beside a tp=1 side. At tp > 1 the
+weight plane (``weights_name``, hot reloads) raises: the other ranks would
+need their slices over the rank group (ROADMAP A item 23). Tokenizers need
+a download: they raise.
 
 Request/response shape:
   {"token_ids": [...], "max_new_tokens": 32, "temperature": 0.0,
@@ -73,10 +83,14 @@ from ..serve.multiplex import get_multiplexed_model_id
 from .config import LLMConfig, require_servable
 from .engine import ContinuousBatchingEngine, GenerationRequest, LLMEngine
 
-_WEIGHT_PLANE = (
-    "{} needs the weight plane, which is ROADMAP A item 16 of the PyTorch "
-    "port (the weight plane slice); pass params= or params_blob= instead"
+_TP_RELOAD = (
+    "{} at tensor_parallel_size > 1 is ROADMAP A item 23 (tensor-parallel hot "
+    "reload): rank 0 alone has a core worker, so the other ranks would need "
+    "their slices over the rank group; serve tp > 1 from params= or params_blob="
 )
+
+#: how long a server waits for its weights to be published
+WEIGHTS_TIMEOUT_S = 60.0
 
 #: the seeds of a server's random weights and of its speculative draft's, at
 #: every tensor-parallel size (llm/tp_ranks.py draws its slices under them)
@@ -90,10 +104,14 @@ class LLMServer:
     under ``PRNGKey(0)``; given ``params`` are shared, not copied. A
     speculative draft is drawn likewise under seed 1. With
     ``LLMConfig.adapters`` the server holds an adapter store on ``device``
-    (:attr:`adapter_store`): fill it with ``prewarm`` or a callable
-    ``AdapterConfig.source``. ``role`` is None (fused), ``"prefill"`` or
-    ``"decode"``; a role, or ``LLMConfig.kv_tier``, puts the server on the
-    KV tier of ``tier_backend`` (the cluster's backend is not ported yet).
+    (:attr:`adapter_store`): fill it with ``prewarm``, a callable
+    ``AdapterConfig.source`` or ``source="weights:<prefix>"``. ``role`` is
+    None (fused), ``"prefill"`` or ``"decode"``; a role, or
+    ``LLMConfig.kv_tier``, puts the server on the KV tier of
+    ``tier_backend`` (default: the cluster's, ``kvtier.GcsTierBackend``).
+    ``weights_name`` takes the weights from the weight plane: the head
+    version, resolved onto ``device`` before the engine is built (and not
+    given ``params``).
 
     Tensor parallelism (tp > 1 in the config): ``devices`` and
     ``tp_backend`` place and join the ranks (see the module docstring);
@@ -107,7 +125,8 @@ class LLMServer:
                  role: Optional[str] = None,
                  tier_backend=None,
                  devices: Optional[Sequence[Any]] = None,
-                 tp_backend: str = "nccl"):
+                 tp_backend: str = "nccl",
+                 weights_name: Optional[str] = None):
         if role not in (None, "prefill", "decode"):
             raise ValueError(f"unknown replica role {role!r}")
         if role is not None and not llm_config.kv_cache_blocks:
@@ -118,15 +137,34 @@ class LLMServer:
         self._role = role
         self._kv_tier: Optional[KVTierClient] = None
         self._ranks = None
+        self._weights_name = weights_name
+        self._weights_sub = None
+        self._weights_version: Optional[int] = None
+        self._weights_resolve_s = 0.0
         model_config = require_servable(llm_config.build_model_config())
         tp, sp = llm_config.effective_parallelism()
+        if weights_name is not None and params is not None:
+            raise ValueError("pass params= or weights_name=, not both")
         if tp > 1:
+            if weights_name is not None:
+                raise NotImplementedError(_TP_RELOAD.format("weights_name"))
             self._start_tensor_parallel(model_config, params, device, role, devices,
                                         tp_backend, tier_backend)
             return
         if devices is not None:
             raise ValueError("devices= places tensor-parallel ranks; one rank takes device=")
         self._device = resolve_device(device)
+        if weights_name is not None:
+            # resolved here, before the engine exists: a serve replica's
+            # health probe queues behind its constructor, so a replica never
+            # reports RUNNING with weights it has not resolved
+            from ..weights import WeightSubscriber
+
+            t0 = time.perf_counter()
+            self._weights_sub = WeightSubscriber(weights_name)
+            self._weights_version, params = self._weights_sub.get(
+                timeout=WEIGHTS_TIMEOUT_S, device=self._device)
+            self._weights_resolve_s = time.perf_counter() - t0
         if params is None:
             gen = torch.Generator(device=self._device).manual_seed(PARAMS_SEED)
             params = init_params(model_config, gen, device=self._device)
@@ -144,7 +182,7 @@ class LLMServer:
                 # role servers need the tier for the prefill->decode
                 # handoff; fused servers opt in to share warm prefixes
                 self._kv_tier = KVTierClient(
-                    model=llm_config.model_id,
+                    model=self._tier_model(),
                     backend=tier_backend if tier_backend is not None else GcsTierBackend(),
                     block_size=llm_config.kv_block_size,
                     codec=llm_config.kv_ship_codec,
@@ -262,12 +300,18 @@ class LLMServer:
         return self._kv_cache.stats()
 
     def kvtier_stats(self) -> Optional[Dict[str, Any]]:
-        """The KV tier client's stats (exports held, the registry's totals)
-        and this server's role; None when the server is not on the tier."""
+        """The KV tier client's stats (exports held, the registry's totals),
+        this server's role and this process's tier counters
+        (``metrics.kvtier_counters()``: hits, peer pulls, recomputes, bytes
+        moved; a replica's process holds one server); None when the server
+        is not on the tier."""
         if self._kv_tier is None:
             return None
+        from ..util.metrics import kvtier_counters
+
         out = self._kv_tier.stats()
         out["role"] = self._role or "fused"
+        out["counters"] = kvtier_counters()
         return out
 
     def adapters_stats(self) -> Optional[Dict[str, Any]]:
@@ -278,22 +322,82 @@ class LLMServer:
 
     # -- the serve replica's hooks -------------------------------------------
 
+    def _tier_model(self) -> str:
+        """The KV tier's key for this server's K/V: the model id, and with a
+        ``weights_name`` the version served, so that servers on different
+        versions never exchange K/V."""
+        model = self._config.model_id
+        if self._weights_name is None:
+            return model
+        return f"{model}@{self._weights_name}:v{self._weights_version}"
+
     def warmup(self) -> Dict[str, Any]:
         """The serve replica's warmup hook (run before the replica reports
-        healthy). The reference's asserts that the weight plane resolved;
-        the port's servers never take weights from it (ROADMAP A item 16)."""
-        return {"weights_name": None, "weights_version": None,
-                "weights_resolve_s": 0.0}
+        healthy): a server with a ``weights_name`` must have resolved its
+        weights."""
+        if self._weights_name is not None and self._weights_version is None:
+            raise RuntimeError(f"weights {self._weights_name!r} not resolved at warmup")
+        return {"weights_name": self._weights_name,
+                "weights_version": self._weights_version,
+                "weights_resolve_s": self._weights_resolve_s}
+
+    # -- hot weight reload (the weight plane) -------------------------------
 
     def reload_weights(self, version: Optional[int] = None) -> Dict[str, Any]:
-        raise NotImplementedError(_WEIGHT_PLANE.format("reload_weights"))
+        """Swap a weight-plane version (head when None) into the engine; the
+        next model call reads it, and the old version's copy on the device
+        is freed once the swap lets go of it. Returns the version served and
+        its staleness."""
+        if self._ranks is not None:
+            raise NotImplementedError(_TP_RELOAD.format("reload_weights"))
+        if self._weights_sub is None:
+            raise ValueError(
+                "this server was not built with weights_name; hot reload needs "
+                "the weight plane"
+            )
+        new_version, params = self._weights_sub.get(
+            version, timeout=WEIGHTS_TIMEOUT_S, device=self._device)
+        if new_version != self._weights_version:
+            self._engine.swap_params(params)
+            self._weights_version = new_version
+            if self._kv_tier is not None:
+                # the prefixes this server shipped are the old weights' K/V:
+                # deregistered, and the tier keyed by the new version
+                self._kv_tier.close()
+                self._kv_tier.model = self._tier_model()
+        del params
+        return {"version": self._weights_version,
+                "staleness": self._weights_sub.staleness()}
 
     def reconfigure(self, user_config) -> None:
-        """The serve reconfigure hook. The reference's hot-reloads a
-        ``{"weights_version": v}`` from the weight plane and ignores the
-        rest; a server without the weight plane (every server of the port,
-        ROADMAP A item 16) ignores it all, as the reference's without a
-        ``weights_name`` does."""
+        """The serve reconfigure hook: ``{"weights_version": v}`` (None:
+        head) hot-reloads from the weight plane without a restart; the rest
+        is ignored, and so is all of it on a server without a
+        ``weights_name``, as the reference's."""
+        if (isinstance(user_config, dict) and "weights_version" in user_config
+                and self._weights_sub is not None):
+            self.reload_weights(user_config["weights_version"])
+
+    def weights_info(self, digest: bool = False) -> Dict[str, Any]:
+        """The weight plane's view of this server: the model name, the
+        version served, its resolve seconds, staleness and chunk codec, and
+        the subscriber's chunk pulls and logical and wire bytes pulled.
+        ``digest=True`` adds the SHA-256 of the served parameters' bytes, in
+        name order (equal digests: equal weights, bit for bit)."""
+        sub = self._weights_sub
+        out = {
+            "weights_name": self._weights_name,
+            "version": self._weights_version,
+            "resolve_s": self._weights_resolve_s,
+            "staleness": sub.staleness() if sub is not None else None,
+            "codec": sub.current_codec if sub is not None else None,
+            "chunk_pulls": sub.chunk_pulls if sub is not None else 0,
+            "bytes_pulled": sub.bytes_pulled if sub is not None else 0,
+            "wire_bytes_pulled": sub.wire_bytes_pulled if sub is not None else 0,
+        }
+        if digest:
+            out["digest"] = params_digest(self._engine._params)
+        return out
 
     def mesh_info(self) -> Dict[str, Any]:
         """The replica's mesh card, polled into the serve controller's
@@ -321,6 +425,9 @@ class LLMServer:
         if self._kv_cache is not None:
             info["kv_pool_bytes_per_device"] = self._kv_cache.pool_accounting()[
                 "kv_pool_bytes_per_device"]
+        if self._weights_sub is not None:
+            info["weight_chunk_pulls"] = self._weights_sub.chunk_pulls
+            info["weight_wire_bytes_pulled"] = self._weights_sub.wire_bytes_pulled
         return info
 
     def kernel_launches(self, reset: bool = False) -> Dict[str, int]:
@@ -481,6 +588,25 @@ class LLMServer:
                 }
 
 
+def params_digest(params: Dict[str, torch.Tensor]) -> str:
+    """A SHA-256 digest of a parameter dict's bytes: the SHA-256 of each
+    tensor's name and bytes (each copied to the host once, hashed on a
+    thread pool: hashlib releases the GIL), chained in name order. Equal
+    digests: equal parameters, bit for bit."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    def leaf(name: str) -> bytes:
+        t = params[name].detach().contiguous().cpu()
+        h = hashlib.sha256(name.encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy())
+        return h.digest()
+
+    with ThreadPoolExecutor(8) as pool:
+        leaves = list(pool.map(leaf, sorted(params)))
+    return hashlib.sha256(b"".join(leaves)).hexdigest()
+
+
 def load_params_blob(params_blob: bytes, device: DeviceLike) -> Dict[str, torch.Tensor]:
     """The port's parameter dict from its ``serialization.dumps`` bytes (the
     tensors cross as raw bytes, ROADMAP kept item 36), moved to ``device``.
@@ -506,9 +632,10 @@ class _LLMReplica(LLMServer):
     card raises, and nothing falls back to card 0 or to the CPU.
     ``device="cpu"`` serves on the CPU. At ``tensor_parallel_size = n``
     the ranks go on the lease's first n cards over NCCL, or, with
-    ``device="cpu"``, on n CPU ranks over gloo. ``tokenizer_name`` and
-    ``weights_name`` raise: tokenizers need a download and the weight plane
-    is ROADMAP A item 16."""
+    ``device="cpu"``, on n CPU ranks over gloo. ``weights_name`` resolves
+    the weights from the weight plane onto the lease's card (tp = 1; at
+    tp > 1 it raises, ROADMAP A item 23). ``tokenizer_name`` raises:
+    tokenizers need a download."""
 
     def __init__(self, llm_config: LLMConfig, params_blob: Optional[bytes] = None,
                  tokenizer_name: Optional[str] = None,
@@ -520,15 +647,16 @@ class _LLMReplica(LLMServer):
                 "tokenizer_name needs AutoTokenizer.from_pretrained, which is a "
                 "download; send token_ids"
             )
-        if weights_name is not None:
-            raise NotImplementedError(_WEIGHT_PLANE.format("weights_name"))
         tp, _ = llm_config.effective_parallelism()
+        if weights_name is not None and tp > 1:
+            raise NotImplementedError(_TP_RELOAD.format("weights_name"))
         dev, devices, backend = _replica_placement(device, tp)
         params = None
-        if params_blob is not None:
+        if params_blob is not None and weights_name is None:
             params = load_params_blob(params_blob, dev if dev is not None else devices[0])
         super().__init__(llm_config, params=params, device=dev, role=role,
-                         tier_backend=tier_backend, devices=devices, tp_backend=backend)
+                         tier_backend=tier_backend, devices=devices, tp_backend=backend,
+                         weights_name=weights_name)
 
     def shutdown(self) -> None:
         """The serve replica's shutdown hook: stop the tensor-parallel
@@ -624,6 +752,7 @@ def _actor_options(resources: Dict[str, float]) -> Dict[str, Any]:
 def build_llm_deployment(llm_config: LLMConfig, *,
                          params_blob: Optional[bytes] = None,
                          name: Optional[str] = None,
+                         weights_name: Optional[str] = None,
                          tier_backend=None,
                          device: DeviceLike = None):
     """A bound serve application for this LLM (the reference's
@@ -635,26 +764,23 @@ def build_llm_deployment(llm_config: LLMConfig, *,
     With ``llm_config.roles`` it is three deployments: ``<name>-prefill``
     and ``<name>-decode`` pools and a :class:`_DisaggIngress` root that
     routes the handoff. Every replica reserves ``resources_per_replica``
-    and builds its weights from ``params_blob`` (the port's parameter dict
-    through ``serialization.dumps``) or from seed 0. ``device`` is each
-    replica's (None: the card of its lease). A role graph, or
-    ``kv_tier``, needs ``tier_backend``: the cluster's, ``GcsTierBackend``,
-    is ROADMAP A item 15."""
+    and takes its weights from the weight plane's ``weights_name`` (resolved
+    before it reports RUNNING; publish them with :func:`publish_llm_weights`),
+    else from ``params_blob`` (the port's parameter dict through
+    ``serialization.dumps``), else from seed 0. ``device`` is each
+    replica's (None: the card of its lease). A role graph, or ``kv_tier``,
+    with no ``tier_backend`` builds ``kvtier.GcsTierBackend()`` in each
+    replica, as the reference does; a shared ``LocalTierBackend`` serves in
+    local mode."""
     from .. import serve
 
-    if (llm_config.roles is not None or llm_config.kv_tier) and tier_backend is None:
-        raise NotImplementedError(
-            "roles / kv_tier over a cluster need kvtier.GcsTierBackend, which is "
-            "ROADMAP A item 15 of the PyTorch port; pass tier_backend= (a shared "
-            "kvtier.LocalTierBackend in local mode)"
-        )
     base_name = name or llm_config.model_id
     actor_options = _actor_options(llm_config.resources_per_replica)
 
     def replica(role, **options):
         return serve.deployment(_LLMReplica, ray_actor_options=dict(actor_options),
                                 **options).bind(
-            llm_config, params_blob, None, None, role, tier_backend, device)
+            llm_config, params_blob, None, weights_name, role, tier_backend, device)
 
     if llm_config.roles is not None:
         prefill = replica("prefill", name=f"{base_name}-prefill",
@@ -677,6 +803,13 @@ def build_llm_deployment(llm_config: LLMConfig, *,
 def publish_llm_weights(llm_config: LLMConfig, params, *,
                         weights_name: Optional[str] = None,
                         meta: Optional[dict] = None):
-    """The reference publishes one weight-plane version for a deployment's
-    replicas; the weight plane is ROADMAP A item 16."""
-    raise NotImplementedError(_WEIGHT_PLANE.format("publish_llm_weights"))
+    """Publish one weight-plane version of ``params`` (the port's state dict,
+    on any device) for a deployment's replicas, with the int8 chunk codec
+    where ``llm_config.quantized`` (the store, every hop and each replica's
+    pull carry the codes; a replica decodes them on its card). The name
+    defaults to ``llm/<model_id>``: pass the deployment's ``weights_name``
+    where it differs. Returns the version's ``WeightHandle``."""
+    from .. import weights
+
+    return weights.publish(weights_name or f"llm/{llm_config.model_id}", params,
+                           meta=meta, quantized=llm_config.quantized)

@@ -10,8 +10,9 @@ Many tenants' LoRA fine-tunes are served over ONE copy of the base model:
   ``LoRADense``): the engines pass one adapter slot per row (-1 = the base
   model) and every projection adds ``x @ A[slot] @ B[slot]``, so ONE model
   call serves a batch whose rows name different adapters.
-- :func:`publish_adapter`: adapters ride the weight plane in the
-  reference; not ported yet, it raises.
+- :func:`publish_adapter`: adapters ride the weight plane, published
+  under ``<prefix>/<adapter_id>`` and refilled into a slot by a store with
+  ``source="weights:<prefix>"``.
 
 Serving wires this up through ``LLMConfig(adapters=AdapterConfig(...))``.
 """

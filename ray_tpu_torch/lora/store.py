@@ -34,8 +34,10 @@ step, and costs no second bank.
 
 ``lora_b`` is pre-scaled by ``alpha/rank`` at attach (in f32, then cast to
 the bank's dtype, as the reference's write casts), so a row's delta is
-exactly ``x @ A[slot] @ B[slot]``. The weight plane (``publish_adapter``,
-``source="weights:<prefix>"``) is not ported yet and raises.
+exactly ``x @ A[slot] @ B[slot]``. Adapters ride the weight plane:
+:func:`publish_adapter` publishes one tenant's ``lora_a`` / ``lora_b``
+leaves under ``<prefix>/<adapter_id>`` (int8 by default), and a store with
+``source="weights:<prefix>"`` refills a slot from there.
 
 Tensor parallelism (``plan=``, a :class:`~ray_tpu_torch.parallel.plan.
 PartitionPlan`): the bank holds the plan's rank's slices, sharded alongside
@@ -73,11 +75,6 @@ from ..models.llama import PROJECTIONS
 from ..util import events as _events
 from ..util import metrics as _metrics
 
-_WEIGHT_PLANE = (
-    "the weight plane (publish / fetch of adapters) is not ported yet: it "
-    "comes with the port's weight plane slice; prewarm() adapters or give "
-    "AdapterConfig a callable source"
-)
 
 
 def adapter_target_paths(model_config) -> List[Tuple[Tuple[str, ...], int, int]]:
@@ -98,9 +95,34 @@ def adapter_target_paths(model_config) -> List[Tuple[Tuple[str, ...], int, int]]
     return out
 
 
-def publish_adapter(prefix: str, adapter_id: str, lora_tree: Any, **kwargs):
-    """Publishing an adapter to the weight plane: not ported yet."""
-    raise NotImplementedError(_WEIGHT_PLANE)
+def publish_adapter(prefix: str, adapter_id: str, lora_tree: Any, *,
+                    quantized: bool = True, meta: Optional[dict] = None):
+    """Publish one tenant's adapter to the weight plane under
+    ``<prefix>/<adapter_id>``, the name ``AdapterConfig(source=
+    "weights:<prefix>")`` refills from. Takes a whole parameter tree (its
+    leaves other than ``lora_a`` / ``lora_b`` are dropped) or an adapter
+    alone, nested or flat with dotted keys. ``quantized=True`` (the
+    default) stores int8 chunks: about a quarter of the f32 bytes, and the
+    replica decodes them at assembly. Returns the version's
+    ``WeightHandle``."""
+    from .. import weights
+
+    lora_only = {k: v for k, v in _flat_leaves(lora_tree).items()
+                 if k.rsplit("/", 1)[-1] in ("lora_a", "lora_b")}
+    if not lora_only:
+        raise ValueError(
+            "no lora_a/lora_b leaves found; publish_adapter expects "
+            "LoRADense adapter matrices (train/lora.py naming)"
+        )
+    nested: Dict[str, Any] = {}
+    for key, leaf in lora_only.items():
+        *path, last = key.split("/")
+        node = nested
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return weights.publish(f"{prefix}/{adapter_id}", nested, meta=meta,
+                           quantized=quantized)
 
 
 @dataclasses.dataclass
@@ -161,7 +183,8 @@ class AdapterStore:
         self._rank = int(rank)
         self._alpha = float(alpha)
         # refill source: a callable source(adapter_id) -> adapter tree; None
-        # serves only prewarm()ed adapters; "weights:<prefix>" raises
+        # serves only prewarm()ed adapters; "weights:<prefix>" fetches
+        # <prefix>/<adapter_id> from the weight plane
         self._source = source
         self._dtype = model_config.param_dtype if param_dtype is None else param_dtype
         self._plan = plan
@@ -357,12 +380,16 @@ class AdapterStore:
             raise KeyError(
                 f"adapter {adapter_id!r} is not resident and the store has "
                 "no refill source; prewarm() it or configure "
-                "AdapterConfig(source=<callable>)"
+                'AdapterConfig(source="weights:<prefix>") or a callable source'
             )
         if callable(source):
             return source(adapter_id)
         if isinstance(source, str) and source.startswith("weights:"):
-            raise NotImplementedError(_WEIGHT_PLANE)
+            from .. import weights
+
+            prefix = source.split(":", 1)[1]
+            _version, tree = weights.fetch(f"{prefix}/{adapter_id}", timeout=30.0)
+            return tree
         raise ValueError(f"unsupported adapter source {source!r}")
 
     def _normalize(self, tree: Any) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:

@@ -60,7 +60,7 @@ class ObjectRef:
         if self._registered:
             try:
                 from . import _worker_api
-            except ImportError:
+            except Exception:  # noqa: BLE001 - ImportError or TypeError
                 return  # interpreter shutdown
             worker = _worker_api.maybe_get_core_worker()
             if worker is not None:

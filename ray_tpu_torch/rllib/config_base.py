@@ -20,8 +20,10 @@ class AlgorithmConfig:
     caller's process and the learner runs on the device ``build`` is given.
     So ``num_cpus_per_runner`` and ``num_tpus_for_learner`` are accepted and
     unused, as are ``overlap_grad_sync`` and ``grad_sync_bucket_bytes`` (one
-    learner, nothing to reduce). ``use_weight_plane`` and
-    ``quantized_weight_sync`` raise at ``build`` (rllib/weight_sync.py)."""
+    learner, nothing to reduce). ``use_weight_plane`` (with
+    ``weight_plane_name`` and ``quantized_weight_sync``) hands the runners
+    weight-plane handles, and needs ``ray_tpu_torch.init()``
+    (rllib/weight_sync.py)."""
 
     #: subclass hook: the Algorithm class ``build()`` instantiates
     algo_class: Any = None

@@ -1,8 +1,10 @@
-"""Test utilities of the serve control plane: the port of the serve part of
-ray_tpu/testing.py (``list_serve_replicas`` and ``kill_serve_replica``).
+"""Test utilities: the port of ray_tpu/testing.py's serve part
+(``list_serve_replicas`` and ``kill_serve_replica``) and its network chaos
+hooks (``set_network_chaos`` / ``clear_network_chaos``, which every process
+of the cluster polls from the GCS KV).
 
-The reference's worker and node killers, the proxy killer and the network
-chaos hooks wait for the planes they drive (ROADMAP A items 21-22).
+The reference's worker and node killers and the proxy killer wait for the
+planes they drive (ROADMAP A items 21-22).
 """
 
 from __future__ import annotations
@@ -57,3 +59,31 @@ def kill_serve_replica(app_name: str = "default",
                     sig, row["replica_id"], pid)
         return row["replica_id"], pid
     return None, None
+
+
+def _gcs_kv(method, *args):
+    from . import _worker_api
+
+    worker = _worker_api.get_core_worker()
+    client = worker.client_pool.get(*worker.gcs_address)
+    return _worker_api.run_on_worker_loop(client.call(method, *args, timeout=10.0))
+
+
+def set_network_chaos(spec: dict):
+    """Publish a structured chaos-mesh spec (see ``_internal.rpc.
+    set_rpc_chaos``) to the GCS KV, so every process of the cluster
+    (raylets, workers, drivers) applies it within about one poll period
+    (``chaos_poll_period_s``)."""
+    import json
+
+    from .runtime.gcs import keys as gcs_keys
+
+    _gcs_kv("kv_put", gcs_keys.CHAOS_NET_SPEC, json.dumps(spec).encode(), True)
+
+
+def clear_network_chaos():
+    """Remove the cluster's chaos-mesh spec: every process heals within
+    about one poll period."""
+    from .runtime.gcs import keys as gcs_keys
+
+    _gcs_kv("kv_del", gcs_keys.CHAOS_NET_SPEC)

@@ -86,8 +86,9 @@ class FailureConfig:
     checkpoint, up to ``max_failures`` times (``-1``: forever; ``0``, the
     default: the first failure ends the run in ``Result.error``). The
     reference's elastic resize (``elastic=True``, ``min_workers``) keeps the
-    survivors and re-forms the group at a smaller size; it needs the weight
-    plane, and raises."""
+    survivors and re-forms the group at a smaller size; it restores them
+    from the weight plane, and its survivors are actors: it waits for the
+    trainer's workers as actors (ROADMAP A item 18), and raises."""
 
     max_failures: int = 0
     elastic: bool = False
@@ -99,7 +100,8 @@ class FailureConfig:
         if self.elastic:
             raise NotImplementedError(
                 "FailureConfig(elastic=True) is not ported: an elastic resize restores "
-                "the survivors from the weight plane (ROADMAP, not yet placed)"
+                "the survivors from the weight plane, with the trainer's workers as "
+                "actors (ROADMAP A item 18)"
             )
 
 

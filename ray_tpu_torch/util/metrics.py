@@ -16,16 +16,18 @@ collective and overlap clocks it reads (recorded by every op of
 ``ray_tpu_torch.collective``, with ``collective_summary`` and
 ``collective_overlap_summary``, and the abort counter), the flight
 recorder's drop counter, device memory, read from the CUDA caching
-allocator, and the serve control plane's (retries, sheds, DOA rejections
+allocator, the serve control plane's (retries, sheds, DOA rejections
 and drains; TTFT and replica warmup by deployment; the proxies' requests,
-inflight and latency; the SLO autoscaler's decisions).
+inflight and latency; the SLO autoscaler's decisions) and the weight
+plane's (publish and fetch latency, logical and wire bytes by direction,
+versions by codec, the broadcast tree's depth, subscriber staleness).
 
 The reference pushes every process's registry to its GCS from a background
 thread and renders the cluster's payloads. The port's runtime does not push
 it yet (ROADMAP A item 21): :func:`local_payload` returns the payload the pusher builds, from this
 process's registry, and the summaries and :func:`render_prometheus` run on
 it. No thread is started, so :func:`fetch_metric_payloads` finds no port
-payload in the GCS KV. The other families of the reference (rpc, weights,
+payload in the GCS KV. The other families of the reference (rpc,
 train fault tolerance, partitions, watchdog) wait for their planes.
 """
 
@@ -562,6 +564,100 @@ def sample_device_memory() -> Dict[str, Dict[str, float]]:
         m["limit"].set(limit, tags)
         out[dev] = {"used": used, "limit": limit}
     return out
+
+
+# -- weight plane -------------------------------------------------------------
+# The publisher records each version's latency, bytes and codec; the
+# subscriber each full-version fetch, the tree depth of its plan and its
+# staleness (versions behind head). Tagged by model name.
+
+_WEIGHTS_LATENCY_BOUNDARIES_MS = [
+    1, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 5000, 10000,
+]
+
+
+def _ensure_weights_metrics() -> dict:
+    return _family("weights", lambda: {
+        "publish_latency": Histogram(
+            "weights_publish_latency_ms",
+            "WeightPublisher.publish wall time by model (ms)",
+            boundaries=_WEIGHTS_LATENCY_BOUNDARIES_MS,
+            tag_keys=("model",),
+        ),
+        "fetch_latency": Histogram(
+            "weights_fetch_latency_ms",
+            "WeightSubscriber full-version fetch wall time (ms)",
+            boundaries=_WEIGHTS_LATENCY_BOUNDARIES_MS,
+            tag_keys=("model",),
+        ),
+        "broadcast_bytes": Counter(
+            "weights_broadcast_bytes_total",
+            "Logical weight bytes moved by direction "
+            "(publish | fetch) — raw leaf bytes, pre-codec",
+            tag_keys=("model", "direction"),
+        ),
+        # with the int8 codec the store and broadcast bytes are ~2-4x fewer
+        # than the leaf bytes: the two are counted apart
+        "wire_bytes": Counter(
+            "weights_wire_bytes_total",
+            "Encoded on-the-wire weight bytes by direction "
+            "(publish | fetch)",
+            tag_keys=("model", "direction"),
+        ),
+        "codec_publishes": Counter(
+            "weights_codec_publish_total",
+            "Published versions by chunk codec (raw | int8)",
+            tag_keys=("model", "codec"),
+        ),
+        "tree_depth": Gauge(
+            "weights_broadcast_tree_depth",
+            "Depth of the binomial broadcast tree by model",
+            tag_keys=("model",),
+        ),
+        "staleness": Gauge(
+            "weights_staleness_versions",
+            "Versions behind head for this subscriber, by model",
+            tag_keys=("model",),
+        ),
+    })
+
+
+def record_weights_publish(
+    model: str, latency_s: float, nbytes: int,
+    wire_nbytes: Optional[int] = None, codec: str = "raw",
+):
+    m = _ensure_weights_metrics()
+    tags = {"model": model, "direction": "publish"}
+    m["publish_latency"].observe(latency_s * 1000.0, {"model": model})
+    m["broadcast_bytes"].inc(float(nbytes), tags)
+    m["wire_bytes"].inc(float(wire_nbytes if wire_nbytes is not None else nbytes), tags)
+    m["codec_publishes"].inc(1.0, {"model": model, "codec": codec})
+
+
+def record_weights_fetch(
+    model: str, latency_s: float, nbytes: int,
+    wire_nbytes: Optional[int] = None,
+):
+    m = _ensure_weights_metrics()
+    tags = {"model": model, "direction": "fetch"}
+    m["fetch_latency"].observe(latency_s * 1000.0, {"model": model})
+    m["broadcast_bytes"].inc(float(nbytes), tags)
+    m["wire_bytes"].inc(float(wire_nbytes if wire_nbytes is not None else nbytes), tags)
+
+
+def set_weights_tree_depth(model: str, depth: int):
+    _ensure_weights_metrics()["tree_depth"].set(float(depth), {"model": model})
+
+
+def set_weights_staleness(model: str, versions_behind: int):
+    _ensure_weights_metrics()["staleness"].set(float(versions_behind), {"model": model})
+
+
+def weights_staleness(model: str) -> Optional[float]:
+    """This process's staleness gauge for ``model`` (None before a read)."""
+    gauge = _ensure_weights_metrics()["staleness"]
+    with gauge._lock:
+        return gauge._values.get(gauge._tag_tuple({"model": model}))
 
 
 # -- KV cache -----------------------------------------------------------------

@@ -1,5 +1,9 @@
-"""Chunk manifests: how a pytree of tensors becomes transferable chunks. The
-port of ray_tpu/weights/manifest.py's chunking and codec.
+"""Weight-plane manifests: how a pytree of tensors becomes transferable
+chunks. The port of ray_tpu/weights/manifest.py.
+
+A published model version is described by a :class:`Manifest`: the
+pytree's structure plus an ordered list of :class:`ChunkInfo` entries, each
+one object-store object holding a contiguous run of leaves.
 
 The pytree (``torch.utils._pytree``, for the reference's
 ``jax.tree_util``) is flattened; its structure is serialized once (torch's
@@ -21,13 +25,14 @@ and moves the wire form to pinned host memory, once, as the reference's
 ``np.asarray`` does: a chunk is a host object. :func:`assemble_pytree`
 moves each leaf to ``device`` (the reference's ``sharding``) and decodes it
 there, so an int8 leaf crosses the host link as codes and is dequantized on
-the card. ``Manifest``, ``reshard`` and the rest of the weight plane wait
-for it.
+the card. :func:`reshard` moves an assembled tree to another device; it
+takes a device, or a callable that gives the devices for the assembled
+tree, where the reference takes a sharding.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
 
 import torch
@@ -42,7 +47,7 @@ from .._internal.quantization import (
     quantize_torch,
 )
 
-#: chunk codec tags (ChunkInfo.codec)
+#: chunk codec tags (ChunkInfo.codec / Manifest.codec)
 CODEC_RAW = "raw"
 CODEC_INT8 = "int8"
 
@@ -57,6 +62,26 @@ class ChunkInfo:
     # byte total
     codec: str = CODEC_RAW
     logical_size: int = 0
+
+
+@dataclass
+class Manifest:
+    name: str
+    version: Optional[int]          # assigned by the registry at publish
+    treedef_blob: bytes
+    chunks: List[ChunkInfo] = field(default_factory=list)
+    total_bytes: int = 0            # sum of raw leaf bytes (pre-framing)
+    publisher_node: Optional[Tuple[str, int]] = None  # raylet address
+    created_at: float = 0.0
+    codec: str = CODEC_RAW          # chunk codec of this version
+    wire_bytes: int = 0             # sum of packed chunk sizes in the store
+
+    def to_blob(self) -> bytes:
+        return serialization.dumps(self)
+
+    @staticmethod
+    def from_blob(blob: bytes) -> "Manifest":
+        return serialization.loads(blob)
 
 
 def _tensor_nbytes(t: Any) -> int:
@@ -174,3 +199,25 @@ def assemble_pytree(treedef_blob: bytes, chunk_values: List[list],
     for i in nones:
         leaves.insert(i, None)
     return pytree.tree_unflatten(leaves, treedef)
+
+
+def reshard(value: Any, device: Any):
+    """Move every tensor leaf of ``value`` to ``device``: one device for the
+    whole tree, a matching pytree of per-leaf devices, or a callable
+    ``value -> device or pytree of devices`` (resolved here, against the
+    assembled tree). None is a no-op."""
+    if device is None:
+        return value
+    if callable(device):
+        device = device(value)
+        if device is None:
+            return value
+
+    def move(leaf, d):
+        if d is None or not isinstance(leaf, torch.Tensor):
+            return leaf
+        return leaf.to(torch.device(d))
+
+    if isinstance(device, (str, torch.device, int)):
+        return pytree.tree_map(lambda leaf: move(leaf, device), value)
+    return pytree.tree_map(move, value, device)

@@ -722,10 +722,21 @@ def test_role_servers_need_a_backend_and_a_pool(models):
     _, _, _, tparams = models
     cfg = LLMConfig(model_id="llama-tiny", max_seq_len=MAX_SEQ, kv_cache_blocks=8,
                     kv_block_size=BLOCK, model_kwargs={"dtype": torch.float32})
-    with pytest.raises(NotImplementedError, match="runtime slice"):
+    # without a tier_backend a role server builds the cluster's backend,
+    # which needs the runtime: it raises outside one and builds inside
+    with pytest.raises(RuntimeError, match="init"):
         LLMServer(cfg, params=tparams, device="cpu", role="prefill")
-    with pytest.raises(NotImplementedError, match="runtime slice"):
+    with pytest.raises(RuntimeError, match="init"):
         GcsTierBackend()
+    import ray_tpu_torch as rt
+
+    rt.init(num_cpus=1)
+    try:
+        server = LLMServer(cfg, params=tparams, device="cpu", role="prefill")
+        assert isinstance(server._kv_tier.backend, GcsTierBackend)
+        assert server.kvtier_stats()["registry"]["entries"] == 0
+    finally:
+        rt.shutdown()
     with pytest.raises(ValueError, match="role"):
         LLMServer(cfg, params=tparams, device="cpu", role="verify")
     with pytest.raises(ValueError, match="kv_cache_blocks"):

@@ -193,11 +193,11 @@ _LATER_SLICES = {
     "kv_tier": (dict(kv_tier=True), ValueError),
     "model_family": (dict(model_family="moe"), "moe"),
     # the serve control plane (ported: the deployment's fields construct,
-    # "serve"), and the weight plane
+    # "serve"), and the weight plane (ported: quantized constructs, "weights")
     "num_replicas": (dict(num_replicas=2), "serve"),
     "autoscaling_config": (dict(autoscaling_config={"min_replicas": 1}), "serve"),
     "autoscale_policy": (dict(autoscale_policy={"min_replicas": 1}), "serve"),
-    "quantized": (dict(quantized=True), NotImplementedError),
+    "quantized": (dict(quantized=True), "weights"),
 }
 
 
@@ -223,6 +223,9 @@ def test_later_slice_features_raise(case):
         cfg, ref = LLMConfig(**kwargs), JaxLLMConfig(**kwargs)
         assert (cfg.kv_tier, cfg.kv_cache_blocks, cfg.kv_ship_codec) == (
             ref.kv_tier, ref.kv_cache_blocks, ref.kv_ship_codec) == (True, 16, "raw")
+    elif raises == "weights":
+        cfg, ref = LLMConfig(**kwargs), JaxLLMConfig(**kwargs)
+        assert cfg.quantized is ref.quantized is True
     elif raises == "serve":
         cfg, ref = LLMConfig(**kwargs), JaxLLMConfig(**kwargs)
         assert (cfg.num_replicas, cfg.autoscaling_config, cfg.autoscale_policy) == (

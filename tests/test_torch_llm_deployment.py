@@ -242,27 +242,48 @@ def test_roles_in_local_mode_match_reference(weights):
 
 
 def test_refusals_name_their_items(weights):
-    """Roles over a cluster need GcsTierBackend (ROADMAP A item 15); the
-    weight plane (item 16) and tokenizers raise; a replica whose lease
-    names no card, not given device="cpu", raises instead of running on
-    card 0 or the CPU."""
+    """A role graph with no ``tier_backend`` builds, each replica bound to
+    build ``GcsTierBackend()`` (ROADMAP A item 15, as the reference's); the
+    weight plane (item 16) needs the runtime, and a server built without
+    ``weights_name`` refuses a reload; tokenizers raise; a replica whose
+    lease names no card, not given device="cpu", raises instead of running
+    on card 0 or the CPU."""
     _, tcfg = _cfgs(roles={"prefill": 1, "decode": 1})
-    with pytest.raises(NotImplementedError, match="item 15"):
-        build_llm_deployment(tcfg, params_blob=weights["blob"], device="cpu")
+    app = build_llm_deployment(tcfg, params_blob=weights["blob"], device="cpu",
+                               weights_name="w")
+    bound = {b.deployment.name: b.init_args for b in app._collect()}
+    assert sorted(bound) == ["llama-tiny", "llama-tiny-decode", "llama-tiny-prefill"]
+    for role in ("prefill", "decode"):
+        args = bound[f"llama-tiny-{role}"]
+        assert (args[3], args[4], args[5], args[6]) == ("w", role, None, "cpu")
     _, plain = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(RuntimeError, match="init"):
         publish_llm_weights(plain, weights["tparams"])
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(RuntimeError, match="init"):
         _LLMReplica(plain, weights_name="w", device="cpu")
     with pytest.raises(NotImplementedError, match="download"):
         _LLMReplica(plain, tokenizer_name="t", device="cpu")
     with pytest.raises(RuntimeError, match="names 0 card"):
         _LLMReplica(plain, params_blob=weights["blob"])
     server = LLMServer(plain, params=weights["tparams"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="weights_name"):
         server.reload_weights()
     assert server.warmup()["weights_version"] is None
     server.reconfigure({"weights_version": 3})  # ignored, as the reference's without a plane
+    assert server.weights_info()["version"] is None
+
+
+def test_tensor_parallel_weight_plane_raises(weights):
+    """At tensor_parallel_size > 1 the weight plane raises, naming ROADMAP
+    A item 23 (rank 0 alone has a core worker), before any rank is spawned."""
+    _, tcfg = _cfgs(tensor_parallel_size=2)
+    with pytest.raises(NotImplementedError, match="item 23"):
+        _LLMReplica(tcfg, weights_name="w", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 23"):
+        LLMServer(tcfg, weights_name="w", devices=["cpu", "cpu"], tp_backend="gloo")
+    with pytest.raises(ValueError, match="not both"):
+        LLMServer(tcfg, params=weights["tparams"], weights_name="w",
+                  devices=["cpu", "cpu"], tp_backend="gloo")
 
 
 def test_predictor_takes_params_blob_as_reference(weights):
@@ -271,7 +292,19 @@ def test_predictor_takes_params_blob_as_reference(weights):
     want = JaxPredictor(jcfg, params_blob=weights["jblob"])(batch)["generated"]
     got = LLMPredictor(tcfg, params_blob=weights["blob"], device="cpu")(batch)["generated"]
     assert got == want
-    with pytest.raises(NotImplementedError, match="item 16"):
-        LLMPredictor(tcfg, weights_name="w", device="cpu")
     with pytest.raises(ValueError, match="not both"):
         LLMPredictor(tcfg, params=weights["tparams"], params_blob=weights["blob"], device="cpu")
+    with pytest.raises(ValueError, match="not both"):
+        LLMPredictor(tcfg, params=weights["tparams"], weights_name="w", device="cpu")
+    # weights_name fetches the published version (tests/test_torch_weights.py
+    # holds it on a cluster with a deployment beside it)
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import weights as plane
+
+    rt.init(num_cpus=1)
+    try:
+        plane.publish("predictor/w", weights["tparams"])
+        got = LLMPredictor(tcfg, weights_name="predictor/w", device="cpu")(batch)["generated"]
+    finally:
+        rt.shutdown()
+    assert got == want

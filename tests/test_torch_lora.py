@@ -85,6 +85,17 @@ def _tree(cfg, seed, rank=RANK, scale=0.5, skip=()):
     return tree
 
 
+def _flat_torch(tree, prefix=""):
+    """A nested tree of torch leaves, flat with dotted keys."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_torch(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
 def _flat_dotted(tree, prefix=""):
     """The port's flat form of a tree: dotted keys, torch leaves."""
     out = {}
@@ -134,9 +145,33 @@ def _stats(store):
 
 
 def test_target_paths_match_reference(models):
+    """The target paths are the reference's; ``publish_adapter`` publishes
+    only the ``lora_a`` / ``lora_b`` leaves under ``<prefix>/<adapter_id>``
+    (int8 by default, raw on request: then bit for bit), and refuses a tree
+    with none, as the reference's."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import weights
+
     assert adapter_target_paths(models["tcfg"]) == jax_target_paths(models["jcfg"])
-    with pytest.raises(NotImplementedError, match="weight plane"):
-        publish_adapter("p", "t1", models["trees"]["t1"])
+    tree = dict(models["trees"]["t1"], extra={"kernel": np.ones(3, np.float32)})
+    rt.init(num_cpus=1)
+    try:
+        handle = publish_adapter("p", "t1", tree, quantized=False)
+        _, got = weights.fetch("p/t1")
+        q = publish_adapter("p", "t2", models["trees"]["t2"])
+        row = {r["name"]: r for r in weights.list_models()}["p/t2"]
+        with pytest.raises(ValueError, match="no lora_a/lora_b"):
+            publish_adapter("p", "t3", {"kernel": np.ones(3, np.float32)})
+    finally:
+        rt.shutdown()
+    assert (handle.name, handle.version, q.name, row["codec"]) == ("p/t1", 1, "p/t2", "int8")
+    assert "extra" not in got
+    want = _flat_dotted(models["trees"]["t1"])
+    got_flat = {}
+    for k, v in got.items():
+        got_flat.update({f"{k}.{kk}": vv for kk, vv in _flat_torch(v).items()})
+    assert sorted(got_flat) == sorted(want)
+    assert all(torch.equal(got_flat[k], want[k]) for k in want)
 
 
 # each op: (what, adapter id, lease name); every op runs on both stores and
@@ -439,10 +474,24 @@ def test_predictor_per_row_adapters_match_reference(models):
         with pytest.raises(RuntimeError, match="max_live"):
             p(too_many)
     assert _stats(pred.adapter_store) == _stats(ref._adapter_store)
-    # params_blob is read as the reference reads it (tests/
-    # test_torch_llm_deployment.py); weights_name rides the weight plane
-    with pytest.raises(NotImplementedError, match="weight plane"):
-        LLMPredictor(tcfg, device="cpu", weights_name="x")
+    # the same batch with the base weights and the adapters from the weight
+    # plane (weights_name, source="weights:<prefix>", the adapters raw)
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import weights
+
+    plane = dict(adapters, source="weights:lora/adapters")
+    rt.init(num_cpus=1)
+    try:
+        weights.publish("lora/base", models["tparams"])
+        for t in TENANTS:
+            publish_adapter("lora/adapters", t, models["trees"][t], quantized=False)
+        planed = LLMPredictor(LLMConfig(**kw, adapters=plane, model_kwargs={
+            "dtype": torch.float32, "n_kv_heads": 2}), weights_name="lora/base", device="cpu")
+        got = planed(batch)
+    finally:
+        rt.shutdown()
+    assert got["generated"] == want["generated"]
+    assert _stats(planed.adapter_store)["cold_attaches"] == 2
 
 
 # ---------------------------------------------------------------------------

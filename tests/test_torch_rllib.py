@@ -626,9 +626,36 @@ def test_build_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("option", ["use_weight_plane", "quantized"])
 def test_weight_plane_raises_until_ported(option):
-    cfg = algorithm.PPOConfig().environment(env.CartPoleEnv).weight_sync(**{option: True})
-    with pytest.raises(NotImplementedError, match="weights/"):
-        cfg.build(device="cpu")
+    """Ported with the weight plane (tests/test_torch_weights.py runs two
+    iterations of each mode): ``use_weight_plane`` hands the runners a
+    ``WeightHandle`` of one published version of ``weight_plane_name``,
+    which they resolve to the learner's copy bit for bit; ``quantized``
+    alone changes nothing, as in the reference's ObjectRef mode."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import weights
+
+    cfg = (algorithm.PPOConfig().environment(env.CartPoleEnv)
+           .env_runners(num_env_runners=1, num_envs_per_env_runner=1,
+                        rollout_fragment_length=8)
+           .weight_sync(weight_plane_name="t/rllib", **{option: True}))
+    rt.init(num_cpus=1)
+    try:
+        algo = cfg.build(device="cpu")
+        params = algo.learner.get_params()
+        handle = algo._broadcaster.handle(params)
+        assert algo._broadcaster.handle(params) is handle  # one publish a params object
+        algo.train()
+        rows = {r["name"]: r for r in weights.list_models()}
+        runner = algo.runners[0].model.state_dict()
+        algo.stop()
+    finally:
+        rt.shutdown()
+    if option == "use_weight_plane":
+        assert isinstance(handle, weights.WeightHandle) and handle.version == 1
+        assert rows["t/rllib"]["head"] == 1
+        assert all(torch.equal(runner[k], params[k]) for k in params)
+    else:
+        assert handle is params and "t/rllib" not in rows
 
 
 def test_grad_scheduler_raises_until_ported():
